@@ -1,0 +1,464 @@
+"""Matrix-free pressure Poisson solve: multigrid-preconditioned CG.
+
+Port of openfoam_tpp_tpu/solver/poisson.py. The 7-point operator
+
+    A(p)[c] = diag·p − Σ_f w_f·p_neighbor,   w_f = a_f β_f / h²
+
+(a_f cut-cell apertures, β_f = 1/ρ at faces) is solved by CG in the
+symmetrically diagonal-scaled space Â = D^-½ A D^-½ (scaling folded into
+the face weights at build time), preconditioned by a bf16 V-cycle:
+Chebyshev smoothing on the scaled top level and a coarse correction on
+the physical Galerkin hierarchy (2×2×2 sum restriction, injection
+prolongation). The open top is a half-cell Dirichlet diagonal term;
+closed tanks are singular and the constant nullspace is projected out.
+
+Knobs that the JAX package reads from OFTPP_* variables are constants
+here, at its defaults: one smoothing sweep, L1 gamma 2, a bf16
+preconditioner. Its fused r·z (OFTPP_FUSED_RZ, on by default) rides the
+degree-2 Chebyshev exit kernel, which one sweep never runs, so CG's r·z
+is a plain dot there as here.
+
+With `use_pallas` every level's stencil passes go through
+ops/kernels/seven_point.py (any shape: the CUDA kernel has no slab or
+VMEM limit), and the CG curvature step is the fused apply+dot.
+
+CG loop: the JAX `lax.while_loop` is a Python loop here that reads
+`rr > tol2` on the host once per iteration — one device sync per CG
+iteration (plus one before the first). CUDA graphs are future work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from openfoam_tpp_tpu_torch.ops import stencil as st
+from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
+
+_JACOBI_OMEGA = 0.8
+_COARSEST_SWEEPS = 24
+_SMOOTH_SWEEPS = 1
+_CHEB_LMAX = 2.0
+_CHEB_LMIN_FRAC = 0.10
+_MG_L1_GAMMA = 2
+_MG_DEEP_GAMMA = 1
+_PRECOND_DTYPE = torch.bfloat16
+_F32_CG_FLOOR = 3e-5
+
+
+@dataclasses.dataclass
+class _Level:
+    wx: torch.Tensor | None   # (nx+1, ny, nz) x-face weights
+    wy: torch.Tensor | None
+    wz: torch.Tensor | None
+    diag: torch.Tensor | None   # None on unit-diagonal levels
+    shape: tuple
+    split: tuple | None = None  # face-lite weights: the kernel serves it
+    unit_diag: bool = False
+
+
+@dataclasses.dataclass
+class PoissonProblem:
+    apply: Callable              # p -> A(p) (physical operator)
+    precond: Callable | None     # r -> M⁻¹ r (physical space)
+    diag: torch.Tensor
+    fluid: torch.Tensor
+    singular: bool
+    beta_faces: tuple            # face 1/ρ, shared with the correction
+    c_top: torch.Tensor | None   # top Dirichlet coefficient 2·a·β
+    scale: torch.Tensor | None = None       # s = fluid / sqrt(diag)
+    inv_scale: torch.Tensor | None = None   # fluid · sqrt(diag)
+    apply_hat: Callable | None = None       # Â
+    precond_hat: Callable | None = None     # M̂⁻¹ (bf16 V-cycle)
+    apply_dot_hat: Callable | None = None   # p -> (Â·p, p·Â·p), kernel path
+
+
+def _weights_apply(level: _Level, p):
+    if level.split is not None:
+        return sp.apply_7pt(p, level.split,
+                            None if level.unit_diag else level.diag)
+    wx, wy, wz = level.wx, level.wy, level.wz
+    nb = (
+        wx[:-1] * st.shift_down(p, 0) + wx[1:] * st.shift_up(p, 0)
+        + wy[:, :-1] * st.shift_down(p, 1) + wy[:, 1:] * st.shift_up(p, 1)
+        + wz[:, :, :-1] * st.shift_down(p, 2) + wz[:, :, 1:] * st.shift_up(p, 2)
+    )
+    if level.unit_diag:
+        return p - nb
+    return level.diag * p - nb
+
+
+def _resid_scaled(level: _Level, x, b):
+    """(b − A·x)/diag (b − Â·x on unit-diagonal levels)."""
+    if level.split is not None:
+        return sp.resid_scaled_7pt(x, level.split,
+                                   None if level.unit_diag else level.diag, b)
+    if level.unit_diag:
+        return b - _weights_apply(level, x)
+    return (b - _weights_apply(level, x)) / level.diag
+
+
+def _jacobi(level: _Level, x, b, n):
+    """`x=None` means x≡0: the first sweep's apply is elided."""
+    if x is None and n > 0:
+        x = _JACOBI_OMEGA * b if level.unit_diag else _JACOBI_OMEGA * b / level.diag
+        n -= 1
+    for _ in range(n):
+        x = x + _JACOBI_OMEGA * _resid_scaled(level, x, b)
+    return x
+
+
+def _chebyshev(level: _Level, x, b, degree):
+    """Chebyshev smoother on the Jacobi-preconditioned operator over
+    [_CHEB_LMIN_FRAC·λmax, λmax]; `x=None` means x≡0."""
+    lmax = _CHEB_LMAX
+    a, c = _CHEB_LMIN_FRAC * lmax, 1.02 * lmax
+    theta = 0.5 * (c + a)
+    delta = 0.5 * (c - a)
+    sigma = theta / delta
+    if x is None:
+        d = b if level.unit_diag else b / level.diag
+    else:
+        d = _resid_scaled(level, x, b)
+    p = d / theta
+    x = p if x is None else x + p
+    rho = 1.0 / sigma
+    for _ in range(degree - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        d = _resid_scaled(level, x, b)
+        p = (rho_new * rho) * p + (2.0 * rho_new / delta) * d
+        x = x + p
+        rho = rho_new
+    return x
+
+
+def _pad_axis_even(a, axis):
+    """Zero-pad one axis to even length (ghost cells carry zero weight)."""
+    if a.shape[axis] % 2 == 0:
+        return a
+    shape = list(a.shape)
+    shape[axis] = 1
+    return torch.cat([a, a.new_zeros(shape)], dim=axis)
+
+
+def _sum_pairs(a, axis):
+    even = a[st._sl(axis, slice(0, None, 2))]
+    odd = a[st._sl(axis, slice(1, None, 2))]
+    return even + odd
+
+
+def _restrict_cells(a):
+    """2×2×2 sum of a cell array (zero-padded to even first)."""
+    for d in range(3):
+        a = _sum_pairs(_pad_axis_even(a, d), d)
+    return a
+
+
+def _prolong_cells(a, fine_shape):
+    """Piecewise-constant injection back to the fine grid (keeps the
+    coarse weights the exact Galerkin operator)."""
+    out = a.repeat_interleave(2, 0).repeat_interleave(2, 1).repeat_interleave(2, 2)
+    return out[: fine_shape[0], : fine_shape[1], : fine_shape[2]]
+
+
+def _coarsen_face_weights(w, axis):
+    """Coarse cross-face weights: fine faces at even positions along
+    `axis`, 2×2-summed transversally."""
+    n_cells = w.shape[axis] - 1
+    if n_cells % 2 == 1:
+        shape = list(w.shape)
+        shape[axis] = 1
+        w = torch.cat([w, w.new_zeros(shape)], dim=axis)
+    w = w[st._sl(axis, slice(0, None, 2))]
+    for d in range(3):
+        if d != axis:
+            w = _sum_pairs(_pad_axis_even(w, d), d)
+    return w
+
+
+def _build_coarse_levels(wx, wy, wz, extra, max_coarse=9, min_cells=256):
+    """Physical Galerkin hierarchy strictly below the given fine level."""
+    levels = []
+    shape = tuple(extra.shape)
+    while (len(levels) < max_coarse
+           and shape[0] * shape[1] * shape[2] > min_cells
+           and min(shape) > 2):
+        wx = _coarsen_face_weights(wx, 0)
+        wy = _coarsen_face_weights(wy, 1)
+        wz = _coarsen_face_weights(wz, 2)
+        extra = _restrict_cells(extra)
+        shape = tuple(extra.shape)
+        diag = (wx[:-1] + wx[1:] + wy[:, :-1] + wy[:, 1:]
+                + wz[:, :, :-1] + wz[:, :, 1:] + extra)
+        diag = torch.where(diag > 0, diag, 1.0)
+        levels.append(_Level(wx=wx, wy=wy, wz=wz, diag=diag, shape=shape))
+    return levels
+
+
+def _vcycle(levels, li, b):
+    level = levels[li]
+    if li == len(levels) - 1:
+        return _jacobi(level, None, b, _COARSEST_SWEEPS)
+    x = _chebyshev(level, None, b, _SMOOTH_SWEEPS)
+    gamma = _MG_L1_GAMMA if li == 0 else _MG_DEEP_GAMMA
+    for g in range(max(gamma, 1)):
+        if g:
+            x = _chebyshev(level, x, b, _SMOOTH_SWEEPS)
+        r = b - _weights_apply(level, x)
+        ec = _vcycle(levels, li + 1, _restrict_cells(r))
+        x = x + _prolong_cells(ec, level.shape)
+    return _chebyshev(level, x, b, _SMOOTH_SWEEPS)
+
+
+def _vcycle_hybrid(top_hat, inv_s, levels_coarse, b, out_dtype=None):
+    """V-cycle on the SCALED top level with the coarse correction on the
+    PHYSICAL Galerkin hierarchy (space conversion folded into the
+    transfers: r_phys = inv_s ⊙ r̂, ê = inv_s ⊙ P e_phys)."""
+    x = _chebyshev(top_hat, None, b, _SMOOTH_SWEEPS)
+    r = _resid_scaled(top_hat, x, b)
+    if levels_coarse:
+        ec = _vcycle(levels_coarse, 0, _restrict_cells(inv_s * r))
+        x = x + inv_s * _prolong_cells(ec, top_hat.shape)
+    else:
+        x = x + _jacobi(top_hat, None, r, _COARSEST_SWEEPS)
+    x = _chebyshev(top_hat, x, b, _SMOOTH_SWEEPS)
+    return x if out_dtype is None else x.to(out_dtype)
+
+
+def build_operator(geom_arrays, spacing, rho, top_open, use_pallas=False):
+    """The OPERATOR half of the pressure problem (fresh every step):
+    physical A, the scaled Â with the scaling folded into the face
+    weights, the scaling vectors and the face 1/ρ. Returns (problem,
+    pack); `pack` feeds make_bundle."""
+    hx, hy, hz = spacing
+    vfrac = geom_arrays["vfrac"]
+    fluid = vfrac > 0.0
+
+    # β = 1/⟨ρ⟩ with the arithmetic face density (hydrostatic balance).
+    bx = 1.0 / st.cells_to_faces_avg(rho, 0)
+    by = 1.0 / st.cells_to_faces_avg(rho, 1)
+    bz = 1.0 / st.cells_to_faces_avg(rho, 2)
+    beta = torch.where(fluid, 1.0 / rho, 0.0)
+    wx = geom_arrays["ax"] * bx / (hx * hx)
+    wy = geom_arrays["ay"] * by / (hy * hy)
+    wz = geom_arrays["az"] * bz / (hz * hz)
+    wz[:, :, -1] = 0.0   # the top face is a diagonal-only Dirichlet term
+
+    singular = top_open is None
+    extra = torch.where(fluid, 0.0, 1.0).to(rho.dtype)
+    c_top = None
+    if not singular:
+        c_top = 2.0 * top_open * beta[:, :, -1]
+        extra[:, :, -1] = extra[:, :, -1] + c_top / (hz * hz)
+
+    shape = tuple(extra.shape)
+    diag0 = (wx[:-1] + wx[1:] + wy[:, :-1] + wy[:, 1:]
+             + wz[:, :, :-1] + wz[:, :, 1:] + extra)
+    diag0 = torch.where(diag0 > 0, diag0, 1.0)
+
+    def _with_kernel(level: _Level) -> _Level:
+        if not use_pallas:
+            return level
+        return dataclasses.replace(
+            level, split=sp.split_weights(level.wx, level.wy, level.wz))
+
+    top = _with_kernel(_Level(wx=wx, wy=wy, wz=wz, diag=diag0, shape=shape))
+
+    # Scaled space: ŵ_f = w_f·s_left·s_right once per face; diag_hat ≡ 1
+    # on fluid, solid rows identity with zero couplings.
+    s = torch.where(fluid, torch.rsqrt(diag0), 0.0)
+    inv_s = torch.where(fluid, torch.sqrt(diag0), 0.0)
+    sl_x, sr_x = st.face_lr(s, 0)
+    sl_y, sr_y = st.face_lr(s, 1)
+    sl_z, sr_z = st.face_lr(s, 2)
+    hwx = wx * sl_x * sr_x
+    hwy = wy * sl_y * sr_y
+    hwz = wz * sl_z * sr_z
+    top_hat = _with_kernel(_Level(wx=hwx, wy=hwy, wz=hwz, diag=None,
+                                  shape=shape, unit_diag=True))
+
+    apply_dot_hat = None
+    if top_hat.split is not None:
+        def apply_dot_hat(p):
+            return sp.apply_dot_7pt(p, top_hat.split)
+
+    problem = PoissonProblem(
+        apply=lambda p: _weights_apply(top, p), precond=None, diag=diag0,
+        fluid=fluid, singular=bool(singular), beta_faces=(bx, by, bz),
+        c_top=c_top, scale=s, inv_scale=inv_s,
+        apply_hat=lambda p: _weights_apply(top_hat, p),
+        apply_dot_hat=apply_dot_hat,
+    )
+    pack = {"wx": wx, "wy": wy, "wz": wz, "extra": extra,
+            "hwx": hwx, "hwy": hwy, "hwz": hwz, "inv_s": inv_s}
+    return problem, pack
+
+
+def _bundle_entry(wx, wy, wz, use_pallas, diag=None):
+    """One hierarchy level: face-lite split weights on the kernel path,
+    face weights otherwise. `diag=None` = unit-diagonal level."""
+    d = {}
+    if diag is not None:
+        d["diag"] = diag
+    if use_pallas:
+        d["split"] = sp.split_weights(wx, wy, wz)
+    else:
+        d["faces"] = (wx, wy, wz)
+    return d
+
+
+def make_bundle(pack, use_pallas=False):
+    """The bf16 V-cycle preconditioner state: scaled top level + physical
+    Galerkin coarse hierarchy coarsened directly in bf16. Reusing a stale
+    bundle is physics-exact (it is only the preconditioner)."""
+    lp = _PRECOND_DTYPE
+    top = _bundle_entry(pack["hwx"].to(lp), pack["hwy"].to(lp),
+                        pack["hwz"].to(lp), use_pallas)
+    coarse = [_bundle_entry(lev.wx, lev.wy, lev.wz, use_pallas, diag=lev.diag)
+              for lev in _build_coarse_levels(
+                  pack["wx"].to(lp), pack["wy"].to(lp), pack["wz"].to(lp),
+                  pack["extra"].to(lp))]
+    return {"top": top, "coarse": coarse, "inv_s": pack["inv_s"].to(lp)}
+
+
+def _level_from_entry(d, unit_diag):
+    split = d.get("split")
+    if split is not None:
+        return _Level(wx=None, wy=None, wz=None, diag=d.get("diag"),
+                      shape=tuple(split[0].shape), split=split,
+                      unit_diag=unit_diag)
+    wx, wy, wz = d["faces"]
+    shape = (wx.shape[0] - 1,) + tuple(wx.shape[1:])
+    return _Level(wx=wx, wy=wy, wz=wz, diag=d.get("diag"), shape=shape,
+                  unit_diag=unit_diag)
+
+
+def attach_precond(problem: PoissonProblem, bundle) -> PoissonProblem:
+    """Wire a make_bundle dict into the problem's precond closures."""
+    top16 = _level_from_entry(bundle["top"], unit_diag=True)
+    coarse16 = [_level_from_entry(d, unit_diag=False)
+                for d in bundle["coarse"]]
+    inv_s16 = bundle["inv_s"]
+    lp = inv_s16.dtype
+    s = problem.scale
+
+    def precond_hat(r):
+        return _vcycle_hybrid(top16, inv_s16, coarse16, r.to(lp),
+                              out_dtype=r.dtype)
+
+    def precond(r):
+        return s * precond_hat(s * r)
+
+    return dataclasses.replace(problem, precond=precond,
+                               precond_hat=precond_hat)
+
+
+def build_poisson(geom_arrays, spacing, rho, top_open, use_pallas=False):
+    """Operator + MG preconditioner for the current density in one call."""
+    problem, pack = build_operator(geom_arrays, spacing, rho, top_open,
+                                   use_pallas=use_pallas)
+    return attach_precond(problem, make_bundle(pack, use_pallas=use_pallas))
+
+
+def _dot(a, b):
+    return torch.sum(a.float() * b.float())
+
+
+def _project_out(x, v, fluid, vv):
+    """Remove the component of x along nullspace vector v (fluid support)."""
+    coef = _dot(torch.where(fluid, x, 0.0), v) / vv
+    return torch.where(fluid, x - coef * v, x)
+
+
+def _cg_core(apply_h, precond_h, fluid, b, tol, max_iters, nullv, nullvv,
+             apply_dot_h=None):
+    """Plain preconditioned CG from a zero guess in the scaled space.
+    Returns (x, iterations). One host sync per iteration: the
+    convergence test `rr > tol2` is read on the host."""
+    r = b
+    z = precond_h(r)
+    rz = _dot(r, z)
+    x = torch.zeros_like(b)
+    p = z
+    rr = _dot(r, r)
+    tol2 = tol * tol
+    k = 0
+    while k < max_iters and bool(rr > tol2):
+        if apply_dot_h is not None:
+            ap, denom = apply_dot_h(p)
+        else:
+            ap = apply_h(p)
+            denom = _dot(p, ap)
+        alpha = rz / torch.where(denom.abs() > 1e-30, denom, 1e-30)
+        x = x + alpha * p
+        r = r - alpha * ap
+        if nullv is not None:
+            r = _project_out(r, nullv, fluid, nullvv)
+        z = precond_h(r)
+        rz_new = _dot(r, z)
+        beta = rz_new / torch.where(rz.abs() > 1e-30, rz, 1e-30)
+        p = z + beta * p
+        rz = rz_new
+        rr = _dot(r, r)
+        k += 1
+    return x, k
+
+
+def solve_pcg(problem: PoissonProblem, b, x0, precond: Callable | None = None,
+              tol_rel: float = 1e-4, tol_abs: float = 0.0,
+              tol_rel_b: float = 0.0, max_iters: int = 60, n_refine: int = 3):
+    """MG-preconditioned CG with outer iterative refinement in the scaled
+    space. Stops at max(tol_rel·‖r0‖, tol_abs, tol_rel_b·‖b̂‖) (scaled
+    norms). Returns (x, scaled-residual norm, total iterations as a 0-d
+    int32 tensor)."""
+    fluid = problem.fluid
+    s = problem.scale
+    inv_s = problem.inv_scale
+    apply_h = problem.apply_hat
+
+    if precond is not None:
+        def precond_h(r):
+            return inv_s * torch.where(fluid, precond(inv_s * r), 0.0)
+    else:
+        precond_h = problem.precond_hat
+
+    nullv = inv_s if problem.singular else None
+    nullvv = _dot(inv_s, inv_s) if problem.singular else None
+
+    bh = s * b
+    if problem.singular:
+        bh = _project_out(bh, nullv, fluid, nullvv)
+    xh = inv_s * x0
+
+    def true_residual(xh):
+        r = bh - apply_h(xh)
+        if problem.singular:
+            r = _project_out(r, nullv, fluid, nullvv)
+        return r
+
+    r = true_residual(xh)
+    tol = torch.clamp(tol_rel * torch.sqrt(_dot(r, r)), min=tol_abs)
+    tol_rel_b = min(tol_rel_b, tol_rel)
+    if tol_rel_b > 0.0:
+        tol = torch.maximum(tol, tol_rel_b * torch.sqrt(_dot(bh, bh)))
+    if tol_rel >= 10.0 * _F32_CG_FLOOR:
+        n_refine = 1   # the f32 recurrence floor never binds
+
+    total = 0
+    for _ in range(n_refine):
+        inner_tol = torch.maximum(_F32_CG_FLOOR * torch.sqrt(_dot(r, r)), tol)
+        dx, iters = _cg_core(apply_h, precond_h, fluid, r, inner_tol,
+                             max_iters, nullv, nullvv,
+                             apply_dot_h=problem.apply_dot_hat)
+        xh = xh + dx
+        total += iters
+        r = true_residual(xh)
+    x = s * xh
+    if problem.singular:
+        n_fluid = torch.clamp(fluid.float().sum(), min=1.0)
+        mean = torch.where(fluid, x, 0.0).sum() / n_fluid
+        x = torch.where(fluid, x - mean, x)
+    iters_t = torch.tensor(total, dtype=torch.int32, device=b.device)
+    return x, torch.sqrt(_dot(r, r)), iters_t
