@@ -77,6 +77,6 @@ class SolverControls:
     max_capillary_co: float = 1.0
     fct_bf16: bool = True        # bf16 λ/anti streams on the kernel path
     csf_curvature: str = "blend"
-    mom_pallas: bool | None = None  # None = follow use_pallas; the port
-                                    # has no momentum/correction kernels
-                                    # yet, so use_pallas needs False here
+    mom_pallas: bool | None = None  # None = follow use_pallas; False pins
+                                    # the fused momentum, finish and
+                                    # correction kernels off

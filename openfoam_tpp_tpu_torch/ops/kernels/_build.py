@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCES = ("seven_point", "mules_flux", "mules_fct")
+SOURCES = ("seven_point", "mules_flux", "mules_fct", "momentum_rhs",
+           "correction", "mom_finish")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # No FMA contraction: the kernels then round exactly like their plain
@@ -103,6 +104,29 @@ def load(name: str) -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def route(t, what: str) -> str:
+    """'cuda' → the kernel, 'cpu' → its plain version; any other device
+    raises."""
+    if t.device.type in ("cuda", "cpu"):
+        return t.device.type
+    raise ValueError(f"{what} runs on CUDA (kernel) or CPU (plain version), "
+                     f"not {t.device}")
+
+
+def require_f32(what: str, device, *operands) -> None:
+    """Raise unless each (tensor, shape) pair is a contiguous f32 tensor of
+    that shape on `device`: what a kernel takes."""
+    import torch
+
+    for t, shape in operands:
+        if (tuple(t.shape) != tuple(shape) or t.dtype != torch.float32
+                or t.device != device or not t.is_contiguous()):
+            raise ValueError(
+                f"{what} kernel: got {t.dtype} {tuple(t.shape)} on {t.device} "
+                f"(contiguous: {t.is_contiguous()}), needs contiguous "
+                f"float32 {tuple(shape)} on {device}")
 
 
 def ptr(t) -> ctypes.c_void_p:

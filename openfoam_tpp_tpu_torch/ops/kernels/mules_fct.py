@@ -100,12 +100,9 @@ def _lib():
 
 def fct_iter(lams, antis, alpha_low, amax, amin, dt_iv, spacing, eps=1e-12):
     """One limiter iteration: cell-layout (λx, λy, λz) → updated tuple."""
-    if alpha_low.device.type == "cpu":
+    if _build.route(alpha_low, "fct_iter") == "cpu":
         return fct_iter_plain(lams, antis, alpha_low, amax, amin, dt_iv,
                               spacing, eps)
-    if alpha_low.device.type != "cuda":
-        raise ValueError(f"fct_iter runs on CUDA (kernel) or CPU (plain "
-                         f"version), not {alpha_low.device}")
     f_dt = lams[0].dtype
     if alpha_low.dim() != 3 or f_dt not in _DTYPES:
         raise ValueError("fct_iter kernel: 3-D grid, f32/bf16 λ and anti")

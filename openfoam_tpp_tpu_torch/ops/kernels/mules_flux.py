@@ -59,11 +59,8 @@ def flux_all(alpha, phis, ucs, anti_dtype=None):
     """(lows, antis) tuples in the cell lower-face layout. `phis` f32,
     `ucs` f32 or bf16 (widened in the kernel), `anti_dtype` narrows the
     antidiffusive outputs (e.g. bf16); the low-order fluxes stay f32."""
-    if alpha.device.type == "cpu":
+    if _build.route(alpha, "flux_all") == "cpu":
         return flux_all_plain(alpha, phis, ucs, anti_dtype)
-    if alpha.device.type != "cuda":
-        raise ValueError(f"flux_all runs on CUDA (kernel) or CPU (plain "
-                         f"version), not {alpha.device}")
     a_dt = anti_dtype or alpha.dtype
     uc_dt = ucs[0].dtype
     if (alpha.dim() != 3 or alpha.dtype != torch.float32

@@ -122,18 +122,10 @@ def _launch(mode, p, split, diag=None, b=None):
     return out, dot
 
 
-def _route(p):
-    """'cuda' → kernel, 'cpu' → plain version; anything else raises."""
-    if p.device.type in ("cuda", "cpu"):
-        return p.device.type
-    raise ValueError(f"7-point kernels run on CUDA (kernel) or CPU (plain "
-                     f"version), not {p.device}")
-
-
 def apply_7pt(p, split, diag=None):
     """A(p). `split` from `split_weights`; `diag=None` = unit diagonal
     (the scaled operator Â)."""
-    if _route(p) == "cpu":
+    if _build.route(p, "apply_7pt") == "cpu":
         return apply_7pt_plain(p, split, diag)
     _check(p, split, diag)
     out, _ = _launch(_APPLY, p, split, diag=diag)
@@ -143,7 +135,7 @@ def apply_7pt(p, split, diag=None):
 
 def resid_scaled_7pt(p, split, diag, b):
     """(b − A·p)/diag; `diag=None` = unit diagonal: b − Â·p."""
-    if _route(p) == "cpu":
+    if _build.route(p, "resid_scaled_7pt") == "cpu":
         return resid_scaled_7pt_plain(p, split, diag, b)
     _check(p, split, diag, b)
     out, _ = _launch(_RESID, p, split, diag=diag, b=b)
@@ -154,7 +146,7 @@ def resid_scaled_7pt(p, split, diag, b):
 def apply_dot_7pt(p, split):
     """(Â·p, p·Â·p) in one pass (unit diagonal) — the CG curvature step.
     The dot is a 0-d f32 tensor on p's device."""
-    if _route(p) == "cpu":
+    if _build.route(p, "apply_dot_7pt") == "cpu":
         return apply_dot_7pt_plain(p, split)
     _check(p, split)
     out, dot = _launch(_APPLY_DOT, p, split)

@@ -1,8 +1,10 @@
 """Momentum transport on the staggered (MAC) grid — port of the terms of
-openfoam_tpp_tpu/solver/momentum.py that the step runs with
-``mom_pallas=False``: van Leer convection by the phase-consistent mass
-flux rhoPhi, the variable-μ Laplacian, and the explicit dev2 transpose
-stress ∇·(μ[(∇U)ᵀ − (2/3)(∇·U)I]).
+openfoam_tpp_tpu/solver/momentum.py that the step runs without the fused
+kernels: van Leer convection by the phase-consistent mass flux rhoPhi,
+the variable-μ Laplacian, and the explicit dev2 transpose stress
+∇·(μ[(∇U)ᵀ − (2/3)(∇·U)I]); `explicit_rhs` and `explicit_update` are the
+step's two loops over the components, which the fused kernels' plain
+versions reuse.
 
 Forcing uses the total-pressure formulation (see the JAX module's note):
 the uniform body acceleration G(t) is added to face velocities in the
@@ -91,4 +93,31 @@ def transpose_viscous_face_field(vels, qax, mu, spacing, mu_edges=None,
             flux = (_mu_edge(mu, qax, d, mu_edges)
                     * st.gradient_at_faces(vels[d], qax, spacing[qax]))
         out = out + (flux[_sl(d, slice(1, None))] - flux[_sl(d, slice(0, -1))]) / h
+    return out
+
+
+def explicit_rhs(vels, rho_phi, mu, div_u, spacing, dev2=True):
+    """visc [+ dev2] − conv of the three components, on their face grids."""
+    edges = edge_viscosities(mu)
+    out = []
+    for ax, q in enumerate(vels):
+        vc = (viscous_face_field(q, ax, mu, spacing, edges)
+              - convect_face_field(q, ax, rho_phi, spacing))
+        if dev2:
+            vc = vc + transpose_viscous_face_field(vels, ax, mu, spacing,
+                                                   edges, div_u)
+        out.append(vc)
+    return out
+
+
+def explicit_update(vels, vcs, rho_old, rho_new, apertures, dt, G):
+    """q* = (ρ_f^old·q + dt·vc)/ρ_f^new + dt·G per component, zero where
+    the aperture is 0 (ρ_f: arithmetic face means)."""
+    out = []
+    for ax, (q, vc, ap) in enumerate(zip(vels, vcs, apertures)):
+        rof = st.cells_to_faces_avg(rho_old, ax)
+        rnf = st.cells_to_faces_avg(rho_new, ax)
+        q_star = (rof * q + dt * vc) / rnf
+        q_star = q_star + dt * G[ax]
+        out.append(torch.where(ap > 0.0, q_star, 0.0))
     return out

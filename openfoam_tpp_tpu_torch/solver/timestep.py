@@ -12,13 +12,19 @@ logic never reads them on the host. The CG loop syncs once per
 iteration (solver/poisson.py).
 
 Ported configuration: the analytic orbital motion on one device, with
-`use_pallas=True` only together with `mom_pallas=False` (the momentum and
-projection-epilogue kernels are not ported yet). The arguments of the
-JAX step outside this slice raise NotImplementedError.
+every `SolverControls` the JAX step takes there. With `use_pallas` the
+step runs the fused kernels behind the JAX step's gates, read when the
+step is built: the momentum right-hand side (`OFTPP_MOM_PALLAS`), the
+projection epilogue on the last corrector (`OFTPP_CORR_PALLAS`) and,
+opt-in, the momentum finish (`OFTPP_FINISH_PALLAS=1`). The gates alone
+decide: the kernels take any 3-D f32 grid (the JAX kernels' slab and
+VMEM shape checks are TPU limits), and a non-f32 operand raises. The
+arguments of the JAX step outside this slice raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -32,8 +38,53 @@ from openfoam_tpp_tpu_torch.device import resolve_device
 from openfoam_tpp_tpu_torch.mesh.geometry import TankGeometry
 from openfoam_tpp_tpu_torch.ops import mules
 from openfoam_tpp_tpu_torch.ops import stencil as st
+from openfoam_tpp_tpu_torch.ops.kernels import correction as _ck
+from openfoam_tpp_tpu_torch.ops.kernels import mom_finish as _mfk
+from openfoam_tpp_tpu_torch.ops.kernels import momentum_rhs as _mrk
 from openfoam_tpp_tpu_torch.solver import momentum as mom
 from openfoam_tpp_tpu_torch.solver import poisson
+
+
+def _mom_pallas_enabled(controls: SolverControls) -> bool:
+    """Fused momentum right-hand side gate, as in the JAX step: an
+    explicit `mom_pallas=False` pins it off and beats the environment;
+    else OFTPP_MOM_PALLAS=0/1, else `mom_pallas`, else `use_pallas`."""
+    if controls.mom_pallas is False:
+        return False
+    env = os.environ.get("OFTPP_MOM_PALLAS")
+    if env is not None:
+        return env == "1"
+    if controls.mom_pallas is not None:
+        return controls.mom_pallas
+    return controls.use_pallas
+
+
+def _finish_pallas_enabled(controls: SolverControls) -> bool:
+    """Fused momentum finish gate: opt-in with OFTPP_FINISH_PALLAS=1, off
+    under `mom_pallas=False`; it runs only after the right-hand side
+    kernel."""
+    if controls.mom_pallas is False:
+        return False
+    return os.environ.get("OFTPP_FINISH_PALLAS") == "1"
+
+
+def _corr_pallas_enabled(controls: SolverControls) -> bool:
+    """Fused projection epilogue gate: off under `mom_pallas=False`, else
+    OFTPP_CORR_PALLAS=0/1, else `use_pallas`."""
+    if controls.mom_pallas is False:
+        return False
+    env = os.environ.get("OFTPP_CORR_PALLAS")
+    if env is not None:
+        return env == "1"
+    return controls.use_pallas
+
+
+def _fct_bf16_enabled(controls: SolverControls) -> bool:
+    """bf16 FCT streams: OFTPP_FCT_BF16=0/1 overrides `fct_bf16`."""
+    env = os.environ.get("OFTPP_FCT_BF16")
+    if env is not None:
+        return env == "1"
+    return controls.fct_bf16
 
 
 class StepDiagnostics(NamedTuple):
@@ -73,10 +124,6 @@ def _check_slice(props, controls, motion=None, spmd=None, sync_axis=None,
     if props.sigma != 0.0:
         raise NotImplementedError("surface tension (sigma != 0, CSF) is "
                                   "not ported yet")
-    if controls.use_pallas and controls.mom_pallas is not False:
-        raise NotImplementedError(
-            "use_pallas=True needs mom_pallas=False: the momentum_rhs and "
-            "correct_divmax kernels are not ported yet")
 
 
 def make_step_core(props: PhysicalProperties = PhysicalProperties(),
@@ -89,11 +136,27 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
     With `carry_precond` the step also takes and returns the bf16
     preconditioner bundle (poisson.make_bundle), rebuilt every
     `controls.precond_refresh` steps; the operator is fresh every step.
-    `sealed_x` is accepted for signature parity: it only gates the
-    momentum kernels, which this slice does not run."""
+
+    The fused kernels write zeros for u's face-nx row, so they run only
+    with `sealed_x` (the last x-aperture plane is all zero, true of every
+    shipped geometry); an env force of one of them on an unsealed
+    geometry raises ValueError, as in the JAX step."""
     _check_slice(props, controls, motion=motion, spmd=spmd,
                  sync_axis=sync_axis, forcing=forcing, face_xyz=face_xyz)
+    if not sealed_x:
+        for var in ("OFTPP_MOM_PALLAS", "OFTPP_FINISH_PALLAS",
+                    "OFTPP_CORR_PALLAS"):
+            if os.environ.get(var) == "1":
+                raise ValueError(
+                    f"{var}=1 forced on a geometry whose +x face is not "
+                    "sealed (last x-aperture plane has open faces): the "
+                    "fused kernels hard-code zeros there and would "
+                    "silently diverge from the aperture-masked path")
     use_k = controls.use_pallas
+    fct_bf16 = _fct_bf16_enabled(controls)
+    use_mom_k = sealed_x and _mom_pallas_enabled(controls)
+    use_finish_k = use_mom_k and _finish_pallas_enabled(controls)
+    use_corr_k = sealed_x and _corr_pallas_enabled(controls)
 
     def courant_numbers(u, v, w, alpha, dt, fluid, spacing):
         hx, hy, hz = spacing
@@ -111,7 +174,6 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
         fdt = state.dt.dtype
         dev = state.dt.device
         fluid = ga["vfrac"] > 0.0
-        masks = (ga["ax"] > 0.0, ga["ay"] > 0.0, ga["az"] > 0.0)
         # --- adaptive dt (adjustTimeStep), all on the device ---
         co, co_a = courant_numbers(state.u, state.v, state.w, state.alpha,
                                    state.dt, fluid, spacing)
@@ -149,7 +211,7 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
             c_alpha=controls.c_alpha,
             n_subcycles=controls.n_alpha_subcycles,
             n_limiter_iters=controls.n_limiter_iters,
-            use_pallas=use_k, fct_bf16=controls.fct_bf16)
+            use_pallas=use_k, fct_bf16=fct_bf16)
 
         rho_old = mixture_density(state.alpha, props)
         rho_new = mixture_density(alpha_new, props)
@@ -172,26 +234,29 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
         t_mid = state.t + 0.5 * dt
         G = mo.effective_gravity(t_mid, params, props.g)
         vels = (state.u, state.v, state.w)
+        apertures = (ga["ax"], ga["ay"], ga["az"])
         div_u = st.divergence(*phi, spacing) if controls.dev2_stress else None
-        mu_edges = mom.edge_viscosities(mu)
-        new_vels = []
-        for ax, q in enumerate(vels):
-            rof = st.cells_to_faces_avg(rho_old, ax)
-            rnf = st.cells_to_faces_avg(rho_new, ax)
-            conv = mom.convect_face_field(q, ax, rho_phi, spacing)
-            visc = mom.viscous_face_field(q, ax, mu, spacing, mu_edges)
-            vc = visc - conv
-            if controls.dev2_stress:
-                vc = vc + mom.transpose_viscous_face_field(
-                    vels, ax, mu, spacing, mu_edges, div_u)
-            q_star = (rof * q + dt * vc) / rnf
-            q_star = q_star + dt * G[ax]
-            new_vels.append(torch.where(masks[ax], q_star, 0.0))
-        u_c, v_c, w_c = new_vels
+        if use_mom_k:
+            # visc + dev2 − conv of all three components in one kernel.
+            vcs = _mrk.momentum_rhs(*vels, rho_phi, mu, div_u, spacing,
+                                    dev2=bool(controls.dev2_stress))
+        else:
+            vcs = mom.explicit_rhs(vels, rho_phi, mu, div_u, spacing,
+                                   dev2=controls.dev2_stress)
+        if use_finish_k:
+            # The kernel takes au cell-shaped (a contiguous view) and
+            # writes u's zero face-nx row itself.
+            u_c, v_c, w_c = _mfk.momentum_finish(
+                *vels, (vcs[0][:-1], vcs[1], vcs[2]), rho_old, rho_new,
+                *apertures, dt, G)
+        else:
+            u_c, v_c, w_c = mom.explicit_update(vels, vcs, rho_old, rho_new,
+                                                apertures, dt, G)
 
         # --- projection (PIMPLE corrector loop) ---
         p_new = state.p
         n_corr = max(int(controls.n_correctors), 1)
+        div_err = None
         for corr in range(n_corr):
             div_star = st.divergence(ga["ax"] * u_c, ga["ay"] * v_c,
                                      ga["az"] * w_c, spacing)
@@ -203,23 +268,21 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
                 max_iters=controls.p_max_iters)
             p_new = dp if corr == 0 else p_new + dp
 
-            # velocity correction: exactly the operator's gradient
-            u_c = u_c - dt * beta_f[0] * st.gradient_at_faces(dp, 0, hx)
-            v_c = v_c - dt * beta_f[1] * st.gradient_at_faces(dp, 1, hy)
-            w_c = w_c - dt * beta_f[2] * st.gradient_at_faces(dp, 2, hz)
-            if open_top and prob.c_top is not None:
-                beta_top = torch.where(ga["top_open"] > 0,
-                                       1.0 / rho_new[:, :, -1], 0.0)
-                w_c = w_c.clone()
-                w_c[:, :, -1] = (w_c[:, :, -1]
-                                 + dt * beta_top * 2.0 * dp[:, :, -1] / hz)
-            u_c = torch.where(masks[0], u_c, 0.0)
-            v_c = torch.where(masks[1], v_c, 0.0)
-            w_c = torch.where(masks[2], w_c, 0.0)
+            # velocity correction: exactly the operator's gradient; the
+            # last corrector's, with the divergence error, in one kernel
+            corr_args = (dp, u_c, v_c, w_c, beta_f, *apertures)
+            if use_corr_k and corr == n_corr - 1:
+                u_c, v_c, w_c, div_err = _ck.correct_divmax(
+                    *corr_args, ga["vfrac"], ga["top_open"], rho_new, dt,
+                    spacing, open_top=open_top)
+            else:
+                u_c, v_c, w_c = _ck.correct_velocities_plain(
+                    *corr_args, ga["top_open"], rho_new, dt, spacing,
+                    open_top=open_top)
 
-        div_err = (torch.abs(st.divergence(ga["ax"] * u_c, ga["ay"] * v_c,
-                                           ga["az"] * w_c, spacing))
-                   * fluid).max()
+        if div_err is None:
+            div_err = _ck.div_max_plain(u_c, v_c, w_c, *apertures,
+                                        ga["vfrac"], spacing)
         # state.dt carries the UNCLIPPED CFL dt as the next growth base.
         new_state = SimState(alpha=alpha_new, u=u_c, v=v_c, w=w_c, p=p_new,
                              t=t_new, dt=dt_cfl, step=state.step + 1)

@@ -5,7 +5,7 @@
 
 Runs the flagship case (H0.208/D0.2/R0.004/f1.88, mesh 0.00185,
 round_to=8 → 112³) through openfoam_tpp_tpu_torch's `make_step` with
-SolverControls(use_pallas=True, mom_pallas=False) and carry_precond,
+SolverControls(use_pallas=True) (the bench's configuration) and carry_precond,
 `--warm` steps from rest, then traces `--steps` steps with
 torch.profiler. Prints wall ms/step, device-busy ms/step (the sum of
 CUDA kernel times; memcpy/memset included), the device idle share
@@ -44,7 +44,7 @@ def main() -> int:
     geom = build_tank_geometry(H=0.208, D=0.2, mesh=0.00185, geo="flat",
                                round_to=8)
     step = make_step(geom, PhysicalProperties(),
-                     SolverControls(use_pallas=True, mom_pallas=False),
+                     SolverControls(use_pallas=True),
                      carry_precond=True, device=dev)
     params = CaseParams.make(R=0.004, freq=1.88, duration=20.0, device=dev)
     state = init_state(geom, device=dev)

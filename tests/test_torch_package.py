@@ -1,17 +1,23 @@
 """Package rules of the PyTorch port: it imports no JAX and nothing of the
-JAX package, and its entry points run on the card unless the caller asks
-for the CPU."""
+JAX package, its entry points run on the card unless the caller asks for
+the CPU, and its kernel gates take the JAX step's branches."""
 
 import os
 import subprocess
 import sys
+import unittest.mock as mock
 
 import pytest
 import torch
 
+from openfoam_tpp_tpu.config import SolverControls as JControls
+from openfoam_tpp_tpu.ops.pallas import momentum_rhs as jmrk
+from openfoam_tpp_tpu.solver import timestep as jtimestep
 from openfoam_tpp_tpu_torch.config import SolverControls
 from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
 from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
+from openfoam_tpp_tpu_torch.ops.kernels import correction as tck
+from openfoam_tpp_tpu_torch.ops.kernels import momentum_rhs as tmrk
 from openfoam_tpp_tpu_torch.solver import timestep
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,11 +57,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     init_state(geom, device="cpu")   # asked for explicitly: runs
 
 
+def _run_default_steps(geom, n):
+    step = timestep.make_step(geom, controls=SolverControls(use_pallas=True),
+                              device="cpu")
+    state = init_state(geom, device="cpu")
+    params = CaseParams.make(0.004, 1.88, 0.5, device="cpu")
+    for _ in range(n):
+        state, diag = step(state, params)
+    return state, diag
+
+
 def test_out_of_slice_arguments_raise():
     geom = build_tank_geometry(H=0.04, D=0.048, mesh=0.004, round_to=4)
-    with pytest.raises(NotImplementedError, match="mom_pallas"):
-        timestep.make_step(geom, controls=SolverControls(use_pallas=True),
-                           device="cpu")
+    # The default kernel configuration is in the slice: it builds and runs.
+    state, diag = _run_default_steps(geom, 1)
+    assert int(state.step) == 1 and bool(torch.isfinite(state.w).all())
     with pytest.raises(NotImplementedError, match="batch_lanes"):
         timestep.make_step(geom, controls=SolverControls(batch_lanes=True),
                            device="cpu")
@@ -67,3 +83,65 @@ def test_out_of_slice_arguments_raise():
         timestep.make_step_core(forcing=lambda t, p: None)
     with pytest.raises(NotImplementedError, match="sync_axis"):
         timestep.make_step_core(sync_axis="case")
+
+
+GATE_VARS = ("OFTPP_MOM_PALLAS", "OFTPP_FINISH_PALLAS", "OFTPP_CORR_PALLAS",
+             "OFTPP_FCT_BF16")
+GATES = ("_mom_pallas_enabled", "_finish_pallas_enabled",
+         "_corr_pallas_enabled", "_fct_bf16_enabled")
+CONTROLS = ({}, {"use_pallas": True}, {"use_pallas": True, "mom_pallas": False},
+            {"use_pallas": True, "mom_pallas": True},
+            {"use_pallas": False, "mom_pallas": True}, {"fct_bf16": False})
+
+
+@pytest.mark.parametrize("value", [None, "0", "1"])
+@pytest.mark.parametrize("var", GATE_VARS)
+def test_gates_take_the_jax_branches(var, value, monkeypatch):
+    for v in GATE_VARS:
+        monkeypatch.delenv(v, raising=False)
+    if value is not None:
+        monkeypatch.setenv(var, value)
+    for kw in CONTROLS:
+        for gate in GATES:
+            got = getattr(timestep, gate)(SolverControls(**kw))
+            want = getattr(jtimestep, gate)(JControls(**kw))
+            assert got == want, (gate, kw)
+
+
+@pytest.mark.parametrize("var", GATE_VARS[:3])
+def test_forced_kernel_on_unsealed_x_raises(var, monkeypatch):
+    monkeypatch.setenv(var, "1")
+    with pytest.raises(ValueError, match="not sealed"):
+        jtimestep.make_step_core(sealed_x=False)
+    with pytest.raises(ValueError, match="not sealed"):
+        timestep.make_step_core(sealed_x=False)
+    monkeypatch.setenv(var, "0")   # unforced: the unsealed step builds
+    timestep.make_step_core(sealed_x=False)
+
+
+@pytest.mark.parametrize("round_to", [4, 1])
+def test_default_step_calls_the_fused_kernels_once_per_step(round_to):
+    """Through their module attributes (which chip_smoke.py swaps for the
+    plain versions), with the contiguous operands the kernels take. The
+    gates alone decide: on the 14×14×10 grid (round_to=1) the JAX
+    kernels' TPU slab check sends the JAX step to its jnp path, and the
+    port still runs its kernels, which take any grid."""
+    calls = {"momentum_rhs": 0, "correct_divmax": 0}
+
+    def spy(module, name):
+        fn = getattr(module, name)
+
+        def run(*a, **k):
+            flat = [t for x in a for t in (x if isinstance(x, tuple) else (x,))]
+            assert all(t.is_contiguous() for t in flat
+                       if isinstance(t, torch.Tensor))
+            calls[name] += 1
+            return fn(*a, **k)
+
+        return mock.patch.object(module, name, run)
+
+    geom = build_tank_geometry(H=0.04, D=0.048, mesh=0.004, round_to=round_to)
+    assert jmrk.supported(geom.shape) == (round_to == 4)
+    with spy(tmrk, "momentum_rhs"), spy(tck, "correct_divmax"):
+        _run_default_steps(geom, 2)
+    assert calls == {"momentum_rhs": 2, "correct_divmax": 2}
