@@ -10,18 +10,29 @@ Phases, each fatal on any fault (nothing is caught):
      the card, at the 112³ flagship shapes, from seeded random inputs
      with zero wall faces; print errors beside tolerances, kernel / plain
      times, bytes and bounds;
-  3. drive the port's main path: the flagship single-tank case
+  3. drive the step path: the flagship single-tank case
      (H0.208/D0.2/R0.004/f1.88, mesh 0.00185, round_to=8 → 112³) through
      `make_step(..., carry_precond=True)` in the bench's configuration,
      SolverControls(use_pallas=True), for N_STEPS steps from rest; then,
      from the state it reached, one run of N_SHORT steps each of that
-     configuration, of mom_pallas=False and of OFTPP_FINISH_PALLAS=1 (set
-     while that step is built). Each run checks alpha bounds, Courant,
-     p_iters, finiteness and that exactly the kernels of its path were
-     launched (counts set to 0 just before it and read just after);
-  4. from that state, N_CMP steps of the finish-on step with the kernels
-     and N_CMP with all eight entry points swapped for their plain
-     versions; compare alpha, u, v, w, p.
+     configuration, of mom_pallas=False, of OFTPP_FINISH_PALLAS=1, of
+     OFTPP_SMOOTH_SWEEPS=2 (the fused cheb2 smoothers, r·z from the exit
+     kernel) and of that with OFTPP_FUSED_RZ=0 (each variable set while
+     that step is built). Each run checks alpha bounds, Courant, p_iters,
+     finiteness and that exactly the kernels of its path were launched
+     (counts set to 0 just before it and read just after); with two
+     sweeps, that the fused smoothers ran once per V-cycle;
+  4. from that state, N_CMP steps with the kernels and N_CMP with every
+     entry point swapped for its plain version, for the finish-on step
+     with one sweep, with two sweeps and with two sweeps and
+     OFTPP_FUSED_RZ=0 (together all eleven entry points); compare alpha,
+     u, v, w, p;
+  5. drive the case path as a user does: `setup_case` of the flagship
+     with duration 0.1 s in a temporary directory, `run_case` on the card
+     with OFTPP_SMOOTH_SWEEPS=2, a second `run_case` (resumes, 0 steps)
+     and `extract_interface`; checks the launches per V-cycle, the
+     fields, the write times, the checkpoints, the probe files and
+     `interface_summary.csv`.
 
 It then prints the `kernels` JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. It exits non-zero, printing no
@@ -33,8 +44,10 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import unittest.mock as mock
 
@@ -61,8 +74,11 @@ MOM_RTOL = 1e-5
 # momentum_rhs: per component 3 convection fluxes (mass-flux average, van
 # Leer limiter with 2 divisions, MUSCL value, product: ~16 with the
 # difference) + 3 viscous and 3 dev2 fluxes (~8 each) + sums: ~105.
+# cheb2_*: two 7-point applies (13 each) and the Chebyshev updates between
+# them (pre 8, post 9), plus the dot's multiply-add.
 FLOPS_PER_CELL = {
     "apply_7pt": 13, "resid_scaled_7pt": 15, "apply_dot_7pt": 15,
+    "cheb2_pre_7pt": 34, "cheb2_post_7pt": 35, "cheb2_post_dot_7pt": 37,
     "flux_all": 3 * 30, "fct_iter": 4 * 60 + 3 * 6,
     "momentum_rhs": 3 * 105, "correct_divmax": 3 * 6 + 11 + 3,
     "momentum_finish": 3 * 11,
@@ -71,10 +87,18 @@ FLOPS_PER_CELL = {
 DEFAULT_PATH = ("apply_7pt", "resid_scaled_7pt", "apply_dot_7pt", "flux_all",
                 "fct_iter", "momentum_rhs", "correct_divmax")
 FUSED = ("momentum_rhs", "correct_divmax", "momentum_finish")
+# Added by OFTPP_SMOOTH_SWEEPS=2: the V-cycle's entry and exit smoothers
+# (the exit kernel with CG's r·z, or without it under OFTPP_FUSED_RZ=0).
+CHEB2_RZ = ("cheb2_pre_7pt", "cheb2_post_dot_7pt")
+CHEB2_NO_RZ = ("cheb2_pre_7pt", "cheb2_post_7pt")
+CHEB_LMAX, CHEB_LMIN = 2.0, 0.10      # SolverKnobs defaults
 REPLACES = {
     "apply_7pt": "openfoam_tpp_tpu/ops/pallas/seven_point.py:229",
     "resid_scaled_7pt": "openfoam_tpp_tpu/ops/pallas/seven_point.py:258",
     "apply_dot_7pt": "openfoam_tpp_tpu/ops/pallas/seven_point.py:286",
+    "cheb2_pre_7pt": "openfoam_tpp_tpu/ops/pallas/seven_point.py:500",
+    "cheb2_post_7pt": "openfoam_tpp_tpu/ops/pallas/seven_point.py:523",
+    "cheb2_post_dot_7pt": "openfoam_tpp_tpu/ops/pallas/seven_point.py:548",
     "flux_all": "openfoam_tpp_tpu/ops/pallas/mules_flux.py:135",
     "fct_iter": "openfoam_tpp_tpu/ops/pallas/mules_fct.py:217",
     "momentum_rhs": "openfoam_tpp_tpu/ops/pallas/momentum_rhs.py:387",
@@ -85,6 +109,9 @@ SOURCE = {
     "apply_7pt": "openfoam_tpp_tpu_torch/csrc/seven_point.cu",
     "resid_scaled_7pt": "openfoam_tpp_tpu_torch/csrc/seven_point.cu",
     "apply_dot_7pt": "openfoam_tpp_tpu_torch/csrc/seven_point.cu",
+    "cheb2_pre_7pt": "openfoam_tpp_tpu_torch/csrc/cheb2.cu",
+    "cheb2_post_7pt": "openfoam_tpp_tpu_torch/csrc/cheb2.cu",
+    "cheb2_post_dot_7pt": "openfoam_tpp_tpu_torch/csrc/cheb2.cu",
     "flux_all": "openfoam_tpp_tpu_torch/csrc/mules_flux.cu",
     "fct_iter": "openfoam_tpp_tpu_torch/csrc/mules_fct.cu",
     "momentum_rhs": "openfoam_tpp_tpu_torch/csrc/momentum_rhs.cu",
@@ -95,6 +122,22 @@ SOURCE = {
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set environment variables for the block (the port reads its OFTPP_*
+    variables when a step is built)."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
 
 
 def cuda_ms(fn, reps=REPS):
@@ -207,6 +250,42 @@ def phase_kernels(shape, spacing, dev):
         check("apply_dot_7pt", f"{tag} unit", tag == "f32",
               lambda: sp.apply_dot_7pt(p, w)[0],
               lambda: sp.apply_dot_7pt_plain(p, w)[0], (p, *w), (p,), tol)
+        # The fused cheb2 smoothers. Main-path variants: the bf16 cycle,
+        # whose exit kernels store f32 (the hand-off to CG).
+        cheb = (CHEB_LMAX, CHEB_LMIN)
+        check("cheb2_pre_7pt", tag, tag == "bf16",
+              lambda: sp.cheb2_pre_7pt(b, w, *cheb),
+              lambda: sp.cheb2_pre_7pt_plain(b, w, *cheb),
+              (b, *w), (b, b), tol)
+        outs = [(None, tag)] + ([(torch.float32, "bf16 → f32")]
+                                if tag == "bf16" else [])
+        for out, v in outs:
+            main = tag == "bf16" and out is not None
+            z_tol = tol if out is None else F32_RTOL
+            z_k, dot_k = sp.cheb2_post_dot_7pt(p, b, w, *cheb, out_dtype=out)
+            z_p, dot_p = sp.cheb2_post_dot_7pt_plain(p, b, w, *cheb,
+                                                     out_dtype=out)
+            derr = (abs(float(dot_k) - float(dot_p))
+                    / max(abs(float(dot_p)), 1e-30))
+            log(f"  cheb2_post_dot_7pt {v} dot kernel {float(dot_k)!r} plain "
+                f"{float(dot_p)!r} rel_err={derr:.3e} tol={DOT_RTOL:.1e}")
+            if derr > DOT_RTOL:
+                raise AssertionError(f"cheb2_post_dot_7pt {v}: dot disagrees")
+            if not torch.equal(z_k, sp.cheb2_post_7pt(p, b, w, *cheb,
+                                                      out_dtype=out)):
+                raise AssertionError(f"cheb2_post_dot_7pt {v}: z is not "
+                                     "cheb2_post_7pt's")
+            check("cheb2_post_7pt", v, main,
+                  lambda: sp.cheb2_post_7pt(p, b, w, *cheb, out_dtype=out),
+                  lambda: sp.cheb2_post_7pt_plain(p, b, w, *cheb,
+                                                  out_dtype=out),
+                  (p, b, *w), (z_k,), z_tol)
+            check("cheb2_post_dot_7pt", v, main,
+                  lambda: sp.cheb2_post_dot_7pt(p, b, w, *cheb,
+                                                out_dtype=out)[0],
+                  lambda: sp.cheb2_post_dot_7pt_plain(p, b, w, *cheb,
+                                                      out_dtype=out)[0],
+                  (p, b, *w), (z_k,), z_tol)
 
     alpha = arr(0, 1)
     phis = tuple(1e-3 * arr() for _ in range(3))
@@ -309,6 +388,10 @@ def counters():
         "apply_7pt": (sp, "apply_7pt", sp.apply_7pt_plain),
         "resid_scaled_7pt": (sp, "resid_scaled_7pt", sp.resid_scaled_7pt_plain),
         "apply_dot_7pt": (sp, "apply_dot_7pt", sp.apply_dot_7pt_plain),
+        "cheb2_pre_7pt": (sp, "cheb2_pre_7pt", sp.cheb2_pre_7pt_plain),
+        "cheb2_post_7pt": (sp, "cheb2_post_7pt", sp.cheb2_post_7pt_plain),
+        "cheb2_post_dot_7pt": (sp, "cheb2_post_dot_7pt",
+                               sp.cheb2_post_dot_7pt_plain),
         "flux_all": (mfx, "flux_all", mfx.flux_all_plain),
         "fct_iter": (mf, "fct_iter", mf.fct_iter_plain),
         "momentum_rhs": (mrk, "momentum_rhs", mrk.momentum_rhs_plain),
@@ -373,7 +456,160 @@ def drive(label, step, state, bundle, params, n_steps, n_timed, n_fluid,
     if ran != set(expect):
         raise AssertionError(f"{label}: kernels launched {sorted(ran)}, "
                              f"expected {sorted(expect)}")
+    # The fused smoothers run once per V-cycle: one before CG's loop and
+    # one per iteration.
+    vcycles = sum(iters) + n_steps
+    for k in set(expect) & set(CHEB2_RZ + CHEB2_NO_RZ):
+        if launches[k] != vcycles:
+            raise AssertionError(f"{label}: {k} launched {launches[k]} "
+                                 f"times in {vcycles} V-cycles")
     return state, bundle, launches, stats
+
+
+def phase_case(geom):
+    """The case path at full width: `setup_case` of the flagship with a
+    0.1 s duration, `run_case` on the card with OFTPP_SMOOTH_SWEEPS=2, a
+    second `run_case`, `extract_interface`. Returns the launch counts of
+    the first run (set to 0 just before it, read just after) and its
+    stats."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.manager.cases import (is_case_done,
+                                                      load_case_params,
+                                                      setup_case)
+    from openfoam_tpp_tpu_torch.manager.runner import (_case_shape_hint,
+                                                       build_case_geometry,
+                                                       iterate_snapshots,
+                                                       run_case)
+    from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
+    from openfoam_tpp_tpu_torch.post.interface import extract_interface
+    from openfoam_tpp_tpu_torch.solver import poisson
+    from openfoam_tpp_tpu_torch.utils.io import list_checkpoints, load_checkpoint
+
+    # ramp: the 2 s soft start of the 20 s flagship run, not 10% of this
+    # cut duration (which would jolt the tank to full radius in 10 ms).
+    case_params = dict(H=0.208, D=0.2, geo="flat", R=0.004, freq=1.88,
+                       mesh=0.00185, duration=0.1, dt=0.001, ramp=2.0)
+    fns = {k: getattr(m, a) for k, (m, a, _) in counters().items()}
+    top_shape = tuple(geom.shape)
+    solves, top_resid = [], [0]
+    real_pcg, real_resid = poisson.solve_pcg, sp.resid_scaled_7pt
+
+    def pcg(*a, **k):
+        out = real_pcg(*a, **k)
+        solves.append(int(out[2]))
+        return out
+
+    def resid(p, *a, **k):
+        top_resid[0] += tuple(p.shape) == top_shape
+        return real_resid(p, *a, **k)
+
+    # The entry point counts on the module's attribute: while `resid`
+    # stands in for it, the count lands here.
+    resid.launches = 0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_case_") as base:
+        case_dir = setup_case(case_params, base)
+        lines = []
+
+        def case_log(line):
+            lines.append(line)
+            log("  | " + line)
+
+        for f in fns.values():
+            f.launches = 0
+        with environ(OFTPP_SMOOTH_SWEEPS="2"), \
+                mock.patch.object(poisson, "solve_pcg", pcg), \
+                mock.patch.object(sp, "resid_scaled_7pt", resid):
+            stats = run_case(case_dir, log=case_log)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in fns.items()}
+        launches["resid_scaled_7pt"] = resid.launches
+        steps = stats["steps"]
+        hist = {int(k): int(v)
+                for k, v in zip(*np.unique(solves, return_counts=True))}
+        log(f"[case path] {steps} steps to t={stats['sim_seconds']:.3f} s in "
+            f"{stats['wall_seconds']:.2f} s wall, "
+            f"{stats['cell_steps_per_sec']:.4e} cell-updates/s; writing "
+            f"checkpoints and probes {stats['io_seconds']:.2f} s; per write "
+            f"{[(i['steps'], round(i['wall_seconds'], 2)) for i in stats['intervals']]}")
+        log(f"  p_iters histogram {hist}; kernel launches {launches}")
+        if geom.n_fluid_cells != stats["n_cells"] or len(solves) != steps:
+            raise AssertionError(f"case path: {stats['n_cells']} cells, "
+                                 f"{len(solves)} solves in {steps} steps")
+        ran = {k for k, v in launches.items() if v > 0}
+        if ran != set(DEFAULT_PATH + CHEB2_RZ):
+            raise AssertionError(f"case path: kernels launched {sorted(ran)}")
+        vcycles = sum(solves) + steps
+        for k in CHEB2_RZ:
+            if launches[k] != vcycles:
+                raise AssertionError(f"case path: {k} launched {launches[k]} "
+                                     f"times in {vcycles} V-cycles")
+        if top_resid[0]:
+            raise AssertionError(f"case path: {top_resid[0]} unfused smoother "
+                                 "passes on the top level")
+        if max(solves) >= 50:
+            raise AssertionError(f"case path: p_iters reached {max(solves)}")
+        courants = [float(x) for ln in lines
+                    for x in re.findall(r"\bCo = ([0-9.eE+-]+)", ln)]
+        if len(courants) != 2 or max(courants) > 0.6:
+            raise AssertionError(f"case path: Courant per write {courants}")
+
+        # Checkpoints at t = 0, 0.05, 0.1: the time is the f32 target
+        # bitwise; fields finite, alpha in [0, 1].
+        chks = list_checkpoints(case_dir)
+        if len(chks) != 3:
+            raise AssertionError(f"case path: checkpoints {chks}")
+        for k, (_, path) in enumerate(chks):
+            c = load_checkpoint(path)
+            want = float(np.float32(k) * np.float32(0.05))
+            if float(c["t"]) != want:
+                raise AssertionError(f"case path: {path} holds t={c['t']!r}, "
+                                     f"not {want!r}")
+            if not all(np.isfinite(c[f]).all() for f in "alpha u v w p".split()):
+                raise AssertionError(f"case path: non-finite field in {path}")
+            if c["alpha"].min() < 0.0 or c["alpha"].max() > 1.0:
+                raise AssertionError(f"case path: alpha out of [0, 1] in {path}")
+        if int(c["step"]) != steps or not is_case_done(case_dir):
+            raise AssertionError("case path: the last checkpoint is not the "
+                                 "run's end")
+
+        # Probe files: one row per solver step; the water probe (z = H/4
+        # under a surface at H/2) reads ρ_w·g·depth.
+        tables = {}
+        for name in ("p", "eta"):
+            with open(os.path.join(case_dir, "postProcessing", "probes", "0",
+                                   name)) as f:
+                tables[name] = np.array([[float(v) for v in ln.split()]
+                                         for ln in f if not ln.startswith("#")])
+            if len(tables[name]) != steps:
+                raise AssertionError(f"case path: {len(tables[name])} rows in "
+                                     f"probes/0/{name} for {steps} steps")
+        hydro = 998.2 * 9.81 * (0.208 / 4)
+        log(f"  water probe first row {tables['p'][0, 1]:.2f} Pa "
+            f"(ρ_w·g·depth {hydro:.2f}), air probe {tables['p'][0, 2]:.3f} Pa; "
+            f"η gauges {tables['eta'][-1, 1:]}")
+        if abs(tables["p"][0, 1] - hydro) > 0.05 * hydro:
+            raise AssertionError("case path: water probe off ρ_w·g·depth")
+
+        # A second run resumes and has nothing left to do.
+        lines2 = []
+        again = run_case(case_dir, log=lines2.append)
+        if again["steps"] != 0 or not any("Resuming" in ln for ln in lines2):
+            raise AssertionError(f"case path: second run {again}, {lines2}")
+
+        geom2 = build_case_geometry(load_case_params(case_dir),
+                                    _case_shape_hint(case_dir))
+        out_dir = extract_interface(case_dir, geom2,
+                                    iterate_snapshots(case_dir))
+        with open(os.path.join(out_dir, "interface_summary.csv")) as f:
+            summary = f.read().splitlines()
+        log(f"  interface_summary.csv {summary}")
+        first = [float(v) for v in summary[1].split(",")]
+        if (tuple(geom2.shape) != top_shape or len(summary) != 4
+                or max(abs(z - 0.104) for z in first[1:4]) > geom.spacing[2]):
+            raise AssertionError(f"case path: interface summary {summary}")
+    return launches, {**stats, "p_iters_hist": hist}
 
 
 def main() -> int:
@@ -421,63 +657,61 @@ def main() -> int:
     spacing = tuple(float(h) for h in geom.spacing)
     rows = phase_kernels(geom.shape, spacing, dev)
 
-    # 3. the main path: the bench's configuration from rest, then the
-    # three configurations from the state it reached
+    # 3. the step path: the bench's configuration from rest, then the
+    # five configurations from the state it reached
     props = PhysicalProperties()
     params = CaseParams.make(R=0.004, freq=1.88, duration=20.0, device=dev)
 
-    def build(controls):
-        return make_step(geom, props, controls, carry_precond=True, device=dev)
+    def build(controls=SolverControls(use_pallas=True), **env):
+        with environ(**env):   # gates and knobs are read at build time
+            return make_step(geom, props, controls, carry_precond=True,
+                             device=dev)
 
-    step = build(SolverControls(use_pallas=True))
+    step = build()
     state = init_state(geom, dt0=1e-3, device=dev)
     bundle = step.init_precond(state)
     state, bundle, launches, main = drive(
-        "main path: use_pallas=True", step, state, bundle, params, N_STEPS,
+        "step path: use_pallas=True", step, state, bundle, params, N_STEPS,
         N_TIMED, n_fluid, DEFAULT_PATH)
-    # The three configurations, each from the state reached.
-    saved = os.environ.get("OFTPP_FINISH_PALLAS")
-    os.environ["OFTPP_FINISH_PALLAS"] = "1"
-    try:   # the gate is read when the step is built
-        step_fin = build(SolverControls(use_pallas=True))
-    finally:
-        if saved is None:
-            os.environ.pop("OFTPP_FINISH_PALLAS")
-        else:
-            os.environ["OFTPP_FINISH_PALLAS"] = saved
+    sweeps2 = {"OFTPP_SMOOTH_SWEEPS": "2"}
+    rz_off = {**sweeps2, "OFTPP_FUSED_RZ": "0"}
+    finish = {"OFTPP_FINISH_PALLAS": "1"}
     configs = {
         "use_pallas": (step, DEFAULT_PATH),
         "mom_pallas_false": (build(SolverControls(use_pallas=True,
                                                   mom_pallas=False)),
                              [k for k in DEFAULT_PATH if k not in FUSED]),
-        "finish_on": (step_fin, list(counters())),
+        "finish_on": (build(**finish), DEFAULT_PATH + ("momentum_finish",)),
+        "sweeps2": (build(**sweeps2), DEFAULT_PATH + CHEB2_RZ),
+        "sweeps2_fused_rz_off": (build(**rz_off), DEFAULT_PATH + CHEB2_NO_RZ),
     }
     runs = {}
     for name, (stp, expect) in configs.items():
+        # A bundle of this configuration's own knobs (one or two sweeps
+        # share its arrays; built anew all the same).
         _, _, run_launches, runs[name] = drive(
-            f"{name}, same state", stp, state, bundle, params, N_SHORT,
-            N_SHORT_TIMED, n_fluid, expect)
+            f"{name}, same state", stp, state, stp.init_precond(state),
+            params, N_SHORT, N_SHORT_TIMED, n_fluid, expect)
         if name == "finish_on":
             launches["momentum_finish"] = run_launches["momentum_finish"]
+        if name == "sweeps2_fused_rz_off":
+            launches["cheb2_post_7pt"] = run_launches["cheb2_post_7pt"]
+    log("[one or two sweeps, same state, one run each: resolves no gain] "
+        + "; ".join(f"{k}: {runs[k]['ms_per_step']:.3f} ms/step, p_iters "
+                    f"{runs[k]['p_iters_hist']}"
+                    for k in ("use_pallas", "sweeps2", "sweeps2_fused_rz_off")))
 
-    # 4. the whole step, kernels against plain versions, from one state,
-    # in the finish-on configuration (all eight entry points swapped)
-    def run(n):
-        s, b = state, bundle
+    # 4. the whole step, kernels against plain versions, from one state:
+    # the finish-on step with one sweep, with two, and with two and the
+    # separate r·z (together all eleven entry points are swapped)
+    def run(stp, n):
+        s, b = state, stp.init_precond(state)
         its = []
         for _ in range(n):
-            s, dd, b = step_fin(s, params, precond=b)
+            s, dd, b = stp(s, params, precond=b)
             its.append(int(dd.p_iters))
         return s, its
 
-    s_k, it_k = run(N_CMP)
-    with contextlib.ExitStack() as stack:
-        for m, attr, plain in counters().values():
-            stack.enter_context(mock.patch.object(m, attr, plain))
-        s_p, it_p = run(N_CMP)
-    torch.cuda.synchronize()
-    log(f"[step kernels vs plain] {N_CMP} steps; p_iters kernels {it_k} "
-        f"plain {it_p}")
     # Per call the kernels match their plain versions to an ulp (phase 2).
     # Over 5 steps an ulp can flip the rounding of a bf16 λ (2^-8 of that
     # face's antidiffusive flux), which moves an interface cell's alpha by
@@ -486,17 +720,35 @@ def main() -> int:
     # held to 1e-4 of its scale, the CG tolerance's order.
     tols = {"alpha": ("abs", 1e-3), "u": ("rel", 1e-2), "v": ("rel", 1e-2),
             "w": ("rel", 1e-2), "p": ("rel", 1e-4)}
-    bad = []
-    for k, (kind_t, tol) in tols.items():
-        err, scale = max_err(getattr(s_k, k), getattr(s_p, k))
-        lim = tol if kind_t == "abs" else tol * scale
-        log(f"  {k}: max_abs_err {err:.3e} limit {lim:.3e} (scale {scale:.3e})")
-        if err > lim:
-            bad.append(f"{k}: {err} > {lim}")
-    if bad:
-        raise AssertionError(f"step kernels vs plain: {bad}")
-    if any(abs(a - b) > 1 for a, b in zip(it_k, it_p)):
-        raise AssertionError(f"p_iters differ by more than 1: {it_k} {it_p}")
+    for label, env in (("one sweep", finish), ("two sweeps", {**finish, **sweeps2}),
+                       ("two sweeps, r·z apart", {**finish, **rz_off})):
+        stp = build(**env)
+        s_k, it_k = run(stp, N_CMP)
+        with contextlib.ExitStack() as stack:
+            for m, attr, plain in counters().values():
+                stack.enter_context(mock.patch.object(m, attr, plain))
+            s_p, it_p = run(stp, N_CMP)
+        torch.cuda.synchronize()
+        log(f"[step kernels vs plain, {label}] {N_CMP} steps; p_iters kernels "
+            f"{it_k} plain {it_p}")
+        bad = []
+        for k, (kind_t, tol) in tols.items():
+            err, scale = max_err(getattr(s_k, k), getattr(s_p, k))
+            lim = tol if kind_t == "abs" else tol * scale
+            log(f"  {k}: max_abs_err {err:.3e} limit {lim:.3e} "
+                f"(scale {scale:.3e})")
+            if err > lim:
+                bad.append(f"{k}: {err} > {lim}")
+        if bad:
+            raise AssertionError(f"step kernels vs plain, {label}: {bad}")
+        if any(abs(a - b) > 1 for a, b in zip(it_k, it_p)):
+            raise AssertionError(f"{label}: p_iters differ by more than 1: "
+                                 f"{it_k} {it_p}")
+
+    # 5. the case path, as a user drives it
+    case_launches, case = phase_case(geom)
+    for k in CHEB2_RZ:
+        launches[k] = case_launches[k]
 
     out = []
     for name in REPLACES:
@@ -506,7 +758,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     detail = {"kernels": out, "shape": list(geom.shape), "fluid_cells": n_fluid,
-              "runs": {"use_pallas_from_rest": main, "same_state": runs}}
+              "runs": {"use_pallas_from_rest": main, "same_state": runs,
+                       "case_path": case}}
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)
     with open(os.path.join(repo, "perf_out", "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1)

@@ -1,0 +1,90 @@
+"""Headless command line of the port.
+
+    python -m openfoam_tpp_tpu_torch --headless --base-dir D --case C --action run
+    python -m openfoam_tpp_tpu_torch --headless --base-dir D --case C --action interface
+
+Port of the headless `run` and `interface` verbs of
+openfoam_tpp_tpu/manager/cli.py. Both run on the CUDA device unless
+`--device cpu` is given. The interactive menu and the other verbs and
+flags of that command line are not ported yet: asking for one exits
+non-zero. PyTorch runs eagerly, so there is no dependency bootstrap and
+no compile cache to set up.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from openfoam_tpp_tpu_torch.manager import cases as case_mgr
+
+NOT_PORTED = ("build6dof", "config", "flow", "profile", "runsweep", "video")
+
+
+def action_interface(case_dir: str, device="cuda") -> bool:
+    from openfoam_tpp_tpu_torch.manager.runner import (_case_shape_hint,
+                                                       build_case_geometry,
+                                                       iterate_snapshots)
+    from openfoam_tpp_tpu_torch.post.interface import extract_interface
+
+    params = case_mgr.load_case_params(case_dir)
+    geom = build_case_geometry(params, _case_shape_hint(case_dir))
+    print(f"  📊 Extracting interface for {case_dir} (on-device column pass)...")
+    out = extract_interface(case_dir, geom, iterate_snapshots(case_dir),
+                            device=device)
+    print(f"  ✅ Extraction complete: {out}")
+    return True
+
+
+def action_run(case_dir: str, device="cuda") -> bool:
+    from openfoam_tpp_tpu_torch.manager.runner import run_case
+
+    print(f"  🚀 Running {os.path.basename(case_dir)} ...")
+    run_case(case_dir, device=device)
+    return True
+
+
+ACTIONS = {"interface": action_interface, "run": action_run}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Sloshing simulation manager (PyTorch/CUDA port)")
+    ap.add_argument("--headless", action="store_true",
+                    help="non-interactive mode (the only one ported)")
+    ap.add_argument("--case", help="case directory name")
+    ap.add_argument("--action", choices=sorted(ACTIONS) + list(NOT_PORTED),
+                    help="headless action")
+    ap.add_argument("--base-dir", default=".", help="cases root directory")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default cuda; cpu runs "
+                         "the plain PyTorch path)")
+    ap.add_argument("--submit", action="store_true",
+                    help="Slurm submission (not ported yet)")
+    ap.add_argument("--devices", type=str, default=None,
+                    help="sharded runs (not ported yet)")
+    args = ap.parse_args(argv)
+
+    unported = [what for what, asked in (
+        ("the interactive menu (use --headless)", not args.headless),
+        (f"--action {args.action}", args.action in NOT_PORTED),
+        ("--submit", args.submit),
+        ("--devices", args.devices not in (None, "1")),
+    ) if asked]
+    if unported:
+        print(f"❌ not ported yet: {', '.join(unported)}", file=sys.stderr)
+        return 2
+    if not (args.case and args.action):
+        ap.error("--headless requires --case and --action")
+    case_dir = os.path.join(args.base_dir, args.case)
+    if not os.path.isdir(case_dir):
+        print(f"❌ case not found: {case_dir}")
+        return 1
+    print(f"Post-processing: {args.action} on {args.case}"
+          if args.action != "run" else f"Running: {args.case}")
+    return 0 if ACTIONS[args.action](case_dir, device=args.device) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,308 @@
+"""Case execution: run (or resume) a case to its encoded duration.
+
+Port of the single-device analytic-orbital branch of
+openfoam_tpp_tpu/manager/runner.py. The solver runs in-process: a loop
+advances the state between write times; every `write_interval` of
+simulated time a SimState checkpoint is persisted (time-directory
+parity) and the per-step probe rows are appended. Resume from the latest
+checkpoint is automatic (`startFrom latestTime` parity).
+
+The JAX package jits the advance as one device loop and caches the
+executable; PyTorch runs eagerly, so the loop is a Python loop and there
+is nothing to cache: the step is built anew (and the OFTPP_* variables
+read) at every `get_compiled_advance`. The closed 6DoF tank and sharded
+runs are not ported yet and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+from openfoam_tpp_tpu_torch.config import PhysicalProperties, SolverControls
+from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
+from openfoam_tpp_tpu_torch.device import resolve_device
+from openfoam_tpp_tpu_torch.manager.cases import load_case_params
+from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
+from openfoam_tpp_tpu_torch.post.probes import (ProbeWriter,
+                                                default_probe_points,
+                                                default_wave_columns,
+                                                probe_pack, sample_row)
+from openfoam_tpp_tpu_torch.solver.timestep import (StepDiagnostics,
+                                                    geometry_arrays,
+                                                    make_step_ga)
+from openfoam_tpp_tpu_torch.utils.io import (latest_checkpoint,
+                                             list_checkpoints,
+                                             load_checkpoint, save_checkpoint,
+                                             to_state)
+
+_MAX_STEPS_PER_WRITE = 4000
+
+
+def _zero_diag(device):
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return StepDiagnostics(z, z, z, torch.zeros((), dtype=torch.int32,
+                                                device=device), z, z, z)
+
+
+def make_advance(step_fn, max_steps: int = _MAX_STEPS_PER_WRITE,
+                 sampler=None, sample_width: int = 0):
+    """Loop: run steps until t >= t_target (bounded by max_steps).
+
+    `sampler(state) -> (sample_width,) row` is evaluated after EVERY
+    solver step into a preallocated (max_steps, sample_width) f32 buffer
+    on the device, written by index, so sampling adds no host sync; the
+    caller copies the rows to the host once per call. Returns (state,
+    diag, n_steps[, samples]) with n_steps a Python int.
+
+    Reading `state.t < t_target` costs one host sync per step (the JAX
+    package runs a `lax.while_loop` on the device).
+
+    A step_fn built with `carry_precond=True` (its `init_precond`
+    attribute marks it) threads the preconditioner bundle through the
+    loop, refreshed every controls.precond_refresh steps; one fresh
+    bundle is built per advance call.
+
+    A step_fn built by make_step_ga (its `takes_ga` attribute marks it)
+    changes the signature to `advance(state, params, t_target, ga[,
+    probe_pack])`; `sampler` is then post.probes.sample_row(state,
+    pack)."""
+    init_precond = getattr(step_fn, "init_precond", None)
+    takes_ga = getattr(step_fn, "takes_ga", False)
+
+    def advance(state, params, t_target, *operands):
+        ga_args = operands[:1] if takes_ga else ()
+        pack = operands[1] if (takes_ga and sampler is not None) else None
+        dev = state.t.device
+        # t_stop makes the final step land EXACTLY on t_target
+        # (adjustableRunTime parity).
+        t_target = torch.as_tensor(t_target, dtype=torch.float32, device=dev)
+        diag = _zero_diag(dev)
+        buf = None
+        if sampler is not None:
+            buf = torch.zeros((max_steps, sample_width), dtype=torch.float32,
+                              device=dev)
+        bundle = None
+        if init_precond is not None:
+            bundle = init_precond(state, *ga_args)
+        n = 0
+        while n < max_steps and bool(state.t < t_target):
+            if init_precond is None:
+                state, diag = step_fn(state, params, *ga_args,
+                                      t_stop=t_target)
+            else:
+                state, diag, bundle = step_fn(state, params, *ga_args,
+                                              t_stop=t_target, precond=bundle)
+            if sampler is not None:
+                buf[n] = sampler(state, pack) if takes_ga else sampler(state)
+            n += 1
+        if sampler is None:
+            return state, diag, n
+        return state, diag, n, buf
+
+    return advance
+
+
+def build_case_geometry(params: dict, shape_hint: tuple | None = None,
+                        devices=None):
+    """Geometry for a case. `shape_hint` (from an existing checkpoint's
+    alpha shape) keeps resumed/postprocessed cases consistent with the
+    grid they were started on, across round_to policy changes."""
+    _check_slice(params, devices)
+    # round_to=8: nx/ny padded (with solid, zero-aperture cells) to a
+    # multiple of 8, as the JAX package does, so both build the same grid.
+    for r in (8, 1):
+        geom = build_tank_geometry(
+            H=params["H"], D=params["D"], mesh=params["mesh"],
+            geo=params["geo"], round_to=r,
+        )
+        if shape_hint is not None and tuple(geom.shape) != tuple(shape_hint):
+            continue
+        return geom
+    raise ValueError(
+        f"no geometry for {params} matches checkpoint grid {shape_hint}"
+        " — was the case built with different parameters?"
+    )
+
+
+def _check_slice(params: dict, devices=None):
+    if params.get("model") == "tank6dof":
+        raise NotImplementedError("model 'tank6dof' (closed 6DoF tank) is "
+                                  "not ported yet")
+    if devices not in (None, 1, "1"):
+        raise NotImplementedError(f"devices={devices!r}: sharded runs are "
+                                  "not ported yet (one device only)")
+
+
+def _case_shape_hint(case_dir: str):
+    """Grid shape of the case's existing checkpoints (None if fresh)."""
+    chk = latest_checkpoint(case_dir)
+    if chk is None:
+        return None
+    return tuple(load_checkpoint(chk[1])["alpha"].shape)
+
+
+def get_compiled_advance(params: dict, props: PhysicalProperties,
+                         controls: SolverControls, case_dir: str | None = None,
+                         devices=None, device="cuda"):
+    """Returns (geom, advance) for a single-device
+    analytic-orbital case: the geometry-as-operands step (make_step_ga)
+    with the preconditioner carried through the advance loop and the
+    probe sampler run every step. `advance(state, case_params, t_target)
+    -> (state, diag, n_steps, samples)`.
+
+    On a CUDA device the hand-written kernels are turned on
+    (`use_pallas=True`), whatever the grid: they take any shape. On the
+    CPU the caller's controls stand as they are."""
+    dev = resolve_device(device)
+    shape_hint = _case_shape_hint(case_dir) if case_dir else None
+    geom = build_case_geometry(params, shape_hint, devices=devices)
+    if dev.type == "cuda":
+        controls = dataclasses.replace(controls, use_pallas=True)
+    k_env = os.environ.get("OFTPP_PRECOND_REFRESH")
+    if k_env is not None:
+        controls = dataclasses.replace(controls, precond_refresh=int(k_env))
+
+    step = make_step_ga(geom.spacing, props, controls,
+                        open_top=bool(np.any(geom.top_open > 0)),
+                        carry_precond=True,
+                        sealed_x=bool(np.all(geom.ax[-1] == 0.0)), device=dev)
+    points, columns = default_probe_points(geom), default_wave_columns(geom)
+    inner = make_advance(step, sampler=sample_row,
+                         sample_width=1 + len(points) + len(columns))
+    ga = geometry_arrays(geom, device=dev)
+    pack = probe_pack(geom, points, columns, device=dev)
+
+    def advance(state, case_params, t_target):
+        return inner(state, case_params, t_target, ga, pack)
+
+    return geom, advance
+
+
+def run_case(
+    case_dir: str,
+    props: PhysicalProperties = PhysicalProperties(),
+    controls: SolverControls = SolverControls(),
+    log=print,
+    write_checkpoints: bool = True,
+    devices=None,
+    device="cuda",
+) -> dict:
+    """Run (or resume) a case to its encoded duration on `device`.
+    Returns run stats: the JAX package's keys, plus `io_seconds` (host
+    time spent writing checkpoints and probe files) and `intervals` (per
+    write target: simulated time, steps, wall seconds)."""
+    params = load_case_params(case_dir)
+    geom, advance = get_compiled_advance(
+        params, props, controls, case_dir, devices=devices, device=device)
+    n_cells = geom.n_fluid_cells
+    log(f"  Mesh: {geom.shape[0]}x{geom.shape[1]}x{geom.shape[2]} grid, "
+        f"{n_cells} fluid cells (h={params['mesh']:g} m, "
+        f"geo={params.get('geo', geom.geo)})")
+
+    case_params = CaseParams.make(
+        R=params["R"], freq=params["freq"], duration=params["duration"],
+        ramp=params["ramp"], device=device,
+    )
+
+    io_seconds = 0.0
+    chk = latest_checkpoint(case_dir)
+    if chk is not None:
+        state = to_state(load_checkpoint(chk[1]), device=device)
+        log(f"  Resuming from t={chk[0]:.4f} s ({chk[1]})")
+    else:
+        state = init_state(geom, dt0=params["dt"], device=device)
+        if write_checkpoints:
+            t_io = time.time()
+            save_checkpoint(case_dir, state)
+            io_seconds += time.time() - t_io
+
+    # Per-timestep probe channels: pressure probes + η wave gauges,
+    # accumulated on the device every solver step and flushed at each
+    # write interval.
+    probe_pts = default_probe_points(geom)
+    wave_cols = default_wave_columns(geom)
+    t_now = float(state.t)
+    probes = ProbeWriter(case_dir, probe_pts, "p", start_time=t_now)
+    gauges = ProbeWriter(
+        case_dir,
+        np.column_stack([wave_cols, np.zeros(len(wave_cols))]),
+        "eta", start_time=t_now)
+    n_pts = len(probe_pts)
+
+    duration = params["duration"]
+    w = controls.write_interval
+    first_k = int(np.floor(t_now / w + 1e-6)) + 1
+    # Targets are computed with the same f32 arithmetic the device uses to
+    # snap landing times (k * f32(w)), so `state.t == t_target` bitwise at
+    # each write — no epsilon drift across a 20 s / 400-write run.
+    w32 = np.float32(w)
+    n_writes = int(np.floor(duration / w + 1e-9))
+    targets = [float(np.float32(k) * w32) for k in range(first_k, n_writes + 1)]
+    # A duration that is not a write multiple (swept values like 0.33) must
+    # still be reached, else is_case_done() never fires.
+    if not targets or targets[-1] < duration - 1e-9:
+        targets.append(float(np.float32(duration)))
+
+    wall0 = time.time()
+    steps_total = 0
+    intervals = []
+    for t_target in targets:
+        wall_t = time.time()
+        steps_t = 0
+        # Re-invoke until the target is actually reached: one advance is
+        # bounded at max_steps and may fall short on fine meshes.
+        while True:
+            state, diag, n, buf = advance(state, case_params, t_target)
+            steps_t += n
+            if n:
+                rows = buf[:n].cpu().numpy()
+                t_io = time.time()
+                probes.append_rows(rows[:, 0], rows[:, 1 : 1 + n_pts])
+                gauges.append_rows(rows[:, 0], rows[:, 1 + n_pts :])
+                io_seconds += time.time() - t_io
+            if float(state.t) >= t_target or n == 0:
+                break
+            log(f"  (write target {t_target:.6g} s not reached in "
+                f"{n} steps; continuing)")
+        steps_total += steps_t
+        if write_checkpoints:
+            t_io = time.time()
+            save_checkpoint(case_dir, state)
+            io_seconds += time.time() - t_io
+        intervals.append({"t": float(state.t), "steps": steps_t,
+                          "wall_seconds": time.time() - wall_t})
+        log(
+            f"Time = {float(state.t):.6g} s  "
+            f"dt = {float(state.dt):.3e}  "
+            f"Co = {float(diag.courant):.3f}  alphaCo = {float(diag.alpha_courant):.3f}  "
+            f"p: iters {int(diag.p_iters)}, res {float(diag.p_residual):.2e}  "
+            f"alpha in [{float(diag.alpha_min):.4f}, {float(diag.alpha_max):.4f}]"
+        )
+
+    wall = time.time() - wall0
+    sim_time = float(state.t) - t_now
+    stats = {
+        "n_cells": n_cells,
+        "steps": steps_total,
+        "wall_seconds": wall,
+        "sim_seconds": sim_time,
+        "cell_steps_per_sec": n_cells * steps_total / max(wall, 1e-9),
+        "io_seconds": io_seconds,
+        "intervals": intervals,
+    }
+    log(
+        f"  Done: {steps_total} steps / {sim_time:.3g} s simulated in "
+        f"{wall:.1f} s wall ({stats['cell_steps_per_sec']:.3g} cell-updates/s)"
+    )
+    return stats
+
+
+def iterate_snapshots(case_dir: str):
+    """Yield (t, alpha) from all checkpoints — feeds post/interface.py."""
+    for t, path in list_checkpoints(case_dir):
+        yield t, load_checkpoint(path)["alpha"]

@@ -1,14 +1,16 @@
 """7-point variable-coefficient stencil family: CUDA kernel + plain version.
 
 Port of openfoam_tpp_tpu/ops/pallas/seven_point.py (`apply_7pt`,
-`resid_scaled_7pt`, `apply_dot_7pt`). The pressure operator is
+`resid_scaled_7pt`, `apply_dot_7pt`, and the fused degree-2 Chebyshev
+smoothers `cheb2_pre_7pt`, `cheb2_post_7pt`, `cheb2_post_dot_7pt` on the
+unit-diagonal operator). The pressure operator is
 A(p) = diag·p − Σ_f w_f·p_nb, in the face-lite layout: `split_weights`
 keeps only the three LOW-face coefficient arrays; the high-face term of
 cell c is (w_l·p)[c+1], zero at the domain edge (exact, because
 domain-boundary faces carry zero weight).
 
-Each entry point launches the kernel in csrc/seven_point.cu for CUDA
-tensors and runs its plain PyTorch version (`*_plain`) for CPU tensors;
+Each entry point launches its kernel (csrc/seven_point.cu; the cheb2
+smoothers csrc/cheb2.cu) for CUDA tensors and runs its plain PyTorch version (`*_plain`) for CPU tensors;
 any other device raises. The plain version computes in f32 and rounds
 once on output, exactly like the kernel. Each entry point counts its
 kernel launches in `.launches`.
@@ -72,6 +74,50 @@ def apply_dot_7pt_plain(p, split):
     nb, c = _nb_sum_plain(p, split)
     ap = (c - nb).to(p.dtype)
     return ap, (c * ap.float()).sum()
+
+
+def cheb_coefs(lmax, lmin_frac):
+    """(1/θ, c_pp, c_pd) of the degree-2 Chebyshev smoother over
+    [lmin_frac·lmax, 1.02·lmax]: the first step is p₁ = d/θ and the
+    second p₂ = c_pp·p₁ + c_pd·d₂. The kernels and the plain versions
+    multiply by 1/θ (rounded to f32 once) instead of dividing."""
+    a, c = lmin_frac * lmax, 1.02 * lmax
+    theta = 0.5 * (c + a)
+    delta = 0.5 * (c - a)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    rho_new = 1.0 / (2.0 * sigma - rho)
+    return 1.0 / theta, rho_new * rho, 2.0 * rho_new / delta
+
+
+def _resid_f32(x, split, b):
+    """b − Â·x in f32 from f32 operands (`split` may be bf16)."""
+    nb, c = _nb_sum_plain(x, split)
+    return b - (c - nb)
+
+
+def cheb2_pre_7pt_plain(b, split, lmax, lmin_frac):
+    inv_theta, c_pp, c_pd = cheb_coefs(lmax, lmin_frac)
+    bf = b.float()
+    x1 = bf * inv_theta
+    d1 = _resid_f32(x1, split, bf)
+    x = x1 + (c_pp * x1 + c_pd * d1)
+    r = _resid_f32(x, split, bf)
+    return x.to(b.dtype), r.to(b.dtype)
+
+
+def cheb2_post_7pt_plain(x, b, split, lmax, lmin_frac, out_dtype=None):
+    inv_theta, c_pp, c_pd = cheb_coefs(lmax, lmin_frac)
+    xf, bf = x.float(), b.float()
+    p1 = _resid_f32(xf, split, bf) * inv_theta
+    x1 = xf + p1
+    d2 = _resid_f32(x1, split, bf)
+    return (x1 + (c_pp * p1 + c_pd * d2)).to(out_dtype or b.dtype)
+
+
+def cheb2_post_dot_7pt_plain(x, b, split, lmax, lmin_frac, out_dtype=None):
+    z = cheb2_post_7pt_plain(x, b, split, lmax, lmin_frac, out_dtype)
+    return z, (b.float() * z.float()).sum()
 
 
 # ------------------------------------------------------------------ kernels
@@ -154,6 +200,89 @@ def apply_dot_7pt(p, split):
     return out, dot
 
 
-apply_7pt.launches = 0
-resid_scaled_7pt.launches = 0
-apply_dot_7pt.launches = 0
+_CHEB_PRE, _CHEB_POST, _CHEB_POST_DOT = 0, 1, 2
+
+
+def _cheb_lib():
+    lib = _build.load("cheb2")
+    if not getattr(lib, "_typed", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.cheb2_launch.argtypes = ([ci] * 3 + [vp] * 9 + [cf] * 3 + [ci] * 3
+                                     + [vp])
+        lib.cheb2_launch.restype = ci
+        lib.cheb2_num_partials.argtypes = [ci] * 3
+        lib.cheb2_num_partials.restype = ci
+        lib._typed = True
+    return lib
+
+
+def _cheb_out_dtype(b, out_dtype):
+    """The store type: the operands' own, or f32 (the widened store)."""
+    out_dtype = out_dtype or b.dtype
+    if out_dtype not in (b.dtype, torch.float32):
+        raise ValueError(f"cheb2 kernel stores {b.dtype} or float32, not "
+                         f"{out_dtype}")
+    return out_dtype
+
+
+def _cheb_launch(mode, x, b, split, lmax, lmin_frac, out_dtype):
+    lib = _cheb_lib()
+    out = torch.empty_like(b, dtype=out_dtype)
+    out2 = torch.empty_like(b) if mode == _CHEB_PRE else None
+    partial = dot = None
+    if mode == _CHEB_POST_DOT:
+        partial = torch.empty(lib.cheb2_num_partials(*b.shape),
+                              dtype=torch.float32, device=b.device)
+        dot = torch.empty((), dtype=torch.float32, device=b.device)
+    nul = ctypes.c_void_p(None)
+    opt = lambda t: nul if t is None else _build.ptr(t)
+    rc = lib.cheb2_launch(
+        mode, _DTYPES[b.dtype], _DTYPES[out_dtype], opt(x), _build.ptr(b),
+        *(_build.ptr(w) for w in split), _build.ptr(out), opt(out2),
+        opt(partial), opt(dot), *cheb_coefs(lmax, lmin_frac), *b.shape,
+        _build.stream_of(b))
+    _build.check(rc, "cheb2")
+    return out, out2, dot
+
+
+def cheb2_pre_7pt(b, split, lmax, lmin_frac):
+    """(x, r): degree-2 Chebyshev on Â·x = b from x ≡ 0, and b − Â·x, in
+    one pass — the V-cycle's entry smoothing and its residual."""
+    if _build.route(b, "cheb2_pre_7pt") == "cpu":
+        return cheb2_pre_7pt_plain(b, split, lmax, lmin_frac)
+    _check(b, split)
+    x, r, _ = _cheb_launch(_CHEB_PRE, None, b, split, lmax, lmin_frac,
+                           b.dtype)
+    cheb2_pre_7pt.launches += 1
+    return x, r
+
+
+def cheb2_post_7pt(x, b, split, lmax, lmin_frac, out_dtype=None):
+    """Degree-2 Chebyshev on Â·x = b continuing from x, in one pass — the
+    V-cycle's exit smoothing. `out_dtype=torch.float32` widens a bf16
+    cycle's result on the store."""
+    if _build.route(b, "cheb2_post_7pt") == "cpu":
+        return cheb2_post_7pt_plain(x, b, split, lmax, lmin_frac, out_dtype)
+    _check(b, split, x)
+    z, _, _ = _cheb_launch(_CHEB_POST, x, b, split, lmax, lmin_frac,
+                           _cheb_out_dtype(b, out_dtype))
+    cheb2_post_7pt.launches += 1
+    return z
+
+
+def cheb2_post_dot_7pt(x, b, split, lmax, lmin_frac, out_dtype=None):
+    """(z, Σ b·z): `cheb2_post_7pt` plus CG's coupling dot, with b widened
+    to f32 and z as stored. The dot is a 0-d f32 tensor on b's device."""
+    if _build.route(b, "cheb2_post_dot_7pt") == "cpu":
+        return cheb2_post_dot_7pt_plain(x, b, split, lmax, lmin_frac,
+                                        out_dtype)
+    _check(b, split, x)
+    z, _, dot = _cheb_launch(_CHEB_POST_DOT, x, b, split, lmax, lmin_frac,
+                             _cheb_out_dtype(b, out_dtype))
+    cheb2_post_dot_7pt.launches += 1
+    return z, dot
+
+
+for _fn in (apply_7pt, resid_scaled_7pt, apply_dot_7pt, cheb2_pre_7pt,
+            cheb2_post_7pt, cheb2_post_dot_7pt):
+    _fn.launches = 0

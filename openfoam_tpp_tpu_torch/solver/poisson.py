@@ -12,15 +12,20 @@ the physical Galerkin hierarchy (2×2×2 sum restriction, injection
 prolongation). The open top is a half-cell Dirichlet diagonal term;
 closed tanks are singular and the constant nullspace is projected out.
 
-Knobs that the JAX package reads from OFTPP_* variables are constants
-here, at its defaults: one smoothing sweep, L1 gamma 2, a bf16
-preconditioner. Its fused r·z (OFTPP_FUSED_RZ, on by default) rides the
-degree-2 Chebyshev exit kernel, which one sweep never runs, so CG's r·z
-is a plain dot there as here.
+The knobs the JAX package reads from OFTPP_* variables at import are one
+frozen record here, `SolverKnobs`, with the same variables and defaults.
+`SolverKnobs.from_env()` reads them; the step (solver/timestep.py) and
+`build_poisson` do so when they are built, and `make_bundle` /
+`attach_precond` carry the record.
 
 With `use_pallas` every level's stencil passes go through
 ops/kernels/seven_point.py (any shape: the CUDA kernel has no slab or
-VMEM limit), and the CG curvature step is the fused apply+dot.
+VMEM limit), and the CG curvature step is the fused apply+dot. With two
+Chebyshev sweeps (OFTPP_SMOOTH_SWEEPS=2) the top level's entry and exit
+smoothing are one fused kernel each (`cheb2_pre_7pt`, `cheb2_post_7pt`),
+and with OFTPP_FUSED_RZ (on by default) the exit kernel also returns
+CG's r·z (`cheb2_post_dot_7pt`), so the separate dot is not paid. With
+one sweep those kernels never run and r·z is a plain dot.
 
 CG loop: the JAX `lax.while_loop` is a Python loop here that reads
 `rr > tol2` on the host once per iteration — one device sync per CG
@@ -30,6 +35,7 @@ iteration (plus one before the first). CUDA graphs are future work.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable
 
 import torch
@@ -38,14 +44,43 @@ from openfoam_tpp_tpu_torch.ops import stencil as st
 from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
 
 _JACOBI_OMEGA = 0.8
-_COARSEST_SWEEPS = 24
-_SMOOTH_SWEEPS = 1
-_CHEB_LMAX = 2.0
-_CHEB_LMIN_FRAC = 0.10
-_MG_L1_GAMMA = 2
-_MG_DEEP_GAMMA = 1
-_PRECOND_DTYPE = torch.bfloat16
 _F32_CG_FLOOR = 3e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverKnobs:
+    """The pressure solver's tuning knobs; each field names its variable."""
+
+    coarsest_sweeps: int = 24     # OFTPP_COARSEST_SWEEPS
+    smooth_sweeps: int = 1        # OFTPP_SMOOTH_SWEEPS: sweeps per pass
+    smoother: str = "chebyshev"   # OFTPP_SMOOTHER: 'chebyshev' | 'jacobi'
+    cheb_lmax: float = 2.0        # OFTPP_CHEB_LMAX: Gershgorin bound
+    cheb_lmin_frac: float = 0.10  # OFTPP_CHEB_LMIN: window's lower end
+    fused_cheb: bool = True       # OFTPP_FUSED_CHEB != "0"
+    mg_l1_gamma: int = 2          # OFTPP_MG_L1_GAMMA: visits at level 1
+    mg_deep_gamma: int = 1        # OFTPP_MG_DEEP_GAMMA: visits below it
+    fused_rz: bool = True         # OFTPP_FUSED_RZ == "1"
+    precond_f32: bool = False     # OFTPP_PRECOND_F32 == "1"
+
+    @staticmethod
+    def from_env() -> "SolverKnobs":
+        d, env = SolverKnobs(), os.environ.get
+        return SolverKnobs(
+            coarsest_sweeps=int(env("OFTPP_COARSEST_SWEEPS", d.coarsest_sweeps)),
+            smooth_sweeps=int(env("OFTPP_SMOOTH_SWEEPS", d.smooth_sweeps)),
+            smoother=env("OFTPP_SMOOTHER", d.smoother),
+            cheb_lmax=float(env("OFTPP_CHEB_LMAX", d.cheb_lmax)),
+            cheb_lmin_frac=float(env("OFTPP_CHEB_LMIN", d.cheb_lmin_frac)),
+            fused_cheb=env("OFTPP_FUSED_CHEB", "1") != "0",
+            mg_l1_gamma=int(env("OFTPP_MG_L1_GAMMA", d.mg_l1_gamma)),
+            mg_deep_gamma=int(env("OFTPP_MG_DEEP_GAMMA", d.mg_deep_gamma)),
+            fused_rz=env("OFTPP_FUSED_RZ", "1") == "1",
+            precond_f32=env("OFTPP_PRECOND_F32") == "1",
+        )
+
+    @property
+    def precond_dtype(self):
+        return torch.float32 if self.precond_f32 else torch.bfloat16
 
 
 @dataclasses.dataclass
@@ -73,6 +108,8 @@ class PoissonProblem:
     apply_hat: Callable | None = None       # Â
     precond_hat: Callable | None = None     # M̂⁻¹ (bf16 V-cycle)
     apply_dot_hat: Callable | None = None   # p -> (Â·p, p·Â·p), kernel path
+    precond_rz_hat: Callable | None = None  # r -> (M̂⁻¹r, r·M̂⁻¹r or None),
+                                            # the dot from the exit kernel
 
 
 def _weights_apply(level: _Level, p):
@@ -110,11 +147,11 @@ def _jacobi(level: _Level, x, b, n):
     return x
 
 
-def _chebyshev(level: _Level, x, b, degree):
+def _chebyshev(level: _Level, x, b, degree, k: SolverKnobs):
     """Chebyshev smoother on the Jacobi-preconditioned operator over
-    [_CHEB_LMIN_FRAC·λmax, λmax]; `x=None` means x≡0."""
-    lmax = _CHEB_LMAX
-    a, c = _CHEB_LMIN_FRAC * lmax, 1.02 * lmax
+    [cheb_lmin_frac·λmax, λmax]; `x=None` means x≡0."""
+    lmax = k.cheb_lmax
+    a, c = k.cheb_lmin_frac * lmax, 1.02 * lmax
     theta = 0.5 * (c + a)
     delta = 0.5 * (c - a)
     sigma = theta / delta
@@ -132,6 +169,41 @@ def _chebyshev(level: _Level, x, b, degree):
         x = x + p
         rho = rho_new
     return x
+
+
+def _smooth(level: _Level, x, b, k: SolverKnobs):
+    if k.smoother == "chebyshev":
+        return _chebyshev(level, x, b, k.smooth_sweeps, k)
+    return _jacobi(level, x, b, k.smooth_sweeps)
+
+
+def _fused_cheb2(level: _Level, k: SolverKnobs) -> bool:
+    """The degree-2 Chebyshev sweeps of a unit-diagonal kernel level run
+    as one fused kernel pass each (seven_point.cheb2_*_7pt) instead of
+    four stencil passes and the elementwise chains between them."""
+    return (k.fused_cheb and level.split is not None and level.unit_diag
+            and k.smoother == "chebyshev" and k.smooth_sweeps == 2)
+
+
+def _smooth_pre_resid(level: _Level, b, k: SolverKnobs):
+    """(x, r): entry smoothing from x≡0 plus its residual."""
+    if _fused_cheb2(level, k):
+        return sp.cheb2_pre_7pt(b, level.split, k.cheb_lmax, k.cheb_lmin_frac)
+    x = _smooth(level, None, b, k)
+    r = (_resid_scaled(level, x, b) if level.unit_diag
+         else b - _weights_apply(level, x))
+    return x, r
+
+
+def _smooth_post(level: _Level, x, b, k: SolverKnobs, out_dtype=None):
+    """Exit smoothing continuing from the corrected x. On the fused route
+    `out_dtype` widens the result on the kernel's store (bf16 cycle → f32
+    CG hand-off) instead of a separate cast pass."""
+    if _fused_cheb2(level, k):
+        return sp.cheb2_post_7pt(x, b, level.split, k.cheb_lmax,
+                                 k.cheb_lmin_frac, out_dtype=out_dtype)
+    x = _smooth(level, x, b, k)
+    return x if out_dtype is None else x.to(out_dtype)
 
 
 def _pad_axis_even(a, axis):
@@ -197,34 +269,40 @@ def _build_coarse_levels(wx, wy, wz, extra, max_coarse=9, min_cells=256):
     return levels
 
 
-def _vcycle(levels, li, b):
+def _vcycle(levels, li, b, k: SolverKnobs):
     level = levels[li]
     if li == len(levels) - 1:
-        return _jacobi(level, None, b, _COARSEST_SWEEPS)
-    x = _chebyshev(level, None, b, _SMOOTH_SWEEPS)
-    gamma = _MG_L1_GAMMA if li == 0 else _MG_DEEP_GAMMA
+        return _jacobi(level, None, b, k.coarsest_sweeps)
+    x = _smooth(level, None, b, k)
+    gamma = k.mg_l1_gamma if li == 0 else k.mg_deep_gamma
     for g in range(max(gamma, 1)):
         if g:
-            x = _chebyshev(level, x, b, _SMOOTH_SWEEPS)
+            x = _smooth(level, x, b, k)
         r = b - _weights_apply(level, x)
-        ec = _vcycle(levels, li + 1, _restrict_cells(r))
+        ec = _vcycle(levels, li + 1, _restrict_cells(r), k)
         x = x + _prolong_cells(ec, level.shape)
-    return _chebyshev(level, x, b, _SMOOTH_SWEEPS)
+    return _smooth(level, x, b, k)
 
 
-def _vcycle_hybrid(top_hat, inv_s, levels_coarse, b, out_dtype=None):
+def _vcycle_hybrid(top_hat, inv_s, levels_coarse, b, k: SolverKnobs,
+                   out_dtype=None, with_dot=False):
     """V-cycle on the SCALED top level with the coarse correction on the
     PHYSICAL Galerkin hierarchy (space conversion folded into the
-    transfers: r_phys = inv_s ⊙ r̂, ê = inv_s ⊙ P e_phys)."""
-    x = _chebyshev(top_hat, None, b, _SMOOTH_SWEEPS)
-    r = _resid_scaled(top_hat, x, b)
+    transfers: r_phys = inv_s ⊙ r̂, ê = inv_s ⊙ P e_phys).
+
+    `with_dot`: return (z, Σ b·z) with the dot from the fused exit
+    kernel, or (z, None) where that kernel does not serve the top level."""
+    x, r = _smooth_pre_resid(top_hat, b, k)
     if levels_coarse:
-        ec = _vcycle(levels_coarse, 0, _restrict_cells(inv_s * r))
+        ec = _vcycle(levels_coarse, 0, _restrict_cells(inv_s * r), k)
         x = x + inv_s * _prolong_cells(ec, top_hat.shape)
     else:
-        x = x + _jacobi(top_hat, None, r, _COARSEST_SWEEPS)
-    x = _chebyshev(top_hat, x, b, _SMOOTH_SWEEPS)
-    return x if out_dtype is None else x.to(out_dtype)
+        x = x + _jacobi(top_hat, None, r, k.coarsest_sweeps)
+    if with_dot and _fused_cheb2(top_hat, k):
+        return sp.cheb2_post_dot_7pt(x, b, top_hat.split, k.cheb_lmax,
+                                     k.cheb_lmin_frac, out_dtype=out_dtype)
+    x = _smooth_post(top_hat, x, b, k, out_dtype)
+    return (x, None) if with_dot else x
 
 
 def build_operator(geom_arrays, spacing, rho, top_open, use_pallas=False):
@@ -309,11 +387,12 @@ def _bundle_entry(wx, wy, wz, use_pallas, diag=None):
     return d
 
 
-def make_bundle(pack, use_pallas=False):
+def make_bundle(pack, use_pallas=False, knobs: SolverKnobs = SolverKnobs()):
     """The bf16 V-cycle preconditioner state: scaled top level + physical
-    Galerkin coarse hierarchy coarsened directly in bf16. Reusing a stale
-    bundle is physics-exact (it is only the preconditioner)."""
-    lp = _PRECOND_DTYPE
+    Galerkin coarse hierarchy coarsened directly in bf16 (f32 with
+    `knobs.precond_f32`). Reusing a stale bundle is physics-exact (it is
+    only the preconditioner)."""
+    lp = knobs.precond_dtype
     top = _bundle_entry(pack["hwx"].to(lp), pack["hwy"].to(lp),
                         pack["hwz"].to(lp), use_pallas)
     coarse = [_bundle_entry(lev.wx, lev.wy, lev.wz, use_pallas, diag=lev.diag)
@@ -335,7 +414,8 @@ def _level_from_entry(d, unit_diag):
                   unit_diag=unit_diag)
 
 
-def attach_precond(problem: PoissonProblem, bundle) -> PoissonProblem:
+def attach_precond(problem: PoissonProblem, bundle,
+                   knobs: SolverKnobs = SolverKnobs()) -> PoissonProblem:
     """Wire a make_bundle dict into the problem's precond closures."""
     top16 = _level_from_entry(bundle["top"], unit_diag=True)
     coarse16 = [_level_from_entry(d, unit_diag=False)
@@ -345,21 +425,35 @@ def attach_precond(problem: PoissonProblem, bundle) -> PoissonProblem:
     s = problem.scale
 
     def precond_hat(r):
-        return _vcycle_hybrid(top16, inv_s16, coarse16, r.to(lp),
+        return _vcycle_hybrid(top16, inv_s16, coarse16, r.to(lp), knobs,
                               out_dtype=r.dtype)
+
+    precond_rz_hat = None
+    if knobs.fused_rz:
+        def precond_rz_hat(r):
+            # rz is None when the fused exit kernel does not serve the
+            # top level: the caller then takes the plain f32 dot.
+            return _vcycle_hybrid(top16, inv_s16, coarse16, r.to(lp), knobs,
+                                  out_dtype=r.dtype, with_dot=True)
 
     def precond(r):
         return s * precond_hat(s * r)
 
     return dataclasses.replace(problem, precond=precond,
-                               precond_hat=precond_hat)
+                               precond_hat=precond_hat,
+                               precond_rz_hat=precond_rz_hat)
 
 
-def build_poisson(geom_arrays, spacing, rho, top_open, use_pallas=False):
-    """Operator + MG preconditioner for the current density in one call."""
+def build_poisson(geom_arrays, spacing, rho, top_open, use_pallas=False,
+                  knobs: SolverKnobs | None = None):
+    """Operator + MG preconditioner for the current density in one call.
+    `knobs=None` reads the OFTPP_* variables now."""
+    if knobs is None:
+        knobs = SolverKnobs.from_env()
     problem, pack = build_operator(geom_arrays, spacing, rho, top_open,
                                    use_pallas=use_pallas)
-    return attach_precond(problem, make_bundle(pack, use_pallas=use_pallas))
+    bundle = make_bundle(pack, use_pallas=use_pallas, knobs=knobs)
+    return attach_precond(problem, bundle, knobs)
 
 
 def _dot(a, b):
@@ -373,13 +467,22 @@ def _project_out(x, v, fluid, vv):
 
 
 def _cg_core(apply_h, precond_h, fluid, b, tol, max_iters, nullv, nullvv,
-             apply_dot_h=None):
+             apply_dot_h=None, precond_rz_h=None):
     """Plain preconditioned CG from a zero guess in the scaled space.
     Returns (x, iterations). One host sync per iteration: the
-    convergence test `rr > tol2` is read on the host."""
+    convergence test `rr > tol2` is read on the host. `precond_rz_h`
+    returns z with r·z from the V-cycle's exit kernel (against the
+    cycle's low-precision copy of r)."""
+
+    def precond_rz(r):
+        if precond_rz_h is not None:
+            z, rz = precond_rz_h(r)
+            return z, (_dot(r, z) if rz is None else rz)
+        z = precond_h(r)
+        return z, _dot(r, z)
+
     r = b
-    z = precond_h(r)
-    rz = _dot(r, z)
+    z, rz = precond_rz(r)
     x = torch.zeros_like(b)
     p = z
     rr = _dot(r, r)
@@ -396,8 +499,7 @@ def _cg_core(apply_h, precond_h, fluid, b, tol, max_iters, nullv, nullvv,
         r = r - alpha * ap
         if nullv is not None:
             r = _project_out(r, nullv, fluid, nullvv)
-        z = precond_h(r)
-        rz_new = _dot(r, z)
+        z, rz_new = precond_rz(r)
         beta = rz_new / torch.where(rz.abs() > 1e-30, rz, 1e-30)
         p = z + beta * p
         rz = rz_new
@@ -451,7 +553,9 @@ def solve_pcg(problem: PoissonProblem, b, x0, precond: Callable | None = None,
         inner_tol = torch.maximum(_F32_CG_FLOOR * torch.sqrt(_dot(r, r)), tol)
         dx, iters = _cg_core(apply_h, precond_h, fluid, r, inner_tol,
                              max_iters, nullv, nullvv,
-                             apply_dot_h=problem.apply_dot_hat)
+                             apply_dot_h=problem.apply_dot_hat,
+                             precond_rz_h=(problem.precond_rz_hat
+                                           if precond is None else None))
         xh = xh + dx
         total += iters
         r = true_residual(xh)

@@ -16,8 +16,10 @@ every `SolverControls` the JAX step takes there. With `use_pallas` the
 step runs the fused kernels behind the JAX step's gates, read when the
 step is built: the momentum right-hand side (`OFTPP_MOM_PALLAS`), the
 projection epilogue on the last corrector (`OFTPP_CORR_PALLAS`) and,
-opt-in, the momentum finish (`OFTPP_FINISH_PALLAS=1`). The gates alone
-decide: the kernels take any 3-D f32 grid (the JAX kernels' slab and
+opt-in, the momentum finish (`OFTPP_FINISH_PALLAS=1`). The pressure
+solver's knobs (`poisson.SolverKnobs`: OFTPP_SMOOTH_SWEEPS and the rest)
+are read at the same moment and handed to the pressure solve. The gates
+alone decide: the kernels take any 3-D f32 grid (the JAX kernels' slab and
 VMEM shape checks are TPU limits), and a non-f32 operand raises. The
 arguments of the JAX step outside this slice raise NotImplementedError.
 """
@@ -157,6 +159,10 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
     use_mom_k = sealed_x and _mom_pallas_enabled(controls)
     use_finish_k = use_mom_k and _finish_pallas_enabled(controls)
     use_corr_k = sealed_x and _corr_pallas_enabled(controls)
+    knobs = poisson.SolverKnobs.from_env()
+
+    def make_bundle(pack):
+        return poisson.make_bundle(pack, use_pallas=use_k, knobs=knobs)
 
     def courant_numbers(u, v, w, alpha, dt, fluid, spacing):
         hx, hy, hz = spacing
@@ -226,8 +232,8 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
                 and int(state.step) % K != 0):
             bundle = precond   # host read of step only when K > 1
         else:
-            bundle = poisson.make_bundle(pack, use_pallas=use_k)
-        prob = poisson.attach_precond(prob, bundle)
+            bundle = make_bundle(pack)
+        prob = poisson.attach_precond(prob, bundle, knobs)
         beta_f = prob.beta_faces
 
         # --- explicit conservative momentum (no pressure) ---
@@ -296,6 +302,16 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
             return new_state, diag, bundle
         return new_state, diag
 
+    def init_precond(state, ga, spacing):
+        """The first bundle of a time loop's carry."""
+        rho = mixture_density(state.alpha, props)
+        _, pack = poisson.build_operator(
+            ga, spacing, rho, ga["top_open"] if open_top else None,
+            use_pallas=use_k)
+        return make_bundle(pack)
+
+    if carry_precond:
+        step.init_precond = init_precond
     return step
 
 
@@ -322,14 +338,7 @@ def make_step(geom: TankGeometry,
             return core(state, params, ga, spacing, t_stop=t_stop,
                         precond=precond)
 
-        def init_precond(state):
-            rho = mixture_density(state.alpha, props)
-            _, pack = poisson.build_operator(
-                ga, spacing, rho, ga["top_open"] if open_top else None,
-                use_pallas=controls.use_pallas)
-            return poisson.make_bundle(pack, use_pallas=controls.use_pallas)
-
-        step.init_precond = init_precond
+        step.init_precond = lambda state: core.init_precond(state, ga, spacing)
         return step
 
     def step(state, params, t_stop=None):
@@ -357,14 +366,8 @@ def make_step_ga(spacing, props: PhysicalProperties = PhysicalProperties(),
             return core(state, params, ga, spacing, t_stop=t_stop,
                         precond=precond)
 
-        def init_precond(state, ga):
-            rho = mixture_density(state.alpha, props)
-            _, pack = poisson.build_operator(
-                ga, spacing, rho, ga["top_open"] if open_top else None,
-                use_pallas=controls.use_pallas)
-            return poisson.make_bundle(pack, use_pallas=controls.use_pallas)
-
-        step.init_precond = init_precond
+        step.init_precond = lambda state, ga: core.init_precond(state, ga,
+                                                                spacing)
         step.takes_ga = True
         return step
 

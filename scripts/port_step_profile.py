@@ -2,12 +2,15 @@
 """Where the port's flagship step spends its time, on one CUDA device.
 
     python3 scripts/port_step_profile.py [--warm 30] [--steps 5]
+                                         [--set OFTPP_SMOOTH_SWEEPS=2 ...]
 
 Runs the flagship case (H0.208/D0.2/R0.004/f1.88, mesh 0.00185,
 round_to=8 → 112³) through openfoam_tpp_tpu_torch's `make_step` with
 SolverControls(use_pallas=True) (the bench's configuration) and carry_precond,
 `--warm` steps from rest, then traces `--steps` steps with
-torch.profiler. Prints wall ms/step, device-busy ms/step (the sum of
+torch.profiler. `--set VAR=VALUE` (repeatable) sets an OFTPP_* variable
+while the step is built, e.g. the two-sweep smoother with or without its
+fused kernels (OFTPP_SMOOTH_SWEEPS=2, OFTPP_FUSED_CHEB=0). Prints wall ms/step, device-busy ms/step (the sum of
 CUDA kernel times; memcpy/memset included), the device idle share
 1 − busy/wall, kernel launches per step, and the kernels by device
 time. The full table goes to perf_out/port_step_profile.txt.
@@ -25,7 +28,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--warm", type=int, default=30)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--set", action="append", default=[], metavar="VAR=VALUE")
     args = ap.parse_args()
+    for pair in args.set:   # read when the step is built, below
+        var, _, value = pair.partition("=")
+        os.environ[var] = value
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -69,7 +76,8 @@ def main() -> int:
     busy_us = sum(getattr(e, dev_attr) for e in kernels)
     n_launch = sum(e.count for e in kernels)
     n = args.steps
-    print(f"[profile] {geom.shape}, {n} steps after {args.warm}; p_iters {iters}")
+    print(f"[profile] {geom.shape}, {n} steps after {args.warm}, "
+          f"{' '.join(args.set) or 'defaults'}; p_iters {iters}")
     print(f"  wall {wall / n * 1e3:.3f} ms/step (profiler on); device busy "
           f"{busy_us / n / 1e3:.3f} ms/step; idle share "
           f"{1 - busy_us / 1e6 / wall:.4f}; device ops {n_launch / n:.1f}/step")
@@ -79,7 +87,9 @@ def main() -> int:
     for line in lines[:20]:
         print("  " + line)
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)
-    with open(os.path.join(repo, "perf_out", "port_step_profile.txt"), "w") as f:
+    tag = "".join("_" + pair for pair in args.set)
+    with open(os.path.join(repo, "perf_out", f"port_step_profile{tag}.txt"),
+              "w") as f:
         f.write("\n".join(lines) + "\n")
     return 0
 

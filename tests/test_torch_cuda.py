@@ -10,7 +10,8 @@ are held bitwise-close (1e-6 relative; the kernels are built without
 FMA contraction and use the plain versions' operation order), bf16
 outputs to one bf16 ulp, the apply-dot scalar to 1e-5 relative (its sum
 runs in another order than torch.sum); the momentum right-hand side to
-1e-5 of its scale."""
+1e-5 of its scale. The fused Chebyshev smoothers chain two stencil passes
+in f32 and round once, like their plain versions: same bounds."""
 
 import numpy as np
 import pytest
@@ -64,6 +65,46 @@ def test_seven_point_kernels_match_plain(dev, dtype):
     assert _rel(ap, ap_p) <= tol
     assert abs(float(dot) - float(dot_p)) <= 1e-5 * abs(float(dot_p))
     assert sp.apply_7pt.launches == n0 + 2
+
+
+@pytest.mark.parametrize("shape", [SHAPE, (4, 3, 2), (1, 1, 70)])
+@pytest.mark.parametrize("dtype,out", [(torch.float32, None),
+                                       (torch.bfloat16, None),
+                                       (torch.bfloat16, torch.float32)])
+def test_cheb2_kernels_match_plain(dev, dtype, out, shape):
+    """Weights with zero domain-boundary faces, as on every real level;
+    shapes down to one cell across, where every neighbour is clamped."""
+    rng = np.random.default_rng(5)
+    tol = 1e-6 if (out or dtype) == torch.float32 else 2.0 ** -8
+    arr = lambda lo=None, hi=None: torch.from_numpy(
+        (rng.standard_normal(shape) if lo is None
+         else rng.uniform(lo, hi, shape)).astype(np.float32)).to(dev).to(dtype)
+    x, b = arr(), arr()
+    w = [arr(0.05, 0.3) for _ in range(3)]
+    w[0][0], w[1][:, 0], w[2][:, :, 0] = 0, 0, 0
+    n0 = (sp.cheb2_pre_7pt.launches, sp.cheb2_post_7pt.launches,
+          sp.cheb2_post_dot_7pt.launches)
+    for lmin in (0.10, 0.25):
+        got = sp.cheb2_pre_7pt(b, w, 2.0, lmin)
+        ref = sp.cheb2_pre_7pt_plain(b, w, 2.0, lmin)
+        pre_tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype == dtype and _rel(g, r) <= pre_tol
+        z = sp.cheb2_post_7pt(x, b, w, 2.0, lmin, out_dtype=out)
+        z_p = sp.cheb2_post_7pt_plain(x, b, w, 2.0, lmin, out_dtype=out)
+        assert z.dtype == z_p.dtype == (out or dtype) and _rel(z, z_p) <= tol
+        z2, dot = sp.cheb2_post_dot_7pt(x, b, w, 2.0, lmin, out_dtype=out)
+        _, dot_p = sp.cheb2_post_dot_7pt_plain(x, b, w, 2.0, lmin,
+                                               out_dtype=out)
+        assert torch.equal(z2, z)
+        assert dot.dtype == torch.float32 and dot.device == x.device
+        assert abs(float(dot) - float(dot_p)) <= 1e-5 * abs(float(dot_p))
+    n1 = (sp.cheb2_pre_7pt.launches, sp.cheb2_post_7pt.launches,
+          sp.cheb2_post_dot_7pt.launches)
+    assert [b_ - a_ for a_, b_ in zip(n0, n1)] == [2, 2, 2]
+    with pytest.raises(ValueError, match="stores"):
+        sp.cheb2_post_7pt(x.float(), b.float(), [v.float() for v in w], 2.0,
+                          0.1, out_dtype=torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

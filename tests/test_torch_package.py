@@ -29,6 +29,14 @@ sys.modules["openfoam_tpp_tpu"] = None
 import openfoam_tpp_tpu_torch
 import openfoam_tpp_tpu_torch.solver.timestep
 import openfoam_tpp_tpu_torch.ops.kernels._build
+import openfoam_tpp_tpu_torch.manager.cases
+import openfoam_tpp_tpu_torch.manager.cli
+import openfoam_tpp_tpu_torch.manager.runner
+import openfoam_tpp_tpu_torch.post.interface
+import openfoam_tpp_tpu_torch.post.isosurface
+import openfoam_tpp_tpu_torch.post.probes
+import openfoam_tpp_tpu_torch.utils.io
+import openfoam_tpp_tpu_torch.utils.naming
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "openfoam_tpp_tpu")
              and sys.modules[m] is not None)
@@ -42,6 +50,53 @@ def test_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_no_module_of_the_port_names_jax():
+    """No source of the port, nor chip_smoke.py, imports jax or the JAX
+    package (the blocked-import run above loads them all without)."""
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|openfoam_tpp_tpu)\b",
+                     re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "openfoam_tpp_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 25
+    bad = [f for f in files if pat.search(open(f).read())]
+    assert not bad, bad
+
+
+def test_command_line_runs_without_jax(tmp_path):
+    """`python -m openfoam_tpp_tpu_torch` with jax blocked: an unported
+    verb exits 2, and the card is the default device (absent here, so
+    `run` fails naming `--device cpu`'s counterpart)."""
+    from openfoam_tpp_tpu_torch.manager.cases import setup_case
+
+    case = setup_case(dict(H=0.04, D=0.02, mesh=0.004, R=0.002, freq=3.0,
+                           duration=0.05, dt=0.0005), str(tmp_path))
+    boot = ("import sys, runpy; sys.modules['jax'] = None; "
+            "sys.modules['openfoam_tpp_tpu'] = None; "
+            "runpy.run_module('openfoam_tpp_tpu_torch', run_name='__main__')")
+
+    def run(*args):
+        return subprocess.run(
+            [sys.executable, "-c", boot, "--headless", "--base-dir",
+             str(tmp_path), "--case", os.path.basename(case), *args],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+
+    out = run("--action", "flow")
+    assert out.returncode == 2 and "not ported yet" in out.stderr
+    out = run("--action", "run")
+    assert out.returncode != 0 and "device='cpu'" in out.stderr
+    out = run("--action", "run", "--device", "cpu")
+    assert out.returncode == 0, out.stderr
+    assert "Done: " in out.stdout and os.path.exists(
+        os.path.join(case, "chk_t0.050000.npz"))
+    out = run("--action", "interface", "--device", "cpu")
+    assert out.returncode == 0, out.stderr
+    assert os.path.exists(os.path.join(case, "postProcessing", "interface",
+                                       "interface_summary.csv"))
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
