@@ -32,7 +32,28 @@ Phases, each fatal on any fault (nothing is caught):
      with OFTPP_SMOOTH_SWEEPS=2, a second `run_case` (resumes, 0 steps)
      and `extract_interface`; checks the launches per V-cycle, the
      fields, the write times, the checkpoints, the probe files and
-     `interface_summary.csv`.
+     `interface_summary.csv`;
+  6. drive the sweep path at the width the JAX package benches: 128 cases
+     of the default tank (H 0.1, D 0.02, mesh 0.002, round_to=4 →
+     12×12×50 per case, 921,600 cells in the batch) with the case axis
+     trailing. `make_sweep_step` (one geometry, 128 forcing rows) for
+     N_SWEEP steps from rest: alpha bounds, Courant, every case's
+     p_iters, finiteness, and that the batch-native 7-point kernels ran
+     while the single-grid 7-point, MULES, momentum and correction
+     kernels were launched 0 times. Then the lockstep geometry step
+     (`make_geom_sweep_step`, what `runsweep` runs) on the same rows:
+     all case times bitwise equal. Beside them the solo step of one such
+     case (`use_pallas=True`) times 128: what the sweep replaces. Then,
+     from the state the sweep reached, N_CMP steps with the kernels
+     against N_CMP with the entry points swapped for their plain versions
+     and against N_CMP of the OFTPP_SWEEP_PALLAS=0 step;
+  7. drive the manager's sweep as a user does: `expand_sweep` → 128 cases
+     of mixed geometry (8 freq × 4 R × 2 H × 2 D, duration 0.1 s) in a
+     temporary directory, `setup_case` each, `--action runsweep`
+     (lockstep): per-case checkpoints at t = 0, 0.05, 0.1 with the f32
+     target bitwise, one probe row per step per case, a second `runsweep`
+     takes 0 steps; then `--percase-dt` on four fresh cases with a 20 ms
+     ramp: the lax case takes fewer steps than the stiff one.
 
 It then prints the `kernels` JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. It exits non-zero, printing no
@@ -58,6 +79,9 @@ N_TIMED = 90          # the last N_TIMED of the N_STEPS are timed
 N_SHORT = 20          # steps of each same-state run
 N_SHORT_TIMED = 15    # ... the last N_SHORT_TIMED timed
 N_CMP = 5
+SWEEP_CASES = 128     # the JAX package's sweep bench width
+N_SWEEP = 30          # steps of each sweep run from rest
+N_SWEEP_TIMED = 20    # ... the last N_SWEEP_TIMED timed
 REPS = 20             # kernel timing launches (after 3 warm-up)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak bandwidth
 F32_FLOPS = 67e12           # H100 SXM f32, outside the tensor cores
@@ -82,6 +106,7 @@ FLOPS_PER_CELL = {
     "flux_all": 3 * 30, "fct_iter": 4 * 60 + 3 * 6,
     "momentum_rhs": 3 * 105, "correct_divmax": 3 * 6 + 11 + 3,
     "momentum_finish": 3 * 11,
+    "apply_7pt_nb": 13, "resid_scaled_7pt_nb": 15, "apply_dot_7pt_nb": 15,
 }
 # Kernels of the default configuration; momentum_finish is opt-in.
 DEFAULT_PATH = ("apply_7pt", "resid_scaled_7pt", "apply_dot_7pt", "flux_all",
@@ -91,6 +116,15 @@ FUSED = ("momentum_rhs", "correct_divmax", "momentum_finish")
 # (the exit kernel with CG's r·z, or without it under OFTPP_FUSED_RZ=0).
 CHEB2_RZ = ("cheb2_pre_7pt", "cheb2_post_dot_7pt")
 CHEB2_NO_RZ = ("cheb2_pre_7pt", "cheb2_post_7pt")
+# The manager phase's parameter study: 8 × 4 × 2 × 2 = SWEEP_CASES cases of
+# mixed geometry on one 12×12×50 grid. ramp: the 1 s soft start of the
+# default 10 s run, not 10% of this cut duration.
+MANAGER_SWEEP = {"freq": [1.5 + 0.1 * i for i in range(8)],
+                 "R": [0.002, 0.003, 0.004, 0.005], "H": [0.1, 0.08],
+                 "D": [0.02, 0.016], "mesh": 0.002, "geo": "flat",
+                 "duration": 0.1, "dt": 0.001, "ramp": 1.0}
+# The sweep path: only the 7-point family has batch-native kernels.
+BATCH_PATH = ("apply_7pt_nb", "resid_scaled_7pt_nb", "apply_dot_7pt_nb")
 CHEB_LMAX, CHEB_LMIN = 2.0, 0.10      # SolverKnobs defaults
 REPLACES = {
     "apply_7pt": "openfoam_tpp_tpu/ops/pallas/seven_point.py:229",
@@ -104,6 +138,10 @@ REPLACES = {
     "momentum_rhs": "openfoam_tpp_tpu/ops/pallas/momentum_rhs.py:387",
     "correct_divmax": "openfoam_tpp_tpu/ops/pallas/correction.py:149",
     "momentum_finish": "openfoam_tpp_tpu/ops/pallas/mom_finish.py:88",
+    "apply_7pt_nb": "openfoam_tpp_tpu/ops/pallas/seven_point_batch.py:174",
+    "resid_scaled_7pt_nb":
+        "openfoam_tpp_tpu/ops/pallas/seven_point_batch.py:191",
+    "apply_dot_7pt_nb": "openfoam_tpp_tpu/ops/pallas/seven_point_batch.py:215",
 }
 SOURCE = {
     "apply_7pt": "openfoam_tpp_tpu_torch/csrc/seven_point.cu",
@@ -117,6 +155,9 @@ SOURCE = {
     "momentum_rhs": "openfoam_tpp_tpu_torch/csrc/momentum_rhs.cu",
     "correct_divmax": "openfoam_tpp_tpu_torch/csrc/correction.cu",
     "momentum_finish": "openfoam_tpp_tpu_torch/csrc/mom_finish.cu",
+    "apply_7pt_nb": "openfoam_tpp_tpu_torch/csrc/seven_point_batch.cu",
+    "resid_scaled_7pt_nb": "openfoam_tpp_tpu_torch/csrc/seven_point_batch.cu",
+    "apply_dot_7pt_nb": "openfoam_tpp_tpu_torch/csrc/seven_point_batch.cu",
 }
 
 
@@ -168,6 +209,42 @@ def max_err(got, ref):
     return err, scale
 
 
+def make_check(rows, n_cells):
+    """`check(name, variant, main, kern, plain, ins, outs, tol)`: hold one
+    kernel variant against its plain version, time both, compute its bound
+    from the operands, log, raise on disagreement, and keep the row of a
+    main-path variant in `rows`."""
+    import torch
+
+    def check(name, variant, main, kern, plain, ins, outs, tol):
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, scale = max_err(got, ref)
+        rel = err / max(scale, 1e-30)
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        b = nbytes(*ins) + nbytes(*outs)
+        t_bytes = b / HBM_BYTES_PER_S * 1e3
+        t_ops = FLOPS_PER_CELL[name] * n_cells / F32_FLOPS * 1e3
+        ok = rel <= tol
+        log(f"  {name:17s} {variant:22s} max_abs_err={err:.3e} rel={rel:.3e} "
+            f"tol={tol:.1e} {'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  "
+            f"plain {plain_ms:.4f} ms  bytes {b / 1e6:.2f} MB  "
+            f"bound {max(t_bytes, t_ops):.4f} ms")
+        if not ok:
+            raise AssertionError(f"{name} {variant}: kernel disagrees with "
+                                 f"its plain version ({rel:.3e} > {tol:.1e})")
+        if main:
+            rows[name] = {
+                "name": name, "route": "cuda", "source": SOURCE[name],
+                "replaces": REPLACES[name], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None, "variant": variant, "bytes": b,
+            }
+
+    return check
+
+
 def phase_kernels(shape, spacing, dev):
     """Each entry point against its plain version at `shape`; returns the
     measured rows of the main-path variants keyed by kernel name."""
@@ -196,32 +273,7 @@ def phase_kernels(shape, spacing, dev):
         return tuple(w)
 
     rows = {}
-
-    def check(name, variant, main, kern, plain, ins, outs, tol):
-        got, ref = kern(), plain()
-        torch.cuda.synchronize()
-        err, scale = max_err(got, ref)
-        rel = err / max(scale, 1e-30)
-        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        b = nbytes(*ins) + nbytes(*outs)
-        t_bytes = b / HBM_BYTES_PER_S * 1e3
-        t_ops = FLOPS_PER_CELL[name] * n_cells / F32_FLOPS * 1e3
-        ok = rel <= tol
-        log(f"  {name:17s} {variant:22s} max_abs_err={err:.3e} rel={rel:.3e} "
-            f"tol={tol:.1e} {'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  bytes {b / 1e6:.2f} MB  "
-            f"bound {max(t_bytes, t_ops):.4f} ms")
-        if not ok:
-            raise AssertionError(f"{name} {variant}: kernel disagrees with "
-                                 f"its plain version ({rel:.3e} > {tol:.1e})")
-        if main:
-            rows[name] = {
-                "name": name, "route": "cuda", "source": SOURCE[name],
-                "replaces": REPLACES[name], "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None, "variant": variant, "bytes": b,
-            }
+    check = make_check(rows, n_cells)
 
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         tol = F32_RTOL if tag == "f32" else BF16_RTOL
@@ -375,6 +427,88 @@ def phase_kernels(shape, spacing, dev):
     return rows
 
 
+def phase_batch_kernels(shape4, dev):
+    """The three batch-native entry points at the sweep's batched shape,
+    f32 and bf16, unit and stored diagonal: against their plain versions
+    (tolerances as the single-grid family's) and, bitwise, against the
+    single-grid kernel looped over the cases. Returns the rows of the
+    main-path variants."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
+
+    rng = np.random.default_rng(2025)
+    n_cases = shape4[3]
+
+    def arr(lo=None, hi=None, dtype=torch.float32):
+        a = (rng.standard_normal(shape4) if lo is None
+             else rng.uniform(lo, hi, shape4)).astype(np.float32)
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    def per_case(fn, *args):
+        """`fn` on each case's contiguous operands, restacked."""
+        outs = [fn(*(None if a is None else a[..., i].contiguous()
+                     for a in args)) for i in range(n_cases)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.stack([o[k] for o in outs], -1)
+                         for k in range(len(outs[0])))
+        return torch.stack(outs, -1)
+
+    rows = {}
+    check = make_check(rows, int(np.prod(shape4)))
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        tol = F32_RTOL if tag == "f32" else BF16_RTOL
+        p, b = arr(dtype=dtype), arr(dtype=dtype)
+        w = [arr(0.05, 0.3, dtype) for _ in range(3)]
+        w[0][0] = 0
+        w[1][:, 0] = 0
+        w[2][:, :, 0] = 0
+        w = tuple(w)
+        d = arr(1.5, 2.5, dtype)
+        # Main-path variants as for the single-grid family: f32 unit apply
+        # (CG true residual), bf16 unit resid (V-cycle top level), f32
+        # apply+dot (CG curvature step).
+        for diag in (None, d):
+            v = f"{tag} {'diag' if diag is not None else 'unit'}"
+            check("apply_7pt_nb", v, tag == "f32" and diag is None,
+                  lambda: sp.apply_7pt_nb(p, w, diag),
+                  lambda: sp.apply_7pt_plain(p, w, diag),
+                  (p, *w, diag), (p,), tol)
+            check("resid_scaled_7pt_nb", v, tag == "bf16" and diag is None,
+                  lambda: sp.resid_scaled_7pt_nb(p, w, diag, b),
+                  lambda: sp.resid_scaled_7pt_plain(p, w, diag, b),
+                  (p, *w, diag, b), (p,), tol)
+            looped = (
+                per_case(lambda q, x, y, z, dg: sp.apply_7pt(q, (x, y, z), dg),
+                         p, *w, diag),
+                per_case(lambda q, x, y, z, dg, r: sp.resid_scaled_7pt(
+                    q, (x, y, z), dg, r), p, *w, diag, b))
+            batch = (sp.apply_7pt_nb(p, w, diag),
+                     sp.resid_scaled_7pt_nb(p, w, diag, b))
+            if not all(torch.equal(g, r) for g, r in zip(batch, looped)):
+                raise AssertionError(f"batch kernels {v}: a case differs from "
+                                     "the single-grid kernel on that case")
+        ap_k, dots_k = sp.apply_dot_7pt_nb(p, w)
+        ap_p, dots_p = sp.apply_dot_7pt_plain(p, w)
+        ap_l, dots_l = per_case(lambda q, x, y, z: sp.apply_dot_7pt(
+            q, (x, y, z)), p, *w)
+        derr = float(((dots_k - dots_p).abs() / dots_p.abs()).max())
+        lerr = float(((dots_k - dots_l).abs() / dots_l.abs()).max())
+        log(f"  apply_dot_7pt_nb  {tag} per-case dots {tuple(dots_k.shape)}: "
+            f"max rel_err vs plain {derr:.3e}, vs the single-grid kernel per "
+            f"case {lerr:.3e}, tol={DOT_RTOL:.1e}")
+        if (max(derr, lerr) > DOT_RTOL or not torch.equal(ap_k, ap_l)
+                or tuple(dots_k.shape) != (n_cases,)):
+            raise AssertionError(f"apply_dot_7pt_nb {tag}: disagrees")
+        check("apply_dot_7pt_nb", f"{tag} unit", tag == "f32",
+              lambda: sp.apply_dot_7pt_nb(p, w)[0],
+              lambda: sp.apply_dot_7pt_plain(p, w)[0], (p, *w),
+              (p, dots_k), tol)
+    log(f"  every case of the batch kernels equals the single-grid kernel on "
+        f"that case, bitwise ({n_cases} cases, f32 and bf16)")
+    return rows
+
+
 def counters():
     """name → (module, entry point, plain version), for every kernel."""
     from openfoam_tpp_tpu_torch.ops.kernels import correction as ck
@@ -388,6 +522,10 @@ def counters():
         "apply_7pt": (sp, "apply_7pt", sp.apply_7pt_plain),
         "resid_scaled_7pt": (sp, "resid_scaled_7pt", sp.resid_scaled_7pt_plain),
         "apply_dot_7pt": (sp, "apply_dot_7pt", sp.apply_dot_7pt_plain),
+        "apply_7pt_nb": (sp, "apply_7pt_nb", sp.apply_7pt_plain),
+        "resid_scaled_7pt_nb": (sp, "resid_scaled_7pt_nb",
+                                sp.resid_scaled_7pt_plain),
+        "apply_dot_7pt_nb": (sp, "apply_dot_7pt_nb", sp.apply_dot_7pt_plain),
         "cheb2_pre_7pt": (sp, "cheb2_pre_7pt", sp.cheb2_pre_7pt_plain),
         "cheb2_post_7pt": (sp, "cheb2_post_7pt", sp.cheb2_post_7pt_plain),
         "cheb2_post_dot_7pt": (sp, "cheb2_post_dot_7pt",
@@ -612,6 +750,308 @@ def phase_case(geom):
     return launches, {**stats, "p_iters_hist": hist}
 
 
+def drive_sweep(label, step, states, params, n_steps, n_timed, n_fluid,
+                lockstep):
+    """`n_steps` steps of a sweep step from `states`, the last `n_timed`
+    timed, with every launch count set to 0 just before and read just
+    after. Checks every case and that exactly the batch-native kernels
+    ran; with `lockstep`, that all case times are bitwise equal."""
+    import torch
+
+    fns = {k: getattr(m, a) for k, (m, a, _) in counters().items()}
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    diags = []
+    for i in range(n_steps):
+        if i == n_steps - n_timed:
+            torch.cuda.synchronize()
+            t_timed = time.perf_counter()
+        states, d = step(states, params)
+        diags.append(d)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_timed
+    launches = {k: f.launches for k, f in fns.items()}
+    iters = torch.stack([d.p_iters for d in diags]).cpu().numpy()   # (n, B)
+    co = float(torch.stack([d.courant for d in diags]).max())
+    a_min = float(torch.stack([d.alpha_min for d in diags]).min())
+    a_max = float(torch.stack([d.alpha_max for d in diags]).max())
+    hist = {int(k): int(v)
+            for k, v in zip(*np.unique(iters.max(axis=1), return_counts=True))}
+    t = states.t.cpu().numpy()
+    stats = {"cases": int(t.shape[0]), "steps": n_steps,
+             "timed_steps": n_timed, "ms_per_step": wall / n_timed * 1e3,
+             "agg_cell_updates_per_s": n_fluid * n_timed / wall,
+             "p_iters_max_hist": hist, "p_iters_mean": float(iters.mean()),
+             "max_courant": co, "sim_t_min": float(t.min()),
+             "sim_t_max": float(t.max()),
+             "launches_per_step": {k: v / n_steps
+                                   for k, v in launches.items() if v}}
+    log(f"[{label}] {t.shape[0]} cases x {n_steps} steps; last {n_timed}: "
+        f"{stats['ms_per_step']:.3f} ms/step, "
+        f"{stats['agg_cell_updates_per_s']:.4e} aggregate cell-updates/s; "
+        f"sim t in [{t.min():.5f}, {t.max():.5f}] s")
+    log(f"  slowest case's p_iters per step {hist} (mean over cases "
+        f"{iters.mean():.2f}); max Courant {co:.4f}; alpha in "
+        f"[{a_min:.3e}, {a_max:.6f}]")
+    log(f"  kernel launches { {k: v for k, v in launches.items() if v} }")
+    fields = (states.alpha, states.u, states.v, states.w, states.p)
+    if not all(bool(torch.isfinite(v).all()) for v in fields):
+        raise AssertionError(f"{label}: non-finite field")
+    if a_min < 0.0 or a_max > 1.0:
+        raise AssertionError(f"{label}: alpha out of [0, 1]: [{a_min}, {a_max}]")
+    if co > 0.6:
+        raise AssertionError(f"{label}: Courant {co} > 0.6")
+    if iters.max() >= 50:
+        raise AssertionError(f"{label}: a case's p_iters reached {iters.max()}")
+    if states.step.cpu().tolist() != [n_steps] * t.shape[0]:
+        raise AssertionError(f"{label}: step counts {states.step.tolist()}")
+    ran = {k for k, v in launches.items() if v > 0}
+    if ran != set(BATCH_PATH):
+        raise AssertionError(
+            f"{label}: kernels launched {sorted(ran)}; a sweep step runs "
+            f"{sorted(BATCH_PATH)} and no single-grid kernel")
+    if lockstep and not bool((states.t == states.t[0]).all()):
+        raise AssertionError(f"{label}: case times differ: {t.min()!r} .. "
+                             f"{t.max()!r}")
+    return states, launches, stats
+
+
+def phase_sweep(dev, props):
+    """The sweep step at the JAX sweep bench's width (see the module
+    docstring, phase 6). Returns the launch counts of the `make_sweep_step`
+    run and the phase's stats."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import SolverControls
+    from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
+    from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
+    from openfoam_tpp_tpu_torch.parallel.sweep import (batch_params,
+                                                       batch_states,
+                                                       batch_states_geom,
+                                                       build_batched_geometry,
+                                                       make_geom_sweep_step,
+                                                       make_sweep_step)
+    from openfoam_tpp_tpu_torch.solver.timestep import make_step
+
+    tank = dict(H=0.1, D=0.02, mesh=0.002, geo="flat")
+    geom = build_tank_geometry(**tank, round_to=4)
+    rows = [{"R": 0.002 + 2e-5 * i, "freq": 1.5 + 0.01 * i, "duration": 10.0}
+            for i in range(SWEEP_CASES)]
+    n_fluid = geom.n_fluid_cells * SWEEP_CASES
+    log(f"[sweep] {SWEEP_CASES} cases of {geom.shape}, {geom.n_fluid_cells} "
+        f"fluid cells each: batch {tuple(geom.shape) + (SWEEP_CASES,)}, "
+        f"{n_fluid} fluid cells")
+    params = batch_params(rows, device=dev)
+    sweep_step = make_sweep_step(geom, props, SolverControls(), device=dev)
+    states, launches, stats = drive_sweep(
+        "sweep step: make_sweep_step", sweep_step,
+        batch_states(geom, SWEEP_CASES, device=dev), params, N_SWEEP,
+        N_SWEEP_TIMED, n_fluid, lockstep=False)
+
+    # The lockstep geometry step on the same rows: what runsweep runs.
+    bgeom = build_batched_geometry([{**tank, **r} for r in rows], round_to=4,
+                                   device=dev)
+    geom_step = make_geom_sweep_step(bgeom, props, SolverControls())
+    _, _, lock_stats = drive_sweep(
+        "sweep step: make_geom_sweep_step, lockstep", geom_step,
+        batch_states_geom(bgeom), params, N_SWEEP, N_SWEEP_TIMED, n_fluid,
+        lockstep=True)
+
+    # What the sweep replaces: the solo step of one such case, 128 times.
+    solo = make_step(geom, props, SolverControls(use_pallas=True),
+                     carry_precond=True, device=dev)
+    s1 = init_state(geom, device=dev)
+    _, _, _, solo_stats = drive(
+        "solo step of one sweep case: use_pallas=True", solo, s1,
+        solo.init_precond(s1), CaseParams.make(**rows[0], device=dev), N_SWEEP,
+        N_SWEEP_TIMED, geom.n_fluid_cells, DEFAULT_PATH)
+    log(f"[sweep vs {SWEEP_CASES} solo steps, one run each] sweep "
+        f"{stats['ms_per_step']:.3f} ms/step "
+        f"({stats['agg_cell_updates_per_s']:.4e} aggregate cell-updates/s); "
+        f"solo {solo_stats['ms_per_step']:.3f} ms/step x {SWEEP_CASES} = "
+        f"{solo_stats['ms_per_step'] * SWEEP_CASES:.1f} ms "
+        f"({solo_stats['cell_updates_per_s']:.4e} cell-updates/s)")
+
+    # From the state the sweep reached: the kernels against their plain
+    # versions (same arithmetic) and against the OFTPP_SWEEP_PALLAS=0 step
+    # (the two-sided stencil of the plain path).
+    def run(stp, n):
+        s = states
+        its = []
+        for _ in range(n):
+            s, dd = stp(s, params)
+            its.append(dd.p_iters)
+        return s, torch.stack(its).cpu().numpy()
+
+    with environ(OFTPP_SWEEP_PALLAS="0"):
+        plain_step = make_sweep_step(geom, props, SolverControls(), device=dev)
+    s_k, it_k = run(sweep_step, N_CMP)
+    with contextlib.ExitStack() as stack:
+        for m, attr, plain in counters().values():
+            stack.enter_context(mock.patch.object(m, attr, plain))
+        s_p, it_p = run(sweep_step, N_CMP)
+    s_0, it_0 = run(plain_step, N_CMP)
+    torch.cuda.synchronize()
+    # The limits of the single-case step (phase 4). Against the
+    # OFTPP_SWEEP_PALLAS=0 step the arithmetic differs (face-lite product
+    # shifts against the two-sided stencil), so the two CG solves stop on
+    # other iterates: each is stopped at 1e-3 of a right-hand side of
+    # hydrostatic scale, which leaves up to 1e-3·g·dt of velocity, a floor
+    # that counts while the tank has barely begun to move.
+    tols = {"alpha": ("abs", 1e-3), "u": ("rel", 1e-2), "v": ("rel", 1e-2),
+            "w": ("rel", 1e-2), "p": ("rel", 1e-4)}
+    cg_floor = 1e-3 * props.g * float(s_k.dt.max())
+    for label, s_ref, it_ref, floor in (
+            ("entry points swapped for plain", s_p, it_p, 0.0),
+            ("OFTPP_SWEEP_PALLAS=0", s_0, it_0, cg_floor)):
+        log(f"[sweep step kernels vs {label}] {N_CMP} steps; largest "
+            f"per-case p_iters difference {int(np.abs(it_k - it_ref).max())}")
+        bad = []
+        for k, (kind_t, tol) in tols.items():
+            err, scale = max_err(getattr(s_k, k), getattr(s_ref, k))
+            lim = tol if kind_t == "abs" else tol * scale
+            if k in "uvw":
+                lim += floor
+            log(f"  {k}: max_abs_err {err:.3e} limit {lim:.3e} "
+                f"(scale {scale:.3e})")
+            if err > lim:
+                bad.append(f"{k}: {err} > {lim}")
+        if bad:
+            raise AssertionError(f"sweep step kernels vs {label}: {bad}")
+        if np.abs(it_k - it_ref).max() > 1:
+            raise AssertionError(f"sweep step kernels vs {label}: p_iters "
+                                 "differ by more than 1")
+    return launches, {"make_sweep_step": stats, "lockstep_geom": lock_stats,
+                      "solo_case": solo_stats}
+
+
+def phase_manager(dev):
+    """The manager's sweep as a user drives it (module docstring, phase
+    7). Returns the launch counts of the lockstep `runsweep` and stats."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.manager import cli
+    from openfoam_tpp_tpu_torch.manager import sweeprun
+    from openfoam_tpp_tpu_torch.manager.cases import (expand_sweep,
+                                                      is_case_done, setup_case)
+    from openfoam_tpp_tpu_torch.utils.io import list_checkpoints, load_checkpoint
+
+    fns = {k: getattr(m, a) for k, (m, a, _) in counters().items()}
+    calls = []
+    real_run = sweeprun.run_cases_batched
+
+    def run_spy(*a, **k):
+        calls.append(real_run(*a, **{**k, "log": lambda ln: log("  | " + ln)}))
+        return calls[-1]
+
+    def probe_rows(case_dir, name):
+        with open(os.path.join(case_dir, "postProcessing", "probes", "0",
+                               name)) as f:
+            return np.array([[float(v) for v in ln.split()]
+                             for ln in f if not ln.startswith("#")])
+
+    def last(case_dir):
+        return load_checkpoint(list_checkpoints(case_dir)[-1][1])
+
+    rows, mode = expand_sweep(MANAGER_SWEEP)
+    if mode != "cartesian" or len(rows) != SWEEP_CASES:
+        raise AssertionError(f"manager: expand_sweep gave {len(rows)} rows, "
+                             f"{mode}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as base, \
+            mock.patch.object(sweeprun, "run_cases_batched", run_spy):
+        t0 = time.perf_counter()
+        dirs = [setup_case(r, base) for r in rows]
+        if len(set(dirs)) != SWEEP_CASES:
+            raise AssertionError("manager: case names collide")
+        log(f"[manager] {len(dirs)} cases set up in "
+            f"{time.perf_counter() - t0:.1f} s")
+        argv = ["--headless", "--action", "runsweep", "--case", "all",
+                "--base-dir", base]
+        for f in fns.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0 or len(calls) != 1:
+            raise AssertionError(f"manager: runsweep failed ({len(calls)} "
+                                 "batches)")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in fns.items()}
+        stats = dict(calls[0])
+        steps = stats["steps"]
+        log(f"[manager] runsweep: {stats['n_cases']} cases x {steps} steps in "
+            f"{wall:.2f} s wall (geometry and case set-up of the batch "
+            f"included; stepping and writing {stats['wall_seconds']:.2f} s, "
+            f"writing checkpoints and probes {stats['io_seconds']:.2f} s), "
+            f"{stats['agg_cell_updates_per_sec']:.4e} aggregate "
+            f"cell-updates/s")
+        log(f"  kernel launches { {k: v for k, v in launches.items() if v} }")
+        ran = {k for k, v in launches.items() if v > 0}
+        if ran != set(BATCH_PATH) or stats["n_cases"] != SWEEP_CASES:
+            raise AssertionError(f"manager: kernels launched {sorted(ran)}")
+        for d in dirs:
+            chks = list_checkpoints(d)
+            if len(chks) != 3 or not is_case_done(d):
+                raise AssertionError(f"manager: checkpoints {chks}")
+            for k, (_, path) in enumerate(chks):
+                c = load_checkpoint(path)
+                want = float(np.float32(k) * np.float32(0.05))
+                if float(c["t"]) != want:
+                    raise AssertionError(f"manager: {path} holds "
+                                         f"t={c['t']!r}, not {want!r}")
+                if not all(np.isfinite(c[f]).all()
+                           for f in "alpha u v w p".split()):
+                    raise AssertionError(f"manager: non-finite field in {path}")
+                if c["alpha"].min() < 0.0 or c["alpha"].max() > 1.0:
+                    raise AssertionError(f"manager: alpha out of [0, 1] in "
+                                         f"{path}")
+            if int(c["step"]) != steps:
+                raise AssertionError(f"manager: {d} ended at step {c['step']}")
+            for name, width in (("p", 3), ("eta", 4)):
+                tab = probe_rows(d, name)
+                if tab.shape != (steps, width):
+                    raise AssertionError(f"manager: probes/0/{name} of {d} is "
+                                         f"{tab.shape} for {steps} steps")
+        # The water probe of the first case (z = H/4 under a surface at
+        # H/2) reads ρ_w·g·depth.
+        hydro = 998.2 * 9.81 * (rows[0]["H"] / 4)
+        p0 = probe_rows(dirs[0], "p")[0, 1]
+        log(f"  first case: water probe first row {p0:.2f} Pa (ρ_w·g·depth "
+            f"{hydro:.2f}); 3 checkpoints and {steps} probe rows per case")
+        if abs(p0 - hydro) > 0.05 * hydro:
+            raise AssertionError("manager: water probe off ρ_w·g·depth")
+        # A second runsweep finds every case done; the batch run itself
+        # resumes from the last checkpoints and takes 0 steps.
+        if cli.main(argv) != 0 or len(calls) != 1:
+            raise AssertionError("manager: second runsweep ran a batch")
+        if real_run(dirs, log=lambda ln: None)["steps"] != 0:
+            raise AssertionError("manager: the resumed batch took steps")
+
+        # --percase-dt: four fresh cases of the default tank, a 20 ms ramp
+        # so the stiff case's Courant limit binds.
+        lax = dict(H=0.1, D=0.02, mesh=0.002, geo="flat", R=0.0005, freq=1.0,
+                   duration=0.1, dt=0.001, ramp=0.02)
+        own = [lax, {**lax, "R": 0.002, "freq": 3.0},
+               {**lax, "R": 0.003, "freq": 4.5}, {**lax, "R": 0.004, "freq": 6.0}]
+        base2 = os.path.join(base, "percase")
+        dirs2 = [setup_case(r, base2) for r in own]
+        if cli.main(["--headless", "--action", "runsweep", "--case", "all",
+                     "--base-dir", base2, "--percase-dt"]) != 0:
+            raise AssertionError("manager: runsweep --percase-dt failed")
+        own_steps = [int(last(d)["step"]) for d in dirs2]
+        log(f"[manager] --percase-dt: steps per case {own_steps} (lax to "
+            f"stiff), batch steps {calls[-1]['steps']}")
+        for d, n in zip(dirs2, own_steps):
+            if float(last(d)["t"]) != float(np.float32(2) * np.float32(0.05)) \
+                    or len(probe_rows(d, "p")) != n:
+                raise AssertionError(f"manager: --percase-dt case {d}")
+        if not own_steps[0] < own_steps[-1]:
+            raise AssertionError("manager: the lax case did not take fewer "
+                                 f"steps than the stiff one: {own_steps}")
+    return launches, {**stats, "runsweep_wall_seconds": wall,
+                      "percase_dt_steps": own_steps}
+
+
 def main() -> int:
     import torch
 
@@ -656,6 +1096,10 @@ def main() -> int:
     log(f"[kernels vs plain] shape {geom.shape}, {REPS} timed launches each")
     spacing = tuple(float(h) for h in geom.spacing)
     rows = phase_kernels(geom.shape, spacing, dev)
+    shape4 = (12, 12, 50, SWEEP_CASES)
+    log(f"[batch kernels vs plain and vs the single-grid kernels] shape "
+        f"{shape4}, {REPS} timed launches each")
+    rows.update(phase_batch_kernels(shape4, dev))
 
     # 3. the step path: the bench's configuration from rest, then the
     # five configurations from the state it reached
@@ -750,6 +1194,12 @@ def main() -> int:
     for k in CHEB2_RZ:
         launches[k] = case_launches[k]
 
+    # 6. the sweep step; 7. the manager's sweep
+    sweep_launches, sweep = phase_sweep(dev, props)
+    for k in BATCH_PATH:
+        launches[k] = sweep_launches[k]
+    _, manager = phase_manager(dev)
+
     out = []
     for name in REPLACES:
         r = dict(rows[name])
@@ -759,7 +1209,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     detail = {"kernels": out, "shape": list(geom.shape), "fluid_cells": n_fluid,
               "runs": {"use_pallas_from_rest": main, "same_state": runs,
-                       "case_path": case}}
+                       "case_path": case, "sweep": sweep,
+                       "runsweep": manager}}
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)
     with open(os.path.join(repo, "perf_out", "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1)

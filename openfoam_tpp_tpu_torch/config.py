@@ -69,7 +69,10 @@ class SolverControls:
     use_pallas: bool = False     # in the port: run the hand-written CUDA
                                  # kernels (ops/kernels/) on CUDA tensors;
                                  # on CPU tensors their plain versions
-    batch_lanes: bool = False    # vmapped sweeps; not ported yet
+    batch_lanes: bool = False    # sweeps (parallel/sweep.py sets it): the
+                                 # cases ride a trailing axis; only the
+                                 # 7-point kernels are batch-native, MULES
+                                 # runs its plain path
     n_correctors: int = 1
     dev2_stress: bool = True
     precond_refresh: int = 1

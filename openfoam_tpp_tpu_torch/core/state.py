@@ -9,6 +9,11 @@ carry a state across packages: they take the field names of the JAX
 package's ``chk_t*.npz`` checkpoints (utils/io.py ``to_state``), so a
 JAX state turned into numpy arrays drives the port from the identical
 point.
+
+A sweep's batched state has the same fields with the case axis trailing
+the grid arrays, (nx, ny, nz, B), and ``t``, ``dt``, ``step`` and the
+forcing parameters as (B,) tensors (parallel/sweep.py builds them); the
+numpy crossings take either form as it is.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ _PARAM_FIELDS = ("orbit_radius", "omega", "ramp_time")
 
 @dataclasses.dataclass
 class CaseParams:
-    """Per-case orbital forcing parameters as 0-d f32 device tensors."""
+    """Per-case orbital forcing parameters as 0-d f32 device tensors
+    ((B,) for a batch of cases)."""
 
     orbit_radius: torch.Tensor   # shaking radius R [m]
     omega: torch.Tensor          # angular frequency 2*pi*freq [rad/s]

@@ -4,7 +4,7 @@ Port of the orbital-cylinder part of openfoam_tpp_tpu/manager/cases.py.
 Geometry and motion are built in-process, so "building" a case writes its
 metadata and the reference-format motion table; the solver state is made
 on demand from the encoded parameters. The closed 6DoF tank
-(`setup_case_6dof`) and `expand_sweep` are not ported yet.
+(`setup_case_6dof`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -76,3 +76,36 @@ def is_case_done(case_dir: str, duration: float | None = None) -> bool:
     if duration is None:
         duration = load_case_params(case_dir)["duration"]
     return case_progress(case_dir) >= duration - 1e-6
+
+
+def expand_sweep(sweep_params: dict[str, list], confirm_cartesian=None):
+    """Combine per-parameter sweep lists into case parameter sets.
+
+    Reference semantics: if every swept list has equal length > 1, zip
+    them ("paired" mode); otherwise take the Cartesian product
+    (optionally gated by `confirm_cartesian(n_rows)` returning bool).
+    Returns (rows, mode) with mode 'zip', 'cartesian' or 'cancelled'.
+    """
+    import itertools
+
+    keys = list(sweep_params)
+    lists = [
+        v if isinstance(v, (list, tuple)) else [v] for v in sweep_params.values()
+    ]
+    multi = [len(v) for v in lists if len(v) > 1]
+    if multi and all(n == multi[0] for n in multi) and len(multi) > 1:
+        # zip mode: broadcast singletons
+        n = multi[0]
+        rows = []
+        for i in range(n):
+            rows.append({
+                k: (v[i] if len(v) > 1 else v[0])
+                for k, v in zip(keys, lists)
+            })
+        return rows, "zip"
+    combos = itertools.product(*lists)
+    rows = [dict(zip(keys, c)) for c in combos]
+    if len(rows) > 1 and confirm_cartesian is not None:
+        if not confirm_cartesian(len(rows)):
+            return [], "cancelled"
+    return rows, "cartesian"

@@ -24,8 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCES = ("seven_point", "cheb2", "mules_flux", "mules_fct",
-           "momentum_rhs", "correction", "mom_finish")
+SOURCES = ("seven_point", "seven_point_batch", "cheb2", "mules_flux",
+           "mules_fct", "momentum_rhs", "correction", "mom_finish")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # No FMA contraction: the kernels then round exactly like their plain

@@ -41,9 +41,11 @@ def correct_velocities_plain(dp, u_s, v_s, w_s, beta_f, ax, ay, az, top_open,
 
 
 def div_max_plain(u_c, v_c, w_c, ax, ay, az, vfrac, spacing):
-    """max|∇·(A·q)| over the fluid cells, a 0-d tensor."""
-    return (torch.abs(st.divergence(ax * u_c, ay * v_c, az * w_c, spacing))
-            * (vfrac > 0.0)).max()
+    """max|∇·(A·q)| over the fluid cells, a 0-d tensor (per case, (B,),
+    on batched (nx, ny, nz, B) operands)."""
+    return st.max_cells(
+        torch.abs(st.divergence(ax * u_c, ay * v_c, az * w_c, spacing))
+        * (vfrac > 0.0))
 
 
 def correct_divmax_plain(dp, u_s, v_s, w_s, beta_f, ax, ay, az, vfrac,

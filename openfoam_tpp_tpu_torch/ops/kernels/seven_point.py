@@ -14,6 +14,17 @@ smoothers csrc/cheb2.cu) for CUDA tensors and runs its plain PyTorch version (`*
 any other device raises. The plain version computes in f32 and rounds
 once on output, exactly like the kernel. Each entry point counts its
 kernel launches in `.launches`.
+
+Parameter sweeps stack many cases on a trailing axis: (nx, ny, nz, B).
+`apply_7pt`, `resid_scaled_7pt` and `apply_dot_7pt` dispatch on rank:
+rank 3 to the kernels above, rank 4 to the batch-native entry points
+`apply_7pt_nb`, `resid_scaled_7pt_nb` and `apply_dot_7pt_nb`
+(csrc/seven_point_batch.cu; port of
+openfoam_tpp_tpu/ops/pallas/seven_point_batch.py), each with its own
+`.launches`. The case axis never shifts, so no case reads another's
+data, and the dot of `apply_dot_7pt_nb` is per case, shape (B,). The
+plain versions take either rank. The cheb2 smoothers are single-grid
+only: on rank 4 the solver runs two sweeps as batch-kernel passes.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ import ctypes
 import torch
 
 from openfoam_tpp_tpu_torch.ops.kernels import _build
+from openfoam_tpp_tpu_torch.ops.stencil import sum_cells
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _APPLY, _RESID, _APPLY_DOT = 0, 1, 2
@@ -73,7 +85,7 @@ def resid_scaled_7pt_plain(p, split, diag, b):
 def apply_dot_7pt_plain(p, split):
     nb, c = _nb_sum_plain(p, split)
     ap = (c - nb).to(p.dtype)
-    return ap, (c * ap.float()).sum()
+    return ap, sum_cells(c * ap.float())
 
 
 def cheb_coefs(lmax, lmin_frac):
@@ -122,9 +134,9 @@ def cheb2_post_dot_7pt_plain(x, b, split, lmax, lmin_frac, out_dtype=None):
 
 # ------------------------------------------------------------------ kernels
 
-def _check(p, split, *extra):
-    if p.dim() != 3 or p.dtype not in _DTYPES:
-        raise ValueError(f"7-point kernel takes a 3-D f32/bf16 grid, got "
+def _check(p, split, *extra, rank=3):
+    if p.dim() != rank or p.dtype not in _DTYPES:
+        raise ValueError(f"7-point kernel takes a {rank}-D f32/bf16 grid, got "
                          f"{p.dtype} {tuple(p.shape)}")
     for a in (*split, *extra):
         if a is None:
@@ -168,9 +180,19 @@ def _launch(mode, p, split, diag=None, b=None):
     return out, dot
 
 
+def _rank(p, what):
+    """3 (one grid) or 4 (cases stacked on a trailing axis); else raises."""
+    if p.dim() not in (3, 4):
+        raise ValueError(f"{what} takes a (nx, ny, nz) grid or a batched "
+                         f"(nx, ny, nz, B) one, got {tuple(p.shape)}")
+    return p.dim()
+
+
 def apply_7pt(p, split, diag=None):
     """A(p). `split` from `split_weights`; `diag=None` = unit diagonal
     (the scaled operator Â)."""
+    if _rank(p, "apply_7pt") == 4:
+        return apply_7pt_nb(p, split, diag)
     if _build.route(p, "apply_7pt") == "cpu":
         return apply_7pt_plain(p, split, diag)
     _check(p, split, diag)
@@ -181,6 +203,8 @@ def apply_7pt(p, split, diag=None):
 
 def resid_scaled_7pt(p, split, diag, b):
     """(b − A·p)/diag; `diag=None` = unit diagonal: b − Â·p."""
+    if _rank(p, "resid_scaled_7pt") == 4:
+        return resid_scaled_7pt_nb(p, split, diag, b)
     if _build.route(p, "resid_scaled_7pt") == "cpu":
         return resid_scaled_7pt_plain(p, split, diag, b)
     _check(p, split, diag, b)
@@ -191,13 +215,81 @@ def resid_scaled_7pt(p, split, diag, b):
 
 def apply_dot_7pt(p, split):
     """(Â·p, p·Â·p) in one pass (unit diagonal) — the CG curvature step.
-    The dot is a 0-d f32 tensor on p's device."""
+    The dot is a 0-d f32 tensor on p's device ((B,) on a batched grid)."""
+    if _rank(p, "apply_dot_7pt") == 4:
+        return apply_dot_7pt_nb(p, split)
     if _build.route(p, "apply_dot_7pt") == "cpu":
         return apply_dot_7pt_plain(p, split)
     _check(p, split)
     out, dot = _launch(_APPLY_DOT, p, split)
     apply_dot_7pt.launches += 1
     return out, dot
+
+
+# ------------------------------------------ batch-native (rank-4) kernels
+
+def _batch_lib():
+    lib = _build.load("seven_point_batch")
+    if not getattr(lib, "_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.seven_point_batch_launch.argtypes = ([ci, ci, ci] + [vp] * 9
+                                                 + [ci] * 4 + [vp])
+        lib.seven_point_batch_launch.restype = ci
+        lib.seven_point_batch_num_partials.argtypes = [ci] * 3
+        lib.seven_point_batch_num_partials.restype = ci
+        lib._typed = True
+    return lib
+
+
+def _batch_launch(mode, p, split, diag=None, b=None):
+    lib = _batch_lib()
+    out = torch.empty_like(p)
+    nx, ny, nz, nb = p.shape
+    partial = dots = None
+    if mode == _APPLY_DOT:
+        partial = torch.empty(
+            (lib.seven_point_batch_num_partials(nx, ny, nz), nb),
+            dtype=torch.float32, device=p.device)
+        dots = torch.empty((nb,), dtype=torch.float32, device=p.device)
+    nul = ctypes.c_void_p(None)
+    opt = lambda t: nul if t is None else _build.ptr(t)
+    rc = lib.seven_point_batch_launch(
+        mode, _DTYPES[p.dtype], int(diag is not None), _build.ptr(p),
+        *(_build.ptr(w) for w in split), opt(diag), opt(b), _build.ptr(out),
+        opt(partial), opt(dots), nx, ny, nz, nb, _build.stream_of(p))
+    _build.check(rc, "seven_point_batch")
+    return out, dots
+
+
+def apply_7pt_nb(p, split, diag=None):
+    """A(p) of every case of a batched (nx, ny, nz, B) grid."""
+    if _build.route(p, "apply_7pt_nb") == "cpu":
+        return apply_7pt_plain(p, split, diag)
+    _check(p, split, diag, rank=4)
+    out, _ = _batch_launch(_APPLY, p, split, diag=diag)
+    apply_7pt_nb.launches += 1
+    return out
+
+
+def resid_scaled_7pt_nb(p, split, diag, b):
+    """(b − A·p)/diag (b − Â·p with `diag=None`) on a batched grid."""
+    if _build.route(p, "resid_scaled_7pt_nb") == "cpu":
+        return resid_scaled_7pt_plain(p, split, diag, b)
+    _check(p, split, diag, b, rank=4)
+    out, _ = _batch_launch(_RESID, p, split, diag=diag, b=b)
+    resid_scaled_7pt_nb.launches += 1
+    return out
+
+
+def apply_dot_7pt_nb(p, split):
+    """(Â·p, per-case p·Â·p) on a batched grid; the dots are a (B,) f32
+    tensor on p's device."""
+    if _build.route(p, "apply_dot_7pt_nb") == "cpu":
+        return apply_dot_7pt_plain(p, split)
+    _check(p, split, rank=4)
+    out, dots = _batch_launch(_APPLY_DOT, p, split)
+    apply_dot_7pt_nb.launches += 1
+    return out, dots
 
 
 _CHEB_PRE, _CHEB_POST, _CHEB_POST_DOT = 0, 1, 2
@@ -283,6 +375,7 @@ def cheb2_post_dot_7pt(x, b, split, lmax, lmin_frac, out_dtype=None):
     return z, dot
 
 
-for _fn in (apply_7pt, resid_scaled_7pt, apply_dot_7pt, cheb2_pre_7pt,
+for _fn in (apply_7pt, resid_scaled_7pt, apply_dot_7pt, apply_7pt_nb,
+            resid_scaled_7pt_nb, apply_dot_7pt_nb, cheb2_pre_7pt,
             cheb2_post_7pt, cheb2_post_dot_7pt):
     _fn.launches = 0

@@ -6,6 +6,10 @@ extended by one. Boundary convention: edge-clamped ghost cells. Wall
 faces carry zero aperture, so clamped ghosts only influence
 reconstruction order near boundaries, never fluxes through walls. Every
 kernel's agreement with its plain version rests on these clamps.
+
+Every function indexes dims 0–2 only, so arrays may carry a trailing case
+axis, (nx, ny, nz, B) (parameter sweeps): it passes through untouched.
+`sum_cells`, `max_cells` and `min_cells` reduce over the cells alone.
 """
 
 from __future__ import annotations
@@ -18,6 +22,20 @@ def _sl(axis, s):
     out = [slice(None)] * 3
     out[axis] = s
     return tuple(out)
+
+
+def sum_cells(t):
+    """Sum over the cells: everything on a single grid, dims (0, 1, 2) —
+    one value per case — on a batched (nx, ny, nz, B) one."""
+    return t.sum() if t.dim() == 3 else t.sum(dim=(0, 1, 2))
+
+
+def max_cells(t):
+    return t.max() if t.dim() == 3 else t.amax(dim=(0, 1, 2))
+
+
+def min_cells(t):
+    return t.min() if t.dim() == 3 else t.amin(dim=(0, 1, 2))
 
 
 def shift_down(a, axis):

@@ -90,6 +90,31 @@ def sample_row(state, pack: dict):
                       eta.float()])
 
 
+def stack_packs(packs: list) -> dict:
+    """Per-case probe packs → one pack with a leading case axis, which
+    `sample_rows_batched` takes."""
+    return {k: torch.stack([p[k] for p in packs], 0) for k in packs[0]}
+
+
+def sample_rows_batched(states, bpack: dict):
+    """`sample_row` of every case of a batched state (grid arrays
+    (nx, ny, nz, B), t (B,)) with its own pack out of `stack_packs`:
+    (B, row_width) f32. Case b's row holds the values `sample_row` gives
+    for that case alone (the JAX package vmaps `sample_row`)."""
+    n = states.t.shape[0]
+    lane = torch.arange(n, device=states.t.device)
+    z0 = bpack["origin"][:, 2:3]
+    hz = bpack["spacing"][:, 2:3]
+    p_vals = _trilinear(states.p, bpack["pts"], bpack["origin"],
+                        bpack["spacing"], lane=lane)
+    vnorm = torch.clamp(bpack["vcol"].max(dim=-1).values, min=1e-6)
+    acol = states.alpha[bpack["ci"], bpack["cj"], :, lane[:, None]] \
+        * bpack["vcol"]
+    eta = z0 + hz * acol.sum(dim=-1) / vnorm
+    return torch.cat([states.t.reshape(n, 1).float(), p_vals.float(),
+                      eta.float()], dim=1)
+
+
 def make_probe_sampler(geom: TankGeometry, points, columns, device="cuda"):
     """`sampler(state) -> row` with row = [t, p@points..., η@columns...],
     and the row's width: a closure over `probe_pack`/`sample_row`."""
@@ -111,12 +136,16 @@ def sample_cell_field(field, points, geom: TankGeometry):
                       f32(geom.spacing))
 
 
-def _trilinear(field, pts, origin, spacing):
-    """Trilinear sample with origin/spacing as (3,) tensor operands."""
-    fx = (pts[:, 0] - origin[0]) / spacing[0] - 0.5
-    fy = (pts[:, 1] - origin[1]) / spacing[1] - 0.5
-    fz = (pts[:, 2] - origin[2]) / spacing[2] - 0.5
-    nx, ny, nz = field.shape
+def _trilinear(field, pts, origin, spacing, lane=None):
+    """Trilinear sample with origin/spacing as (3,) tensor operands. With
+    `lane` (the case indices, (B,)): `field` is (nx, ny, nz, B), `pts`
+    (B, n, 3), origin and spacing (B, 3), and the result (B, n)."""
+    if lane is not None:
+        origin, spacing = origin[:, None, :], spacing[:, None, :]
+    fx = (pts[..., 0] - origin[..., 0]) / spacing[..., 0] - 0.5
+    fy = (pts[..., 1] - origin[..., 1]) / spacing[..., 1] - 0.5
+    fz = (pts[..., 2] - origin[..., 2]) / spacing[..., 2] - 0.5
+    nx, ny, nz = field.shape[:3]
 
     def clamp(i, n):
         return torch.clamp(i, 0, n - 1)
@@ -130,6 +159,8 @@ def _trilinear(field, pts, origin, spacing):
     tz = torch.clamp(fz - k0, 0.0, 1.0)
 
     def g(i, j, k):
+        if lane is not None:
+            return field[i, j, k, lane[:, None]]
         return field[i, j, k]
 
     c00 = g(i0, j0, k0) * (1 - tx) + g(i1, j0, k0) * tx

@@ -30,6 +30,16 @@ one sweep those kernels never run and r·z is a plain dot.
 CG loop: the JAX `lax.while_loop` is a Python loop here that reads
 `rr > tol2` on the host once per iteration — one device sync per CG
 iteration (plus one before the first). CUDA graphs are future work.
+
+Parameter sweeps: every array may carry a trailing case axis,
+(nx, ny, nz, B). Stencil passes then go to the batch-native kernels (the
+rank dispatch of ops/kernels/seven_point.py), every dot, norm and
+tolerance is per case, shape (B,), and the CG loop runs while any case
+is unconverged and holds the converged ones (x, r, p, r·z, ‖r‖², count),
+which is what `jax.vmap` makes of the JAX loop: a case's solve does not
+depend on its batchmates, and its iteration count is its own. The fused
+cheb2 kernels are single-grid: on a batched level two sweeps run as
+batch-kernel passes and r·z is a plain per-case sum.
 """
 
 from __future__ import annotations
@@ -182,6 +192,7 @@ def _fused_cheb2(level: _Level, k: SolverKnobs) -> bool:
     as one fused kernel pass each (seven_point.cheb2_*_7pt) instead of
     four stencil passes and the elementwise chains between them."""
     return (k.fused_cheb and level.split is not None and level.unit_diag
+            and level.split[0].dim() == 3
             and k.smoother == "chebyshev" and k.smooth_sweeps == 2)
 
 
@@ -253,7 +264,7 @@ def _coarsen_face_weights(w, axis):
 def _build_coarse_levels(wx, wy, wz, extra, max_coarse=9, min_cells=256):
     """Physical Galerkin hierarchy strictly below the given fine level."""
     levels = []
-    shape = tuple(extra.shape)
+    shape = tuple(extra.shape[:3])
     while (len(levels) < max_coarse
            and shape[0] * shape[1] * shape[2] > min_cells
            and min(shape) > 2):
@@ -261,7 +272,7 @@ def _build_coarse_levels(wx, wy, wz, extra, max_coarse=9, min_cells=256):
         wy = _coarsen_face_weights(wy, 1)
         wz = _coarsen_face_weights(wz, 2)
         extra = _restrict_cells(extra)
-        shape = tuple(extra.shape)
+        shape = tuple(extra.shape[:3])
         diag = (wx[:-1] + wx[1:] + wy[:, :-1] + wy[:, 1:]
                 + wz[:, :, :-1] + wz[:, :, 1:] + extra)
         diag = torch.where(diag > 0, diag, 1.0)
@@ -331,7 +342,7 @@ def build_operator(geom_arrays, spacing, rho, top_open, use_pallas=False):
         c_top = 2.0 * top_open * beta[:, :, -1]
         extra[:, :, -1] = extra[:, :, -1] + c_top / (hz * hz)
 
-    shape = tuple(extra.shape)
+    shape = tuple(extra.shape[:3])
     diag0 = (wx[:-1] + wx[1:] + wy[:, :-1] + wy[:, 1:]
              + wz[:, :, :-1] + wz[:, :, 1:] + extra)
     diag0 = torch.where(diag0 > 0, diag0, 1.0)
@@ -406,10 +417,10 @@ def _level_from_entry(d, unit_diag):
     split = d.get("split")
     if split is not None:
         return _Level(wx=None, wy=None, wz=None, diag=d.get("diag"),
-                      shape=tuple(split[0].shape), split=split,
+                      shape=tuple(split[0].shape[:3]), split=split,
                       unit_diag=unit_diag)
     wx, wy, wz = d["faces"]
-    shape = (wx.shape[0] - 1,) + tuple(wx.shape[1:])
+    shape = (wx.shape[0] - 1,) + tuple(wx.shape[1:3])
     return _Level(wx=wx, wy=wy, wz=wz, diag=d.get("diag"), shape=shape,
                   unit_diag=unit_diag)
 
@@ -457,7 +468,8 @@ def build_poisson(geom_arrays, spacing, rho, top_open, use_pallas=False,
 
 
 def _dot(a, b):
-    return torch.sum(a.float() * b.float())
+    """f32 dot over the cells: 0-d, or per case (B,) on a batched grid."""
+    return st.sum_cells(a.float() * b.float())
 
 
 def _project_out(x, v, fluid, vv):
@@ -472,7 +484,12 @@ def _cg_core(apply_h, precond_h, fluid, b, tol, max_iters, nullv, nullvv,
     Returns (x, iterations). One host sync per iteration: the
     convergence test `rr > tol2` is read on the host. `precond_rz_h`
     returns z with r·z from the V-cycle's exit kernel (against the
-    cycle's low-precision copy of r)."""
+    cycle's low-precision copy of r).
+
+    On a batched grid the dots and `tol` are per case: the loop runs
+    while any case has `rr > tol2` (still one host read per iteration)
+    and every case whose own test is false keeps its x, r, p, rz, rr and
+    count, so iterations come back as a (B,) int32 tensor."""
 
     def precond_rz(r):
         if precond_rz_h is not None:
@@ -487,6 +504,9 @@ def _cg_core(apply_h, precond_h, fluid, b, tol, max_iters, nullv, nullvv,
     p = z
     rr = _dot(r, r)
     tol2 = tol * tol
+    if b.dim() == 4:
+        return _cg_lanes(apply_h, precond_rz, fluid, nullv, nullvv,
+                         apply_dot_h, max_iters, tol2, x, r, p, rz, rr)
     k = 0
     while k < max_iters and bool(rr > tol2):
         if apply_dot_h is not None:
@@ -508,13 +528,45 @@ def _cg_core(apply_h, precond_h, fluid, b, tol, max_iters, nullv, nullvv,
     return x, k
 
 
+def _cg_lanes(apply_h, precond_rz, fluid, nullv, nullvv, apply_dot_h,
+              max_iters, tol2, x, r, p, rz, rr):
+    """`_cg_core`'s loop over a batch of cases: the same body for all,
+    then each case whose own `k < max_iters and rr > tol2` is false keeps
+    its carry."""
+    k = torch.zeros_like(rr, dtype=torch.int32)
+    active = rr > tol2
+    while bool(active.any()):
+        if apply_dot_h is not None:
+            ap, denom = apply_dot_h(p)
+        else:
+            ap = apply_h(p)
+            denom = _dot(p, ap)
+        alpha = rz / torch.where(denom.abs() > 1e-30, denom, 1e-30)
+        x_new = x + alpha * p
+        r_new = r - alpha * ap
+        if nullv is not None:
+            r_new = _project_out(r_new, nullv, fluid, nullvv)
+        z, rz_new = precond_rz(r_new)
+        beta = rz_new / torch.where(rz.abs() > 1e-30, rz, 1e-30)
+        p_new = z + beta * p
+        x = torch.where(active, x_new, x)
+        r = torch.where(active, r_new, r)
+        p = torch.where(active, p_new, p)
+        rz = torch.where(active, rz_new, rz)
+        rr = torch.where(active, _dot(r_new, r_new), rr)
+        k = k + active.to(torch.int32)
+        active = (k < max_iters) & (rr > tol2)
+    return x, k
+
+
 def solve_pcg(problem: PoissonProblem, b, x0, precond: Callable | None = None,
               tol_rel: float = 1e-4, tol_abs: float = 0.0,
               tol_rel_b: float = 0.0, max_iters: int = 60, n_refine: int = 3):
     """MG-preconditioned CG with outer iterative refinement in the scaled
     space. Stops at max(tol_rel·‖r0‖, tol_abs, tol_rel_b·‖b̂‖) (scaled
     norms). Returns (x, scaled-residual norm, total iterations as a 0-d
-    int32 tensor)."""
+    int32 tensor); on a batched grid the norm and the iterations are per
+    case, shape (B,)."""
     fluid = problem.fluid
     s = problem.scale
     inv_s = problem.inv_scale
@@ -561,8 +613,8 @@ def solve_pcg(problem: PoissonProblem, b, x0, precond: Callable | None = None,
         r = true_residual(xh)
     x = s * xh
     if problem.singular:
-        n_fluid = torch.clamp(fluid.float().sum(), min=1.0)
-        mean = torch.where(fluid, x, 0.0).sum() / n_fluid
+        n_fluid = torch.clamp(st.sum_cells(fluid.float()), min=1.0)
+        mean = st.sum_cells(torch.where(fluid, x, 0.0)) / n_fluid
         x = torch.where(fluid, x - mean, x)
-    iters_t = torch.tensor(total, dtype=torch.int32, device=b.device)
+    iters_t = torch.as_tensor(total, dtype=torch.int32, device=b.device)
     return x, torch.sqrt(_dot(r, r)), iters_t

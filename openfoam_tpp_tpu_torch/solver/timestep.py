@@ -11,6 +11,17 @@ is nothing to compile; `t` and `dt` stay 0-d device tensors and the dt
 logic never reads them on the host. The CG loop syncs once per
 iteration (solver/poisson.py).
 
+Parameter sweeps: the step is rank-polymorphic. Grid arrays are
+(nx, ny, nz) or, with many cases stacked on a trailing axis,
+(nx, ny, nz, B); the per-case scalars (t, dt, step, the forcing
+parameters, a per-case spacing) are then (B,) tensors, which broadcast
+against the trailing axis as they are, and every reduction is over the
+cells only, so the diagnostics come back per case. `sync_axis` (any
+value but None) gives every case the batch minimum of the CFL dt, which
+is what `lax.pmin` over the vmapped axis does in the JAX step;
+`batch_lanes` keeps MULES on its plain path while the 7-point passes run
+the batch-native kernels (parallel/sweep.py sets both).
+
 Ported configuration: the analytic orbital motion on one device, with
 every `SolverControls` the JAX step takes there. With `use_pallas` the
 step runs the fused kernels behind the JAX step's gates, read when the
@@ -90,7 +101,8 @@ def _fct_bf16_enabled(controls: SolverControls) -> bool:
 
 
 class StepDiagnostics(NamedTuple):
-    """Per-step scalars (0-d device tensors)."""
+    """Per-step scalars (0-d device tensors; (B,) per case on a batched
+    step)."""
 
     courant: torch.Tensor
     alpha_courant: torch.Tensor
@@ -110,19 +122,15 @@ def geometry_arrays(geom: TankGeometry, dtype=torch.float32, device="cuda"):
             "top_open": as_t(geom.top_open)}
 
 
-def _check_slice(props, controls, motion=None, spmd=None, sync_axis=None,
-                 forcing=None, face_xyz=None):
+def _check_slice(props, controls, motion=None, spmd=None, forcing=None,
+                 face_xyz=None):
     """Raise for every argument of the JAX step this port does not cover."""
     for name, val in (("motion", motion), ("spmd", spmd),
-                      ("sync_axis", sync_axis), ("forcing", forcing),
-                      ("face_xyz", face_xyz)):
+                      ("forcing", forcing), ("face_xyz", face_xyz)):
         if val is not None:
             raise NotImplementedError(
                 f"{name}= is not ported yet (analytic orbital motion on "
                 f"one device only)")
-    if controls.batch_lanes:
-        raise NotImplementedError("batch_lanes (vmapped sweeps) is not "
-                                  "ported yet")
     if props.sigma != 0.0:
         raise NotImplementedError("surface tension (sigma != 0, CSF) is "
                                   "not ported yet")
@@ -143,8 +151,8 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
     with `sealed_x` (the last x-aperture plane is all zero, true of every
     shipped geometry); an env force of one of them on an unsealed
     geometry raises ValueError, as in the JAX step."""
-    _check_slice(props, controls, motion=motion, spmd=spmd,
-                 sync_axis=sync_axis, forcing=forcing, face_xyz=face_xyz)
+    _check_slice(props, controls, motion=motion, spmd=spmd, forcing=forcing,
+                 face_xyz=face_xyz)
     if not sealed_x:
         for var in ("OFTPP_MOM_PALLAS", "OFTPP_FINISH_PALLAS",
                     "OFTPP_CORR_PALLAS"):
@@ -155,6 +163,9 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
                     "fused kernels hard-code zeros there and would "
                     "silently diverge from the aperture-masked path")
     use_k = controls.use_pallas
+    # batch_lanes (sweeps): the MULES kernels are single-grid; only the
+    # 7-point family has batch-native kernels.
+    use_mules_k = use_k and not controls.batch_lanes
     fct_bf16 = _fct_bf16_enabled(controls)
     use_mom_k = sealed_x and _mom_pallas_enabled(controls)
     use_finish_k = use_mom_k and _finish_pallas_enabled(controls)
@@ -169,9 +180,9 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
         speed = (torch.abs(st.faces_to_cells_avg(u, 0)) / hx
                  + torch.abs(st.faces_to_cells_avg(v, 1)) / hy
                  + torch.abs(st.faces_to_cells_avg(w, 2)) / hz)
-        co = dt * torch.where(fluid, speed, 0.0).max()
+        co = dt * st.max_cells(torch.where(fluid, speed, 0.0))
         near_if = (alpha > 0.01) & (alpha < 0.99)
-        co_a = dt * torch.where(fluid & near_if, speed, 0.0).max()
+        co_a = dt * st.max_cells(torch.where(fluid & near_if, speed, 0.0))
         return co, co_a * (1.0 + controls.c_alpha)
 
     def step(state: SimState, params, ga, spacing, t_stop=None,
@@ -191,8 +202,14 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
         if controls.max_diff_co > 0.0:
             inv_h2 = 1.0 / hx ** 2 + 1.0 / hy ** 2 + 1.0 / hz ** 2
             nu_max = max(props.nu1, props.nu2)
-            dt_cfl = torch.clamp(dt_cfl,
-                                 max=controls.max_diff_co / (nu_max * inv_h2))
+            dt_diff = controls.max_diff_co / (nu_max * inv_h2)
+            dt_cfl = (torch.minimum(dt_cfl, dt_diff)
+                      if isinstance(dt_diff, torch.Tensor)   # per-case hz
+                      else torch.clamp(dt_cfl, max=dt_diff))
+        if sync_axis is not None:
+            # Lockstep sweeps: every case takes the batch-minimum CFL dt,
+            # so case times stay bitwise identical.
+            dt_cfl = dt_cfl.min().expand_as(dt_cfl).clone()
         # --- adjustableRunTime: land exactly on the write grid / t_stop ---
         w = float(controls.write_interval)
         if w > 0.0:
@@ -217,7 +234,7 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
             c_alpha=controls.c_alpha,
             n_subcycles=controls.n_alpha_subcycles,
             n_limiter_iters=controls.n_limiter_iters,
-            use_pallas=use_k, fct_bf16=fct_bf16)
+            use_pallas=use_mules_k, fct_bf16=fct_bf16)
 
         rho_old = mixture_density(state.alpha, props)
         rho_new = mixture_density(alpha_new, props)
@@ -228,6 +245,13 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
             ga, spacing, rho_new, ga["top_open"] if open_top else None,
             use_pallas=use_k)
         K = max(int(controls.precond_refresh), 1)
+        if (carry_precond and precond is not None and K > 1
+                and state.step.dim() > 0):
+            # The JAX step selects per case under vmap; the sweep entry
+            # points carry no bundle, so nothing here needs that.
+            raise NotImplementedError(
+                "a carried preconditioner with precond_refresh > 1 on a "
+                "batched state is not ported (sweeps rebuild it every step)")
         if (carry_precond and precond is not None and K > 1
                 and int(state.step) % K != 0):
             bundle = precond   # host read of step only when K > 1
@@ -296,8 +320,8 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
         diag = StepDiagnostics(
             courant=co * rescale, alpha_courant=co_a * rescale,
             p_residual=p_res, p_iters=p_iters, div_error=div_err,
-            alpha_min=torch.where(fluid, alpha_new, 0.0).min(),
-            alpha_max=alpha_new.max())
+            alpha_min=st.min_cells(torch.where(fluid, alpha_new, 0.0)),
+            alpha_max=st.max_cells(alpha_new))
         if carry_precond:
             return new_state, diag, bundle
         return new_state, diag

@@ -3,6 +3,7 @@
 
     python3 scripts/port_step_profile.py [--warm 30] [--steps 5]
                                          [--set OFTPP_SMOOTH_SWEEPS=2 ...]
+                                         [--sweep 128 | --sweep-box]
 
 Runs the flagship case (H0.208/D0.2/R0.004/f1.88, mesh 0.00185,
 round_to=8 → 112³) through openfoam_tpp_tpu_torch's `make_step` with
@@ -14,6 +15,12 @@ fused kernels (OFTPP_SMOOTH_SWEEPS=2, OFTPP_FUSED_CHEB=0). Prints wall ms/step, 
 CUDA kernel times; memcpy/memset included), the device idle share
 1 − busy/wall, kernel launches per step, and the kernels by device
 time. The full table goes to perf_out/port_step_profile.txt.
+
+`--sweep N` profiles the sweep step instead: N cases of the default tank
+(H 0.1, D 0.02, mesh 0.002, round_to=4 → 12×12×50 each, forcing rows
+R = 0.002 + 2e-5·i, f = 1.5 + 0.01·i) through `make_sweep_step` with the
+case axis trailing. `--sweep-box` profiles the solo step of one such case
+(`use_pallas=True`), which the sweep replaces N times over.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ def main() -> int:
     ap.add_argument("--warm", type=int, default=30)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--set", action="append", default=[], metavar="VAR=VALUE")
+    ap.add_argument("--sweep", type=int, default=0, metavar="N")
+    ap.add_argument("--sweep-box", action="store_true")
     args = ap.parse_args()
     for pair in args.set:   # read when the step is built, below
         var, _, value = pair.partition("=")
@@ -48,14 +57,36 @@ def main() -> int:
     from openfoam_tpp_tpu_torch.solver.timestep import make_step
 
     dev = torch.device("cuda")
-    geom = build_tank_geometry(H=0.208, D=0.2, mesh=0.00185, geo="flat",
-                               round_to=8)
-    step = make_step(geom, PhysicalProperties(),
-                     SolverControls(use_pallas=True),
-                     carry_precond=True, device=dev)
-    params = CaseParams.make(R=0.004, freq=1.88, duration=20.0, device=dev)
-    state = init_state(geom, device=dev)
-    bundle = step.init_precond(state)
+    if args.sweep or args.sweep_box:
+        geom = build_tank_geometry(H=0.1, D=0.02, mesh=0.002, geo="flat",
+                                   round_to=4)
+    else:
+        geom = build_tank_geometry(H=0.208, D=0.2, mesh=0.00185, geo="flat",
+                                   round_to=8)
+    if args.sweep:
+        from openfoam_tpp_tpu_torch.parallel.sweep import (batch_params,
+                                                           batch_states,
+                                                           make_sweep_step)
+
+        sweep_step = make_sweep_step(geom, device=dev)
+        params = batch_params(
+            [{"R": 0.002 + 2e-5 * i, "freq": 1.5 + 0.01 * i, "duration": 10.0}
+             for i in range(args.sweep)], device=dev)
+        state = batch_states(geom, args.sweep, device=dev)
+        bundle = None
+
+        def step(state, params, precond=None):
+            return (*sweep_step(state, params), None)
+    else:
+        step = make_step(geom, PhysicalProperties(),
+                         SolverControls(use_pallas=True),
+                         carry_precond=True, device=dev)
+        params = (CaseParams.make(R=0.002, freq=1.5, duration=10.0, device=dev)
+                  if args.sweep_box else
+                  CaseParams.make(R=0.004, freq=1.88, duration=20.0,
+                                  device=dev))
+        state = init_state(geom, device=dev)
+        bundle = step.init_precond(state)
     for _ in range(args.warm):
         state, d, bundle = step(state, params, precond=bundle)
     torch.cuda.synchronize()
@@ -65,7 +96,7 @@ def main() -> int:
         t0 = time.perf_counter()
         for _ in range(args.steps):
             state, d, bundle = step(state, params, precond=bundle)
-            iters.append(int(d.p_iters))
+            iters.append(int(d.p_iters.max()))   # the slowest case's
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -76,7 +107,8 @@ def main() -> int:
     busy_us = sum(getattr(e, dev_attr) for e in kernels)
     n_launch = sum(e.count for e in kernels)
     n = args.steps
-    print(f"[profile] {geom.shape}, {n} steps after {args.warm}, "
+    what = (f"{args.sweep}-case sweep of " if args.sweep else "")
+    print(f"[profile] {what}{geom.shape}, {n} steps after {args.warm}, "
           f"{' '.join(args.set) or 'defaults'}; p_iters {iters}")
     print(f"  wall {wall / n * 1e3:.3f} ms/step (profiler on); device busy "
           f"{busy_us / n / 1e3:.3f} ms/step; idle share "
@@ -87,7 +119,9 @@ def main() -> int:
     for line in lines[:20]:
         print("  " + line)
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)
-    tag = "".join("_" + pair for pair in args.set)
+    tag = "".join("_" + pair for pair in args.set) + (
+        f"_sweep{args.sweep}" if args.sweep else
+        "_sweep_box" if args.sweep_box else "")
     with open(os.path.join(repo, "perf_out", f"port_step_profile{tag}.txt"),
               "w") as f:
         f.write("\n".join(lines) + "\n")

@@ -452,7 +452,7 @@ def test_unported_case_arguments_raise(tmp_path, monkeypatch):
     (["--headless", "--case", "c", "--action", "flow"], 2),
     (["--headless", "--case", "c", "--action", "video"], 2),
     (["--headless", "--case", "c", "--action", "profile"], 2),
-    (["--headless", "--action", "runsweep"], 2),
+    (["--headless", "--action", "runsweep", "--devices", "2"], 2),
     (["--headless", "--action", "build6dof"], 2),
     (["--headless", "--action", "config"], 2),
     (["--headless", "--case", "c", "--action", "run", "--submit"], 2),

@@ -11,7 +11,10 @@ FMA contraction and use the plain versions' operation order), bf16
 outputs to one bf16 ulp, the apply-dot scalar to 1e-5 relative (its sum
 runs in another order than torch.sum); the momentum right-hand side to
 1e-5 of its scale. The fused Chebyshev smoothers chain two stencil passes
-in f32 and round once, like their plain versions: same bounds."""
+in f32 and round once, like their plain versions: same bounds. The
+batch-native 7-point kernels (cases on a trailing axis) hold the
+single-grid family's bounds, and a case equals the single-grid kernel on
+that case bitwise."""
 
 import numpy as np
 import pytest
@@ -65,6 +68,49 @@ def test_seven_point_kernels_match_plain(dev, dtype):
     assert _rel(ap, ap_p) <= tol
     assert abs(float(dot) - float(dot_p)) <= 1e-5 * abs(float(dot_p))
     assert sp.apply_7pt.launches == n0 + 2
+
+
+@pytest.mark.parametrize("cases", [128, 40, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_seven_point_kernels_match_plain(dev, dtype, cases):
+    """The batch-native kernels on (nx, ny, nz, B) with the case axis
+    trailing, B a multiple of the warp or ragged: against their plain
+    versions (the single-grid family's bounds; the per-case dots 1e-5) and
+    against the single-grid kernel on one case, bitwise."""
+    rng = np.random.default_rng(6)
+    shape = (6, 5, 11, cases)
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    arr = lambda lo=None, hi=None: torch.from_numpy(
+        (rng.standard_normal(shape) if lo is None
+         else rng.uniform(lo, hi, shape)).astype(np.float32)).to(dev).to(dtype)
+    p, b = arr(), arr()
+    w = [arr(0.05, 0.3) for _ in range(3)]
+    w[0][0], w[1][:, 0], w[2][:, :, 0] = 0, 0, 0
+    d = arr(1.5, 2.5)
+    n0 = (sp.apply_7pt_nb.launches, sp.resid_scaled_7pt_nb.launches,
+          sp.apply_dot_7pt_nb.launches, sp.apply_7pt.launches)
+    for diag in (None, d):
+        # Through the rank dispatch of the single-grid names.
+        assert _rel(sp.apply_7pt(p, w, diag), sp.apply_7pt_plain(p, w, diag)) <= tol
+        assert _rel(sp.resid_scaled_7pt(p, w, diag, b),
+                    sp.resid_scaled_7pt_plain(p, w, diag, b)) <= tol
+    ap, dots = sp.apply_dot_7pt(p, w)
+    ap_p, dots_p = sp.apply_dot_7pt_plain(p, w)
+    assert _rel(ap, ap_p) <= tol
+    assert dots.shape == (cases,) and dots.dtype == torch.float32
+    assert float(((dots - dots_p).abs() / dots_p.abs()).max()) <= 1e-5
+    n1 = (sp.apply_7pt_nb.launches, sp.resid_scaled_7pt_nb.launches,
+          sp.apply_dot_7pt_nb.launches, sp.apply_7pt.launches)
+    assert [b_ - a_ for a_, b_ in zip(n0, n1)] == [2, 2, 1, 0]
+    i = cases - 1
+    lane = lambda t: t[..., i].contiguous()
+    assert torch.equal(sp.apply_7pt_nb(p, w, d)[..., i],
+                       sp.apply_7pt(lane(p), [lane(x) for x in w], lane(d)))
+    with pytest.raises(ValueError, match="contiguous"):
+        sp.apply_7pt_nb(p.permute(1, 0, 2, 3).permute(1, 0, 2, 3)[..., ::2],
+                        [x[..., ::2] for x in w])
+    with pytest.raises(ValueError, match="share"):
+        sp.resid_scaled_7pt_nb(p, w, None, b[..., :1].contiguous())
 
 
 @pytest.mark.parametrize("shape", [SHAPE, (4, 3, 2), (1, 1, 70)])

@@ -32,6 +32,8 @@ import openfoam_tpp_tpu_torch.ops.kernels._build
 import openfoam_tpp_tpu_torch.manager.cases
 import openfoam_tpp_tpu_torch.manager.cli
 import openfoam_tpp_tpu_torch.manager.runner
+import openfoam_tpp_tpu_torch.manager.sweeprun
+import openfoam_tpp_tpu_torch.parallel.sweep
 import openfoam_tpp_tpu_torch.post.interface
 import openfoam_tpp_tpu_torch.post.isosurface
 import openfoam_tpp_tpu_torch.post.probes
@@ -127,17 +129,20 @@ def test_out_of_slice_arguments_raise():
     # The default kernel configuration is in the slice: it builds and runs.
     state, diag = _run_default_steps(geom, 1)
     assert int(state.step) == 1 and bool(torch.isfinite(state.w).all())
-    with pytest.raises(NotImplementedError, match="batch_lanes"):
-        timestep.make_step(geom, controls=SolverControls(batch_lanes=True),
-                           device="cpu")
+    # The sweep slice: `batch_lanes` and `sync_axis` build (a single grid
+    # has nothing to synchronize, and only MULES reads batch_lanes).
+    step = timestep.make_step(geom, device="cpu", controls=SolverControls(
+        use_pallas=True, batch_lanes=True, mom_pallas=False))
+    s1, _ = step(init_state(geom, device="cpu"),
+                 CaseParams.make(0.004, 1.88, 0.5, device="cpu"))
+    assert int(s1.step) == 1
+    timestep.make_step_core(sync_axis="case")
     with pytest.raises(NotImplementedError, match="motion"):
         timestep.make_step(geom, motion=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="spmd"):
         timestep.make_step(geom, spmd=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="forcing"):
         timestep.make_step_core(forcing=lambda t, p: None)
-    with pytest.raises(NotImplementedError, match="sync_axis"):
-        timestep.make_step_core(sync_axis="case")
 
 
 GATE_VARS = ("OFTPP_MOM_PALLAS", "OFTPP_FINISH_PALLAS", "OFTPP_CORR_PALLAS",
@@ -200,3 +205,38 @@ def test_default_step_calls_the_fused_kernels_once_per_step(round_to):
     with spy(tmrk, "momentum_rhs"), spy(tck, "correct_divmax"):
         _run_default_steps(geom, 2)
     assert calls == {"momentum_rhs": 2, "correct_divmax": 2}
+
+
+def test_rank3_calls_reach_the_rank3_kernels_only():
+    """The rank dispatch of the 7-point entry points: a single-grid step
+    never enters a batch-native entry point, and a batched pressure pass
+    never stays in a single-grid one."""
+    from openfoam_tpp_tpu_torch.ops.kernels import seven_point as tsp
+
+    calls = {}
+
+    def spy(name):
+        fn = getattr(tsp, name)
+
+        def run(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+
+        return mock.patch.object(tsp, name, run)
+
+    geom = build_tank_geometry(H=0.04, D=0.048, mesh=0.004, round_to=4)
+    with spy("apply_7pt_nb"), spy("resid_scaled_7pt_nb"), \
+            spy("apply_dot_7pt_nb"), spy("apply_7pt_plain"), \
+            spy("apply_dot_7pt_plain"):
+        _run_default_steps(geom, 1)
+        assert calls.get("apply_7pt_plain", 0) > 0
+        assert calls.get("apply_dot_7pt_plain", 0) > 0
+        assert not any(k.endswith("_nb") for k in calls)
+        calls.clear()
+        p = torch.zeros(4, 3, 5, 2)
+        w = (p + 0.1, p + 0.1, p + 0.1)
+        tsp.apply_7pt(p, w)
+        tsp.resid_scaled_7pt(p, w, None, p)
+        tsp.apply_dot_7pt(p, w)
+    assert {k: v for k, v in calls.items() if k.endswith("_nb")} == {
+        "apply_7pt_nb": 1, "resid_scaled_7pt_nb": 1, "apply_dot_7pt_nb": 1}
