@@ -9,7 +9,11 @@ Phases, each fatal on any fault (nothing is caught):
   2. hold every kernel entry point against its plain PyTorch version on
      the card, at the 112³ flagship shapes, from seeded random inputs
      with zero wall faces; print errors beside tolerances, kernel / plain
-     times, bytes and bounds;
+     times, bytes and bounds; then the seven halo entry points of the
+     x-sharded step on those inputs cut into 4 x-shards: per shard against
+     their plain versions, and the shards composed against the single-grid
+     kernels on the whole grid (bitwise; the dot and the div max to 1e-6
+     relative), with the island's time beside the single-grid kernel's;
   3. drive the step path: the flagship single-tank case
      (H0.208/D0.2/R0.004/f1.88, mesh 0.00185, round_to=8 → 112³) through
      `make_step(..., carry_precond=True)` in the bench's configuration,
@@ -22,6 +26,14 @@ Phases, each fatal on any fault (nothing is caught):
      finiteness and that exactly the kernels of its path were launched
      (counts set to 0 just before it and read just after); with two
      sweeps, that the fused smoothers ran once per V-cycle;
+     3b. from that state, N_SHORT steps each of the unsharded default
+     step and of the x-sharded step make_step(spmd=SpmdCtx(S)) with S = 4
+     (28×112×112 per shard) and S = 1 (edge halos only), then the 4-shard
+     step with OFTPP_SMOOTH_SWEEPS=2: the checks of 3, p_iters within 2
+     at every step, 4 shards against 1 after 3 steps within the JAX spmd
+     test's bounds, every pair (either sharded step against the unsharded
+     one too) after 3 and N_SHORT steps within phase 4's; and the halo
+     kernels alone launched, S times per island call;
   4. from that state, N_CMP steps with the kernels and N_CMP with every
      entry point swapped for its plain version, for the finish-on step
      with one sweep, with two sweeps and with two sweeps and
@@ -92,6 +104,22 @@ DOT_RTOL = 1e-5
 # order and divides by the spacing through PyTorch's reciprocal; 1e-5 of
 # the output scale (the JAX parity test's bound).
 MOM_RTOL = 1e-5
+# Sharded steps against each other and against the unsharded step, field:
+# (kind, limit, floor). 4 shards against 1 (the pair the JAX spmd test
+# holds, test_spmd_kernels.py:329-338: the same path, halo exchanges
+# against edge fills) after 3 steps: 2e-3 of scale, the CG tolerance's
+# order, with a 2e-6 floor for the near-zero velocities of an early
+# transient. Every other pair and step count: phase 4's limits (kernels
+# against plain versions), for its reasons: the two solves stop on other
+# iterates every step, here because the sharded step's coarse levels run
+# the plain path, which rounds every bf16 operation where the kernels
+# round once (measured 2.2e-3 of w's scale after 3 steps against the
+# unsharded step; ROADMAP §3), and an ulp can flip a bf16 λ at the 1000:1
+# interface.
+JAX_SPMD_TOLS = {k: ("rel", 2e-3, 2e-6) for k in ("alpha", "u", "v", "w", "p")}
+SHARD_TOLS = {"alpha": ("abs", 1e-3, 0.0), "u": ("rel", 1e-2, 0.0),
+              "v": ("rel", 1e-2, 0.0), "w": ("rel", 1e-2, 0.0),
+              "p": ("rel", 1e-4, 0.0)}
 
 # Per-cell f32 operation counts of each kernel's arithmetic (for the
 # operations half of the bound; the bytes half is the larger for all).
@@ -107,6 +135,9 @@ FLOPS_PER_CELL = {
     "momentum_rhs": 3 * 105, "correct_divmax": 3 * 6 + 11 + 3,
     "momentum_finish": 3 * 11,
     "apply_7pt_nb": 13, "resid_scaled_7pt_nb": 15, "apply_dot_7pt_nb": 15,
+    "apply_7pt_h": 13, "resid_scaled_7pt_h": 15, "apply_dot_7pt_h": 15,
+    "flux_all_h": 3 * 30, "fct_iter_h": 4 * 60 + 3 * 6,
+    "momentum_rhs_h": 3 * 105, "correct_divmax_h": 3 * 6 + 11 + 3,
 }
 # Kernels of the default configuration; momentum_finish is opt-in.
 DEFAULT_PATH = ("apply_7pt", "resid_scaled_7pt", "apply_dot_7pt", "flux_all",
@@ -125,6 +156,11 @@ MANAGER_SWEEP = {"freq": [1.5 + 0.1 * i for i in range(8)],
                  "duration": 0.1, "dt": 0.001, "ramp": 1.0}
 # The sweep path: only the 7-point family has batch-native kernels.
 BATCH_PATH = ("apply_7pt_nb", "resid_scaled_7pt_nb", "apply_dot_7pt_nb")
+# The x-sharded step (make_step(spmd=SpmdCtx(S))): only the halo kernels,
+# S launches per island call.
+HALO_PATH = ("apply_7pt_h", "resid_scaled_7pt_h", "apply_dot_7pt_h",
+             "flux_all_h", "fct_iter_h", "momentum_rhs_h", "correct_divmax_h")
+N_SHARDS = 4
 CHEB_LMAX, CHEB_LMIN = 2.0, 0.10      # SolverKnobs defaults
 REPLACES = {
     "apply_7pt": "openfoam_tpp_tpu/ops/pallas/seven_point.py:229",
@@ -142,6 +178,13 @@ REPLACES = {
     "resid_scaled_7pt_nb":
         "openfoam_tpp_tpu/ops/pallas/seven_point_batch.py:191",
     "apply_dot_7pt_nb": "openfoam_tpp_tpu/ops/pallas/seven_point_batch.py:215",
+    "apply_7pt_h": "openfoam_tpp_tpu/ops/pallas/halo7.py:141",
+    "resid_scaled_7pt_h": "openfoam_tpp_tpu/ops/pallas/halo7.py:160",
+    "apply_dot_7pt_h": "openfoam_tpp_tpu/ops/pallas/halo7.py:179",
+    "flux_all_h": "openfoam_tpp_tpu/ops/pallas/mules_flux.py:179",
+    "fct_iter_h": "openfoam_tpp_tpu/ops/pallas/mules_fct.py:261",
+    "momentum_rhs_h": "openfoam_tpp_tpu/ops/pallas/momentum_rhs.py:463",
+    "correct_divmax_h": "openfoam_tpp_tpu/ops/pallas/correction.py:219",
 }
 SOURCE = {
     "apply_7pt": "openfoam_tpp_tpu_torch/csrc/seven_point.cu",
@@ -158,6 +201,13 @@ SOURCE = {
     "apply_7pt_nb": "openfoam_tpp_tpu_torch/csrc/seven_point_batch.cu",
     "resid_scaled_7pt_nb": "openfoam_tpp_tpu_torch/csrc/seven_point_batch.cu",
     "apply_dot_7pt_nb": "openfoam_tpp_tpu_torch/csrc/seven_point_batch.cu",
+    "apply_7pt_h": "openfoam_tpp_tpu_torch/csrc/seven_point.cu",
+    "resid_scaled_7pt_h": "openfoam_tpp_tpu_torch/csrc/seven_point.cu",
+    "apply_dot_7pt_h": "openfoam_tpp_tpu_torch/csrc/seven_point.cu",
+    "flux_all_h": "openfoam_tpp_tpu_torch/csrc/mules_flux.cu",
+    "fct_iter_h": "openfoam_tpp_tpu_torch/csrc/mules_fct.cu",
+    "momentum_rhs_h": "openfoam_tpp_tpu_torch/csrc/momentum_rhs.cu",
+    "correct_divmax_h": "openfoam_tpp_tpu_torch/csrc/correction.cu",
 }
 
 
@@ -509,9 +559,262 @@ def phase_batch_kernels(shape4, dev):
     return rows
 
 
+def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
+    """The seven halo entry points of the x-sharded step at `shape` cut
+    into `n_shards` x-slabs, in every dtype their route uses: per shard
+    against the plain version (each row's single-grid tolerance), and the
+    island (the shards composed into one tensor) against the single-grid
+    kernel on the whole grid, bitwise for every elementwise output, the
+    dot and the div max to 1e-6 relative. Times the S launches of a row
+    on exchanged halos (`ms`), the S plain calls, the island with its
+    exchanges and the single-grid kernel. Returns the main-path rows."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.ops.kernels import correction as ck
+    from openfoam_tpp_tpu_torch.ops.kernels import halo7
+    from openfoam_tpp_tpu_torch.ops.kernels import momentum_rhs as mrk
+    from openfoam_tpp_tpu_torch.ops.kernels import mules_fct as mf
+    from openfoam_tpp_tpu_torch.ops.kernels import mules_flux as mfx
+    from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
+    from openfoam_tpp_tpu_torch.parallel import spmd as sm
+
+    ctx = sm.SpmdCtx(n_shards)
+    rng = np.random.default_rng(2026)
+    n_cells = int(np.prod(shape))
+    nx, ny, nz = shape
+    rows = {}
+
+    def arr(lo=None, hi=None, dtype=torch.float32):
+        a = (rng.standard_normal(shape) if lo is None
+             else rng.uniform(lo, hi, shape)).astype(np.float32)
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    def faces(lo=-1.0, hi=1.0, open_top=True):
+        f = [torch.from_numpy(rng.uniform(lo, hi, sh).astype(np.float32)).to(dev)
+             for sh in ((nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1))]
+        f[0][0], f[0][-1], f[1][:, 0], f[1][:, -1], f[2][:, :, 0] = 0, 0, 0, 0, 0
+        if not open_top:
+            f[2][:, :, -1] = 0
+        return tuple(f)
+
+    def flat(out):
+        """Outputs as a flat tuple of tensors."""
+        if isinstance(out, torch.Tensor):
+            return (out,)
+        return tuple(t for o in out for t in flat(o))
+
+    def scalar_err(got, ref):
+        return max((abs(float(g) - float(r)) / max(abs(float(r)), 1e-30)
+                    for g, r in zip(got, ref)), default=0.0)
+
+    def check(name, variant, main, shards, island, single, tol, n_scalar=0,
+              scalar_tol=F32_RTOL):
+        """`shards`: per shard (kernel call, plain call, operands). The
+        last `n_scalar` outputs are 0-d scalars (the island reduces them
+        over the shards): per shard within `scalar_tol` of the plain
+        version's, and within F32_RTOL of the single-grid kernel's."""
+        err, scale, p_err = 0.0, 0.0, 0.0
+        for kern, plain, _ in shards:
+            got, ref = flat(kern()), flat(plain())
+            n_el = len(got) - n_scalar
+            e, sc = max_err(got[:n_el], ref[:n_el])
+            err, scale = max(err, e), max(scale, sc)
+            p_err = max(p_err, scalar_err(got[n_el:], ref[n_el:]))
+        rel = err / max(scale, 1e-30)
+        got, ref = flat(island()), flat(single())
+        torch.cuda.synchronize()
+        n_el = len(got) - n_scalar
+        bitwise = all(torch.equal(g, r) for g, r in zip(got[:n_el], ref[:n_el]))
+        s_err = scalar_err(got[n_el:], ref[n_el:])
+        ms = cuda_ms(lambda: [k() for k, _, _ in shards])
+        plain_ms = cuda_ms(lambda: [p() for _, p, _ in shards])
+        island_ms, single_ms = cuda_ms(island), cuda_ms(single)
+        b = sum(nbytes(*ops) for _, _, ops in shards)
+        t_bytes = b / HBM_BYTES_PER_S * 1e3
+        t_ops = FLOPS_PER_CELL[name] * n_cells / F32_FLOPS * 1e3
+        ok = (rel <= tol and bitwise and s_err <= F32_RTOL
+              and p_err <= scalar_tol)
+        log(f"  {name:18s} {variant:14s} x{n_shards}: per shard max_abs_err="
+            f"{err:.3e} rel={rel:.3e} tol={tol:.1e}"
+            + (f", scalar rel_err={p_err:.3e} tol={scalar_tol:.1e}"
+               if n_scalar else "")
+            + f"; island vs single-grid {'bitwise' if bitwise else 'DIFFERS'}"
+            + (f", scalar rel_err={s_err:.3e} tol={F32_RTOL:.1e}"
+               if n_scalar else "")
+            + f" {'ok' if ok else 'FAIL'}  kernels {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  island {island_ms:.4f} ms  single-grid "
+            f"{single_ms:.4f} ms  bytes {b / 1e6:.2f} MB  bound "
+            f"{max(t_bytes, t_ops):.4f} ms")
+        if not ok:
+            raise AssertionError(f"{name} {variant}: halo kernel disagrees "
+                                 f"(plain {rel:.3e}, island bitwise "
+                                 f"{bitwise}, scalar {s_err:.3e})")
+        if main:
+            rows[name] = {
+                "name": name, "route": "cuda", "source": SOURCE[name],
+                "replaces": REPLACES[name], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None, "variant": f"{variant} x{n_shards}",
+                "bytes": b, "island_ms": island_ms,
+                "single_grid_ms": single_ms, "scalar_rel_err": s_err}
+
+    held = list(ctx.held)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        tol = F32_RTOL if tag == "f32" else BF16_RTOL
+        p, b, d = arr(dtype=dtype), arr(dtype=dtype), arr(1.5, 2.5, dtype)
+        w = [arr(0.05, 0.3, dtype) for _ in range(3)]
+        w[0][0], w[1][:, 0], w[2][:, :, 0] = 0, 0, 0
+        w = tuple(w)
+        ps, bs, ds = ctx.split(p), ctx.split(b), ctx.split(d)
+        ws = [ctx.split(x) for x in w]
+        halos = sm.exchange_halo(ps, 1, ctx)
+        wx_hi = sm.exchange_hi(ws[0], 1, ctx)
+        hw = [(*halos[i], wx_hi[i], tuple(x[i] for x in ws)) for i in held]
+        for diag in (None, d):
+            v = f"{tag} {'diag' if diag is not None else 'unit'}"
+            dg = (lambda i: None) if diag is None else (lambda i: ds[i])
+            check("apply_7pt_h", v, tag == "f32" and diag is None,
+                  [(lambda i=i: halo7.apply_7pt_h(ps[i], *hw[i], dg(i)),
+                    lambda i=i: halo7.apply_7pt_h_plain(ps[i], *hw[i], dg(i)),
+                    (ps[i], *hw[i][:3], *hw[i][3], dg(i), ps[i]))
+                   for i in held],
+                  lambda: sm.apply_7pt(p, w, ctx, diag=diag),
+                  lambda: sp.apply_7pt(p, w, diag), tol)
+            check("resid_scaled_7pt_h", v, tag == "bf16" and diag is None,
+                  [(lambda i=i: halo7.resid_scaled_7pt_h(ps[i], *hw[i], bs[i],
+                                                         dg(i)),
+                    lambda i=i: halo7.resid_scaled_7pt_h_plain(
+                        ps[i], *hw[i], bs[i], dg(i)),
+                    (ps[i], *hw[i][:3], *hw[i][3], bs[i], dg(i), ps[i]))
+                   for i in held],
+                  lambda: sm.resid_scaled_7pt(p, w, ctx, b, diag=diag),
+                  lambda: sp.resid_scaled_7pt(p, w, diag, b), tol)
+        if tag == "f32":   # the CG curvature step is f32 only
+            check("apply_dot_7pt_h", "f32 unit", True,
+                  [(lambda i=i: halo7.apply_dot_7pt_h(ps[i], *hw[i]),
+                    lambda i=i: halo7.apply_dot_7pt_h_plain(ps[i], *hw[i]),
+                    (ps[i], *hw[i][:3], *hw[i][3], ps[i])) for i in held],
+                  lambda: sm.apply_dot_7pt(p, w, ctx),
+                  lambda: sp.apply_dot_7pt(p, w), tol, n_scalar=1,
+                  scalar_tol=DOT_RTOL)
+
+        # MULES: `dtype` is the compression-flux input and anti output
+        # (flux_all) and the λ/anti streams (fct_iter), bf16 by default.
+        alpha = arr(0, 1)
+        phis = tuple(1e-3 * arr() for _ in range(3))
+        ucs = tuple((1e-3 * arr()).to(dtype) for _ in range(3))
+        anti_dt = dtype if tag == "bf16" else None
+        a_s = ctx.split(alpha)
+        a_h = sm.exchange_halo(a_s, 2, ctx)
+        ph_s, uc_s = [ctx.split(f) for f in phis], [ctx.split(f) for f in ucs]
+        fa = [(a_s[i], a_h[i][0], a_h[i][1][:1], tuple(f[i] for f in ph_s),
+               tuple(f[i] for f in uc_s), anti_dt) for i in held]
+        check("flux_all_h", f"{tag} uc/anti", tag == "bf16",
+              [(lambda i=i: mfx.flux_all_h(*fa[i]),
+                lambda i=i: mfx.flux_all_h_plain(*fa[i]),
+                (*fa[i][:3], *fa[i][3], *fa[i][4], a_s[i], a_s[i], a_s[i],
+                 *(torch.empty_like(a_s[i], dtype=dtype),) * 3))
+               for i in held],
+              lambda: sm.flux_all(alpha, phis, ucs, ctx, anti_dtype=anti_dt),
+              lambda: mfx.flux_all(alpha, phis, ucs, anti_dt), tol)
+        al = arr(0, 1)
+        cells = (al, torch.clamp(al + arr(0, 0.2), max=1.0),
+                 torch.clamp(al - arr(0, 0.2), min=0.0), arr(1e-4, 2e-4))
+        lams = tuple(arr(0, 1, dtype) for _ in range(3))
+        antis = tuple((1e-3 * arr()).to(dtype) for _ in range(3))
+        antis[0][0], antis[1][:, 0], antis[2][:, :, 0] = 0, 0, 0
+        fct_h = (0.00185, 0.00185, 0.00185)
+        ls, ans = [ctx.split(x) for x in lams], [ctx.split(x) for x in antis]
+        cs = [ctx.split(c) for c in cells]
+        lh = [sm.exchange_halo(x, 1, ctx, hi_edge="zero") for x in ls]
+        ah = [sm.exchange_halo(x, 1, ctx, hi_edge="zero") for x in ans]
+        cl = [sm.exchange_halo(c, 1, ctx) for c in cs]
+        fi = [(tuple(x[i] for x in ls),
+               (lh[0][i], (lh[1][i][0], None), (lh[2][i][0], None)),
+               tuple(x[i] for x in ans),
+               (ah[0][i], (ah[1][i][0], None), (ah[2][i][0], None)),
+               tuple(c[i][0] for c in cl), *(c[i] for c in cs), fct_h)
+              for i in held]
+        check("fct_iter_h", f"{tag} λ/anti", tag == "bf16",
+              [(lambda i=i: mf.fct_iter_h(*fi[i]),
+                lambda i=i: mf.fct_iter_h_plain(*fi[i]),
+                (*fi[i][0], *fi[i][2], *fi[i][5:9], *fi[i][4],
+                 *(h for hs in fi[i][1] + fi[i][3] for h in hs
+                   if h is not None), *fi[i][0]))
+               for i in held],
+              lambda: sm.fct_iters(lams, antis, *cells, fct_h, 1, ctx),
+              lambda: mf.fct_iter(lams, antis, *cells, fct_h), tol)
+
+    # The momentum and projection islands: physical inputs with zero wall
+    # faces, f32.
+    vel, rp = faces(), faces()
+    mu, div_u = arr(1e-5, 2e-3), 0.1 * arr(-1, 1)
+    us, rxs = ctx.split(vel[0], nx), ctx.split(rp[0], nx)
+    others = [ctx.split(t) for t in (*vel[1:], *rp[1:], mu, div_u)]
+    uh = sm.exchange_halo(us, 2, ctx, hi_edge="zero")
+    vh, wh = (sm.exchange_halo(o, 2, ctx) for o in others[:2])
+    rxh = sm.exchange_halo(rxs, 1, ctx, hi_edge="zero")
+    ryh, rzh, muh = (sm.exchange_halo(o, 1, ctx) for o in others[2:5])
+    duh = sm.exchange_halo(others[5], 1, ctx, lo_edge="zero")
+    for dev2 in (True, False):
+        ma = [(us[i], others[0][i], others[1][i], rxs[i], others[2][i],
+               others[3][i], others[4][i], others[5][i],
+               (*uh[i], *vh[i], *wh[i], *rxh[i], ryh[i][0], rzh[i][0],
+                *muh[i], duh[i][0]), spacing, dev2) for i in held]
+        check("momentum_rhs_h", f"dev2 {'on' if dev2 else 'off'}", dev2,
+              [(lambda i=i: mrk.momentum_rhs_h(*ma[i]),
+                lambda i=i: mrk.momentum_rhs_h_plain(*ma[i]),
+                (*ma[i][:7], ma[i][7] if dev2 else None,
+                 *(h for h in ma[i][8] if dev2 or h is not duh[i][0]),
+                 us[i], others[0][i], others[1][i]))
+               for i in held],
+              lambda: sm.momentum_rhs(*vel, rp, mu, div_u, spacing, ctx,
+                                      dev2=dev2),
+              lambda: mrk.momentum_rhs(*vel, rp, mu, div_u, spacing, dev2),
+              MOM_RTOL)
+
+    dp, vfrac = arr(-50, 50), arr(0, 1)
+    vfrac[vfrac < 0.1] = 0
+    beta = faces(8e-4, 1e-3)
+    rho = arr(1, 998)
+    topo = (arr(0, 1)[:, :, 0] > 0.3).float().contiguous()
+    dt0 = torch.tensor(3.7e-3, device=dev)
+    dps = ctx.split(dp)
+    dh = sm.exchange_halo(dps, 1, ctx)
+    for open_top in (True, False):
+        aps = faces(0.0, 1.0, open_top)
+        for a in aps:
+            a[a < 0.2] = 0
+        packed = [ctx.split(t, nx) for t in (vel[0], beta[0], aps[0])]
+        his = [sm.exchange_hi(t, 1, ctx) for t in packed]
+        rest = [ctx.split(t) for t in (*vel[1:], *beta[1:], *aps[1:], vfrac,
+                                       topo, rho)]
+        ca = [(dps[i], *dh[i], packed[0][i], his[0][i], rest[0][i],
+               rest[1][i], packed[1][i], his[1][i], rest[2][i], rest[3][i],
+               packed[2][i], his[2][i], rest[4][i], rest[5][i], rest[6][i],
+               rest[7][i] if open_top else None, rest[8][i], dt0, spacing,
+               open_top) for i in held]
+        tag = f"open top {'on' if open_top else 'off'}"
+        check("correct_divmax_h", tag, open_top,
+              [(lambda i=i: ck.correct_divmax_h(*ca[i]),
+                lambda i=i: ck.correct_divmax_h_plain(*ca[i]),
+                (*ca[i][:16], ca[i][16], ca[i][17][:, :, -1],
+                 packed[0][i], rest[0][i], rest[1][i]))
+               for i in held],
+              lambda: sm.correct_divmax(dp, *vel, beta, *aps, vfrac, topo,
+                                        rho, dt0, spacing, ctx,
+                                        open_top=open_top),
+              lambda: ck.correct_divmax(dp, *vel, beta, *aps, vfrac, topo,
+                                        rho, dt0, spacing, open_top=open_top),
+              F32_RTOL, n_scalar=1)
+    return rows
+
+
 def counters():
     """name → (module, entry point, plain version), for every kernel."""
     from openfoam_tpp_tpu_torch.ops.kernels import correction as ck
+    from openfoam_tpp_tpu_torch.ops.kernels import halo7
     from openfoam_tpp_tpu_torch.ops.kernels import mom_finish as mfk
     from openfoam_tpp_tpu_torch.ops.kernels import momentum_rhs as mrk
     from openfoam_tpp_tpu_torch.ops.kernels import mules_fct as mf
@@ -535,14 +838,26 @@ def counters():
         "momentum_rhs": (mrk, "momentum_rhs", mrk.momentum_rhs_plain),
         "correct_divmax": (ck, "correct_divmax", ck.correct_divmax_plain),
         "momentum_finish": (mfk, "momentum_finish", mfk.momentum_finish_plain),
+        "apply_7pt_h": (halo7, "apply_7pt_h", halo7.apply_7pt_h_plain),
+        "resid_scaled_7pt_h": (halo7, "resid_scaled_7pt_h",
+                               halo7.resid_scaled_7pt_h_plain),
+        "apply_dot_7pt_h": (halo7, "apply_dot_7pt_h",
+                            halo7.apply_dot_7pt_h_plain),
+        "flux_all_h": (mfx, "flux_all_h", mfx.flux_all_h_plain),
+        "fct_iter_h": (mf, "fct_iter_h", mf.fct_iter_h_plain),
+        "momentum_rhs_h": (mrk, "momentum_rhs_h", mrk.momentum_rhs_h_plain),
+        "correct_divmax_h": (ck, "correct_divmax_h",
+                             ck.correct_divmax_h_plain),
     }
 
 
 def drive(label, step, state, bundle, params, n_steps, n_timed, n_fluid,
-          expect):
+          expect, snap_at=None):
     """`n_steps` steps of `step` from (state, bundle), the last `n_timed`
     timed, with every launch count set to 0 just before and read just
-    after. Checks the run and that exactly the kernels in `expect` ran."""
+    after. Checks the run and that exactly the kernels in `expect` ran.
+    The stats carry every step's p_iters; with `snap_at` also the state
+    after that many steps (`snapshot`)."""
     import torch
 
     fns = {k: getattr(m, a) for k, (m, a, _) in counters().items()}
@@ -557,6 +872,8 @@ def drive(label, step, state, bundle, params, n_steps, n_timed, n_fluid,
             t_timed = time.perf_counter()
         state, d, bundle = step(state, params, precond=bundle)
         diags.append(d)
+        if i + 1 == snap_at:
+            snapshot = state
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = {k: f.launches for k, f in fns.items()}
@@ -572,7 +889,10 @@ def drive(label, step, state, bundle, params, n_steps, n_timed, n_fluid,
              "p_iters_hist": hist, "max_courant": co,
              "max_div_error": max(float(d.div_error) for d in diags),
              "sim_t": float(state.t),
-             "launches_per_step": {k: v / n_steps for k, v in launches.items()}}
+             "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+             "p_iters": iters}
+    if snap_at is not None:
+        stats["snapshot"] = snapshot
     log(f"[{label}] {n_steps} steps in {t_end - t_first:.2f} s; last "
         f"{n_timed}: {stats['ms_per_step']:.3f} ms/step, "
         f"{stats['cell_updates_per_s']:.4e} cell-updates/s, "
@@ -602,6 +922,87 @@ def drive(label, step, state, bundle, params, n_steps, n_timed, n_fluid,
             raise AssertionError(f"{label}: {k} launched {launches[k]} "
                                  f"times in {vcycles} V-cycles")
     return state, bundle, launches, stats
+
+
+def phase_sharded(build, state, params, n_fluid):
+    """The x-sharded step on one card (module docstring, phase 3b): from
+    `state`, N_SHORT steps each of the unsharded default step and of
+    make_step(spmd=SpmdCtx(S)) for S = 4 and 1, then the 4-shard step with
+    OFTPP_SMOOTH_SWEEPS=2. Returns the 4-shard run's launch counts and the
+    phase's stats."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
+
+    runs, snaps, finals, launches = {}, {}, {}, {}
+    for label, n in (("unsharded", None), ("4 shards", N_SHARDS),
+                     ("1 shard", 1)):
+        stp = build(spmd=None if n is None else SpmdCtx(n))
+        finals[label], _, launches[label], runs[label] = drive(
+            f"sharded step: {label}, same state", stp, state,
+            stp.init_precond(state), params, N_SHORT, N_SHORT_TIMED, n_fluid,
+            DEFAULT_PATH if n is None else HALO_PATH, snap_at=3)
+        snaps[label] = runs[label].pop("snapshot")
+        if n is not None:
+            check_halo_launches(label, launches[label], runs[label], n, 1)
+    stp = build(spmd=SpmdCtx(N_SHARDS), OFTPP_SMOOTH_SWEEPS="2")
+    _, _, two, runs["4 shards, two sweeps"] = drive(
+        "sharded step: 4 shards, OFTPP_SMOOTH_SWEEPS=2, same state", stp,
+        state, stp.init_precond(state), params, N_SHORT, N_SHORT_TIMED,
+        n_fluid, HALO_PATH)
+    check_halo_launches("4 shards, two sweeps", two,
+                        runs["4 shards, two sweeps"], N_SHARDS, 2)
+
+    spread, bad = {}, []
+    for label, ref in (("4 shards", "1 shard"), ("4 shards", "unsharded"),
+                       ("1 shard", "unsharded")):
+        iters, ref_iters = runs[label]["p_iters"], runs[ref]["p_iters"]
+        d_it = max(abs(a - b) for a, b in zip(iters, ref_iters))
+        log(f"[sharded step {label} vs {ref}] p_iters per step {iters} "
+            f"({ref}: {ref_iters}); largest difference {d_it}")
+        if d_it > 2:
+            bad.append(f"{label} vs {ref}: p_iters differ by {d_it} > 2")
+        pair = spread[f"{label} vs {ref}"] = {"max_p_iters_diff": d_it}
+        tols3 = JAX_SPMD_TOLS if ref == "1 shard" else SHARD_TOLS
+        for at, got_s, ref_s, tols in (
+                (3, snaps[label], snaps[ref], tols3),
+                (N_SHORT, finals[label], finals[ref], SHARD_TOLS)):
+            for k, (kind_t, tol, floor) in tols.items():
+                err, scale = max_err(getattr(got_s, k), getattr(ref_s, k))
+                lim = max(tol if kind_t == "abs" else tol * scale, floor)
+                pair[f"{k}_after_{at}"] = {"max_abs_err": err,
+                                           "scale": scale, "limit": lim}
+                log(f"  after {at} steps {k}: max_abs_err {err:.3e} limit "
+                    f"{lim:.3e} (scale {scale:.3e}, {err / scale:.3e} of it)")
+                if err > lim:
+                    bad.append(f"{label} vs {ref}, {k} after {at}: "
+                               f"{err} > {lim}")
+    log("[sharded vs unsharded, same state, one run each] " + "; ".join(
+        f"{k}: {runs[k]['ms_per_step']:.3f} ms/step" for k in runs))
+    if bad:
+        raise AssertionError(f"sharded step: {bad}")
+    return launches["4 shards"], {"runs": runs, "spread": spread}
+
+
+def check_halo_launches(label, launches, stats, n_shards, sweeps):
+    """Each halo row launches `n_shards` times per island call: per step 3
+    flux islands and 9 FCT islands (3 subcycles × 3 limiter iterations),
+    one momentum and one epilogue island, two true-residual applies; one
+    curvature island per CG iteration; per V-cycle (one before CG's loop
+    and one per iteration) 2 residual islands with one sweep, 4 with two
+    (the generic smoother on the sharded top level)."""
+    steps = stats["steps"]
+    iters = sum(stats["p_iters"])
+    want = {"flux_all_h": 3 * steps, "fct_iter_h": 9 * steps,
+            "momentum_rhs_h": steps, "correct_divmax_h": steps,
+            "apply_7pt_h": 2 * steps, "apply_dot_7pt_h": iters,
+            "resid_scaled_7pt_h": 2 * sweeps * (iters + steps)}
+    got = {k: launches[k] for k in want}
+    if got != {k: n_shards * v for k, v in want.items()}:
+        raise AssertionError(f"{label}: halo launches {got}, want "
+                             f"{n_shards} x {want}")
+    log(f"  {label}: every halo row launched {n_shards} times per island "
+        "call; every single-grid row 0 times")
 
 
 def phase_case(geom):
@@ -1100,16 +1501,20 @@ def main() -> int:
     log(f"[batch kernels vs plain and vs the single-grid kernels] shape "
         f"{shape4}, {REPS} timed launches each")
     rows.update(phase_batch_kernels(shape4, dev))
+    log(f"[halo kernels vs plain and, composed, vs the single-grid kernels] "
+        f"shape {geom.shape} in {N_SHARDS} x-shards, {REPS} timed launches "
+        "each")
+    rows.update(phase_halo_kernels(geom.shape, spacing, dev))
 
     # 3. the step path: the bench's configuration from rest, then the
     # five configurations from the state it reached
     props = PhysicalProperties()
     params = CaseParams.make(R=0.004, freq=1.88, duration=20.0, device=dev)
 
-    def build(controls=SolverControls(use_pallas=True), **env):
+    def build(controls=SolverControls(use_pallas=True), spmd=None, **env):
         with environ(**env):   # gates and knobs are read at build time
             return make_step(geom, props, controls, carry_precond=True,
-                             device=dev)
+                             spmd=spmd, device=dev)
 
     step = build()
     state = init_state(geom, dt0=1e-3, device=dev)
@@ -1144,6 +1549,11 @@ def main() -> int:
         + "; ".join(f"{k}: {runs[k]['ms_per_step']:.3f} ms/step, p_iters "
                     f"{runs[k]['p_iters_hist']}"
                     for k in ("use_pallas", "sweeps2", "sweeps2_fused_rz_off")))
+
+    # 3b. the x-sharded step from the same state
+    halo_launches, sharded = phase_sharded(build, state, params, n_fluid)
+    for k in HALO_PATH:
+        launches[k] = halo_launches[k]
 
     # 4. the whole step, kernels against plain versions, from one state:
     # the finish-on step with one sweep, with two, and with two and the
@@ -1209,7 +1619,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     detail = {"kernels": out, "shape": list(geom.shape), "fluid_cells": n_fluid,
               "runs": {"use_pallas_from_rest": main, "same_state": runs,
-                       "case_path": case, "sweep": sweep,
+                       "sharded": sharded, "case_path": case, "sweep": sweep,
                        "runsweep": manager}}
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)
     with open(os.path.join(repo, "perf_out", "chip_smoke.json"), "w") as f:

@@ -24,6 +24,17 @@
 // its cells (a shared-memory tree) and a second one-block pass reduces
 // those partials. A maximum is exact, so the result does not depend on
 // the order; NaN propagates, as in torch.max.
+//
+// The halo variant (`correction_halo_launch`) replaces the TPU kernel
+// correction.py `correct_divmax_h` (correction.py:219), the per-shard
+// kernel of the x-sharded step: the same kernel with HALO set. u, βx and
+// ax come packed to the slab's cells; the x face above the slab reads
+// their exchanged planes (the next shard's first faces; zeros at the
+// global end, the sealed wall's true values), and the x gradient at the
+// slab's two end faces reads dp's exchanged ±1 planes (the edge plane at
+// the global ends, so the gradient there is (dp0 − dp0)/hx = 0). No wall
+// row is written; the maximum is the shard's, reduced over the shards by
+// the caller. Same bytes plus five planes, same bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,9 +48,15 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (b > a || b != b) ? b : a;
 }
 
-template <bool OPEN_TOP>
+// HALO: h = {dp lo, dp hi, u hi, βx hi, ax hi}, (ny, nz) planes each.
+struct Halo {
+  const float *dp_lo, *dp_hi, *u, *bx, *ax;
+};
+
+template <bool OPEN_TOP, bool HALO>
 __global__ void __launch_bounds__(kBlock)
-correct_divmax_kernel(const float* __restrict__ dt_p, const float* __restrict__ dp,
+correct_divmax_kernel(const Halo h, const float* __restrict__ dt_p,
+                      const float* __restrict__ dp,
                       const float* __restrict__ u, const float* __restrict__ v,
                       const float* __restrict__ w, const float* __restrict__ bx,
                       const float* __restrict__ by, const float* __restrict__ bz,
@@ -58,13 +75,28 @@ correct_divmax_kernel(const float* __restrict__ dt_p, const float* __restrict__ 
     auto cell = [&](int a, int b, int c) { return ((int64_t)a * ny + b) * nz + c; };
     const int64_t c0 = cell(i, j, k);
 
-    // x faces f = i, i+1 of this cell: u layout (nx+1, ny, nz).
+    // x faces f = i, i+1 of this cell: u layout (nx+1, ny, nz); with HALO
+    // (nx, ny, nz), face nx in the halo planes.
+    const int64_t pq = (int64_t)j * nz + k;   // the cell's place in a plane
     auto corr_u = [&](int f, float& phi) {
       const int64_t o = cell(f, j, k);
-      const float g = (f == 0 || f == nx) ? 0.0f
-                      : (__ldg(dp + cell(f, j, k)) - __ldg(dp + cell(f - 1, j, k))) / hx;
-      const float a = __ldg(ax + o);
-      const float q = a > 0.0f ? __ldg(u + o) - dt * __ldg(bx + o) * g : 0.0f;
+      float g, a, uf, bf;
+      if (HALO) {
+        const float d1 = f < nx ? __ldg(dp + cell(f, j, k)) : __ldg(h.dp_hi + pq);
+        const float d0 = f > 0 ? __ldg(dp + cell(f - 1, j, k)) : __ldg(h.dp_lo + pq);
+        g = (d1 - d0) / hx;
+        const bool top = f == nx;
+        a = top ? __ldg(h.ax + pq) : __ldg(ax + o);
+        uf = top ? __ldg(h.u + pq) : __ldg(u + o);
+        bf = top ? __ldg(h.bx + pq) : __ldg(bx + o);
+      } else {
+        g = (f == 0 || f == nx) ? 0.0f
+            : (__ldg(dp + cell(f, j, k)) - __ldg(dp + cell(f - 1, j, k))) / hx;
+        a = __ldg(ax + o);
+        uf = __ldg(u + o);
+        bf = __ldg(bx + o);
+      }
+      const float q = a > 0.0f ? uf - dt * bf * g : 0.0f;
       phi = a * q;
       return q;
     };
@@ -104,7 +136,7 @@ correct_divmax_kernel(const float* __restrict__ dt_p, const float* __restrict__ 
     const float w0 = corr_w(k, pz0);
     const float w1 = corr_w(k + 1, pz1);
     ou[cell(i, j, k)] = u0;
-    if (i == nx - 1) ou[cell(nx, j, k)] = 0.0f;   // the sealed +x wall row
+    if (!HALO && i == nx - 1) ou[cell(nx, j, k)] = 0.0f;   // the sealed +x wall row
     ov[((int64_t)i * (ny + 1) + j) * nz + k] = v0;
     if (j == ny - 1) ov[((int64_t)i * (ny + 1) + ny) * nz + k] = v1;
     ow[((int64_t)i * ny + j) * (nz + 1) + k] = w0;
@@ -140,6 +172,41 @@ max_partials_kernel(const float* __restrict__ partial, int n, float* __restrict_
   if (threadIdx.x == 0) out[0] = sh[0];
 }
 
+template <bool HALO>
+int launch(const Halo& h, int open_top, const void* dt, const void* dp,
+           const void* u, const void* v, const void* w, const void* bx,
+           const void* by, const void* bz, const void* ax, const void* ay,
+           const void* az, const void* vfrac, const void* topo,
+           const void* rho, void* ou, void* ov, void* ow, void* partial,
+           void* div_max, int nx, int ny, int nz, float hx, float hy,
+           float hz, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 block(kBX, kBY);
+  const dim3 grid((nz + kBX - 1) / kBX, (ny + kBY - 1) / kBY, nx);
+  const float* f[14] = {
+      static_cast<const float*>(dt), static_cast<const float*>(dp),
+      static_cast<const float*>(u),  static_cast<const float*>(v),
+      static_cast<const float*>(w),  static_cast<const float*>(bx),
+      static_cast<const float*>(by), static_cast<const float*>(bz),
+      static_cast<const float*>(ax), static_cast<const float*>(ay),
+      static_cast<const float*>(az), static_cast<const float*>(vfrac),
+      static_cast<const float*>(topo), static_cast<const float*>(rho)};
+  float* part = static_cast<float*>(partial);
+  if (open_top)
+    correct_divmax_kernel<true, HALO><<<grid, block, 0, s>>>(
+        h, f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10],
+        f[11], f[12], f[13], static_cast<float*>(ou), static_cast<float*>(ov),
+        static_cast<float*>(ow), part, nx, ny, nz, hx, hy, hz);
+  else
+    correct_divmax_kernel<false, HALO><<<grid, block, 0, s>>>(
+        h, f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10],
+        f[11], f[12], f[13], static_cast<float*>(ou), static_cast<float*>(ov),
+        static_cast<float*>(ow), part, nx, ny, nz, hx, hy, hz);
+  max_partials_kernel<<<1, kMaxBlock, 0, s>>>(
+      part, (int)(grid.x * grid.y * grid.z), static_cast<float*>(div_max));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -159,31 +226,33 @@ int correction_launch(int open_top, const void* dt, const void* dp, const void* 
                       const void* vfrac, const void* topo, const void* rho, void* ou,
                       void* ov, void* ow, void* partial, void* div_max, int nx,
                       int ny, int nz, float hx, float hy, float hz, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(kBX, kBY);
-  const dim3 grid((nz + kBX - 1) / kBX, (ny + kBY - 1) / kBY, nx);
-  const float* f[14] = {
-      static_cast<const float*>(dt), static_cast<const float*>(dp),
-      static_cast<const float*>(u),  static_cast<const float*>(v),
-      static_cast<const float*>(w),  static_cast<const float*>(bx),
-      static_cast<const float*>(by), static_cast<const float*>(bz),
-      static_cast<const float*>(ax), static_cast<const float*>(ay),
-      static_cast<const float*>(az), static_cast<const float*>(vfrac),
-      static_cast<const float*>(topo), static_cast<const float*>(rho)};
-  float* part = static_cast<float*>(partial);
-  if (open_top)
-    correct_divmax_kernel<true><<<grid, block, 0, s>>>(
-        f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10], f[11],
-        f[12], f[13], static_cast<float*>(ou), static_cast<float*>(ov),
-        static_cast<float*>(ow), part, nx, ny, nz, hx, hy, hz);
-  else
-    correct_divmax_kernel<false><<<grid, block, 0, s>>>(
-        f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10], f[11],
-        f[12], f[13], static_cast<float*>(ou), static_cast<float*>(ov),
-        static_cast<float*>(ow), part, nx, ny, nz, hx, hy, hz);
-  max_partials_kernel<<<1, kMaxBlock, 0, s>>>(
-      part, (int)(grid.x * grid.y * grid.z), static_cast<float*>(div_max));
-  return (int)cudaGetLastError();
+  const Halo h = {nullptr, nullptr, nullptr, nullptr, nullptr};
+  return launch<false>(h, open_top, dt, dp, u, v, w, bx, by, bz, ax, ay, az,
+                       vfrac, topo, rho, ou, ov, ow, partial, div_max, nx, ny,
+                       nz, hx, hy, hz, stream);
+}
+
+// The same on one shard's slab of nx cells along x: u, bx, ax and ou packed
+// to (nx, ny, nz); dp_lo, dp_hi dp's planes x = −1, nx; u_hi, bx_hi, ax_hi
+// the faces x = nx, all (1, ny, nz). div_max is the shard's.
+int correction_halo_launch(int open_top, const void* dt, const void* dp,
+                           const void* dp_lo, const void* dp_hi, const void* u,
+                           const void* u_hi, const void* v, const void* w,
+                           const void* bx, const void* bx_hi, const void* by,
+                           const void* bz, const void* ax, const void* ax_hi,
+                           const void* ay, const void* az, const void* vfrac,
+                           const void* topo, const void* rho, void* ou, void* ov,
+                           void* ow, void* partial, void* div_max, int nx,
+                           int ny, int nz, float hx, float hy, float hz,
+                           void* stream) {
+  const Halo h = {static_cast<const float*>(dp_lo),
+                  static_cast<const float*>(dp_hi),
+                  static_cast<const float*>(u_hi),
+                  static_cast<const float*>(bx_hi),
+                  static_cast<const float*>(ax_hi)};
+  return launch<true>(h, open_top, dt, dp, u, v, w, bx, by, bz, ax, ay, az,
+                      vfrac, topo, rho, ou, ov, ow, partial, div_max, nx, ny,
+                      nz, hx, hy, hz, stream);
 }
 
 }  // extern "C"

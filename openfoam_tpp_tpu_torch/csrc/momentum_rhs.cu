@@ -35,6 +35,20 @@
 // kernel is bound by instruction issue, not by bytes. The operation
 // order is the plain version's, and the build has no FMA contraction,
 // so the two agree to rounding.
+//
+// The halo variant (`momentum_rhs_halo_launch`) replaces the TPU kernel
+// momentum_rhs.py `momentum_rhs_h` (momentum_rhs.py:463), the per-shard
+// kernel of the x-sharded step: the same kernel with H set. u and ρφ_x
+// come packed to the slab's cells (the global face-nx plane is the sealed
+// wall and rides in their zero hi halo), and every x read outside the
+// slab takes the exchanged planes: u, v, w ±2, ρφ_x and μ ±1, ρφ_y, ρφ_z
+// and ∇·U −1 (the widest reach of any output face). Along x it applies
+// no boundary rule of its own (no zero-padded end flux, no edge face
+// average, no clamp, no wall row): the halo content carries them — edge
+// planes replicated (a difference of equal values is 0, an average of
+// equal values the value), zeros for the sealed wall and for ∇·U below
+// the domain, and zero wall mass fluxes make the end convective fluxes 0.
+// Same bytes plus the halo planes, same bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,17 +69,34 @@ __device__ __forceinline__ P3 at(P3 p, int v) {
   return p;
 }
 
-// A read-only row-major array with extents (e[0], e[1], e[2]).
+// A read-only row-major array with extents (e[0], e[1], e[2]). With H (the
+// halo kernel) x may leave [0, e[0]): x < 0 reads plane x + wl of `lo`,
+// x >= e[0] plane x − e[0] of `hi` (both of the array's (e[1], e[2])).
+template <bool H>
 struct Arr {
   const float* __restrict__ p;
   int e[3];
+  const float* __restrict__ lo;
+  const float* __restrict__ hi;
+  int wl;
   __device__ __forceinline__ float operator()(const P3& c) const {
+    if (H) {
+      const int x = c.i[0], in = c.i[1] * e[2] + c.i[2];
+      if (x < 0) return __ldg(lo + (x + wl) * e[1] * e[2] + in);
+      if (x >= e[0]) return __ldg(hi + (x - e[0]) * e[1] * e[2] + in);
+    }
     return __ldg(p + (c.i[0] * e[1] + c.i[1]) * e[2] + c.i[2]);
   }
 };
 
-template <int A>
-__device__ __forceinline__ float clamped(const Arr& a, const P3& x, int v) {
+// True where axis A carries the grid's own boundary rules: every axis of
+// the single-grid kernel, y and z of the halo kernel.
+template <int A, bool H>
+constexpr bool kEnds = !(H && A == 0);
+
+template <int A, bool H>
+__device__ __forceinline__ float clamped(const Arr<H>& a, const P3& x, int v) {
+  if (!kEnds<A, H>) return a(at<A>(x, v));
   const int n = a.e[A];
   return a(at<A>(x, v < 0 ? 0 : (v >= n ? n - 1 : v)));
 }
@@ -81,10 +112,14 @@ __device__ __forceinline__ float vl(float up, float down) {
 // stencil.vanleer_faces at face e along A (faces 0 … n_A of q's entries
 // along A): up_plus of the entry below, or up_minus of the entry above,
 // by the sign of the mass flux g; face_lr clamps both ends.
-template <int A>
-__device__ __forceinline__ float muscl(const Arr& q, const P3& x, int e, float g) {
+template <int A, bool H>
+__device__ __forceinline__ float muscl(const Arr<H>& q, const P3& x, int e, float g) {
   const int n = q.e[A];
-  const int c = g >= 0.0f ? (e - 1 < 0 ? 0 : e - 1) : (e > n - 1 ? n - 1 : e);
+  int c;
+  if (kEnds<A, H>)
+    c = g >= 0.0f ? (e - 1 < 0 ? 0 : e - 1) : (e > n - 1 ? n - 1 : e);
+  else
+    c = g >= 0.0f ? e - 1 : e;
   const float q0 = q(at<A>(x, c));
   const float dm = q0 - clamped<A>(q, x, c - 1);
   const float dp = clamped<A>(q, x, c + 1) - q0;
@@ -92,17 +127,19 @@ __device__ __forceinline__ float muscl(const Arr& q, const P3& x, int e, float g
 }
 
 // cells_to_faces_avg along A at face f (n cells along A).
-template <int A>
-__device__ __forceinline__ float favg(const Arr& a, const P3& x, int f, int n) {
-  if (f == 0) return a(at<A>(x, 0));
-  if (f == n) return a(at<A>(x, n - 1));
+template <int A, bool H>
+__device__ __forceinline__ float favg(const Arr<H>& a, const P3& x, int f, int n) {
+  if (kEnds<A, H>) {
+    if (f == 0) return a(at<A>(x, 0));
+    if (f == n) return a(at<A>(x, n - 1));
+  }
   return 0.5f * (a(at<A>(x, f - 1)) + a(at<A>(x, f)));
 }
 
 // μ on the (Q-face fq, D-face fd) edge: cells_to_faces_avg along the
 // lower axis, then along the higher (solver/momentum.py edge_viscosities).
-template <int Q, int D>
-__device__ __forceinline__ float mu_edge(const Arr& mu, const P3& x, int fq, int fd) {
+template <int Q, int D, bool H>
+__device__ __forceinline__ float mu_edge(const Arr<H>& mu, const P3& x, int fq, int fd) {
   constexpr int LO = Q < D ? Q : D, HI = Q < D ? D : Q;
   const int flo = LO == Q ? fq : fd, fhi = HI == Q ? fq : fd;
   const int n = mu.e[HI];
@@ -112,21 +149,22 @@ __device__ __forceinline__ float mu_edge(const Arr& mu, const P3& x, int fq, int
   return 0.5f * (inner(fhi - 1) + inner(fhi));
 }
 
+template <bool H>
 struct Fields {
-  Arr vel[3], rp[3], mu, div;
+  Arr<H> vel[3], rp[3], mu, div;
   float h[3];
 };
 
 // convect_face_field's direction-D term for component Q at face x.
-template <int Q, int D>
-__device__ __forceinline__ float conv_term(const Fields& F, const P3& x) {
-  const Arr& q = F.vel[Q];
-  const Arr& rp = F.rp[D];
+template <int Q, int D, bool H>
+__device__ __forceinline__ float conv_term(const Fields<H>& F, const P3& x) {
+  const Arr<H>& q = F.vel[Q];
+  const Arr<H>& rp = F.rp[D];
   const float h = F.h[D];
   if (Q == D) {
     const int n = q.e[Q];   // faces of q along Q; centres 1 … n−1 inside
     auto flux = [&](int m) {
-      if (m == 0 || m == n) return 0.0f;
+      if (kEnds<Q, H> && (m == 0 || m == n)) return 0.0f;
       const float g = 0.5f * (rp(at<Q>(x, m - 1)) + rp(at<Q>(x, m)));
       return g * muscl<Q>(q, x, m, g);
     };
@@ -143,15 +181,15 @@ __device__ __forceinline__ float conv_term(const Fields& F, const P3& x) {
 }
 
 // viscous_face_field's direction-D term (DEV2: the transpose stress's).
-template <int Q, int D, bool DEV2, bool DIV>
-__device__ __forceinline__ float visc_term(const Fields& F, const P3& x) {
-  const Arr& q = F.vel[Q];
-  const Arr& mu = F.mu;
+template <int Q, int D, bool DEV2, bool DIV, bool H>
+__device__ __forceinline__ float visc_term(const Fields<H>& F, const P3& x) {
+  const Arr<H>& q = F.vel[Q];
+  const Arr<H>& mu = F.mu;
   const float h = F.h[D];
   if (Q == D) {
     const int n = q.e[Q];
     auto flux = [&](int m) {
-      if (m == 0 || m == n) return 0.0f;
+      if (kEnds<Q, H> && (m == 0 || m == n)) return 0.0f;
       const int c = m - 1;
       float dq = (q(at<Q>(x, c + 1)) - q(at<Q>(x, c))) / h;
       if (DEV2 && DIV) dq = dq - kTwoThirds * F.div(at<Q>(x, c));
@@ -166,13 +204,14 @@ __device__ __forceinline__ float visc_term(const Fields& F, const P3& x) {
     const P3 y = at<D>(x, e);
     float g;
     if (DEV2) {   // ∂(vel_D)/∂x_Q at the Q face, zero on the boundary faces
-      const Arr& vd = F.vel[D];
+      const Arr<H>& vd = F.vel[D];
       const int n = vd.e[Q];
-      g = (fq == 0 || fq == n) ? 0.0f
+      g = (kEnds<Q, H> && (fq == 0 || fq == n)) ? 0.0f
           : (vd(at<Q>(y, fq)) - vd(at<Q>(y, fq - 1))) / F.h[Q];
     } else {      // ∂q/∂x_D at the D face, zero on the boundary faces
       const int n = q.e[D];
-      g = (e == 0 || e == n) ? 0.0f : (q(y) - q(at<D>(x, e - 1))) / h;
+      g = (kEnds<D, H> && (e == 0 || e == n)) ? 0.0f
+          : (q(y) - q(at<D>(x, e - 1))) / h;
     }
     return me * g;
   };
@@ -181,13 +220,13 @@ __device__ __forceinline__ float visc_term(const Fields& F, const P3& x) {
 }
 
 // The output face (i, j, k) of component Q, on Q's face grid.
-template <int Q, bool DEV2, bool DIV>
-__device__ __forceinline__ void face_rhs(const Fields& F, float* __restrict__ out,
+template <int Q, bool DEV2, bool DIV, bool H>
+__device__ __forceinline__ void face_rhs(const Fields<H>& F, float* __restrict__ out,
                                          int i, int j, int k) {
   const int e0 = F.vel[Q].e[0], e1 = F.vel[Q].e[1], e2 = F.vel[Q].e[2];
   if (i >= e0 || j >= e1 || k >= e2) return;
   const int o = (i * e1 + j) * e2 + k;
-  if (Q == 0 && i == e0 - 1) {   // u's face-nx row: the sealed +x wall
+  if (!H && Q == 0 && i == e0 - 1) {   // u's face-nx row: the sealed +x wall
     out[o] = 0.0f;
     return;
   }
@@ -208,12 +247,13 @@ __device__ __forceinline__ void face_rhs(const Fields& F, float* __restrict__ ou
   out[o] = a;
 }
 
-// Grid: x over z faces, y over y faces, z = component·(nx+1) + i; a
-// block takes one component of one x-plane (the component is uniform in
-// it), and the components run one after the other.
-template <bool DEV2, bool DIV>
+// Grid: x over z faces, y over y faces, z = component·n0 + i (n0 = u's
+// x-extent: nx + 1 faces, or the slab's nx packed faces with H); a block
+// takes one component of one x-plane (the component is uniform in it),
+// and the components run one after the other.
+template <bool DEV2, bool DIV, bool H>
 __global__ void __launch_bounds__(kBlock)
-momentum_rhs_kernel(Fields F, float* __restrict__ au, float* __restrict__ av,
+momentum_rhs_kernel(Fields<H> F, float* __restrict__ au, float* __restrict__ av,
                     float* __restrict__ aw) {
   const int k = blockIdx.x * kBX + threadIdx.x;
   const int j = blockIdx.y * kBY + threadIdx.y;
@@ -227,14 +267,31 @@ momentum_rhs_kernel(Fields F, float* __restrict__ au, float* __restrict__ av,
     face_rhs<2, DEV2, DIV>(F, aw, i, j, k);
 }
 
-template <bool DEV2, bool DIV>
-void launch(const Fields& F, float* au, float* av, float* aw, int nx, int ny,
-            int nz, cudaStream_t stream) {
+template <bool DEV2, bool DIV, bool H>
+void launch(const Fields<H>& F, float* au, float* av, float* aw, int nx,
+            int ny, int nz, cudaStream_t stream) {
   const dim3 block(kBX, kBY);
-  // The extents of the largest grid along each axis: nx + 1 x-planes
-  // (u's), ny + 1 y-faces (v's), nz + 1 z-faces (w's).
-  const dim3 grid((nz + 1 + kBX - 1) / kBX, (ny + 1 + kBY - 1) / kBY, 3 * (nx + 1));
-  momentum_rhs_kernel<DEV2, DIV><<<grid, block, 0, stream>>>(F, au, av, aw);
+  // The extents of the largest grid along each axis: u's x-planes, ny + 1
+  // y-faces (v's), nz + 1 z-faces (w's).
+  const dim3 grid((nz + 1 + kBX - 1) / kBX, (ny + 1 + kBY - 1) / kBY,
+                  3 * F.vel[0].e[0]);
+  momentum_rhs_kernel<DEV2, DIV, H><<<grid, block, 0, stream>>>(F, au, av, aw);
+}
+
+template <bool H>
+int dispatch(int dev2, bool has_div, const Fields<H>& F, void* au, void* av,
+             void* aw, int nx, int ny, int nz, void* stream) {
+  float* A = static_cast<float*>(au);
+  float* B = static_cast<float*>(av);
+  float* C = static_cast<float*>(aw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!dev2)
+    launch<false, false, H>(F, A, B, C, nx, ny, nz, s);
+  else if (!has_div)
+    launch<true, false, H>(F, A, B, C, nx, ny, nz, s);
+  else
+    launch<true, true, H>(F, A, B, C, nx, ny, nz, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -252,30 +309,54 @@ int momentum_rhs_launch(int dev2, const void* u, const void* v, const void* w,
   // 32-bit indices: the largest array must hold fewer than 2³¹ values.
   if ((int64_t)(nx + 1) * (ny + 1) * (nz + 1) > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  Fields F;
+  Fields<false> F = {};
   const void* vel[3] = {u, v, w};
   const void* rp[3] = {rpx, rpy, rpz};
   for (int a = 0; a < 3; ++a) {
     const int e[3] = {nx + (a == 0), ny + (a == 1), nz + (a == 2)};
-    F.vel[a] = Arr{static_cast<const float*>(vel[a]), {e[0], e[1], e[2]}};
-    F.rp[a] = Arr{static_cast<const float*>(rp[a]), {e[0], e[1], e[2]}};
+    F.vel[a] = {static_cast<const float*>(vel[a]), {e[0], e[1], e[2]}};
+    F.rp[a] = {static_cast<const float*>(rp[a]), {e[0], e[1], e[2]}};
   }
-  F.mu = Arr{static_cast<const float*>(mu), {nx, ny, nz}};
-  F.div = Arr{static_cast<const float*>(div_u), {nx, ny, nz}};
+  F.mu = {static_cast<const float*>(mu), {nx, ny, nz}};
+  F.div = {static_cast<const float*>(div_u), {nx, ny, nz}};
   F.h[0] = hx;
   F.h[1] = hy;
   F.h[2] = hz;
-  float* A = static_cast<float*>(au);
-  float* B = static_cast<float*>(av);
-  float* C = static_cast<float*>(aw);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!dev2)
-    launch<false, false>(F, A, B, C, nx, ny, nz, s);
-  else if (div_u == nullptr)
-    launch<true, false>(F, A, B, C, nx, ny, nz, s);
-  else
-    launch<true, true>(F, A, B, C, nx, ny, nz, s);
-  return (int)cudaGetLastError();
+  return dispatch<false>(dev2, div_u != nullptr, F, au, av, aw, nx, ny, nz,
+                         stream);
+}
+
+// The same on one shard's slab of nx cells along x. u, rpx packed to the
+// slab's cells: (nx, ny, nz); v, rpy, w, rpz, mu, div_u as above. halo: 13
+// planes blocks — u lo, u hi, v lo, v hi, w lo, w hi (2 planes each), rpx
+// lo, rpx hi, rpy lo, rpz lo, mu lo, mu hi, div_u lo (1 plane each; div_u's
+// null with it). Outputs au (nx, ny, nz) packed, av, aw.
+int momentum_rhs_halo_launch(int dev2, const void* u, const void* v,
+                             const void* w, const void* rpx, const void* rpy,
+                             const void* rpz, const void* mu, const void* div_u,
+                             const void* const* halo, void* au, void* av,
+                             void* aw, int nx, int ny, int nz, float hx,
+                             float hy, float hz, void* stream) {
+  if ((int64_t)(nx + 1) * (ny + 1) * (nz + 1) > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  auto f = [&](const void* t) { return static_cast<const float*>(t); };
+  Fields<true> F = {};
+  const void* vel[3] = {u, v, w};
+  const void* rp[3] = {rpx, rpy, rpz};
+  for (int a = 0; a < 3; ++a) {
+    const int e[3] = {nx, ny + (a == 1), nz + (a == 2)};
+    F.vel[a] = {f(vel[a]), {e[0], e[1], e[2]}, f(halo[2 * a]),
+                f(halo[2 * a + 1]), 2};
+    F.rp[a] = {f(rp[a]), {e[0], e[1], e[2]}, f(halo[6 + (a == 0 ? 0 : a + 1)]),
+               a == 0 ? f(halo[7]) : nullptr, 1};
+  }
+  F.mu = {f(mu), {nx, ny, nz}, f(halo[10]), f(halo[11]), 1};
+  F.div = {f(div_u), {nx, ny, nz}, f(halo[12]), nullptr, 1};
+  F.h[0] = hx;
+  F.h[1] = hy;
+  F.h[2] = hz;
+  return dispatch<true>(dev2, div_u != nullptr, F, au, av, aw, nx, ny, nz,
+                        stream);
 }
 
 }  // extern "C"

@@ -23,6 +23,17 @@
 // Design: one thread per cell, 32 consecutive z cells per warp; the neighbour
 // re-reads are served by L1/L2. λ and anti are widened to f32 on load; all
 // arithmetic is f32 and λ is rounded once on store.
+//
+// The halo variant (`mules_fct_halo_launch`) replaces the TPU kernel
+// mules_fct.py `fct_iter_h` (mules_fct.py:261), the per-shard kernel of
+// the x-sharded step: the same kernel with HALO set. The lower x
+// neighbour of the slab's first plane is the halo cell whose λ/anti
+// planes (all three axes) and alpha_low/amax/amin/dt_iv planes were
+// exchanged from the previous shard (its upper x face is the slab's own
+// first face), and the upper x face of the slab's last plane is the next
+// shard's first λ/anti x plane. It never clamps and has no end flag: at
+// the global ends the halos hold the clamp planes below and zeros above.
+// Same bytes plus twelve planes, same bound.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -53,35 +64,46 @@ struct Args {
   T *ox, *oy, *oz;
   int nx, ny, nz;
   float hx, hy, hz, eps;
+  // HALO: the (ny, nz) planes of the cell below the slab (λ and anti of
+  // its three lower faces, its four cell values) and the λ/anti x plane
+  // above the slab.
+  const T *hlx, *hly, *hlz, *hax, *hay, *haz, *hlx_hi, *hax_hi;
+  const float *hal, *hamax, *hamin, *hdiv;
+};
+
+// Where a cell's own data lie: its y/z face streams and cell values, and
+// its index `c` in them.
+template <typename T>
+struct Src {
+  const T *ly, *ay, *lz, *az;
+  const float *al, *amax, *amin, *div;
+  int64_t c;
 };
 
 struct RPM {
   float rp, rm;
 };
 
-// R± of the cell whose data sit at index `c` (grid position j, k in y/z),
-// with its lower / upper x faces at indices `xlo` / `xhi` (xhi < 0: the
-// implicit zero face beyond the domain).
+// R± of the cell at grid position (j, k) in y/z whose data `s` holds,
+// given its lower / upper x face values (λ, anti).
 template <typename T>
-__device__ __forceinline__ RPM rpm(const Args<T>& a, int64_t c, int j, int k,
-                                   int64_t xlo, int64_t xhi) {
-  const int64_t sy = a.nz;
-  const float lxl = ld(a.lx, xlo), axl = ld(a.ax, xlo);
-  const float lxh = xhi >= 0 ? ld(a.lx, xhi) : 0.0f;
-  const float axh = xhi >= 0 ? ld(a.ax, xhi) : 0.0f;
-  const float lyl = ld(a.ly, c), ayl = ld(a.ay, c);
+__device__ __forceinline__ RPM rpm(const Args<T>& a, const Src<T>& s, int j,
+                                   int k, float lxl, float axl, float lxh,
+                                   float axh) {
+  const int64_t c = s.c, sy = a.nz;
+  const float lyl = ld(s.ly, c), ayl = ld(s.ay, c);
   const bool yup = j + 1 < a.ny, zup = k + 1 < a.nz;
-  const float lyh = yup ? ld(a.ly, c + sy) : 0.0f;
-  const float ayh = yup ? ld(a.ay, c + sy) : 0.0f;
-  const float lzl = ld(a.lz, c), azl = ld(a.az, c);
-  const float lzh = zup ? ld(a.lz, c + 1) : 0.0f;
-  const float azh = zup ? ld(a.az, c + 1) : 0.0f;
-  const float dv = a.div[c];
+  const float lyh = yup ? ld(s.ly, c + sy) : 0.0f;
+  const float ayh = yup ? ld(s.ay, c + sy) : 0.0f;
+  const float lzl = ld(s.lz, c), azl = ld(s.az, c);
+  const float lzh = zup ? ld(s.lz, c + 1) : 0.0f;
+  const float azh = zup ? ld(s.az, c + 1) : 0.0f;
+  const float dv = s.div[c];
 
   float appl = (lxh * axh - lxl * axl) / a.hx;
   appl = appl + (lyh * ayh - lyl * ayl) / a.hy;
   appl = appl + (lzh * azh - lzl * azl) / a.hz;
-  const float work = a.al[c] - dv * appl;
+  const float work = s.al[c] - dv * appl;
 
   const float rxl = (1.0f - lxl) * axl, rxh = (1.0f - lxh) * axh;
   const float ryl = (1.0f - lyl) * ayl, ryh = (1.0f - lyh) * ayh;
@@ -93,8 +115,8 @@ __device__ __forceinline__ RPM rpm(const Args<T>& a, int64_t c, int j, int k,
   p_out = p_out + (fmaxf(ryh, 0.0f) - fminf(ryl, 0.0f)) / a.hy;
   p_out = p_out + (fmaxf(rzh, 0.0f) - fminf(rzl, 0.0f)) / a.hz;
   RPM r;
-  r.rp = clip01((a.amax[c] - work) / (dv * p_in + a.eps));
-  r.rm = clip01((work - a.amin[c]) / (dv * p_out + a.eps));
+  r.rp = clip01((s.amax[c] - work) / (dv * p_in + a.eps));
+  r.rm = clip01((work - s.amin[c]) / (dv * p_out + a.eps));
   return r;
 }
 
@@ -106,7 +128,7 @@ __device__ __forceinline__ float upd(float lam, float anti, RPM left,
   return clip01(lam + (1.0f - lam) * c);
 }
 
-template <typename T>
+template <typename T, bool HALO>
 __global__ void __launch_bounds__(kBlock) fct_iter_kernel(Args<T> a) {
   const int k = blockIdx.x * kBX + threadIdx.x;
   const int j = blockIdx.y * kBY + threadIdx.y;
@@ -114,15 +136,40 @@ __global__ void __launch_bounds__(kBlock) fct_iter_kernel(Args<T> a) {
   if (k >= a.nz || j >= a.ny) return;
   const int64_t sx = (int64_t)a.ny * a.nz, sy = a.nz;
   const int64_t c = ((int64_t)i * a.ny + j) * a.nz + k;
+  const int64_t q = (int64_t)j * a.nz + k;   // the cell's place in an x-plane
+  auto at = [&](int64_t cc) {
+    return Src<T>{a.ly, a.ay, a.lz, a.az, a.al, a.amax, a.amin, a.div, cc};
+  };
+  // The upper x face (stream f, its halo plane fh) of the cell at index cc
+  // of this plane, whose place in a plane is qq: zero past the domain end.
+  auto x_up = [&](const T* f, const T* fh, int64_t cc, int64_t qq) {
+    if (i + 1 < a.nx) return ld(f, cc + sx);
+    return HALO ? ld(fh, qq) : 0.0f;
+  };
 
-  const RPM self = rpm(a, c, j, k, c, i + 1 < a.nx ? c + sx : -1);
-  // x: lower neighbour (clamped halo at i = 0: plane 0, upper face = face 0).
-  const int64_t cxm = i > 0 ? c - sx : c;
-  const RPM xl = rpm(a, cxm, j, k, cxm, c);
+  const RPM self = rpm(a, at(c), j, k, ld(a.lx, c), ld(a.ax, c),
+                       x_up(a.lx, a.hlx_hi, c, q), x_up(a.ax, a.hax_hi, c, q));
+  // x: lower neighbour; below the first plane the halo cell (HALO) or the
+  // clamped halo: plane 0's data with its lower x face taken as its upper.
+  RPM xl;
+  if (i > 0)
+    xl = rpm(a, at(c - sx), j, k, ld(a.lx, c - sx), ld(a.ax, c - sx),
+             ld(a.lx, c), ld(a.ax, c));
+  else if (HALO)
+    xl = rpm(a, Src<T>{a.hly, a.hay, a.hlz, a.haz, a.hal, a.hamax, a.hamin,
+                       a.hdiv, q},
+             j, k, ld(a.hlx, q), ld(a.hax, q), ld(a.lx, c), ld(a.ax, c));
+  else
+    xl = rpm(a, at(c), j, k, ld(a.lx, c), ld(a.ax, c), ld(a.lx, c),
+             ld(a.ax, c));
   // y/z: lower neighbour edge-clamped to the cell itself.
-  const RPM yl = j > 0 ? rpm(a, c - sy, j - 1, k, c - sy, i + 1 < a.nx ? c - sy + sx : -1)
+  const RPM yl = j > 0 ? rpm(a, at(c - sy), j - 1, k, ld(a.lx, c - sy),
+                             ld(a.ax, c - sy), x_up(a.lx, a.hlx_hi, c - sy, q - sy),
+                             x_up(a.ax, a.hax_hi, c - sy, q - sy))
                        : self;
-  const RPM zl = k > 0 ? rpm(a, c - 1, j, k - 1, c - 1, i + 1 < a.nx ? c - 1 + sx : -1)
+  const RPM zl = k > 0 ? rpm(a, at(c - 1), j, k - 1, ld(a.lx, c - 1),
+                             ld(a.ax, c - 1), x_up(a.lx, a.hlx_hi, c - 1, q - 1),
+                             x_up(a.ax, a.hax_hi, c - 1, q - 1))
                        : self;
 
   st(a.ox, c, upd(ld(a.lx, c), ld(a.ax, c), xl, self));
@@ -130,11 +177,14 @@ __global__ void __launch_bounds__(kBlock) fct_iter_kernel(Args<T> a) {
   st(a.oz, c, upd(ld(a.lz, c), ld(a.az, c), zl, self));
 }
 
-template <typename T>
-void launch(const void* const* f, const void* const* cell, void* const* out,
-            int nx, int ny, int nz, float hx, float hy, float hz, float eps,
-            cudaStream_t stream) {
-  Args<T> a;
+// f: lx, ly, lz, ax, ay, az; cell: al, amax, amin, div; halo (HALO only):
+// hlx, hly, hlz, hax, hay, haz, hlx_hi, hax_hi (T), hal, hamax, hamin,
+// hdiv (f32).
+template <typename T, bool HALO>
+void launch(const void* const* f, const void* const* cell,
+            const void* const* halo, void* const* out, int nx, int ny, int nz,
+            float hx, float hy, float hz, float eps, cudaStream_t stream) {
+  Args<T> a = {};
   a.lx = static_cast<const T*>(f[0]);
   a.ly = static_cast<const T*>(f[1]);
   a.lz = static_cast<const T*>(f[2]);
@@ -155,9 +205,36 @@ void launch(const void* const* f, const void* const* cell, void* const* out,
   a.hy = hy;
   a.hz = hz;
   a.eps = eps;
+  if (HALO) {
+    a.hlx = static_cast<const T*>(halo[0]);
+    a.hly = static_cast<const T*>(halo[1]);
+    a.hlz = static_cast<const T*>(halo[2]);
+    a.hax = static_cast<const T*>(halo[3]);
+    a.hay = static_cast<const T*>(halo[4]);
+    a.haz = static_cast<const T*>(halo[5]);
+    a.hlx_hi = static_cast<const T*>(halo[6]);
+    a.hax_hi = static_cast<const T*>(halo[7]);
+    a.hal = static_cast<const float*>(halo[8]);
+    a.hamax = static_cast<const float*>(halo[9]);
+    a.hamin = static_cast<const float*>(halo[10]);
+    a.hdiv = static_cast<const float*>(halo[11]);
+  }
   const dim3 block(kBX, kBY);
   const dim3 grid((nz + kBX - 1) / kBX, (ny + kBY - 1) / kBY, nx);
-  fct_iter_kernel<T><<<grid, block, 0, stream>>>(a);
+  fct_iter_kernel<T, HALO><<<grid, block, 0, stream>>>(a);
+}
+
+template <bool HALO>
+int dispatch(int dtype, const void* const* f, const void* const* cell,
+             const void* const* halo, void* const* out, int nx, int ny, int nz,
+             float hx, float hy, float hz, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    launch<float, HALO>(f, cell, halo, out, nx, ny, nz, hx, hy, hz, eps, s);
+  else
+    launch<__nv_bfloat16, HALO>(f, cell, halo, out, nx, ny, nz, hx, hy, hz,
+                                eps, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -175,12 +252,26 @@ int mules_fct_launch(int dtype, const void* lx, const void* ly, const void* lz,
   const void* f[6] = {lx, ly, lz, ax, ay, az};
   const void* cell[4] = {al, amax, amin, div};
   void* out[3] = {ox, oy, oz};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    launch<float>(f, cell, out, nx, ny, nz, hx, hy, hz, eps, s);
-  else
-    launch<__nv_bfloat16>(f, cell, out, nx, ny, nz, hx, hy, hz, eps, s);
-  return (int)cudaGetLastError();
+  return dispatch<false>(dtype, f, cell, nullptr, out, nx, ny, nz, hx, hy, hz,
+                         eps, stream);
+}
+
+// The same on one shard's (nx, ny, nz) slab. halo: 12 (ny, nz) planes —
+// the λ x, y, z and anti x, y, z planes of the cell layer below the slab,
+// the λ and anti x planes above it (dtype), and the alpha_low, amax, amin,
+// dt_iv planes below it (f32).
+int mules_fct_halo_launch(int dtype, const void* lx, const void* ly,
+                          const void* lz, const void* ax, const void* ay,
+                          const void* az, const void* al, const void* amax,
+                          const void* amin, const void* div,
+                          const void* const* halo, void* ox, void* oy,
+                          void* oz, int nx, int ny, int nz, float hx, float hy,
+                          float hz, float eps, void* stream) {
+  const void* f[6] = {lx, ly, lz, ax, ay, az};
+  const void* cell[4] = {al, amax, amin, div};
+  void* out[3] = {ox, oy, oz};
+  return dispatch<true>(dtype, f, cell, halo, out, nx, ny, nz, hx, hy, hz, eps,
+                        stream);
 }
 
 }  // extern "C"

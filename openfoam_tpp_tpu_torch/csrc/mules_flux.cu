@@ -22,6 +22,14 @@
 // consecutive z cells per warp; the 10 alpha reads per cell (3 axes × 4 taps, shared
 // centre) are served by L1/L2, so alpha leaves DRAM about once. All
 // arithmetic is f32; bf16 is widened on load and rounded once on store.
+//
+// The halo variant (`mules_flux_halo_launch`) replaces the TPU kernel
+// mules_flux.py `flux_all_h` (mules_flux.py:179), the per-shard kernel of
+// the x-sharded step: the same kernel with HALO set, where an x-face's
+// alpha taps outside the shard's slab (cells −2, −1 and nx) come from the
+// exchanged halo planes (h_lo: 2 planes, h_hi: 1). It never clamps: at the
+// global ends the halos hold the clamp planes. Same bytes plus three
+// planes, same bound.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -55,18 +63,13 @@ __device__ __forceinline__ int clampi(int v, int n) {
   return v < 0 ? 0 : (v >= n ? n - 1 : v);
 }
 
-// (low, anti) through the lower face of cell c along one axis; `i` is the
-// cell's index along that axis, `s` the axis stride, `n` its extent.
+// (low, anti) through the lower face of cell c from alpha at the cells
+// −2, −1, 0, +1 along the face's axis.
 template <typename TU, typename TA>
-__device__ __forceinline__ void face(const float* alpha, const float* phi,
-                                     const TU* uc, float* low_out,
-                                     TA* anti_out, int64_t c, int i,
-                                     int64_t s, int n) {
-  const int64_t base = c - (int64_t)i * s;
-  const float am2 = alpha[base + (int64_t)clampi(i - 2, n) * s];
-  const float am1 = alpha[base + (int64_t)clampi(i - 1, n) * s];
-  const float a0 = alpha[c];
-  const float ap1 = alpha[base + (int64_t)clampi(i + 1, n) * s];
+__device__ __forceinline__ void face_from(float am2, float am1, float a0,
+                                          float ap1, const float* phi,
+                                          const TU* uc, float* low_out,
+                                          TA* anti_out, int64_t c) {
   const float d0 = am1 - am2;
   const float d1 = a0 - am1;
   const float d2 = ap1 - a0;
@@ -82,9 +85,25 @@ __device__ __forceinline__ void face(const float* alpha, const float* phi,
   st(anti_out, c, high - low);
 }
 
+// The same with edge-clamped taps; `i` is the cell's index along the axis,
+// `s` the axis stride, `n` its extent.
 template <typename TU, typename TA>
+__device__ __forceinline__ void face(const float* alpha, const float* phi,
+                                     const TU* uc, float* low_out,
+                                     TA* anti_out, int64_t c, int i,
+                                     int64_t s, int n) {
+  const int64_t base = c - (int64_t)i * s;
+  face_from(alpha[base + (int64_t)clampi(i - 2, n) * s],
+            alpha[base + (int64_t)clampi(i - 1, n) * s], alpha[c],
+            alpha[base + (int64_t)clampi(i + 1, n) * s], phi, uc, low_out,
+            anti_out, c);
+}
+
+// HALO: h_lo holds alpha's planes x = −2, −1 of the slab, h_hi plane x = nx.
+template <typename TU, typename TA, bool HALO>
 __global__ void __launch_bounds__(kBlock)
-flux_all_kernel(const float* __restrict__ alpha, const float* __restrict__ phx,
+flux_all_kernel(const float* __restrict__ alpha, const float* __restrict__ h_lo,
+                const float* __restrict__ h_hi, const float* __restrict__ phx,
                 const float* __restrict__ phy, const float* __restrict__ phz,
                 const TU* __restrict__ ucx, const TU* __restrict__ ucy,
                 const TU* __restrict__ ucz, float* __restrict__ olx,
@@ -96,24 +115,51 @@ flux_all_kernel(const float* __restrict__ alpha, const float* __restrict__ phx,
   const int i = blockIdx.z;
   if (k >= nz || j >= ny) return;
   const int64_t c = ((int64_t)i * ny + j) * nz + k;
-  face(alpha, phx, ucx, olx, oax, c, i, (int64_t)ny * nz, nx);
+  if (HALO) {
+    const int64_t sx = (int64_t)ny * nz, q = (int64_t)j * nz + k;
+    // Plane x = i + d of the slab: the slab itself or a halo plane.
+    auto tap = [&](int d) {
+      const int x = i + d;
+      return x < 0 ? h_lo[(x + 2) * sx + q] : (x >= nx ? h_hi[q] : alpha[c + d * sx]);
+    };
+    face_from(tap(-2), tap(-1), alpha[c], tap(1), phx, ucx, olx, oax, c);
+  } else {
+    face(alpha, phx, ucx, olx, oax, c, i, (int64_t)ny * nz, nx);
+  }
   face(alpha, phy, ucy, oly, oay, c, j, (int64_t)nz, ny);
   face(alpha, phz, ucz, olz, oaz, c, k, (int64_t)1, nz);
 }
 
-template <typename TU, typename TA>
-void launch(const void* const* in, void* const* out, int nx, int ny, int nz,
-            cudaStream_t stream) {
+template <typename TU, typename TA, bool HALO>
+void launch(const void* const* in, const void* const* halo, void* const* out,
+            int nx, int ny, int nz, cudaStream_t stream) {
   const dim3 block(kBX, kBY);
   const dim3 grid((nz + kBX - 1) / kBX, (ny + kBY - 1) / kBY, nx);
-  flux_all_kernel<TU, TA><<<grid, block, 0, stream>>>(
-      static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
+  flux_all_kernel<TU, TA, HALO><<<grid, block, 0, stream>>>(
+      static_cast<const float*>(in[0]), static_cast<const float*>(halo[0]),
+      static_cast<const float*>(halo[1]), static_cast<const float*>(in[1]),
       static_cast<const float*>(in[2]), static_cast<const float*>(in[3]),
       static_cast<const TU*>(in[4]), static_cast<const TU*>(in[5]),
       static_cast<const TU*>(in[6]), static_cast<float*>(out[0]),
       static_cast<TA*>(out[1]), static_cast<float*>(out[2]),
       static_cast<TA*>(out[3]), static_cast<float*>(out[4]),
       static_cast<TA*>(out[5]), nx, ny, nz);
+}
+
+template <bool HALO>
+int dispatch(int uc_dtype, int anti_dtype, const void* const* in,
+             const void* const* halo, void* const* out, int nx, int ny, int nz,
+             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (uc_dtype == 0 && anti_dtype == 0)
+    launch<float, float, HALO>(in, halo, out, nx, ny, nz, s);
+  else if (uc_dtype == 0)
+    launch<float, __nv_bfloat16, HALO>(in, halo, out, nx, ny, nz, s);
+  else if (anti_dtype == 0)
+    launch<__nv_bfloat16, float, HALO>(in, halo, out, nx, ny, nz, s);
+  else
+    launch<__nv_bfloat16, __nv_bfloat16, HALO>(in, halo, out, nx, ny, nz, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -128,17 +174,25 @@ int mules_flux_launch(int uc_dtype, int anti_dtype, const void* alpha,
                       void* olx, void* oax, void* oly, void* oay, void* olz,
                       void* oaz, int nx, int ny, int nz, void* stream) {
   const void* in[7] = {alpha, phx, phy, phz, ucx, ucy, ucz};
+  const void* halo[2] = {nullptr, nullptr};
   void* out[6] = {olx, oax, oly, oay, olz, oaz};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (uc_dtype == 0 && anti_dtype == 0)
-    launch<float, float>(in, out, nx, ny, nz, s);
-  else if (uc_dtype == 0)
-    launch<float, __nv_bfloat16>(in, out, nx, ny, nz, s);
-  else if (anti_dtype == 0)
-    launch<__nv_bfloat16, float>(in, out, nx, ny, nz, s);
-  else
-    launch<__nv_bfloat16, __nv_bfloat16>(in, out, nx, ny, nz, s);
-  return (int)cudaGetLastError();
+  return dispatch<false>(uc_dtype, anti_dtype, in, halo, out, nx, ny, nz,
+                         stream);
+}
+
+// The same on one shard's (nx, ny, nz) slab: h_lo (2, ny, nz) alpha's
+// planes x = −2, −1, h_hi (1, ny, nz) its plane x = nx (f32).
+int mules_flux_halo_launch(int uc_dtype, int anti_dtype, const void* alpha,
+                           const void* h_lo, const void* h_hi, const void* phx,
+                           const void* phy, const void* phz, const void* ucx,
+                           const void* ucy, const void* ucz, void* olx,
+                           void* oax, void* oly, void* oay, void* olz,
+                           void* oaz, int nx, int ny, int nz, void* stream) {
+  const void* in[7] = {alpha, phx, phy, phz, ucx, ucy, ucz};
+  const void* halo[2] = {h_lo, h_hi};
+  void* out[6] = {olx, oax, oly, oay, olz, oaz};
+  return dispatch<true>(uc_dtype, anti_dtype, in, halo, out, nx, ny, nz,
+                        stream);
 }
 
 }  // extern "C"

@@ -27,6 +27,17 @@
 // (a fixed-shape tree in shared memory) and a second one-block pass sums
 // the partials in a fixed order. No float atomics: the result, and so the
 // CG iteration count, repeats from run to run.
+//
+// Halo variants (`seven_point_halo_launch`) replace the TPU kernels in
+// openfoam_tpp_tpu/ops/pallas/halo7.py: apply_7pt_h (halo7.py:141),
+// resid_scaled_7pt_h (:160) and apply_dot_7pt_h (:179), the per-shard
+// kernels of the x-sharded step. They are the same kernel with HALO set:
+// the x-neighbour loads that fall outside the shard's slab read the
+// exchanged planes instead (p's ±1 planes h_lo / h_hi, and wx_hi, the next
+// shard's first wxl plane, for the last plane's high-face term
+// wx_hi·h_hi). They never clamp: at the global ends the halo content
+// carries the clamp. Same bytes plus three planes, same bound; the dot is
+// the shard's partial, summed over the shards by the caller.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -54,17 +65,34 @@ __device__ __forceinline__ float rounded(__nv_bfloat16, float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Σ_f w_f·p_nb for cell c = (i, j, k); same products and add order as
-// `_nb_core`: wl·xm + xh + wy·ym + yh + wz·zm + zh.
+// A shard's halo planes, each (1, ny, nz): p's planes x = −1 and x = nx,
+// and the next shard's first wxl plane.
 template <typename T>
+struct Halo {
+  const T *lo, *hi, *wx_hi;
+};
+
+// Σ_f w_f·p_nb for cell c = (i, j, k); same products and add order as
+// `_nb_core`: wl·xm + xh + wy·ym + yh + wz·zm + zh. With HALO the
+// x-neighbours outside the slab come from the halo planes h.
+template <typename T, bool HALO>
 __device__ __forceinline__ float nb_sum(const T* p, const T* wx, const T* wy,
-                                        const T* wz, int64_t c, int i, int j,
-                                        int k, int nx, int ny, int nz) {
+                                        const T* wz, const Halo<T>& h,
+                                        int64_t c, int i, int j, int k, int nx,
+                                        int ny, int nz) {
   const int64_t sx = (int64_t)ny * nz, sy = nz;
-  const float xm = ld(p, i > 0 ? c - sx : c);
+  const int64_t q = (int64_t)j * nz + k;   // the cell's place in an x-plane
+  float xm, xh;
+  if (HALO) {
+    xm = i > 0 ? ld(p, c - sx) : ld(h.lo, q);
+    xh = (i + 1 < nx) ? ld(wx, c + sx) * ld(p, c + sx)
+                      : ld(h.wx_hi, q) * ld(h.hi, q);
+  } else {
+    xm = ld(p, i > 0 ? c - sx : c);
+    xh = (i + 1 < nx) ? ld(wx, c + sx) * ld(p, c + sx) : 0.0f;
+  }
   const float ym = ld(p, j > 0 ? c - sy : c);
   const float zm = ld(p, k > 0 ? c - 1 : c);
-  const float xh = (i + 1 < nx) ? ld(wx, c + sx) * ld(p, c + sx) : 0.0f;
   const float yh = (j + 1 < ny) ? ld(wy, c + sy) * ld(p, c + sy) : 0.0f;
   const float zh = (k + 1 < nz) ? ld(wz, c + 1) * ld(p, c + 1) : 0.0f;
   float s = ld(wx, c) * xm;
@@ -76,9 +104,10 @@ __device__ __forceinline__ float nb_sum(const T* p, const T* wx, const T* wy,
   return s;
 }
 
-template <typename T, int MODE, bool DIAG>
+template <typename T, int MODE, bool DIAG, bool HALO>
 __global__ void __launch_bounds__(kBlock)
-seven_point_kernel(const T* __restrict__ p, const T* __restrict__ wx,
+seven_point_kernel(const T* __restrict__ p, const Halo<T> h,
+                   const T* __restrict__ wx,
                    const T* __restrict__ wy, const T* __restrict__ wz,
                    const T* __restrict__ diag, const T* __restrict__ b,
                    T* __restrict__ out, float* __restrict__ partial, int nx,
@@ -90,7 +119,7 @@ seven_point_kernel(const T* __restrict__ p, const T* __restrict__ wx,
   float dot = 0.0f;
   if (k < nz && j < ny) {
     const float pc = ld(p, c);
-    const float nb = nb_sum(p, wx, wy, wz, c, i, j, k, nx, ny, nz);
+    const float nb = nb_sum<T, HALO>(p, wx, wy, wz, h, c, i, j, k, nx, ny, nz);
     float v;
     if (MODE == kResid) {
       if (DIAG) {
@@ -135,15 +164,19 @@ sum_partials_kernel(const float* __restrict__ partial, int n,
   if (threadIdx.x == 0) out[0] = sh[0];
 }
 
-template <typename T>
-void launch(int mode, int has_diag, const void* p, const void* wx,
-            const void* wy, const void* wz, const void* diag, const void* b,
-            void* out, float* partial, float* dot, int nx, int ny, int nz,
-            cudaStream_t stream) {
+template <typename T, bool HALO>
+void launch(int mode, int has_diag, const void* p, const void* const* halo,
+            const void* wx, const void* wy, const void* wz, const void* diag,
+            const void* b, void* out, float* partial, float* dot, int nx,
+            int ny, int nz, cudaStream_t stream) {
   const dim3 block(kBX, kBY);
   const dim3 grid((nz + kBX - 1) / kBX, (ny + kBY - 1) / kBY, nx);
   const int n_partials = (int)(grid.x * grid.y * grid.z);
   const T* P = static_cast<const T*>(p);
+  Halo<T> H = {nullptr, nullptr, nullptr};
+  if (HALO)
+    H = {static_cast<const T*>(halo[0]), static_cast<const T*>(halo[1]),
+         static_cast<const T*>(halo[2])};
   const T* WX = static_cast<const T*>(wx);
   const T* WY = static_cast<const T*>(wy);
   const T* WZ = static_cast<const T*>(wz);
@@ -152,23 +185,40 @@ void launch(int mode, int has_diag, const void* p, const void* wx,
   T* O = static_cast<T*>(out);
   if (mode == kApply) {
     if (has_diag)
-      seven_point_kernel<T, kApply, true><<<grid, block, 0, stream>>>(
-          P, WX, WY, WZ, D, B, O, partial, nx, ny, nz);
+      seven_point_kernel<T, kApply, true, HALO><<<grid, block, 0, stream>>>(
+          P, H, WX, WY, WZ, D, B, O, partial, nx, ny, nz);
     else
-      seven_point_kernel<T, kApply, false><<<grid, block, 0, stream>>>(
-          P, WX, WY, WZ, D, B, O, partial, nx, ny, nz);
+      seven_point_kernel<T, kApply, false, HALO><<<grid, block, 0, stream>>>(
+          P, H, WX, WY, WZ, D, B, O, partial, nx, ny, nz);
   } else if (mode == kResid) {
     if (has_diag)
-      seven_point_kernel<T, kResid, true><<<grid, block, 0, stream>>>(
-          P, WX, WY, WZ, D, B, O, partial, nx, ny, nz);
+      seven_point_kernel<T, kResid, true, HALO><<<grid, block, 0, stream>>>(
+          P, H, WX, WY, WZ, D, B, O, partial, nx, ny, nz);
     else
-      seven_point_kernel<T, kResid, false><<<grid, block, 0, stream>>>(
-          P, WX, WY, WZ, D, B, O, partial, nx, ny, nz);
+      seven_point_kernel<T, kResid, false, HALO><<<grid, block, 0, stream>>>(
+          P, H, WX, WY, WZ, D, B, O, partial, nx, ny, nz);
   } else {
-    seven_point_kernel<T, kApplyDot, false><<<grid, block, 0, stream>>>(
-        P, WX, WY, WZ, D, B, O, partial, nx, ny, nz);
+    seven_point_kernel<T, kApplyDot, false, HALO><<<grid, block, 0, stream>>>(
+        P, H, WX, WY, WZ, D, B, O, partial, nx, ny, nz);
     sum_partials_kernel<<<1, kSumBlock, 0, stream>>>(partial, n_partials, dot);
   }
+}
+
+template <bool HALO>
+int dispatch(int mode, int dtype, int has_diag, const void* p,
+             const void* const* halo, const void* wx, const void* wy,
+             const void* wz, const void* diag, const void* b, void* out,
+             void* partial, void* dot, int nx, int ny, int nz, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(partial);
+  float* d = static_cast<float*>(dot);
+  if (dtype == 0)
+    launch<float, HALO>(mode, has_diag, p, halo, wx, wy, wz, diag, b, out, part,
+                        d, nx, ny, nz, s);
+  else
+    launch<__nv_bfloat16, HALO>(mode, has_diag, p, halo, wx, wy, wz, diag, b,
+                                out, part, d, nx, ny, nz, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -188,16 +238,22 @@ int seven_point_launch(int mode, int dtype, int has_diag, const void* p,
                        const void* diag, const void* b, void* out,
                        void* partial, void* dot, int nx, int ny, int nz,
                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(partial);
-  float* d = static_cast<float*>(dot);
-  if (dtype == 0)
-    launch<float>(mode, has_diag, p, wx, wy, wz, diag, b, out, part, d, nx, ny,
-                  nz, s);
-  else
-    launch<__nv_bfloat16>(mode, has_diag, p, wx, wy, wz, diag, b, out, part, d,
-                          nx, ny, nz, s);
-  return (int)cudaGetLastError();
+  return dispatch<false>(mode, dtype, has_diag, p, nullptr, wx, wy, wz, diag,
+                         b, out, partial, dot, nx, ny, nz, stream);
+}
+
+// The same on one shard's (nx, ny, nz) slab, with its halo planes (each
+// (1, ny, nz), the slab's dtype): h_lo / h_hi p's planes x = −1 / nx, and
+// wx_hi the next shard's first wxl plane. The dot is the shard's partial.
+int seven_point_halo_launch(int mode, int dtype, int has_diag, const void* p,
+                            const void* h_lo, const void* h_hi,
+                            const void* wx_hi, const void* wx, const void* wy,
+                            const void* wz, const void* diag, const void* b,
+                            void* out, void* partial, void* dot, int nx, int ny,
+                            int nz, void* stream) {
+  const void* halo[3] = {h_lo, h_hi, wx_hi};
+  return dispatch<true>(mode, dtype, has_diag, p, halo, wx, wy, wz, diag, b,
+                        out, partial, dot, nx, ny, nz, stream);
 }
 
 }  // extern "C"

@@ -87,15 +87,19 @@ def main(argv=None):
     ap.add_argument("--submit", action="store_true",
                     help="Slurm submission (not ported yet)")
     ap.add_argument("--devices", type=str, default=None,
-                    help="sharded runs and multi-device sweep farming "
-                         "(not ported yet)")
+                    help="sharded runs over several cards and sweep "
+                         "farming (not ported yet: they come with the "
+                         "torch.distributed slice)")
     args = ap.parse_args(argv)
 
     unported = [what for what, asked in (
         ("the interactive menu (use --headless)", not args.headless),
         (f"--action {args.action}", args.action in NOT_PORTED),
         ("--submit", args.submit),
-        ("--devices", args.devices not in (None, "1")),
+        ("--devices (runs over several cards come with the "
+         "torch.distributed slice; the x-sharded step is "
+         "make_step(spmd=SpmdCtx(n)), its shards on one card)",
+         args.devices not in (None, "1")),
     ) if asked]
     if unported:
         print(f"❌ not ported yet: {', '.join(unported)}", file=sys.stderr)

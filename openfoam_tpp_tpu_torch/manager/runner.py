@@ -134,8 +134,11 @@ def _check_slice(params: dict, devices=None):
         raise NotImplementedError("model 'tank6dof' (closed 6DoF tank) is "
                                   "not ported yet")
     if devices not in (None, 1, "1"):
-        raise NotImplementedError(f"devices={devices!r}: sharded runs are "
-                                  "not ported yet (one device only)")
+        raise NotImplementedError(
+            f"devices={devices!r}: sharded runs over several cards come with "
+            "the torch.distributed slice (not ported yet); the x-sharded "
+            "step itself is make_step(spmd=SpmdCtx(n)), whose shards share "
+            "one card")
 
 
 def _case_shape_hint(case_dir: str):

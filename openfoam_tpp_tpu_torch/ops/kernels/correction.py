@@ -12,6 +12,20 @@ face-nx row (the sealed +x wall) comes back as zeros.
 check their operands first. `correct_divmax.launches` counts kernel
 launches. `correct_velocities_plain` is the correction alone, which the
 step runs on every corrector but the last.
+
+`correct_divmax_h` is the per-shard form of the x-sharded step (port of
+correction.py `correct_divmax_h`, with `rho` the cell density as in
+`correct_divmax` where JAX takes its top plane `rho_top`): u, βx and ax
+come packed to the slab's cells with their exchanged +1 planes (h_u,
+h_bx, h_ax), dp with its ±1 planes; it returns (u_c packed to cells,
+v_c, w_c, the shard's div max). It launches the halo instantiation of the
+same kernel (`correct_divmax_h.launches`). Its plain version puts the
+halo planes around the slab (zero apertures and fluid fractions, unit
+density, on the planes no kept output reads) and runs
+`correct_divmax_plain` on that block, keeping the slab: a cell's faces
+read dp one plane each way and its own two x faces, which the halos
+cover, and the extra cells are solid, so they add nothing to the maximum.
+`out=` takes (u_c, v_c, w_c) slab views to write into.
 """
 
 from __future__ import annotations
@@ -67,6 +81,9 @@ def _lib():
         lib.correction_launch.restype = ci
         lib.correction_num_partials.argtypes = [ci] * 3
         lib.correction_num_partials.restype = ci
+        lib.correction_halo_launch.argtypes = ([ci] + [vp] * 24 + [ci] * 3
+                                               + [cf] * 3 + [vp])
+        lib.correction_halo_launch.restype = ci
         lib._typed = True
     return lib
 
@@ -106,4 +123,72 @@ def correct_divmax(dp, u_s, v_s, w_s, beta_f, ax, ay, az, vfrac, top_open,
     return (*outs, div_max)
 
 
+def correct_divmax_h_plain(dp, h_dp_lo, h_dp_hi, u_p, h_u, v_s, w_s, bx_p,
+                           h_bx, by, bz, ax_p, h_ax, ay, az, vfrac, top_open,
+                           rho, dt, spacing, open_top=True, out=None):
+    def ext(t, lo=None, hi=None, fill=0.0):
+        f = torch.full_like(t[:1], fill)
+        return torch.cat([f if lo is None else lo, t, f if hi is None else hi])
+
+    # u, βx, ax: faces −1 … nxl + 1 of the nxl + 2 extended cells.
+    fx = lambda t, hi: torch.cat([torch.zeros_like(t[:1]), t, hi,
+                                  torch.zeros_like(t[:1])])
+    res = correct_divmax_plain(
+        ext(dp, h_dp_lo, h_dp_hi), fx(u_p, h_u), ext(v_s), ext(w_s),
+        (fx(bx_p, h_bx), ext(by), ext(bz)), fx(ax_p, h_ax), ext(ay), ext(az),
+        ext(vfrac), None if top_open is None else ext(top_open),
+        ext(rho, fill=1.0), dt, spacing, open_top)
+    vel = tuple(r[1:1 + dp.shape[0]] for r in res[:3])
+    if out is not None:
+        for o, r in zip(out, vel):
+            o.copy_(r)
+        vel = tuple(out)
+    return (*vel, res[3])
+
+
+def correct_divmax_h(dp, h_dp_lo, h_dp_hi, u_p, h_u, v_s, w_s, bx_p, h_bx, by,
+                     bz, ax_p, h_ax, ay, az, vfrac, top_open, rho, dt, spacing,
+                     open_top=True, out=None):
+    """`correct_divmax` on one shard's slab: (u_c packed to cells, v_c,
+    w_c, this shard's div max as a 0-d tensor)."""
+    where = _build.route(dp, "correct_divmax_h")
+    nx, ny, nz = dp.shape
+    cells = (nx, ny, nz)
+    faces = (cells, (nx, ny + 1, nz), (nx, ny, nz + 1))
+    plane = (1, ny, nz)
+    _build.require_f32(
+        "correct_divmax_h", dp.device, (dp, cells), (h_dp_lo, plane),
+        (h_dp_hi, plane), *zip((u_p, v_s, w_s), faces),
+        *zip((bx_p, by, bz), faces), *zip((ax_p, ay, az), faces),
+        (h_u, plane), (h_bx, plane), (h_ax, plane), (vfrac, cells),
+        (rho, cells), (dt, ()),
+        *(((top_open, (nx, ny)),) if open_top else ()),
+        *(zip(out, faces) if out is not None else ()))
+    if where == "cpu":
+        return correct_divmax_h_plain(dp, h_dp_lo, h_dp_hi, u_p, h_u, v_s, w_s,
+                                      bx_p, h_bx, by, bz, ax_p, h_ax, ay, az,
+                                      vfrac, top_open, rho, dt, spacing,
+                                      open_top, out)
+    lib = _lib()
+    outs = (list(out) if out is not None
+            else [torch.empty(s, dtype=dp.dtype, device=dp.device)
+                  for s in faces])
+    partial = torch.empty(lib.correction_num_partials(nx, ny, nz),
+                          dtype=torch.float32, device=dp.device)
+    div_max = torch.empty((), dtype=torch.float32, device=dp.device)
+    topo = _build.ptr(top_open) if open_top else ctypes.c_void_p(None)
+    rc = lib.correction_halo_launch(
+        int(bool(open_top)), _build.ptr(dt),
+        *(_build.ptr(t) for t in (dp, h_dp_lo, h_dp_hi, u_p, h_u, v_s, w_s,
+                                  bx_p, h_bx, by, bz, ax_p, h_ax, ay, az,
+                                  vfrac)),
+        topo, _build.ptr(rho), *(_build.ptr(o) for o in outs),
+        _build.ptr(partial), _build.ptr(div_max), nx, ny, nz,
+        *(float(h) for h in spacing), _build.stream_of(dp))
+    _build.check(rc, "correct_divmax_h")
+    correct_divmax_h.launches += 1
+    return (*outs, div_max)
+
+
 correct_divmax.launches = 0
+correct_divmax_h.launches = 0

@@ -8,6 +8,20 @@ FCT streams); all arithmetic is f32 and λ is rounded once on output.
 `fct_iter` launches csrc/mules_fct.cu for CUDA tensors and runs
 `fct_iter_plain` for CPU tensors; any other device raises.
 `fct_iter.launches` counts kernel launches.
+
+`fct_iter_h` is the per-shard form of the x-sharded step (port of
+mules_fct.py `fct_iter_h`, with its halo layout): `lam_halos` and
+`anti_halos` are per axis (lo, hi) exchanged planes, hi only for x
+((lo, None) for y and z: their upper faces lie in the slab);
+`cell_lo_halos` the −1 planes of (alpha_low, amax, amin, dt_iv). It
+launches the halo instantiation of the same kernel
+(`fct_iter_h.launches`). Its plain version puts the halo planes around
+the slab (the planes above it that no kept output reads are zero) and
+runs `fct_iter_plain` on that block, keeping the slab: λ' of a slab face
+needs R± of the cells on both sides of it, which read the faces of those
+cells and the cells' values, so one plane each way covers it, and the
+block's own edge treatment only touches the dropped halo planes. `out=`
+takes three slab views of the island's λ outputs to write into.
 """
 
 from __future__ import annotations
@@ -94,8 +108,31 @@ def _lib():
         lib.mules_fct_launch.argtypes = ([ci] + [vp] * 13 + [ci] * 3
                                          + [cf] * 4 + [vp])
         lib.mules_fct_launch.restype = ci
+        lib.mules_fct_halo_launch.argtypes = ([ci] + [vp] * 14 + [ci] * 3
+                                              + [cf] * 4 + [vp])
+        lib.mules_fct_halo_launch.restype = ci
         lib._typed = True
     return lib
+
+
+def _check(lams, antis, alpha_low, amax, amin, dt_iv, halos=(), out=None):
+    f_dt = lams[0].dtype
+    if alpha_low.dim() != 3 or f_dt not in _DTYPES:
+        raise ValueError("fct_iter kernel: 3-D grid, f32/bf16 λ and anti")
+    plane = (1,) + tuple(alpha_low.shape[1:])
+    for t, dt, shape in (
+            *((f, f_dt, alpha_low.shape)
+              for f in (*lams, *antis, *(out or ()))),
+            *((c, torch.float32, alpha_low.shape)
+              for c in (alpha_low, amax, amin, dt_iv)),
+            *((h, f_dt if n < 8 else torch.float32, plane)
+              for n, h in enumerate(halos))):
+        if (t.shape != shape or t.dtype != dt
+                or t.device != alpha_low.device or not t.is_contiguous()):
+            raise ValueError("fct_iter kernel operands must share alpha_low's "
+                             "shape (halo planes: one plane of it) and device, "
+                             "be contiguous, λ/anti one dtype and cell arrays "
+                             "f32")
 
 
 def fct_iter(lams, antis, alpha_low, amax, amin, dt_iv, spacing, eps=1e-12):
@@ -103,22 +140,12 @@ def fct_iter(lams, antis, alpha_low, amax, amin, dt_iv, spacing, eps=1e-12):
     if _build.route(alpha_low, "fct_iter") == "cpu":
         return fct_iter_plain(lams, antis, alpha_low, amax, amin, dt_iv,
                               spacing, eps)
-    f_dt = lams[0].dtype
-    if alpha_low.dim() != 3 or f_dt not in _DTYPES:
-        raise ValueError("fct_iter kernel: 3-D grid, f32/bf16 λ and anti")
-    for t, dt in (*((f, f_dt) for f in (*lams, *antis)),
-                  *((c, torch.float32)
-                    for c in (alpha_low, amax, amin, dt_iv))):
-        if (t.shape != alpha_low.shape or t.dtype != dt
-                or t.device != alpha_low.device or not t.is_contiguous()):
-            raise ValueError("fct_iter kernel operands must share alpha_low's "
-                             "shape and device, be contiguous, λ/anti one "
-                             "dtype and cell arrays f32")
+    _check(lams, antis, alpha_low, amax, amin, dt_iv)
     outs = [torch.empty_like(lams[0]) for _ in range(3)]
     nx, ny, nz = alpha_low.shape
     hx, hy, hz = (float(h) for h in spacing)
     rc = _lib().mules_fct_launch(
-        _DTYPES[f_dt], *(_build.ptr(f) for f in (*lams, *antis)),
+        _DTYPES[lams[0].dtype], *(_build.ptr(f) for f in (*lams, *antis)),
         *(_build.ptr(c) for c in (alpha_low, amax, amin, dt_iv)),
         *(_build.ptr(o) for o in outs), nx, ny, nz, hx, hy, hz, float(eps),
         _build.stream_of(alpha_low))
@@ -127,4 +154,58 @@ def fct_iter(lams, antis, alpha_low, amax, amin, dt_iv, spacing, eps=1e-12):
     return tuple(outs)
 
 
+def _halo_planes(lam_halos, anti_halos, cell_lo_halos):
+    """The kernel's 12 halo planes in its order: λ and anti lo planes of
+    x, y, z, the λ and anti x hi planes, the four cell lo planes."""
+    return ([h[0] for h in lam_halos] + [h[0] for h in anti_halos]
+            + [lam_halos[0][1], anti_halos[0][1]] + list(cell_lo_halos))
+
+
+def fct_iter_h_plain(lams, lam_halos, antis, anti_halos, cell_lo_halos,
+                     alpha_low, amax, amin, dt_iv, spacing, eps=1e-12,
+                     out=None):
+    def ext(t, lo, hi=None):
+        return torch.cat([lo, t, torch.zeros_like(t[:1]) if hi is None
+                          else hi])
+
+    res = fct_iter_plain(
+        tuple(ext(l, *h) for l, h in zip(lams, lam_halos)),
+        tuple(ext(a, *h) for a, h in zip(antis, anti_halos)),
+        *(ext(c, h) for c, h in zip((alpha_low, amax, amin, dt_iv),
+                                    cell_lo_halos)), spacing, eps)
+    res = tuple(r[1:-1] for r in res)
+    if out is None:
+        return res
+    for o, r in zip(out, res):
+        o.copy_(r)
+    return tuple(out)
+
+
+def fct_iter_h(lams, lam_halos, antis, anti_halos, cell_lo_halos, alpha_low,
+               amax, amin, dt_iv, spacing, eps=1e-12, out=None):
+    """One limiter iteration on one shard's slab, with the exchanged halo
+    planes (global edges: lo clamp, x hi zero, carried by the halos)."""
+    if _build.route(alpha_low, "fct_iter_h") == "cpu":
+        return fct_iter_h_plain(lams, lam_halos, antis, anti_halos,
+                                cell_lo_halos, alpha_low, amax, amin, dt_iv,
+                                spacing, eps, out)
+    halos = _halo_planes(lam_halos, anti_halos, cell_lo_halos)
+    _check(lams, antis, alpha_low, amax, amin, dt_iv, halos, out)
+    outs = ([torch.empty_like(lams[0]) for _ in range(3)] if out is None
+            else list(out))
+    nx, ny, nz = alpha_low.shape
+    hx, hy, hz = (float(h) for h in spacing)
+    halo_ptrs = (ctypes.c_void_p * len(halos))(*(h.data_ptr() for h in halos))
+    rc = _lib().mules_fct_halo_launch(
+        _DTYPES[lams[0].dtype], *(_build.ptr(f) for f in (*lams, *antis)),
+        *(_build.ptr(c) for c in (alpha_low, amax, amin, dt_iv)),
+        ctypes.cast(halo_ptrs, ctypes.c_void_p),
+        *(_build.ptr(o) for o in outs), nx, ny, nz, hx, hy, hz, float(eps),
+        _build.stream_of(alpha_low))
+    _build.check(rc, "mules_fct_halo")
+    fct_iter_h.launches += 1
+    return tuple(outs)
+
+
 fct_iter.launches = 0
+fct_iter_h.launches = 0

@@ -11,6 +11,9 @@ With `use_pallas` the flux build and each limiter iteration go through
 the kernels in ops/kernels/ (CUDA on the card, their plain versions on
 the CPU) in the cell lower-face layout; the bf16 λ/anti streams are on
 only on that path and only with `fct_bf16`, as in the JAX package.
+With `spmd` (parallel/spmd.py, the x-sharded step) the flux build runs as
+the per-shard `flux_all` island and all limiter iterations of a subcycle
+as one `fct_iters` island.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from openfoam_tpp_tpu_torch.ops import stencil as st
 from openfoam_tpp_tpu_torch.ops.kernels import mules_fct as mf
 from openfoam_tpp_tpu_torch.ops.kernels import mules_flux as mfx
+from openfoam_tpp_tpu_torch.parallel import spmd as sm
 
 
 def _neighbor_max(a):
@@ -107,7 +111,7 @@ def _cell_layout(faces):
 
 
 def _fct_limited(alpha_n, alpha_low, antis, dt, spacing, inv_vol, n_iters,
-                 use_pallas=False, fct_bf16=False):
+                 use_pallas=False, fct_bf16=False, spmd=None):
     """Iterative Zalesak limiter: the LIMITED antidiffusive fluxes λ·anti
     (face layout) after `n_iters` iterations."""
     hx, hy, hz = spacing
@@ -122,9 +126,13 @@ def _fct_limited(alpha_n, alpha_low, antis, dt, spacing, inv_vol, n_iters,
         cell_antis = tuple(a.to(lam_dt) for a in _cell_layout(antis))
         lams = tuple(torch.zeros_like(alpha_low, dtype=lam_dt)
                      for _ in range(3))
-        for _ in range(n_iters):
-            lams = mf.fct_iter(lams, cell_antis, alpha_low, amax, amin,
-                               dt_iv, spacing)
+        if spmd is not None:
+            lams = sm.fct_iters(lams, cell_antis, alpha_low, amax, amin,
+                                dt_iv, spacing, n_iters, spmd)
+        else:
+            for _ in range(n_iters):
+                lams = mf.fct_iter(lams, cell_antis, alpha_low, amax, amin,
+                                   dt_iv, spacing)
         f32 = alpha_low.dtype
         lim = tuple(l.to(f32) * a.to(f32) for l, a in zip(lams, cell_antis))
         return tuple(_cell_to_faces(lim))
@@ -163,11 +171,11 @@ def _fct_limited(alpha_n, alpha_low, antis, dt, spacing, inv_vol, n_iters,
 
 def advect_alpha(alpha, phi, geom_arrays, spacing, dt, rho1, rho2,
                  c_alpha=1.0, n_subcycles=3, n_limiter_iters=3,
-                 use_pallas=False, fct_bf16=False):
+                 use_pallas=False, fct_bf16=False, spmd=None):
     """Advance alpha over `dt` (0-d tensor) with `n_subcycles` FCT
     sub-steps. Returns (alpha_new, rhoPhi, alpha_flux) where
     rhoPhi_f = rho1·Fα + rho2·(φ − Fα) from the time-averaged limited
-    alpha flux Fα."""
+    alpha flux Fα. `spmd`: the kernels run as per-shard islands."""
     vfrac = geom_arrays["vfrac"]
     apertures = (geom_arrays["ax"], geom_arrays["ay"], geom_arrays["az"])
     fluid = vfrac > 0.0
@@ -186,9 +194,13 @@ def advect_alpha(alpha, phi, geom_arrays, spacing, dt, rho1, rho2,
     flux_acc = tuple(torch.zeros_like(p) for p in phi)
     for _ in range(n_subcycles):
         if use_flux_kernel:
-            lows_c, antis_c = mfx.flux_all(
-                a, phis_cell, ucs_cell,
-                anti_dtype=torch.bfloat16 if fct_bf16 else None)
+            anti_dt = torch.bfloat16 if fct_bf16 else None
+            if spmd is not None:
+                lows_c, antis_c = sm.flux_all(a, phis_cell, ucs_cell, spmd,
+                                              anti_dtype=anti_dt)
+            else:
+                lows_c, antis_c = mfx.flux_all(a, phis_cell, ucs_cell,
+                                               anti_dtype=anti_dt)
             lows = _cell_to_faces(lows_c)
             antis = _cell_to_faces(antis_c)
         else:
@@ -199,8 +211,8 @@ def advect_alpha(alpha, phi, geom_arrays, spacing, dt, rho1, rho2,
 
         a_low = a - dt_sub * inv_vol * _div(lows, spacing)
         limited = _fct_limited(a, a_low, antis, dt_sub, spacing, inv_vol,
-                               n_limiter_iters,
-                               use_pallas=use_pallas, fct_bf16=fct_bf16)
+                               n_limiter_iters, use_pallas=use_pallas,
+                               fct_bf16=fct_bf16, spmd=spmd)
         a_new = a_low - dt_sub * inv_vol * _div(limited, spacing)
         a = torch.where(fluid, torch.clamp(a_new, 0.0, 1.0), 0.0)
         flux_acc = tuple(acc + (lo + li) / n_subcycles

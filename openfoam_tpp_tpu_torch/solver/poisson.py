@@ -27,6 +27,15 @@ and with OFTPP_FUSED_RZ (on by default) the exit kernel also returns
 CG's r·z (`cheb2_post_dot_7pt`), so the separate dot is not paid. With
 one sweep those kernels never run and r·z is a plain dot.
 
+In the x-sharded step (`spmd`, parallel/spmd.py) the scaled top level
+(f32 and the bf16 bundle top) and the physical f32 top level run the
+7-point islands: per-shard halo kernels (ops/kernels/halo7.py), and the
+CG curvature step is the apply+dot island whose per-shard partial dots
+are summed in shard order. The coarse levels run the plain path, and the
+fused cheb2 smoothers are off on sharded levels (two sweeps there take
+the generic smoother, whose inner residual is the island), as in the JAX
+package.
+
 CG loop: the JAX `lax.while_loop` is a Python loop here that reads
 `rr > tol2` on the host once per iteration — one device sync per CG
 iteration (plus one before the first). CUDA graphs are future work.
@@ -52,6 +61,7 @@ import torch
 
 from openfoam_tpp_tpu_torch.ops import stencil as st
 from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
+from openfoam_tpp_tpu_torch.parallel import spmd as sm
 
 _JACOBI_OMEGA = 0.8
 _F32_CG_FLOOR = 3e-5
@@ -102,6 +112,8 @@ class _Level:
     shape: tuple
     split: tuple | None = None  # face-lite weights: the kernel serves it
     unit_diag: bool = False
+    spmd: object = None         # parallel.spmd.SpmdCtx: the kernel applies
+                                # run as per-shard islands
 
 
 @dataclasses.dataclass
@@ -124,8 +136,10 @@ class PoissonProblem:
 
 def _weights_apply(level: _Level, p):
     if level.split is not None:
-        return sp.apply_7pt(p, level.split,
-                            None if level.unit_diag else level.diag)
+        diag = None if level.unit_diag else level.diag
+        if level.spmd is not None:
+            return sm.apply_7pt(p, level.split, level.spmd, diag=diag)
+        return sp.apply_7pt(p, level.split, diag)
     wx, wy, wz = level.wx, level.wy, level.wz
     nb = (
         wx[:-1] * st.shift_down(p, 0) + wx[1:] * st.shift_up(p, 0)
@@ -140,8 +154,11 @@ def _weights_apply(level: _Level, p):
 def _resid_scaled(level: _Level, x, b):
     """(b − A·x)/diag (b − Â·x on unit-diagonal levels)."""
     if level.split is not None:
-        return sp.resid_scaled_7pt(x, level.split,
-                                   None if level.unit_diag else level.diag, b)
+        diag = None if level.unit_diag else level.diag
+        if level.spmd is not None:
+            return sm.resid_scaled_7pt(x, level.split, level.spmd, b,
+                                       diag=diag)
+        return sp.resid_scaled_7pt(x, level.split, diag, b)
     if level.unit_diag:
         return b - _weights_apply(level, x)
     return (b - _weights_apply(level, x)) / level.diag
@@ -190,9 +207,10 @@ def _smooth(level: _Level, x, b, k: SolverKnobs):
 def _fused_cheb2(level: _Level, k: SolverKnobs) -> bool:
     """The degree-2 Chebyshev sweeps of a unit-diagonal kernel level run
     as one fused kernel pass each (seven_point.cheb2_*_7pt) instead of
-    four stencil passes and the elementwise chains between them."""
+    four stencil passes and the elementwise chains between them. Not on a
+    sharded level: no halo form of them exists."""
     return (k.fused_cheb and level.split is not None and level.unit_diag
-            and level.split[0].dim() == 3
+            and level.spmd is None and level.split[0].dim() == 3
             and k.smoother == "chebyshev" and k.smooth_sweeps == 2)
 
 
@@ -316,11 +334,13 @@ def _vcycle_hybrid(top_hat, inv_s, levels_coarse, b, k: SolverKnobs,
     return (x, None) if with_dot else x
 
 
-def build_operator(geom_arrays, spacing, rho, top_open, use_pallas=False):
+def build_operator(geom_arrays, spacing, rho, top_open, use_pallas=False,
+                   spmd=None):
     """The OPERATOR half of the pressure problem (fresh every step):
     physical A, the scaled Â with the scaling folded into the face
     weights, the scaling vectors and the face 1/ρ. Returns (problem,
-    pack); `pack` feeds make_bundle."""
+    pack); `pack` feeds make_bundle. With `spmd` the kernel applies run
+    as per-shard islands."""
     hx, hy, hz = spacing
     vfrac = geom_arrays["vfrac"]
     fluid = vfrac > 0.0
@@ -351,7 +371,8 @@ def build_operator(geom_arrays, spacing, rho, top_open, use_pallas=False):
         if not use_pallas:
             return level
         return dataclasses.replace(
-            level, split=sp.split_weights(level.wx, level.wy, level.wz))
+            level, split=sp.split_weights(level.wx, level.wy, level.wz),
+            spmd=spmd)
 
     top = _with_kernel(_Level(wx=wx, wy=wy, wz=wz, diag=diag0, shape=shape))
 
@@ -369,7 +390,10 @@ def build_operator(geom_arrays, spacing, rho, top_open, use_pallas=False):
                                   shape=shape, unit_diag=True))
 
     apply_dot_hat = None
-    if top_hat.split is not None:
+    if top_hat.split is not None and spmd is not None:
+        def apply_dot_hat(p):
+            return sm.apply_dot_7pt(p, top_hat.split, spmd)
+    elif top_hat.split is not None:
         def apply_dot_hat(p):
             return sp.apply_dot_7pt(p, top_hat.split)
 
@@ -398,27 +422,30 @@ def _bundle_entry(wx, wy, wz, use_pallas, diag=None):
     return d
 
 
-def make_bundle(pack, use_pallas=False, knobs: SolverKnobs = SolverKnobs()):
+def make_bundle(pack, use_pallas=False, knobs: SolverKnobs = SolverKnobs(),
+                spmd=None):
     """The bf16 V-cycle preconditioner state: scaled top level + physical
     Galerkin coarse hierarchy coarsened directly in bf16 (f32 with
     `knobs.precond_f32`). Reusing a stale bundle is physics-exact (it is
-    only the preconditioner)."""
+    only the preconditioner). Under `spmd` the coarse levels keep face
+    weights (the plain path), as in the JAX package."""
     lp = knobs.precond_dtype
     top = _bundle_entry(pack["hwx"].to(lp), pack["hwy"].to(lp),
                         pack["hwz"].to(lp), use_pallas)
-    coarse = [_bundle_entry(lev.wx, lev.wy, lev.wz, use_pallas, diag=lev.diag)
+    coarse = [_bundle_entry(lev.wx, lev.wy, lev.wz,
+                            use_pallas and spmd is None, diag=lev.diag)
               for lev in _build_coarse_levels(
                   pack["wx"].to(lp), pack["wy"].to(lp), pack["wz"].to(lp),
                   pack["extra"].to(lp))]
     return {"top": top, "coarse": coarse, "inv_s": pack["inv_s"].to(lp)}
 
 
-def _level_from_entry(d, unit_diag):
+def _level_from_entry(d, unit_diag, spmd=None):
     split = d.get("split")
     if split is not None:
         return _Level(wx=None, wy=None, wz=None, diag=d.get("diag"),
                       shape=tuple(split[0].shape[:3]), split=split,
-                      unit_diag=unit_diag)
+                      unit_diag=unit_diag, spmd=spmd)
     wx, wy, wz = d["faces"]
     shape = (wx.shape[0] - 1,) + tuple(wx.shape[1:3])
     return _Level(wx=wx, wy=wy, wz=wz, diag=d.get("diag"), shape=shape,
@@ -426,9 +453,11 @@ def _level_from_entry(d, unit_diag):
 
 
 def attach_precond(problem: PoissonProblem, bundle,
-                   knobs: SolverKnobs = SolverKnobs()) -> PoissonProblem:
-    """Wire a make_bundle dict into the problem's precond closures."""
-    top16 = _level_from_entry(bundle["top"], unit_diag=True)
+                   knobs: SolverKnobs = SolverKnobs(),
+                   spmd=None) -> PoissonProblem:
+    """Wire a make_bundle dict into the problem's precond closures; with
+    `spmd` the top level's kernel passes run as per-shard islands."""
+    top16 = _level_from_entry(bundle["top"], unit_diag=True, spmd=spmd)
     coarse16 = [_level_from_entry(d, unit_diag=False)
                 for d in bundle["coarse"]]
     inv_s16 = bundle["inv_s"]
@@ -456,15 +485,15 @@ def attach_precond(problem: PoissonProblem, bundle,
 
 
 def build_poisson(geom_arrays, spacing, rho, top_open, use_pallas=False,
-                  knobs: SolverKnobs | None = None):
+                  knobs: SolverKnobs | None = None, spmd=None):
     """Operator + MG preconditioner for the current density in one call.
     `knobs=None` reads the OFTPP_* variables now."""
     if knobs is None:
         knobs = SolverKnobs.from_env()
     problem, pack = build_operator(geom_arrays, spacing, rho, top_open,
-                                   use_pallas=use_pallas)
-    bundle = make_bundle(pack, use_pallas=use_pallas, knobs=knobs)
-    return attach_precond(problem, bundle, knobs)
+                                   use_pallas=use_pallas, spmd=spmd)
+    bundle = make_bundle(pack, use_pallas=use_pallas, knobs=knobs, spmd=spmd)
+    return attach_precond(problem, bundle, knobs, spmd=spmd)
 
 
 def _dot(a, b):

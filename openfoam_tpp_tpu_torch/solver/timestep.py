@@ -33,6 +33,14 @@ are read at the same moment and handed to the pressure solve. The gates
 alone decide: the kernels take any 3-D f32 grid (the JAX kernels' slab and
 VMEM shape checks are TPU limits), and a non-f32 operand raises. The
 arguments of the JAX step outside this slice raise NotImplementedError.
+
+`spmd=SpmdCtx(n)` (parallel/spmd.py) is the JAX package's x-sharded step:
+every kernel call site becomes a per-shard island with the halo kernels
+(the MULES flux build and limiter, the 7-point passes of the pressure
+solve's top level, the momentum RHS, the last corrector's epilogue),
+while the state and everything between islands stay global tensors. On
+one card the n shards are x-slabs of the same tensors. The momentum
+finish kernel stays off under `spmd` (no halo form), as in the JAX step.
 """
 
 from __future__ import annotations
@@ -54,6 +62,8 @@ from openfoam_tpp_tpu_torch.ops import stencil as st
 from openfoam_tpp_tpu_torch.ops.kernels import correction as _ck
 from openfoam_tpp_tpu_torch.ops.kernels import mom_finish as _mfk
 from openfoam_tpp_tpu_torch.ops.kernels import momentum_rhs as _mrk
+from openfoam_tpp_tpu_torch.parallel import spmd as _sm
+from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
 from openfoam_tpp_tpu_torch.solver import momentum as mom
 from openfoam_tpp_tpu_torch.solver import poisson
 
@@ -125,12 +135,18 @@ def geometry_arrays(geom: TankGeometry, dtype=torch.float32, device="cuda"):
 def _check_slice(props, controls, motion=None, spmd=None, forcing=None,
                  face_xyz=None):
     """Raise for every argument of the JAX step this port does not cover."""
-    for name, val in (("motion", motion), ("spmd", spmd),
-                      ("forcing", forcing), ("face_xyz", face_xyz)):
+    for name, val in (("motion", motion), ("forcing", forcing),
+                      ("face_xyz", face_xyz)):
         if val is not None:
             raise NotImplementedError(
-                f"{name}= is not ported yet (analytic orbital motion on "
-                f"one device only)")
+                f"{name}= is not ported yet (analytic orbital motion only)")
+    if spmd is not None and not isinstance(spmd, SpmdCtx):
+        raise TypeError(f"spmd= takes a parallel.spmd.SpmdCtx, not "
+                        f"{type(spmd).__name__}")
+    if spmd is not None and controls.batch_lanes:
+        raise NotImplementedError(
+            "spmd= with batch_lanes: a sweep is not sharded through spmd "
+            "(in the JAX package either)")
     if props.sigma != 0.0:
         raise NotImplementedError("surface tension (sigma != 0, CSF) is "
                                   "not ported yet")
@@ -168,12 +184,14 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
     use_mules_k = use_k and not controls.batch_lanes
     fct_bf16 = _fct_bf16_enabled(controls)
     use_mom_k = sealed_x and _mom_pallas_enabled(controls)
-    use_finish_k = use_mom_k and _finish_pallas_enabled(controls)
+    use_finish_k = (use_mom_k and spmd is None
+                    and _finish_pallas_enabled(controls))
     use_corr_k = sealed_x and _corr_pallas_enabled(controls)
     knobs = poisson.SolverKnobs.from_env()
 
     def make_bundle(pack):
-        return poisson.make_bundle(pack, use_pallas=use_k, knobs=knobs)
+        return poisson.make_bundle(pack, use_pallas=use_k, knobs=knobs,
+                                   spmd=spmd)
 
     def courant_numbers(u, v, w, alpha, dt, fluid, spacing):
         hx, hy, hz = spacing
@@ -190,6 +208,10 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
         hx, hy, hz = spacing
         fdt = state.dt.dtype
         dev = state.dt.device
+        if spmd is not None and state.alpha.dim() != 3:
+            raise NotImplementedError(
+                "spmd= on a batched state: a sweep is not sharded through "
+                "spmd (in the JAX package either)")
         fluid = ga["vfrac"] > 0.0
         # --- adaptive dt (adjustTimeStep), all on the device ---
         co, co_a = courant_numbers(state.u, state.v, state.w, state.alpha,
@@ -234,7 +256,7 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
             c_alpha=controls.c_alpha,
             n_subcycles=controls.n_alpha_subcycles,
             n_limiter_iters=controls.n_limiter_iters,
-            use_pallas=use_mules_k, fct_bf16=fct_bf16)
+            use_pallas=use_mules_k, fct_bf16=fct_bf16, spmd=spmd)
 
         rho_old = mixture_density(state.alpha, props)
         rho_new = mixture_density(alpha_new, props)
@@ -243,7 +265,7 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
         # --- Poisson operator for the new density ---
         prob, pack = poisson.build_operator(
             ga, spacing, rho_new, ga["top_open"] if open_top else None,
-            use_pallas=use_k)
+            use_pallas=use_k, spmd=spmd)
         K = max(int(controls.precond_refresh), 1)
         if (carry_precond and precond is not None and K > 1
                 and state.step.dim() > 0):
@@ -257,7 +279,7 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
             bundle = precond   # host read of step only when K > 1
         else:
             bundle = make_bundle(pack)
-        prob = poisson.attach_precond(prob, bundle, knobs)
+        prob = poisson.attach_precond(prob, bundle, knobs, spmd=spmd)
         beta_f = prob.beta_faces
 
         # --- explicit conservative momentum (no pressure) ---
@@ -266,7 +288,10 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
         vels = (state.u, state.v, state.w)
         apertures = (ga["ax"], ga["ay"], ga["az"])
         div_u = st.divergence(*phi, spacing) if controls.dev2_stress else None
-        if use_mom_k:
+        if use_mom_k and spmd is not None:
+            vcs = _sm.momentum_rhs(*vels, rho_phi, mu, div_u, spacing, spmd,
+                                   dev2=bool(controls.dev2_stress))
+        elif use_mom_k:
             # visc + dev2 − conv of all three components in one kernel.
             vcs = _mrk.momentum_rhs(*vels, rho_phi, mu, div_u, spacing,
                                     dev2=bool(controls.dev2_stress))
@@ -301,7 +326,11 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
             # velocity correction: exactly the operator's gradient; the
             # last corrector's, with the divergence error, in one kernel
             corr_args = (dp, u_c, v_c, w_c, beta_f, *apertures)
-            if use_corr_k and corr == n_corr - 1:
+            if use_corr_k and corr == n_corr - 1 and spmd is not None:
+                u_c, v_c, w_c, div_err = _sm.correct_divmax(
+                    *corr_args, ga["vfrac"], ga["top_open"], rho_new, dt,
+                    spacing, spmd, open_top=open_top)
+            elif use_corr_k and corr == n_corr - 1:
                 u_c, v_c, w_c, div_err = _ck.correct_divmax(
                     *corr_args, ga["vfrac"], ga["top_open"], rho_new, dt,
                     spacing, open_top=open_top)
@@ -331,7 +360,7 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
         rho = mixture_density(state.alpha, props)
         _, pack = poisson.build_operator(
             ga, spacing, rho, ga["top_open"] if open_top else None,
-            use_pallas=use_k)
+            use_pallas=use_k, spmd=spmd)
         return make_bundle(pack)
 
     if carry_precond:
@@ -348,14 +377,19 @@ def make_step(geom: TankGeometry,
 
     `carry_precond=True`: `step(state, params, t_stop=None, precond=None)
     -> (state', diag, precond')`, and `step.init_precond(state)` builds
-    the first bundle of a time loop's carry."""
+    the first bundle of a time loop's carry. `spmd=SpmdCtx(n)`: the
+    x-sharded step (the grid's nx must divide into n slabs of at least two
+    planes)."""
     _check_slice(props, controls, motion=motion, spmd=spmd)
+    if spmd is not None:
+        spmd.local_shape(geom.shape)
     ga = geometry_arrays(geom, dtype, device=device)
     spacing = tuple(float(s) for s in geom.spacing)
     open_top = bool(np.any(geom.top_open > 0))
     core = make_step_core(props, controls, open_top=open_top,
                           carry_precond=carry_precond,
-                          sealed_x=bool(np.all(geom.ax[-1] == 0.0)))
+                          sealed_x=bool(np.all(geom.ax[-1] == 0.0)),
+                          spmd=spmd)
 
     if carry_precond:
         def step(state, params, t_stop=None, precond=None):
@@ -375,15 +409,16 @@ def make_step_ga(spacing, props: PhysicalProperties = PhysicalProperties(),
                  controls: SolverControls = SolverControls(), motion=None,
                  open_top: bool = True, face_xyz=None,
                  carry_precond: bool = False, sealed_x: bool = True,
-                 device="cuda"):
+                 spmd=None, device="cuda"):
     """Geometry-as-operands step: `step(state, params, ga, ...)` with `ga`
     from `geometry_arrays(geom, device=...)`. `device` is checked here so
-    a CUDA request on a machine without a card fails at build time."""
+    a CUDA request on a machine without a card fails at build time.
+    `spmd` as in `make_step`."""
     resolve_device(device)
     spacing = tuple(float(s) for s in spacing)
     core = make_step_core(props, controls, motion=motion, open_top=open_top,
                           face_xyz=face_xyz, carry_precond=carry_precond,
-                          sealed_x=sealed_x)
+                          sealed_x=sealed_x, spmd=spmd)
 
     if carry_precond:
         def step(state, params, ga, t_stop=None, precond=None):

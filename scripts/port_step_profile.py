@@ -4,6 +4,7 @@
     python3 scripts/port_step_profile.py [--warm 30] [--steps 5]
                                          [--set OFTPP_SMOOTH_SWEEPS=2 ...]
                                          [--sweep 128 | --sweep-box]
+                                         [--spmd 4]
 
 Runs the flagship case (H0.208/D0.2/R0.004/f1.88, mesh 0.00185,
 round_to=8 → 112³) through openfoam_tpp_tpu_torch's `make_step` with
@@ -21,6 +22,10 @@ time. The full table goes to perf_out/port_step_profile.txt.
 R = 0.002 + 2e-5·i, f = 1.5 + 0.01·i) through `make_sweep_step` with the
 case axis trailing. `--sweep-box` profiles the solo step of one such case
 (`use_pallas=True`), which the sweep replaces N times over.
+
+`--spmd S` profiles the flagship's x-sharded step, `make_step(...,
+spmd=SpmdCtx(S))`: S x-slabs of the grid on the one card, each island a
+halo kernel per slab.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ def main() -> int:
     ap.add_argument("--set", action="append", default=[], metavar="VAR=VALUE")
     ap.add_argument("--sweep", type=int, default=0, metavar="N")
     ap.add_argument("--sweep-box", action="store_true")
+    ap.add_argument("--spmd", type=int, default=0, metavar="S")
     args = ap.parse_args()
     for pair in args.set:   # read when the step is built, below
         var, _, value = pair.partition("=")
@@ -54,6 +60,7 @@ def main() -> int:
     from openfoam_tpp_tpu_torch.config import PhysicalProperties, SolverControls
     from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
     from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
+    from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
     from openfoam_tpp_tpu_torch.solver.timestep import make_step
 
     dev = torch.device("cuda")
@@ -79,8 +86,9 @@ def main() -> int:
             return (*sweep_step(state, params), None)
     else:
         step = make_step(geom, PhysicalProperties(),
-                         SolverControls(use_pallas=True),
-                         carry_precond=True, device=dev)
+                         SolverControls(use_pallas=True), carry_precond=True,
+                         spmd=SpmdCtx(args.spmd) if args.spmd else None,
+                         device=dev)
         params = (CaseParams.make(R=0.002, freq=1.5, duration=10.0, device=dev)
                   if args.sweep_box else
                   CaseParams.make(R=0.004, freq=1.88, duration=20.0,
@@ -107,7 +115,8 @@ def main() -> int:
     busy_us = sum(getattr(e, dev_attr) for e in kernels)
     n_launch = sum(e.count for e in kernels)
     n = args.steps
-    what = (f"{args.sweep}-case sweep of " if args.sweep else "")
+    what = (f"{args.sweep}-case sweep of " if args.sweep else
+            f"{args.spmd}-shard step of " if args.spmd else "")
     print(f"[profile] {what}{geom.shape}, {n} steps after {args.warm}, "
           f"{' '.join(args.set) or 'defaults'}; p_iters {iters}")
     print(f"  wall {wall / n * 1e3:.3f} ms/step (profiler on); device busy "
@@ -121,7 +130,8 @@ def main() -> int:
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)
     tag = "".join("_" + pair for pair in args.set) + (
         f"_sweep{args.sweep}" if args.sweep else
-        "_sweep_box" if args.sweep_box else "")
+        "_sweep_box" if args.sweep_box else
+        f"_spmd{args.spmd}" if args.spmd else "")
     with open(os.path.join(repo, "perf_out", f"port_step_profile{tag}.txt"),
               "w") as f:
         f.write("\n".join(lines) + "\n")

@@ -14,18 +14,23 @@ runs in another order than torch.sum); the momentum right-hand side to
 in f32 and round once, like their plain versions: same bounds. The
 batch-native 7-point kernels (cases on a trailing axis) hold the
 single-grid family's bounds, and a case equals the single-grid kernel on
-that case bitwise."""
+that case bitwise. The halo kernels of the x-sharded step hold their
+single-grid rows' bounds against their plain versions per shard, and the
+4-shard islands equal the single-grid kernels on the whole grid bitwise
+(the dot and the div max: 1e-6 relative)."""
 
 import numpy as np
 import pytest
 import torch
 
 from openfoam_tpp_tpu_torch.ops.kernels import correction as ck
+from openfoam_tpp_tpu_torch.ops.kernels import halo7
 from openfoam_tpp_tpu_torch.ops.kernels import mom_finish as mfk
 from openfoam_tpp_tpu_torch.ops.kernels import momentum_rhs as mrk
 from openfoam_tpp_tpu_torch.ops.kernels import mules_fct as mf
 from openfoam_tpp_tpu_torch.ops.kernels import mules_flux as mfx
 from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
+from openfoam_tpp_tpu_torch.parallel import spmd as sm
 
 pytestmark = pytest.mark.gpu
 
@@ -251,3 +256,158 @@ def test_momentum_finish_kernel_matches_plain(dev):
     ref = mfk.momentum_finish_plain(*vel, vc, ro, rn, *aps, dt, G)
     for g, r in zip(got, ref):
         assert _rel(g, r) <= 1e-6
+
+
+CTX4 = sm.SpmdCtx(4)      # SHAPE's nx = 20: slabs of 5 planes
+
+
+def _halo_inputs(rng, dev, dtype):
+    """Every island's global inputs, with zero wall faces."""
+    p, b = _arr(rng, dev, dtype), _arr(rng, dev, dtype)
+    w = [_arr(rng, dev, dtype, 0.05, 0.3) for _ in range(3)]
+    w[0][0], w[1][:, 0], w[2][:, :, 0] = 0, 0, 0
+    d = _arr(rng, dev, dtype, 1.5, 2.5)
+    alpha = _arr(rng, dev, lo=0, hi=1)
+    phis = tuple(1e-3 * _arr(rng, dev) for _ in range(3))
+    ucs = tuple((1e-3 * _arr(rng, dev)).to(dtype) for _ in range(3))
+    al = _arr(rng, dev, lo=0, hi=1)
+    cells = (al, torch.clamp(al + _arr(rng, dev, lo=0, hi=0.2), max=1.0),
+             torch.clamp(al - _arr(rng, dev, lo=0, hi=0.2), min=0.0),
+             _arr(rng, dev, lo=1e-4, hi=2e-4))
+    lams = tuple(_arr(rng, dev, dtype, 0, 1) for _ in range(3))
+    antis = tuple((1e-3 * _arr(rng, dev)).to(dtype) for _ in range(3))
+    antis[0][0], antis[1][:, 0], antis[2][:, :, 0] = 0, 0, 0
+    return p, b, tuple(w), d, alpha, phis, ucs, lams, antis, cells
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_halo_islands_equal_single_grid_kernels(dev, dtype):
+    """4 shards of halo kernels against the single-grid kernel on the
+    whole grid: bitwise, the dot to 1e-6 relative. One launch per shard."""
+    rng = np.random.default_rng(5)
+    p, b, w, d, alpha, phis, ucs, lams, antis, cells = _halo_inputs(
+        rng, dev, dtype)
+    n0 = (halo7.apply_7pt_h.launches, halo7.resid_scaled_7pt_h.launches)
+    for diag in (None, d):
+        assert torch.equal(sm.apply_7pt(p, w, CTX4, diag=diag),
+                           sp.apply_7pt(p, w, diag))
+        assert torch.equal(sm.resid_scaled_7pt(p, w, CTX4, b, diag=diag),
+                           sp.resid_scaled_7pt(p, w, diag, b))
+    assert (halo7.apply_7pt_h.launches - n0[0],
+            halo7.resid_scaled_7pt_h.launches - n0[1]) == (8, 8)
+    ap, dot = sm.apply_dot_7pt(p, w, CTX4)
+    ap1, dot1 = sp.apply_dot_7pt(p, w)
+    assert torch.equal(ap, ap1)
+    assert abs(float(dot) - float(dot1)) <= 1e-6 * abs(float(dot1))
+    anti_dt = dtype if dtype == torch.bfloat16 else None
+    got = sm.flux_all(alpha, phis, ucs, CTX4, anti_dtype=anti_dt)
+    ref = mfx.flux_all(alpha, phis, ucs, anti_dt)
+    assert all(torch.equal(g, r) for g, r in zip(sum(got, ()), sum(ref, ())))
+    sp_ = (0.004, 0.004, 0.0035)
+    got = sm.fct_iters(lams, antis, *cells, sp_, 3, CTX4)
+    ref = lams
+    for _ in range(3):
+        ref = mf.fct_iter(ref, antis, *cells, sp_)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_halo_kernels_match_plain(dev, dtype):
+    """Each 7-point and MULES halo entry point against its plain version
+    on one interior shard (their single-grid rows' bounds)."""
+    rng = np.random.default_rng(6)
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    p, b, w, d, alpha, phis, ucs, lams, antis, cells = _halo_inputs(
+        rng, dev, dtype)
+    s = 1
+    sl = lambda ts: tuple(CTX4.split(t)[s] for t in ts)
+    lo, hi = sm.exchange_halo(CTX4.split(p), 1, CTX4)[s]
+    wx_hi = sm.exchange_hi(CTX4.split(w[0]), 1, CTX4)[s]
+    (p_s, b_s, d_s), w_s = sl((p, b, d)), sl(w)
+    for diag in (None, d_s):
+        assert _rel(halo7.apply_7pt_h(p_s, lo, hi, wx_hi, w_s, diag),
+                    halo7.apply_7pt_h_plain(p_s, lo, hi, wx_hi, w_s,
+                                            diag)) <= tol
+        assert _rel(halo7.resid_scaled_7pt_h(p_s, lo, hi, wx_hi, w_s, b_s,
+                                             diag),
+                    halo7.resid_scaled_7pt_h_plain(p_s, lo, hi, wx_hi, w_s,
+                                                   b_s, diag)) <= tol
+    (ap, dot), (ap_p, dot_p) = (
+        halo7.apply_dot_7pt_h(p_s, lo, hi, wx_hi, w_s),
+        halo7.apply_dot_7pt_h_plain(p_s, lo, hi, wx_hi, w_s))
+    assert _rel(ap, ap_p) <= tol
+    assert abs(float(dot) - float(dot_p)) <= 1e-5 * abs(float(dot_p))
+    a_lo, a_hi = sm.exchange_halo(CTX4.split(alpha), 2, CTX4)[s]
+    anti_dt = dtype if dtype == torch.bfloat16 else None
+    args = (sl((alpha,))[0], a_lo, a_hi[:1], sl(phis), sl(ucs), anti_dt)
+    for g, r in zip(sum(mfx.flux_all_h(*args), ()),
+                    sum(mfx.flux_all_h_plain(*args), ())):
+        assert g.dtype == r.dtype and _rel(g, r) <= tol
+    ex = lambda t, **k: sm.exchange_halo(CTX4.split(t), 1, CTX4, **k)[s]
+    lh = [ex(t, hi_edge="zero") for t in lams]
+    ah = [ex(t, hi_edge="zero") for t in antis]
+    args = (sl(lams), (lh[0], (lh[1][0], None), (lh[2][0], None)), sl(antis),
+            (ah[0], (ah[1][0], None), (ah[2][0], None)),
+            tuple(ex(c)[0] for c in cells), *sl(cells), (0.004, 0.004, 0.0035))
+    for g, r in zip(mf.fct_iter_h(*args), mf.fct_iter_h_plain(*args)):
+        assert g.dtype == r.dtype and _rel(g, r) <= tol
+
+
+def test_momentum_and_correction_halo_kernels(dev):
+    """The momentum RHS and projection-epilogue islands: per shard against
+    the plain versions (1e-5 of scale, 1e-6), and composed over 4 shards
+    against the single-grid kernels bitwise (div max 1e-6 relative)."""
+    rng = np.random.default_rng(7)
+    vel, rp = _faces(rng, dev, SHAPE), _faces(rng, dev, SHAPE)
+    _walls(vel)
+    _walls(rp)
+    mu = _arr(rng, dev, lo=1e-5, hi=2e-3)
+    div_u = 0.1 * _arr(rng, dev)
+    h = (0.011, 0.009, 0.013)
+    n0 = mrk.momentum_rhs_h.launches
+    got = sm.momentum_rhs(*vel, rp, mu, div_u, h, CTX4)
+    assert mrk.momentum_rhs_h.launches == n0 + 4
+    ref = mrk.momentum_rhs(*vel, rp, mu, div_u, h)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    nx = SHAPE[0]
+    ex = lambda t, wd, **k: sm.exchange_halo(CTX4.split(t, nx), wd, CTX4,
+                                             **k)[2]
+    halos = (*ex(vel[0], 2, hi_edge="zero"), *ex(vel[1], 2), *ex(vel[2], 2),
+             *ex(rp[0], 1, hi_edge="zero"), ex(rp[1], 1)[0], ex(rp[2], 1)[0],
+             *ex(mu, 1), ex(div_u, 1, lo_edge="zero")[0])
+    args = (*(CTX4.split(t, nx)[2] for t in (*vel, *rp, mu, div_u)), halos, h)
+    k_out = mrk.momentum_rhs_h(*args)
+    p_out = mrk.momentum_rhs_h_plain(*args)
+    scale = max(float(r.abs().max()) for r in p_out)
+    assert all(float((g - r).abs().max()) <= 1e-5 * scale
+               for g, r in zip(k_out, p_out))
+
+    dp = _arr(rng, dev, lo=-50, hi=50)
+    beta = _faces(rng, dev, SHAPE, 8e-4, 1e-3)
+    aps = _faces(rng, dev, SHAPE, 0.0, 1.0)
+    for a in aps:
+        a[a < 0.2] = 0
+    _walls(aps)
+    vfrac = _arr(rng, dev, lo=0, hi=1)
+    vfrac[vfrac < 0.1] = 0
+    topo = (_arr(rng, dev, lo=0, hi=1)[:, :, 0] > 0.3).float().contiguous()
+    rho = _arr(rng, dev, lo=1, hi=998)
+    dt = torch.tensor(3.7e-3, device=dev)
+    got = sm.correct_divmax(dp, *vel, beta, *aps, vfrac, topo, rho, dt, h,
+                            CTX4)
+    ref = ck.correct_divmax(dp, *vel, beta, *aps, vfrac, topo, rho, dt, h)
+    assert all(torch.equal(g, r) for g, r in zip(got[:3], ref[:3]))
+    assert abs(float(got[3]) - float(ref[3])) <= 1e-6 * float(ref[3])
+    s = 2
+    part = lambda t: CTX4.split(t, nx)[s]
+    dlo, dhi = sm.exchange_halo(CTX4.split(dp), 1, CTX4)[s]
+    hi3 = [sm.exchange_hi(CTX4.split(t, nx), 1, CTX4)[s]
+           for t in (vel[0], beta[0], aps[0])]
+    args = (part(dp), dlo, dhi, part(vel[0]), hi3[0], part(vel[1]),
+            part(vel[2]), part(beta[0]), hi3[1], part(beta[1]), part(beta[2]),
+            part(aps[0]), hi3[2], part(aps[1]), part(aps[2]), part(vfrac),
+            part(topo), part(rho), dt, h)
+    k_out = ck.correct_divmax_h(*args)
+    p_out = ck.correct_divmax_h_plain(*args)
+    assert all(_rel(g, r) <= 1e-6 for g, r in zip(k_out[:3], p_out[:3]))
+    assert abs(float(k_out[3]) - float(p_out[3])) <= 1e-6 * float(p_out[3])

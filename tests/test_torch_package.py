@@ -18,6 +18,7 @@ from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
 from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
 from openfoam_tpp_tpu_torch.ops.kernels import correction as tck
 from openfoam_tpp_tpu_torch.ops.kernels import momentum_rhs as tmrk
+from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
 from openfoam_tpp_tpu_torch.solver import timestep
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,6 +35,8 @@ import openfoam_tpp_tpu_torch.manager.cli
 import openfoam_tpp_tpu_torch.manager.runner
 import openfoam_tpp_tpu_torch.manager.sweeprun
 import openfoam_tpp_tpu_torch.parallel.sweep
+import openfoam_tpp_tpu_torch.parallel.spmd
+import openfoam_tpp_tpu_torch.ops.kernels.halo7
 import openfoam_tpp_tpu_torch.post.interface
 import openfoam_tpp_tpu_torch.post.isosurface
 import openfoam_tpp_tpu_torch.post.probes
@@ -108,7 +111,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                  lambda: CaseParams.make(0.004, 1.88, 1.0),
                  lambda: timestep.geometry_arrays(geom),
                  lambda: timestep.make_step(geom),
-                 lambda: timestep.make_step_ga(geom.spacing)):
+                 lambda: timestep.make_step(geom, spmd=SpmdCtx(4)),
+                 lambda: timestep.make_step_ga(geom.spacing),
+                 lambda: timestep.make_step_ga(geom.spacing,
+                                               spmd=SpmdCtx(4))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     init_state(geom, device="cpu")   # asked for explicitly: runs
@@ -139,8 +145,11 @@ def test_out_of_slice_arguments_raise():
     timestep.make_step_core(sync_axis="case")
     with pytest.raises(NotImplementedError, match="motion"):
         timestep.make_step(geom, motion=object(), device="cpu")
+    # spmd= is in the slice (tests/test_torch_spmd.py); with a sweep's
+    # batch_lanes it raises, as the JAX package shards no sweep through it.
     with pytest.raises(NotImplementedError, match="spmd"):
-        timestep.make_step(geom, spmd=object(), device="cpu")
+        timestep.make_step(geom, controls=SolverControls(batch_lanes=True),
+                           spmd=SpmdCtx(4), device="cpu")
     with pytest.raises(NotImplementedError, match="forcing"):
         timestep.make_step_core(forcing=lambda t, p: None)
 
