@@ -9,7 +9,9 @@ Phases, each fatal on any fault (nothing is caught):
   2. hold every kernel entry point against its plain PyTorch version on
      the card, at the 112³ flagship shapes, from seeded random inputs
      with zero wall faces; print errors beside tolerances, kernel / plain
-     times, bytes and bounds; then the seven halo entry points of the
+     device times (20 launches queued behind a device-side wait, so the
+     host's cost per call does not pace them), bytes and bounds; then the
+     seven halo entry points of the
      x-sharded step on those inputs cut into 4 x-shards: per shard against
      their plain versions, and the shards composed against the single-grid
      kernels on the whole grid (bitwise; the dot and the div max to 1e-6
@@ -17,8 +19,11 @@ Phases, each fatal on any fault (nothing is caught):
   3. drive the step path: the flagship single-tank case
      (H0.208/D0.2/R0.004/f1.88, mesh 0.00185, round_to=8 → 112³) through
      `make_step(..., carry_precond=True)` in the bench's configuration,
-     SolverControls(use_pallas=True), for N_STEPS steps from rest; then,
-     from the state it reached, one run of N_SHORT steps each of that
+     SolverControls(use_pallas=True), for N_STEPS steps from rest; then
+     the nine fct_iter calls and the momentum_rhs call of one step from
+     the state reached, captured, timed again and held against their
+     plain versions (rows 5 and 6 on a real step's operands); then, from
+     that state, one run of N_SHORT steps each of that
      configuration, of mom_pallas=False, of OFTPP_FINISH_PALLAS=1, of
      OFTPP_SMOOTH_SWEEPS=2 (the fused cheb2 smoothers, r·z from the exit
      kernel) and of that with OFTPP_FUSED_RZ=0 (each variable set while
@@ -121,8 +126,9 @@ SHARD_TOLS = {"alpha": ("abs", 1e-3, 0.0), "u": ("rel", 1e-2, 0.0),
               "v": ("rel", 1e-2, 0.0), "w": ("rel", 1e-2, 0.0),
               "p": ("rel", 1e-4, 0.0)}
 
-# Per-cell f32 operation counts of each kernel's arithmetic (for the
-# operations half of the bound; the bytes half is the larger for all).
+# Per-cell f32 operation counts of each function's own arithmetic (for
+# the operations half of the bound; the bytes half is the larger for all).
+# fct_iter: one R± per cell (~60) and three λ updates (6 each).
 # momentum_rhs: per component 3 convection fluxes (mass-flux average, van
 # Leer limiter with 2 divisions, MUSCL value, product: ~16 with the
 # difference) + 3 viscous and 3 dev2 fluxes (~8 each) + sums: ~105.
@@ -131,12 +137,12 @@ SHARD_TOLS = {"alpha": ("abs", 1e-3, 0.0), "u": ("rel", 1e-2, 0.0),
 FLOPS_PER_CELL = {
     "apply_7pt": 13, "resid_scaled_7pt": 15, "apply_dot_7pt": 15,
     "cheb2_pre_7pt": 34, "cheb2_post_7pt": 35, "cheb2_post_dot_7pt": 37,
-    "flux_all": 3 * 30, "fct_iter": 4 * 60 + 3 * 6,
+    "flux_all": 3 * 30, "fct_iter": 60 + 3 * 6,
     "momentum_rhs": 3 * 105, "correct_divmax": 3 * 6 + 11 + 3,
     "momentum_finish": 3 * 11,
     "apply_7pt_nb": 13, "resid_scaled_7pt_nb": 15, "apply_dot_7pt_nb": 15,
     "apply_7pt_h": 13, "resid_scaled_7pt_h": 15, "apply_dot_7pt_h": 15,
-    "flux_all_h": 3 * 30, "fct_iter_h": 4 * 60 + 3 * 6,
+    "flux_all_h": 3 * 30, "fct_iter_h": 60 + 3 * 6,
     "momentum_rhs_h": 3 * 105, "correct_divmax_h": 3 * 6 + 11 + 3,
 }
 # Kernels of the default configuration; momentum_finish is opt-in.
@@ -231,21 +237,6 @@ def environ(**values):
                 os.environ[k] = v
 
 
-def cuda_ms(fn, reps=REPS):
-    import torch
-
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -266,12 +257,14 @@ def make_check(rows, n_cells):
     main-path variant in `rows`."""
     import torch
 
+    from openfoam_tpp_tpu_torch.utils.devtime import device_ms
+
     def check(name, variant, main, kern, plain, ins, outs, tol):
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         err, scale = max_err(got, ref)
         rel = err / max(scale, 1e-30)
-        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        ms, plain_ms = device_ms(kern, REPS), device_ms(plain, REPS)
         b = nbytes(*ins) + nbytes(*outs)
         t_bytes = b / HBM_BYTES_PER_S * 1e3
         t_ops = FLOPS_PER_CELL[name] * n_cells / F32_FLOPS * 1e3
@@ -577,6 +570,7 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
     from openfoam_tpp_tpu_torch.ops.kernels import mules_flux as mfx
     from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
     from openfoam_tpp_tpu_torch.parallel import spmd as sm
+    from openfoam_tpp_tpu_torch.utils.devtime import device_ms
 
     ctx = sm.SpmdCtx(n_shards)
     rng = np.random.default_rng(2026)
@@ -626,9 +620,9 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
         n_el = len(got) - n_scalar
         bitwise = all(torch.equal(g, r) for g, r in zip(got[:n_el], ref[:n_el]))
         s_err = scalar_err(got[n_el:], ref[n_el:])
-        ms = cuda_ms(lambda: [k() for k, _, _ in shards])
-        plain_ms = cuda_ms(lambda: [p() for _, p, _ in shards])
-        island_ms, single_ms = cuda_ms(island), cuda_ms(single)
+        ms = device_ms(lambda: [k() for k, _, _ in shards], REPS)
+        plain_ms = device_ms(lambda: [p() for _, p, _ in shards], REPS)
+        island_ms, single_ms = device_ms(island, REPS), device_ms(single, REPS)
         b = sum(nbytes(*ops) for _, _, ops in shards)
         t_bytes = b / HBM_BYTES_PER_S * 1e3
         t_ops = FLOPS_PER_CELL[name] * n_cells / F32_FLOPS * 1e3
@@ -922,6 +916,66 @@ def drive(label, step, state, bundle, params, n_steps, n_timed, n_fluid,
             raise AssertionError(f"{label}: {k} launched {launches[k]} "
                                  f"times in {vcycles} V-cycles")
     return state, bundle, launches, stats
+
+
+def phase_step_operands(step, state, params, rows):
+    """Rows 5 and 6 on the operands of one real flagship step from `state`
+    (phase 3's): the step's nine fct_iter calls and its momentum_rhs call,
+    captured by spies standing in for the entry points, each timed again,
+    kernel and plain version, and held against the plain version with
+    phase 2's tolerances. Adds `step_ms`, `step_plain_ms` (means per call)
+    and `step_max_rel_err` to those rows."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.ops.kernels import momentum_rhs as mrk
+    from openfoam_tpp_tpu_torch.ops.kernels import mules_fct as mf
+    from openfoam_tpp_tpu_torch.utils.devtime import device_ms
+
+    def clone(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, (tuple, list)):
+            return type(v)(clone(x) for x in v)
+        return v
+
+    calls = {"fct_iter": [], "momentum_rhs": []}
+    real = {"fct_iter": (mf.fct_iter, mf.fct_iter_plain, BF16_RTOL),
+            "momentum_rhs": (mrk.momentum_rhs, mrk.momentum_rhs_plain,
+                             MOM_RTOL)}
+
+    def spy(name):
+        def call(*a, **k):
+            calls[name].append((clone(a), clone(k)))
+            return real[name][0](*a, **k)
+        # The entry point counts on the module's attribute: while the spy
+        # stands in for it, the count lands here.
+        call.launches = 0
+        return call
+
+    with mock.patch.object(mf, "fct_iter", spy("fct_iter")), \
+            mock.patch.object(mrk, "momentum_rhs", spy("momentum_rhs")):
+        step(state, params, precond=step.init_precond(state))
+    torch.cuda.synchronize()
+    for name, (kern, plain, tol) in real.items():
+        if len(calls[name]) != (9 if name == "fct_iter" else 1):
+            raise AssertionError(f"step operands: {len(calls[name])} {name} "
+                                 "calls in one step")
+        ms, plain_ms, rel = [], [], 0.0
+        for a, k in calls[name]:
+            err, scale = max_err(kern(*a, **k), plain(*a, **k))
+            rel = max(rel, err / max(scale, 1e-30))
+            ms.append(device_ms(lambda: kern(*a, **k), REPS))
+            plain_ms.append(device_ms(lambda: plain(*a, **k), REPS))
+        log(f"  {name:17s} step operands, {len(ms)} call(s): kernel "
+            f"{np.mean(ms):.4f} ms per call ({', '.join(f'{m * 1e3:.1f}' for m in ms)} "
+            f"us)  plain {np.mean(plain_ms):.4f} ms  max rel err {rel:.3e} "
+            f"tol={tol:.1e} {'ok' if rel <= tol else 'FAIL'}")
+        if rel > tol:
+            raise AssertionError(f"{name} on step operands: kernel disagrees "
+                                 f"with its plain version ({rel:.3e})")
+        rows[name].update(step_ms=float(np.mean(ms)),
+                          step_plain_ms=float(np.mean(plain_ms)),
+                          step_ms_per_call=ms, step_max_rel_err=rel)
 
 
 def phase_sharded(build, state, params, n_fluid):
@@ -1522,6 +1576,8 @@ def main() -> int:
     state, bundle, launches, main = drive(
         "step path: use_pallas=True", step, state, bundle, params, N_STEPS,
         N_TIMED, n_fluid, DEFAULT_PATH)
+    log("[kernels on the operands of one flagship step from that state]")
+    phase_step_operands(step, state, params, rows)
     sweeps2 = {"OFTPP_SMOOTH_SWEEPS": "2"}
     rz_off = {**sweeps2, "OFTPP_FUSED_RZ": "0"}
     finish = {"OFTPP_FINISH_PALLAS": "1"}

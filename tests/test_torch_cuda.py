@@ -17,7 +17,9 @@ single-grid family's bounds, and a case equals the single-grid kernel on
 that case bitwise. The halo kernels of the x-sharded step hold their
 single-grid rows' bounds against their plain versions per shard, and the
 4-shard islands equal the single-grid kernels on the whole grid bitwise
-(the dot and the div max: 1e-6 relative)."""
+(the dot and the div max: 1e-6 relative). The FCT and momentum kernels,
+which march x chunks over (y, z) tiles, are also held at shapes that
+divide neither, down to one cell across."""
 
 import numpy as np
 import pytest
@@ -411,3 +413,112 @@ def test_momentum_and_correction_halo_kernels(dev):
     p_out = ck.correct_divmax_h_plain(*args)
     assert all(_rel(g, r) <= 1e-6 for g, r in zip(k_out[:3], p_out[:3]))
     assert abs(float(k_out[3]) - float(p_out[3])) <= 1e-6 * float(p_out[3])
+
+
+# The FCT and momentum kernels march 16 x planes per block over 8 × 32
+# (y, z) tiles: shapes that divide neither, down to one cell across.
+EDGES = [(13, 11, 37), (1, 1, 70), (37, 1, 1), (1, 13, 1), (40, 9, 65)]
+# Island shapes: 4 slabs of 2, 3 and 18 planes (the last more than one x
+# chunk per slab).
+ISLAND_EDGES = [(8, 11, 37), (12, 1, 1), (72, 9, 33)]
+
+
+def _at(rng, dev, shape, dtype=torch.float32, lo=None, hi=None):
+    a = (rng.standard_normal(shape) if lo is None
+         else rng.uniform(lo, hi, shape)).astype(np.float32)
+    return torch.from_numpy(a).to(dev).to(dtype)
+
+
+def _fct_operands(rng, dev, shape, dtype):
+    al = _at(rng, dev, shape, lo=0, hi=1)
+    cells = (al, torch.clamp(al + _at(rng, dev, shape, lo=0, hi=0.2), max=1.0),
+             torch.clamp(al - _at(rng, dev, shape, lo=0, hi=0.2), min=0.0),
+             _at(rng, dev, shape, lo=1e-4, hi=2e-4))
+    lams = tuple(_at(rng, dev, shape, dtype, 0, 1) for _ in range(3))
+    antis = tuple((1e-3 * _at(rng, dev, shape)).to(dtype) for _ in range(3))
+    antis[0][0], antis[1][:, 0], antis[2][:, :, 0] = 0, 0, 0
+    return lams, antis, cells
+
+
+def _mom_operands(rng, dev, shape, walls=True):
+    vel, rp = _faces(rng, dev, shape), _faces(rng, dev, shape)
+    if walls:
+        _walls(vel)
+        _walls(rp)
+    mu = _at(rng, dev, shape, lo=1e-5, hi=2e-3)
+    return vel, rp, mu, 0.1 * _at(rng, dev, shape)
+
+
+@pytest.mark.parametrize("shape", EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fct_iter_kernel_at_tiling_edges(dev, dtype, shape):
+    """λ from zero (the limiter's first iteration) and from random values:
+    f32 to 1e-6 relative, bf16 to one ulp; one launch per call."""
+    rng = np.random.default_rng(8)
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    lams, antis, cells = _fct_operands(rng, dev, shape, dtype)
+    sp_ = (0.004, 0.0045, 0.0035)
+    n0 = mf.fct_iter.launches
+    for start in (tuple(torch.zeros_like(l) for l in lams), lams):
+        got = mf.fct_iter(start, antis, *cells, sp_)
+        ref = mf.fct_iter_plain(start, antis, *cells, sp_)
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype and _rel(g, r) <= tol
+    assert mf.fct_iter.launches == n0 + 2
+
+
+@pytest.mark.parametrize("shape", EDGES)
+@pytest.mark.parametrize("dev2,with_div", [(True, True), (True, False),
+                                           (False, True)])
+def test_momentum_rhs_kernel_at_tiling_edges(dev, shape, dev2, with_div):
+    """With and without zero wall faces; 1e-5 of the output scale."""
+    rng = np.random.default_rng(9)
+    h = (0.011, 0.009, 0.013)
+    for walls in (True, False):
+        vel, rp, mu, div_u = _mom_operands(rng, dev, shape, walls)
+        div_u = div_u if with_div else None
+        got = mrk.momentum_rhs(*vel, rp, mu, div_u, h, dev2=dev2)
+        ref = mrk.momentum_rhs_plain(*vel, rp, mu, div_u, h, dev2=dev2)
+        scale = max(float(r.abs().max()) for r in ref)
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            assert float((g - r).abs().max()) <= 1e-5 * scale
+        assert float(got[0][-1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("shape", ISLAND_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fct_and_momentum_islands_at_tiling_edges(dev, dtype, shape):
+    """4 shards of the FCT (3 iterations) and momentum halo kernels against
+    the single-grid kernels, bitwise; an interior shard's FCT against its
+    plain version."""
+    rng = np.random.default_rng(10)
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    lams, antis, cells = _fct_operands(rng, dev, shape, dtype)
+    sp_ = (0.004, 0.0045, 0.0035)
+    n0 = mf.fct_iter_h.launches
+    got = sm.fct_iters(lams, antis, *cells, sp_, 3, CTX4)
+    assert mf.fct_iter_h.launches == n0 + 12
+    ref = lams
+    for _ in range(3):
+        ref = mf.fct_iter(ref, antis, *cells, sp_)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    s = 1
+    ex = lambda t, **k: sm.exchange_halo(CTX4.split(t), 1, CTX4, **k)[s]
+    lh = [ex(t, hi_edge="zero") for t in lams]
+    ah = [ex(t, hi_edge="zero") for t in antis]
+    args = (tuple(CTX4.split(t)[s] for t in lams),
+            (lh[0], (lh[1][0], None), (lh[2][0], None)),
+            tuple(CTX4.split(t)[s] for t in antis),
+            (ah[0], (ah[1][0], None), (ah[2][0], None)),
+            tuple(ex(c)[0] for c in cells),
+            *(CTX4.split(c)[s] for c in cells), sp_)
+    for g, r in zip(mf.fct_iter_h(*args), mf.fct_iter_h_plain(*args)):
+        assert _rel(g, r) <= tol
+    if dtype == torch.float32:   # the momentum kernels are f32 only
+        vel, rp, mu, div_u = _mom_operands(rng, dev, shape)
+        h = (0.011, 0.009, 0.013)
+        for dev2, du in ((True, div_u), (True, None), (False, div_u)):
+            got = sm.momentum_rhs(*vel, rp, mu, du, h, CTX4, dev2=dev2)
+            ref = mrk.momentum_rhs(*vel, rp, mu, du, h, dev2=dev2)
+            assert all(torch.equal(g, r) for g, r in zip(got, ref))
