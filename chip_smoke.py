@@ -10,19 +10,23 @@ Phases, each fatal on any fault (nothing is caught):
      the card, at the 112³ flagship shapes, from seeded random inputs
      with zero wall faces; print errors beside tolerances, kernel / plain
      device times (20 launches queued behind a device-side wait, so the
-     host's cost per call does not pace them), bytes and bounds; then the
-     seven halo entry points of the
+     host's cost per call does not pace them), bytes, bounds and the CUDA
+     kernels one call runs (torch.profiler; one for apply-dot and the
+     MULES fluxes); the apply-dot dot bitwise equal from call to call;
+     then the seven halo entry points of the
      x-sharded step on those inputs cut into 4 x-shards: per shard against
      their plain versions, and the shards composed against the single-grid
-     kernels on the whole grid (bitwise; the dot and the div max to 1e-6
-     relative), with the island's time beside the single-grid kernel's;
+     kernels on the whole grid (bitwise, the apply-dot dot included; the
+     div max to 1e-6 relative), with the island's time beside the
+     single-grid kernel's;
   3. drive the step path: the flagship single-tank case
      (H0.208/D0.2/R0.004/f1.88, mesh 0.00185, round_to=8 → 112³) through
      `make_step(..., carry_precond=True)` in the bench's configuration,
      SolverControls(use_pallas=True), for N_STEPS steps from rest; then
-     the nine fct_iter calls and the momentum_rhs call of one step from
-     the state reached, captured, timed again and held against their
-     plain versions (rows 5 and 6 on a real step's operands); then, from
+     the CG's apply_dot_7pt calls, the three flux_all calls, the nine
+     fct_iter calls and the momentum_rhs call of one step from the state
+     reached, captured, timed again and held against their plain versions
+     (rows 1, 4, 5 and 6 on a real step's operands); then, from
      that state, one run of N_SHORT steps each of that
      configuration, of mom_pallas=False, of OFTPP_FINISH_PALLAS=1, of
      OFTPP_SMOOTH_SWEEPS=2 (the fused cheb2 smoothers, r·z from the exit
@@ -250,6 +254,28 @@ def max_err(got, ref):
     return err, scale
 
 
+# Entry points whose every call is one CUDA kernel launch (checked).
+ONE_LAUNCH = ("apply_dot_7pt", "apply_dot_7pt_h", "flux_all", "flux_all_h")
+
+
+def cuda_launches(name, fn):
+    """CUDA kernels one call of `fn` runs on the device (torch.profiler's
+    device events, after a warm-up call); must be 1 for ONE_LAUNCH."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    if name in ONE_LAUNCH and n != 1:
+        raise AssertionError(f"{name}: one call ran {n} CUDA kernels, not 1")
+    return n
+
+
 def make_check(rows, n_cells):
     """`check(name, variant, main, kern, plain, ins, outs, tol)`: hold one
     kernel variant against its plain version, time both, compute its bound
@@ -269,10 +295,12 @@ def make_check(rows, n_cells):
         t_bytes = b / HBM_BYTES_PER_S * 1e3
         t_ops = FLOPS_PER_CELL[name] * n_cells / F32_FLOPS * 1e3
         ok = rel <= tol
+        n_launch = cuda_launches(name, kern) if main else None
         log(f"  {name:17s} {variant:22s} max_abs_err={err:.3e} rel={rel:.3e} "
             f"tol={tol:.1e} {'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  "
             f"plain {plain_ms:.4f} ms  bytes {b / 1e6:.2f} MB  "
-            f"bound {max(t_bytes, t_ops):.4f} ms")
+            f"bound {max(t_bytes, t_ops):.4f} ms"
+            + (f"  CUDA launches per call {n_launch}" if main else ""))
         if not ok:
             raise AssertionError(f"{name} {variant}: kernel disagrees with "
                                  f"its plain version ({rel:.3e} > {tol:.1e})")
@@ -283,6 +311,7 @@ def make_check(rows, n_cells):
                 "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None, "variant": variant, "bytes": b,
+                "cuda_launches_per_call": n_launch,
             }
 
     return check
@@ -337,11 +366,17 @@ def phase_kernels(shape, spacing, dev):
                   (p, *w, diag, b), (p,), tol)
         ap_k, dot_k = sp.apply_dot_7pt(p, w)
         ap_p, dot_p = sp.apply_dot_7pt_plain(p, w)
+        dot_again = sp.apply_dot_7pt(p, w)[1]
         derr = abs(float(dot_k) - float(dot_p)) / max(abs(float(dot_p)), 1e-30)
+        same = float(dot_again) == float(dot_k)
         log(f"  apply_dot_7pt     {tag} dot kernel {float(dot_k)!r} plain "
-            f"{float(dot_p)!r} rel_err={derr:.3e} tol={DOT_RTOL:.1e}")
-        if derr > DOT_RTOL:
-            raise AssertionError(f"apply_dot_7pt {tag}: dot disagrees")
+            f"{float(dot_p)!r} rel_err={derr:.3e} tol={DOT_RTOL:.1e}; again "
+            f"{'bitwise equal' if same else 'DIFFERS'}; Â·p "
+            f"{'bitwise' if torch.equal(ap_k, ap_p) else 'not bitwise'} "
+            "equal to plain")
+        if derr > DOT_RTOL or not same:
+            raise AssertionError(f"apply_dot_7pt {tag}: dot disagrees or "
+                                 "does not repeat")
         check("apply_dot_7pt", f"{tag} unit", tag == "f32",
               lambda: sp.apply_dot_7pt(p, w)[0],
               lambda: sp.apply_dot_7pt_plain(p, w)[0], (p, *w), (p,), tol)
@@ -628,6 +663,7 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
         t_ops = FLOPS_PER_CELL[name] * n_cells / F32_FLOPS * 1e3
         ok = (rel <= tol and bitwise and s_err <= F32_RTOL
               and p_err <= scalar_tol)
+        n_launch = cuda_launches(name, shards[0][0]) if main else None
         log(f"  {name:18s} {variant:14s} x{n_shards}: per shard max_abs_err="
             f"{err:.3e} rel={rel:.3e} tol={tol:.1e}"
             + (f", scalar rel_err={p_err:.3e} tol={scalar_tol:.1e}"
@@ -638,7 +674,8 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
             + f" {'ok' if ok else 'FAIL'}  kernels {ms:.4f} ms  plain "
             f"{plain_ms:.4f} ms  island {island_ms:.4f} ms  single-grid "
             f"{single_ms:.4f} ms  bytes {b / 1e6:.2f} MB  bound "
-            f"{max(t_bytes, t_ops):.4f} ms")
+            f"{max(t_bytes, t_ops):.4f} ms"
+            + (f"  CUDA launches per shard call {n_launch}" if main else ""))
         if not ok:
             raise AssertionError(f"{name} {variant}: halo kernel disagrees "
                                  f"(plain {rel:.3e}, island bitwise "
@@ -651,7 +688,8 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None, "variant": f"{variant} x{n_shards}",
                 "bytes": b, "island_ms": island_ms,
-                "single_grid_ms": single_ms, "scalar_rel_err": s_err}
+                "single_grid_ms": single_ms, "scalar_rel_err": s_err,
+                "cuda_launches_per_call": n_launch}
 
     held = list(ctx.held)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -692,6 +730,16 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
                   lambda: sm.apply_dot_7pt(p, w, ctx),
                   lambda: sp.apply_dot_7pt(p, w), tol, n_scalar=1,
                   scalar_tol=DOT_RTOL)
+            # The shards' chain adds the planes in the single-grid
+            # kernel's order: the island's dot is that kernel's, bitwise.
+            dots = [float(sm.apply_dot_7pt(p, w, ctx)[1]) for _ in range(3)]
+            single = float(sp.apply_dot_7pt(p, w)[1])
+            log(f"  apply_dot_7pt_h    island dot over 3 calls {dots}, "
+                f"single-grid kernel {single!r}")
+            if dots != [single] * 3:
+                raise AssertionError("apply_dot_7pt_h: the island dot does "
+                                     "not repeat or differs from the "
+                                     "single-grid kernel's")
 
         # MULES: `dtype` is the compression-flux input and anti output
         # (flux_all) and the λ/anti streams (fct_iter), bf16 by default.
@@ -919,16 +967,22 @@ def drive(label, step, state, bundle, params, n_steps, n_timed, n_fluid,
 
 
 def phase_step_operands(step, state, params, rows):
-    """Rows 5 and 6 on the operands of one real flagship step from `state`
-    (phase 3's): the step's nine fct_iter calls and its momentum_rhs call,
-    captured by spies standing in for the entry points, each timed again,
-    kernel and plain version, and held against the plain version with
-    phase 2's tolerances. Adds `step_ms`, `step_plain_ms` (means per call)
-    and `step_max_rel_err` to those rows."""
+    """Rows 1, 4, 5 and 6 on the operands of one real flagship step from
+    `state` (phase 3's): the CG's apply_dot_7pt calls (one per iteration),
+    the three flux_all calls, the nine fct_iter calls and the momentum_rhs
+    call, captured by spies standing in for the entry points, each timed
+    again, kernel and plain version, and held against the plain version
+    with phase 2's tolerances: f32 outputs F32_RTOL (momentum_rhs
+    MOM_RTOL), bf16 outputs (flux anti, FCT λ) BF16_RTOL, the apply-dot
+    dot DOT_RTOL and bitwise equal over two calls. Adds `step_ms`,
+    `step_plain_ms` (means per call), `step_max_rel_err` and
+    `step_bitwise` to those rows."""
     import torch
 
     from openfoam_tpp_tpu_torch.ops.kernels import momentum_rhs as mrk
     from openfoam_tpp_tpu_torch.ops.kernels import mules_fct as mf
+    from openfoam_tpp_tpu_torch.ops.kernels import mules_flux as mfx
+    from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
     from openfoam_tpp_tpu_torch.utils.devtime import device_ms
 
     def clone(v):
@@ -938,44 +992,72 @@ def phase_step_operands(step, state, params, rows):
             return type(v)(clone(x) for x in v)
         return v
 
-    calls = {"fct_iter": [], "momentum_rhs": []}
-    real = {"fct_iter": (mf.fct_iter, mf.fct_iter_plain, BF16_RTOL),
-            "momentum_rhs": (mrk.momentum_rhs, mrk.momentum_rhs_plain,
-                             MOM_RTOL)}
+    def flat(out):
+        if isinstance(out, torch.Tensor):
+            return [out]
+        return [t for o in out for t in flat(o)]
+
+    def tol_of(name, t):
+        if t.dim() == 0:
+            return DOT_RTOL
+        if t.dtype == torch.bfloat16:
+            return BF16_RTOL
+        return MOM_RTOL if name == "momentum_rhs" else F32_RTOL
+
+    real = {"apply_dot_7pt": (sp, sp.apply_dot_7pt, sp.apply_dot_7pt_plain),
+            "flux_all": (mfx, mfx.flux_all, mfx.flux_all_plain),
+            "fct_iter": (mf, mf.fct_iter, mf.fct_iter_plain),
+            "momentum_rhs": (mrk, mrk.momentum_rhs, mrk.momentum_rhs_plain)}
+    calls = {name: [] for name in real}
 
     def spy(name):
         def call(*a, **k):
             calls[name].append((clone(a), clone(k)))
-            return real[name][0](*a, **k)
+            return real[name][1](*a, **k)
         # The entry point counts on the module's attribute: while the spy
         # stands in for it, the count lands here.
         call.launches = 0
         return call
 
-    with mock.patch.object(mf, "fct_iter", spy("fct_iter")), \
-            mock.patch.object(mrk, "momentum_rhs", spy("momentum_rhs")):
-        step(state, params, precond=step.init_precond(state))
+    with contextlib.ExitStack() as stack:
+        for name, (mod, _, _) in real.items():
+            stack.enter_context(mock.patch.object(mod, name, spy(name)))
+        _, d, _ = step(state, params, precond=step.init_precond(state))
     torch.cuda.synchronize()
-    for name, (kern, plain, tol) in real.items():
-        if len(calls[name]) != (9 if name == "fct_iter" else 1):
+    want = {"apply_dot_7pt": int(d.p_iters), "flux_all": 3, "fct_iter": 9,
+            "momentum_rhs": 1}
+    for name, (_, kern, plain) in real.items():
+        if len(calls[name]) != want[name]:
             raise AssertionError(f"step operands: {len(calls[name])} {name} "
-                                 "calls in one step")
-        ms, plain_ms, rel = [], [], 0.0
+                                 f"calls in one step, want {want[name]}")
+        ms, plain_ms, rel, bitwise, bad = [], [], 0.0, True, []
         for a, k in calls[name]:
-            err, scale = max_err(kern(*a, **k), plain(*a, **k))
-            rel = max(rel, err / max(scale, 1e-30))
+            got, ref = flat(kern(*a, **k)), flat(plain(*a, **k))
+            # Outputs of one tolerance are held together, as in phase 2.
+            for tol in sorted({tol_of(name, r) for r in ref}):
+                grp = [(g, r) for g, r in zip(got, ref) if tol_of(name, r) == tol]
+                err, scale = max_err(*map(list, zip(*grp)))
+                rel = max(rel, err / max(scale, 1e-30))
+                if err > tol * max(scale, 1e-30):
+                    bad.append(f"{err / max(scale, 1e-30):.3e} > {tol:.1e}")
+            bitwise = bitwise and all(torch.equal(g, r) for g, r in zip(got, ref)
+                                      if r.dim() > 0)
+            if name == "apply_dot_7pt" and float(kern(*a, **k)[1]) != float(got[1]):
+                bad.append("the dot does not repeat bitwise")
             ms.append(device_ms(lambda: kern(*a, **k), REPS))
             plain_ms.append(device_ms(lambda: plain(*a, **k), REPS))
         log(f"  {name:17s} step operands, {len(ms)} call(s): kernel "
             f"{np.mean(ms):.4f} ms per call ({', '.join(f'{m * 1e3:.1f}' for m in ms)} "
-            f"us)  plain {np.mean(plain_ms):.4f} ms  max rel err {rel:.3e} "
-            f"tol={tol:.1e} {'ok' if rel <= tol else 'FAIL'}")
-        if rel > tol:
+            f"us)  plain {np.mean(plain_ms):.4f} ms  max rel err {rel:.3e}; "
+            f"arrays {'bitwise' if bitwise else 'not bitwise'} equal to plain "
+            f"{'FAIL ' + '; '.join(bad) if bad else 'ok'}")
+        if bad:
             raise AssertionError(f"{name} on step operands: kernel disagrees "
-                                 f"with its plain version ({rel:.3e})")
+                                 f"with its plain version ({bad})")
         rows[name].update(step_ms=float(np.mean(ms)),
                           step_plain_ms=float(np.mean(plain_ms)),
-                          step_ms_per_call=ms, step_max_rel_err=rel)
+                          step_ms_per_call=ms, step_max_rel_err=rel,
+                          step_bitwise=bitwise)
 
 
 def phase_sharded(build, state, params, n_fluid):

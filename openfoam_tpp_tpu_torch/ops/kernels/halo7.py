@@ -70,10 +70,11 @@ def resid_scaled_7pt_h_plain(p, h_lo, h_hi, wx_hi, split, b, diag=None,
     return _give(sp.resid_scaled_7pt_plain(pe, se, de, be)[1:-1], out)
 
 
-def apply_dot_7pt_h_plain(p, h_lo, h_hi, wx_hi, split, out=None):
+def apply_dot_7pt_h_plain(p, h_lo, h_hi, wx_hi, split, out=None, acc=None):
     pe, se = _extend(p, h_lo, h_hi, wx_hi, split)
     ap = _give(sp.apply_7pt_plain(pe, se)[1:-1], out)
-    return ap, sum_cells(p.float() * ap.float())
+    dot = sum_cells(p.float() * ap.float())
+    return ap, dot if acc is None else acc + dot
 
 
 # ------------------------------------------------------------------ kernels
@@ -92,28 +93,28 @@ def _lib():
     lib = sp._lib()
     if not getattr(lib, "_halo_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.seven_point_halo_launch.argtypes = ([ci, ci, ci] + [vp] * 12
+        lib.seven_point_halo_launch.argtypes = ([ci, ci, ci] + [vp] * 14
                                                 + [ci] * 3 + [vp])
         lib.seven_point_halo_launch.restype = ci
         lib._halo_typed = True
     return lib
 
 
-def _launch(mode, p, h_lo, h_hi, wx_hi, split, diag=None, b=None, out=None):
+def _launch(mode, p, h_lo, h_hi, wx_hi, split, diag=None, b=None, out=None,
+            acc=None):
     lib = _lib()
     out = torch.empty_like(p) if out is None else out
-    partial = dot = None
+    partial = dot = ticket = None
     if mode == sp._APPLY_DOT:
-        partial = torch.empty(lib.seven_point_num_partials(*p.shape),
-                              dtype=torch.float32, device=p.device)
-        dot = torch.empty((), dtype=torch.float32, device=p.device)
+        partial, dot, ticket = sp._dot_scratch(lib, p)
     nul = ctypes.c_void_p(None)
     opt = lambda t: nul if t is None else _build.ptr(t)
     rc = lib.seven_point_halo_launch(
         mode, sp._DTYPES[p.dtype], int(diag is not None), _build.ptr(p),
         *(_build.ptr(h) for h in (h_lo, h_hi, wx_hi)),
         *(_build.ptr(w) for w in split), opt(diag), opt(b), _build.ptr(out),
-        opt(partial), opt(dot), *p.shape, _build.stream_of(p))
+        opt(partial), opt(dot), opt(ticket), opt(acc), *p.shape,
+        _build.stream_of(p))
     _build.check(rc, "seven_point_halo")
     return out, dot
 
@@ -142,13 +143,21 @@ def resid_scaled_7pt_h(p, h_lo, h_hi, wx_hi, split, b, diag=None, out=None):
     return res
 
 
-def apply_dot_7pt_h(p, h_lo, h_hi, wx_hi, split, out=None):
-    """(Â·p, this shard's partial p·Â·p as a 0-d f32 tensor); the island
-    sums the partials over the shards."""
+def apply_dot_7pt_h(p, h_lo, h_hi, wx_hi, split, out=None, acc=None):
+    """(Â·p, `acc` plus this shard's p·Â·p as a 0-d f32 tensor). `acc`
+    (optional, a 0-d f32 tensor on p's device) is the dot of the shards
+    before this one: the kernel adds this shard's planes to it in the
+    order the single-grid kernel adds them, so the island's chain over
+    the shards gives the single-grid dot bitwise."""
     if _build.route(p, "apply_dot_7pt_h") == "cpu":
-        return apply_dot_7pt_h_plain(p, h_lo, h_hi, wx_hi, split, out)
+        return apply_dot_7pt_h_plain(p, h_lo, h_hi, wx_hi, split, out, acc)
     _check(p, h_lo, h_hi, wx_hi, split, out=out)
-    res, dot = _launch(sp._APPLY_DOT, p, h_lo, h_hi, wx_hi, split, out=out)
+    if acc is not None and (acc.shape != () or acc.dtype != torch.float32
+                            or acc.device != p.device):
+        raise ValueError("apply_dot_7pt_h: acc must be a 0-d f32 tensor on "
+                         f"{p.device}")
+    res, dot = _launch(sp._APPLY_DOT, p, h_lo, h_hi, wx_hi, split, out=out,
+                       acc=acc)
     apply_dot_7pt_h.launches += 1
     return res, dot
 

@@ -153,7 +153,7 @@ def _lib():
     lib = _build.load("seven_point")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.seven_point_launch.argtypes = [ci, ci, ci] + [vp] * 9 + [ci] * 3 + [vp]
+        lib.seven_point_launch.argtypes = [ci, ci, ci] + [vp] * 10 + [ci] * 3 + [vp]
         lib.seven_point_launch.restype = ci
         lib.seven_point_num_partials.argtypes = [ci] * 3
         lib.seven_point_num_partials.restype = ci
@@ -161,21 +161,40 @@ def _lib():
     return lib
 
 
+_TICKETS: dict = {}
+
+
+def _ticket(dev):
+    """The apply-dot kernels' ticket counter on `dev`: one int32, zeroed
+    once here; each call's last block wraps it back to 0. Calls sharing
+    it must not overlap, so apply-dot runs on one stream per device."""
+    t = _TICKETS.get(dev)
+    if t is None:
+        t = _TICKETS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
+
+
+def _dot_scratch(lib, p):
+    """(partials, dot, ticket) of one apply-dot launch on p's grid."""
+    partial = torch.empty(lib.seven_point_num_partials(*p.shape),
+                          dtype=torch.float32, device=p.device)
+    dot = torch.empty((), dtype=torch.float32, device=p.device)
+    return partial, dot, _ticket(p.device)
+
+
 def _launch(mode, p, split, diag=None, b=None):
     lib = _lib()
     out = torch.empty_like(p)
-    partial = dot = None
+    partial = dot = ticket = None
     if mode == _APPLY_DOT:
-        partial = torch.empty(lib.seven_point_num_partials(*p.shape),
-                              dtype=torch.float32, device=p.device)
-        dot = torch.empty((), dtype=torch.float32, device=p.device)
+        partial, dot, ticket = _dot_scratch(lib, p)
     nx, ny, nz = p.shape
     nul = ctypes.c_void_p(None)
     opt = lambda t: nul if t is None else _build.ptr(t)
     rc = lib.seven_point_launch(
         mode, _DTYPES[p.dtype], int(diag is not None), _build.ptr(p),
         *(_build.ptr(w) for w in split), opt(diag), opt(b), _build.ptr(out),
-        opt(partial), opt(dot), nx, ny, nz, _build.stream_of(p))
+        opt(partial), opt(dot), opt(ticket), nx, ny, nz, _build.stream_of(p))
     _build.check(rc, "seven_point")
     return out, dot
 

@@ -16,8 +16,11 @@ only the global-edge fills are small materialized planes. Each island
 runs the halo kernel once per slab, writing the slab's output into the
 preallocated global output at its x offset, and reduces the per-shard
 scalars in shard order (a fixed order, so CG iteration counts repeat
-from run to run). Everything between islands stays the port's
-global-tensor code, which is what GSPMD computes.
+from run to run): the max directly, the CG curvature dot as a chain in
+which each shard's kernel adds its planes to the previous shards' dot,
+so the island's dot is the single-grid kernel's. Everything between
+islands stays the port's global-tensor code, which is what GSPMD
+computes.
 
 Each island is written over "the slabs this process holds"
 (`SpmdCtx.held`): here all S; a torch.distributed form, one rank per
@@ -129,14 +132,6 @@ def exchange_hi(slabs, width: int, ctx: SpmdCtx, edge: str = "zero"):
             for s in ctx.held]
 
 
-def psum_scalar(parts, ctx: SpmdCtx):
-    """Sum of the per-shard scalars, in shard order."""
-    total = parts[0]
-    for p in parts[1:]:
-        total = total + p
-    return total
-
-
 def pmax_scalar(parts, ctx: SpmdCtx):
     """Maximum of the per-shard scalars (NaN propagates)."""
     total = parts[0]
@@ -190,15 +185,19 @@ def resid_scaled_7pt(p, split, ctx: SpmdCtx, b, diag=None):
 
 
 def apply_dot_7pt(p, split, ctx: SpmdCtx):
-    """(Â·p, p·Â·p): per-shard kernels and the sum of their partial dots
-    in shard order."""
+    """(Â·p, p·Â·p): per-shard kernels, each adding its shard's dot to the
+    previous shards' in shard order (the psum of the partials, carried as
+    a chain so that on the card the island's dot is the single-grid
+    kernel's bitwise; shards on several cards would all-reduce instead)."""
     ps, ws, halos, wx_hi = _seven_point_halos(p, split, ctx)
     out = torch.empty_like(p)
     outs = ctx.split(out)
-    parts = [halo7.apply_dot_7pt_h(ps[s], *halos[s], wx_hi[s],
-                                   tuple(w[s] for w in ws), out=outs[s])[1]
-             for s in ctx.held]
-    return out, psum_scalar(parts, ctx)
+    dot = None
+    for s in ctx.held:
+        dot = halo7.apply_dot_7pt_h(ps[s], *halos[s], wx_hi[s],
+                                    tuple(w[s] for w in ws), out=outs[s],
+                                    acc=dot)[1]
+    return out, dot
 
 
 def flux_all(alpha, phis_cell, ucs_cell, ctx: SpmdCtx, anti_dtype=None):

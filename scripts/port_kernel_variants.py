@@ -1,28 +1,36 @@
 #!/usr/bin/env python3
-"""What bounds the port's FCT limiter and momentum right-hand side
-kernels, on one CUDA device, and how each compares with another design.
+"""What bounds the port's redesigned kernels (the FCT limiter, the
+momentum right-hand side, the MULES fluxes and the CG apply-dot), on one
+CUDA device, and how each compares with another design.
 
     python3 scripts/port_kernel_variants.py [--source NAME=PATH ...]
 
-Builds openfoam_tpp_tpu_torch/csrc/mules_fct.cu and momentum_rhs.cu as
-they are and in variants that each change one thing, plus each
-`--source` (a file with the same C interface, such as an earlier
-revision: `git show REV:openfoam_tpp_tpu_torch/csrc/mules_fct.cu > f.cu`;
-its kernel is told by the entry point it defines), and times every build
-at the flagship's 112³ shapes on the same seeded inputs: fct_iter with
-bf16 λ/anti (the step's streams), momentum_rhs with dev2 on and zero wall
-faces. Device time: each timed run of 20 launches (after 3 warm-up) is
+Builds openfoam_tpp_tpu_torch/csrc/mules_fct.cu, momentum_rhs.cu,
+mules_flux.cu and seven_point.cu (its apply-dot mode) as they are and in
+variants that each change one thing, plus each `--source` (a file with
+the same C entry point, such as an earlier revision: `git show
+REV:openfoam_tpp_tpu_torch/csrc/mules_fct.cu > f.cu`; its kernel is told
+by the entry point it defines; an apply-dot source without the ticket
+argument is called without it), and times every build at the flagship's
+112³ shapes on the same seeded inputs: fct_iter with bf16 λ/anti (the
+step's streams), momentum_rhs with dev2 on and zero wall faces, flux_all
+with bf16 uc/anti (the step's), apply_dot_7pt in f32 (CG's). Device time: each timed run of 20 launches (after 3 warm-up) is
 queued behind a device-side wait long enough for the host to enqueue all
 of them (openfoam_tpp_tpu_torch/utils/devtime.py, chip_smoke.py's
 yardstick too), so the host's ctypes cost per call does not pace it;
 builds are timed in 5 rounds of alternating order (A, B, …, B, A), so a
-drift of the card's clock favours none. Each build's output is held against the
+drift of the card's clock favours none. For flux_all and apply_dot_7pt
+every build's halo entry point is also timed as the x-sharded step runs
+it: the 4 launches of one island over 4 x-slabs of the same inputs
+(`island_us`; an apply-dot source whose halo entry takes no running
+dot leaves its shards' partials unsummed). Each build's output is held against the
 unchanged source's. Per build it prints the median µs per call, the
 multiple of the byte bound, the SASS instructions of its main
-instantiation (`cuobjdump -sass`, a static count), and that
-instantiation's registers, spill bytes and static shared memory from
-`ptxas -v` (momentum_rhs also takes dynamic shared memory, the size in
-its source). Variants:
+instantiation (`cuobjdump -sass`, a static count; for an apply-dot
+source of two launches, its first kernel), and that instantiation's
+registers, spill bytes and static shared memory from `ptxas -v`
+(momentum_rhs also takes dynamic shared memory, the size in its source).
+Variants:
 
   fct_iter      x chunk 8 / 32   at most 8 / 32 planes per block (16)
                 tile 4 x 32      (y, z) tiles of 4 × 32 cells, six warps
@@ -35,6 +43,27 @@ its source). Variants:
                                  down then φ(r), IEEE divisions, instead
                                  of the one-division form
                 x chunk 4 / 16   planes per block (8 as built)
+  flux_all      waves 0.5 / 2.0  x chunks sized for half / two waves of
+                                 the card at the kernel's occupancy (one)
+                8 / no blocks per SM
+                                 __launch_bounds__ minimum blocks: at most
+                                 32 / any registers (6: 40)
+                every division   the limiter's two IEEE divisions at every
+                                 face, as the plain formula writes them
+                                 (as built: skipped where the dividend is
+                                 ±0 and the result known, bitwise equal)
+                one-division limiter
+                                 van Leer as (up·|down| + |up|·down) /
+                                 (|up| + |down|), one IEEE division
+                fast division    nvcc -prec-div=false
+  apply_dot_7pt waves 0.5 / 2.0  as flux_all's
+                4 / 8 blocks per SM
+                                 __launch_bounds__ minimum blocks: at most
+                                 64 / 32 registers (none)
+                4 / 8 planes per warp
+                                 planes each warp of the last block sums per
+                                 batch of the final sum, loads in flight
+                                 together (16)
 
 Writes perf_out/port_kernel_variants.json.
 """
@@ -81,13 +110,57 @@ EDITS = {
         "x chunk 16": [(MCHUNK, MCHUNK.replace("8", "16"))],
     },
 }
-FLAGS = {"fct_iter": {"fast division": ["-prec-div=false"]}}
-ENTRY = {"fct_iter": "mules_fct_launch", "momentum_rhs": "momentum_rhs_launch"}
-SOURCE = {"fct_iter": "mules_fct", "momentum_rhs": "momentum_rhs"}
-# Mangled-name fragments of each kernel's main instantiation: fct_iter on
-# bf16 streams, single grid; momentum_rhs with dev2 and ∇·U, single grid.
-MAIN = {"fct_iter": ("fct_iter_kernel", "nv_bfloat16Lb0E"),
-        "momentum_rhs": ("momentum_rhs_kernel", "Lb1ELb1ELb0E")}
+WAVES = "constexpr float kWaves = 1.0f;"
+LIMITER = (
+    "  float phi = 0.0f;\n"
+    "  if (up != 0.0f) {\n"
+    "    const float r = up / safe;\n"
+    "    if (!(r <= 0.0f) || r == -INFINITY) phi = (r + fabsf(r)) / (1.0f + fabsf(r));\n"
+    "  }\n"
+    "  return phi * down;")
+for _k in ("flux_all", "apply_dot_7pt"):
+    EDITS[_k] = {f"waves {n}": [(WAVES, WAVES.replace("1.0f", f"{n}f"))]
+                 for n in ("0.5", "2.0")}
+MINB = "constexpr int kMinBlocks = 6;"
+EDITS["flux_all"]["8 blocks per SM"] = [(MINB, MINB.replace("6", "8"))]
+EDITS["flux_all"]["no blocks per SM"] = [(
+    "__launch_bounds__(kBlock, kMinBlocks)\nflux_all_kernel(",
+    "__launch_bounds__(kBlock)\nflux_all_kernel(")]
+EDITS["flux_all"]["every division"] = [(LIMITER, (
+    "  const float r = up / safe;\n"
+    "  const float phi = (r + fabsf(r)) / (1.0f + fabsf(r));\n"
+    "  return phi * down;"))]
+DOT_BOUNDS = "__global__ void __launch_bounds__(kBlock)\napply_dot_kernel("
+EDITS["apply_dot_7pt"].update({
+    f"{n} blocks per SM": [(DOT_BOUNDS, DOT_BOUNDS.replace("(kBlock)", f"(kBlock, {n})"))]
+    for n in (4, 8)})
+PER_WARP = "constexpr int kPerWarp = 16;"
+EDITS["apply_dot_7pt"].update({
+    f"{n} planes per warp": [(PER_WARP, PER_WARP.replace("16", str(n)))]
+    for n in (4, 8)})
+EDITS["flux_all"]["one-division limiter"] = [(
+    "  const float safe = fabsf(down) > kEps ? down : (down >= 0.0f ? kEps : -kEps);\n"
+    + LIMITER,
+    "  const float den = fabsf(up) + fabsf(down);\n"
+    "  return den > 0.0f ? (up * fabsf(down) + fabsf(up) * down) / den : 0.0f;")]
+FLAGS = {"fct_iter": {"fast division": ["-prec-div=false"]},
+         "flux_all": {"fast division": ["-prec-div=false"]}}
+ENTRY = {"fct_iter": "mules_fct_launch", "momentum_rhs": "momentum_rhs_launch",
+         "flux_all": "mules_flux_launch", "apply_dot_7pt": "seven_point_launch"}
+SOURCE = {"fct_iter": "mules_fct", "momentum_rhs": "momentum_rhs",
+          "flux_all": "mules_flux", "apply_dot_7pt": "seven_point"}
+# Mangled-name fragments of each kernel's main instantiation, any one set
+# of them: fct_iter on bf16 streams, single grid; momentum_rhs with dev2
+# and ∇·U, single grid; flux_all with bf16 uc and anti, single grid;
+# apply-dot in f32, single grid (the one-launch kernel, or the earlier
+# design's per-plane kernel in mode 2).
+MAIN = {"fct_iter": [("fct_iter_kernel", "nv_bfloat16Lb0E")],
+        "momentum_rhs": [("momentum_rhs_kernel", "Lb1ELb1ELb0E")],
+        "flux_all": [("flux_all_kernel", "I13__nv_bfloat16S", "Lb0E")],
+        "apply_dot_7pt": [("apply_dot_kernelIfLb0E",),
+                          ("seven_point_kernelIfLi2ELb0ELb0E",)]}
+# seven_point_launch's apply-dot mode and dtype (f32, unit diagonal).
+APPLY_DOT, F32 = 2, 0
 
 
 def build(name, text, extra, out_dir, nvcc, flags):
@@ -103,7 +176,7 @@ def build(name, text, extra, out_dir, nvcc, flags):
 
 
 def is_main(kernel, fn):
-    return all(part in fn for part in MAIN[kernel])
+    return any(all(part in fn for part in parts) for parts in MAIN[kernel])
 
 
 def sass_count(kernel, lib, cuobjdump):
@@ -144,7 +217,10 @@ def ptxas_report(kernel, log):
 
 
 def operands(torch, kernel, dev):
-    """(inputs, outputs, launch arguments) of `kernel` at SHAPE."""
+    """(inputs, outputs, call) of `kernel` at SHAPE: `call` lists the
+    entry point's leading ints, its pointer arguments (tensors; None for
+    a null pointer; "partials" and "ticket" for the apply-dot scratch,
+    made per build) and its trailing floats."""
     rng = np.random.default_rng(2024)
     nx, ny, nz = SHAPE
 
@@ -160,7 +236,24 @@ def operands(torch, kernel, dev):
         antis = tuple((1e-3 * cells(-1, 1)).to(torch.bfloat16) for _ in range(3))
         ins = (*lams, *antis, *cell)
         outs = [torch.empty_like(lams[0]) for _ in range(3)]
-        return ins, outs, [1]
+        return ins, outs, ([1], [*ins, *outs], [*SPACING, 1e-12])
+    if kernel == "flux_all":
+        alpha = cells(0, 1)
+        phis = [1e-3 * cells(-1, 1) for _ in range(3)]
+        ucs = [(1e-3 * cells(-1, 1)).to(torch.bfloat16) for _ in range(3)]
+        outs = [torch.empty_like(alpha, dtype=dt) for _ in range(3)
+                for dt in (torch.float32, torch.bfloat16)]
+        ins = (alpha, *phis, *ucs)
+        return ins, outs, ([1, 1], [*ins, *outs], [])
+    if kernel == "apply_dot_7pt":
+        p = cells(-1, 1)
+        w = [cells(0.05, 0.3) for _ in range(3)]
+        w[0][0], w[1][:, 0], w[2][:, :, 0] = 0, 0, 0
+        outs = [torch.empty_like(p),
+                torch.empty((), dtype=torch.float32, device=dev)]
+        return (p, *w), outs, ([APPLY_DOT, F32, 0],
+                               [p, *w, None, None, outs[0], "partials",
+                                outs[1], "ticket"], [])
     face_shapes = ((nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1))
 
     def faces():
@@ -173,24 +266,104 @@ def operands(torch, kernel, dev):
     vel, rp = faces(), faces()
     ins = (*vel, *rp, cells(1e-5, 2e-3), cells(-0.1, 0.1))
     outs = [torch.empty(s, device=dev) for s in face_shapes]
-    return ins, outs, [1]
+    return ins, outs, ([1], [*ins, *outs], list(SPACING))
 
 
-def runner(torch, _build, kernel, lib_path, ins, outs, lead):
+def runner(torch, _build, kernel, lib_path, text, call):
+    """A no-argument launch of the build at `lib_path` (source `text`)."""
     lib = ctypes.CDLL(lib_path)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = getattr(lib, ENTRY[kernel])
-    n_ptr = len(ins) + len(outs)
-    n_f = 4 if kernel == "fct_iter" else 3
-    fn.argtypes = [ci] + [vp] * n_ptr + [ci] * 3 + [cf] * n_f + [vp]
+    lead, args, scal = call
+    first = next(a for a in args if isinstance(a, torch.Tensor))
+    if kernel == "apply_dot_7pt":
+        lib.seven_point_num_partials.argtypes = [ci] * 3
+        lib.seven_point_num_partials.restype = ci
+        scratch = {
+            "partials": torch.empty(lib.seven_point_num_partials(*SHAPE),
+                                    dtype=torch.float32, device=first.device),
+            "ticket": torch.zeros(1, dtype=torch.int32, device=first.device)}
+        if not re.search(r"int seven_point_launch\([^)]*ticket", text):
+            args = [a for a in args if not (isinstance(a, str) and a == "ticket")]
+        args = [scratch[a] if isinstance(a, str) else a for a in args]
+    fn.argtypes = ([ci] * len(lead) + [vp] * len(args) + [ci] * 3
+                   + [cf] * len(scal) + [vp])
     fn.restype = ci
-    ptrs = [_build.ptr(t) for t in (*ins, *outs)]
-    scal = (*SPACING, 1e-12) if kernel == "fct_iter" else SPACING
+    ptrs = [ctypes.c_void_p(None) if a is None else _build.ptr(a) for a in args]
+    stream = _build.stream_of(first)
+
+    def launch():
+        _build.check(fn(*lead, *ptrs, *SHAPE, *scal, stream), lib_path)
+    launch.keep = args   # the scratch tensors live as long as the launch
+    return launch
+
+
+HALO_ENTRY = {"flux_all": "mules_flux_halo_launch",
+              "apply_dot_7pt": "seven_point_halo_launch"}
+N_SHARDS = 4
+
+
+def island(torch, _build, kernel, lib_path, text, ins, outs):
+    """(launch, bytes): the N_SHARDS halo launches of one island of
+    `kernel` over x-slabs of `ins`, writing into slab views of `outs`,
+    with the global-end halos as the island fills them (clamp planes
+    below and above; a zero weight plane above)."""
+    lib = ctypes.CDLL(lib_path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = getattr(lib, HALO_ENTRY[kernel])
+    nx = SHAPE[0]
+    nxl = nx // N_SHARDS
+    keep, calls, n_bytes = [], [], 0
+
+    def planes(t, lo, hi):
+        """Planes lo … hi − 1 of t, clamped into [0, nx), contiguous."""
+        return torch.stack([t[min(max(q, 0), nx - 1)]
+                            for q in range(lo, hi)]).contiguous()
+
+    chain = (kernel == "apply_dot_7pt"
+             and re.search(r"int seven_point_halo_launch\([^)]*acc", text))
+    dot = None
+    for sh in range(N_SHARDS):
+        x0, x1 = sh * nxl, (sh + 1) * nxl
+        slab = lambda t: t[x0:x1]
+        if kernel == "flux_all":
+            alpha, phis, ucs = ins[0], ins[1:4], ins[4:7]
+            args = [slab(alpha), planes(alpha, x0 - 2, x0),
+                    planes(alpha, x1, x1 + 1), *map(slab, phis),
+                    *map(slab, ucs), *map(slab, outs)]
+            lead = [1, 1]
+        else:
+            p, w = ins[0], ins[1:4]
+            wx_hi = (planes(w[0], x1, x1 + 1) if x1 < nx
+                     else torch.zeros_like(w[0][:1]))
+            lib.seven_point_num_partials.argtypes = [ci] * 3
+            lib.seven_point_num_partials.restype = ci
+            part = torch.empty(lib.seven_point_num_partials(nxl, *SHAPE[1:]),
+                               dtype=torch.float32, device=p.device)
+            d = torch.empty((), dtype=torch.float32, device=p.device)
+            args = [slab(p), planes(p, x0 - 1, x0), planes(p, x1, x1 + 1),
+                    wx_hi, *map(slab, w), None, None, slab(outs[0]), part, d]
+            if chain:
+                args += [torch.zeros(1, dtype=torch.int32, device=p.device),
+                         dot]
+            dot = d
+            lead = [APPLY_DOT, F32, 0]
+        keep.append(args)
+        n_bytes += sum(a.numel() * a.element_size() for a in args
+                       if a is not None and a.dim() > 0 and a.numel() > 1
+                       and (kernel != "apply_dot_7pt" or a is not part))
+        fn.argtypes = [ci] * len(lead) + [vp] * len(args) + [ci] * 3 + [vp]
+        fn.restype = ci
+        calls.append((lead, [ctypes.c_void_p(None) if a is None
+                             else _build.ptr(a) for a in args]))
     stream = _build.stream_of(ins[0])
 
-    def call():
-        _build.check(fn(*lead, *ptrs, *SHAPE, *scal, stream), lib_path)
-    return call
+    def launch():
+        for lead, ptrs in calls:
+            _build.check(fn(*lead, *ptrs, nxl, SHAPE[1], SHAPE[2], stream),
+                         lib_path)
+    launch.keep = keep
+    return launch, n_bytes
 
 
 def main() -> int:
@@ -258,16 +431,16 @@ def main() -> int:
     card = f"{card_name}, {power} W"
     report = {"card": card, "shape": SHAPE, "kernels": {}}
     for kernel in kernels:
-        ins, outs, lead = operands(torch, kernel, dev)
+        ins, outs, call = operands(torch, kernel, dev)
         n_bytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
         bound_us = n_bytes / HBM_BYTES_PER_S * 1e6
         calls, results, ref = {}, {}, None
         for (k, name), lib in libs.items():
             if k != kernel:
                 continue
-            calls[name] = call = runner(torch, _build, kernel, lib, ins, outs,
-                                        lead)
-            call()
+            launch = calls[name] = runner(torch, _build, kernel, lib,
+                                          builds[kernel, name][0], call)
+            launch()
             torch.cuda.synchronize()
             got = [o.float().clone() for o in outs]
             if ref is None:
@@ -277,23 +450,47 @@ def main() -> int:
             results[name] = {"rel_err_vs_as_built": err / scale, "us": [],
                              "sass_main": sass_count(kernel, lib, cuobjdump),
                              **ptxas_report(kernel, logs[kernel, name])}
+        islands, island_bytes = {}, 0
+        if kernel in HALO_ENTRY:
+            for name in calls:
+                islands[name], island_bytes = island(
+                    torch, _build, kernel, libs[kernel, name],
+                    builds[kernel, name][0], ins, outs)
+                results[name]["island_us"] = []
         order = list(calls)
         for rnd in range(ROUNDS):
             for name in (order if rnd % 2 == 0 else order[::-1]):
                 results[name]["us"].append(device_ms(calls[name], REPS) * 1e3)
+                if name in islands:
+                    results[name]["island_us"].append(
+                        device_ms(islands[name], REPS) * 1e3)
+        island_bound_us = island_bytes / HBM_BYTES_PER_S * 1e6
         for name, r in results.items():
             us = float(np.median(r["us"]))
             r.update(median_us=us, x_bound=us / bound_us)
+            if "island_us" in r:
+                ius = float(np.median(r["island_us"]))
+                r.update(island_median_us=ius,
+                         island_x_bound=ius / island_bound_us)
             print(f"{kernel:12s} {name:22s} {us:9.2f} us median of {ROUNDS} "
                   f"({min(r['us']):.2f}-{max(r['us']):.2f})  "
                   f"{us / bound_us:6.2f}x bound  rel err vs as built "
                   f"{r['rel_err_vs_as_built']:.2e}  SASS {r['sass_main']}  "
                   f"regs {r.get('registers')}  spills "
                   f"{r.get('spill_store_bytes')}/{r.get('spill_load_bytes')} B  "
-                  f"static smem {r.get('static_smem_bytes')} B", flush=True)
+                  f"static smem {r.get('static_smem_bytes')} B"
+                  + (f"  island x{N_SHARDS} {r['island_median_us']:.2f} us "
+                     f"({r['island_x_bound']:.2f}x its bound)"
+                     if "island_us" in r else ""), flush=True)
         print(f"{kernel}: shape {SHAPE}, {n_bytes / 1e6:.2f} MB, byte bound "
               f"{bound_us:.2f} us; {card}", flush=True)
+        if islands:
+            print(f"{kernel}: island of {N_SHARDS} x-slabs, "
+                  f"{island_bytes / 1e6:.2f} MB, byte bound "
+                  f"{island_bound_us:.2f} us", flush=True)
         report["kernels"][kernel] = {"bytes": n_bytes, "bound_us": bound_us,
+                                     "island_bytes": island_bytes,
+                                     "island_bound_us": island_bound_us,
                                      "builds": results}
     with open(os.path.join(repo, "perf_out", "port_kernel_variants.json"), "w") as f:
         json.dump(report, f, indent=1)

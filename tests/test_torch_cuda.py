@@ -17,9 +17,13 @@ single-grid family's bounds, and a case equals the single-grid kernel on
 that case bitwise. The halo kernels of the x-sharded step hold their
 single-grid rows' bounds against their plain versions per shard, and the
 4-shard islands equal the single-grid kernels on the whole grid bitwise
-(the dot and the div max: 1e-6 relative). The FCT and momentum kernels,
-which march x chunks over (y, z) tiles, are also held at shapes that
-divide neither, down to one cell across."""
+(the dot and the div max: 1e-6 relative). The FCT, momentum, MULES flux
+and apply-dot kernels, which march x chunks over (y, z) tiles, are also
+held at shapes that divide neither, down to one cell across: the flux
+kernel and the apply-dot output bitwise, the apply-dot dot to 1e-5 of the
+plain sum and bitwise from call to call (its ticket counter back at 0
+after every call), the apply-dot island's dot bitwise equal to the
+single-grid kernel's."""
 
 import numpy as np
 import pytest
@@ -416,7 +420,8 @@ def test_momentum_and_correction_halo_kernels(dev):
 
 
 # The FCT and momentum kernels march 16 x planes per block over 8 × 32
-# (y, z) tiles: shapes that divide neither, down to one cell across.
+# (y, z) tiles, the flux kernel over 16 × 16 tiles, the apply-dot kernel
+# over 8 × 32: shapes that divide none, down to one cell across.
 EDGES = [(13, 11, 37), (1, 1, 70), (37, 1, 1), (1, 13, 1), (40, 9, 65)]
 # Island shapes: 4 slabs of 2, 3 and 18 planes (the last more than one x
 # chunk per slab).
@@ -522,3 +527,115 @@ def test_fct_and_momentum_islands_at_tiling_edges(dev, dtype, shape):
             got = sm.momentum_rhs(*vel, rp, mu, du, h, CTX4, dev2=dev2)
             ref = mrk.momentum_rhs(*vel, rp, mu, du, h, dev2=dev2)
             assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+UC_ANTI = [(torch.float32, None), (torch.float32, torch.bfloat16),
+           (torch.bfloat16, None), (torch.bfloat16, torch.bfloat16)]
+
+
+def _flux_operands(rng, dev, shape, uc_dt):
+    alpha = _at(rng, dev, shape, lo=0, hi=1)
+    phis = tuple(1e-3 * _at(rng, dev, shape) for _ in range(3))
+    ucs = tuple((1e-3 * _at(rng, dev, shape)).to(uc_dt) for _ in range(3))
+    return alpha, phis, ucs
+
+
+def _dot_operands(rng, dev, shape, dtype=torch.float32):
+    p = _at(rng, dev, shape, dtype)
+    w = [_at(rng, dev, shape, dtype, 0.05, 0.3) for _ in range(3)]
+    w[0][0], w[1][:, 0], w[2][:, :, 0] = 0, 0, 0
+    return p, tuple(w)
+
+
+@pytest.mark.parametrize("shape", EDGES)
+@pytest.mark.parametrize("uc_dt,anti_dt", UC_ANTI)
+def test_flux_all_kernel_at_tiling_edges(dev, shape, uc_dt, anti_dt):
+    """Every uc/anti dtype pair: bitwise equal to the plain version (the
+    kernel keeps its IEEE divisions and operation order); one launch."""
+    rng = np.random.default_rng(11)
+    alpha, phis, ucs = _flux_operands(rng, dev, shape, uc_dt)
+    n0 = mfx.flux_all.launches
+    got = mfx.flux_all(alpha, phis, ucs, anti_dt)
+    ref = mfx.flux_all_plain(alpha, phis, ucs, anti_dt)
+    assert mfx.flux_all.launches == n0 + 1
+    for g, r in zip(sum(got, ()), sum(ref, ())):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+def _check_dot_calls(p, w, calls=3):
+    """The apply-dot kernel `calls` times on (p, w): Â·p bitwise equal to
+    the plain version's, the dot within 1e-5 of the plain sum and bitwise
+    equal from call to call, the ticket counter 0 after each call."""
+    ap_p, dot_p = sp.apply_dot_7pt_plain(p, w)
+    dots = []
+    for _ in range(calls):
+        ap, dot = sp.apply_dot_7pt(p, w)
+        assert torch.equal(ap, ap_p)
+        assert int(sp._ticket(p.device)[0]) == 0
+        dots.append(float(dot))
+    assert abs(dots[0] - float(dot_p)) <= 1e-5 * abs(float(dot_p))
+    assert dots == [dots[0]] * calls
+
+
+@pytest.mark.parametrize("shape", EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_dot_kernel_at_tiling_edges(dev, dtype, shape):
+    rng = np.random.default_rng(12)
+    p, w = _dot_operands(rng, dev, shape, dtype)
+    n0 = sp.apply_dot_7pt.launches
+    _check_dot_calls(p, w)
+    assert sp.apply_dot_7pt.launches == n0 + 3
+
+
+def test_apply_dot_one_block_and_many_in_sequence(dev):
+    """A grid of one block (its only block draws the last ticket), one of
+    many blocks, then one block again: each dot right, so the counter
+    wraps back to 0 however many blocks took a ticket."""
+    rng = np.random.default_rng(13)
+    for shape in ((1, 5, 20), (40, 9, 65), (1, 5, 20), (112, 24, 40)):
+        _check_dot_calls(*_dot_operands(rng, dev, shape), calls=2)
+
+
+@pytest.mark.parametrize("shape", ISLAND_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flux_and_apply_dot_islands_at_tiling_edges(dev, dtype, shape):
+    """4 shards of the flux and apply-dot halo kernels against the
+    single-grid kernels: bitwise, the dot included (the shards' chain adds
+    the planes in the single-grid kernel's order), and a shard's partial
+    dot bitwise from call to call; an interior shard's flux against its
+    plain version bitwise."""
+    rng = np.random.default_rng(14)
+    p, w = _dot_operands(rng, dev, shape, dtype)
+    n0 = halo7.apply_dot_7pt_h.launches
+    ap, dot = sm.apply_dot_7pt(p, w, CTX4)
+    assert halo7.apply_dot_7pt_h.launches == n0 + 4
+    ap1, dot1 = sp.apply_dot_7pt(p, w)
+    assert torch.equal(ap, ap1)
+    assert float(dot) == float(dot1)
+    s = 1
+    lo, hi = sm.exchange_halo(CTX4.split(p), 1, CTX4)[s]
+    wx_hi = sm.exchange_hi(CTX4.split(w[0]), 1, CTX4)[s]
+    args = (CTX4.split(p)[s], lo, hi, wx_hi, tuple(CTX4.split(x)[s] for x in w))
+    parts = [float(halo7.apply_dot_7pt_h(*args)[1]) for _ in range(3)]
+    assert parts == [parts[0]] * 3
+    assert int(sp._ticket(p.device)[0]) == 0
+    _, part_p = halo7.apply_dot_7pt_h_plain(*args)
+    assert abs(parts[0] - float(part_p)) <= 1e-5 * abs(float(part_p))
+    acc = torch.tensor(0.25 * parts[0], device=dev)
+    chained = float(halo7.apply_dot_7pt_h(*args, acc=acc)[1])
+    assert abs(chained - (float(acc) + parts[0])) <= 1e-5 * abs(parts[0])
+
+    anti_dt = dtype if dtype == torch.bfloat16 else None
+    alpha, phis, ucs = _flux_operands(rng, dev, shape, dtype)
+    n0 = mfx.flux_all_h.launches
+    got = sm.flux_all(alpha, phis, ucs, CTX4, anti_dtype=anti_dt)
+    assert mfx.flux_all_h.launches == n0 + 4
+    ref = mfx.flux_all(alpha, phis, ucs, anti_dt)
+    assert all(torch.equal(g, r) for g, r in zip(sum(got, ()), sum(ref, ())))
+    a_lo, a_hi = sm.exchange_halo(CTX4.split(alpha), 2, CTX4)[s]
+    args = (CTX4.split(alpha)[s], a_lo, a_hi[:1],
+            tuple(CTX4.split(f)[s] for f in phis),
+            tuple(CTX4.split(f)[s] for f in ucs), anti_dt)
+    for g, r in zip(sum(mfx.flux_all_h(*args), ()),
+                    sum(mfx.flux_all_h_plain(*args), ())):
+        assert g.dtype == r.dtype and torch.equal(g, r)
