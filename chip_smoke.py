@@ -12,21 +12,25 @@ Phases, each fatal on any fault (nothing is caught):
      device times (20 launches queued behind a device-side wait, so the
      host's cost per call does not pace them), bytes, bounds and the CUDA
      kernels one call runs (torch.profiler; one for apply-dot and the
-     MULES fluxes); the apply-dot dot bitwise equal from call to call;
+     MULES fluxes, the projection epilogue and the cheb2 smoothers); the
+     apply-dot and cheb2 post-dot dots and the div max bitwise equal
+     from call to call;
      then the seven halo entry points of the
      x-sharded step on those inputs cut into 4 x-shards: per shard against
      their plain versions, and the shards composed against the single-grid
-     kernels on the whole grid (bitwise, the apply-dot dot included; the
-     div max to 1e-6 relative), with the island's time beside the
-     single-grid kernel's;
+     kernels on the whole grid (bitwise, the apply-dot dot and the div
+     max included), with the island's time beside the single-grid
+     kernel's;
   3. drive the step path: the flagship single-tank case
      (H0.208/D0.2/R0.004/f1.88, mesh 0.00185, round_to=8 → 112³) through
      `make_step(..., carry_precond=True)` in the bench's configuration,
      SolverControls(use_pallas=True), for N_STEPS steps from rest; then
      the CG's apply_dot_7pt calls, the three flux_all calls, the nine
-     fct_iter calls and the momentum_rhs call of one step from the state
-     reached, captured, timed again and held against their plain versions
-     (rows 1, 4, 5 and 6 on a real step's operands); then, from
+     fct_iter calls, the momentum_rhs call and the correct_divmax call of
+     one step from the state reached, captured, timed again and held
+     against their plain versions (rows 1, 4, 5, 6 and 7 on a real step's
+     operands), and so the cheb2_pre_7pt and cheb2_post_dot_7pt calls of
+     one OFTPP_SMOOTH_SWEEPS=2 step (rows 9a, 9c); then, from
      that state, one run of N_SHORT steps each of that
      configuration, of mom_pallas=False, of OFTPP_FINISH_PALLAS=1, of
      OFTPP_SMOOTH_SWEEPS=2 (the fused cheb2 smoothers, r·z from the exit
@@ -255,12 +259,21 @@ def max_err(got, ref):
 
 
 # Entry points whose every call is one CUDA kernel launch (checked).
-ONE_LAUNCH = ("apply_dot_7pt", "apply_dot_7pt_h", "flux_all", "flux_all_h")
+ONE_LAUNCH = ("apply_dot_7pt", "apply_dot_7pt_h", "flux_all", "flux_all_h",
+              "correct_divmax", "correct_divmax_h", "cheb2_pre_7pt",
+              "cheb2_post_7pt", "cheb2_post_dot_7pt")
+# The host API calls that launch a kernel, as the profiler names them.
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx")
 
 
 def cuda_launches(name, fn):
-    """CUDA kernels one call of `fn` runs on the device (torch.profiler's
-    device events, after a warm-up call); must be 1 for ONE_LAUNCH."""
+    """CUDA kernels one call of `fn` runs (torch.profiler, after a warm-up
+    call): the larger of the trace's device events and its kernel-launch
+    API calls; must be 1 for ONE_LAUNCH. The device events alone can
+    miss a kernel: on the chip machine a trace in which CUPTI requested
+    a new activity buffer during the call held the launch but not the
+    kernel (logged when it happens)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -269,8 +282,14 @@ def cuda_launches(name, fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = list(prof.events())
+    n_dev = sum(1 for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    n_api = sum(1 for e in events if e.name in LAUNCH_APIS)
+    if n_dev != n_api:
+        log(f"  {name}: {n_dev} device event(s) in the trace, {n_api} "
+            f"kernel launch(es); host events {[e.name for e in events]}")
+    n = max(n_dev, n_api)
     if name in ONE_LAUNCH and n != 1:
         raise AssertionError(f"{name}: one call ran {n} CUDA kernels, not 1")
     return n
@@ -383,6 +402,10 @@ def phase_kernels(shape, spacing, dev):
         # The fused cheb2 smoothers. Main-path variants: the bf16 cycle,
         # whose exit kernels store f32 (the hand-off to CG).
         cheb = (CHEB_LMAX, CHEB_LMIN)
+        same = all(torch.equal(g, r) for g, r in zip(
+            sp.cheb2_pre_7pt(b, w, *cheb), sp.cheb2_pre_7pt_plain(b, w, *cheb)))
+        log(f"  cheb2_pre_7pt     {tag} x, r {'bitwise' if same else 'not bitwise'}"
+            " equal to plain")
         check("cheb2_pre_7pt", tag, tag == "bf16",
               lambda: sp.cheb2_pre_7pt(b, w, *cheb),
               lambda: sp.cheb2_pre_7pt_plain(b, w, *cheb),
@@ -395,12 +418,19 @@ def phase_kernels(shape, spacing, dev):
             z_k, dot_k = sp.cheb2_post_dot_7pt(p, b, w, *cheb, out_dtype=out)
             z_p, dot_p = sp.cheb2_post_dot_7pt_plain(p, b, w, *cheb,
                                                      out_dtype=out)
+            dot_again = sp.cheb2_post_dot_7pt(p, b, w, *cheb,
+                                              out_dtype=out)[1]
             derr = (abs(float(dot_k) - float(dot_p))
                     / max(abs(float(dot_p)), 1e-30))
+            same = float(dot_again) == float(dot_k)
             log(f"  cheb2_post_dot_7pt {v} dot kernel {float(dot_k)!r} plain "
-                f"{float(dot_p)!r} rel_err={derr:.3e} tol={DOT_RTOL:.1e}")
-            if derr > DOT_RTOL:
-                raise AssertionError(f"cheb2_post_dot_7pt {v}: dot disagrees")
+                f"{float(dot_p)!r} rel_err={derr:.3e} tol={DOT_RTOL:.1e}; "
+                f"again {'bitwise equal' if same else 'DIFFERS'}; z "
+                f"{'bitwise' if torch.equal(z_k, z_p) else 'not bitwise'} "
+                "equal to plain")
+            if derr > DOT_RTOL or not same:
+                raise AssertionError(f"cheb2_post_dot_7pt {v}: dot disagrees "
+                                     "or does not repeat")
             if not torch.equal(z_k, sp.cheb2_post_7pt(p, b, w, *cheb,
                                                       out_dtype=out)):
                 raise AssertionError(f"cheb2_post_dot_7pt {v}: z is not "
@@ -477,13 +507,20 @@ def phase_kernels(shape, spacing, dev):
             a[a < 0.2] = 0
         args = (dp, *vel, beta, *aps, vfrac, topo, rho, dt0, spacing)
         tag = f"open top {'on' if open_top else 'off'}"
-        got = ck.correct_divmax(*args, open_top=open_top)[3]
-        ref = ck.correct_divmax_plain(*args, open_top=open_top)[3]
-        derr = abs(float(got) - float(ref)) / max(abs(float(ref)), 1e-30)
-        log(f"  correct_divmax    {tag} div_max kernel {float(got)!r} plain "
-            f"{float(ref)!r} rel_err={derr:.3e} tol={F32_RTOL:.1e}")
-        if derr > F32_RTOL:
-            raise AssertionError(f"correct_divmax {tag}: div_max disagrees")
+        got = ck.correct_divmax(*args, open_top=open_top)
+        ref = ck.correct_divmax_plain(*args, open_top=open_top)
+        again = ck.correct_divmax(*args, open_top=open_top)[3]
+        derr = (abs(float(got[3]) - float(ref[3]))
+                / max(abs(float(ref[3])), 1e-30))
+        same = float(again) == float(got[3])
+        log(f"  correct_divmax    {tag} div_max kernel {float(got[3])!r} plain "
+            f"{float(ref[3])!r} rel_err={derr:.3e} tol={F32_RTOL:.1e}; again "
+            f"{'bitwise equal' if same else 'DIFFERS'}; u_c, v_c, w_c, "
+            f"div_max {'bitwise' if all(map(torch.equal, got, ref)) else 'not bitwise'}"
+            " equal to plain")
+        if derr > F32_RTOL or not same:
+            raise AssertionError(f"correct_divmax {tag}: div_max disagrees "
+                                 "or does not repeat")
         check("correct_divmax", tag, open_top,
               lambda: ck.correct_divmax(*args, open_top=open_top)[:3],
               lambda: ck.correct_divmax_plain(*args, open_top=open_top)[:3],
@@ -637,11 +674,12 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
                     for g, r in zip(got, ref)), default=0.0)
 
     def check(name, variant, main, shards, island, single, tol, n_scalar=0,
-              scalar_tol=F32_RTOL):
+              scalar_tol=F32_RTOL, scalar_bitwise=False):
         """`shards`: per shard (kernel call, plain call, operands). The
         last `n_scalar` outputs are 0-d scalars (the island reduces them
         over the shards): per shard within `scalar_tol` of the plain
-        version's, and within F32_RTOL of the single-grid kernel's."""
+        version's, and within F32_RTOL of the single-grid kernel's (with
+        `scalar_bitwise`, equal to it)."""
         err, scale, p_err = 0.0, 0.0, 0.0
         for kern, plain, _ in shards:
             got, ref = flat(kern()), flat(plain())
@@ -655,6 +693,9 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
         n_el = len(got) - n_scalar
         bitwise = all(torch.equal(g, r) for g, r in zip(got[:n_el], ref[:n_el]))
         s_err = scalar_err(got[n_el:], ref[n_el:])
+        if scalar_bitwise:
+            bitwise = bitwise and all(float(g) == float(r) for g, r in
+                                      zip(got[n_el:], ref[n_el:]))
         ms = device_ms(lambda: [k() for k, _, _ in shards], REPS)
         plain_ms = device_ms(lambda: [p() for _, p, _ in shards], REPS)
         island_ms, single_ms = device_ms(island, REPS), device_ms(single, REPS)
@@ -849,7 +890,7 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
                                         open_top=open_top),
               lambda: ck.correct_divmax(dp, *vel, beta, *aps, vfrac, topo,
                                         rho, dt0, spacing, open_top=open_top),
-              F32_RTOL, n_scalar=1)
+              F32_RTOL, n_scalar=1, scalar_bitwise=True)
     return rows
 
 
@@ -966,19 +1007,27 @@ def drive(label, step, state, bundle, params, n_steps, n_timed, n_fluid,
     return state, bundle, launches, stats
 
 
-def phase_step_operands(step, state, params, rows):
-    """Rows 1, 4, 5 and 6 on the operands of one real flagship step from
-    `state` (phase 3's): the CG's apply_dot_7pt calls (one per iteration),
-    the three flux_all calls, the nine fct_iter calls and the momentum_rhs
-    call, captured by spies standing in for the entry points, each timed
-    again, kernel and plain version, and held against the plain version
-    with phase 2's tolerances: f32 outputs F32_RTOL (momentum_rhs
-    MOM_RTOL), bf16 outputs (flux anti, FCT λ) BF16_RTOL, the apply-dot
-    dot DOT_RTOL and bitwise equal over two calls. Adds `step_ms`,
-    `step_plain_ms` (means per call), `step_max_rel_err` and
-    `step_bitwise` to those rows."""
+STEP_ROWS = ("apply_dot_7pt", "flux_all", "fct_iter", "momentum_rhs",
+             "correct_divmax")
+
+
+def phase_step_operands(step, state, params, rows, names=STEP_ROWS):
+    """Kernel rows on the operands of one real flagship step from `state`
+    (phase 3's): of the default step the CG's apply_dot_7pt calls (one
+    per iteration), the three flux_all calls, the nine fct_iter calls,
+    the momentum_rhs call and the correct_divmax call (rows 1, 4, 5, 6,
+    7); of the two-sweep step the cheb2_pre_7pt and cheb2_post_dot_7pt
+    calls (rows 9a, 9c; one each per V-cycle). Captured by spies standing
+    in for the entry points `names`, each timed again, kernel and plain
+    version, and held against the plain version with phase 2's
+    tolerances: f32 outputs F32_RTOL (momentum_rhs MOM_RTOL), bf16
+    outputs (flux anti, FCT λ, the pre smoother's x and r) BF16_RTOL,
+    the dots DOT_RTOL and the div max F32_RTOL, each scalar bitwise
+    equal over two calls. Adds `step_ms`, `step_plain_ms` (means per
+    call), `step_max_rel_err` and `step_bitwise` to those rows."""
     import torch
 
+    from openfoam_tpp_tpu_torch.ops.kernels import correction as ck
     from openfoam_tpp_tpu_torch.ops.kernels import momentum_rhs as mrk
     from openfoam_tpp_tpu_torch.ops.kernels import mules_fct as mf
     from openfoam_tpp_tpu_torch.ops.kernels import mules_flux as mfx
@@ -999,7 +1048,7 @@ def phase_step_operands(step, state, params, rows):
 
     def tol_of(name, t):
         if t.dim() == 0:
-            return DOT_RTOL
+            return F32_RTOL if name == "correct_divmax" else DOT_RTOL
         if t.dtype == torch.bfloat16:
             return BF16_RTOL
         return MOM_RTOL if name == "momentum_rhs" else F32_RTOL
@@ -1007,7 +1056,13 @@ def phase_step_operands(step, state, params, rows):
     real = {"apply_dot_7pt": (sp, sp.apply_dot_7pt, sp.apply_dot_7pt_plain),
             "flux_all": (mfx, mfx.flux_all, mfx.flux_all_plain),
             "fct_iter": (mf, mf.fct_iter, mf.fct_iter_plain),
-            "momentum_rhs": (mrk, mrk.momentum_rhs, mrk.momentum_rhs_plain)}
+            "momentum_rhs": (mrk, mrk.momentum_rhs, mrk.momentum_rhs_plain),
+            "correct_divmax": (ck, ck.correct_divmax,
+                               ck.correct_divmax_plain),
+            "cheb2_pre_7pt": (sp, sp.cheb2_pre_7pt, sp.cheb2_pre_7pt_plain),
+            "cheb2_post_dot_7pt": (sp, sp.cheb2_post_dot_7pt,
+                                   sp.cheb2_post_dot_7pt_plain)}
+    real = {name: real[name] for name in names}
     calls = {name: [] for name in real}
 
     def spy(name):
@@ -1024,8 +1079,11 @@ def phase_step_operands(step, state, params, rows):
             stack.enter_context(mock.patch.object(mod, name, spy(name)))
         _, d, _ = step(state, params, precond=step.init_precond(state))
     torch.cuda.synchronize()
+    # One V-cycle before CG's loop and one per iteration.
     want = {"apply_dot_7pt": int(d.p_iters), "flux_all": 3, "fct_iter": 9,
-            "momentum_rhs": 1}
+            "momentum_rhs": 1, "correct_divmax": 1,
+            "cheb2_pre_7pt": int(d.p_iters) + 1,
+            "cheb2_post_dot_7pt": int(d.p_iters) + 1}
     for name, (_, kern, plain) in real.items():
         if len(calls[name]) != want[name]:
             raise AssertionError(f"step operands: {len(calls[name])} {name} "
@@ -1042,8 +1100,9 @@ def phase_step_operands(step, state, params, rows):
                     bad.append(f"{err / max(scale, 1e-30):.3e} > {tol:.1e}")
             bitwise = bitwise and all(torch.equal(g, r) for g, r in zip(got, ref)
                                       if r.dim() > 0)
-            if name == "apply_dot_7pt" and float(kern(*a, **k)[1]) != float(got[1]):
-                bad.append("the dot does not repeat bitwise")
+            if (ref[-1].dim() == 0
+                    and float(flat(kern(*a, **k))[-1]) != float(got[-1])):
+                bad.append("its scalar does not repeat bitwise")
             ms.append(device_ms(lambda: kern(*a, **k), REPS))
             plain_ms.append(device_ms(lambda: plain(*a, **k), REPS))
         log(f"  {name:17s} step operands, {len(ms)} call(s): kernel "
@@ -1672,6 +1731,9 @@ def main() -> int:
         "sweeps2": (build(**sweeps2), DEFAULT_PATH + CHEB2_RZ),
         "sweeps2_fused_rz_off": (build(**rz_off), DEFAULT_PATH + CHEB2_NO_RZ),
     }
+    log("[the fused smoothers on the operands of one two-sweep step from "
+        "that state]")
+    phase_step_operands(configs["sweeps2"][0], state, params, rows, CHEB2_RZ)
     runs = {}
     for name, (stp, expect) in configs.items():
         # A bundle of this configuration's own knobs (one or two sweeps

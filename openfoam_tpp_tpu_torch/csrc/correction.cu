@@ -15,15 +15,37 @@
 //
 // What bounds it on the H100: bytes. It reads dp and vfrac (cells), nine
 // face arrays (u, v, w, β×3, A×3) and two (nx, ny) planes, and writes
-// three face arrays: 79 MB per 112³ call, about 24 µs at 3.35 TB/s; about
-// 32 flops per cell. Design: one thread per cell, 32 consecutive z cells
-// per warp. A thread writes the low face of its cell on each axis (and
-// the high boundary face where it is last) and recomputes its three high
-// faces to form the divergence, so the corrected velocities never make a
-// round trip through DRAM. The maximum: each block writes the maximum of
-// its cells (a shared-memory tree) and a second one-block pass reduces
-// those partials. A maximum is exact, so the result does not depend on
-// the order; NaN propagates, as in torch.max.
+// three face arrays: 79 MB per 112³ call, 23.7 µs at 3.35 TB/s; about 32
+// flops per cell. The earlier design (one thread per cell, 69 µs) fetched
+// every face array twice (each thread recomputed its three high faces,
+// and the x-high face belongs to another x plane, out of L1's reach),
+// left half of its last 32-wide z block idle at nz = 112, took nine IEEE
+// divisions per cell and finished the maximum in a second launch.
+//
+// Design: a 2.5-D march along x. A block owns an 8 × 32 (y, z) tile, one
+// cell per thread, and walks a chunk of x planes sized so that the
+// grid's blocks fill the card once at the kernel's occupancy. (16 × 16
+// tiles leave no lane idle at nz = 112, where the last 32-wide z tile is
+// half empty, but ran 5% slower: PERF.md §6.) The x face above the cell, with
+// its flux A·q, stays in registers as the next plane's low face, and dp
+// of the next plane is loaded one plane ahead, so each u, βx, ax and dp
+// plane is read once. The y and z faces: each thread corrects its low and
+// high face; the high one is its neighbour's low face, read through L1
+// (the block's neighbours loaded it in the same instruction or plane).
+// The divisions by the spacing are multiplications by the f32 reciprocal
+// 1/h formed on the host as PyTorch's CUDA division by a Python scalar
+// forms it (in double, rounded to f32), so the outputs are bitwise those
+// of correct_divmax_plain on the card; the one division left is 1/ρ on
+// the open top row (IEEE, as PyTorch's reciprocal). IEEE divisions by h
+// in this march took 59.4 µs against 42.0 (PERF.md §6). The maximum: a
+// running maximum per thread over its planes, a shuffle tree per warp,
+// one value per block, then a ticket: atomicInc(ticket, nblocks − 1)
+// wraps the counter back to 0 by itself, and the block that draws the
+// last ticket reduces the blocks' values. One launch per call; a maximum is exact, so the result does
+// not depend on the order, and NaN propagates, as in torch.max. The
+// ticket counter is one per device (ops/kernels/_build.py `ticket`),
+// shared with the other one-launch reductions: calls that share it must
+// not overlap, so they run on one stream.
 //
 // The halo variant (`correction_halo_launch`) replaces the TPU kernel
 // correction.py `correct_divmax_h` (correction.py:219), the per-shard
@@ -34,176 +56,264 @@
 // slab's two end faces reads dp's exchanged ±1 planes (the edge plane at
 // the global ends, so the gradient there is (dp0 − dp0)/hx = 0). No wall
 // row is written; the maximum is the shard's, reduced over the shards by
-// the caller. Same bytes plus five planes, same bound.
+// the caller. Same bytes plus five planes, same bound, and the same
+// arithmetic per face, so the shards composed equal the single-grid
+// kernel bitwise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBX = 32, kBY = 8, kBlock = kBX * kBY;
-constexpr int kMaxBlock = 1024;
+constexpr int kTZ = 32, kTY = 8, kBlock = kTZ * kTY;
+constexpr int kWarps = kBlock / 32;
+// Blocks per launch: about kWaves times what the card holds at once at
+// the kernel's occupancy (one wave: the most blocks in flight, no tail).
+constexpr float kWaves = 1.0f;
+// Blocks per SM the register budget is set for (64 registers a thread): a
+// march that streams 14 arrays needs warps in flight to keep enough loads
+// outstanding (none: 75 registers, 3 blocks, 27% slower).
+constexpr int kMinBlocks = 4;
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (b > a || b != b) ? b : a;
 }
 
-// HALO: h = {dp lo, dp hi, u hi, βx hi, ax hi}, (ny, nz) planes each.
-struct Halo {
-  const float *dp_lo, *dp_hi, *u, *bx, *ax;
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = nan_max(v, __shfl_down_sync(0xffffffffu, v, o));
+  return v;
+}
+
+struct Args {
+  const float *dt, *dp, *u, *v, *w, *bx, *by, *bz, *ax, *ay, *az, *vfrac,
+      *topo, *rho;
+  // HALO: dp's planes x = −1, nx and the faces x = nx of u, βx, ax, each
+  // an (ny, nz) plane.
+  const float *dp_lo, *dp_hi, *u_hi, *bx_hi, *ax_hi;
+  float *ou, *ov, *ow, *partial, *div_max;
+  unsigned* ticket;
+  int nx, ny, nz, cx;   // cx: x planes per block
+  float hx, hy, hz;     // the spacing
+  float rhx, rhy, rhz;  // its f32 reciprocals
 };
 
+// A difference over the spacing: d·(1/h), as PyTorch's CUDA division by
+// a Python scalar computes it (h: the f32 spacing, for other forms).
+__device__ __forceinline__ float over_h(float d, float h, float rh) {
+  return d * rh;
+}
+
+// One corrected face: q_c = (q − dt·β·g) where the aperture is open, else
+// 0; phi = A·q_c.
+__device__ __forceinline__ float corr(float q, float beta, float ap, float g,
+                                      float dt, float& phi) {
+  const float qc = ap > 0.0f ? q - dt * beta * g : 0.0f;
+  phi = ap * qc;
+  return qc;
+}
+
 template <bool OPEN_TOP, bool HALO>
-__global__ void __launch_bounds__(kBlock)
-correct_divmax_kernel(const Halo h, const float* __restrict__ dt_p,
-                      const float* __restrict__ dp,
-                      const float* __restrict__ u, const float* __restrict__ v,
-                      const float* __restrict__ w, const float* __restrict__ bx,
-                      const float* __restrict__ by, const float* __restrict__ bz,
-                      const float* __restrict__ ax, const float* __restrict__ ay,
-                      const float* __restrict__ az, const float* __restrict__ vfrac,
-                      const float* __restrict__ topo, const float* __restrict__ rho,
-                      float* __restrict__ ou, float* __restrict__ ov,
-                      float* __restrict__ ow, float* __restrict__ partial, int nx,
-                      int ny, int nz, float hx, float hy, float hz) {
-  const int k = blockIdx.x * kBX + threadIdx.x;
-  const int j = blockIdx.y * kBY + threadIdx.y;
-  const int i = blockIdx.z;
-  float val = 0.0f;
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+correct_divmax_kernel(const Args a) {
+  __shared__ float wmax[kWarps];
+  __shared__ bool last;
+  const int t = threadIdx.y * kTZ + threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int k = blockIdx.x * kTZ + threadIdx.x;
+  const int j = blockIdx.y * kTY + threadIdx.y;
+  const int nx = a.nx, ny = a.ny, nz = a.nz;
+  const int i0 = blockIdx.z * a.cx;
+  const int i1 = i0 + a.cx < nx ? i0 + a.cx : nx;
+  float val = 0.0f;   // the running maximum of this thread's cells
   if (k < nz && j < ny) {
-    const float dt = __ldg(dt_p);
-    auto cell = [&](int a, int b, int c) { return ((int64_t)a * ny + b) * nz + c; };
-    const int64_t c0 = cell(i, j, k);
+    const float dt = __ldg(a.dt);
+    const int64_t sx = (int64_t)ny * nz, sy = nz;
+    const int64_t q = (int64_t)j * nz + k;   // the cell's place in a plane
+    auto gx = [&](float d) { return over_h(d, a.hx, a.rhx); };
+    auto gy = [&](float d) { return over_h(d, a.hy, a.rhy); };
+    auto gz = [&](float d) { return over_h(d, a.hz, a.rhz); };
+    // x face f of this column (u layout (nx+1, ny, nz); with HALO
+    // (nx, ny, nz), face nx in the halo planes) from dp below and above it.
+    auto xface = [&](int f, float d0, float d1, float& phi) {
+      const float* U = a.u;
+      const float* B = a.bx;
+      const float* A = a.ax;
+      int64_t o = f * sx + q;
+      if (HALO && f == nx) {
+        U = a.u_hi;
+        B = a.bx_hi;
+        A = a.ax_hi;
+        o = q;
+      }
+      const float g = (!HALO && (f == 0 || f == nx)) ? 0.0f : gx(d1 - d0);
+      return corr(__ldg(U + o), __ldg(B + o), __ldg(A + o), g, dt, phi);
+    };
+    float dc = __ldg(a.dp + i0 * sx + q);   // dp of the current plane
+    float dm = i0 > 0 ? __ldg(a.dp + (i0 - 1) * sx + q)
+                      : (HALO ? __ldg(a.dp_lo + q) : dc);
+    float px0;   // A·q_c of the plane's low x face
+    float qx0 = xface(i0, dm, dc, px0);
+    for (int i = i0; i < i1; ++i) {
+      const int64_t c = i * sx + q;
+      const float dn = i + 1 < nx ? __ldg(a.dp + c + sx)
+                                  : (HALO ? __ldg(a.dp_hi + q) : dc);
+      float px1;
+      const float qx1 = xface(i + 1, dc, dn, px1);
+      a.ou[c] = qx0;
+      if (!HALO && i == nx - 1) a.ou[c + sx] = 0.0f;   // the sealed +x wall
 
-    // x faces f = i, i+1 of this cell: u layout (nx+1, ny, nz); with HALO
-    // (nx, ny, nz), face nx in the halo planes.
-    const int64_t pq = (int64_t)j * nz + k;   // the cell's place in a plane
-    auto corr_u = [&](int f, float& phi) {
-      const int64_t o = cell(f, j, k);
-      float g, a, uf, bf;
-      if (HALO) {
-        const float d1 = f < nx ? __ldg(dp + cell(f, j, k)) : __ldg(h.dp_hi + pq);
-        const float d0 = f > 0 ? __ldg(dp + cell(f - 1, j, k)) : __ldg(h.dp_lo + pq);
-        g = (d1 - d0) / hx;
-        const bool top = f == nx;
-        a = top ? __ldg(h.ax + pq) : __ldg(ax + o);
-        uf = top ? __ldg(h.u + pq) : __ldg(u + o);
-        bf = top ? __ldg(h.bx + pq) : __ldg(bx + o);
+      // y faces j, j + 1: v layout (nx, ny+1, nz).
+      const int64_t oy = ((int64_t)i * (ny + 1) + j) * nz + k;
+      const float gy0 = j > 0 ? gy(dc - __ldg(a.dp + c - sy)) : 0.0f;
+      const float gy1 = j + 1 < ny ? gy(__ldg(a.dp + c + sy) - dc) : 0.0f;
+      float py0, py1;
+      const float qy0 = corr(__ldg(a.v + oy), __ldg(a.by + oy),
+                             __ldg(a.ay + oy), gy0, dt, py0);
+      const float qy1 = corr(__ldg(a.v + oy + nz), __ldg(a.by + oy + nz),
+                             __ldg(a.ay + oy + nz), gy1, dt, py1);
+      a.ov[oy] = qy0;
+      if (j == ny - 1) a.ov[oy + nz] = qy1;
+
+      // z faces k, k + 1: w layout (nx, ny, nz+1); the open-top row at nz.
+      const int64_t oz = ((int64_t)i * ny + j) * (nz + 1) + k;
+      const float gz0 = k > 0 ? gz(dc - __ldg(a.dp + c - 1)) : 0.0f;
+      float pz0, pz1;
+      const float qz0 = corr(__ldg(a.w + oz), __ldg(a.bz + oz),
+                             __ldg(a.az + oz), gz0, dt, pz0);
+      float qz1;
+      const float w1 = __ldg(a.w + oz + 1), bz1 = __ldg(a.bz + oz + 1);
+      const float az1 = __ldg(a.az + oz + 1);
+      if (k + 1 < nz) {
+        qz1 = corr(w1, bz1, az1, gz(__ldg(a.dp + c + 1) - dc), dt, pz1);
       } else {
-        g = (f == 0 || f == nx) ? 0.0f
-            : (__ldg(dp + cell(f, j, k)) - __ldg(dp + cell(f - 1, j, k))) / hx;
-        a = __ldg(ax + o);
-        uf = __ldg(u + o);
-        bf = __ldg(bx + o);
+        // The top row: w − dt·β·0 (the boundary face's gradient) plus,
+        // where open, the half-cell term; then masked.
+        float wq = w1 - dt * bz1 * 0.0f;
+        if (OPEN_TOP) {
+          const float beta_top = __ldg(a.topo + (int64_t)i * ny + j) > 0.0f
+                                     ? 1.0f / __ldg(a.rho + c) : 0.0f;
+          wq = wq + gz(dt * beta_top * 2.0f * dc);
+        }
+        qz1 = az1 > 0.0f ? wq : 0.0f;
+        pz1 = az1 * qz1;
+        a.ow[oz + 1] = qz1;
       }
-      const float q = a > 0.0f ? uf - dt * bf * g : 0.0f;
-      phi = a * q;
-      return q;
-    };
-    // y faces: v layout (nx, ny+1, nz).
-    auto corr_v = [&](int f, float& phi) {
-      const int64_t o = ((int64_t)i * (ny + 1) + f) * nz + k;
-      const float g = (f == 0 || f == ny) ? 0.0f
-                      : (__ldg(dp + cell(i, f, k)) - __ldg(dp + cell(i, f - 1, k))) / hy;
-      const float a = __ldg(ay + o);
-      const float q = a > 0.0f ? __ldg(v + o) - dt * __ldg(by + o) * g : 0.0f;
-      phi = a * q;
-      return q;
-    };
-    // z faces: w layout (nx, ny, nz+1); the open-top row at f == nz.
-    auto corr_w = [&](int f, float& phi) {
-      const int64_t o = ((int64_t)i * ny + j) * (nz + 1) + f;
-      const float g = (f == 0 || f == nz) ? 0.0f
-                      : (__ldg(dp + cell(i, j, f)) - __ldg(dp + cell(i, j, f - 1))) / hz;
-      const float a = __ldg(az + o);
-      float q = __ldg(w + o) - dt * __ldg(bz + o) * g;
-      if (OPEN_TOP && f == nz) {
-        const int64_t t = (int64_t)i * ny + j;
-        const float beta_top = __ldg(topo + t) > 0.0f
-                                   ? 1.0f / __ldg(rho + cell(i, j, nz - 1)) : 0.0f;
-        q = q + dt * beta_top * 2.0f * __ldg(dp + cell(i, j, nz - 1)) / hz;
-      }
-      q = a > 0.0f ? q : 0.0f;
-      phi = a * q;
-      return q;
-    };
+      a.ow[oz] = qz0;
 
-    float px0, px1, py0, py1, pz0, pz1;
-    const float u0 = corr_u(i, px0);
-    corr_u(i + 1, px1);
-    const float v0 = corr_v(j, py0);
-    const float v1 = corr_v(j + 1, py1);
-    const float w0 = corr_w(k, pz0);
-    const float w1 = corr_w(k + 1, pz1);
-    ou[cell(i, j, k)] = u0;
-    if (!HALO && i == nx - 1) ou[cell(nx, j, k)] = 0.0f;   // the sealed +x wall row
-    ov[((int64_t)i * (ny + 1) + j) * nz + k] = v0;
-    if (j == ny - 1) ov[((int64_t)i * (ny + 1) + ny) * nz + k] = v1;
-    ow[((int64_t)i * ny + j) * (nz + 1) + k] = w0;
-    if (k == nz - 1) ow[((int64_t)i * ny + j) * (nz + 1) + nz] = w1;
-
-    const float div = ((px1 - px0) / hx + (py1 - py0) / hy) + (pz1 - pz0) / hz;
-    val = fabsf(div) * (__ldg(vfrac + c0) > 0.0f ? 1.0f : 0.0f);
+      const float div = (gx(px1 - px0) + gy(py1 - py0)) + gz(pz1 - pz0);
+      const float fluid = __ldg(a.vfrac + c) > 0.0f ? 1.0f : 0.0f;
+      val = nan_max(val, fabsf(div) * fluid);
+      dc = dn;
+      qx0 = qx1;
+      px0 = px1;
+    }
   }
-  __shared__ float sh[kBlock];
-  const int t = threadIdx.y * kBX + threadIdx.x;
-  sh[t] = val;
+  // The block's maximum, then the last block's over the blocks.
+  val = warp_max(val);
+  if (lane == 0) wmax[warp] = val;
   __syncthreads();
-  for (int s = kBlock / 2; s > 0; s >>= 1) {
-    if (t < s) sh[t] = nan_max(sh[t], sh[t + s]);
-    __syncthreads();
+  const unsigned nblocks = gridDim.x * gridDim.y * gridDim.z;
+  if (t == 0) {
+    float m = wmax[0];
+    for (int w = 1; w < kWarps; ++w) m = nan_max(m, wmax[w]);
+    a.partial[blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)] =
+        m;
+    __threadfence();   // visible before this block's ticket
+    last = atomicInc(a.ticket, nblocks - 1) == nblocks - 1;
+    __threadfence();
   }
-  if (t == 0)
-    partial[blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)] = sh[0];
+  __syncthreads();
+  if (!last) return;
+  float m = 0.0f;
+  for (unsigned b = t; b < nblocks; b += kBlock)
+    m = nan_max(m, __ldcg(a.partial + b));
+  m = warp_max(m);
+  if (lane == 0) wmax[warp] = m;
+  __syncthreads();
+  if (t == 0) {
+    m = wmax[0];
+    for (int w = 1; w < kWarps; ++w) m = nan_max(m, wmax[w]);
+    a.div_max[0] = m;
+  }
 }
 
-// One block: the maximum of the per-block partials.
-__global__ void __launch_bounds__(kMaxBlock)
-max_partials_kernel(const float* __restrict__ partial, int n, float* __restrict__ out) {
-  __shared__ float sh[kMaxBlock];
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < n; i += kMaxBlock) acc = nan_max(acc, partial[i]);
-  sh[threadIdx.x] = acc;
-  __syncthreads();
-  for (int s = kMaxBlock / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] = nan_max(sh[threadIdx.x], sh[threadIdx.x + s]);
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[0] = sh[0];
+// x planes per block for `tiles` (y, z) tiles of an nx-plane grid: the
+// fewest that keep the launch within kWaves waves of the current device
+// at the kernel's occupancy (asked at every launch: a process may use
+// more than one card).
+template <typename K>
+int chunk_planes(K kernel, int tiles, int nx) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, 0);
+  int chunks = (int)(kWaves * (float)(sms * per_sm)) / tiles;
+  chunks = chunks < 1 ? 1 : (chunks > nx ? nx : chunks);
+  return (nx + chunks - 1) / chunks;
 }
 
+template <bool OPEN_TOP, bool HALO>
+void run(Args& a, cudaStream_t s) {
+  const int tiles = ((a.nz + kTZ - 1) / kTZ) * ((a.ny + kTY - 1) / kTY);
+  a.cx = chunk_planes(correct_divmax_kernel<OPEN_TOP, HALO>, tiles, a.nx);
+  const dim3 grid((a.nz + kTZ - 1) / kTZ, (a.ny + kTY - 1) / kTY,
+                  (a.nx + a.cx - 1) / a.cx);
+  correct_divmax_kernel<OPEN_TOP, HALO><<<grid, dim3(kTZ, kTY), 0, s>>>(a);
+}
+
+// f: dt, dp, u, v, w, bx, by, bz, ax, ay, az, vfrac, topo, rho; halo (HALO
+// only): dp_lo, dp_hi, u_hi, bx_hi, ax_hi; out: ou, ov, ow, partial,
+// div_max, ticket.
 template <bool HALO>
-int launch(const Halo& h, int open_top, const void* dt, const void* dp,
-           const void* u, const void* v, const void* w, const void* bx,
-           const void* by, const void* bz, const void* ax, const void* ay,
-           const void* az, const void* vfrac, const void* topo,
-           const void* rho, void* ou, void* ov, void* ow, void* partial,
-           void* div_max, int nx, int ny, int nz, float hx, float hy,
-           float hz, void* stream) {
+int launch(int open_top, const void* const* f, const void* const* halo,
+           void* const* out, int nx, int ny, int nz, double hx, double hy,
+           double hz, void* stream) {
+  auto F = [&](int n) { return static_cast<const float*>(f[n]); };
+  Args a = {};
+  a.dt = F(0);
+  a.dp = F(1);
+  a.u = F(2);
+  a.v = F(3);
+  a.w = F(4);
+  a.bx = F(5);
+  a.by = F(6);
+  a.bz = F(7);
+  a.ax = F(8);
+  a.ay = F(9);
+  a.az = F(10);
+  a.vfrac = F(11);
+  a.topo = F(12);
+  a.rho = F(13);
+  if (HALO) {
+    a.dp_lo = static_cast<const float*>(halo[0]);
+    a.dp_hi = static_cast<const float*>(halo[1]);
+    a.u_hi = static_cast<const float*>(halo[2]);
+    a.bx_hi = static_cast<const float*>(halo[3]);
+    a.ax_hi = static_cast<const float*>(halo[4]);
+  }
+  a.ou = static_cast<float*>(out[0]);
+  a.ov = static_cast<float*>(out[1]);
+  a.ow = static_cast<float*>(out[2]);
+  a.partial = static_cast<float*>(out[3]);
+  a.div_max = static_cast<float*>(out[4]);
+  a.ticket = static_cast<unsigned*>(out[5]);
+  a.nx = nx;
+  a.ny = ny;
+  a.nz = nz;
+  a.hx = (float)hx;
+  a.hy = (float)hy;
+  a.hz = (float)hz;
+  // The reciprocals as PyTorch's CUDA division by a Python scalar forms
+  // them: in double from the scalar, rounded to f32 (not 1.0f / (float)h,
+  // which differs in the last bit for some h, such as 0.013).
+  a.rhx = (float)(1.0 / hx);
+  a.rhy = (float)(1.0 / hy);
+  a.rhz = (float)(1.0 / hz);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(kBX, kBY);
-  const dim3 grid((nz + kBX - 1) / kBX, (ny + kBY - 1) / kBY, nx);
-  const float* f[14] = {
-      static_cast<const float*>(dt), static_cast<const float*>(dp),
-      static_cast<const float*>(u),  static_cast<const float*>(v),
-      static_cast<const float*>(w),  static_cast<const float*>(bx),
-      static_cast<const float*>(by), static_cast<const float*>(bz),
-      static_cast<const float*>(ax), static_cast<const float*>(ay),
-      static_cast<const float*>(az), static_cast<const float*>(vfrac),
-      static_cast<const float*>(topo), static_cast<const float*>(rho)};
-  float* part = static_cast<float*>(partial);
   if (open_top)
-    correct_divmax_kernel<true, HALO><<<grid, block, 0, s>>>(
-        h, f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10],
-        f[11], f[12], f[13], static_cast<float*>(ou), static_cast<float*>(ov),
-        static_cast<float*>(ow), part, nx, ny, nz, hx, hy, hz);
+    run<true, HALO>(a, s);
   else
-    correct_divmax_kernel<false, HALO><<<grid, block, 0, s>>>(
-        h, f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10],
-        f[11], f[12], f[13], static_cast<float*>(ou), static_cast<float*>(ov),
-        static_cast<float*>(ow), part, nx, ny, nz, hx, hy, hz);
-  max_partials_kernel<<<1, kMaxBlock, 0, s>>>(
-      part, (int)(grid.x * grid.y * grid.z), static_cast<float*>(div_max));
+    run<false, HALO>(a, s);
   return (int)cudaGetLastError();
 }
 
@@ -211,25 +321,30 @@ int launch(const Halo& h, int open_top, const void* dt, const void* dp,
 
 extern "C" {
 
-// Number of per-block partials on an (nx, ny, nz) grid.
+// Per-block values the maximum needs on an (nx, ny, nz) grid, at most.
 int correction_num_partials(int nx, int ny, int nz) {
-  return ((nz + kBX - 1) / kBX) * ((ny + kBY - 1) / kBY) * nx;
+  return ((nz + kTZ - 1) / kTZ) * ((ny + kTY - 1) / kTY) * nx;
 }
 
 // dt: 0-d f32 on the device. dp, vfrac, rho: (nx, ny, nz) cells (only
 // rho's top plane is read); u, bx, ax: (nx+1, ny, nz); v, by, ay:
 // (nx, ny+1, nz); w, bz, az: (nx, ny, nz+1); topo: (nx, ny), read only
-// with open_top. Outputs ou, ov, ow on the u, v, w grids and div_max[0].
+// with open_top; hx, hy, hz the spacing as the caller holds it (double,
+// so that 1/h rounds as PyTorch rounds it). Outputs ou, ov, ow on the u,
+// v, w grids and div_max[0];
+// `partial` holds correction_num_partials floats, `ticket` one unsigned
+// counter that is 0 between calls (the launch leaves it so).
 int correction_launch(int open_top, const void* dt, const void* dp, const void* u,
                       const void* v, const void* w, const void* bx, const void* by,
                       const void* bz, const void* ax, const void* ay, const void* az,
                       const void* vfrac, const void* topo, const void* rho, void* ou,
-                      void* ov, void* ow, void* partial, void* div_max, int nx,
-                      int ny, int nz, float hx, float hy, float hz, void* stream) {
-  const Halo h = {nullptr, nullptr, nullptr, nullptr, nullptr};
-  return launch<false>(h, open_top, dt, dp, u, v, w, bx, by, bz, ax, ay, az,
-                       vfrac, topo, rho, ou, ov, ow, partial, div_max, nx, ny,
-                       nz, hx, hy, hz, stream);
+                      void* ov, void* ow, void* partial, void* div_max,
+                      void* ticket, int nx, int ny, int nz, double hx,
+                      double hy, double hz, void* stream) {
+  const void* f[14] = {dt, dp, u, v, w, bx, by, bz, ax, ay, az, vfrac, topo, rho};
+  void* out[6] = {ou, ov, ow, partial, div_max, ticket};
+  return launch<false>(open_top, f, nullptr, out, nx, ny, nz, hx, hy, hz,
+                       stream);
 }
 
 // The same on one shard's slab of nx cells along x: u, bx, ax and ou packed
@@ -242,17 +357,13 @@ int correction_halo_launch(int open_top, const void* dt, const void* dp,
                            const void* bz, const void* ax, const void* ax_hi,
                            const void* ay, const void* az, const void* vfrac,
                            const void* topo, const void* rho, void* ou, void* ov,
-                           void* ow, void* partial, void* div_max, int nx,
-                           int ny, int nz, float hx, float hy, float hz,
-                           void* stream) {
-  const Halo h = {static_cast<const float*>(dp_lo),
-                  static_cast<const float*>(dp_hi),
-                  static_cast<const float*>(u_hi),
-                  static_cast<const float*>(bx_hi),
-                  static_cast<const float*>(ax_hi)};
-  return launch<true>(h, open_top, dt, dp, u, v, w, bx, by, bz, ax, ay, az,
-                      vfrac, topo, rho, ou, ov, ow, partial, div_max, nx, ny,
-                      nz, hx, hy, hz, stream);
+                           void* ow, void* partial, void* div_max, void* ticket,
+                           int nx, int ny, int nz, double hx, double hy,
+                           double hz, void* stream) {
+  const void* f[14] = {dt, dp, u, v, w, bx, by, bz, ax, ay, az, vfrac, topo, rho};
+  const void* halo[5] = {dp_lo, dp_hi, u_hi, bx_hi, ax_hi};
+  void* out[6] = {ou, ov, ow, partial, div_max, ticket};
+  return launch<true>(open_top, f, halo, out, nx, ny, nz, hx, hy, hz, stream);
 }
 
 }  // extern "C"

@@ -47,9 +47,9 @@
 // count, repeats from run to run, on any card. What this costs: the last
 // block's pass over nx · tiles partials and the ticket's round trip, a
 // tail of a few µs after the march (PERF.md §6). The ticket counter is one
-// per device, owned by the wrapper (ops/kernels/seven_point.py
-// `_ticket`): calls that share it must not overlap, so every apply-dot
-// call runs on one stream. A launch that faults part-way leaves it
+// per device, owned by the wrappers (ops/kernels/_build.py `ticket`) and
+// shared with cheb2.cu and correction.cu: calls that share it must not
+// overlap, so they run on one stream. A launch that faults part-way leaves it
 // non-zero; the process must then start again, as after any CUDA fault.
 //
 // Halo variants (`seven_point_halo_launch`) replace the TPU kernels in

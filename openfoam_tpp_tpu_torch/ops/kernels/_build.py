@@ -129,6 +129,22 @@ def require_f32(what: str, device, *operands) -> None:
                 f"float32 {tuple(shape)} on {device}")
 
 
+_TICKETS: dict = {}
+
+
+def ticket(dev):
+    """The one-launch reductions' ticket counter on `dev` (apply-dot,
+    cheb2 post-dot, correct-divmax): one int32, zeroed once here; each
+    call's last block wraps it back to 0. Calls sharing it must not
+    overlap, so these kernels run on one stream per device."""
+    import torch
+
+    t = _TICKETS.get(dev)
+    if t is None:
+        t = _TICKETS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -10,8 +10,12 @@ face-nx row (the sealed +x wall) comes back as zeros.
 `correct_divmax` launches csrc/correction.cu for CUDA tensors and runs
 `correct_divmax_plain` for CPU tensors; any other device raises. Both
 check their operands first. `correct_divmax.launches` counts kernel
-launches. `correct_velocities_plain` is the correction alone, which the
-step runs on every corrector but the last.
+launches. One launch per call: the kernel finishes the maximum itself
+through the device's ticket counter (`_build.ticket`), and its outputs
+are bitwise those of the plain version on the card (it multiplies by
+1/h rounded as PyTorch rounds it, so the spacing goes to it in double).
+`correct_velocities_plain` is the correction alone, which the step runs
+on every corrector but the last.
 
 `correct_divmax_h` is the per-shard form of the x-sharded step (port of
 correction.py `correct_divmax_h`, with `rho` the cell density as in
@@ -75,14 +79,14 @@ def correct_divmax_plain(dp, u_s, v_s, w_s, beta_f, ax, ay, az, vfrac,
 def _lib():
     lib = _build.load("correction")
     if not getattr(lib, "_typed", False):
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.correction_launch.argtypes = ([ci] + [vp] * 19 + [ci] * 3
-                                          + [cf] * 3 + [vp])
+        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.correction_launch.argtypes = ([ci] + [vp] * 20 + [ci] * 3
+                                          + [cd] * 3 + [vp])
         lib.correction_launch.restype = ci
         lib.correction_num_partials.argtypes = [ci] * 3
         lib.correction_num_partials.restype = ci
-        lib.correction_halo_launch.argtypes = ([ci] + [vp] * 24 + [ci] * 3
-                                               + [cf] * 3 + [vp])
+        lib.correction_halo_launch.argtypes = ([ci] + [vp] * 25 + [ci] * 3
+                                               + [cd] * 3 + [vp])
         lib.correction_halo_launch.restype = ci
         lib._typed = True
     return lib
@@ -116,7 +120,8 @@ def correct_divmax(dp, u_s, v_s, w_s, beta_f, ax, ay, az, vfrac, top_open,
         int(bool(open_top)), _build.ptr(dt), _build.ptr(dp),
         *(_build.ptr(t) for t in (u_s, v_s, w_s, *beta_f, ax, ay, az, vfrac)),
         topo, _build.ptr(rho), *(_build.ptr(o) for o in outs),
-        _build.ptr(partial), _build.ptr(div_max), nx, ny, nz,
+        _build.ptr(partial), _build.ptr(div_max),
+        _build.ptr(_build.ticket(dp.device)), nx, ny, nz,
         *(float(h) for h in spacing), _build.stream_of(dp))
     _build.check(rc, "correct_divmax")
     correct_divmax.launches += 1
@@ -183,7 +188,8 @@ def correct_divmax_h(dp, h_dp_lo, h_dp_hi, u_p, h_u, v_s, w_s, bx_p, h_bx, by,
                                   bx_p, h_bx, by, bz, ax_p, h_ax, ay, az,
                                   vfrac)),
         topo, _build.ptr(rho), *(_build.ptr(o) for o in outs),
-        _build.ptr(partial), _build.ptr(div_max), nx, ny, nz,
+        _build.ptr(partial), _build.ptr(div_max),
+        _build.ptr(_build.ticket(dp.device)), nx, ny, nz,
         *(float(h) for h in spacing), _build.stream_of(dp))
     _build.check(rc, "correct_divmax_h")
     correct_divmax_h.launches += 1

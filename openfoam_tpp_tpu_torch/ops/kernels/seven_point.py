@@ -13,7 +13,9 @@ Each entry point launches its kernel (csrc/seven_point.cu; the cheb2
 smoothers csrc/cheb2.cu) for CUDA tensors and runs its plain PyTorch version (`*_plain`) for CPU tensors;
 any other device raises. The plain version computes in f32 and rounds
 once on output, exactly like the kernel. Each entry point counts its
-kernel launches in `.launches`.
+kernel launches in `.launches`. Every call is one launch: the dots of
+`apply_dot_7pt` and `cheb2_post_dot_7pt` are finished inside it through
+the device's ticket counter (`_build.ticket`).
 
 Parameter sweeps stack many cases on a trailing axis: (nx, ny, nz, B).
 `apply_7pt`, `resid_scaled_7pt` and `apply_dot_7pt` dispatch on rank:
@@ -161,25 +163,12 @@ def _lib():
     return lib
 
 
-_TICKETS: dict = {}
-
-
-def _ticket(dev):
-    """The apply-dot kernels' ticket counter on `dev`: one int32, zeroed
-    once here; each call's last block wraps it back to 0. Calls sharing
-    it must not overlap, so apply-dot runs on one stream per device."""
-    t = _TICKETS.get(dev)
-    if t is None:
-        t = _TICKETS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return t
-
-
 def _dot_scratch(lib, p):
     """(partials, dot, ticket) of one apply-dot launch on p's grid."""
     partial = torch.empty(lib.seven_point_num_partials(*p.shape),
                           dtype=torch.float32, device=p.device)
     dot = torch.empty((), dtype=torch.float32, device=p.device)
-    return partial, dot, _ticket(p.device)
+    return partial, dot, _build.ticket(p.device)
 
 
 def _launch(mode, p, split, diag=None, b=None):
@@ -318,8 +307,8 @@ def _cheb_lib():
     lib = _build.load("cheb2")
     if not getattr(lib, "_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.cheb2_launch.argtypes = ([ci] * 3 + [vp] * 9 + [cf] * 3 + [ci] * 3
-                                     + [vp])
+        lib.cheb2_launch.argtypes = ([ci] * 3 + [vp] * 10 + [cf] * 3
+                                     + [ci] * 3 + [vp])
         lib.cheb2_launch.restype = ci
         lib.cheb2_num_partials.argtypes = [ci] * 3
         lib.cheb2_num_partials.restype = ci
@@ -340,18 +329,19 @@ def _cheb_launch(mode, x, b, split, lmax, lmin_frac, out_dtype):
     lib = _cheb_lib()
     out = torch.empty_like(b, dtype=out_dtype)
     out2 = torch.empty_like(b) if mode == _CHEB_PRE else None
-    partial = dot = None
+    partial = dot = ticket = None
     if mode == _CHEB_POST_DOT:
         partial = torch.empty(lib.cheb2_num_partials(*b.shape),
                               dtype=torch.float32, device=b.device)
         dot = torch.empty((), dtype=torch.float32, device=b.device)
+        ticket = _build.ticket(b.device)
     nul = ctypes.c_void_p(None)
     opt = lambda t: nul if t is None else _build.ptr(t)
     rc = lib.cheb2_launch(
         mode, _DTYPES[b.dtype], _DTYPES[out_dtype], opt(x), _build.ptr(b),
         *(_build.ptr(w) for w in split), _build.ptr(out), opt(out2),
-        opt(partial), opt(dot), *cheb_coefs(lmax, lmin_frac), *b.shape,
-        _build.stream_of(b))
+        opt(partial), opt(dot), opt(ticket), *cheb_coefs(lmax, lmin_frac),
+        *b.shape, _build.stream_of(b))
     _build.check(rc, "cheb2")
     return out, out2, dot
 

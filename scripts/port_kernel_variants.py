@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
 """What bounds the port's redesigned kernels (the FCT limiter, the
-momentum right-hand side, the MULES fluxes and the CG apply-dot), on one
-CUDA device, and how each compares with another design.
+momentum right-hand side, the MULES fluxes, the CG apply-dot, the
+projection epilogue and the fused cheb2 smoothers), on one CUDA device,
+and how each compares with another design.
 
     python3 scripts/port_kernel_variants.py [--source NAME=PATH ...]
+                                            [--only KERNEL ...]
 
 Builds openfoam_tpp_tpu_torch/csrc/mules_fct.cu, momentum_rhs.cu,
-mules_flux.cu and seven_point.cu (its apply-dot mode) as they are and in
+mules_flux.cu, seven_point.cu (its apply-dot mode), correction.cu and
+cheb2.cu (its pre and post-dot modes) as they are and in
 variants that each change one thing, plus each `--source` (a file with
 the same C entry point, such as an earlier revision: `git show
 REV:openfoam_tpp_tpu_torch/csrc/mules_fct.cu > f.cu`; its kernel is told
-by the entry point it defines; an apply-dot source without the ticket
-argument is called without it), and times every build at the flagship's
-112³ shapes on the same seeded inputs: fct_iter with bf16 λ/anti (the
-step's streams), momentum_rhs with dev2 on and zero wall faces, flux_all
-with bf16 uc/anti (the step's), apply_dot_7pt in f32 (CG's). Device time: each timed run of 20 launches (after 3 warm-up) is
+by the entry point it defines; an apply-dot, cheb2 or correction
+source without the ticket argument is called without it), and times
+every build at the flagship's 112³ shapes on the same seeded inputs:
+fct_iter with bf16 λ/anti (the step's streams), momentum_rhs with dev2
+on and zero wall faces, flux_all with bf16 uc/anti (the step's),
+apply_dot_7pt in f32 (CG's), correct_divmax with an open top and zero
+wall faces, cheb2_pre_7pt in bf16 and cheb2_post_dot_7pt from bf16 to
+f32 (the V-cycle's). Device time: each timed run of 20 launches (after 3 warm-up) is
 queued behind a device-side wait long enough for the host to enqueue all
 of them (openfoam_tpp_tpu_torch/utils/devtime.py, chip_smoke.py's
 yardstick too), so the host's ctypes cost per call does not pace it;
@@ -23,7 +29,7 @@ drift of the card's clock favours none. For flux_all and apply_dot_7pt
 every build's halo entry point is also timed as the x-sharded step runs
 it: the 4 launches of one island over 4 x-slabs of the same inputs
 (`island_us`; an apply-dot source whose halo entry takes no running
-dot leaves its shards' partials unsummed). Each build's output is held against the
+dot leaves its shards' partials unsummed); correct_divmax's too. Each build's output is held against the
 unchanged source's. Per build it prints the median µs per call, the
 multiple of the byte bound, the SASS instructions of its main
 instantiation (`cuobjdump -sass`, a static count; for an apply-dot
@@ -64,6 +70,29 @@ Variants:
                                  planes each warp of the last block sums per
                                  batch of the final sum, loads in flight
                                  together (16)
+  correct_divmax IEEE division  the spacing's divisions IEEE-rounded,
+                                 as the earlier design (as built: times
+                                 the f32 reciprocal, bitwise as the plain
+                                 version on the card)
+                IEEE division, zero skipped
+                                 the same, skipped where the dividend is
+                                 ±0 (the result is that zero)
+                tile 16 x 16 / 8 x 32
+                                 (z, y) tiles of 16 × 16 / 8 × 32 cells
+                                 (32 × 8)
+                waves 0.5 / 2.0  as flux_all's
+                3 / 6 / 8 / no blocks per SM
+                                 __launch_bounds__ minimum blocks: at most
+                                 80 / 40 / 32 / any registers (4: 64)
+                unroll 2         the x march unrolled by two planes
+  cheb2_pre_7pt / cheb2_post_dot_7pt
+                block 32 x 8     blocks of 32 × 8 threads, 30 × 6 outputs
+                                 (32 × 16, 30 × 14)
+                waves 0.5 / 2.0  as flux_all's (x chunks of at most 16
+                                 planes)
+                3 / 4 blocks per SM
+                                 __launch_bounds__ minimum blocks: at most
+                                 40 / 32 registers (none)
 
 Writes perf_out/port_kernel_variants.json.
 """
@@ -143,12 +172,48 @@ EDITS["flux_all"]["one-division limiter"] = [(
     + LIMITER,
     "  const float den = fabsf(up) + fabsf(down);\n"
     "  return den > 0.0f ? (up * fabsf(down) + fabsf(up) * down) / den : 0.0f;")]
+OVER_H = "  return d * rh;\n}"
+TILE = "constexpr int kTZ = 32, kTY = 8, kBlock"
+EDITS["correct_divmax"] = {
+    "IEEE division": [(OVER_H, "  return d / h;\n}")],
+    "IEEE division, zero skipped": [(OVER_H,
+                                     "  return d == 0.0f ? d : d / h;\n}")],
+    "tile 16 x 16": [(TILE, "constexpr int kTZ = 16, kTY = 16, kBlock")],
+    "tile 8 x 32": [(TILE, "constexpr int kTZ = 8, kTY = 32, kBlock")],
+    **{f"waves {n}": [(WAVES, WAVES.replace("1.0f", f"{n}f"))]
+       for n in ("0.5", "2.0")},
+    **{f"{n} blocks per SM": [(MINB.replace("6", "4"), MINB.replace("6", n))]
+       for n in "368"},
+    "unroll 2": [("    for (int i = i0; i < i1; ++i) {\n      const int64_t c = i * sx + q;",
+                  "#pragma unroll 2\n    for (int i = i0; i < i1; ++i) {\n"
+                  "      const int64_t c = i * sx + q;")],
+    "no blocks per SM": [("__launch_bounds__(kBlock, kMinBlocks)\ncorrect_divmax_kernel(",
+                          "__launch_bounds__(kBlock)\ncorrect_divmax_kernel(")]}
+CHEB_BOUNDS = "__global__ void __launch_bounds__(kBlock) cheb2_kernel("
+for _k in ("cheb2_pre_7pt", "cheb2_post_dot_7pt"):
+    EDITS[_k] = {
+        "block 32 x 8": [("constexpr int kTZ = 32, kTY = 16;",
+                          "constexpr int kTZ = 32, kTY = 8;")],
+        **{f"waves {n}": [(WAVES, WAVES.replace("1.0f", f"{n}f"))]
+           for n in ("0.5", "2.0")},
+        **{f"{n} blocks per SM": [(CHEB_BOUNDS, CHEB_BOUNDS.replace(
+            "(kBlock)", f"(kBlock, {n})"))] for n in "34"}}
 FLAGS = {"fct_iter": {"fast division": ["-prec-div=false"]},
          "flux_all": {"fast division": ["-prec-div=false"]}}
 ENTRY = {"fct_iter": "mules_fct_launch", "momentum_rhs": "momentum_rhs_launch",
-         "flux_all": "mules_flux_launch", "apply_dot_7pt": "seven_point_launch"}
+         "flux_all": "mules_flux_launch", "apply_dot_7pt": "seven_point_launch",
+         "correct_divmax": "correction_launch",
+         "cheb2_pre_7pt": "cheb2_launch", "cheb2_post_dot_7pt": "cheb2_launch"}
 SOURCE = {"fct_iter": "mules_fct", "momentum_rhs": "momentum_rhs",
-          "flux_all": "mules_flux", "apply_dot_7pt": "seven_point"}
+          "flux_all": "mules_flux", "apply_dot_7pt": "seven_point",
+          "correct_divmax": "correction", "cheb2_pre_7pt": "cheb2",
+          "cheb2_post_dot_7pt": "cheb2"}
+# Each kernel's function giving its scratch size, and whether its entry
+# takes the floats before the grid extents.
+PARTIALS = {"apply_dot_7pt": "seven_point_num_partials",
+            "correct_divmax": "correction_num_partials",
+            "cheb2_post_dot_7pt": "cheb2_num_partials"}
+FLOATS_FIRST = ("cheb2_pre_7pt", "cheb2_post_dot_7pt")
 # Mangled-name fragments of each kernel's main instantiation, any one set
 # of them: fct_iter on bf16 streams, single grid; momentum_rhs with dev2
 # and ∇·U, single grid; flux_all with bf16 uc and anti, single grid;
@@ -158,7 +223,10 @@ MAIN = {"fct_iter": [("fct_iter_kernel", "nv_bfloat16Lb0E")],
         "momentum_rhs": [("momentum_rhs_kernel", "Lb1ELb1ELb0E")],
         "flux_all": [("flux_all_kernel", "I13__nv_bfloat16S", "Lb0E")],
         "apply_dot_7pt": [("apply_dot_kernelIfLb0E",),
-                          ("seven_point_kernelIfLi2ELb0ELb0E",)]}
+                          ("seven_point_kernelIfLi2ELb0ELb0E",)],
+        "correct_divmax": [("correct_divmax_kernelILb1ELb0E",)],
+        "cheb2_pre_7pt": [("cheb2_kernelI13__nv_bfloat16S", "Li0E")],
+        "cheb2_post_dot_7pt": [("cheb2_kernelI13__nv_bfloat16fLi2E",)]}
 # seven_point_launch's apply-dot mode and dtype (f32, unit diagonal).
 APPLY_DOT, F32 = 2, 0
 
@@ -245,6 +313,23 @@ def operands(torch, kernel, dev):
                 for dt in (torch.float32, torch.bfloat16)]
         ins = (alpha, *phis, *ucs)
         return ins, outs, ([1, 1], [*ins, *outs], [])
+    if kernel in FLOATS_FIRST:
+        from openfoam_tpp_tpu_torch.ops.kernels.seven_point import cheb_coefs
+
+        cheb = list(cheb_coefs(2.0, 0.10))   # SolverKnobs' defaults
+        bf = torch.bfloat16
+        x, b = cells(-1, 1, bf), cells(-1, 1, bf)
+        w = [cells(0.05, 0.3, bf) for _ in range(3)]
+        w[0][0], w[1][:, 0], w[2][:, :, 0] = 0, 0, 0
+        if kernel == "cheb2_pre_7pt":
+            outs = [torch.empty_like(b), torch.empty_like(b)]
+            return (b, *w), outs, ([0, 1, 1], [None, b, *w, *outs, None,
+                                               None, "ticket"], cheb)
+        outs = [torch.empty_like(b, dtype=torch.float32),
+                torch.empty((), dtype=torch.float32, device=dev)]
+        return (x, b, *w), outs, ([2, 1, 0], [x, b, *w, outs[0], None,
+                                              "partials", outs[1], "ticket"],
+                                  cheb)
     if kernel == "apply_dot_7pt":
         p = cells(-1, 1)
         w = [cells(0.05, 0.3) for _ in range(3)]
@@ -263,10 +348,39 @@ def operands(torch, kernel, dev):
         f[2][:, :, 0], f[2][:, :, -1] = 0, 0
         return f
 
+    if kernel == "correct_divmax":
+        vel, beta, aps = faces(), faces(), faces()
+        beta = [0.2 + 8e-4 * b.abs() for b in beta]
+        for a in aps:
+            a.abs_()
+            a[a < 0.2] = 0
+        dp, vfrac = cells(-50, 50), cells(0, 1)
+        vfrac[vfrac < 0.1] = 0
+        topo = (cells(0, 1)[:, :, 0] > 0.3).float().contiguous()
+        rho, dt = cells(1, 998), torch.tensor(3.7e-3, device=dev)
+        ins = (dp, *vel, *beta, *aps, vfrac, topo, rho, dt)
+        outs = [torch.empty(s, device=dev) for s in face_shapes] + [
+            torch.empty((), dtype=torch.float32, device=dev)]
+        return ins, outs, ([1], [dt, *ins[:-1], *outs[:3], "partials",
+                                 outs[3], "ticket"], list(SPACING))
     vel, rp = faces(), faces()
     ins = (*vel, *rp, cells(1e-5, 2e-3), cells(-0.1, 0.1))
     outs = [torch.empty(s, device=dev) for s in face_shapes]
     return ins, outs, ([1], [*ins, *outs], list(SPACING))
+
+
+def read_bytes(tensors, plane_only=None):
+    """Bytes a call must move: each tensor once, but of `plane_only`
+    (correct_divmax's cell density, whose top plane alone is read) one
+    (nx, ny) plane."""
+    return sum(t.numel() * t.element_size()
+               // (t.shape[-1] if t is plane_only else 1) for t in tensors)
+
+
+def real_type(entry, text):
+    """The ctypes type of `entry`'s floating-point arguments in `text`."""
+    sig = re.search(rf"int {entry}\(([^)]*)\)", text).group(1)
+    return ctypes.c_double if "double" in sig else ctypes.c_float
 
 
 def runner(torch, _build, kernel, lib_path, text, call):
@@ -276,30 +390,37 @@ def runner(torch, _build, kernel, lib_path, text, call):
     fn = getattr(lib, ENTRY[kernel])
     lead, args, scal = call
     first = next(a for a in args if isinstance(a, torch.Tensor))
-    if kernel == "apply_dot_7pt":
-        lib.seven_point_num_partials.argtypes = [ci] * 3
-        lib.seven_point_num_partials.restype = ci
-        scratch = {
-            "partials": torch.empty(lib.seven_point_num_partials(*SHAPE),
-                                    dtype=torch.float32, device=first.device),
-            "ticket": torch.zeros(1, dtype=torch.int32, device=first.device)}
-        if not re.search(r"int seven_point_launch\([^)]*ticket", text):
+    if any(isinstance(a, str) for a in args):
+        scratch = {"ticket": torch.zeros(1, dtype=torch.int32,
+                                         device=first.device)}
+        if kernel in PARTIALS:
+            count = getattr(lib, PARTIALS[kernel])
+            count.argtypes = [ci] * 3
+            count.restype = ci
+            scratch["partials"] = torch.empty(count(*SHAPE), dtype=torch.float32,
+                                              device=first.device)
+        if not re.search(rf"int {ENTRY[kernel]}\([^)]*ticket", text):
             args = [a for a in args if not (isinstance(a, str) and a == "ticket")]
         args = [scratch[a] if isinstance(a, str) else a for a in args]
-    fn.argtypes = ([ci] * len(lead) + [vp] * len(args) + [ci] * 3
-                   + [cf] * len(scal) + [vp])
+    floats_first = kernel in FLOATS_FIRST
+    ft = real_type(ENTRY[kernel], text)
+    fn.argtypes = ([ci] * len(lead) + [vp] * len(args)
+                   + ([ft] * len(scal) + [ci] * 3 if floats_first
+                      else [ci] * 3 + [ft] * len(scal)) + [vp])
     fn.restype = ci
     ptrs = [ctypes.c_void_p(None) if a is None else _build.ptr(a) for a in args]
     stream = _build.stream_of(first)
+    tail = [*scal, *SHAPE] if floats_first else [*SHAPE, *scal]
 
     def launch():
-        _build.check(fn(*lead, *ptrs, *SHAPE, *scal, stream), lib_path)
+        _build.check(fn(*lead, *ptrs, *tail, stream), lib_path)
     launch.keep = args   # the scratch tensors live as long as the launch
     return launch
 
 
 HALO_ENTRY = {"flux_all": "mules_flux_halo_launch",
-              "apply_dot_7pt": "seven_point_halo_launch"}
+              "apply_dot_7pt": "seven_point_halo_launch",
+              "correct_divmax": "correction_halo_launch"}
 N_SHARDS = 4
 
 
@@ -326,12 +447,35 @@ def island(torch, _build, kernel, lib_path, text, ins, outs):
     for sh in range(N_SHARDS):
         x0, x1 = sh * nxl, (sh + 1) * nxl
         slab = lambda t: t[x0:x1]
+        scal, rho_slab = [], None
         if kernel == "flux_all":
             alpha, phis, ucs = ins[0], ins[1:4], ins[4:7]
             args = [slab(alpha), planes(alpha, x0 - 2, x0),
                     planes(alpha, x1, x1 + 1), *map(slab, phis),
                     *map(slab, ucs), *map(slab, outs)]
             lead = [1, 1]
+        elif kernel == "correct_divmax":
+            dp, (u, v, w), (bx, by, bz) = ins[0], ins[1:4], ins[4:7]
+            (ax, ay, az), (vfrac, topo, rho) = ins[7:10], ins[10:13]
+            # The x faces above the slab: the next shard's first, zeros at
+            # the global end (the sealed wall).
+            hi = lambda t: (planes(t, x1, x1 + 1) if x1 < nx
+                            else torch.zeros_like(t[:1]))
+            count = lib.correction_num_partials
+            count.argtypes = [ci] * 3
+            count.restype = ci
+            part = torch.empty(count(nxl, *SHAPE[1:]), dtype=torch.float32,
+                               device=dp.device)
+            dm = torch.empty((), dtype=torch.float32, device=dp.device)
+            rho_slab = slab(rho)
+            args = [ins[13], slab(dp), planes(dp, x0 - 1, x0),
+                    planes(dp, x1, x1 + 1), slab(u), hi(u), slab(v), slab(w),
+                    slab(bx), hi(bx), slab(by), slab(bz), slab(ax), hi(ax),
+                    slab(ay), slab(az), slab(vfrac), slab(topo), rho_slab,
+                    *(slab(o) for o in outs[:3]), part, dm]
+            if re.search(r"int correction_halo_launch\([^)]*ticket", text):
+                args.append(torch.zeros(1, dtype=torch.int32, device=dp.device))
+            lead, scal = [1], list(SPACING)
         else:
             p, w = ins[0], ins[1:4]
             wx_hi = (planes(w[0], x1, x1 + 1) if x1 < nx
@@ -349,19 +493,21 @@ def island(torch, _build, kernel, lib_path, text, ins, outs):
             dot = d
             lead = [APPLY_DOT, F32, 0]
         keep.append(args)
-        n_bytes += sum(a.numel() * a.element_size() for a in args
-                       if a is not None and a.dim() > 0 and a.numel() > 1
-                       and (kernel != "apply_dot_7pt" or a is not part))
-        fn.argtypes = [ci] * len(lead) + [vp] * len(args) + [ci] * 3 + [vp]
+        n_bytes += read_bytes([
+            a for a in args if a is not None and a.dim() > 0 and a.numel() > 1
+            and (kernel == "flux_all" or a is not part)], rho_slab)
+        fn.argtypes = ([ci] * len(lead) + [vp] * len(args) + [ci] * 3
+                       + [real_type(HALO_ENTRY[kernel], text)] * len(scal)
+                       + [vp])
         fn.restype = ci
         calls.append((lead, [ctypes.c_void_p(None) if a is None
-                             else _build.ptr(a) for a in args]))
+                             else _build.ptr(a) for a in args], scal))
     stream = _build.stream_of(ins[0])
 
     def launch():
-        for lead, ptrs in calls:
-            _build.check(fn(*lead, *ptrs, nxl, SHAPE[1], SHAPE[2], stream),
-                         lib_path)
+        for lead, ptrs, scal in calls:
+            _build.check(fn(*lead, *ptrs, nxl, SHAPE[1], SHAPE[2], *scal,
+                            stream), lib_path)
     launch.keep = keep
     return launch, n_bytes
 
@@ -371,6 +517,8 @@ def main() -> int:
     ap.add_argument("--source", action="append", default=[],
                     help="NAME=PATH of another source with one kernel's C "
                          "interface")
+    ap.add_argument("--only", action="append", default=[], choices=sorted(ENTRY),
+                    help="time only this kernel (repeatable; default all)")
     args = ap.parse_args()
 
     import torch
@@ -383,7 +531,7 @@ def main() -> int:
     from openfoam_tpp_tpu_torch.ops.kernels import _build
     from openfoam_tpp_tpu_torch.utils.devtime import device_ms
 
-    kernels = sorted(ENTRY)
+    kernels = sorted(args.only or ENTRY)
     nvcc = _build.nvcc_path()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     builds = {}   # (kernel, name) → (text, extra flags)
@@ -405,10 +553,11 @@ def main() -> int:
         with open(path) as f:
             text = f.read()
         owner = [k for k in kernels if f"int {ENTRY[k]}(" in text]
-        if len(owner) != 1:
+        if not owner:
             raise SystemExit(f"--source {spec}: defines none of "
                              f"{[ENTRY[k] for k in kernels]}")
-        builds[owner[0], name] = (text, [])
+        for k in owner:
+            builds[k, name] = (text, [])
 
     out_dir = os.path.join(repo, "perf_out", "kernel_variants")
     os.makedirs(out_dir, exist_ok=True)
@@ -432,7 +581,8 @@ def main() -> int:
     report = {"card": card, "shape": SHAPE, "kernels": {}}
     for kernel in kernels:
         ins, outs, call = operands(torch, kernel, dev)
-        n_bytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
+        n_bytes = read_bytes([t for t in (*ins, *outs) if t.dim() > 0],
+                             ins[12] if kernel == "correct_divmax" else None)
         bound_us = n_bytes / HBM_BYTES_PER_S * 1e6
         calls, results, ref = {}, {}, None
         for (k, name), lib in libs.items():

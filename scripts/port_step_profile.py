@@ -3,6 +3,7 @@
 
     python3 scripts/port_step_profile.py [--warm 30] [--steps 5]
                                          [--set OFTPP_SMOOTH_SWEEPS=2 ...]
+                                         [--warm-default]
                                          [--sweep 128 | --sweep-box]
                                          [--spmd 4]
 
@@ -12,7 +13,10 @@ SolverControls(use_pallas=True) (the bench's configuration) and carry_precond,
 `--warm` steps from rest, then traces `--steps` steps with
 torch.profiler. `--set VAR=VALUE` (repeatable) sets an OFTPP_* variable
 while the step is built, e.g. the two-sweep smoother with or without its
-fused kernels (OFTPP_SMOOTH_SWEEPS=2, OFTPP_FUSED_CHEB=0). Prints wall ms/step, device-busy ms/step (the sum of
+fused kernels (OFTPP_SMOOTH_SWEEPS=2, OFTPP_FUSED_CHEB=0);
+`--warm-default` warms up with the default step instead, and builds the
+`--set` step (with a fresh preconditioner bundle) only for the traced
+steps, so that two configurations are traced from the same state. Prints wall ms/step, device-busy ms/step (the sum of
 CUDA kernel times; memcpy/memset included), the device idle share
 1 − busy/wall, kernel launches per step, and the kernels by device
 time. The full table goes to perf_out/port_step_profile.txt.
@@ -44,10 +48,18 @@ def main() -> int:
     ap.add_argument("--sweep", type=int, default=0, metavar="N")
     ap.add_argument("--sweep-box", action="store_true")
     ap.add_argument("--spmd", type=int, default=0, metavar="S")
+    ap.add_argument("--warm-default", action="store_true")
     args = ap.parse_args()
-    for pair in args.set:   # read when the step is built, below
-        var, _, value = pair.partition("=")
-        os.environ[var] = value
+    if args.warm_default and args.sweep:
+        ap.error("--warm-default profiles the single-grid step, not --sweep")
+
+    def set_vars():   # read when the step is built, below
+        for pair in args.set:
+            var, _, value = pair.partition("=")
+            os.environ[var] = value
+
+    if not args.warm_default:
+        set_vars()
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -85,10 +97,14 @@ def main() -> int:
         def step(state, params, precond=None):
             return (*sweep_step(state, params), None)
     else:
-        step = make_step(geom, PhysicalProperties(),
-                         SolverControls(use_pallas=True), carry_precond=True,
-                         spmd=SpmdCtx(args.spmd) if args.spmd else None,
-                         device=dev)
+        def build():
+            return make_step(geom, PhysicalProperties(),
+                             SolverControls(use_pallas=True),
+                             carry_precond=True,
+                             spmd=SpmdCtx(args.spmd) if args.spmd else None,
+                             device=dev)
+
+        step = build()
         params = (CaseParams.make(R=0.002, freq=1.5, duration=10.0, device=dev)
                   if args.sweep_box else
                   CaseParams.make(R=0.004, freq=1.88, duration=20.0,
@@ -97,6 +113,10 @@ def main() -> int:
         bundle = step.init_precond(state)
     for _ in range(args.warm):
         state, d, bundle = step(state, params, precond=bundle)
+    if args.warm_default:
+        set_vars()
+        step = build()
+        bundle = step.init_precond(state)
     torch.cuda.synchronize()
 
     iters = []
@@ -117,7 +137,8 @@ def main() -> int:
     n = args.steps
     what = (f"{args.sweep}-case sweep of " if args.sweep else
             f"{args.spmd}-shard step of " if args.spmd else "")
-    print(f"[profile] {what}{geom.shape}, {n} steps after {args.warm}, "
+    print(f"[profile] {what}{geom.shape}, {n} steps after {args.warm}"
+          f"{' of the default step' if args.warm_default else ''}, "
           f"{' '.join(args.set) or 'defaults'}; p_iters {iters}")
     print(f"  wall {wall / n * 1e3:.3f} ms/step (profiler on); device busy "
           f"{busy_us / n / 1e3:.3f} ms/step; idle share "

@@ -11,7 +11,7 @@ FMA contraction and use the plain versions' operation order), bf16
 outputs to one bf16 ulp, the apply-dot scalar to 1e-5 relative (its sum
 runs in another order than torch.sum); the momentum right-hand side to
 1e-5 of its scale. The fused Chebyshev smoothers chain two stencil passes
-in f32 and round once, like their plain versions: same bounds. The
+in f32 and round once, like their plain versions: bitwise equal. The
 batch-native 7-point kernels (cases on a trailing axis) hold the
 single-grid family's bounds, and a case equals the single-grid kernel on
 that case bitwise. The halo kernels of the x-sharded step hold their
@@ -23,12 +23,19 @@ held at shapes that divide neither, down to one cell across: the flux
 kernel and the apply-dot output bitwise, the apply-dot dot to 1e-5 of the
 plain sum and bitwise from call to call (its ticket counter back at 0
 after every call), the apply-dot island's dot bitwise equal to the
-single-grid kernel's."""
+single-grid kernel's. The cheb2 smoothers (every mode and type pair) and
+the projection epilogue (open and closed top, a NaN in a fluid cell) at
+such shapes too: the smoothers bitwise equal to their plain versions, the
+post-dot's dot repeating bitwise with the ticket back at 0; the epilogue's
+velocities and div max bitwise equal to the plain version on the card
+(both multiply by the f32 reciprocal of the spacing), its islands bitwise
+equal to the single grid."""
 
 import numpy as np
 import pytest
 import torch
 
+from openfoam_tpp_tpu_torch.ops.kernels import _build
 from openfoam_tpp_tpu_torch.ops.kernels import correction as ck
 from openfoam_tpp_tpu_torch.ops.kernels import halo7
 from openfoam_tpp_tpu_torch.ops.kernels import mom_finish as mfk
@@ -124,15 +131,24 @@ def test_batch_seven_point_kernels_match_plain(dev, dtype, cases):
         sp.resid_scaled_7pt_nb(p, w, None, b[..., :1].contiguous())
 
 
-@pytest.mark.parametrize("shape", [SHAPE, (4, 3, 2), (1, 1, 70)])
+# The cheb2 and projection-epilogue kernels march x chunks over (y, z)
+# tiles (30 × 14 outputs, 8 × 32 cells): shapes that divide neither, a z
+# length that is not a multiple of 4, down to one cell across.
+CHEB_EDGES = [SHAPE, (4, 3, 2), (1, 1, 70), (17, 9, 33), (9, 21, 38)]
+
+
+@pytest.mark.parametrize("shape", CHEB_EDGES)
 @pytest.mark.parametrize("dtype,out", [(torch.float32, None),
                                        (torch.bfloat16, None),
                                        (torch.bfloat16, torch.float32)])
 def test_cheb2_kernels_match_plain(dev, dtype, out, shape):
     """Weights with zero domain-boundary faces, as on every real level;
-    shapes down to one cell across, where every neighbour is clamped."""
+    shapes down to one cell across, where every neighbour is clamped.
+    x, r and z bitwise equal to the plain versions (f32 arithmetic in
+    nb_sum's order, rounded once on store); the post-dot's z equal to the
+    post's, its dot within 1e-5 of the plain sum and bitwise over 3
+    calls, the ticket back at 0; one launch per call."""
     rng = np.random.default_rng(5)
-    tol = 1e-6 if (out or dtype) == torch.float32 else 2.0 ** -8
     arr = lambda lo=None, hi=None: torch.from_numpy(
         (rng.standard_normal(shape) if lo is None
          else rng.uniform(lo, hi, shape)).astype(np.float32)).to(dev).to(dtype)
@@ -144,21 +160,25 @@ def test_cheb2_kernels_match_plain(dev, dtype, out, shape):
     for lmin in (0.10, 0.25):
         got = sp.cheb2_pre_7pt(b, w, 2.0, lmin)
         ref = sp.cheb2_pre_7pt_plain(b, w, 2.0, lmin)
-        pre_tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
         for g, r in zip(got, ref):
-            assert g.dtype == r.dtype == dtype and _rel(g, r) <= pre_tol
+            assert g.dtype == r.dtype == dtype and torch.equal(g, r)
         z = sp.cheb2_post_7pt(x, b, w, 2.0, lmin, out_dtype=out)
         z_p = sp.cheb2_post_7pt_plain(x, b, w, 2.0, lmin, out_dtype=out)
-        assert z.dtype == z_p.dtype == (out or dtype) and _rel(z, z_p) <= tol
-        z2, dot = sp.cheb2_post_dot_7pt(x, b, w, 2.0, lmin, out_dtype=out)
+        assert z.dtype == z_p.dtype == (out or dtype) and torch.equal(z, z_p)
         _, dot_p = sp.cheb2_post_dot_7pt_plain(x, b, w, 2.0, lmin,
                                                out_dtype=out)
-        assert torch.equal(z2, z)
-        assert dot.dtype == torch.float32 and dot.device == x.device
-        assert abs(float(dot) - float(dot_p)) <= 1e-5 * abs(float(dot_p))
+        dots = []
+        for _ in range(3):
+            z2, dot = sp.cheb2_post_dot_7pt(x, b, w, 2.0, lmin, out_dtype=out)
+            assert torch.equal(z2, z)
+            assert dot.dtype == torch.float32 and dot.device == x.device
+            assert int(_build.ticket(x.device)[0]) == 0
+            dots.append(float(dot))
+        assert abs(dots[0] - float(dot_p)) <= 1e-5 * abs(float(dot_p))
+        assert dots == [dots[0]] * 3
     n1 = (sp.cheb2_pre_7pt.launches, sp.cheb2_post_7pt.launches,
           sp.cheb2_post_dot_7pt.launches)
-    assert [b_ - a_ for a_, b_ in zip(n0, n1)] == [2, 2, 2]
+    assert [b_ - a_ for a_, b_ in zip(n0, n1)] == [2, 2, 6]
     with pytest.raises(ValueError, match="stores"):
         sp.cheb2_post_7pt(x.float(), b.float(), [v.float() for v in w], 2.0,
                           0.1, out_dtype=torch.bfloat16)
@@ -223,27 +243,49 @@ def test_momentum_rhs_kernel_matches_plain(dev, dev2):
     assert mrk.momentum_rhs.launches == n0 + 1
 
 
+@pytest.mark.parametrize("shape", CHEB_EDGES)
 @pytest.mark.parametrize("open_top", [True, False])
-def test_correct_divmax_kernel_matches_plain(dev, open_top):
+def test_correct_divmax_kernel_matches_plain(dev, open_top, shape):
+    """u_c, v_c, w_c and div max bitwise equal to the plain version on the
+    card (both multiply by 1/h rounded as PyTorch rounds it), the ticket
+    back at 0, one launch per call; a NaN in one fluid cell's dp comes
+    back as a NaN div max."""
     rng = np.random.default_rng(3)
-    dp = _arr(rng, dev, lo=-50, hi=50)
-    vel = _faces(rng, dev, SHAPE)
-    beta = _faces(rng, dev, SHAPE, 8e-4, 1e-3)
-    aps = _faces(rng, dev, SHAPE, 0.0, 1.0)
+    args = _corr_operands(rng, dev, shape, open_top)
+    n0 = ck.correct_divmax.launches
+    got = ck.correct_divmax(*args, open_top=open_top)
+    ref = ck.correct_divmax_plain(*args, open_top=open_top)
+    assert ck.correct_divmax.launches == n0 + 1
+    assert int(_build.ticket(args[0].device)[0]) == 0
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    # A fluid cell above an open interior z face: its NaN reaches that
+    # face's flux, so the divergence of the cells beside it.
+    dp, az, vfrac = args[0].clone(), args[7], args[8]
+    above = torch.zeros_like(vfrac, dtype=torch.bool)
+    above[:, :, 1:] = az[:, :, 1:-1] > 0
+    dp[tuple(torch.nonzero((vfrac > 0) & above)[0])] = float("nan")
+    got = ck.correct_divmax(dp, *args[1:], open_top=open_top)
+    assert torch.isnan(got[3])
+    assert torch.isnan(ck.correct_divmax_plain(dp, *args[1:],
+                                               open_top=open_top)[3])
+    assert int(_build.ticket(dp.device)[0]) == 0
+
+
+def _corr_operands(rng, dev, shape, open_top):
+    dp = _at(rng, dev, shape, lo=-50, hi=50)
+    vel = _faces(rng, dev, shape)
+    _walls(vel)
+    beta = _faces(rng, dev, shape, 8e-4, 1e-3)
+    aps = _faces(rng, dev, shape, 0.0, 1.0)
     for a in aps:
         a[a < 0.2] = 0
     _walls(aps, open_top)
-    vfrac = _arr(rng, dev, lo=0, hi=1)
+    vfrac = _at(rng, dev, shape, lo=0, hi=1)
     vfrac[vfrac < 0.1] = 0
-    topo = (_arr(rng, dev, lo=0, hi=1)[:, :, 0] > 0.3).float().contiguous()
-    rho = _arr(rng, dev, lo=1, hi=998)
+    topo = (_at(rng, dev, shape, lo=0, hi=1)[:, :, 0] > 0.3).float().contiguous()
+    rho = _at(rng, dev, shape, lo=1, hi=998)
     dt = torch.tensor(3.7e-3, device=dev)
-    args = (dp, *vel, beta, *aps, vfrac, topo, rho, dt, (0.011, 0.009, 0.013))
-    got = ck.correct_divmax(*args, open_top=open_top)
-    ref = ck.correct_divmax_plain(*args, open_top=open_top)
-    for g, r in zip(got[:3], ref[:3]):
-        assert _rel(g, r) <= 1e-6
-    assert abs(float(got[3]) - float(ref[3])) <= 1e-6 * float(ref[3])
+    return (dp, *vel, beta, *aps, vfrac, topo, rho, dt, (0.011, 0.009, 0.013))
 
 
 def test_momentum_finish_kernel_matches_plain(dev):
@@ -571,7 +613,7 @@ def _check_dot_calls(p, w, calls=3):
     for _ in range(calls):
         ap, dot = sp.apply_dot_7pt(p, w)
         assert torch.equal(ap, ap_p)
-        assert int(sp._ticket(p.device)[0]) == 0
+        assert int(_build.ticket(p.device)[0]) == 0
         dots.append(float(dot))
     assert abs(dots[0] - float(dot_p)) <= 1e-5 * abs(float(dot_p))
     assert dots == [dots[0]] * calls
@@ -618,7 +660,7 @@ def test_flux_and_apply_dot_islands_at_tiling_edges(dev, dtype, shape):
     args = (CTX4.split(p)[s], lo, hi, wx_hi, tuple(CTX4.split(x)[s] for x in w))
     parts = [float(halo7.apply_dot_7pt_h(*args)[1]) for _ in range(3)]
     assert parts == [parts[0]] * 3
-    assert int(sp._ticket(p.device)[0]) == 0
+    assert int(_build.ticket(p.device)[0]) == 0
     _, part_p = halo7.apply_dot_7pt_h_plain(*args)
     assert abs(parts[0] - float(part_p)) <= 1e-5 * abs(float(part_p))
     acc = torch.tensor(0.25 * parts[0], device=dev)
@@ -639,3 +681,17 @@ def test_flux_and_apply_dot_islands_at_tiling_edges(dev, dtype, shape):
     for g, r in zip(sum(mfx.flux_all_h(*args), ()),
                     sum(mfx.flux_all_h_plain(*args), ())):
         assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("shape", [(8, 11, 37), (72, 9, 33)])
+@pytest.mark.parametrize("open_top", [True, False])
+def test_correct_divmax_island_at_tiling_edges(dev, shape, open_top):
+    """4 shards of the projection epilogue against the single-grid
+    kernel: the velocities and the div max bitwise equal."""
+    rng = np.random.default_rng(17)
+    args = _corr_operands(rng, dev, shape, open_top)
+    n0 = ck.correct_divmax_h.launches
+    got = sm.correct_divmax(*args, CTX4, open_top=open_top)
+    assert ck.correct_divmax_h.launches == n0 + 4
+    ref = ck.correct_divmax(*args, open_top=open_top)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
