@@ -14,7 +14,10 @@ Phases, each fatal on any fault (nothing is caught):
      kernels one call runs (torch.profiler; one for apply-dot and the
      MULES fluxes, the projection epilogue and the cheb2 smoothers); the
      apply-dot and cheb2 post-dot dots and the div max bitwise equal
-     from call to call;
+     from call to call; the batch-native entry points at the sweep's
+     12×12×50×128, and the batch resid also at the V-cycle's coarser
+     6×6×25×128 and 3×3×13×128 levels with its diagonal (one case
+     bitwise equal to the single-grid kernel);
      then the seven halo entry points of the
      x-sharded step on those inputs cut into 4 x-shards: per shard against
      their plain versions, and the shards composed against the single-grid
@@ -621,6 +624,42 @@ def phase_batch_kernels(shape4, dev):
               (p, dots_k), tol)
     log(f"  every case of the batch kernels equals the single-grid kernel on "
         f"that case, bitwise ({n_cases} cases, f32 and bf16)")
+    # The V-cycle's two coarser levels of the sweep, where most of row
+    # 10b's launches run: bf16 with the stored diagonal, against the plain
+    # version and, bitwise, against the single-grid kernel on one case.
+    from openfoam_tpp_tpu_torch.utils.devtime import device_ms
+
+    levels = {}
+    for nx, ny, nz in ((6, 6, 25), (3, 3, 13)):
+        lvl = (nx, ny, nz, n_cases)
+        at = lambda lo=None, hi=None: torch.from_numpy(
+            (rng.standard_normal(lvl) if lo is None
+             else rng.uniform(lo, hi, lvl)).astype(np.float32)
+        ).to(dev).to(torch.bfloat16)
+        p, b, d = at(), at(), at(1.5, 2.5)
+        w = [at(0.05, 0.3) for _ in range(3)]
+        w[0][0], w[1][:, 0], w[2][:, :, 0] = 0, 0, 0
+        kern = lambda: sp.resid_scaled_7pt_nb(p, w, d, b)
+        plain = lambda: sp.resid_scaled_7pt_plain(p, w, d, b)
+        got = kern()
+        err, scale = max_err(got, plain())
+        i = n_cases - 1
+        lane = lambda t: t[..., i].contiguous()
+        same = torch.equal(got[..., i], sp.resid_scaled_7pt(
+            lane(p), [lane(x) for x in w], lane(d), lane(b)))
+        ms, plain_ms = device_ms(kern, REPS), device_ms(plain, REPS)
+        bound = nbytes(p, *w, d, b, got) / HBM_BYTES_PER_S * 1e3
+        tag = "x".join(map(str, lvl))
+        log(f"  resid_scaled_7pt_nb {tag} bf16 diag max_abs_err={err:.3e} "
+            f"rel={err / scale:.3e} tol={BF16_RTOL:.1e}; case {i} "
+            f"{'bitwise' if same else 'NOT bitwise'} equal to the single-grid "
+            f"kernel  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+            f"{bound:.4f} ms")
+        if err / scale > BF16_RTOL or not same:
+            raise AssertionError(f"resid_scaled_7pt_nb {tag}: disagrees")
+        levels[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound}
+    rows["resid_scaled_7pt_nb"]["levels"] = levels
     return rows
 
 
@@ -754,9 +793,11 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
                    for i in held],
                   lambda: sm.apply_7pt(p, w, ctx, diag=diag),
                   lambda: sp.apply_7pt(p, w, diag), tol)
+            # Launched as the island launches them: each shard after the
+            # first chained to the one before it.
             check("resid_scaled_7pt_h", v, tag == "bf16" and diag is None,
-                  [(lambda i=i: halo7.resid_scaled_7pt_h(ps[i], *hw[i], bs[i],
-                                                         dg(i)),
+                  [(lambda i=i: halo7.resid_scaled_7pt_h(
+                      ps[i], *hw[i], bs[i], dg(i), chained=i != held[0]),
                     lambda i=i: halo7.resid_scaled_7pt_h_plain(
                         ps[i], *hw[i], bs[i], dg(i)),
                     (ps[i], *hw[i][:3], *hw[i][3], bs[i], dg(i), ps[i]))
@@ -891,6 +932,10 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
               lambda: ck.correct_divmax(dp, *vel, beta, *aps, vfrac, topo,
                                         rho, dt0, spacing, open_top=open_top),
               F32_RTOL, n_scalar=1, scalar_bitwise=True)
+    r = rows["resid_scaled_7pt_h"]
+    log(f"  resid_scaled_7pt_h island ({n_shards} launches) "
+        f"{r['ms']:.4f} ms beside the single-grid kernel (row 2) "
+        f"{r['single_grid_ms']:.4f} ms: {r['ms'] / r['single_grid_ms']:.2f}x")
     return rows
 
 

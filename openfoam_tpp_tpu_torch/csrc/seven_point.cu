@@ -22,7 +22,11 @@
 // p and the three shifted weight reads hit L1/L2 (planes of 112² cells fit
 // in L2 many times over), so DRAM traffic stays near one read per array.
 // All arithmetic is f32 (bf16 arrays are widened on load and rounded once
-// on store). They run at 1.1× (apply) and 1.9× (bf16 resid) their bound.
+// on store). They run at 1.1× (apply) and 1.8× (bf16 resid) their bound.
+// An x march (apply-dot's, below, without the dot) gave resid no gain in
+// the steps, which the host paces: there every launch meets an idle card,
+// and the grid of one thread per cell, with the most loads in flight,
+// finished first (PERF.md §6).
 //
 // apply-dot (mode 2): one launch, with a dot that repeats bitwise and
 // that the x-sharded island reproduces bitwise. A block owns a 8 × 32
@@ -61,7 +65,13 @@
 // shard's first wxl plane, for the last plane's high-face term
 // wx_hi·h_hi). They never clamp: at the global ends the halo content
 // carries the clamp. Same bytes plus three planes, same bound; the dot is
-// the caller's `acc` (the shards before this one) plus this shard's.
+// the caller's `acc` (the shards before this one) plus this shard's. What
+// a resid island of four 28-plane shards loses against the single grid is
+// each launch's ramp and drain, not bytes: its launches after the first
+// are chained (mode 3) by programmatic dependent launch, so the next
+// shard's blocks start while the last ones drain; each chained launch
+// waits for the one before it before it exits, so the island is complete
+// when its last launch is.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -82,7 +92,7 @@ constexpr int kPerWarp = 16;   // planes per warp per batch of the final sum
 constexpr int kPlanes = kWarps * kPerWarp;
 static_assert(kWarps == 8, "the row tree adds 8 warp sums");
 
-enum Mode { kApply = 0, kResid = 1, kApplyDot = 2 };
+enum Mode { kApply = 0, kResid = 1, kApplyDot = 2, kResidChained = 3 };
 
 __device__ __forceinline__ float ld(const float* a, int64_t i) { return a[i]; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* a, int64_t i) {
@@ -143,6 +153,10 @@ seven_point_kernel(const T* __restrict__ p, const Halo<T> h,
                    const T* __restrict__ wy, const T* __restrict__ wz,
                    const T* __restrict__ diag, const T* __restrict__ b,
                    T* __restrict__ out, int nx, int ny, int nz) {
+  constexpr bool kChain = HALO && MODE == kResid;
+  // A shard's resid launch lets the next shard's start (programmatic
+  // dependent launch; a no-op unless that one is launched chained).
+  if (kChain) asm volatile("griddepcontrol.launch_dependents;");
   const int k = blockIdx.x * kBX + threadIdx.x;
   const int j = blockIdx.y * kBY + threadIdx.y;
   const int i = blockIdx.z;
@@ -162,6 +176,9 @@ seven_point_kernel(const T* __restrict__ p, const Halo<T> h,
     v = DIAG ? ld(diag, c) * pc - nb : pc - nb;
   }
   st(out, c, v);
+  // A chained launch completes only after the launch before it (a no-op
+  // for one that is not chained). Thread (0, 0) of every block gets here.
+  if (kChain) asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
 // The shuffle tree over the 32 lanes of a warp: lane 0 ends with the sum.
@@ -304,6 +321,23 @@ int chunk_planes(K kernel, int tiles, int nx) {
   return cx < kMaxCX ? cx : kMaxCX;
 }
 
+// Launches `kernel` as a programmatic dependent of the launch before it
+// on the stream.
+template <typename... Params, typename... Args>
+void launch_chained(void (*kernel)(Params...), dim3 grid, dim3 block,
+                    cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.stream = stream;
+  cudaLaunchAttribute chain;
+  chain.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  chain.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &chain;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 template <typename T, bool HALO>
 void launch(int mode, int has_diag, const void* p, const void* const* halo,
             const void* wx, const void* wy, const void* wz, const void* diag,
@@ -340,12 +374,13 @@ void launch(int mode, int has_diag, const void* p, const void* const* halo,
       seven_point_kernel<T, kApply, false, HALO><<<grid, block, 0, stream>>>(
           P, H, WX, WY, WZ, D, B, O, nx, ny, nz);
   } else {
-    if (has_diag)
-      seven_point_kernel<T, kResid, true, HALO><<<grid, block, 0, stream>>>(
-          P, H, WX, WY, WZ, D, B, O, nx, ny, nz);
+    const auto kernel = has_diag ? seven_point_kernel<T, kResid, true, HALO>
+                                 : seven_point_kernel<T, kResid, false, HALO>;
+    if (HALO && mode == kResidChained)
+      launch_chained(kernel, grid, block, stream, P, H, WX, WY, WZ, D, B, O,
+                     nx, ny, nz);
     else
-      seven_point_kernel<T, kResid, false, HALO><<<grid, block, 0, stream>>>(
-          P, H, WX, WY, WZ, D, B, O, nx, ny, nz);
+      kernel<<<grid, block, 0, stream>>>(P, H, WX, WY, WZ, D, B, O, nx, ny, nz);
   }
 }
 
@@ -378,7 +413,10 @@ int seven_point_num_partials(int nx, int ny, int nz) {
   return ((nz + kBX - 1) / kBX) * ((ny + kBY - 1) / kBY) * nx;
 }
 
-// mode: 0 apply, 1 resid, 2 apply+dot (unit diagonal only).
+// mode: 0 apply, 1 resid, 2 apply+dot (unit diagonal only); the halo
+// entry also 3: resid chained after the launch before it on the stream
+// (programmatic dependent launch: it may start while that one drains and
+// completes after it, so it must not read that launch's output).
 // dtype: 0 float32, 1 bfloat16. `diag`/`b`/`partial`/`dot`/`ticket` may be
 // null where the mode does not read them; `ticket` is one unsigned
 // counter that is 0 between calls (apply-dot leaves it so).

@@ -13,13 +13,26 @@
 // result equals the single-grid kernel's on that case.
 //
 // What bounds it on the H100: bytes (5 arrays per unit apply, 13 flops per
-// cell). Design: one thread per (cell, case); a warp covers 32 consecutive
-// cases of one cell, so with B a multiple of 32 every load and store is
-// one coalesced 128-byte (f32) line as the data lies; the spatial
-// neighbours are whole rows of B cases at strides B, nz·B and ny·nz·B and
-// hit L1/L2. Any (nx, ny, nz, B) is taken: the ragged edge of B and of nz
-// is masked. All arithmetic is f32 (bf16 widened on load, rounded once on
-// store).
+// cell). Apply and apply-dot: one thread per (cell, case); a warp covers
+// 32 consecutive cases of one cell, so with B a multiple of 32 every load
+// and store is one coalesced 128-byte (f32) line as the data lies; the
+// spatial neighbours are whole rows of B cases at strides B, nz·B and
+// ny·nz·B and hit L1/L2. Any (nx, ny, nz, B) is taken: the ragged edge of
+// B and of nz is masked. All arithmetic is f32 (bf16 widened on load,
+// rounded once on store).
+//
+// Resid (the V-cycle's smoother, most of the sweep's launches), on grids
+// of at least kMarchFrom elements with B even and every pointer aligned
+// for pairs: a thread takes two adjacent cases (one bf16x2 / float2 load,
+// so a warp reads 64 cases, a full 128-byte bf16 line), a block kCC (x, y)
+// columns (one warp a column; one column a block measured fastest), and
+// it marches a chunk of z planes with p at z−1, z, z+1 and wz at z, z+1 in
+// registers, the next plane's loaded one plane ahead; the x and y taps go
+// through L1/L2. The chunk is the fewest planes that keep the launch
+// within kRWaves waves of the card. Per element the arithmetic is
+// `nb_sum`'s, in its order, with the IEEE division by diag: bitwise equal
+// to the one-thread-per-element kernel, which takes every other resid
+// input, and to the single-grid kernel on each case.
 //
 // The per-case dot: a block covers 8 z-cells × 32 cases; its 8 rows are
 // summed in a fixed order in shared memory into one partial per case and
@@ -37,6 +50,14 @@ namespace {
 // the (x, y) columns, grid.y the z chunks, grid.z the case chunks.
 constexpr int kBB = 32, kBZ = 8, kBlock = kBB * kBZ;
 constexpr int kSumRows = 32;   // rows of the second pass's block
+// Resid march: threads along the case pairs, (x, y) columns per block,
+// and the waves of the card one launch is sized to.
+constexpr int kCB = 32, kCC = 1, kRBlock = kCB * kCC;
+constexpr float kRWaves = 1.0f;
+// Grids of fewer elements (cells × cases) take the one-thread-per-element
+// kernel for resid too: in the sweep step it was the faster at the
+// V-cycle's 6×6×25×128 and 3×3×13×128 levels (PERF.md §6).
+constexpr int64_t kMarchFrom = 262144;
 
 enum Mode { kApply = 0, kResid = 1, kApplyDot = 2 };
 
@@ -47,6 +68,29 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* a, int64_t i) {
 __device__ __forceinline__ void st(float* a, int64_t i, float v) { a[i] = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* a, int64_t i, float v) {
   a[i] = __float2bfloat16_rn(v);
+}
+// Two adjacent elements from i (one 8- or 4-byte access; i must be even
+// and the array aligned for it).
+__device__ __forceinline__ void ld2(const float* a, int64_t i, float (&o)[2]) {
+  const float2 t = *reinterpret_cast<const float2*>(a + i);
+  o[0] = t.x;
+  o[1] = t.y;
+}
+__device__ __forceinline__ void ld2(const __nv_bfloat16* a, int64_t i,
+                                    float (&o)[2]) {
+  const __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(a + i);
+  o[0] = __bfloat162float(t.x);
+  o[1] = __bfloat162float(t.y);
+}
+__device__ __forceinline__ void st2(float* a, int64_t i, const float (&v)[2]) {
+  *reinterpret_cast<float2*>(a + i) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* a, int64_t i,
+                                    const float (&v)[2]) {
+  __nv_bfloat162 t;
+  t.x = __float2bfloat16_rn(v[0]);
+  t.y = __float2bfloat16_rn(v[1]);
+  *reinterpret_cast<__nv_bfloat162*>(a + i) = t;
 }
 __device__ __forceinline__ float rounded(float, float v) { return v; }
 __device__ __forceinline__ float rounded(__nv_bfloat16, float v) {
@@ -119,6 +163,118 @@ seven_point_batch_kernel(const T* __restrict__ p, const T* __restrict__ wx,
   }
 }
 
+// b − Â·p, or (b − A·p)/diag, over z planes k0 … k0 + cz − 1 of one
+// (x, y) column and two adjacent cases per thread; the per-element
+// arithmetic is nb_sum's, in its order (the z taps from registers).
+// grid.x walks column groups, grid.y case groups, grid.z z chunks.
+template <typename T, bool DIAG>
+__global__ void __launch_bounds__(kRBlock)
+resid_batch_kernel(const T* __restrict__ p, const T* __restrict__ wx,
+                   const T* __restrict__ wy, const T* __restrict__ wz,
+                   const T* __restrict__ diag, const T* __restrict__ b,
+                   T* __restrict__ out, int nx, int ny, int nz, int nb,
+                   int cz) {
+  const int e0 = (blockIdx.y * kCB + threadIdx.x) * 2;   // first case
+  const int col = blockIdx.x * kCC + threadIdx.y;        // i · ny + j
+  if (e0 >= nb || col >= nx * ny) return;
+  const int i = col / ny;
+  const int j = col - i * ny;
+  const int k0 = blockIdx.z * cz;
+  const int k1 = k0 + cz < nz ? k0 + cz : nz;
+  const int64_t sz = nb, sy = (int64_t)nz * nb, sx = (int64_t)ny * sy;
+  int64_t c = col * sy + k0 * sz + e0;
+  // p at z−1 (clamped), z and z+1; wz at z and z+1.
+  float pm[2], pc[2], pp[2], wzc[2], wzp[2];
+  ld2(p, k0 > 0 ? c - sz : c, pm);
+  ld2(p, c, pc);
+  ld2(wz, c, wzc);
+  if (k0 + 1 < nz) {
+    ld2(p, c + sz, pp);
+    ld2(wz, c + sz, wzp);
+  } else {
+    for (int e = 0; e < 2; ++e) pp[e] = wzp[e] = 0.0f;
+  }
+  for (int k = k0; k < k1; ++k, c += sz) {
+    float pn[2], wzn[2], xm[2], xh[2], ym[2], yh[2], wxc[2], wyc[2];
+    float bc[2], dc[2], v[2];
+    if (k + 2 < nz && k + 1 < k1) {
+      ld2(p, c + 2 * sz, pn);
+      ld2(wz, c + 2 * sz, wzn);
+    } else {
+      for (int e = 0; e < 2; ++e) pn[e] = wzn[e] = 0.0f;
+    }
+    ld2(p, i > 0 ? c - sx : c, xm);
+    if (i + 1 < nx) {
+      float wn[2], pnb[2];
+      ld2(wx, c + sx, wn);
+      ld2(p, c + sx, pnb);
+      for (int e = 0; e < 2; ++e) xh[e] = wn[e] * pnb[e];
+    } else {
+      for (int e = 0; e < 2; ++e) xh[e] = 0.0f;
+    }
+    ld2(p, j > 0 ? c - sy : c, ym);
+    if (j + 1 < ny) {
+      float wn[2], pnb[2];
+      ld2(wy, c + sy, wn);
+      ld2(p, c + sy, pnb);
+      for (int e = 0; e < 2; ++e) yh[e] = wn[e] * pnb[e];
+    } else {
+      for (int e = 0; e < 2; ++e) yh[e] = 0.0f;
+    }
+    ld2(wx, c, wxc);
+    ld2(wy, c, wyc);
+    ld2(b, c, bc);
+    if (DIAG) ld2(diag, c, dc);
+    const bool up = k + 1 < nz;
+    for (int e = 0; e < 2; ++e) {
+      float s = wxc[e] * xm[e];
+      s = s + xh[e];
+      s = s + wyc[e] * ym[e];
+      s = s + yh[e];
+      s = s + wzc[e] * pm[e];
+      s = s + (up ? wzp[e] * pp[e] : 0.0f);
+      v[e] = DIAG ? (bc[e] - (dc[e] * pc[e] - s)) / dc[e]
+                  : bc[e] - (pc[e] - s);
+      pm[e] = pc[e];
+      pc[e] = pp[e];
+      wzc[e] = wzp[e];
+      pp[e] = pn[e];
+      wzp[e] = wzn[e];
+    }
+    st2(out, c, v);
+  }
+}
+
+// The resid march: chunks of z planes sized so that the launch stays
+// within kRWaves waves of the current device at the kernel's occupancy
+// (asked at every launch), and within grid.z's limit.
+template <typename T, bool DIAG>
+void launch_resid(const T* p, const T* wx, const T* wy, const T* wz,
+                  const T* diag, const T* b, T* out, int nx, int ny, int nz,
+                  int nb, cudaStream_t stream) {
+  const auto kernel = resid_batch_kernel<T, DIAG>;
+  const int gx = (int)(((int64_t)nx * ny + kCC - 1) / kCC);
+  const int gy = (nb + kCB * 2 - 1) / (kCB * 2);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRBlock, 0);
+  int64_t chunks = (int64_t)(kRWaves * (float)(sms * per_sm)) /
+                   ((int64_t)gx * gy);
+  chunks = chunks < 1 ? 1 : (chunks > nz ? nz : chunks);
+  int cz = (int)((nz + chunks - 1) / chunks);
+  if ((nz + cz - 1) / cz > 65535) cz = (nz + 65534) / 65535;
+  const dim3 grid(gx, gy, (nz + cz - 1) / cz);
+  kernel<<<grid, dim3(kCB, kCC), 0, stream>>>(p, wx, wy, wz, diag, b, out, nx,
+                                              ny, nz, nb, cz);
+}
+
+// Whether every pointer is a multiple of n bytes (a null pointer is).
+template <typename... P>
+bool aligned(uintptr_t n, P... ptrs) {
+  return ((reinterpret_cast<uintptr_t>(ptrs) % n == 0) && ...);
+}
+
 // Per case: fixed-order sum of its `n` per-block partials. Block: 32 cases
 // × kSumRows rows; row r sums partials r, r + kSumRows, ...; then the rows
 // are summed in order.
@@ -161,6 +317,12 @@ void launch(int mode, int has_diag, const void* p, const void* wx,
     else
       seven_point_batch_kernel<T, kApply, false><<<grid, block, 0, stream>>>(
           P, WX, WY, WZ, D, B, O, partial, nx, ny, nz, nb);
+  } else if (mode == kResid && (int64_t)nx * ny * nz * nb >= kMarchFrom &&
+             nb % 2 == 0 && aligned(2 * sizeof(T), P, WX, WY, WZ, D, B, O)) {
+    if (has_diag)
+      launch_resid<T, true>(P, WX, WY, WZ, D, B, O, nx, ny, nz, nb, stream);
+    else
+      launch_resid<T, false>(P, WX, WY, WZ, D, B, O, nx, ny, nz, nb, stream);
   } else if (mode == kResid) {
     if (has_diag)
       seven_point_batch_kernel<T, kResid, true><<<grid, block, 0, stream>>>(

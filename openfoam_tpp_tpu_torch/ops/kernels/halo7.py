@@ -26,7 +26,11 @@ no kept output reads are zero.
 
 `out=` (optional) takes a contiguous tensor of p's shape and dtype, a
 slab view of the island's global output, and the result is written into
-it. Each entry point counts its kernel launches in `.launches`.
+it. `resid_scaled_7pt_h(..., chained=True)` launches its kernel as a
+programmatic dependent of the launch before it on the stream (the
+island's launch for the shard before): its blocks may start while that
+launch drains, and it completes only after it. Each entry point counts
+its kernel launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ import torch
 from openfoam_tpp_tpu_torch.ops.kernels import _build
 from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
 from openfoam_tpp_tpu_torch.ops.stencil import sum_cells
+
+_RESID_CHAINED = 3   # the C entry's mode for a chained resid launch
 
 
 def _extend(p, h_lo, h_hi, wx_hi, split, *extra, fill=0.0):
@@ -131,14 +137,20 @@ def apply_7pt_h(p, h_lo, h_hi, wx_hi, split, diag=None, out=None):
     return res
 
 
-def resid_scaled_7pt_h(p, h_lo, h_hi, wx_hi, split, b, diag=None, out=None):
-    """(b − A·p)/diag (b − Â·p with `diag=None`) on one shard."""
+def resid_scaled_7pt_h(p, h_lo, h_hi, wx_hi, split, b, diag=None, out=None,
+                       chained=False):
+    """(b − A·p)/diag (b − Â·p with `diag=None`) on one shard.
+    `chained`: this call comes right after the island's resid launch for
+    the shard before it, on the same stream, and reads nothing that launch
+    writes; the kernel is then launched as its programmatic dependent (it
+    may start while that launch drains, and completes only after it), so
+    the island is complete when its last launch is."""
     if _build.route(p, "resid_scaled_7pt_h") == "cpu":
         return resid_scaled_7pt_h_plain(p, h_lo, h_hi, wx_hi, split, b, diag,
                                         out)
     _check(p, h_lo, h_hi, wx_hi, split, diag, b, out=out)
-    res, _ = _launch(sp._RESID, p, h_lo, h_hi, wx_hi, split, diag=diag, b=b,
-                     out=out)
+    res, _ = _launch(_RESID_CHAINED if chained else sp._RESID, p, h_lo, h_hi,
+                     wx_hi, split, diag=diag, b=b, out=out)
     resid_scaled_7pt_h.launches += 1
     return res
 

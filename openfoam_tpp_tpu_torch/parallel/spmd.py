@@ -170,7 +170,8 @@ def apply_7pt(p, split, ctx: SpmdCtx, diag=None):
 
 
 def resid_scaled_7pt(p, split, ctx: SpmdCtx, b, diag=None):
-    """(b − A·p)/diag (or b − Â·p), per shard with ±1 halos of p."""
+    """(b − A·p)/diag (or b − Â·p), per shard with ±1 halos of p; each
+    shard's launch after the first is chained to the one before it."""
     ps, ws, halos, wx_hi = _seven_point_halos(p, split, ctx)
     bs = ctx.split(b)
     ds = None if diag is None else ctx.split(diag)
@@ -180,7 +181,7 @@ def resid_scaled_7pt(p, split, ctx: SpmdCtx, b, diag=None):
         halo7.resid_scaled_7pt_h(ps[s], *halos[s], wx_hi[s],
                                  tuple(w[s] for w in ws), bs[s],
                                  diag=None if ds is None else ds[s],
-                                 out=outs[s])
+                                 out=outs[s], chained=s != ctx.held[0])
     return out
 
 

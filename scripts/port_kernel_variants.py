@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """What bounds the port's redesigned kernels (the FCT limiter, the
 momentum right-hand side, the MULES fluxes, the CG apply-dot, the
-projection epilogue and the fused cheb2 smoothers), on one CUDA device,
-and how each compares with another design.
+projection epilogue, the fused cheb2 smoothers and the V-cycle
+residual's halo and batch forms), on one CUDA device, and how each
+compares with another design.
 
     python3 scripts/port_kernel_variants.py [--source NAME=PATH ...]
                                             [--only KERNEL ...]
@@ -20,7 +21,16 @@ fct_iter with bf16 λ/anti (the step's streams), momentum_rhs with dev2
 on and zero wall faces, flux_all with bf16 uc/anti (the step's),
 apply_dot_7pt in f32 (CG's), correct_divmax with an open top and zero
 wall faces, cheb2_pre_7pt in bf16 and cheb2_post_dot_7pt from bf16 to
-f32 (the V-cycle's). Device time: each timed run of 20 launches (after 3 warm-up) is
+f32 (the V-cycle's). The V-cycle residual b − Â·p or (b − A·p)/diag
+(mode 1 of seven_point.cu and seven_point_batch.cu) runs in cases
+instead: `resid_scaled_7pt_h` as the x-sharded step's island (4 halo
+launches over x-slabs of the 112³ inputs) and as the single-grid kernel
+at 112³, 14³ and 4³, `resid_scaled_7pt_nb` at the sweep's three levels
+(12×12×50, 6×6×25, 3×3×13, 128 cases); every case in f32 and bf16, unit
+and with diagonal, each build's output held bitwise against the
+unchanged source's; timed in bf16, the island unit and with diagonal, the
+single grid and the sweep unit at the top level, with diagonal below.
+Device time: each timed run of 20 launches (after 3 warm-up) is
 queued behind a device-side wait long enough for the host to enqueue all
 of them (openfoam_tpp_tpu_torch/utils/devtime.py, chip_smoke.py's
 yardstick too), so the host's ctypes cost per call does not pace it;
@@ -93,6 +103,18 @@ Variants:
                 3 / 4 blocks per SM
                                  __launch_bounds__ minimum blocks: at most
                                  40 / 32 registers (none)
+  resid_scaled_7pt_h
+                no dependent launch
+                                 each island launch waits for the one
+                                 before it to end (as built: chained by
+                                 programmatic dependent launch)
+  resid_scaled_7pt_nb
+                2 / 4 columns    (x, y) columns per block (1)
+                waves 2.0        z chunks sized for two waves of the card
+                                 at the kernel's occupancy (one)
+                march at every size
+                                 (as built: grids below 262,144 elements
+                                 on the one-thread-per-element kernel)
 
 Writes perf_out/port_kernel_variants.json.
 """
@@ -198,16 +220,30 @@ for _k in ("cheb2_pre_7pt", "cheb2_post_dot_7pt"):
            for n in ("0.5", "2.0")},
         **{f"{n} blocks per SM": [(CHEB_BOUNDS, CHEB_BOUNDS.replace(
             "(kBlock)", f"(kBlock, {n})"))] for n in "34"}}
+EDITS["resid_scaled_7pt_h"] = {"no dependent launch": [(
+    "chain.val.programmaticStreamSerializationAllowed = 1;",
+    "chain.val.programmaticStreamSerializationAllowed = 0;")]}
+BCOLS = "constexpr int kCB = 32, kCC = 1,"
+EDITS["resid_scaled_7pt_nb"] = {
+    **{f"{n} columns": [(BCOLS, BCOLS.replace("kCC = 1", f"kCC = {n}"))]
+       for n in (2, 4)},
+    "waves 2.0": [("constexpr float kRWaves = 1.0f;",
+                   "constexpr float kRWaves = 2.0f;")],
+    "march at every size": [("constexpr int64_t kMarchFrom = 262144;",
+                             "constexpr int64_t kMarchFrom = 0;")]}
 FLAGS = {"fct_iter": {"fast division": ["-prec-div=false"]},
          "flux_all": {"fast division": ["-prec-div=false"]}}
 ENTRY = {"fct_iter": "mules_fct_launch", "momentum_rhs": "momentum_rhs_launch",
          "flux_all": "mules_flux_launch", "apply_dot_7pt": "seven_point_launch",
          "correct_divmax": "correction_launch",
-         "cheb2_pre_7pt": "cheb2_launch", "cheb2_post_dot_7pt": "cheb2_launch"}
+         "cheb2_pre_7pt": "cheb2_launch", "cheb2_post_dot_7pt": "cheb2_launch",
+         "resid_scaled_7pt_h": "seven_point_halo_launch",
+         "resid_scaled_7pt_nb": "seven_point_batch_launch"}
 SOURCE = {"fct_iter": "mules_fct", "momentum_rhs": "momentum_rhs",
           "flux_all": "mules_flux", "apply_dot_7pt": "seven_point",
           "correct_divmax": "correction", "cheb2_pre_7pt": "cheb2",
-          "cheb2_post_dot_7pt": "cheb2"}
+          "cheb2_post_dot_7pt": "cheb2", "resid_scaled_7pt_h": "seven_point",
+          "resid_scaled_7pt_nb": "seven_point_batch"}
 # Each kernel's function giving its scratch size, and whether its entry
 # takes the floats before the grid extents.
 PARTIALS = {"apply_dot_7pt": "seven_point_num_partials",
@@ -226,7 +262,12 @@ MAIN = {"fct_iter": [("fct_iter_kernel", "nv_bfloat16Lb0E")],
                           ("seven_point_kernelIfLi2ELb0ELb0E",)],
         "correct_divmax": [("correct_divmax_kernelILb1ELb0E",)],
         "cheb2_pre_7pt": [("cheb2_kernelI13__nv_bfloat16S", "Li0E")],
-        "cheb2_post_dot_7pt": [("cheb2_kernelI13__nv_bfloat16fLi2E",)]}
+        "cheb2_post_dot_7pt": [("cheb2_kernelI13__nv_bfloat16fLi2E",)],
+        "resid_scaled_7pt_h": [
+            ("seven_point_kernelI13__nv_bfloat16Li1ELb0ELb1E",)],
+        "resid_scaled_7pt_nb": [
+            ("resid_batch_kernelI13__nv_bfloat16Lb0E",),
+            ("seven_point_batch_kernelI13__nv_bfloat16Li1ELb0E",)]}
 # seven_point_launch's apply-dot mode and dtype (f32, unit diagonal).
 APPLY_DOT, F32 = 2, 0
 
@@ -243,20 +284,28 @@ def build(name, text, extra, out_dir, nvcc, flags):
                             stderr=subprocess.STDOUT, text=True), lib
 
 
-def is_main(kernel, fn):
-    return any(all(part in fn for part in parts) for parts in MAIN[kernel])
+def main_parts(kernel, names):
+    """The first of MAIN[kernel]'s fragment sets that a function named in
+    `names` matches (a build holds one design's instantiations)."""
+    return next((parts for parts in MAIN[kernel]
+                 if any(all(p in fn for p in parts) for fn in names)), ())
+
+
+def is_main(parts, fn):
+    return bool(parts) and all(p in fn for p in parts)
 
 
 def sass_count(kernel, lib, cuobjdump):
     """SASS instructions of the main instantiation in `lib`."""
     out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                          text=True, check=True).stdout
+    parts = main_parts(kernel, re.findall(r"Function : (\S+)", out))
     count, fn = 0, None
     for line in out.splitlines():
         m = re.match(r"\s+Function : (\S+)", line)
         if m:
             fn = m.group(1)
-        elif fn and is_main(kernel, fn) and re.match(
+        elif fn and is_main(parts, fn) and re.match(
                 r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line):
             count += 1
     return count
@@ -265,13 +314,15 @@ def sass_count(kernel, lib, cuobjdump):
 def ptxas_report(kernel, log):
     """Registers, spill bytes and static shared memory of the main
     instantiation, from nvcc's `-Xptxas -v` output."""
+    pattern = r"(?:Compiling entry function|Function properties for) '?([\w$]+)"
+    parts = main_parts(kernel, re.findall(pattern, log))
     rep, fn = {}, None
     for line in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        m = re.search(pattern, line)
         if m:
             fn = m.group(1)
             continue
-        if not fn or not is_main(kernel, fn):
+        if not fn or not is_main(parts, fn):
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -512,6 +563,151 @@ def island(torch, _build, kernel, lib_path, text, ins, outs):
     return launch, n_bytes
 
 
+RESID = ("resid_scaled_7pt_h", "resid_scaled_7pt_nb")
+# The V-cycle residual's cases: (form, shape, the (dtype, diag) pairs
+# timed); every form is run in f32 and bf16, unit and with diagonal, and
+# held bitwise against the unchanged source. "island": the x-sharded
+# step's 4 halo launches over x-slabs; "single": the single-grid kernel
+# (row 2: the top level of the default step, unit, and two coarse levels
+# with their diagonal); "batch": the sweep's three levels, 128 cases.
+RESID_CASES = {
+    "resid_scaled_7pt_h": [("island", SHAPE, [("bf16", False), ("bf16", True)]),
+                           ("single", SHAPE, [("bf16", False)]),
+                           ("single", (14, 14, 14), [("bf16", True)]),
+                           ("single", (4, 4, 4), [("bf16", True)])],
+    "resid_scaled_7pt_nb": [("batch", (12, 12, 50, 128), [("bf16", False)]),
+                            ("batch", (6, 6, 25, 128), [("bf16", True)]),
+                            ("batch", (3, 3, 13, 128), [("bf16", True)])]}
+
+
+def resid_operands(torch, shape, dtype, diag, seed, dev):
+    """(p, (wx, wy, wz), diag or None, b, out): seeded, zero wall faces."""
+    rng = np.random.default_rng(seed)
+
+    def cells(lo=None, hi=None):
+        a = rng.standard_normal(shape) if lo is None else rng.uniform(lo, hi, shape)
+        return torch.from_numpy(a.astype(np.float32)).to(dev).to(dtype)
+
+    p, b = cells(), cells()
+    w = [cells(0.05, 0.3) for _ in range(3)]
+    w[0][0], w[1][:, 0], w[2][:, :, 0] = 0, 0, 0
+    d = cells(1.5, 2.5) if diag else None
+    return p, tuple(w), d, b, torch.full_like(p, float("nan"))
+
+
+def resid_launch(torch, _build, lib_path, text, form, p, w, d, b, out):
+    """(launch, bytes) of one resid call of `form` with the build at
+    `lib_path` (source `text`): mode 1 of its C entry point, an island
+    being N_SHARDS halo launches over x-slabs with the global-end halos the
+    island fills, each after the first chained to the one before it (mode
+    3) where the source chains launches."""
+    lib = ctypes.CDLL(lib_path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    ptr = lambda t: ctypes.c_void_p(None) if t is None else _build.ptr(t)
+    head = [1, 0 if p.dtype == torch.float32 else 1, int(d is not None)]
+    stream = _build.stream_of(p)
+    n_bytes = read_bytes([t for t in (p, *w, d, b, out) if t is not None])
+    if form == "single":
+        fn = lib.seven_point_launch
+        fn.argtypes = [ci] * 3 + [vp] * 10 + [ci] * 3 + [vp]
+        calls, keep = [(*head, *map(ptr, (p, *w, d, b, out, None, None,
+                                          None)), *p.shape, stream)], []
+    elif form == "batch":
+        fn = lib.seven_point_batch_launch
+        fn.argtypes = [ci] * 3 + [vp] * 9 + [ci] * 4 + [vp]
+        calls, keep = [(*head, *map(ptr, (p, *w, d, b, out, None, None)),
+                        *p.shape, stream)], []
+    else:
+        fn = lib.seven_point_halo_launch
+        fn.argtypes = [ci] * 3 + [vp] * 14 + [ci] * 3 + [vp]
+        nx = p.shape[0]
+        nxl = nx // N_SHARDS
+        plane = lambda t, q: t[min(max(q, 0), nx - 1)][None].contiguous()
+        calls, keep = [], []
+        for sh in range(N_SHARDS):
+            x0, x1 = sh * nxl, (sh + 1) * nxl
+            halo = (plane(p, x0 - 1), plane(p, x1),
+                    plane(w[0], x1) if x1 < nx else torch.zeros_like(w[0][:1]))
+            keep.append(halo)
+            n_bytes += read_bytes(halo)
+            slab = lambda t: None if t is None else t[x0:x1]
+            chained = sh > 0 and "griddepcontrol" in text
+            calls.append((3 if chained else 1, *head[1:],
+                          *map(ptr, (slab(p), *halo, *map(slab, w),
+                                            slab(d), slab(b), slab(out), None,
+                                            None, None, None)),
+                          nxl, *p.shape[1:], stream))
+
+    def launch():
+        for args in calls:
+            _build.check(fn(*args), lib_path)
+    launch.keep = (p, w, d, b, out, keep)   # alive as long as the launch
+    return launch, n_bytes
+
+
+def time_resid(torch, _build, device_ms, kernel, libs, texts, logs, cuobjdump,
+               dev):
+    """Every build of `kernel` on RESID_CASES: outputs held bitwise against
+    the unchanged source's in every case, the timed cases in ROUNDS
+    rounds of alternating order. Prints and returns the report."""
+    names = [name for k, name in libs if k == kernel]
+    builds = {name: {"sass_main": sass_count(kernel, libs[kernel, name],
+                                             cuobjdump),
+                     **ptxas_report(kernel, logs[kernel, name]),
+                     "bitwise_vs_as_built": True} for name in names}
+    cases, timed = [], []
+    for n_case, (form, shape, times) in enumerate(RESID_CASES[kernel]):
+        for tag, diag in (("f32", False), ("f32", True), ("bf16", False),
+                          ("bf16", True)):
+            dtype = torch.float32 if tag == "f32" else torch.bfloat16
+            p, w, d, b, out = resid_operands(torch, shape, dtype, diag,
+                                             2024 + n_case, dev)
+            label = (f"{form} {'x'.join(map(str, shape))} {tag} "
+                     f"{'diag' if diag else 'unit'}")
+            calls, ref = {}, None
+            for name in names:
+                launch, n_bytes = resid_launch(
+                    torch, _build, libs[kernel, name], texts[kernel, name],
+                    form, p, w, d, b, out)
+                out.fill_(float("nan"))
+                launch()
+                torch.cuda.synchronize()
+                got = out.clone()
+                if ref is None:
+                    ref = got
+                if not torch.equal(got, ref):
+                    builds[name]["bitwise_vs_as_built"] = False
+                    print(f"{kernel}: {name} differs from as built in {label}",
+                          flush=True)
+                calls[name] = launch
+            cases.append({"case": label, "bytes": n_bytes,
+                          "bound_us": n_bytes / HBM_BYTES_PER_S * 1e6,
+                          "us": {name: [] for name in names}})
+            if (tag, diag) in times:
+                timed.append((cases[-1], calls))
+    for rnd in range(ROUNDS):
+        for case, calls in timed:
+            for name in (names if rnd % 2 == 0 else names[::-1]):
+                case["us"][name].append(device_ms(calls[name], REPS) * 1e3)
+    for name in names:
+        r = builds[name]
+        print(f"{kernel:19s} {name:22s} bitwise vs as built "
+              f"{r['bitwise_vs_as_built']}  SASS {r['sass_main']}  regs "
+              f"{r.get('registers')}  spills {r.get('spill_store_bytes')}/"
+              f"{r.get('spill_load_bytes')} B  static smem "
+              f"{r.get('static_smem_bytes')} B", flush=True)
+    for case, _ in timed:
+        for name in names:
+            us = case["us"][name]
+            med = float(np.median(us))
+            case.setdefault("median_us", {})[name] = med
+            print(f"  {case['case']:28s} {name:22s} {med:8.2f} us median of "
+                  f"{ROUNDS} ({min(us):.2f}-{max(us):.2f})  "
+                  f"{med / case['bound_us']:5.2f}x its {case['bound_us']:.2f} us "
+                  f"bound", flush=True)
+    return {"builds": builds, "cases": [c for c in cases if c["us"][names[0]]]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", action="append", default=[],
@@ -580,6 +776,13 @@ def main() -> int:
     card = f"{card_name}, {power} W"
     report = {"card": card, "shape": SHAPE, "kernels": {}}
     for kernel in kernels:
+        if kernel in RESID:
+            report["kernels"][kernel] = time_resid(
+                torch, _build, device_ms, kernel, libs,
+                {key: t for key, (t, _) in builds.items()}, logs, cuobjdump,
+                dev)
+            print(f"{kernel}: {card}", flush=True)
+            continue
         ins, outs, call = operands(torch, kernel, dev)
         n_bytes = read_bytes([t for t in (*ins, *outs) if t.dim() > 0],
                              ins[12] if kernel == "correct_divmax" else None)

@@ -5,7 +5,7 @@
                                          [--set OFTPP_SMOOTH_SWEEPS=2 ...]
                                          [--warm-default]
                                          [--sweep 128 | --sweep-box]
-                                         [--spmd 4]
+                                         [--spmd 4] [--variant KERNEL:NAME]
 
 Runs the flagship case (H0.208/D0.2/R0.004/f1.88, mesh 0.00185,
 round_to=8 → 112³) through openfoam_tpp_tpu_torch's `make_step` with
@@ -19,7 +19,10 @@ fused kernels (OFTPP_SMOOTH_SWEEPS=2, OFTPP_FUSED_CHEB=0);
 steps, so that two configurations are traced from the same state. Prints wall ms/step, device-busy ms/step (the sum of
 CUDA kernel times; memcpy/memset included), the device idle share
 1 − busy/wall, kernel launches per step, and the kernels by device
-time. The full table goes to perf_out/port_step_profile.txt.
+time. Device busy is the time at least one kernel runs (the union of
+the kernels' intervals); the kernel time summed is printed beside it
+(the two differ where kernels overlap, as the x-sharded step's chained
+resid launches do). The full table goes to perf_out/port_step_profile.txt.
 
 `--sweep N` profiles the sweep step instead: N cases of the default tank
 (H 0.1, D 0.02, mesh 0.002, round_to=4 → 12×12×50 each, forcing rows
@@ -30,14 +33,62 @@ case axis trailing. `--sweep-box` profiles the solo step of one such case
 `--spmd S` profiles the flagship's x-sharded step, `make_step(...,
 spmd=SpmdCtx(S))`: S x-slabs of the grid on the one card, each island a
 halo kernel per slab.
+
+`--variant KERNEL:NAME` profiles the step with one of
+scripts/port_kernel_variants.py's source variants of a kernel (its
+`EDITS[KERNEL][NAME]`, e.g. `resid_scaled_7pt_nb:2 columns`): the
+package is copied to perf_out/variant_trees/ with that edit made to
+the kernel's source, and the step runs from the copy, so the variant is
+measured where the step runs it.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import re
+import shutil
 import sys
 import time
+
+
+def variant_tree(repo, spec):
+    """A copy of the package under perf_out/variant_trees/ whose kernel
+    source carries the edits of port_kernel_variants.EDITS for `spec`
+    (KERNEL:NAME); returns the copy's root."""
+    from port_kernel_variants import EDITS, SOURCE
+
+    kernel, _, name = spec.partition(":")
+    root = os.path.join(repo, "perf_out", "variant_trees",
+                        re.sub(r"\W+", "_", spec))
+    pkg = os.path.join(root, "openfoam_tpp_tpu_torch")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(repo, "openfoam_tpp_tpu_torch"), pkg,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    src = os.path.join(pkg, "csrc", f"{SOURCE[kernel]}.cu")
+    with open(src) as f:
+        text = f.read()
+    for old, new in EDITS[kernel][name]:
+        if text.count(old) != 1:
+            raise SystemExit(f"--variant {spec}: its edit does not match")
+        text = text.replace(old, new)
+    with open(src, "w") as f:
+        f.write(text)
+    return root
+
+
+def busy_union_us(events, cuda):
+    """µs in which at least one of the trace's device events runs."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == cuda)
+    total, start, end = 0.0, None, None
+    for s, e in spans:
+        if end is None or s > end:
+            total += 0.0 if end is None else end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    return total + (0.0 if end is None else end - start)
 
 
 def main() -> int:
@@ -49,6 +100,7 @@ def main() -> int:
     ap.add_argument("--sweep-box", action="store_true")
     ap.add_argument("--spmd", type=int, default=0, metavar="S")
     ap.add_argument("--warm-default", action="store_true")
+    ap.add_argument("--variant", metavar="KERNEL:NAME")
     args = ap.parse_args()
     if args.warm_default and args.sweep:
         ap.error("--warm-default profiles the single-grid step, not --sweep")
@@ -68,7 +120,8 @@ def main() -> int:
         print("port_step_profile: no CUDA device", file=sys.stderr)
         return 2
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, repo)
+    sys.path.insert(0, repo if args.variant is None
+                    else variant_tree(repo, args.variant))
     from openfoam_tpp_tpu_torch.config import PhysicalProperties, SolverControls
     from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
     from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
@@ -132,16 +185,20 @@ def main() -> int:
                 else "cuda_time_total")
     kernels = [e for e in events if getattr(e, dev_attr) > 0
                and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(getattr(e, dev_attr) for e in kernels)
+    summed_us = sum(getattr(e, dev_attr) for e in kernels)
+    busy_us = busy_union_us(prof.events(), torch.autograd.DeviceType.CUDA)
     n_launch = sum(e.count for e in kernels)
     n = args.steps
     what = (f"{args.sweep}-case sweep of " if args.sweep else
             f"{args.spmd}-shard step of " if args.spmd else "")
     print(f"[profile] {what}{geom.shape}, {n} steps after {args.warm}"
           f"{' of the default step' if args.warm_default else ''}, "
-          f"{' '.join(args.set) or 'defaults'}; p_iters {iters}")
+          f"{' '.join(args.set) or 'defaults'}"
+          f"{f'; variant {args.variant}' if args.variant else ''}; p_iters "
+          f"{iters}")
     print(f"  wall {wall / n * 1e3:.3f} ms/step (profiler on); device busy "
-          f"{busy_us / n / 1e3:.3f} ms/step; idle share "
+          f"{busy_us / n / 1e3:.3f} ms/step (kernel time summed "
+          f"{summed_us / n / 1e3:.3f}); idle share "
           f"{1 - busy_us / 1e6 / wall:.4f}; device ops {n_launch / n:.1f}/step")
     kernels.sort(key=lambda e: -getattr(e, dev_attr))
     lines = [f"{getattr(e, dev_attr) / n / 1e3:9.4f} ms/step  "
@@ -150,6 +207,7 @@ def main() -> int:
         print("  " + line)
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)
     tag = "".join("_" + pair for pair in args.set) + (
+        "_" + re.sub(r"\W+", "_", args.variant) if args.variant else "") + (
         f"_sweep{args.sweep}" if args.sweep else
         "_sweep_box" if args.sweep_box else
         f"_spmd{args.spmd}" if args.spmd else "")

@@ -29,7 +29,14 @@ such shapes too: the smoothers bitwise equal to their plain versions, the
 post-dot's dot repeating bitwise with the ticket back at 0; the epilogue's
 velocities and div max bitwise equal to the plain version on the card
 (both multiply by the f32 reciprocal of the spacing), its islands bitwise
-equal to the single grid."""
+equal to the single grid. The V-cycle residual: its island, with the
+launches after the first chained, bitwise equal to the single-grid
+kernel at slabs of 2, 3 and 18 planes and of 3 planes of a wide grid,
+and complete for the plain op that reads it next; its batch form (a z
+march over case pairs from 2**18 elements) at odd and small B, short z
+and single columns, below and at that size, within the family's bounds
+of its plain version and bitwise equal to the single-grid kernel on
+every case, unaligned operands included."""
 
 import numpy as np
 import pytest
@@ -695,3 +702,103 @@ def test_correct_divmax_island_at_tiling_edges(dev, shape, open_top):
     assert ck.correct_divmax_h.launches == n0 + 4
     ref = ck.correct_divmax(*args, open_top=open_top)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+# The resid island (launches chained): ISLAND_EDGES, and slabs of 3
+# planes of a grid of many (y, z) blocks.
+RESID_ISLANDS = ISLAND_EDGES + [(12, 264, 1024)]
+
+
+@pytest.mark.parametrize("shape", RESID_ISLANDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resid_island_at_tiling_edges(dev, dtype, shape):
+    """4 shards of the resid halo kernel, unit and with diagonal: bitwise
+    equal to the single-grid kernel, four launches per island call."""
+    rng = np.random.default_rng(18)
+    p, w = _dot_operands(rng, dev, shape, dtype)
+    b = _at(rng, dev, shape, dtype)
+    d = _at(rng, dev, shape, dtype, 1.5, 2.5)
+    for diag in (None, d):
+        n0 = halo7.resid_scaled_7pt_h.launches
+        got = sm.resid_scaled_7pt(p, w, CTX4, b, diag=diag)
+        assert halo7.resid_scaled_7pt_h.launches == n0 + 4
+        assert torch.equal(got, sp.resid_scaled_7pt(p, w, diag, b))
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose data starts one element past an
+    aligned address."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _batch_shape(kind, cases, march):
+    """(nx, ny, nz) of `kind`, small, or with `march` with enough cells
+    that the batch reaches the 2**18 elements (cells × cases) from which
+    the batch resid marches (csrc/seven_point_batch.cu kMarchFrom)."""
+    nx, ny, nz = {"nz < 8": (5, 4, 3), "nz = 50": (4, 3, 50),
+                  "nx = ny = 1": (1, 1, 20)}[kind]
+    if not march:
+        return nx, ny, nz
+    cells = -(-(1 << 18) // cases)
+    if kind == "nx = ny = 1":
+        return 1, 1, cells
+    return -(-cells // (ny * nz)), ny, nz
+
+
+@pytest.mark.parametrize("march", [False, True])
+@pytest.mark.parametrize("cases", [1, 3, 63, 64, 130])
+@pytest.mark.parametrize("kind", ["nz < 8", "nz = 50", "nx = ny = 1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resid_batch_kernel_at_edges(dev, dtype, kind, cases, march):
+    """The batch resid kernel at odd and small B, nz < 8, nz = 50 and
+    nx = ny = 1, below and at the size from which it marches (two cases a
+    thread where B is even and the operands aligned, else one thread per
+    element), unit and with diagonal: against the plain version (the
+    single-grid family's bounds), every case bitwise equal to the
+    single-grid kernel on that case, and unaligned operands give the same
+    bits."""
+    rng = np.random.default_rng(19)
+    shape4 = _batch_shape(kind, cases, march) + (cases,)
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    p, w = _dot_operands(rng, dev, shape4, dtype)
+    b = _at(rng, dev, shape4, dtype)
+    d = _at(rng, dev, shape4, dtype, 1.5, 2.5)
+    lane = lambda t, i: None if t is None else t[..., i].contiguous()
+    for diag in (None, d):
+        n0 = sp.resid_scaled_7pt_nb.launches
+        got = sp.resid_scaled_7pt(p, w, diag, b)
+        assert sp.resid_scaled_7pt_nb.launches == n0 + 1
+        assert _rel(got, sp.resid_scaled_7pt_plain(p, w, diag, b)) <= tol
+        for i in range(cases):
+            one = sp.resid_scaled_7pt(lane(p, i), [lane(x, i) for x in w],
+                                      lane(diag, i), lane(b, i))
+            assert torch.equal(got[..., i], one)
+        odd = sp.resid_scaled_7pt_nb(
+            _misaligned(p), [_misaligned(x) for x in w],
+            None if diag is None else _misaligned(diag), _misaligned(b))
+        assert torch.equal(odd, got)
+
+
+def test_resid_island_is_complete_for_the_next_op(dev):
+    """The island's shard launches after the first are chained to the one
+    before it (programmatic dependent launch). Plain PyTorch ops issued
+    right after the island see every shard's values: 20 islands at the
+    flagship's 112³ (four 28-plane shards) on changing right-hand sides,
+    unit and with diagonal, each followed at once by a copy and a sum of
+    its output, against the single-grid kernel."""
+    rng = np.random.default_rng(20)
+    shape = (112, 112, 112)
+    p, w = _dot_operands(rng, dev, shape, torch.bfloat16)
+    b0 = _at(rng, dev, shape)
+    d = _at(rng, dev, shape, torch.bfloat16, 1.5, 2.5)
+    for n in range(20):
+        b = (b0 * (n + 1)).to(torch.bfloat16)
+        diag = d if n % 2 else None
+        got = sm.resid_scaled_7pt(p, w, CTX4, b, diag=diag)
+        copy, total = got.clone(), got.float().sum()
+        ref = sp.resid_scaled_7pt(p, w, diag, b)
+        assert torch.equal(copy, ref)
+        assert float(total) == float(ref.float().sum())
