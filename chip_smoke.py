@@ -11,10 +11,10 @@ Phases, each fatal on any fault (nothing is caught):
      with zero wall faces; print errors beside tolerances, kernel / plain
      device times (20 launches queued behind a device-side wait, so the
      host's cost per call does not pace them), bytes, bounds and the CUDA
-     kernels one call runs (torch.profiler; one for apply-dot and the
-     MULES fluxes, the projection epilogue and the cheb2 smoothers); the
-     apply-dot and cheb2 post-dot dots and the div max bitwise equal
-     from call to call; the batch-native entry points at the sweep's
+     kernels one call runs (torch.profiler; one for apply-dot and its
+     batch form, the MULES fluxes, the projection epilogue and the cheb2
+     smoothers); the apply-dot and cheb2 post-dot dots and the div max
+     bitwise equal from call to call; the batch-native entry points at the sweep's
      12×12×50×128, and the batch resid also at the V-cycle's coarser
      6×6×25×128 and 3×3×13×128 levels with its diagonal (one case
      bitwise equal to the single-grid kernel);
@@ -66,7 +66,8 @@ Phases, each fatal on any fault (nothing is caught):
      12×12×50 per case, 921,600 cells in the batch) with the case axis
      trailing. `make_sweep_step` (one geometry, 128 forcing rows) for
      N_SWEEP steps from rest: alpha bounds, Courant, every case's
-     p_iters, finiteness, and that the batch-native 7-point kernels ran
+     p_iters (logged as histograms: the slowest case's per step, and
+     every case's), finiteness, and that the batch-native 7-point kernels ran
      while the single-grid 7-point, MULES, momentum and correction
      kernels were launched 0 times. Then the lockstep geometry step
      (`make_geom_sweep_step`, what `runsweep` runs) on the same rows:
@@ -262,7 +263,8 @@ def max_err(got, ref):
 
 
 # Entry points whose every call is one CUDA kernel launch (checked).
-ONE_LAUNCH = ("apply_dot_7pt", "apply_dot_7pt_h", "flux_all", "flux_all_h",
+ONE_LAUNCH = ("apply_dot_7pt", "apply_dot_7pt_h", "apply_dot_7pt_nb",
+              "flux_all", "flux_all_h",
               "correct_divmax", "correct_divmax_h", "cheb2_pre_7pt",
               "cheb2_post_7pt", "cheb2_post_dot_7pt")
 # The host API calls that launch a kernel, as the profiler names them.
@@ -1419,11 +1421,14 @@ def drive_sweep(label, step, states, params, n_steps, n_timed, n_fluid,
     a_max = float(torch.stack([d.alpha_max for d in diags]).max())
     hist = {int(k): int(v)
             for k, v in zip(*np.unique(iters.max(axis=1), return_counts=True))}
+    case_hist = {int(k): int(v)
+                 for k, v in zip(*np.unique(iters, return_counts=True))}
     t = states.t.cpu().numpy()
     stats = {"cases": int(t.shape[0]), "steps": n_steps,
              "timed_steps": n_timed, "ms_per_step": wall / n_timed * 1e3,
              "agg_cell_updates_per_s": n_fluid * n_timed / wall,
-             "p_iters_max_hist": hist, "p_iters_mean": float(iters.mean()),
+             "p_iters_max_hist": hist, "p_iters_case_hist": case_hist,
+             "p_iters_mean": float(iters.mean()),
              "max_courant": co, "sim_t_min": float(t.min()),
              "sim_t_max": float(t.max()),
              "launches_per_step": {k: v / n_steps
@@ -1435,6 +1440,7 @@ def drive_sweep(label, step, states, params, n_steps, n_timed, n_fluid,
     log(f"  slowest case's p_iters per step {hist} (mean over cases "
         f"{iters.mean():.2f}); max Courant {co:.4f}; alpha in "
         f"[{a_min:.3e}, {a_max:.6f}]")
+    log(f"  p_iters of every case and step {case_hist}")
     log(f"  kernel launches { {k: v for k, v in launches.items() if v} }")
     fields = (states.alpha, states.u, states.v, states.w, states.p)
     if not all(bool(torch.isfinite(v).all()) for v in fields):

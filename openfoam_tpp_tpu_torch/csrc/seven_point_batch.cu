@@ -13,13 +13,13 @@
 // result equals the single-grid kernel's on that case.
 //
 // What bounds it on the H100: bytes (5 arrays per unit apply, 13 flops per
-// cell). Apply and apply-dot: one thread per (cell, case); a warp covers
-// 32 consecutive cases of one cell, so with B a multiple of 32 every load
-// and store is one coalesced 128-byte (f32) line as the data lies; the
-// spatial neighbours are whole rows of B cases at strides B, nz·B and
-// ny·nz·B and hit L1/L2. Any (nx, ny, nz, B) is taken: the ragged edge of
-// B and of nz is masked. All arithmetic is f32 (bf16 widened on load,
-// rounded once on store).
+// cell). Apply: one thread per (cell, case); a warp covers 32 consecutive
+// cases of one cell, so with B a multiple of 32 every load and store is
+// one coalesced 128-byte (f32) line as the data lies; the spatial
+// neighbours are whole rows of B cases at strides B, nz·B and ny·nz·B and
+// hit L1/L2. Any (nx, ny, nz, B) is taken: the ragged edge of B and of nz
+// is masked. All arithmetic is f32 (bf16 widened on load, rounded once on
+// store).
 //
 // Resid (the V-cycle's smoother, most of the sweep's launches), on grids
 // of at least kMarchFrom elements with B even and every pointer aligned
@@ -34,11 +34,27 @@
 // to the one-thread-per-element kernel, which takes every other resid
 // input, and to the single-grid kernel on each case.
 //
-// The per-case dot: a block covers 8 z-cells × 32 cases; its 8 rows are
-// summed in a fixed order in shared memory into one partial per case and
-// block, (n_blocks, B) in all, and a second kernel sums each case's
-// partials in a fixed order. No float atomics: the dots, and so every
-// lane's CG iteration count, repeat from run to run.
+// Apply-dot (the sweep CG's curvature step): one launch for any input. A
+// block is one (x, y) column and 32 consecutive cases, one case a thread;
+// warp w of its kDZ takes the column's planes w, w + kDZ, …, each with
+// `nb_sum`'s products and add order, so Â·p is bitwise equal to the
+// single-grid kernel on each case. A thread adds its case's p·(Â·p) in
+// plane order, and the block adds its warps' sums in warp order into one
+// partial per (column, case), partial[column · B + case]. Each block then
+// fences and takes a ticket from its case group's counter:
+// atomicInc(counter, columns − 1) wraps it back to 0 by itself. The
+// block that draws a group's last ticket sums the group's partials with
+// all its warps: warp w adds columns w, w + kDZ, … in order, kDSlotRuns
+// loads in flight a thread, and the warps' sums are added in warp order.
+// No float atomics: the dots, and so every case's CG iteration count,
+// repeat bitwise from run to run, in an order set by the shape alone. At
+// the sweep's 12×12×50×128 on an H100 the main pass takes ~7.3 µs, the
+// partials and tickets ~1.2 and the last blocks' sums ~1.4 (PERF.md §6,
+// where a z march, unrolled plane loops and one last block for all cases
+// are measured slower). The counters are the device's ticket buffer
+// (ops/kernels/_build.py `ticket`, one counter a case group), shared with
+// seven_point.cu, cheb2.cu and correction.cu, so these calls run on one
+// stream.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -49,7 +65,10 @@ namespace {
 // Block: 32 cases (one warp, contiguous) × 8 cells along z. grid.x walks
 // the (x, y) columns, grid.y the z chunks, grid.z the case chunks.
 constexpr int kBB = 32, kBZ = 8, kBlock = kBB * kBZ;
-constexpr int kSumRows = 32;   // rows of the second pass's block
+// Apply-dot: warps per block (each a set of z planes), and partials a
+// thread of a case group's last block loads at once.
+constexpr int kDZ = 8, kDBlock = 32 * kDZ;
+constexpr int kDSlotRuns = 3;
 // Resid march: threads along the case pairs, (x, y) columns per block,
 // and the waves of the card one launch is sized to.
 constexpr int kCB = 32, kCC = 1, kRBlock = kCB * kCC;
@@ -124,15 +143,13 @@ __global__ void __launch_bounds__(kBlock)
 seven_point_batch_kernel(const T* __restrict__ p, const T* __restrict__ wx,
                          const T* __restrict__ wy, const T* __restrict__ wz,
                          const T* __restrict__ diag, const T* __restrict__ b,
-                         T* __restrict__ out, float* __restrict__ partial,
-                         int nx, int ny, int nz, int nb) {
+                         T* __restrict__ out, int nx, int ny, int nz, int nb) {
   const int lane = blockIdx.z * kBB + threadIdx.x;   // case
   const int k = blockIdx.y * kBZ + threadIdx.y;
   const int i = blockIdx.x / ny;
   const int j = blockIdx.x - i * ny;
   const int64_t sz = nb, sy = (int64_t)nz * nb, sx = (int64_t)ny * sy;
   const int64_t c = i * sx + j * sy + k * sz + lane;
-  float dot = 0.0f;
   if (lane < nb && k < nz) {
     const float pc = ld(p, c);
     const float nbs = nb_sum(p, wx, wy, wz, c, i, j, k, nx, ny, nz, sx, sy, sz);
@@ -148,18 +165,6 @@ seven_point_batch_kernel(const T* __restrict__ p, const T* __restrict__ wx,
       v = DIAG ? ld(diag, c) * pc - nbs : pc - nbs;
     }
     st(out, c, v);
-    if (MODE == kApplyDot) dot = pc * rounded(T(), v);
-  }
-  if (MODE == kApplyDot) {
-    __shared__ float sh[kBZ][kBB];
-    sh[threadIdx.y][threadIdx.x] = dot;
-    __syncthreads();
-    if (threadIdx.y == 0 && lane < nb) {
-      float acc = sh[0][threadIdx.x];
-      for (int r = 1; r < kBZ; ++r) acc = acc + sh[r][threadIdx.x];
-      const int64_t blk = blockIdx.y + (int64_t)gridDim.y * blockIdx.x;
-      partial[blk * nb + lane] = acc;
-    }
   }
 }
 
@@ -275,32 +280,98 @@ bool aligned(uintptr_t n, P... ptrs) {
   return ((reinterpret_cast<uintptr_t>(ptrs) % n == 0) && ...);
 }
 
-// Per case: fixed-order sum of its `n` per-block partials. Block: 32 cases
-// × kSumRows rows; row r sums partials r, r + kSumRows, ...; then the rows
-// are summed in order.
-__global__ void __launch_bounds__(kBB * kSumRows)
-sum_partials_batch_kernel(const float* __restrict__ partial, int n, int nb,
-                          float* __restrict__ out) {
-  __shared__ float sh[kSumRows][kBB];
-  const int lane = blockIdx.x * kBB + threadIdx.x;
+// The shuffle tree over the 32 lanes of a warp: lane 0 ends with the sum.
+__device__ __forceinline__ float warp_tree(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Â·p and the per-case p·Â·p (unit diagonal) of one (x, y) column
+// (blockIdx.x) and 32 consecutive cases (blockIdx.y), one case a thread:
+// warp w takes planes w, w + kDZ, …, each with nb_sum's arithmetic, and
+// adds its p·(Â·p) in plane order. The block's warps' sums go in warp
+// order to partial[column · B + case]; the block that draws its case
+// group's last ticket sums the group's partials into dots (see the
+// header).
+template <typename T>
+__global__ void __launch_bounds__(kDBlock)
+apply_dot_batch_kernel(const T* __restrict__ p, const T* __restrict__ wx,
+                       const T* __restrict__ wy, const T* __restrict__ wz,
+                       T* __restrict__ out, float* __restrict__ partial,
+                       unsigned* __restrict__ ticket, float* __restrict__ dots,
+                       int nx, int ny, int nz, int nb) {
+  __shared__ float rows[kDZ][32];
+  __shared__ bool last;
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int e = blockIdx.y * 32 + lane;   // case
+  const int col = blockIdx.x;             // i · ny + j
+  const int cols = gridDim.x;
+  const int i = col / ny;
+  const int j = col - i * ny;
+  const int64_t sz = nb, sy = (int64_t)nz * nb, sx = (int64_t)ny * sy;
   float acc = 0.0f;
-  if (lane < nb)
-    for (int r = threadIdx.y; r < n; r += kSumRows)
-      acc = acc + partial[(int64_t)r * nb + lane];
-  sh[threadIdx.y][threadIdx.x] = acc;
+  if (e < nb) {
+    for (int k = warp; k < nz; k += kDZ) {
+      const int64_t c = col * sy + k * sz + e;
+      const float pc = ld(p, c);
+      const float v =
+          pc - nb_sum(p, wx, wy, wz, c, i, j, k, nx, ny, nz, sx, sy, sz);
+      st(out, c, v);
+      acc = acc + pc * rounded(T(), v);
+    }
+  }
+  rows[warp][lane] = acc;
   __syncthreads();
-  if (threadIdx.y == 0 && lane < nb) {
-    float s = sh[0][threadIdx.x];
-    for (int r = 1; r < kSumRows; ++r) s = s + sh[r][threadIdx.x];
-    out[lane] = s;
+  if (warp == 0 && e < nb) {
+    const int used = nz < kDZ ? nz : kDZ;
+    float s = rows[0][lane];
+    for (int r = 1; r < used; ++r) s = s + rows[r][lane];
+    partial[(int64_t)col * nb + e] = s;
+    __threadfence();   // visible before this block's ticket
+  }
+  __syncthreads();
+  // The case group's own counter: its last block sums the group's dots.
+  const unsigned nblocks = gridDim.x;
+  if (lane == 0 && warp == 0) {
+    last = atomicInc(ticket + blockIdx.y, nblocks - 1) == nblocks - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  // Every partial of the group is written. Warp w adds columns w,
+  // w + kDZ, … of its lane's case in order, kDSlotRuns of them a pass with
+  // their loads issued together; then the warps' sums are added in warp
+  // order.
+  float s = 0.0f;
+  if (e < nb) {
+    const float* row = partial + e;
+    for (int m0 = warp; m0 < cols; m0 += kDZ * kDSlotRuns) {
+      float v[kDSlotRuns];
+#pragma unroll
+      for (int t = 0; t < kDSlotRuns; ++t) {
+        const int m = m0 + kDZ * t;
+        v[t] = m < cols ? __ldcg(row + (int64_t)m * nb) : 0.0f;
+      }
+#pragma unroll
+      for (int t = 0; t < kDSlotRuns; ++t)
+        if (m0 + kDZ * t < cols) s = s + v[t];
+    }
+  }
+  rows[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && e < nb) {
+    const int used = cols < kDZ ? cols : kDZ;
+    float d = rows[0][lane];
+    for (int r = 1; r < used; ++r) d = d + rows[r][lane];
+    dots[e] = d;
   }
 }
 
 template <typename T>
 void launch(int mode, int has_diag, const void* p, const void* wx,
             const void* wy, const void* wz, const void* diag, const void* b,
-            void* out, float* partial, float* dots, int nx, int ny, int nz,
-            int nb, cudaStream_t stream) {
+            void* out, float* partial, unsigned* ticket, float* dots, int nx,
+            int ny, int nz, int nb, cudaStream_t stream) {
   const dim3 block(kBB, kBZ);
   const dim3 grid(nx * ny, (nz + kBZ - 1) / kBZ, (nb + kBB - 1) / kBB);
   const T* P = static_cast<const T*>(p);
@@ -313,10 +384,10 @@ void launch(int mode, int has_diag, const void* p, const void* wx,
   if (mode == kApply) {
     if (has_diag)
       seven_point_batch_kernel<T, kApply, true><<<grid, block, 0, stream>>>(
-          P, WX, WY, WZ, D, B, O, partial, nx, ny, nz, nb);
+          P, WX, WY, WZ, D, B, O, nx, ny, nz, nb);
     else
       seven_point_batch_kernel<T, kApply, false><<<grid, block, 0, stream>>>(
-          P, WX, WY, WZ, D, B, O, partial, nx, ny, nz, nb);
+          P, WX, WY, WZ, D, B, O, nx, ny, nz, nb);
   } else if (mode == kResid && (int64_t)nx * ny * nz * nb >= kMarchFrom &&
              nb % 2 == 0 && aligned(2 * sizeof(T), P, WX, WY, WZ, D, B, O)) {
     if (has_diag)
@@ -326,16 +397,14 @@ void launch(int mode, int has_diag, const void* p, const void* wx,
   } else if (mode == kResid) {
     if (has_diag)
       seven_point_batch_kernel<T, kResid, true><<<grid, block, 0, stream>>>(
-          P, WX, WY, WZ, D, B, O, partial, nx, ny, nz, nb);
+          P, WX, WY, WZ, D, B, O, nx, ny, nz, nb);
     else
       seven_point_batch_kernel<T, kResid, false><<<grid, block, 0, stream>>>(
-          P, WX, WY, WZ, D, B, O, partial, nx, ny, nz, nb);
+          P, WX, WY, WZ, D, B, O, nx, ny, nz, nb);
   } else {
-    seven_point_batch_kernel<T, kApplyDot, false><<<grid, block, 0, stream>>>(
-        P, WX, WY, WZ, D, B, O, partial, nx, ny, nz, nb);
-    const int n_blocks = (int)(grid.x * grid.y);
-    sum_partials_batch_kernel<<<grid.z, dim3(kBB, kSumRows), 0, stream>>>(
-        partial, n_blocks, nb, dots);
+    apply_dot_batch_kernel<T><<<dim3(nx * ny, (nb + 31) / 32),
+                                dim3(32, kDZ), 0, stream>>>(
+        P, WX, WY, WZ, O, partial, ticket, dots, nx, ny, nz, nb);
   }
 }
 
@@ -344,33 +413,38 @@ void launch(int mode, int has_diag, const void* p, const void* wx,
 extern "C" {
 
 // Number of per-case partial rows apply-dot needs on an (nx, ny, nz, ·)
-// grid: the scratch buffer holds that many rows of B floats.
+// grid: the scratch buffer holds that many rows of B floats (one per
+// (x, y) column).
 int seven_point_batch_num_partials(int nx, int ny, int nz) {
-  return ((nz + kBZ - 1) / kBZ) * nx * ny;
+  (void)nz;
+  return nx * ny;
 }
 
 // mode: 0 apply, 1 resid, 2 apply+dot (unit diagonal only).
-// dtype: 0 float32, 1 bfloat16. `diag`/`b`/`partial`/`dots` may be null
-// where the mode does not read them. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a grid the launch cannot index.
+// dtype: 0 float32, 1 bfloat16. `diag`/`b`/`partial`/`ticket`/`dots` may be
+// null where the mode does not read them; `ticket` holds ceil(B/32)
+// unsigned counters, one per 32 cases, each 0 between calls (apply-dot
+// leaves them so). Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a grid the launch cannot index.
 int seven_point_batch_launch(int mode, int dtype, int has_diag, const void* p,
                              const void* wx, const void* wy, const void* wz,
                              const void* diag, const void* b, void* out,
-                             void* partial, void* dots, int nx, int ny, int nz,
-                             int nb, void* stream) {
+                             void* partial, void* dots, void* ticket, int nx,
+                             int ny, int nz, int nb, void* stream) {
   if (nx < 1 || ny < 1 || nz < 1 || nb < 1 ||
       (int64_t)nx * ny > 2147483647LL || (nz + kBZ - 1) / kBZ > 65535 ||
       (nb + kBB - 1) / kBB > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
+  unsigned* tk = static_cast<unsigned*>(ticket);
   float* d = static_cast<float*>(dots);
   if (dtype == 0)
-    launch<float>(mode, has_diag, p, wx, wy, wz, diag, b, out, part, d, nx, ny,
-                  nz, nb, s);
+    launch<float>(mode, has_diag, p, wx, wy, wz, diag, b, out, part, tk, d, nx,
+                  ny, nz, nb, s);
   else
-    launch<__nv_bfloat16>(mode, has_diag, p, wx, wy, wz, diag, b, out, part, d,
-                          nx, ny, nz, nb, s);
+    launch<__nv_bfloat16>(mode, has_diag, p, wx, wy, wz, diag, b, out, part,
+                          tk, d, nx, ny, nz, nb, s);
   return (int)cudaGetLastError();
 }
 

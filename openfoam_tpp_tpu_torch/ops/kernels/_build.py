@@ -132,16 +132,18 @@ def require_f32(what: str, device, *operands) -> None:
 _TICKETS: dict = {}
 
 
-def ticket(dev):
-    """The one-launch reductions' ticket counter on `dev` (apply-dot,
-    cheb2 post-dot, correct-divmax): one int32, zeroed once here; each
-    call's last block wraps it back to 0. Calls sharing it must not
+def ticket(dev, n=1):
+    """The one-launch reductions' ticket counters on `dev` (apply-dot and
+    its batch form, cheb2 post-dot, correct-divmax): at least `n` int32,
+    zeroed when made; each call's last block (the batch apply-dot's, each
+    case group's) wraps its counter back to 0. Calls sharing them must not
     overlap, so these kernels run on one stream per device."""
     import torch
 
     t = _TICKETS.get(dev)
-    if t is None:
-        t = _TICKETS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    if t is None or t.numel() < n:
+        t = _TICKETS[dev] = torch.zeros(max(n, 1), dtype=torch.int32,
+                                        device=dev)
     return t
 
 

@@ -24,9 +24,11 @@ rank 3 to the kernels above, rank 4 to the batch-native entry points
 (csrc/seven_point_batch.cu; port of
 openfoam_tpp_tpu/ops/pallas/seven_point_batch.py), each with its own
 `.launches`. The case axis never shifts, so no case reads another's
-data, and the dot of `apply_dot_7pt_nb` is per case, shape (B,). The
-plain versions take either rank. The cheb2 smoothers are single-grid
-only: on rank 4 the solver runs two sweeps as batch-kernel passes.
+data, and the dot of `apply_dot_7pt_nb` is per case, shape (B,), finished
+inside its one launch through the device's ticket counters (one per 32
+cases). The plain versions take either rank. The cheb2 smoothers are
+single-grid only: on rank 4 the solver runs two sweeps as batch-kernel
+passes.
 """
 
 from __future__ import annotations
@@ -240,7 +242,7 @@ def _batch_lib():
     lib = _build.load("seven_point_batch")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.seven_point_batch_launch.argtypes = ([ci, ci, ci] + [vp] * 9
+        lib.seven_point_batch_launch.argtypes = ([ci, ci, ci] + [vp] * 10
                                                  + [ci] * 4 + [vp])
         lib.seven_point_batch_launch.restype = ci
         lib.seven_point_batch_num_partials.argtypes = [ci] * 3
@@ -253,18 +255,20 @@ def _batch_launch(mode, p, split, diag=None, b=None):
     lib = _batch_lib()
     out = torch.empty_like(p)
     nx, ny, nz, nb = p.shape
-    partial = dots = None
+    partial = dots = ticket = None
     if mode == _APPLY_DOT:
         partial = torch.empty(
             (lib.seven_point_batch_num_partials(nx, ny, nz), nb),
             dtype=torch.float32, device=p.device)
         dots = torch.empty((nb,), dtype=torch.float32, device=p.device)
+        ticket = _build.ticket(p.device, -(-nb // 32))
     nul = ctypes.c_void_p(None)
     opt = lambda t: nul if t is None else _build.ptr(t)
     rc = lib.seven_point_batch_launch(
         mode, _DTYPES[p.dtype], int(diag is not None), _build.ptr(p),
         *(_build.ptr(w) for w in split), opt(diag), opt(b), _build.ptr(out),
-        opt(partial), opt(dots), nx, ny, nz, nb, _build.stream_of(p))
+        opt(partial), opt(dots), opt(ticket), nx, ny, nz, nb,
+        _build.stream_of(p))
     _build.check(rc, "seven_point_batch")
     return out, dots
 

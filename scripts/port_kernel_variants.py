@@ -30,8 +30,17 @@ at 112³, 14³ and 4³, `resid_scaled_7pt_nb` at the sweep's three levels
 and with diagonal, each build's output held bitwise against the
 unchanged source's; timed in bf16, the island unit and with diagonal, the
 single grid and the sweep unit at the top level, with diagonal below.
-Device time: each timed run of 20 launches (after 3 warm-up) is
-queued behind a device-side wait long enough for the host to enqueue all
+`apply_dot_7pt_nb` (the sweep CG's batch apply-dot, mode 2 of
+seven_point_batch.cu) runs at the sweep's 12×12×50×128 in f32: each
+build's Â·p held bitwise and its per-case dots to 1e-5 against the
+unchanged source's (and its dots bitwise from call to call), timed twice:
+on one set of inputs (18.4 MB, which stays in the 50 MB L2 from launch to
+launch) and cycling through four sets (73.7 MB, so each launch finds
+its inputs mostly outside L2); it also prints the CUDA kernels one call
+runs (torch.profiler). A source whose entry takes no ticket (the
+earlier design of two kernels a call, 0494de9) is called without it.
+Device time: each timed run of 20 launches (after 3 warm-up) is queued
+behind a device-side wait long enough for the host to enqueue all
 of them (openfoam_tpp_tpu_torch/utils/devtime.py, chip_smoke.py's
 yardstick too), so the host's ctypes cost per call does not pace it;
 builds are timed in 5 rounds of alternating order (A, B, …, B, A), so a
@@ -108,6 +117,16 @@ Variants:
                                  each island launch waits for the one
                                  before it to end (as built: chained by
                                  programmatic dependent launch)
+  apply_dot_7pt_nb
+                unroll 2 / 4     the plane loop unrolled (not unrolled)
+                4 / 16 z warps   warps (sets of z planes) per block (8)
+                6 / 12 slot runs partials a thread of a last block loads
+                                 at once (3)
+                5 blocks per SM  __launch_bounds__ minimum blocks: at most
+                                 48 registers (none)
+                diag no dot / diag no final sum
+                                 diagnostics, outputs not the function's:
+                                 the main pass alone; with the ticket
   resid_scaled_7pt_nb
                 2 / 4 columns    (x, y) columns per block (1)
                 waves 2.0        z chunks sized for two waves of the card
@@ -231,6 +250,24 @@ EDITS["resid_scaled_7pt_nb"] = {
                    "constexpr float kRWaves = 2.0f;")],
     "march at every size": [("constexpr int64_t kMarchFrom = 262144;",
                              "constexpr int64_t kMarchFrom = 0;")]}
+RUNS_NB = "constexpr int kDSlotRuns = 3;"
+PLANES_NB = "    for (int k = warp; k < nz; k += kDZ) {"
+EDITS["apply_dot_7pt_nb"] = {
+    **{f"unroll {n}": [(PLANES_NB, f"#pragma unroll {n}\n" + PLANES_NB)]
+       for n in (2, 4)},
+    **{f"{n} z warps": [("constexpr int kDZ = 8,", f"constexpr int kDZ = {n},")]
+       for n in (4, 16)},
+    **{f"{n} slot runs": [(RUNS_NB, RUNS_NB.replace("3", str(n)))]
+       for n in (6, 12)},
+    "5 blocks per SM": [(
+        "__launch_bounds__(kDBlock)\napply_dot_batch_kernel(",
+        "__launch_bounds__(kDBlock, 5)\napply_dot_batch_kernel(")],
+    # Diagnostics (their dots are not the function's): the main pass
+    # alone, and with the ticket but no final sum.
+    "diag no dot": [("  rows[warp][lane] = acc;\n  __syncthreads();\n  if (warp == 0",
+                     "  if (nb > 0) return;\n  rows[warp][lane] = acc;\n"
+                     "  __syncthreads();\n  if (warp == 0")],
+    "diag no final sum": [("  if (!last) return;\n", "  if (nb > 0) return;\n")]}
 FLAGS = {"fct_iter": {"fast division": ["-prec-div=false"]},
          "flux_all": {"fast division": ["-prec-div=false"]}}
 ENTRY = {"fct_iter": "mules_fct_launch", "momentum_rhs": "momentum_rhs_launch",
@@ -238,12 +275,14 @@ ENTRY = {"fct_iter": "mules_fct_launch", "momentum_rhs": "momentum_rhs_launch",
          "correct_divmax": "correction_launch",
          "cheb2_pre_7pt": "cheb2_launch", "cheb2_post_dot_7pt": "cheb2_launch",
          "resid_scaled_7pt_h": "seven_point_halo_launch",
-         "resid_scaled_7pt_nb": "seven_point_batch_launch"}
+         "resid_scaled_7pt_nb": "seven_point_batch_launch",
+         "apply_dot_7pt_nb": "seven_point_batch_launch"}
 SOURCE = {"fct_iter": "mules_fct", "momentum_rhs": "momentum_rhs",
           "flux_all": "mules_flux", "apply_dot_7pt": "seven_point",
           "correct_divmax": "correction", "cheb2_pre_7pt": "cheb2",
           "cheb2_post_dot_7pt": "cheb2", "resid_scaled_7pt_h": "seven_point",
-          "resid_scaled_7pt_nb": "seven_point_batch"}
+          "resid_scaled_7pt_nb": "seven_point_batch",
+          "apply_dot_7pt_nb": "seven_point_batch"}
 # Each kernel's function giving its scratch size, and whether its entry
 # takes the floats before the grid extents.
 PARTIALS = {"apply_dot_7pt": "seven_point_num_partials",
@@ -267,7 +306,9 @@ MAIN = {"fct_iter": [("fct_iter_kernel", "nv_bfloat16Lb0E")],
             ("seven_point_kernelI13__nv_bfloat16Li1ELb0ELb1E",)],
         "resid_scaled_7pt_nb": [
             ("resid_batch_kernelI13__nv_bfloat16Lb0E",),
-            ("seven_point_batch_kernelI13__nv_bfloat16Li1ELb0E",)]}
+            ("seven_point_batch_kernelI13__nv_bfloat16Li1ELb0E",)],
+        "apply_dot_7pt_nb": [("apply_dot_batch_kernelIfE",),
+                             ("seven_point_batch_kernelIfLi2ELb0E",)]}
 # seven_point_launch's apply-dot mode and dtype (f32, unit diagonal).
 APPLY_DOT, F32 = 2, 0
 
@@ -614,8 +655,9 @@ def resid_launch(torch, _build, lib_path, text, form, p, w, d, b, out):
                                           None)), *p.shape, stream)], []
     elif form == "batch":
         fn = lib.seven_point_batch_launch
-        fn.argtypes = [ci] * 3 + [vp] * 9 + [ci] * 4 + [vp]
-        calls, keep = [(*head, *map(ptr, (p, *w, d, b, out, None, None)),
+        nul = [None] * (3 if takes_ticket(text) else 2)
+        fn.argtypes = [ci] * 3 + [vp] * (7 + len(nul)) + [ci] * 4 + [vp]
+        calls, keep = [(*head, *map(ptr, (p, *w, d, b, out, *nul)),
                         *p.shape, stream)], []
     else:
         fn = lib.seven_point_halo_launch
@@ -708,6 +750,138 @@ def time_resid(torch, _build, device_ms, kernel, libs, texts, logs, cuobjdump,
     return {"builds": builds, "cases": [c for c in cases if c["us"][names[0]]]}
 
 
+def takes_ticket(text):
+    """Whether the batch source's entry takes the ticket counter."""
+    return bool(re.search(r"int seven_point_batch_launch\([^)]*ticket", text))
+
+
+DOT_NB_SHAPE = (12, 12, 50, 128)
+DOT_NB_SETS = 4   # input sets cycled through in the L2-cold timing
+DOT_RTOL = 1e-5
+
+
+def kernels_per_call(torch, fn):
+    """CUDA kernels one call of `fn` runs (torch.profiler, after a warm-up
+    call): the larger of the trace's device events and its launch calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    n_dev = sum(1 for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    n_api = sum(1 for e in events if e.name.startswith(("cudaLaunchKernel",
+                                                        "cuLaunchKernel")))
+    return max(n_dev, n_api)
+
+
+def time_apply_dot_nb(torch, _build, device_ms, libs, texts, logs, cuobjdump,
+                      dev):
+    """Every build of the batch apply-dot at DOT_NB_SHAPE in f32: Â·p held
+    bitwise and the dots to DOT_RTOL against the unchanged source's, timed
+    warm (one input set) and cold (DOT_NB_SETS sets in turn) in ROUNDS
+    rounds of alternating order. Prints and returns the report."""
+    kernel = "apply_dot_7pt_nb"
+    nx, ny, nz, nb = DOT_NB_SHAPE
+    rng = np.random.default_rng(2024)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+
+    def operands():
+        f = lambda lo, hi: torch.from_numpy(rng.uniform(
+            lo, hi, DOT_NB_SHAPE).astype(np.float32)).to(dev)
+        w = [f(0.05, 0.3) for _ in range(3)]
+        w[0][0], w[1][:, 0], w[2][:, :, 0] = 0, 0, 0
+        return f(-1, 1), w, torch.empty_like(w[0])
+
+    sets = [operands() for _ in range(DOT_NB_SETS)]
+    p0, w0, out0 = sets[0]
+    n_bytes = read_bytes([p0, *w0, out0]) + nb * 4
+    bound_us = n_bytes / HBM_BYTES_PER_S * 1e6
+    names = [name for k, name in libs if k == kernel]
+    builds, ref = {}, None
+    for name in names:
+        text = texts[kernel, name]
+        lib = ctypes.CDLL(libs[kernel, name])
+        count = lib.seven_point_batch_num_partials
+        count.argtypes, count.restype = [ci] * 3, ci
+        part = torch.empty(count(nx, ny, nz) * nb, dtype=torch.float32,
+                           device=dev)
+        dots = torch.empty(nb, dtype=torch.float32, device=dev)
+        ticket = ([torch.zeros(-(-nb // 32), dtype=torch.int32, device=dev)]
+                  if takes_ticket(text) else [])
+        fn = lib.seven_point_batch_launch
+        fn.argtypes = [ci] * 3 + [vp] * (9 + len(ticket)) + [ci] * 4 + [vp]
+        fn.restype = ci
+        stream = _build.stream_of(p0)
+        calls = [[_build.ptr(t) if t is not None else vp(None)
+                  for t in (p, *w, None, None, out, part, dots, *ticket)]
+                 for p, w, out in sets]
+
+        def launcher(ptr_sets, fn=fn, stream=stream, path=libs[kernel, name]):
+            turn = [0]
+
+            def launch():
+                ptrs = ptr_sets[turn[0] % len(ptr_sets)]
+                turn[0] += 1
+                _build.check(fn(2, 0, 0, *ptrs, *DOT_NB_SHAPE, stream), path)
+            return launch
+
+        warm, cold = launcher(calls[:1]), launcher(calls)
+        out0.fill_(float("nan"))
+        warm()
+        torch.cuda.synchronize()
+        got = (out0.clone(), dots.clone())
+        warm()
+        torch.cuda.synchronize()
+        repeats = torch.equal(dots, got[1])
+        if ref is None:
+            ref = got
+        r = builds[name] = {
+            "bitwise_ap_vs_as_built": torch.equal(got[0], ref[0]),
+            "dots_max_rel_vs_as_built": float(
+                ((got[1] - ref[1]).abs() / ref[1].abs()).max()),
+            "dots_repeat_bitwise": repeats,
+            "dots_bitwise_vs_as_built": torch.equal(got[1], ref[1]),
+            "cuda_kernels_per_call": kernels_per_call(torch, warm),
+            "sass_main": sass_count(kernel, libs[kernel, name], cuobjdump),
+            **ptxas_report(kernel, logs[kernel, name]),
+            "us_warm": [], "us_cold": [], "keep": (part, dots, ticket),
+            "calls": (warm, cold)}
+        r["agrees"] = (r["bitwise_ap_vs_as_built"] and repeats
+                       and r["dots_max_rel_vs_as_built"] <= DOT_RTOL)
+    for rnd in range(ROUNDS):
+        for name in (names if rnd % 2 == 0 else names[::-1]):
+            warm, cold = builds[name]["calls"]
+            builds[name]["us_warm"].append(device_ms(warm, REPS) * 1e3)
+            builds[name]["us_cold"].append(device_ms(cold, REPS) * 1e3)
+    for name in names:
+        r = builds[name]
+        del r["keep"], r["calls"]
+        for key in ("warm", "cold"):
+            us = r[f"us_{key}"]
+            r[f"median_us_{key}"] = float(np.median(us))
+            r[f"x_bound_{key}"] = r[f"median_us_{key}"] / bound_us
+        print(f"{kernel} {name:20s} {'' if r['agrees'] else 'DIFFERS '}"
+              f"warm {r['median_us_warm']:7.2f} us "
+              f"({min(r['us_warm']):.2f}-{max(r['us_warm']):.2f}, "
+              f"{r['x_bound_warm']:.2f}x bound)  cold {r['median_us_cold']:7.2f} "
+              f"us ({r['x_bound_cold']:.2f}x)  kernels/call "
+              f"{r['cuda_kernels_per_call']}  dots rel vs as built "
+              f"{r['dots_max_rel_vs_as_built']:.2e} (bitwise "
+              f"{r['dots_bitwise_vs_as_built']})  SASS {r['sass_main']}  regs "
+              f"{r.get('registers')}  spills {r.get('spill_store_bytes')}/"
+              f"{r.get('spill_load_bytes')} B  static smem "
+              f"{r.get('static_smem_bytes')} B", flush=True)
+    print(f"{kernel}: shape {DOT_NB_SHAPE} f32 unit, {n_bytes / 1e6:.2f} MB, "
+          f"byte bound {bound_us:.2f} us; warm: one input set (in L2), cold: "
+          f"{DOT_NB_SETS} sets in turn", flush=True)
+    return {"shape": DOT_NB_SHAPE, "bytes": n_bytes, "bound_us": bound_us,
+            "builds": builds}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", action="append", default=[],
@@ -776,6 +950,13 @@ def main() -> int:
     card = f"{card_name}, {power} W"
     report = {"card": card, "shape": SHAPE, "kernels": {}}
     for kernel in kernels:
+        if kernel == "apply_dot_7pt_nb":
+            report["kernels"][kernel] = time_apply_dot_nb(
+                torch, _build, device_ms, libs,
+                {key: t for key, (t, _) in builds.items()}, logs, cuobjdump,
+                dev)
+            print(f"{kernel}: {card}", flush=True)
+            continue
         if kernel in RESID:
             report["kernels"][kernel] = time_resid(
                 torch, _build, device_ms, kernel, libs,

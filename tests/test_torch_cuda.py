@@ -36,7 +36,12 @@ and complete for the plain op that reads it next; its batch form (a z
 march over case pairs from 2**18 elements) at odd and small B, short z
 and single columns, below and at that size, within the family's bounds
 of its plain version and bitwise equal to the single-grid kernel on
-every case, unaligned operands included."""
+every case, unaligned operands included. The batch apply-dot (one
+launch, a z march per column with the dots finished through the ticket)
+at the same edges and on a grid of one block: Â·p bitwise equal to the
+single-grid kernel on every case, the dots within 1e-5 of the plain sums
+and bitwise from call to call, and the one ticket shared in sequence
+with the single-grid apply-dot and the cheb2 post-dot."""
 
 import numpy as np
 import pytest
@@ -780,6 +785,72 @@ def test_resid_batch_kernel_at_edges(dev, dtype, kind, cases, march):
             _misaligned(p), [_misaligned(x) for x in w],
             None if diag is None else _misaligned(diag), _misaligned(b))
         assert torch.equal(odd, got)
+
+
+# The batch apply-dot: one block per (x, y) column and 32 cases, 8 warps
+# along z: nz < 8 (idle warps), nz = 50 (a ragged last chunk), one column,
+# and a grid of one block.
+DOT_BATCH = {"nz < 8": (5, 4, 3), "nz = 50": (4, 3, 50),
+             "nx = ny = 1": (1, 1, 20), "one block": (1, 1, 9)}
+
+
+def _check_batch_dot_calls(p, w, calls=2):
+    """The batch apply-dot kernel `calls` times on (p, w): Â·p bitwise equal
+    to the single-grid kernel on every case, the per-case dots within 1e-5
+    of the plain sums and bitwise equal from call to call, every ticket
+    counter 0 after each call, one launch per call."""
+    _, dots_p = sp.apply_dot_7pt_plain(p, w)
+    lane = lambda t, i: t[..., i].contiguous()
+    one = [sp.apply_dot_7pt(lane(p, i), [lane(x, i) for x in w])[0]
+           for i in range(p.shape[-1])]
+    got = []
+    for _ in range(calls):
+        n0 = sp.apply_dot_7pt_nb.launches
+        ap, dots = sp.apply_dot_7pt(p, w)
+        assert sp.apply_dot_7pt_nb.launches == n0 + 1
+        assert not bool(_build.ticket(p.device).any())
+        assert all(torch.equal(ap[..., i], a) for i, a in enumerate(one))
+        assert dots.shape == dots_p.shape and dots.dtype == torch.float32
+        assert float(((dots - dots_p).abs() / dots_p.abs()).max()) <= 1e-5
+        got.append(dots)
+    assert all(torch.equal(d, got[0]) for d in got)
+    return ap, got[0]
+
+
+@pytest.mark.parametrize("cases", [1, 3, 63, 64, 130])
+@pytest.mark.parametrize("kind", list(DOT_BATCH))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_dot_batch_kernel_at_edges(dev, dtype, kind, cases):
+    """The batch apply-dot at odd, small and ragged B, nz < 8, nz = 50, one
+    column and one block: Â·p bitwise equal to the single-grid kernel on
+    each case, the dots within 1e-5 of the plain version and bitwise from
+    call to call; unaligned operands give the same bits."""
+    rng = np.random.default_rng(21)
+    p, w = _dot_operands(rng, dev, DOT_BATCH[kind] + (cases,), dtype)
+    ap, dots = _check_batch_dot_calls(p, w)
+    ap2, dots2 = sp.apply_dot_7pt_nb(_misaligned(p), [_misaligned(x) for x in w])
+    assert torch.equal(ap2, ap) and torch.equal(dots2, dots)
+
+
+def test_apply_dot_batch_and_others_share_the_ticket(dev):
+    """The ticket counters through a one-block batch grid, a many-block
+    one (the sweep's 12×12×50×128: four case groups, a counter each), the
+    single-grid apply-dot, a cheb2 post-dot and the one-block batch grid
+    again: each result right, so every counter wraps back to 0 after
+    every kernel that takes it."""
+    rng = np.random.default_rng(22)
+    small = _dot_operands(rng, dev, (1, 1, 9, 3))
+    _check_batch_dot_calls(*small)
+    _check_batch_dot_calls(*_dot_operands(rng, dev, (12, 12, 50, 128)))
+    _check_dot_calls(*_dot_operands(rng, dev, (40, 9, 65)), calls=2)
+    x, b = _at(rng, dev, (9, 21, 38)), _at(rng, dev, (9, 21, 38))
+    _, w = _dot_operands(rng, dev, (9, 21, 38))
+    z, dot = sp.cheb2_post_dot_7pt(x, b, w, 2.0, 0.1)
+    z_p, dot_p = sp.cheb2_post_dot_7pt_plain(x, b, w, 2.0, 0.1)
+    assert torch.equal(z, z_p)
+    assert abs(float(dot) - float(dot_p)) <= 1e-5 * abs(float(dot_p))
+    assert not bool(_build.ticket(dev).any())
+    _check_batch_dot_calls(*small)
 
 
 def test_resid_island_is_complete_for_the_next_op(dev):

@@ -8,7 +8,8 @@ the port's sweep path, on the CPU.
     ops/pallas/seven_point_batch.py in interpret mode, on
     tests/test_batch_kernels.py's problem (12×8×8 cells × 3 cases, zero
     domain-boundary faces), from numpy-seeded inputs; and against the
-    rank-3 plain version case by case, bitwise.
+    rank-3 plain version case by case, bitwise; the apply-dot also at
+    the CUDA kernel's edge shapes (nz = 50 with odd B, nz < 8).
 (b) a batched `solve_pcg` on two cases of different stiffness: each case
     equals its solo solve.
 
@@ -93,6 +94,26 @@ def test_batch_entry_points_match_pallas(dt, with_diag):
         np.testing.assert_allclose(
             dots.numpy(), np.asarray(jdots),
             rtol=DOT_RTOL if dt == "f32" else BF16_DOT_RTOL)
+
+
+@pytest.mark.parametrize("shape", [(4, 3, 50, 5), (4, 1, 3, 3)])
+def test_apply_dot_nb_matches_pallas_at_kernel_edges(shape):
+    """The batch apply-dot at the CUDA kernel's edge shapes (its blocks are
+    one (x, y) column and 32 cases, 8 warps along z): nz = 50 with odd B
+    (a ragged last z chunk) and nz < 8 on single-row columns (idle
+    warps), f32 with zero domain-boundary faces: Â·p and the per-case dots
+    of the plain version against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(7)
+    p = rng.standard_normal(shape).astype(np.float32)
+    split = [rng.uniform(0, 0.16, shape).astype(np.float32) for _ in range(3)]
+    split[0][0], split[1][:, 0], split[2][:, :, 0] = 0, 0, 0
+    (jp, tp), *ws = [_pair(a, "f32") for a in (p, *split)]
+    js, ts = zip(*ws)
+    ap, dots = tsp.apply_dot_7pt_nb(tp, ts)
+    jap, jdots = jsb.apply_dot_7pt_nb(jp, js, interpret=True)
+    _close(ap, jap, "f32")
+    assert dots.shape == (shape[-1],) and dots.dtype == torch.float32
+    np.testing.assert_allclose(dots.numpy(), np.asarray(jdots), rtol=DOT_RTOL)
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
