@@ -23,7 +23,11 @@ Phases, each fatal on any fault (nothing is caught):
      their plain versions, and the shards composed against the single-grid
      kernels on the whole grid (bitwise, the apply-dot dot and the div
      max included), with the island's time beside the single-grid
-     kernel's;
+     kernel's; `fct_iter` and `fct_iter_h` (every shard, and the island
+     against the single grid) also bitwise equal to plain at spacing
+     (0.002, 0.013, 0.004), where 1.0f / (float)h is an ulp off the
+     plain versions' (float)(1.0 / h), and `momentum_rhs(_h)` there to
+     their tolerance;
   3. drive the step path: the flagship single-tank case
      (H0.208/D0.2/R0.004/f1.88, mesh 0.00185, round_to=8 → 112³) through
      `make_step(..., carry_precond=True)` in the bench's configuration,
@@ -82,7 +86,24 @@ Phases, each fatal on any fault (nothing is caught):
      (lockstep): per-case checkpoints at t = 0, 0.05, 0.1 with the f32
      target bitwise, one probe row per step per case, a second `runsweep`
      takes 0 steps; then `--percase-dt` on four fresh cases with a 20 ms
-     ramp: the lax case takes fewer steps than the stiff one.
+     ramp: the lax case takes fewer steps than the stiff one;
+  8. drive the 6DoF path: the reference tutorial's 20 × 20 × 40 m tank
+     in its true shape class, `build_chamfer_tank_geometry(20, 20, 40,
+     mesh=0.25, chamfer=0.2, z0=-20)` → 80×80×160, 865,280 fluid cells,
+     filled to z = 0, under the gen6DoF sine table (100 rows over 40 s,
+     resampled as `build_case_motion` does): `make_step(...,
+     SolverControls(use_pallas=True), motion=..., carry_precond=True)`
+     N_6DOF steps from rest with phase 3's checks, the seven default
+     kernels launched and `correct_divmax` in its closed-top form; from
+     that state N_6DOF_FINISH steps of the step built with
+     OFTPP_FINISH_PALLAS=1 (the finish kernel stays off in a rotating
+     frame); |ω| and |dω| at the end; N_CMP steps with the kernels
+     against N_CMP with the entry points swapped for their plain
+     versions (phase 4's limits, p after removing each field's fluid
+     mean); one step's `correct_divmax` call bitwise equal to its plain
+     version and timed beside row 7; then `setup_case_6dof` of that tank
+     with duration 0.1 s, `run_case` on the card and a second
+     `run_case` (resumes, 0 steps): checkpoints, write times, alpha.
 
 It then prints the `kernels` JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. It exits non-zero, printing no
@@ -179,7 +200,20 @@ BATCH_PATH = ("apply_7pt_nb", "resid_scaled_7pt_nb", "apply_dot_7pt_nb")
 HALO_PATH = ("apply_7pt_h", "resid_scaled_7pt_h", "apply_dot_7pt_h",
              "flux_all_h", "fct_iter_h", "momentum_rhs_h", "correct_divmax_h")
 N_SHARDS = 4
+# Phase 8: the reference tutorial's 20 × 20 × 40 m tank in its true shape
+# class at 0.25 m (80×80×160, 865,280 fluid cells), filled to z = 0.
+TANK6DOF = {"Lx": 20.0, "Ly": 20.0, "Lz": 40.0, "mesh": 0.25,
+            "chamfer": 0.2, "z0": -20.0}
+SHAPE_6DOF, FLUID_6DOF = (80, 80, 160), 865280
+DT0_6DOF = 0.01
+N_6DOF = 50           # steps from rest
+N_6DOF_TIMED = 40     # ... the last N_6DOF_TIMED timed
+N_6DOF_FINISH = 5     # steps of the step built with OFTPP_FINISH_PALLAS=1
 CHEB_LMAX, CHEB_LMIN = 2.0, 0.10      # SolverKnobs defaults
+# Spacings at which 1.0f / (float)h is an ulp off (float)(1.0 / h), the
+# reciprocal PyTorch's CUDA division by a Python float multiplies by
+# (the plain versions'); the flagship's 0.00185 is not one of them.
+F1_SPACING = (0.002, 0.013, 0.004)
 REPLACES = {
     "apply_7pt": "openfoam_tpp_tpu/ops/pallas/seven_point.py:229",
     "resid_scaled_7pt": "openfoam_tpp_tpu/ops/pallas/seven_point.py:258",
@@ -472,13 +506,25 @@ def phase_kernels(shape, spacing, dev):
     for tag, dt in (("bf16 λ/anti", torch.bfloat16), ("f32", torch.float32)):
         lams = tuple(arr(0, 1, dt) for _ in range(3))
         antis = tuple((1e-3 * arr()).to(dt) for _ in range(3))
-        check("fct_iter", tag, dt == torch.bfloat16,
-              lambda: mf.fct_iter(lams, antis, al, amax, amin, dt_iv,
-                                  fct_spacing),
-              lambda: mf.fct_iter_plain(lams, antis, al, amax, amin, dt_iv,
-                                        fct_spacing),
-              (*lams, *antis, al, amax, amin, dt_iv), lams,
-              BF16_RTOL if dt == torch.bfloat16 else F32_RTOL)
+        for h, v in ((fct_spacing, tag), (F1_SPACING, f"{tag} h F1")):
+            check("fct_iter", v, dt == torch.bfloat16 and h == fct_spacing,
+                  lambda: mf.fct_iter(lams, antis, al, amax, amin, dt_iv, h),
+                  lambda: mf.fct_iter_plain(lams, antis, al, amax, amin,
+                                            dt_iv, h),
+                  (*lams, *antis, al, amax, amin, dt_iv), lams,
+                  BF16_RTOL if dt == torch.bfloat16 else F32_RTOL)
+        # F1: at spacings where 1.0f / (float)h is an ulp off (float)(1.0
+        # / h), the reciprocal the plain version multiplies by, λ is
+        # bitwise equal to plain all the same.
+        same = all(map(torch.equal, mf.fct_iter(lams, antis, al, amax, amin,
+                                                dt_iv, F1_SPACING),
+                       mf.fct_iter_plain(lams, antis, al, amax, amin, dt_iv,
+                                         F1_SPACING)))
+        log(f"  fct_iter          {tag} at h {F1_SPACING}: λ "
+            f"{'bitwise equal' if same else 'NOT bitwise equal'} to plain")
+        if not same:
+            raise AssertionError(f"fct_iter {tag}: not bitwise equal to its "
+                                 f"plain version at h {F1_SPACING}")
 
     # The fused momentum / projection kernels: physical inputs, whose wall
     # faces (velocities, mass fluxes, apertures) are zero.
@@ -499,6 +545,10 @@ def phase_kernels(shape, spacing, dev):
               lambda: mrk.momentum_rhs(*vel, rp, mu, div_u, spacing, dev2),
               lambda: mrk.momentum_rhs_plain(*vel, rp, mu, div_u, spacing, dev2),
               (*vel, *rp, mu, div_u if dev2 else None), vel, MOM_RTOL)
+    check("momentum_rhs", "dev2 on, h F1", False,
+          lambda: mrk.momentum_rhs(*vel, rp, mu, div_u, F1_SPACING),
+          lambda: mrk.momentum_rhs_plain(*vel, rp, mu, div_u, F1_SPACING),
+          (*vel, *rp, mu, div_u), vel, MOM_RTOL)
 
     dp, vfrac = arr(-50, 50), arr(0, 1)
     vfrac[vfrac < 0.1] = 0
@@ -871,6 +921,21 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
                for i in held],
               lambda: sm.fct_iters(lams, antis, *cells, fct_h, 1, ctx),
               lambda: mf.fct_iter(lams, antis, *cells, fct_h), tol)
+        # F1 (as in phase 2): every shard bitwise equal to plain at
+        # spacings where the two reciprocal forms differ.
+        f1 = [fi[i][:9] + (F1_SPACING,) for i in held]
+        same = all(torch.equal(g, r) for a in f1 for g, r in
+                   zip(mf.fct_iter_h(*a), mf.fct_iter_h_plain(*a)))
+        same_island = all(map(torch.equal, sm.fct_iters(
+            lams, antis, *cells, F1_SPACING, 1, ctx), mf.fct_iter(
+            lams, antis, *cells, F1_SPACING)))
+        log(f"  fct_iter_h         {tag} at h {F1_SPACING}: every shard "
+            f"{'bitwise equal' if same else 'NOT bitwise equal'} to plain, "
+            f"the island {'bitwise equal' if same_island else 'DIFFERS'} "
+            "to the single grid")
+        if not (same and same_island):
+            raise AssertionError(f"fct_iter_h {tag}: not bitwise at h "
+                                 f"{F1_SPACING}")
 
     # The momentum and projection islands: physical inputs with zero wall
     # faces, f32.
@@ -899,6 +964,14 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
                                       dev2=dev2),
               lambda: mrk.momentum_rhs(*vel, rp, mu, div_u, spacing, dev2),
               MOM_RTOL)
+    f1 = [ma[i][:9] + (F1_SPACING, True) for i in held]
+    check("momentum_rhs_h", "dev2 on, h F1", False,
+          [(lambda i=i: mrk.momentum_rhs_h(*f1[i]),
+            lambda i=i: mrk.momentum_rhs_h_plain(*f1[i]), f1[i][:8])
+           for i in held],
+          lambda: sm.momentum_rhs(*vel, rp, mu, div_u, F1_SPACING, ctx),
+          lambda: mrk.momentum_rhs(*vel, rp, mu, div_u, F1_SPACING),
+          MOM_RTOL)
 
     dp, vfrac = arr(-50, 50), arr(0, 1)
     vfrac[vfrac < 0.1] = 0
@@ -1699,6 +1772,212 @@ def phase_manager(dev):
                       "percase_dt_steps": own_steps}
 
 
+def tank6dof_motion(dev, dt):
+    """The reference gen6DoF sine table (100 rows over 40 s), resampled as
+    `build_case_motion` does for a case of initial step `dt`."""
+    from openfoam_tpp_tpu_torch.core.motion import TableMotion
+    from openfoam_tpp_tpu_torch.utils.io import (generate_sine_motion_table,
+                                                 read_6dof_table)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_6dof_") as d:
+        rows = read_6dof_table(generate_sine_motion_table(
+            os.path.join(d, "6DoF.dat")))
+    return TableMotion.from_table(*rows, resample_dt=min(0.05, dt * 10),
+                                  device=dev)
+
+
+def phase_6dof(dev, props, rows):
+    """The 6DoF path (module docstring, phase 8): the chamfered tutorial
+    tank at full size from rest, the finish-gated step, kernels against
+    plain versions, one step's closed-top `correct_divmax` call, then the
+    case path. Returns the phase's stats."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import SolverControls
+    from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
+    from openfoam_tpp_tpu_torch.manager.cases import (is_case_done,
+                                                      setup_case_6dof)
+    from openfoam_tpp_tpu_torch.manager.runner import run_case
+    from openfoam_tpp_tpu_torch.mesh import build_chamfer_tank_geometry
+    from openfoam_tpp_tpu_torch.ops.kernels import correction as ck
+    from openfoam_tpp_tpu_torch.solver import frame as fr
+    from openfoam_tpp_tpu_torch.solver.timestep import make_step
+    from openfoam_tpp_tpu_torch.utils.io import list_checkpoints, load_checkpoint
+
+    t0 = time.perf_counter()
+    geom = build_chamfer_tank_geometry(**TANK6DOF)
+    n_fluid = geom.n_fluid_cells
+    sealed = bool(np.all(geom.ax[-1] == 0.0))
+    log(f"[6DoF geometry] chamfered tank {geom.shape}, {n_fluid} fluid "
+        f"cells, spacing {geom.spacing}, +x face sealed {sealed}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if (tuple(geom.shape) != SHAPE_6DOF or n_fluid != FLUID_6DOF
+            or not sealed):
+        raise AssertionError(f"6DoF geometry is not the {SHAPE_6DOF} "
+                             f"chamfered tank with {FLUID_6DOF} fluid cells "
+                             "and a sealed +x face")
+    motion = tank6dof_motion(dev, DT0_6DOF)
+    params = CaseParams.make(R=0.0, freq=0.0, duration=40.0, device=dev)
+
+    def build(**env):
+        with environ(**env):   # gates and knobs are read at build time
+            return make_step(geom, props, SolverControls(use_pallas=True),
+                             motion=motion, carry_precond=True, device=dev)
+
+    # correct_divmax through a spy that records its form (the count lands
+    # on the spy while it stands in for the entry point).
+    forms = []
+    real_corr = ck.correct_divmax
+
+    def corr(*a, **k):
+        forms.append(k["open_top"])
+        return real_corr(*a, **k)
+
+    corr.launches = 0
+    step = build()
+    state = init_state(geom, fill_height=0.0, dt0=DT0_6DOF, device=dev)
+    with mock.patch.object(ck, "correct_divmax", corr):
+        state, _, _, stats = drive(
+            "6DoF step: chamfered tank, use_pallas=True, from rest", step,
+            state, step.init_precond(state), params, N_6DOF, N_6DOF_TIMED,
+            n_fluid, DEFAULT_PATH)
+        forms_main = list(forms)
+        with environ(OFTPP_FINISH_PALLAS="1"):
+            finish_step = build()
+        _, _, _, finish = drive(
+            "6DoF step built with OFTPP_FINISH_PALLAS=1, same state",
+            finish_step, state, finish_step.init_precond(state), params,
+            N_6DOF_FINISH, N_6DOF_FINISH, n_fluid, DEFAULT_PATH)
+    if forms != [False] * (N_6DOF + N_6DOF_FINISH):
+        raise AssertionError(f"6DoF step: correct_divmax forms {forms}")
+    omega, domega = fr.angular_rates(motion, state.t)
+    stats["omega_norm"] = float(torch.linalg.vector_norm(omega))
+    stats["domega_norm"] = float(torch.linalg.vector_norm(domega))
+    log(f"  correct_divmax took the closed-top form in all {len(forms_main)}"
+        f" + {N_6DOF_FINISH} calls; at t={float(state.t):.4f} s "
+        f"|ω|={stats['omega_norm']:.4e} rad/s, |dω|="
+        f"{stats['domega_norm']:.4e} rad/s²; momentum_finish launched 0 "
+        "times with OFTPP_FINISH_PALLAS=1 (rotating frame)")
+    if stats["omega_norm"] == 0.0 or stats["domega_norm"] == 0.0:
+        raise AssertionError("6DoF step: the frame's rates are zero")
+
+    # The whole step, kernels against plain versions, from that state:
+    # phase 4's limits, p after each field's fluid mean is removed (the
+    # closed tank's p is defined up to a constant).
+    def run(n):
+        s, b = state, step.init_precond(state)
+        its = []
+        for _ in range(n):
+            s, dd, b = step(s, params, precond=b)
+            its.append(int(dd.p_iters))
+        return s, its
+
+    s_k, it_k = run(N_CMP)
+    with contextlib.ExitStack() as stack:
+        for m, attr, plain in counters().values():
+            stack.enter_context(mock.patch.object(m, attr, plain))
+        s_p, it_p = run(N_CMP)
+    torch.cuda.synchronize()
+    fluid = torch.as_tensor(geom.vfrac > 0, device=dev)
+    log(f"[6DoF step kernels vs plain] {N_CMP} steps; p_iters kernels "
+        f"{it_k} plain {it_p}")
+    tols = {"alpha": ("abs", 1e-3), "u": ("rel", 1e-2), "v": ("rel", 1e-2),
+            "w": ("rel", 1e-2), "p": ("rel", 1e-4)}
+    bad = []
+    for k, (kind_t, tol) in tols.items():
+        got, ref = getattr(s_k, k), getattr(s_p, k)
+        if k == "p":
+            got, ref = (torch.where(fluid, x - x[fluid].mean(), 0.0)
+                        for x in (got, ref))
+        err, scale = max_err(got, ref)
+        lim = tol if kind_t == "abs" else tol * scale
+        log(f"  {k}: max_abs_err {err:.3e} limit {lim:.3e} (scale "
+            f"{scale:.3e})")
+        if err > lim:
+            bad.append(f"{k}: {err} > {lim}")
+    if any(abs(a - b) > 1 for a, b in zip(it_k, it_p)):
+        bad.append(f"p_iters differ by more than 1: {it_k} {it_p}")
+    if bad:
+        raise AssertionError(f"6DoF step kernels vs plain: {bad}")
+
+    # One 6DoF step's correct_divmax call (the closed-top form), held
+    # bitwise against its plain version and timed beside row 7.
+    log("[6DoF step operands: the closed-top correct_divmax call]")
+    own = {"correct_divmax": {}}
+    phase_step_operands(step, state, params, own, ("correct_divmax",))
+    closed = own["correct_divmax"]
+    nx, ny, nz = geom.shape
+    face = (nx + 1) * ny * nz + nx * (ny + 1) * nz + nx * ny * (nz + 1)
+    # phase 2's count: dp, vfrac and the top density plane in; u, v, w,
+    # β and the apertures in, u, v, w out (no atmosphere plane: the top
+    # is closed).
+    closed["bytes"] = 4 * (2 * nx * ny * nz + nx * ny + 4 * face)
+    closed["bound_ms"] = closed["bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"  closed top at {geom.shape}: {closed['step_ms'] * 1e3:.1f} us, "
+        f"{closed['bytes'] / 1e6:.2f} MB, bound "
+        f"{closed['bound_ms'] * 1e3:.2f} us "
+        f"({closed['step_ms'] / closed['bound_ms']:.2f}x); row 7 (open top, "
+        f"112^3): {rows['correct_divmax']['ms'] * 1e3:.1f} us phase 2, "
+        f"{rows['correct_divmax']['step_ms'] * 1e3:.1f} us on a flagship "
+        "step's operands")
+    if not closed["step_bitwise"]:
+        raise AssertionError("6DoF step: the closed-top correct_divmax call "
+                             "is not bitwise equal to its plain version")
+
+    # The case path: setup_case_6dof, run_case on the card, resume.
+    case = {"Lx": TANK6DOF["Lx"], "Ly": TANK6DOF["Ly"],
+            "Lz": TANK6DOF["Lz"], "mesh": TANK6DOF["mesh"],
+            "chamfer": TANK6DOF["chamfer"], "duration": 0.1,
+            "dt": DT0_6DOF}
+    fns = {k: getattr(m, a) for k, (m, a, _) in counters().items()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_6dof_case_") as base:
+        case_dir = setup_case_6dof(case, base)
+        for f in fns.values():
+            f.launches = 0
+        lines = []
+        run_stats = run_case(case_dir, log=lambda ln: (lines.append(ln),
+                                                       log("  | " + ln)))
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in fns.items()}
+        log(f"[6DoF case path] {run_stats['steps']} steps to "
+            f"t={run_stats['sim_seconds']:.3f} s in "
+            f"{run_stats['wall_seconds']:.2f} s wall, writing "
+            f"{run_stats['io_seconds']:.2f} s; kernel launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if {k for k, v in launches.items() if v} != set(DEFAULT_PATH):
+            raise AssertionError(f"6DoF case path: kernels launched "
+                                 f"{launches}")
+        chks = list_checkpoints(case_dir)
+        if len(chks) < 2:
+            raise AssertionError(f"6DoF case path: checkpoints {chks}")
+        for k, (_, path) in enumerate(chks):
+            c = load_checkpoint(path)
+            want = float(np.float32(k) * np.float32(0.05))
+            if float(c["t"]) != want:
+                raise AssertionError(f"6DoF case path: {path} holds "
+                                     f"t={c['t']!r}, not {want!r}")
+            if not all(np.isfinite(c[f]).all() for f in "alpha u v w p".split()):
+                raise AssertionError(f"6DoF case path: non-finite field in "
+                                     f"{path}")
+            if c["alpha"].min() < 0.0 or c["alpha"].max() > 1.0:
+                raise AssertionError(f"6DoF case path: alpha out of [0, 1] "
+                                     f"in {path}")
+        if not is_case_done(case_dir) or int(c["step"]) != run_stats["steps"]:
+            raise AssertionError("6DoF case path: the last checkpoint is not "
+                                 "the run's end")
+        lines2 = []
+        again = run_case(case_dir, log=lines2.append)
+        if again["steps"] != 0 or not any("Resuming" in ln for ln in lines2):
+            raise AssertionError(f"6DoF case path: second run {again}, "
+                                 f"{lines2}")
+    return {"step": stats, "finish_gated": finish,
+            "closed_top_correct_divmax": closed,
+            "kernels_vs_plain_p_iters": [it_k, it_p],
+            "case_path": {k: run_stats[k] for k in
+                          ("n_cells", "steps", "wall_seconds", "sim_seconds",
+                           "io_seconds", "intervals")}}
+
+
 def main() -> int:
     import torch
 
@@ -1861,6 +2140,9 @@ def main() -> int:
         launches[k] = sweep_launches[k]
     _, manager = phase_manager(dev)
 
+    # 8. the 6DoF path
+    tank6dof = phase_6dof(dev, props, rows)
+
     out = []
     for name in REPLACES:
         r = dict(rows[name])
@@ -1871,7 +2153,7 @@ def main() -> int:
     detail = {"kernels": out, "shape": list(geom.shape), "fluid_cells": n_fluid,
               "runs": {"use_pallas_from_rest": main, "same_state": runs,
                        "sharded": sharded, "case_path": case, "sweep": sweep,
-                       "runsweep": manager}}
+                       "runsweep": manager, "tank6dof": tank6dof}}
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)
     with open(os.path.join(repo, "perf_out", "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1)

@@ -1,3 +1,4 @@
+from openfoam_tpp_tpu_torch.core.motion import TableMotion, motion_from_numpy  # noqa: F401
 from openfoam_tpp_tpu_torch.core.state import (  # noqa: F401
     CaseParams,
     SimState,

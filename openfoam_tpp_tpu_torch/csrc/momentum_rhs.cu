@@ -50,9 +50,9 @@
 // differenced; the x flux is carried in a register from one plane to
 // the next, its upper face being the next plane's lower one. A block
 // recomputes the x flux below its first plane. The divisions by the
-// spacing are multiplications by 1/h (f32 reciprocals formed on the
-// host, as PyTorch's CUDA division by a Python scalar does for the plain
-// version); the van Leer limiter takes its one-division form, that
+// spacing are multiplications by 1/h ((float)(1.0 / h), taken in double
+// on the host and rounded to f32, as PyTorch's CUDA division by a Python
+// scalar does for the plain version); the van Leer limiter takes its one-division form, that
 // division to 2 ulp. Otherwise the operation order is the plain
 // version's and the build has no FMA contraction: the two agree to 1e-7
 // of the output's scale.
@@ -480,11 +480,13 @@ int dispatch(int dev2, bool has_div, const Fields& F, void* au, void* av,
   return launch<true, true, H>(F, A, B, C, ny, nz, s);
 }
 
-void spacing(Fields& F, float hx, float hy, float hz) {
-  // f32 reciprocals, as PyTorch's CUDA division by a Python scalar forms.
-  F.rh[0] = 1.0f / hx;
-  F.rh[1] = 1.0f / hy;
-  F.rh[2] = 1.0f / hz;
+void spacing(Fields& F, double hx, double hy, double hz) {
+  // The reciprocals as PyTorch's CUDA division by a Python scalar forms
+  // them: in double from the scalar, rounded to f32 (not 1.0f / (float)h,
+  // which differs in the last bit for some h, such as 0.002 and 0.013).
+  F.rh[0] = (float)(1.0 / hx);
+  F.rh[1] = (float)(1.0 / hy);
+  F.rh[2] = (float)(1.0 / hz);
 }
 
 }  // namespace
@@ -497,8 +499,8 @@ extern "C" {
 int momentum_rhs_launch(int dev2, const void* u, const void* v, const void* w,
                         const void* rpx, const void* rpy, const void* rpz,
                         const void* mu, const void* div_u, void* au, void* av,
-                        void* aw, int nx, int ny, int nz, float hx, float hy,
-                        float hz, void* stream) {
+                        void* aw, int nx, int ny, int nz, double hx, double hy,
+                        double hz, void* stream) {
   // 32-bit indices: the largest array must hold fewer than 2³¹ values.
   if ((int64_t)(nx + 1) * (ny + 1) * (nz + 1) > INT32_MAX)
     return (int)cudaErrorInvalidValue;
@@ -526,8 +528,8 @@ int momentum_rhs_halo_launch(int dev2, const void* u, const void* v,
                              const void* w, const void* rpx, const void* rpy,
                              const void* rpz, const void* mu, const void* div_u,
                              const void* const* halo, void* au, void* av,
-                             void* aw, int nx, int ny, int nz, float hx,
-                             float hy, float hz, void* stream) {
+                             void* aw, int nx, int ny, int nz, double hx,
+                             double hy, double hz, void* stream) {
   if ((int64_t)(nx + 1) * (ny + 1) * (nz + 1) > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   auto f = [&](const void* t) { return static_cast<const float*>(t); };

@@ -43,8 +43,9 @@
 // own register from the previous plane, and a block recomputes the plane
 // below its first one. Then each thread updates the three lower faces of
 // its cell and stores λ' once. The divisions by the spacing are
-// multiplications by 1/h (computed on the host in f32, as PyTorch's CUDA
-// division by a Python scalar does for the plain version), so a cell costs
+// multiplications by 1/h ((float)(1.0 / h), taken in double on the host
+// and rounded to f32, as PyTorch's CUDA division by a Python scalar does
+// for the plain version), so a cell costs
 // two divisions (R+ and R−). λ and anti are widened to f32 from shared
 // memory; all arithmetic is f32 in fct_iter_plain's order, λ rounded once
 // on store.
@@ -330,7 +331,7 @@ int sm_count() {
 template <typename T, bool HALO>
 int launch(const void* const* f, const void* const* cell,
             const void* const* halo, void* const* out, int nx, int ny, int nz,
-            float hx, float hy, float hz, float eps, cudaStream_t stream) {
+            double hx, double hy, double hz, float eps, cudaStream_t stream) {
   Args<T> a = {};
   a.lx = static_cast<const T*>(f[0]);
   a.ly = static_cast<const T*>(f[1]);
@@ -348,10 +349,12 @@ int launch(const void* const* f, const void* const* cell,
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;
-  // f32 reciprocals, as PyTorch's CUDA division by a Python scalar forms.
-  a.rhx = 1.0f / hx;
-  a.rhy = 1.0f / hy;
-  a.rhz = 1.0f / hz;
+  // The reciprocals as PyTorch's CUDA division by a Python scalar forms
+  // them: in double from the scalar, rounded to f32 (not 1.0f / (float)h,
+  // which differs in the last bit for some h, such as 0.002 and 0.013).
+  a.rhx = (float)(1.0 / hx);
+  a.rhy = (float)(1.0 / hy);
+  a.rhz = (float)(1.0 / hz);
   a.eps = eps;
   if (HALO) {
     a.hlx = static_cast<const T*>(halo[0]);
@@ -390,7 +393,7 @@ int launch(const void* const* f, const void* const* cell,
 template <bool HALO>
 int dispatch(int dtype, const void* const* f, const void* const* cell,
              const void* const* halo, void* const* out, int nx, int ny, int nz,
-             float hx, float hy, float hz, float eps, void* stream) {
+             double hx, double hy, double hz, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float, HALO>(f, cell, halo, out, nx, ny, nz, hx, hy, hz,
@@ -409,8 +412,8 @@ int mules_fct_launch(int dtype, const void* lx, const void* ly, const void* lz,
                      const void* ax, const void* ay, const void* az,
                      const void* al, const void* amax, const void* amin,
                      const void* div, void* ox, void* oy, void* oz, int nx,
-                     int ny, int nz, float hx, float hy, float hz, float eps,
-                     void* stream) {
+                     int ny, int nz, double hx, double hy, double hz,
+                     float eps, void* stream) {
   const void* f[6] = {lx, ly, lz, ax, ay, az};
   const void* cell[4] = {al, amax, amin, div};
   void* out[3] = {ox, oy, oz};
@@ -427,8 +430,8 @@ int mules_fct_halo_launch(int dtype, const void* lx, const void* ly,
                           const void* az, const void* al, const void* amax,
                           const void* amin, const void* div,
                           const void* const* halo, void* ox, void* oy,
-                          void* oz, int nx, int ny, int nz, float hx, float hy,
-                          float hz, float eps, void* stream) {
+                          void* oz, int nx, int ny, int nz, double hx,
+                          double hy, double hz, float eps, void* stream) {
   const void* f[6] = {lx, ly, lz, ax, ay, az};
   const void* cell[4] = {al, amax, amin, div};
   void* out[3] = {ox, oy, oz};

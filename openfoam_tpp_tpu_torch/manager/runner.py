@@ -1,7 +1,8 @@
 """Case execution: run (or resume) a case to its encoded duration.
 
-Port of the single-device analytic-orbital branch of
-openfoam_tpp_tpu/manager/runner.py. The solver runs in-process: a loop
+Port of the single-device branches of openfoam_tpp_tpu/manager/runner.py:
+the analytic-orbital cylinder and the closed 6DoF tank, whose motion
+comes from the case's constant/6DoF.dat. The solver runs in-process: a loop
 advances the state between write times; every `write_interval` of
 simulated time a SimState checkpoint is persisted (time-directory
 parity) and the per-step probe rows are appended. Resume from the latest
@@ -10,8 +11,8 @@ checkpoint is automatic (`startFrom latestTime` parity).
 The JAX package jits the advance as one device loop and caches the
 executable; PyTorch runs eagerly, so the loop is a Python loop and there
 is nothing to cache: the step is built anew (and the OFTPP_* variables
-read) at every `get_compiled_advance`. The closed 6DoF tank and sharded
-runs are not ported yet and raise NotImplementedError.
+read) at every `get_compiled_advance`. Sharded runs over several cards
+are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,21 +25,25 @@ import numpy as np
 import torch
 
 from openfoam_tpp_tpu_torch.config import PhysicalProperties, SolverControls
+from openfoam_tpp_tpu_torch.core.motion import TableMotion
 from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
 from openfoam_tpp_tpu_torch.device import resolve_device
 from openfoam_tpp_tpu_torch.manager.cases import load_case_params
-from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
+from openfoam_tpp_tpu_torch.mesh import (build_box_geometry,
+                                         build_chamfer_tank_geometry,
+                                         build_tank_geometry)
 from openfoam_tpp_tpu_torch.post.probes import (ProbeWriter,
                                                 default_probe_points,
                                                 default_wave_columns,
+                                                make_probe_sampler,
                                                 probe_pack, sample_row)
 from openfoam_tpp_tpu_torch.solver.timestep import (StepDiagnostics,
                                                     geometry_arrays,
-                                                    make_step_ga)
+                                                    make_step, make_step_ga)
 from openfoam_tpp_tpu_torch.utils.io import (latest_checkpoint,
                                              list_checkpoints,
-                                             load_checkpoint, save_checkpoint,
-                                             to_state)
+                                             load_checkpoint, read_6dof_table,
+                                             save_checkpoint, to_state)
 
 _MAX_STEPS_PER_WRITE = 4000
 
@@ -112,7 +117,19 @@ def build_case_geometry(params: dict, shape_hint: tuple | None = None,
     """Geometry for a case. `shape_hint` (from an existing checkpoint's
     alpha shape) keeps resumed/postprocessed cases consistent with the
     grid they were started on, across round_to policy changes."""
-    _check_slice(params, devices)
+    _check_slice(devices)
+    if params.get("model") == "tank6dof":
+        if float(params.get("chamfer", 0.0)) > 0.0:
+            # The tutorial tank's true shape class: 45°-chamfered bottom
+            # and top edges.
+            return build_chamfer_tank_geometry(
+                params["Lx"], params["Ly"], params["Lz"], params["mesh"],
+                chamfer=float(params["chamfer"]), z0=-params["Lz"] / 2.0,
+            )
+        return build_box_geometry(
+            params["Lx"], params["Ly"], params["Lz"], params["mesh"],
+            z0=-params["Lz"] / 2.0, open_top=False,
+        )
     # round_to=8: nx/ny padded (with solid, zero-aperture cells) to a
     # multiple of 8, as the JAX package does, so both build the same grid.
     for r in (8, 1):
@@ -129,10 +146,7 @@ def build_case_geometry(params: dict, shape_hint: tuple | None = None,
     )
 
 
-def _check_slice(params: dict, devices=None):
-    if params.get("model") == "tank6dof":
-        raise NotImplementedError("model 'tank6dof' (closed 6DoF tank) is "
-                                  "not ported yet")
+def _check_slice(devices=None):
     if devices not in (None, 1, "1"):
         raise NotImplementedError(
             f"devices={devices!r}: sharded runs over several cards come with "
@@ -149,14 +163,28 @@ def _case_shape_hint(case_dir: str):
     return tuple(load_checkpoint(chk[1])["alpha"].shape)
 
 
+def build_case_motion(params: dict, case_dir: str, device="cuda"):
+    """TableMotion for the table-driven 6DoF model; None for the orbit."""
+    if params.get("model") != "tank6dof":
+        return None
+    t, trans, rot = read_6dof_table(
+        os.path.join(case_dir, "constant", "6DoF.dat"))
+    # Resampled to the solver's dt scale for smooth finite-difference
+    # accelerations (the reference table is 100 coarse samples).
+    return TableMotion.from_table(t, trans, rot,
+                                  resample_dt=min(0.05, params["dt"] * 10),
+                                  device=device)
+
+
 def get_compiled_advance(params: dict, props: PhysicalProperties,
                          controls: SolverControls, case_dir: str | None = None,
                          devices=None, device="cuda"):
-    """Returns (geom, advance) for a single-device
-    analytic-orbital case: the geometry-as-operands step (make_step_ga)
-    with the preconditioner carried through the advance loop and the
-    probe sampler run every step. `advance(state, case_params, t_target)
-    -> (state, diag, n_steps, samples)`.
+    """Returns (geom, advance) for a single-device case, with the
+    preconditioner carried through the advance loop and the probe sampler
+    run every step. `advance(state, case_params, t_target) -> (state,
+    diag, n_steps, samples)`. An analytic-orbital case runs the
+    geometry-as-operands step (make_step_ga); a 6DoF case the closure step
+    (make_step) with the motion of its case directory's table.
 
     On a CUDA device the hand-written kernels are turned on
     (`use_pallas=True`), whatever the grid: they take any shape. On the
@@ -170,11 +198,20 @@ def get_compiled_advance(params: dict, props: PhysicalProperties,
     if k_env is not None:
         controls = dataclasses.replace(controls, precond_refresh=int(k_env))
 
+    points, columns = default_probe_points(geom), default_wave_columns(geom)
+    if params.get("model") == "tank6dof":
+        motion = (build_case_motion(params, case_dir, device=dev)
+                  if case_dir else None)
+        step = make_step(geom, props, controls, motion=motion,
+                         carry_precond=True, device=dev)
+        sampler, width = make_probe_sampler(geom, points, columns,
+                                            device=dev)
+        return geom, make_advance(step, sampler=sampler, sample_width=width)
+
     step = make_step_ga(geom.spacing, props, controls,
                         open_top=bool(np.any(geom.top_open > 0)),
                         carry_precond=True,
                         sealed_x=bool(np.all(geom.ax[-1] == 0.0)), device=dev)
-    points, columns = default_probe_points(geom), default_wave_columns(geom)
     inner = make_advance(step, sampler=sample_row,
                          sample_width=1 + len(points) + len(columns))
     ga = geometry_arrays(geom, device=dev)
@@ -200,6 +237,7 @@ def run_case(
     time spent writing checkpoints and probe files) and `intervals` (per
     write target: simulated time, steps, wall seconds)."""
     params = load_case_params(case_dir)
+    is_6dof = params.get("model") == "tank6dof"
     geom, advance = get_compiled_advance(
         params, props, controls, case_dir, devices=devices, device=device)
     n_cells = geom.n_fluid_cells
@@ -207,10 +245,16 @@ def run_case(
         f"{n_cells} fluid cells (h={params['mesh']:g} m, "
         f"geo={params.get('geo', geom.geo)})")
 
-    case_params = CaseParams.make(
-        R=params["R"], freq=params["freq"], duration=params["duration"],
-        ramp=params["ramp"], device=device,
-    )
+    if is_6dof:
+        # The motion comes from the case's table; the params are inert.
+        case_params = CaseParams.make(R=0.0, freq=0.0,
+                                      duration=params["duration"],
+                                      device=device)
+    else:
+        case_params = CaseParams.make(
+            R=params["R"], freq=params["freq"], duration=params["duration"],
+            ramp=params["ramp"], device=device,
+        )
 
     io_seconds = 0.0
     chk = latest_checkpoint(case_dir)
@@ -218,7 +262,9 @@ def run_case(
         state = to_state(load_checkpoint(chk[1]), device=device)
         log(f"  Resuming from t={chk[0]:.4f} s ({chk[1]})")
     else:
-        state = init_state(geom, dt0=params["dt"], device=device)
+        # 6DoF tutorial tank: waterline at z=0.
+        state = init_state(geom, fill_height=0.0 if is_6dof else None,
+                           dt0=params["dt"], device=device)
         if write_checkpoints:
             t_io = time.time()
             save_checkpoint(case_dir, state)

@@ -106,8 +106,9 @@ def run_cases_batched(case_dirs: list[str],
     dev = resolve_device(device)
     rows = [load_case_params(d) for d in case_dirs]
     if any(r.get("model") == "tank6dof" for r in rows):
-        raise NotImplementedError("model 'tank6dof' (closed 6DoF tank) is "
-                                  "not ported yet")
+        raise NotImplementedError("model 'tank6dof' runs alone (run_case, "
+                                  "as group_cases groups it): a 6DoF case "
+                                  "never forms a batch")
     durations = {r["duration"] for r in rows}
     meshes = {r["mesh"] for r in rows}
     if len(durations) > 1 or len(meshes) > 1:

@@ -1,14 +1,17 @@
 """Tank geometry on a uniform Cartesian MAC grid via cut-cell apertures.
 
 The port's own numpy copy of ``openfoam_tpp_tpu/mesh/geometry.py``
-(`TankGeometry`, `natural_shape`, `build_tank_geometry` and their
-helpers). The arithmetic is the same line for line, so both packages
-build bit-identical arrays for the same case.
+(`TankGeometry`, `natural_shape`, the three builders and their helpers).
+The arithmetic is the same line for line, so both packages build
+bit-identical arrays for the same case.
 
 Geometries: ``flat`` (cylinder radius D/2, z in [0, H]) and ``cap``
-(cylinder union sphere(D/2) centred at z=0). The top surface at z=H is
-the open atmosphere patch; every other boundary is a wall. Cells with
-volume fraction < 0.5 are solidified and their faces closed.
+(cylinder union sphere(D/2) centred at z=0), whose top surface at z=H is
+the open atmosphere patch; and the closed tanks of the 6DoF model,
+``box`` (a rectangular tank) and ``chamfer`` (a prism with 45°-chamfered
+bottom and top edges, the sloshingTank3D tutorial's shape class), walls
+all round. Cells with volume fraction < 0.5 are solidified and their
+faces closed.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ class TankGeometry:
     """Static grid geometry. All arrays are numpy (uploaded once by
     solver.timestep.geometry_arrays)."""
 
-    geo: str                 # 'flat' | 'cap' | 'box'
+    geo: str                 # 'flat' | 'cap' | 'box' | 'chamfer'
     H: float                 # tank height (top of domain) [m]
     D: float                 # tank diameter (or box x-width) [m]
     shape: tuple             # (nx, ny, nz) cell counts
@@ -247,3 +250,91 @@ def build_tank_geometry(
     az = _face_fraction(inside, 2, origin, spacing, shape, nq)
     return _finalize(geo, H, D, shape, spacing, origin, vfrac, ax, ay, az,
                      open_top=True)
+
+
+def build_box_geometry(
+    Lx: float,
+    Ly: float,
+    Lz: float,
+    mesh: float,
+    z0: float | None = None,
+    open_top: bool = False,
+) -> TankGeometry:
+    """Closed rectangular tank (the sloshingTank3D6DoF class: one `wall`
+    boundary, no atmosphere). Centred in x/y; z spans [z0, z0 + Lz]
+    (default centred about z=0 like the tutorial tank)."""
+    h = float(mesh)
+    nx = max(int(round(Lx / h)), 1)
+    ny = max(int(round(Ly / h)), 1)
+    nz = max(int(round(Lz / h)), 1)
+    spacing = (Lx / nx, Ly / ny, Lz / nz)
+    if z0 is None:
+        z0 = -Lz / 2.0
+    origin = (-Lx / 2.0, -Ly / 2.0, z0)
+    shape = (nx, ny, nz)
+    vfrac = np.ones(shape)
+    ax = np.ones((nx + 1, ny, nz))
+    ay = np.ones((nx, ny + 1, nz))
+    az = np.ones((nx, ny, nz + 1))
+    return _finalize("box", z0 + Lz, Lx, shape, spacing, origin,
+                     vfrac, ax, ay, az, open_top=open_top)
+
+
+def chamfer_tank_volume(Lx: float, Ly: float, Lz: float,
+                        chamfer: float) -> float:
+    """Exact volume of the chamfered prism tank: the box minus the four
+    corner wedges (each a right triangle c·c/2 extruded in x)."""
+    c = float(chamfer) * Lz
+    return Lx * (Ly * Lz - 2.0 * c * c)
+
+
+def build_chamfer_tank_geometry(
+    Lx: float,
+    Ly: float,
+    Lz: float,
+    mesh: float,
+    chamfer: float = 0.2,
+    z0: float | None = None,
+    nq: int = _NQ,
+) -> TankGeometry:
+    """Closed prism tank with 45°-chamfered bottom and top edges, the
+    sloshingTank3D tutorial's shape class (the reference 6DoF variant's
+    mesh). The four long edges (±y, ±z) are cut at 45° over a depth
+    `chamfer`·Lz in both y and z, across the full x extent; `chamfer=0`
+    is the plain box. Cross-section in (y, z): the hexagon {|y| ≤ Ly/2,
+    |z| ≤ Lz/2, (|y|−yb) + (|z|−zb) ≤ c for |y|>yb, |z|>zb} with
+    c = chamfer·Lz, yb = Ly/2 − c, zb = Lz/2 − c. Quadrature-sampled
+    cut-cell apertures as for the cylinder tank."""
+    if not 0.0 <= chamfer < 0.5:
+        raise ValueError(f"chamfer fraction {chamfer} outside [0, 0.5)")
+    h = float(mesh)
+    nx = max(int(round(Lx / h)), 1)
+    ny = max(int(round(Ly / h)), 1)
+    nz = max(int(round(Lz / h)), 1)
+    spacing = (Lx / nx, Ly / ny, Lz / nz)
+    if z0 is None:
+        z0 = -Lz / 2.0
+    origin = (-Lx / 2.0, -Ly / 2.0, z0)
+    shape = (nx, ny, nz)
+    zc0 = z0 + Lz / 2.0  # cross-section centre height
+    c = chamfer * Lz
+    yb = Ly / 2.0 - c
+    zb = Lz / 2.0 - c
+
+    def inside(x, y, z):
+        zz = np.abs(z - zc0)
+        yy = np.abs(y)
+        in_box = ((np.abs(x) <= Lx / 2.0) & (yy <= Ly / 2.0)
+                  & (zz <= Lz / 2.0))
+        if c <= 0.0:
+            return in_box
+        # 45° corner cut: active only in the corner quadrant.
+        cut_ok = (yy - yb) + (zz - zb) <= c + 1e-12
+        return in_box & (cut_ok | (yy <= yb) | (zz <= zb))
+
+    vfrac = _volume_fraction(inside, origin, spacing, shape, nq)
+    ax = _face_fraction(inside, 0, origin, spacing, shape, nq)
+    ay = _face_fraction(inside, 1, origin, spacing, shape, nq)
+    az = _face_fraction(inside, 2, origin, spacing, shape, nq)
+    return _finalize("chamfer", z0 + Lz, Lx, shape, spacing, origin,
+                     vfrac, ax, ay, az, open_top=False)

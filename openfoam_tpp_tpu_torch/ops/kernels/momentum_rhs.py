@@ -49,12 +49,12 @@ def momentum_rhs_plain(u, v, w, rho_phi, mu, div_u, spacing, dev2=True):
 def _lib():
     lib = _build.load("momentum_rhs")
     if not getattr(lib, "_typed", False):
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.momentum_rhs_launch.argtypes = ([ci] + [vp] * 11 + [ci] * 3
-                                            + [cf] * 3 + [vp])
+                                            + [cd] * 3 + [vp])
         lib.momentum_rhs_launch.restype = ci
         lib.momentum_rhs_halo_launch.argtypes = ([ci] + [vp] * 12 + [ci] * 3
-                                                 + [cf] * 3 + [vp])
+                                                 + [cd] * 3 + [vp])
         lib.momentum_rhs_halo_launch.restype = ci
         lib._typed = True
     return lib

@@ -104,12 +104,13 @@ def fct_iter_plain(lams, antis, alpha_low, amax, amin, dt_iv, spacing,
 def _lib():
     lib = _build.load("mules_fct")
     if not getattr(lib, "_typed", False):
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        vp, ci, cf, cd = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_double)
         lib.mules_fct_launch.argtypes = ([ci] + [vp] * 13 + [ci] * 3
-                                         + [cf] * 4 + [vp])
+                                         + [cd] * 3 + [cf, vp])
         lib.mules_fct_launch.restype = ci
         lib.mules_fct_halo_launch.argtypes = ([ci] + [vp] * 14 + [ci] * 3
-                                              + [cf] * 4 + [vp])
+                                              + [cd] * 3 + [cf, vp])
         lib.mules_fct_halo_launch.restype = ci
         lib._typed = True
     return lib

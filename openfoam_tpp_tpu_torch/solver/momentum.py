@@ -110,14 +110,19 @@ def explicit_rhs(vels, rho_phi, mu, div_u, spacing, dev2=True):
     return out
 
 
-def explicit_update(vels, vcs, rho_old, rho_new, apertures, dt, G):
-    """q* = (ρ_f^old·q + dt·vc)/ρ_f^new + dt·G per component, zero where
-    the aperture is 0 (ρ_f: arithmetic face means)."""
+def explicit_update(vels, vcs, rho_old, rho_new, apertures, dt, G,
+                    extra=None):
+    """q* = (ρ_f^old·q + dt·vc)/ρ_f^new + dt·G [+ dt·extra] per component,
+    zero where the aperture is 0 (ρ_f: arithmetic face means). `extra`:
+    an optional per-axis source on each face grid (the rotating frame's
+    accelerations, solver/frame.py)."""
     out = []
     for ax, (q, vc, ap) in enumerate(zip(vels, vcs, apertures)):
         rof = st.cells_to_faces_avg(rho_old, ax)
         rnf = st.cells_to_faces_avg(rho_new, ax)
         q_star = (rof * q + dt * vc) / rnf
         q_star = q_star + dt * G[ax]
+        if extra is not None:
+            q_star = q_star + dt * extra[ax]
         out.append(torch.where(ap > 0.0, q_star, 0.0))
     return out

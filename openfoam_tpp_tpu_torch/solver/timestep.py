@@ -22,17 +22,25 @@ is what `lax.pmin` over the vmapped axis does in the JAX step;
 `batch_lanes` keeps MULES on its plain path while the 7-point passes run
 the batch-native kernels (parallel/sweep.py sets both).
 
-Ported configuration: the analytic orbital motion on one device, with
-every `SolverControls` the JAX step takes there. With `use_pallas` the
+Ported configuration: the analytic orbital motion and the table-driven
+motion of the closed 6DoF tank (`motion=TableMotion`, core/motion.py) on
+one device, with every `SolverControls` the JAX step takes there. A
+motion table replaces the orbit's G(t) by Rᵀ(g_lab − a(t)); with
+rotation the step adds the centrifugal, Euler and Coriolis accelerations
+of the tank frame (solver/frame.py) at the face coordinates `face_xyz`,
+which `make_step` builds. With `use_pallas` the
 step runs the fused kernels behind the JAX step's gates, read when the
 step is built: the momentum right-hand side (`OFTPP_MOM_PALLAS`), the
 projection epilogue on the last corrector (`OFTPP_CORR_PALLAS`) and,
-opt-in, the momentum finish (`OFTPP_FINISH_PALLAS=1`). The pressure
+opt-in, the momentum finish (`OFTPP_FINISH_PALLAS=1`; off under a
+rotating frame, whose sources come between the density scaling and the
+wall mask, as in the JAX step). The pressure
 solver's knobs (`poisson.SolverKnobs`: OFTPP_SMOOTH_SWEEPS and the rest)
 are read at the same moment and handed to the pressure solve. The gates
 alone decide: the kernels take any 3-D f32 grid (the JAX kernels' slab and
 VMEM shape checks are TPU limits), and a non-f32 operand raises. The
-arguments of the JAX step outside this slice raise NotImplementedError.
+arguments of the JAX step outside this slice (`forcing=`, the tiled
+sweep's; CSF) raise NotImplementedError.
 
 `spmd=SpmdCtx(n)` (parallel/spmd.py) is the JAX package's x-sharded step:
 every kernel call site becomes a per-shard island with the halo kernels
@@ -41,6 +49,8 @@ solve's top level, the momentum RHS, the last corrector's epilogue),
 while the state and everything between islands stay global tensors. On
 one card the n shards are x-slabs of the same tensors. The momentum
 finish kernel stays off under `spmd` (no halo form), as in the JAX step.
+`spmd` with a rotating motion raises NotImplementedError (the JAX
+package never builds that pair).
 """
 
 from __future__ import annotations
@@ -64,6 +74,7 @@ from openfoam_tpp_tpu_torch.ops.kernels import mom_finish as _mfk
 from openfoam_tpp_tpu_torch.ops.kernels import momentum_rhs as _mrk
 from openfoam_tpp_tpu_torch.parallel import spmd as _sm
 from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
+from openfoam_tpp_tpu_torch.solver import frame as fr
 from openfoam_tpp_tpu_torch.solver import momentum as mom
 from openfoam_tpp_tpu_torch.solver import poisson
 
@@ -132,17 +143,18 @@ def geometry_arrays(geom: TankGeometry, dtype=torch.float32, device="cuda"):
             "top_open": as_t(geom.top_open)}
 
 
-def _check_slice(props, controls, motion=None, spmd=None, forcing=None,
-                 face_xyz=None):
+def _check_slice(props, controls, motion=None, spmd=None, forcing=None):
     """Raise for every argument of the JAX step this port does not cover."""
-    for name, val in (("motion", motion), ("forcing", forcing),
-                      ("face_xyz", face_xyz)):
-        if val is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported yet (analytic orbital motion only)")
+    if forcing is not None:
+        raise NotImplementedError(
+            "forcing= (the tiled sweep's per-block G) is not ported yet")
     if spmd is not None and not isinstance(spmd, SpmdCtx):
         raise TypeError(f"spmd= takes a parallel.spmd.SpmdCtx, not "
                         f"{type(spmd).__name__}")
+    if spmd is not None and motion is not None and motion.has_rotation:
+        raise NotImplementedError(
+            "spmd= with a rotating motion= (the JAX package never builds "
+            "that pair: its 6DoF runs are unsharded)")
     if spmd is not None and controls.batch_lanes:
         raise NotImplementedError(
             "spmd= with batch_lanes: a sweep is not sharded through spmd "
@@ -163,12 +175,17 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
     preconditioner bundle (poisson.make_bundle), rebuilt every
     `controls.precond_refresh` steps; the operator is fresh every step.
 
+    `motion` (a TableMotion): table-driven forcing; with rotation it
+    needs `face_xyz`, the three axes' face_coordinates.
+
     The fused kernels write zeros for u's face-nx row, so they run only
     with `sealed_x` (the last x-aperture plane is all zero, true of every
     shipped geometry); an env force of one of them on an unsealed
     geometry raises ValueError, as in the JAX step."""
-    _check_slice(props, controls, motion=motion, spmd=spmd, forcing=forcing,
-                 face_xyz=face_xyz)
+    _check_slice(props, controls, motion=motion, spmd=spmd, forcing=forcing)
+    rot_enabled = motion is not None and motion.has_rotation
+    if rot_enabled and face_xyz is None:
+        raise ValueError("rotational motion requires face_xyz coordinates")
     if not sealed_x:
         for var in ("OFTPP_MOM_PALLAS", "OFTPP_FINISH_PALLAS",
                     "OFTPP_CORR_PALLAS"):
@@ -184,7 +201,7 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
     use_mules_k = use_k and not controls.batch_lanes
     fct_bf16 = _fct_bf16_enabled(controls)
     use_mom_k = sealed_x and _mom_pallas_enabled(controls)
-    use_finish_k = (use_mom_k and spmd is None
+    use_finish_k = (use_mom_k and spmd is None and not rot_enabled
                     and _finish_pallas_enabled(controls))
     use_corr_k = sealed_x and _corr_pallas_enabled(controls)
     knobs = poisson.SolverKnobs.from_env()
@@ -192,6 +209,25 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
     def make_bundle(pack):
         return poisson.make_bundle(pack, use_pallas=use_k, knobs=knobs,
                                    spmd=spmd)
+
+    def effective_g(t, params):
+        """Uniform body acceleration in the tank frame: G = g − a_frame,
+        with rotation turned into the tank frame by Rᵀ."""
+        if motion is None:
+            return mo.effective_gravity(t, params, props.g)
+        a = motion.acceleration(t)
+        g_lab = torch.zeros_like(a)
+        g_lab[2] = -props.g
+        if rot_enabled:
+            R = mo.rotation_matrix(motion.orientation(t))
+            return mo.matvec3(R.T, g_lab - a)
+        return g_lab - a
+
+    def interp_to_faces(q, qax, ax):
+        """A velocity component on qax-faces, averaged to ax-faces."""
+        if qax == ax:
+            return q
+        return st.cells_to_faces_avg(st.faces_to_cells_avg(q, qax), ax)
 
     def courant_numbers(u, v, w, alpha, dt, fluid, spacing):
         hx, hy, hz = spacing
@@ -284,8 +320,17 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
 
         # --- explicit conservative momentum (no pressure) ---
         t_mid = state.t + 0.5 * dt
-        G = mo.effective_gravity(t_mid, params, props.g)
+        G = effective_g(t_mid, params)
         vels = (state.u, state.v, state.w)
+        frame = None
+        if rot_enabled:
+            # Centrifugal + Euler + Coriolis sources of the rotating tank
+            # frame, explicit in the old velocity.
+            omega_b, domega_b = fr.angular_rates(motion, t_mid)
+            frame = [fr.rotational_acceleration(
+                ax, face_xyz[ax], omega_b, domega_b,
+                *(interp_to_faces(vels[q], q, ax) for q in range(3)))
+                for ax in range(3)]
         apertures = (ga["ax"], ga["ay"], ga["az"])
         div_u = st.divergence(*phi, spacing) if controls.dev2_stress else None
         if use_mom_k and spmd is not None:
@@ -306,7 +351,7 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
                 *apertures, dt, G)
         else:
             u_c, v_c, w_c = mom.explicit_update(vels, vcs, rho_old, rho_new,
-                                                apertures, dt, G)
+                                                apertures, dt, G, frame)
 
         # --- projection (PIMPLE corrector loop) ---
         p_new = state.p
@@ -379,15 +424,20 @@ def make_step(geom: TankGeometry,
     -> (state', diag, precond')`, and `step.init_precond(state)` builds
     the first bundle of a time loop's carry. `spmd=SpmdCtx(n)`: the
     x-sharded step (the grid's nx must divide into n slabs of at least two
-    planes)."""
+    planes). `motion` (a TableMotion on `device`): the 6DoF tank's
+    table-driven forcing; the face coordinates of its rotating frame are
+    built here."""
     _check_slice(props, controls, motion=motion, spmd=spmd)
     if spmd is not None:
         spmd.local_shape(geom.shape)
     ga = geometry_arrays(geom, dtype, device=device)
     spacing = tuple(float(s) for s in geom.spacing)
     open_top = bool(np.any(geom.top_open > 0))
-    core = make_step_core(props, controls, open_top=open_top,
-                          carry_precond=carry_precond,
+    face_xyz = (tuple(fr.face_coordinates(geom, ax, device)
+                      for ax in range(3))
+                if motion is not None and motion.has_rotation else None)
+    core = make_step_core(props, controls, motion=motion, open_top=open_top,
+                          face_xyz=face_xyz, carry_precond=carry_precond,
                           sealed_x=bool(np.all(geom.ax[-1] == 0.0)),
                           spmd=spmd)
 
@@ -413,7 +463,8 @@ def make_step_ga(spacing, props: PhysicalProperties = PhysicalProperties(),
     """Geometry-as-operands step: `step(state, params, ga, ...)` with `ga`
     from `geometry_arrays(geom, device=...)`. `device` is checked here so
     a CUDA request on a machine without a card fails at build time.
-    `spmd` as in `make_step`."""
+    `spmd` as in `make_step`; `motion` as there, with the caller's
+    `face_xyz` (frame.face_coordinates per axis) when it rotates."""
     resolve_device(device)
     spacing = tuple(float(s) for s in spacing)
     core = make_step_core(props, controls, motion=motion, open_top=open_top,

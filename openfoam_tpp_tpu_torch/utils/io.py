@@ -12,8 +12,9 @@ written by either package loads in the other.
     (t (x y z) (rx ry rz))
     ...
     )
-that `setup_case` writes for every case. Reading it back
-(`read_6dof_table`) and the sine table are not ported yet.
+that `setup_case` writes for every case and `read_6dof_table` reads
+back; `generate_sine_motion_table` writes the reference gen6DoF table of
+the closed 6DoF tank (`setup_case_6dof`).
 """
 
 from __future__ import annotations
@@ -129,6 +130,24 @@ def write_vtp(path: str, points: np.ndarray, triangles: np.ndarray,
 
 # --------------------------------------------------------------- 6DoF tables
 
+_ROW_RE = re.compile(
+    r"\(\s*([0-9.eE+-]+)\s*"
+    r"\(\s*([0-9.eE+-]+)\s+([0-9.eE+-]+)\s+([0-9.eE+-]+)\s*\)\s*"
+    r"\(\s*([0-9.eE+-]+)\s+([0-9.eE+-]+)\s+([0-9.eE+-]+)\s*\)\s*\)"
+)
+
+
+def read_6dof_table(path: str):
+    """Parse an OpenFOAM 6DoF table. Returns (times, trans(n,3), rot(n,3)),
+    float64, rotations in degrees as written."""
+    with open(path) as f:
+        rows = _ROW_RE.findall(f.read())
+    if not rows:
+        raise ValueError(f"no motion rows found in {path}")
+    data = np.asarray(rows, np.float64)
+    return data[:, 0], data[:, 1:4], data[:, 4:7]
+
+
 def write_6dof_table(path: str, times, trans, rot):
     """Write the `List<Tuple3>` format exactly as generate_motion.py does
     (count, parenthesized rows, %.6g floats)."""
@@ -144,6 +163,29 @@ def write_6dof_table(path: str, times, trans, rot):
                 f"({g(r[0])} {g(r[1])} {g(r[2])}))\n"
             )
         f.write(")\n")
+
+
+def generate_sine_motion_table(
+    path: str,
+    n: int = 100,
+    duration: float = 40.0,
+    trans_amp=(2.0, 3.0, 2.0),
+    trans_omega=(0.5, 0.8, 0.4),
+    rot_amp_deg=(30.0, 10.0, 10.0),
+    rot_omega=(0.4, 0.7, 0.5),
+):
+    """The reference gen6DoF table: sinusoidal translation and rotation,
+    `n` samples over `duration` s (the math of native/gen6dof.cpp's
+    `sine` mode)."""
+    t = np.arange(n) * (duration / (n - 1))
+    trans = np.stack(
+        [a * np.sin(w * t) for a, w in zip(trans_amp, trans_omega)], -1
+    )
+    rot = np.stack(
+        [a * np.sin(w * t) for a, w in zip(rot_amp_deg, rot_omega)], -1
+    )
+    write_6dof_table(path, t, trans, rot)
+    return path
 
 
 def generate_orbital_motion_table(

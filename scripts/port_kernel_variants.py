@@ -469,10 +469,13 @@ def read_bytes(tensors, plane_only=None):
                // (t.shape[-1] if t is plane_only else 1) for t in tensors)
 
 
-def real_type(entry, text):
-    """The ctypes type of `entry`'s floating-point arguments in `text`."""
+def real_types(entry, text):
+    """The ctypes types of `entry`'s floating-point scalar arguments in
+    `text`, in order (a source may take the spacing as double and eps as
+    float)."""
     sig = re.search(rf"int {entry}\(([^)]*)\)", text).group(1)
-    return ctypes.c_double if "double" in sig else ctypes.c_float
+    return [ctypes.c_double if m == "double" else ctypes.c_float
+            for m in re.findall(r"\b(float|double)\s+\w+\s*(?:,|$)", sig)]
 
 
 def runner(torch, _build, kernel, lib_path, text, call):
@@ -495,10 +498,13 @@ def runner(torch, _build, kernel, lib_path, text, call):
             args = [a for a in args if not (isinstance(a, str) and a == "ticket")]
         args = [scratch[a] if isinstance(a, str) else a for a in args]
     floats_first = kernel in FLOATS_FIRST
-    ft = real_type(ENTRY[kernel], text)
+    ft = real_types(ENTRY[kernel], text)
+    if len(ft) != len(scal):
+        raise SystemExit(f"{lib_path}: {ENTRY[kernel]} takes {len(ft)} "
+                         f"real scalars, the call {len(scal)}")
     fn.argtypes = ([ci] * len(lead) + [vp] * len(args)
-                   + ([ft] * len(scal) + [ci] * 3 if floats_first
-                      else [ci] * 3 + [ft] * len(scal)) + [vp])
+                   + (ft + [ci] * 3 if floats_first else [ci] * 3 + ft)
+                   + [vp])
     fn.restype = ci
     ptrs = [ctypes.c_void_p(None) if a is None else _build.ptr(a) for a in args]
     stream = _build.stream_of(first)
@@ -589,7 +595,7 @@ def island(torch, _build, kernel, lib_path, text, ins, outs):
             a for a in args if a is not None and a.dim() > 0 and a.numel() > 1
             and (kernel == "flux_all" or a is not part)], rho_slab)
         fn.argtypes = ([ci] * len(lead) + [vp] * len(args) + [ci] * 3
-                       + [real_type(HALO_ENTRY[kernel], text)] * len(scal)
+                       + real_types(HALO_ENTRY[kernel], text)
                        + [vp])
         fn.restype = ci
         calls.append((lead, [ctypes.c_void_p(None) if a is None

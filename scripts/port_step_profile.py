@@ -6,6 +6,7 @@
                                          [--warm-default]
                                          [--sweep 128 | --sweep-box]
                                          [--spmd 4] [--variant KERNEL:NAME]
+                                         [--tank6dof]
 
 Runs the flagship case (H0.208/D0.2/R0.004/f1.88, mesh 0.00185,
 round_to=8 → 112³) through openfoam_tpp_tpu_torch's `make_step` with
@@ -33,6 +34,12 @@ case axis trailing. `--sweep-box` profiles the solo step of one such case
 `--spmd S` profiles the flagship's x-sharded step, `make_step(...,
 spmd=SpmdCtx(S))`: S x-slabs of the grid on the one card, each island a
 halo kernel per slab.
+
+`--tank6dof` profiles the 6DoF step instead: the reference tutorial's
+20 × 20 × 40 m tank as `build_chamfer_tank_geometry(20, 20, 40,
+mesh=0.25, chamfer=0.2, z0=-20)` (80×80×160), filled to z = 0 with a
+0.01 s first step, under the gen6DoF sine table resampled as
+`build_case_motion` does (chip_smoke.py phase 8's configuration).
 
 `--variant KERNEL:NAME` profiles the step with one of
 scripts/port_kernel_variants.py's source variants of a kernel (its
@@ -101,9 +108,12 @@ def main() -> int:
     ap.add_argument("--spmd", type=int, default=0, metavar="S")
     ap.add_argument("--warm-default", action="store_true")
     ap.add_argument("--variant", metavar="KERNEL:NAME")
+    ap.add_argument("--tank6dof", action="store_true")
     args = ap.parse_args()
     if args.warm_default and args.sweep:
         ap.error("--warm-default profiles the single-grid step, not --sweep")
+    if args.tank6dof and (args.sweep or args.sweep_box or args.spmd):
+        ap.error("--tank6dof profiles the unsharded single-tank step")
 
     def set_vars():   # read when the step is built, below
         for pair in args.set:
@@ -129,7 +139,22 @@ def main() -> int:
     from openfoam_tpp_tpu_torch.solver.timestep import make_step
 
     dev = torch.device("cuda")
-    if args.sweep or args.sweep_box:
+    motion = None
+    if args.tank6dof:
+        import tempfile
+
+        from openfoam_tpp_tpu_torch.core.motion import TableMotion
+        from openfoam_tpp_tpu_torch.mesh import build_chamfer_tank_geometry
+        from openfoam_tpp_tpu_torch.utils.io import (
+            generate_sine_motion_table, read_6dof_table)
+
+        geom = build_chamfer_tank_geometry(20.0, 20.0, 40.0, mesh=0.25,
+                                           chamfer=0.2, z0=-20.0)
+        with tempfile.TemporaryDirectory() as d:
+            rows = read_6dof_table(generate_sine_motion_table(
+                os.path.join(d, "6DoF.dat")))
+        motion = TableMotion.from_table(*rows, resample_dt=0.05, device=dev)
+    elif args.sweep or args.sweep_box:
         geom = build_tank_geometry(H=0.1, D=0.02, mesh=0.002, geo="flat",
                                    round_to=4)
     else:
@@ -155,14 +180,17 @@ def main() -> int:
                              SolverControls(use_pallas=True),
                              carry_precond=True,
                              spmd=SpmdCtx(args.spmd) if args.spmd else None,
-                             device=dev)
+                             motion=motion, device=dev)
 
         step = build()
         params = (CaseParams.make(R=0.002, freq=1.5, duration=10.0, device=dev)
                   if args.sweep_box else
+                  CaseParams.make(R=0.0, freq=0.0, duration=40.0, device=dev)
+                  if args.tank6dof else
                   CaseParams.make(R=0.004, freq=1.88, duration=20.0,
                                   device=dev))
-        state = init_state(geom, device=dev)
+        state = (init_state(geom, fill_height=0.0, dt0=0.01, device=dev)
+                 if args.tank6dof else init_state(geom, device=dev))
         bundle = step.init_precond(state)
     for _ in range(args.warm):
         state, d, bundle = step(state, params, precond=bundle)
@@ -190,7 +218,8 @@ def main() -> int:
     n_launch = sum(e.count for e in kernels)
     n = args.steps
     what = (f"{args.sweep}-case sweep of " if args.sweep else
-            f"{args.spmd}-shard step of " if args.spmd else "")
+            f"{args.spmd}-shard step of " if args.spmd else
+            "6DoF step of the chamfered tank " if args.tank6dof else "")
     print(f"[profile] {what}{geom.shape}, {n} steps after {args.warm}"
           f"{' of the default step' if args.warm_default else ''}, "
           f"{' '.join(args.set) or 'defaults'}"
@@ -210,7 +239,8 @@ def main() -> int:
         "_" + re.sub(r"\W+", "_", args.variant) if args.variant else "") + (
         f"_sweep{args.sweep}" if args.sweep else
         "_sweep_box" if args.sweep_box else
-        f"_spmd{args.spmd}" if args.spmd else "")
+        f"_spmd{args.spmd}" if args.spmd else
+        "_tank6dof" if args.tank6dof else "")
     with open(os.path.join(repo, "perf_out", f"port_step_profile{tag}.txt"),
               "w") as f:
         f.write("\n".join(lines) + "\n")

@@ -18,7 +18,6 @@ the interface files 3e-7; each held to at most ten times that.
 """
 
 import collections
-import json
 import os
 import unittest.mock as mock
 
@@ -431,12 +430,12 @@ def test_unported_case_arguments_raise(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="sharded"):
         trunner.get_compiled_advance(TINY, TProps(), TControls(), devices="2x2",
                                      device="cpu")
-    six = tmp_path / "case_6dof"
-    os.makedirs(six)
-    with open(six / "case.json", "w") as f:
-        json.dump({"model": "tank6dof", "Lx": 1.0, "duration": 1.0}, f)
-    with pytest.raises(NotImplementedError, match="tank6dof"):
-        trunner.run_case(str(six), device="cpu")
+    # A 6DoF case runs (tests/test_torch_6dof.py), but not sharded either.
+    six = tcases.setup_case_6dof({"Lx": 0.2, "Ly": 0.2, "Lz": 0.2,
+                                  "mesh": 0.05, "duration": 0.1},
+                                 str(tmp_path))
+    with pytest.raises(NotImplementedError, match="sharded"):
+        trunner.run_case(six, devices=2, device="cpu")
     # The card is the default device, and its absence raises.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -453,8 +452,8 @@ def test_unported_case_arguments_raise(tmp_path, monkeypatch):
     (["--headless", "--case", "c", "--action", "video"], 2),
     (["--headless", "--case", "c", "--action", "profile"], 2),
     (["--headless", "--action", "runsweep", "--devices", "2"], 2),
-    (["--headless", "--action", "build6dof"], 2),
-    (["--headless", "--action", "config"], 2),
+    (["--headless", "--action", "build6dof", "--submit"], 2),
+    (["--headless", "--action", "config", "--devices", "2"], 2),
     (["--headless", "--case", "c", "--action", "run", "--submit"], 2),
     (["--headless", "--case", "c", "--action", "run", "--devices", "2"], 2),
     (["--case", "c", "--action", "run"], 2),                    # the menu

@@ -23,7 +23,11 @@ held at shapes that divide neither, down to one cell across: the flux
 kernel and the apply-dot output bitwise, the apply-dot dot to 1e-5 of the
 plain sum and bitwise from call to call (its ticket counter back at 0
 after every call), the apply-dot island's dot bitwise equal to the
-single-grid kernel's. The cheb2 smoothers (every mode and type pair) and
+single-grid kernel's. The FCT limiter and momentum RHS also at spacing
+(0.002, 0.013, 0.004), where 1.0f / (float)h is an ulp off the
+(float)(1.0 / h) that the plain versions' division by a Python float
+multiplies by: the limiter (single grid and every shard) bitwise equal
+to plain, the momentum RHS to 1e-5 of scale. The cheb2 smoothers (every mode and type pair) and
 the projection epilogue (open and closed top, a NaN in a fluid cell) at
 such shapes too: the smoothers bitwise equal to their plain versions, the
 post-dot's dot repeating bitwise with the ticket back at 0; the epilogue's
@@ -873,3 +877,72 @@ def test_resid_island_is_complete_for_the_next_op(dev):
         ref = sp.resid_scaled_7pt(p, w, diag, b)
         assert torch.equal(copy, ref)
         assert float(total) == float(ref.float().sum())
+
+
+# Spacings at which the f32 reciprocal of the f32 spacing, 1.0f / (float)h,
+# is an ulp off (float)(1.0 / h), the reciprocal PyTorch's CUDA division
+# by a Python float multiplies by (the plain versions').
+F1_SPACING = (0.002, 0.013, 0.004)
+
+
+def test_f1_spacings_are_where_the_reciprocal_forms_differ():
+    """The check below would not see the old 1.0f / h form otherwise."""
+    for h in F1_SPACING:
+        assert np.float32(1.0) / np.float32(h) != np.float32(1.0 / h), h
+
+
+def _fct_h_args(lams, antis, cells, sp_, s):
+    """fct_iter_h's arguments for shard s of CTX4."""
+    ex = lambda t, **k: sm.exchange_halo(CTX4.split(t), 1, CTX4, **k)[s]
+    lh = [ex(t, hi_edge="zero") for t in lams]
+    ah = [ex(t, hi_edge="zero") for t in antis]
+    return (tuple(CTX4.split(t)[s] for t in lams),
+            (lh[0], (lh[1][0], None), (lh[2][0], None)),
+            tuple(CTX4.split(t)[s] for t in antis),
+            (ah[0], (ah[1][0], None), (ah[2][0], None)),
+            tuple(ex(c)[0] for c in cells),
+            *(CTX4.split(c)[s] for c in cells), sp_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fct_iter_bitwise_at_f1_spacings(dev, dtype):
+    """fct_iter and every shard of fct_iter_h bitwise equal to their plain
+    versions at spacings where the two reciprocal forms differ (λ from
+    zero and from random values); the island equal to the single grid."""
+    rng = np.random.default_rng(12)
+    lams, antis, cells = _fct_operands(rng, dev, SHAPE, dtype)
+    for start in (tuple(torch.zeros_like(l) for l in lams), lams):
+        got = mf.fct_iter(start, antis, *cells, F1_SPACING)
+        ref = mf.fct_iter_plain(start, antis, *cells, F1_SPACING)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+        island = sm.fct_iters(start, antis, *cells, F1_SPACING, 1, CTX4)
+        assert all(torch.equal(g, r) for g, r in zip(island, got))
+        for s in CTX4.held:
+            args = _fct_h_args(start, antis, cells, F1_SPACING, s)
+            assert all(torch.equal(g, r) for g, r in zip(
+                mf.fct_iter_h(*args), mf.fct_iter_h_plain(*args)))
+
+
+def test_momentum_rhs_at_f1_spacings(dev):
+    """momentum_rhs and a shard of momentum_rhs_h at those spacings, to
+    1e-5 of the output scale (the van Leer division is 2 ulp)."""
+    rng = np.random.default_rng(13)
+    vel, rp, mu, div_u = _mom_operands(rng, dev, SHAPE)
+    got = mrk.momentum_rhs(*vel, rp, mu, div_u, F1_SPACING)
+    ref = mrk.momentum_rhs_plain(*vel, rp, mu, div_u, F1_SPACING)
+    scale = max(float(r.abs().max()) for r in ref)
+    assert all(float((g - r).abs().max()) <= 1e-5 * scale
+               for g, r in zip(got, ref))
+    nx = SHAPE[0]
+    ex = lambda t, wd, **k: sm.exchange_halo(CTX4.split(t, nx), wd, CTX4,
+                                             **k)[1]
+    halos = (*ex(vel[0], 2, hi_edge="zero"), *ex(vel[1], 2), *ex(vel[2], 2),
+             *ex(rp[0], 1, hi_edge="zero"), ex(rp[1], 1)[0], ex(rp[2], 1)[0],
+             *ex(mu, 1), ex(div_u, 1, lo_edge="zero")[0])
+    args = (*(CTX4.split(t, nx)[1] for t in (*vel, *rp, mu, div_u)), halos,
+            F1_SPACING)
+    k_out = mrk.momentum_rhs_h(*args)
+    p_out = mrk.momentum_rhs_h_plain(*args)
+    scale = max(float(r.abs().max()) for r in p_out)
+    assert all(float((g - r).abs().max()) <= 1e-5 * scale
+               for g, r in zip(k_out, p_out))

@@ -14,6 +14,7 @@ from openfoam_tpp_tpu.config import SolverControls as JControls
 from openfoam_tpp_tpu.ops.pallas import momentum_rhs as jmrk
 from openfoam_tpp_tpu.solver import timestep as jtimestep
 from openfoam_tpp_tpu_torch.config import SolverControls
+from openfoam_tpp_tpu_torch.core.motion import TableMotion
 from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
 from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
 from openfoam_tpp_tpu_torch.ops.kernels import correction as tck
@@ -29,6 +30,8 @@ sys.modules["jax"] = None
 sys.modules["openfoam_tpp_tpu"] = None
 import openfoam_tpp_tpu_torch
 import openfoam_tpp_tpu_torch.solver.timestep
+import openfoam_tpp_tpu_torch.solver.frame
+import openfoam_tpp_tpu_torch.core.motion
 import openfoam_tpp_tpu_torch.ops.kernels._build
 import openfoam_tpp_tpu_torch.manager.cases
 import openfoam_tpp_tpu_torch.manager.cli
@@ -143,8 +146,13 @@ def test_out_of_slice_arguments_raise():
                  CaseParams.make(0.004, 1.88, 0.5, device="cpu"))
     assert int(s1.step) == 1
     timestep.make_step_core(sync_axis="case")
+    # A table motion is in the slice (tests/test_torch_6dof.py); a rotating
+    # one with spmd= raises, as the JAX package never builds that pair.
+    rotating = TableMotion.from_table([0.0, 1.0], [[0, 0, 0]] * 2,
+                                      [[0, 0, 0], [0, 0, 10]], device="cpu")
     with pytest.raises(NotImplementedError, match="motion"):
-        timestep.make_step(geom, motion=object(), device="cpu")
+        timestep.make_step(geom, motion=rotating, spmd=SpmdCtx(4),
+                           device="cpu")
     # spmd= is in the slice (tests/test_torch_spmd.py); with a sweep's
     # batch_lanes it raises, as the JAX package shards no sweep through it.
     with pytest.raises(NotImplementedError, match="spmd"):
