@@ -32,11 +32,14 @@ Phases, each fatal on any fault (nothing is caught):
      (H0.208/D0.2/R0.004/f1.88, mesh 0.00185, round_to=8 → 112³) through
      `make_step(..., carry_precond=True)` in the bench's configuration,
      SolverControls(use_pallas=True), for N_STEPS steps from rest; then
+     the apply_7pt and resid_scaled_7pt calls of every V-cycle level and
+     of the CG's true residual (their count from the hierarchy's shapes),
      the CG's apply_dot_7pt calls, the three flux_all calls, the nine
      fct_iter calls, the momentum_rhs call and the correct_divmax call of
-     one step from the state reached, captured, timed again and held
-     against their plain versions (rows 1, 4, 5, 6 and 7 on a real step's
-     operands), and so the cheb2_pre_7pt and cheb2_post_dot_7pt calls of
+     one step from the state reached, captured, each held against its
+     plain version, timed again (at most STEP_TIMED_CALLS per level)
+     (rows 1–7 on a real step's operands), and so the cheb2_pre_7pt and
+     cheb2_post_dot_7pt calls of
      one OFTPP_SMOOTH_SWEEPS=2 step (rows 9a, 9c); then, from
      that state, one run of N_SHORT steps each of that
      configuration, of mom_pallas=False, of OFTPP_FINISH_PALLAS=1, of
@@ -46,13 +49,13 @@ Phases, each fatal on any fault (nothing is caught):
      finiteness and that exactly the kernels of its path were launched
      (counts set to 0 just before it and read just after); with two
      sweeps, that the fused smoothers ran once per V-cycle;
-     3b. from that state, N_SHORT steps each of the unsharded default
+     3b. from that state, N_SHARDED steps each of the unsharded default
      step and of the x-sharded step make_step(spmd=SpmdCtx(S)) with S = 4
      (28×112×112 per shard) and S = 1 (edge halos only), then the 4-shard
      step with OFTPP_SMOOTH_SWEEPS=2: the checks of 3, p_iters within 2
      at every step, 4 shards against 1 after 3 steps within the JAX spmd
      test's bounds, every pair (either sharded step against the unsharded
-     one too) after 3 and N_SHORT steps within phase 4's; and the halo
+     one too) after 3 and N_SHARDED steps within phase 4's; and the halo
      kernels alone launched, S times per island call;
   4. from that state, N_CMP steps with the kernels and N_CMP with every
      entry point swapped for its plain version, for the finish-on step
@@ -64,7 +67,11 @@ Phases, each fatal on any fault (nothing is caught):
      with OFTPP_SMOOTH_SWEEPS=2, a second `run_case` (resumes, 0 steps)
      and `extract_interface`; checks the launches per V-cycle, the
      fields, the write times, the checkpoints, the probe files and
-     `interface_summary.csv`;
+     `interface_summary.csv`; then `--action profile` on that case
+     (N_PROFILE steps from its last checkpoint under torch.profiler):
+     `summary.txt` with profile_case's keys and the card's name, a
+     Chrome trace holding kernel events, the seven default kernels
+     launched;
   6. drive the sweep path at the width the JAX package benches: 128 cases
      of the default tank (H 0.1, D 0.02, mesh 0.002, round_to=4 →
      12×12×50 per case, 921,600 cells in the batch) with the case axis
@@ -79,14 +86,15 @@ Phases, each fatal on any fault (nothing is caught):
      case (`use_pallas=True`) times 128: what the sweep replaces. Then,
      from the state the sweep reached, N_CMP steps with the kernels
      against N_CMP with the entry points swapped for their plain versions
-     and against N_CMP of the OFTPP_SWEEP_PALLAS=0 step;
+     and against N_CMP of the OFTPP_SWEEP_PALLAS=0 step; device ops and
+     busy time per step (torch.profiler, 2 steps) from that state;
   7. drive the manager's sweep as a user does: `expand_sweep` → 128 cases
      of mixed geometry (8 freq × 4 R × 2 H × 2 D, duration 0.1 s) in a
      temporary directory, `setup_case` each, `--action runsweep`
      (lockstep): per-case checkpoints at t = 0, 0.05, 0.1 with the f32
      target bitwise, one probe row per step per case, a second `runsweep`
-     takes 0 steps; then `--percase-dt` on four fresh cases with a 20 ms
-     ramp: the lax case takes fewer steps than the stiff one;
+     takes 0 steps; then `--percase-dt` on four fresh cases (0.05 s)
+     with a 20 ms ramp: the lax case takes fewer steps than the stiff one;
   8. drive the 6DoF path: the reference tutorial's 20 × 20 × 40 m tank
      in its true shape class, `build_chamfer_tank_geometry(20, 20, 40,
      mesh=0.25, chamfer=0.2, z0=-20)` → 80×80×160, 865,280 fluid cells,
@@ -103,7 +111,34 @@ Phases, each fatal on any fault (nothing is caught):
      mean); one step's `correct_divmax` call bitwise equal to its plain
      version and timed beside row 7; then `setup_case_6dof` of that tank
      with duration 0.1 s, `run_case` on the card and a second
-     `run_case` (resumes, 0 steps): checkpoints, write times, alpha.
+     `run_case` (resumes, 0 steps): checkpoints, write times, alpha;
+  9. surface tension on the flagship: water's σ = 0.072 N/m against
+     air, `make_step(..., SolverControls(use_pallas=True),
+     carry_precond=True)` N_CSF steps from rest with phase 3's checks and
+     the seven default kernels launched; the CFL dt of every step against
+     the capillary bound (never above it; where it binds is logged) and
+     the largest |κ| in the interface band; N_GATED steps of the step
+     built with OFTPP_FINISH_PALLAS=1 (the finish kernel stays off: κ is
+     set); device ops and busy time per step (torch.profiler, 2 steps)
+     against the σ = 0 step from the same state; N_CMP steps with the
+     kernels against N_CMP with the entry points swapped for their plain
+     versions (phase 4's limits);
+ 10. drive the tiled sweep: `bench.py bench_sweep`'s BENCH_TILED layout,
+     128 cases of the default tank at round_to=8 (16×16×50, 4000 fluid
+     cells each) merged along x into 2048×16×50 (512,000 fluid cells),
+     rows R = 0.002 + 2e-5·i, f = 1.5 + 0.01·i, through
+     `make_tiled_sweep_step(..., SolverControls(use_pallas=True))`
+     N_TILED steps from rest with phase 3's checks, the seven default
+     kernels launched and every block's mass to 1e-3; N_GATED steps of
+     the step built with OFTPP_FINISH_PALLAS=1 (off: G varies along x);
+     every call of the seven default kernels in one tiled step (the
+     V-cycle's apply and resid calls on every level among them) held
+     against its plain version and timed at this shape, as in phase 3;
+     device ops per step; N_CMP steps kernels against plain; 8 of the
+     cases tiled against `make_sweep_step` of the same 8 after
+     N_TILED_VS_SWEEP steps from rest (the JAX tiled-sweep test's
+     bounds); ms/step, aggregate cell-updates/s and ops per step beside
+     phase 6's batched sweep.
 
 It then prints the `kernels` JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. It exits non-zero, printing no
@@ -124,10 +159,12 @@ import unittest.mock as mock
 
 import numpy as np
 
-N_STEPS = 100
-N_TIMED = 90          # the last N_TIMED of the N_STEPS are timed
+N_STEPS = 60
+N_TIMED = 50          # the last N_TIMED of the N_STEPS are timed
 N_SHORT = 20          # steps of each same-state run
 N_SHORT_TIMED = 15    # ... the last N_SHORT_TIMED timed
+N_SHARDED = 12        # steps of each run of phase 3b
+N_SHARDED_TIMED = 8   # ... the last N_SHARDED_TIMED timed
 N_CMP = 5
 SWEEP_CASES = 128     # the JAX package's sweep bench width
 N_SWEEP = 30          # steps of each sweep run from rest
@@ -206,10 +243,43 @@ TANK6DOF = {"Lx": 20.0, "Ly": 20.0, "Lz": 40.0, "mesh": 0.25,
             "chamfer": 0.2, "z0": -20.0}
 SHAPE_6DOF, FLUID_6DOF = (80, 80, 160), 865280
 DT0_6DOF = 0.01
-N_6DOF = 50           # steps from rest
-N_6DOF_TIMED = 40     # ... the last N_6DOF_TIMED timed
+N_6DOF = 30           # steps from rest
+N_6DOF_TIMED = 20     # ... the last N_6DOF_TIMED timed
 N_6DOF_FINISH = 5     # steps of the step built with OFTPP_FINISH_PALLAS=1
 CHEB_LMAX, CHEB_LMIN = 2.0, 0.10      # SolverKnobs defaults
+# Phase 9: the flagship with water's surface tension against air.
+SIGMA_WATER = 0.072   # N/m
+N_CSF = 30            # steps from rest
+N_CSF_TIMED = 20      # ... the last N_CSF_TIMED timed
+N_GATED = 5           # steps of a step built with OFTPP_FINISH_PALLAS=1
+# Phase 10: bench.py bench_sweep's tiled layout (BENCH_TILED=1): 128 cases
+# of the default tank at round_to=8 (16×16×50, 4000 fluid cells each)
+# side by side along x, 2048×16×50 and 512,000 fluid cells.
+TILED_CASES = 128
+TILED_SHAPE, TILED_FLUID = (2048, 16, 50), 512000
+N_TILED = 30          # steps from rest
+N_TILED_TIMED = 20    # ... the last N_TILED_TIMED timed
+TILED_VS_SWEEP = 8    # cases held against the batched sweep ...
+N_TILED_VS_SWEEP = 5  # ... over this many steps (the JAX test's)
+# The default tank of the sweep phases.
+SWEEP_TANK = dict(H=0.1, D=0.02, mesh=0.002, geo="flat")
+# Kernels against plain versions over N_CMP steps (phase 4's limits),
+# field: (kind, limit). Per call the kernels match their plain versions
+# to an ulp (phase 2). Over N_CMP steps an ulp can flip the rounding of a
+# bf16 λ (2^-8 of that face's antidiffusive flux), which moves an
+# interface cell's alpha by ~1e-4 (limit 1e-3) and, where the density
+# jumps 1000:1, its face velocities by a few 1e-3 of the field's scale
+# (limit 1e-2); p is held to 1e-4 of its scale, the CG tolerance's order.
+CMP_TOLS = {"alpha": ("abs", 1e-3), "u": ("rel", 1e-2), "v": ("rel", 1e-2),
+            "w": ("rel", 1e-2), "p": ("rel", 1e-4)}
+# The JAX tiled-sweep test's bounds (tests/test_tiled_sweep.py:85-107):
+# tiled against batched cases after N_TILED_VS_SWEEP steps.
+TILED_TOLS = {"t": 1e-6, "dt": 1e-5, "alpha": 5e-4, "w": 5e-3, "mass": 1e-3}
+N_PROFILE = 3         # steps the profile verb traces (after its 3 warm-up)
+# The stats keys of utils/profiling.py's profile_case (the JAX module's).
+PROFILE_KEYS = ("n_steps", "fluid_cells", "grid", "device", "mean_step_ms",
+                "p50_step_ms", "p95_step_ms", "cell_updates_per_sec",
+                "final_dt", "p_iters", "trace_dir")
 # Spacings at which 1.0f / (float)h is an ulp off (float)(1.0 / h), the
 # reciprocal PyTorch's CUDA division by a Python float multiplies by
 # (the plain versions'); the flagship's 0.00185 is not one of them.
@@ -1059,15 +1129,16 @@ def drive(label, step, state, bundle, params, n_steps, n_timed, n_fluid,
     """`n_steps` steps of `step` from (state, bundle), the last `n_timed`
     timed, with every launch count set to 0 just before and read just
     after. Checks the run and that exactly the kernels in `expect` ran.
-    The stats carry every step's p_iters; with `snap_at` also the state
-    after that many steps (`snapshot`)."""
+    The stats carry every step's p_iters and CFL dt (`dt_cfl`, the
+    state's dt); with `snap_at` also the state after that many steps
+    (`snapshot`)."""
     import torch
 
     fns = {k: getattr(m, a) for k, (m, a, _) in counters().items()}
     for f in fns.values():
         f.launches = 0
     torch.cuda.synchronize()
-    diags = []
+    diags, dts = [], []
     t_first = time.perf_counter()
     for i in range(n_steps):
         if i == n_steps - n_timed:
@@ -1075,6 +1146,7 @@ def drive(label, step, state, bundle, params, n_steps, n_timed, n_fluid,
             t_timed = time.perf_counter()
         state, d, bundle = step(state, params, precond=bundle)
         diags.append(d)
+        dts.append(state.dt)
         if i + 1 == snap_at:
             snapshot = state
     torch.cuda.synchronize()
@@ -1093,7 +1165,8 @@ def drive(label, step, state, bundle, params, n_steps, n_timed, n_fluid,
              "max_div_error": max(float(d.div_error) for d in diags),
              "sim_t": float(state.t),
              "launches_per_step": {k: v / n_steps for k, v in launches.items()},
-             "p_iters": iters}
+             "p_iters": iters,
+             "dt_cfl": [float(x) for x in torch.stack(dts).cpu()]}
     if snap_at is not None:
         stats["snapshot"] = snapshot
     log(f"[{label}] {n_steps} steps in {t_end - t_first:.2f} s; last "
@@ -1127,24 +1200,63 @@ def drive(label, step, state, bundle, params, n_steps, n_timed, n_fluid,
     return state, bundle, launches, stats
 
 
-STEP_ROWS = ("apply_dot_7pt", "flux_all", "fct_iter", "momentum_rhs",
-             "correct_divmax")
+STEP_ROWS = ("apply_7pt", "resid_scaled_7pt", "apply_dot_7pt", "flux_all",
+             "fct_iter", "momentum_rhs", "correct_divmax")
+STEP_TIMED_CALLS = 24   # calls of one signature timed on step operands
+
+
+def vcycle_calls(shape, knobs):
+    """(apply_7pt, resid_scaled_7pt) calls of one V-cycle of the kernel
+    path on a grid of `shape` (solver/poisson.py `_vcycle_hybrid`) with
+    one-sweep smoothers: the top level's entry residual and exit
+    smoothing; per visit of a coarse level above the coarsest, gamma
+    residual applies and gamma smoothing residuals (gamma = mg_l1_gamma
+    on the first coarse level, mg_deep_gamma below, each level visited
+    gamma times per visit of the one above); the coarsest level's Jacobi
+    sweeps less the elided first. The coarse shapes halve, rounded up,
+    while a level has more than 256 cells and every side more than 2 (at
+    most 9 levels; `_build_coarse_levels`)."""
+    if knobs.smooth_sweeps != 1 or knobs.smoother != "chebyshev":
+        raise ValueError("vcycle_calls counts one Chebyshev sweep")
+    coarse = []
+    while len(coarse) < 9 and np.prod(shape) > 256 and min(shape) > 2:
+        shape = tuple((n + 1) // 2 for n in shape)
+        coarse.append(shape)
+    coarsest = knobs.coarsest_sweeps - 1
+    if not coarse:
+        return 0, 2 + coarsest
+    apply, resid, visits = 0, 2, 1
+    for i in range(len(coarse) - 1):
+        g = max(knobs.mg_l1_gamma if i == 0 else knobs.mg_deep_gamma, 1)
+        apply += visits * g
+        resid += visits * g
+        visits *= g
+    return apply, resid + visits * coarsest
 
 
 def phase_step_operands(step, state, params, rows, names=STEP_ROWS):
-    """Kernel rows on the operands of one real flagship step from `state`
-    (phase 3's): of the default step the CG's apply_dot_7pt calls (one
-    per iteration), the three flux_all calls, the nine fct_iter calls,
-    the momentum_rhs call and the correct_divmax call (rows 1, 4, 5, 6,
-    7); of the two-sweep step the cheb2_pre_7pt and cheb2_post_dot_7pt
-    calls (rows 9a, 9c; one each per V-cycle). Captured by spies standing
-    in for the entry points `names`, each timed again, kernel and plain
-    version, and held against the plain version with phase 2's
+    """Kernel rows on the operands of one real step from `state` (phase
+    3's flagship, phase 10's tiled grid): of the default step the 7-point
+    apply and resid calls of every V-cycle level and the CG's true
+    residual (rows 2, 3; their count from `vcycle_calls`), the CG's
+    apply_dot_7pt calls (one per iteration), the three flux_all calls,
+    the nine fct_iter calls, the momentum_rhs call and the
+    correct_divmax call (rows 1, 4, 5, 6, 7); of the two-sweep step the
+    cheb2_pre_7pt and cheb2_post_dot_7pt calls (rows 9a, 9c; one each per
+    V-cycle). Captured by spies standing in for the entry points `names`,
+    every call held against the plain version with phase 2's
     tolerances: f32 outputs F32_RTOL (momentum_rhs MOM_RTOL), bf16
-    outputs (flux anti, FCT λ, the pre smoother's x and r) BF16_RTOL,
-    the dots DOT_RTOL and the div max F32_RTOL, each scalar bitwise
-    equal over two calls. Adds `step_ms`, `step_plain_ms` (means per
-    call), `step_max_rel_err` and `step_bitwise` to those rows."""
+    outputs (the V-cycle's applies and resids, flux anti, FCT λ, the pre
+    smoother's x and r) BF16_RTOL, the dots DOT_RTOL and the div max
+    F32_RTOL, each scalar bitwise equal over two calls; every call
+    launched its kernel. The first STEP_TIMED_CALLS calls of each
+    signature (operand shapes and dtypes: one V-cycle level) are timed
+    again, kernel and plain version. Adds `step_ms`, `step_plain_ms`
+    (means per call, each signature weighted by its calls),
+    `step_max_rel_err`, `step_bitwise`, the mean bytes and bound of a
+    call (`step_bytes`, `step_bound_ms`: each distinct operand tensor
+    read once, each output written once) and `step_levels` (per
+    signature: calls, times, bytes, bound) to those rows."""
     import torch
 
     from openfoam_tpp_tpu_torch.ops.kernels import correction as ck
@@ -1152,6 +1264,7 @@ def phase_step_operands(step, state, params, rows, names=STEP_ROWS):
     from openfoam_tpp_tpu_torch.ops.kernels import mules_fct as mf
     from openfoam_tpp_tpu_torch.ops.kernels import mules_flux as mfx
     from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
+    from openfoam_tpp_tpu_torch.solver.poisson import SolverKnobs
     from openfoam_tpp_tpu_torch.utils.devtime import device_ms
 
     def clone(v):
@@ -1166,6 +1279,15 @@ def phase_step_operands(step, state, params, rows, names=STEP_ROWS):
             return [out]
         return [t for o in out for t in flat(o)]
 
+    def tensors(v):
+        if isinstance(v, torch.Tensor):
+            return [v]
+        if isinstance(v, (tuple, list)):
+            return [t for x in v for t in tensors(x)]
+        if isinstance(v, dict):
+            return tensors(list(v.values()))
+        return []
+
     def tol_of(name, t):
         if t.dim() == 0:
             return F32_RTOL if name == "correct_divmax" else DOT_RTOL
@@ -1173,7 +1295,10 @@ def phase_step_operands(step, state, params, rows, names=STEP_ROWS):
             return BF16_RTOL
         return MOM_RTOL if name == "momentum_rhs" else F32_RTOL
 
-    real = {"apply_dot_7pt": (sp, sp.apply_dot_7pt, sp.apply_dot_7pt_plain),
+    real = {"apply_7pt": (sp, sp.apply_7pt, sp.apply_7pt_plain),
+            "resid_scaled_7pt": (sp, sp.resid_scaled_7pt,
+                                 sp.resid_scaled_7pt_plain),
+            "apply_dot_7pt": (sp, sp.apply_dot_7pt, sp.apply_dot_7pt_plain),
             "flux_all": (mfx, mfx.flux_all, mfx.flux_all_plain),
             "fct_iter": (mf, mf.fct_iter, mf.fct_iter_plain),
             "momentum_rhs": (mrk, mrk.momentum_rhs, mrk.momentum_rhs_plain),
@@ -1194,54 +1319,93 @@ def phase_step_operands(step, state, params, rows, names=STEP_ROWS):
         call.launches = 0
         return call
 
+    spies = {name: spy(name) for name in real}
     with contextlib.ExitStack() as stack:
         for name, (mod, _, _) in real.items():
-            stack.enter_context(mock.patch.object(mod, name, spy(name)))
+            stack.enter_context(mock.patch.object(mod, name, spies[name]))
         _, d, _ = step(state, params, precond=step.init_precond(state))
     torch.cuda.synchronize()
-    # One V-cycle before CG's loop and one per iteration.
-    want = {"apply_dot_7pt": int(d.p_iters), "flux_all": 3, "fct_iter": 9,
+    # One V-cycle before CG's loop and one per iteration; the CG's true
+    # residual before and after its one refinement pass.
+    vcycles = int(d.p_iters) + 1
+    n_apply, n_resid = vcycle_calls(tuple(state.alpha.shape), SolverKnobs())
+    want = {"apply_7pt": vcycles * n_apply + 2,
+            "resid_scaled_7pt": vcycles * n_resid,
+            "apply_dot_7pt": int(d.p_iters), "flux_all": 3, "fct_iter": 9,
             "momentum_rhs": 1, "correct_divmax": 1,
-            "cheb2_pre_7pt": int(d.p_iters) + 1,
-            "cheb2_post_dot_7pt": int(d.p_iters) + 1}
+            "cheb2_pre_7pt": vcycles, "cheb2_post_dot_7pt": vcycles}
     for name, (_, kern, plain) in real.items():
-        if len(calls[name]) != want[name]:
-            raise AssertionError(f"step operands: {len(calls[name])} {name} "
-                                 f"calls in one step, want {want[name]}")
-        ms, plain_ms, rel, bitwise, bad = [], [], 0.0, True, []
+        n_calls = len(calls[name])
+        if (n_calls != want[name] or spies[name].launches != n_calls
+                or not n_calls):
+            raise AssertionError(f"step operands: {n_calls} {name} calls "
+                                 f"in one step, want {want[name]}; "
+                                 f"{spies[name].launches} launched")
+        levels, rel, bitwise, bad = {}, 0.0, True, []
         for a, k in calls[name]:
             got, ref = flat(kern(*a, **k)), flat(plain(*a, **k))
+            ins = {t.data_ptr(): t for t in tensors((a, k))}
+            sig = tuple((tuple(t.shape), str(t.dtype).replace("torch.", ""))
+                        for t in tensors((a, k)))
+            lv = levels.setdefault(sig, {"calls": 0, "ms": [],
+                                         "plain_ms": [], "max_rel_err": 0.0})
+            lv["calls"] += 1
+            lv["bytes"] = nbytes(*ins.values()) + nbytes(*got)
             # Outputs of one tolerance are held together, as in phase 2.
             for tol in sorted({tol_of(name, r) for r in ref}):
                 grp = [(g, r) for g, r in zip(got, ref) if tol_of(name, r) == tol]
                 err, scale = max_err(*map(list, zip(*grp)))
-                rel = max(rel, err / max(scale, 1e-30))
+                e = err / max(scale, 1e-30)
+                rel, lv["max_rel_err"] = max(rel, e), max(lv["max_rel_err"], e)
                 if err > tol * max(scale, 1e-30):
-                    bad.append(f"{err / max(scale, 1e-30):.3e} > {tol:.1e}")
+                    bad.append(f"{e:.3e} > {tol:.1e} at {sig[0][0]}")
             bitwise = bitwise and all(torch.equal(g, r) for g, r in zip(got, ref)
                                       if r.dim() > 0)
             if (ref[-1].dim() == 0
                     and float(flat(kern(*a, **k))[-1]) != float(got[-1])):
                 bad.append("its scalar does not repeat bitwise")
-            ms.append(device_ms(lambda: kern(*a, **k), REPS))
-            plain_ms.append(device_ms(lambda: plain(*a, **k), REPS))
-        log(f"  {name:17s} step operands, {len(ms)} call(s): kernel "
-            f"{np.mean(ms):.4f} ms per call ({', '.join(f'{m * 1e3:.1f}' for m in ms)} "
-            f"us)  plain {np.mean(plain_ms):.4f} ms  max rel err {rel:.3e}; "
+            if len(lv["ms"]) < STEP_TIMED_CALLS:
+                lv["ms"].append(device_ms(lambda: kern(*a, **k), REPS))
+                lv["plain_ms"].append(device_ms(lambda: plain(*a, **k), REPS))
+        step_levels = [
+            {"shape": list(sig[0][0]), "dtype": sig[0][1],
+             "operands": len(sig), "calls": lv["calls"],
+             "timed_calls": len(lv["ms"]), "ms": float(np.mean(lv["ms"])),
+             "plain_ms": float(np.mean(lv["plain_ms"])),
+             "bytes": lv["bytes"],
+             "bound_ms": lv["bytes"] / HBM_BYTES_PER_S * 1e3,
+             "max_rel_err": lv["max_rel_err"]}
+            for sig, lv in levels.items()]
+        mean = lambda key: sum(lv[key] * lv["calls"] for lv in step_levels
+                               ) / n_calls
+        ms, plain_ms, b = mean("ms"), mean("plain_ms"), mean("bytes")
+        log(f"  {name:17s} step operands, {n_calls} call(s): kernel "
+            f"{ms:.4f} ms per call  plain {plain_ms:.4f} ms  bytes "
+            f"{b / 1e6:.2f} MB  bound {b / HBM_BYTES_PER_S * 1e3:.4f} ms  "
+            f"max rel err {rel:.3e}; "
             f"arrays {'bitwise' if bitwise else 'not bitwise'} equal to plain "
-            f"{'FAIL ' + '; '.join(bad) if bad else 'ok'}")
+            f"{'FAIL ' + '; '.join(bad[:4]) if bad else 'ok'}")
+        if len(step_levels) > 1:
+            for lv in step_levels:
+                log(f"    {tuple(lv['shape'])} {lv['dtype']} "
+                    f"({lv['operands']} operands): {lv['calls']} calls, "
+                    f"kernel {lv['ms'] * 1e3:.1f} us, plain "
+                    f"{lv['plain_ms'] * 1e3:.1f} us, bound "
+                    f"{lv['bound_ms'] * 1e3:.2f} us, max rel err "
+                    f"{lv['max_rel_err']:.3e}")
         if bad:
             raise AssertionError(f"{name} on step operands: kernel disagrees "
-                                 f"with its plain version ({bad})")
-        rows[name].update(step_ms=float(np.mean(ms)),
-                          step_plain_ms=float(np.mean(plain_ms)),
-                          step_ms_per_call=ms, step_max_rel_err=rel,
-                          step_bitwise=bitwise)
+                                 f"with its plain version ({bad[:8]})")
+        rows[name].update(step_ms=ms, step_plain_ms=plain_ms,
+                          step_max_rel_err=rel, step_bitwise=bitwise,
+                          step_bytes=b,
+                          step_bound_ms=b / HBM_BYTES_PER_S * 1e3,
+                          step_levels=step_levels)
 
 
 def phase_sharded(build, state, params, n_fluid):
     """The x-sharded step on one card (module docstring, phase 3b): from
-    `state`, N_SHORT steps each of the unsharded default step and of
+    `state`, N_SHARDED steps each of the unsharded default step and of
     make_step(spmd=SpmdCtx(S)) for S = 4 and 1, then the 4-shard step with
     OFTPP_SMOOTH_SWEEPS=2. Returns the 4-shard run's launch counts and the
     phase's stats."""
@@ -1255,15 +1419,15 @@ def phase_sharded(build, state, params, n_fluid):
         stp = build(spmd=None if n is None else SpmdCtx(n))
         finals[label], _, launches[label], runs[label] = drive(
             f"sharded step: {label}, same state", stp, state,
-            stp.init_precond(state), params, N_SHORT, N_SHORT_TIMED, n_fluid,
-            DEFAULT_PATH if n is None else HALO_PATH, snap_at=3)
+            stp.init_precond(state), params, N_SHARDED, N_SHARDED_TIMED,
+            n_fluid, DEFAULT_PATH if n is None else HALO_PATH, snap_at=3)
         snaps[label] = runs[label].pop("snapshot")
         if n is not None:
             check_halo_launches(label, launches[label], runs[label], n, 1)
     stp = build(spmd=SpmdCtx(N_SHARDS), OFTPP_SMOOTH_SWEEPS="2")
     _, _, two, runs["4 shards, two sweeps"] = drive(
         "sharded step: 4 shards, OFTPP_SMOOTH_SWEEPS=2, same state", stp,
-        state, stp.init_precond(state), params, N_SHORT, N_SHORT_TIMED,
+        state, stp.init_precond(state), params, N_SHARDED, N_SHARDED_TIMED,
         n_fluid, HALO_PATH)
     check_halo_launches("4 shards, two sweeps", two,
                         runs["4 shards, two sweeps"], N_SHARDS, 2)
@@ -1281,7 +1445,7 @@ def phase_sharded(build, state, params, n_fluid):
         tols3 = JAX_SPMD_TOLS if ref == "1 shard" else SHARD_TOLS
         for at, got_s, ref_s, tols in (
                 (3, snaps[label], snaps[ref], tols3),
-                (N_SHORT, finals[label], finals[ref], SHARD_TOLS)):
+                (N_SHARDED, finals[label], finals[ref], SHARD_TOLS)):
             for k, (kind_t, tol, floor) in tols.items():
                 err, scale = max_err(getattr(got_s, k), getattr(ref_s, k))
                 lim = max(tol if kind_t == "abs" else tol * scale, floor)
@@ -1323,10 +1487,13 @@ def check_halo_launches(label, launches, stats, n_shards, sweeps):
 def phase_case(geom):
     """The case path at full width: `setup_case` of the flagship with a
     0.1 s duration, `run_case` on the card with OFTPP_SMOOTH_SWEEPS=2, a
-    second `run_case`, `extract_interface`. Returns the launch counts of
-    the first run (set to 0 just before it, read just after) and its
-    stats."""
+    second `run_case`, `extract_interface`, then the command line's
+    `--action profile` on that case. Returns the launch counts of the
+    first run (set to 0 just before it, read just after) and its stats."""
     import torch
+
+    from openfoam_tpp_tpu_torch.manager import cli
+    from openfoam_tpp_tpu_torch.utils.profiling import TRACE_FILE
 
     from openfoam_tpp_tpu_torch.manager.cases import (is_case_done,
                                                       load_case_params,
@@ -1463,7 +1630,35 @@ def phase_case(geom):
         if (tuple(geom2.shape) != top_shape or len(summary) != 4
                 or max(abs(z - 0.104) for z in first[1:4]) > geom.spacing[2]):
             raise AssertionError(f"case path: interface summary {summary}")
-    return launches, {**stats, "p_iters_hist": hist}
+
+        # The profile verb on that case, from its last checkpoint.
+        for f in fns.values():
+            f.launches = 0
+        with environ(OFTPP_PROFILE_STEPS=str(N_PROFILE)):
+            rc = cli.main(["--headless", "--base-dir", base, "--case",
+                           os.path.basename(case_dir), "--action", "profile"])
+        torch.cuda.synchronize()
+        prof_launches = {k: f.launches for k, f in fns.items() if f.launches}
+        out_dir = os.path.join(case_dir, "postProcessing", "profile")
+        with open(os.path.join(out_dir, "summary.txt")) as f:
+            prof = dict(ln.rstrip("\n").split(": ", 1)
+                        for ln in f if ln.strip())
+        with open(os.path.join(out_dir, TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+        n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        log(f"[profile verb] rc {rc}; summary {prof}; trace "
+            f"{os.path.getsize(os.path.join(out_dir, TRACE_FILE)) / 1e6:.1f}"
+            f" MB with {n_kernels} kernel events; kernel launches "
+            f"{prof_launches}")
+        if (rc != 0 or tuple(prof) != PROFILE_KEYS
+                or prof["n_steps"] != str(N_PROFILE)
+                or prof["device"] != torch.cuda.get_device_name(0)
+                or n_kernels == 0 or set(prof_launches) != set(DEFAULT_PATH)):
+            raise AssertionError(f"profile verb: rc {rc}, summary {prof}, "
+                                 f"{n_kernels} kernel events, launches "
+                                 f"{prof_launches}")
+    return launches, {**stats, "p_iters_hist": hist, "profile": prof,
+                      "profile_launches": prof_launches}
 
 
 def drive_sweep(label, step, states, params, n_steps, n_timed, n_fluid,
@@ -1604,6 +1799,12 @@ def phase_sweep(dev, props):
             its.append(dd.p_iters)
         return s, torch.stack(its).cpu().numpy()
 
+    # Device ops and busy time per step, beside phase 10's tiled sweep.
+    stats["ops_per_step"], stats["busy_ms_per_step"] = ops_per_step(
+        lambda n: run(sweep_step, n), 2)
+    log(f"  sweep step from that state (torch.profiler, 2 steps): "
+        f"{stats['ops_per_step']:.1f} device ops, "
+        f"{stats['busy_ms_per_step']:.3f} ms busy per step")
     with environ(OFTPP_SWEEP_PALLAS="0"):
         plain_step = make_sweep_step(geom, props, SolverControls(), device=dev)
     s_k, it_k = run(sweep_step, N_CMP)
@@ -1750,7 +1951,7 @@ def phase_manager(dev):
         # --percase-dt: four fresh cases of the default tank, a 20 ms ramp
         # so the stiff case's Courant limit binds.
         lax = dict(H=0.1, D=0.02, mesh=0.002, geo="flat", R=0.0005, freq=1.0,
-                   duration=0.1, dt=0.001, ramp=0.02)
+                   duration=0.05, dt=0.001, ramp=0.02)
         own = [lax, {**lax, "R": 0.002, "freq": 3.0},
                {**lax, "R": 0.003, "freq": 4.5}, {**lax, "R": 0.004, "freq": 6.0}]
         base2 = os.path.join(base, "percase")
@@ -1762,7 +1963,7 @@ def phase_manager(dev):
         log(f"[manager] --percase-dt: steps per case {own_steps} (lax to "
             f"stiff), batch steps {calls[-1]['steps']}")
         for d, n in zip(dirs2, own_steps):
-            if float(last(d)["t"]) != float(np.float32(2) * np.float32(0.05)) \
+            if float(last(d)["t"]) != float(np.float32(0.05)) \
                     or len(probe_rows(d, "p")) != n:
                 raise AssertionError(f"manager: --percase-dt case {d}")
         if not own_steps[0] < own_steps[-1]:
@@ -1862,43 +2063,11 @@ def phase_6dof(dev, props, rows):
         raise AssertionError("6DoF step: the frame's rates are zero")
 
     # The whole step, kernels against plain versions, from that state:
-    # phase 4's limits, p after each field's fluid mean is removed (the
-    # closed tank's p is defined up to a constant).
-    def run(n):
-        s, b = state, step.init_precond(state)
-        its = []
-        for _ in range(n):
-            s, dd, b = step(s, params, precond=b)
-            its.append(int(dd.p_iters))
-        return s, its
-
-    s_k, it_k = run(N_CMP)
-    with contextlib.ExitStack() as stack:
-        for m, attr, plain in counters().values():
-            stack.enter_context(mock.patch.object(m, attr, plain))
-        s_p, it_p = run(N_CMP)
-    torch.cuda.synchronize()
-    fluid = torch.as_tensor(geom.vfrac > 0, device=dev)
-    log(f"[6DoF step kernels vs plain] {N_CMP} steps; p_iters kernels "
-        f"{it_k} plain {it_p}")
-    tols = {"alpha": ("abs", 1e-3), "u": ("rel", 1e-2), "v": ("rel", 1e-2),
-            "w": ("rel", 1e-2), "p": ("rel", 1e-4)}
-    bad = []
-    for k, (kind_t, tol) in tols.items():
-        got, ref = getattr(s_k, k), getattr(s_p, k)
-        if k == "p":
-            got, ref = (torch.where(fluid, x - x[fluid].mean(), 0.0)
-                        for x in (got, ref))
-        err, scale = max_err(got, ref)
-        lim = tol if kind_t == "abs" else tol * scale
-        log(f"  {k}: max_abs_err {err:.3e} limit {lim:.3e} (scale "
-            f"{scale:.3e})")
-        if err > lim:
-            bad.append(f"{k}: {err} > {lim}")
-    if any(abs(a - b) > 1 for a, b in zip(it_k, it_p)):
-        bad.append(f"p_iters differ by more than 1: {it_k} {it_p}")
-    if bad:
-        raise AssertionError(f"6DoF step kernels vs plain: {bad}")
+    # p after each field's fluid mean is removed (the closed tank's p is
+    # defined up to a constant).
+    vs_plain = hold_to_plain(
+        "6DoF step", steps_from(step, state, params),
+        mean_removed=torch.as_tensor(geom.vfrac > 0, device=dev))
 
     # One 6DoF step's correct_divmax call (the closed-top form), held
     # bitwise against its plain version and timed beside row 7.
@@ -1972,10 +2141,311 @@ def phase_6dof(dev, props, rows):
                                  f"{lines2}")
     return {"step": stats, "finish_gated": finish,
             "closed_top_correct_divmax": closed,
-            "kernels_vs_plain_p_iters": [it_k, it_p],
+            "kernels_vs_plain_p_iters": vs_plain["p_iters"],
             "case_path": {k: run_stats[k] for k in
                           ("n_cells", "steps", "wall_seconds", "sim_seconds",
                            "io_seconds", "intervals")}}
+
+
+def steps_from(step, state, params):
+    """`run(n) -> (state, p_iters list)`: n steps of a carry_precond step
+    from `state`, with a fresh preconditioner bundle."""
+    def run(n):
+        s, b, its = state, step.init_precond(state), []
+        for _ in range(n):
+            s, d, b = step(s, params, precond=b)
+            its.append(int(d.p_iters))
+        return s, its
+    return run
+
+
+def hold_to_plain(label, run, mean_removed=None):
+    """`run(n) -> (state, p_iters list)` N_CMP steps with the kernels, then
+    N_CMP with every entry point swapped for its plain version; the fields
+    within CMP_TOLS (phase 4's limits), p_iters within 1. With
+    `mean_removed` (a fluid mask) p is compared after each field's fluid
+    mean is removed. Returns the errors."""
+    import torch
+
+    s_k, it_k = run(N_CMP)
+    with contextlib.ExitStack() as stack:
+        for m, attr, plain in counters().values():
+            stack.enter_context(mock.patch.object(m, attr, plain))
+        s_p, it_p = run(N_CMP)
+    torch.cuda.synchronize()
+    log(f"[{label}: kernels vs plain] {N_CMP} steps; p_iters kernels "
+        f"{it_k} plain {it_p}")
+    out, bad = {"p_iters": [it_k, it_p]}, []
+    for k, (kind_t, tol) in CMP_TOLS.items():
+        got, ref = getattr(s_k, k), getattr(s_p, k)
+        if k == "p" and mean_removed is not None:
+            got, ref = (torch.where(mean_removed, x - x[mean_removed].mean(),
+                                    0.0) for x in (got, ref))
+        err, scale = max_err(got, ref)
+        lim = tol if kind_t == "abs" else tol * scale
+        out[k] = {"max_abs_err": err, "scale": scale, "limit": lim}
+        log(f"  {k}: max_abs_err {err:.3e} limit {lim:.3e} (scale "
+            f"{scale:.3e})")
+        if err > lim:
+            bad.append(f"{k}: {err} > {lim}")
+    if any(abs(a - b) > 1 for a, b in zip(it_k, it_p)):
+        bad.append(f"p_iters differ by more than 1: {it_k} {it_p}")
+    if bad:
+        raise AssertionError(f"{label} kernels vs plain: {bad}")
+    return out
+
+
+def ops_per_step(run, n):
+    """(device ops, device busy ms) per step of `run(n)`, which takes n
+    steps, under torch.profiler after one untraced step: the larger of
+    the trace's device events (kernels, copies, fills) and its launch
+    API calls, as `cuda_launches` counts; busy is the union of the
+    device events' intervals."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from openfoam_tpp_tpu_torch.utils.devtime import busy_union_us
+
+    run(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(n)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    cuda = torch.autograd.DeviceType.CUDA
+    n_dev = sum(1 for e in events if e.device_type == cuda)
+    n_api = sum(1 for e in events if e.name in LAUNCH_APIS)
+    return max(n_dev, n_api) / n, busy_union_us(events) / n / 1e3
+
+
+def phase_csf(dev, geom, props, params, default_step, main_stats):
+    """Surface tension on the flagship (module docstring, phase 9):
+    water's σ, use_pallas=True, N_CSF steps from rest; the step built
+    with OFTPP_FINISH_PALLAS=1 from that state; whether the capillary
+    bound binds; ops per step against the σ = 0 step from the same state,
+    and the ops of the step's CSF calls alone; kernels against plain
+    versions. Returns the phase's stats and the launch counts of its main
+    run."""
+    import dataclasses
+
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import SolverControls
+    from openfoam_tpp_tpu_torch.core.state import init_state, mixture_density
+    from openfoam_tpp_tpu_torch.ops import stencil as st
+    from openfoam_tpp_tpu_torch.solver import momentum as mom
+    from openfoam_tpp_tpu_torch.solver.timestep import (capillary_dt,
+                                                        geometry_arrays,
+                                                        make_step)
+
+    csf = dataclasses.replace(props, sigma=SIGMA_WATER)
+    n_fluid = geom.n_fluid_cells
+
+    def build(**env):
+        with environ(**env):   # gates and knobs are read at build time
+            return make_step(geom, csf, SolverControls(use_pallas=True),
+                             carry_precond=True, device=dev)
+
+    step = build()
+    state = init_state(geom, dt0=1e-3, device=dev)
+    state, _, launches, stats = drive(
+        f"CSF step: sigma {SIGMA_WATER} N/m, use_pallas=True, from rest",
+        step, state, step.init_precond(state), params, N_CSF, N_CSF_TIMED,
+        n_fluid, DEFAULT_PATH)
+    # The capillary bound as the step forms it, in f32.
+    h = np.float32(min(geom.spacing))
+    dt_cap = float(np.float32(SolverControls().max_capillary_co) * np.sqrt(
+        np.float32(csf.rho1 + csf.rho2) * (h * h * h)
+        / np.float32(4.0 * np.pi * SIGMA_WATER)))
+    dts = stats["dt_cfl"]
+    binds = [i for i, d in enumerate(dts) if abs(d - dt_cap) <= 1e-6 * dt_cap]
+    stats["dt_cap"], stats["cap_binds_at_steps"] = dt_cap, binds
+    ga = geometry_arrays(geom, device=dev)
+    kappa = mom.curvature(state.alpha, geom.spacing, vfrac=ga["vfrac"])
+    # Where the smoothed alpha is neither 0 nor 1: where CSF acts.
+    band = (mom.smooth_alpha(state.alpha) - 0.5).abs() < 0.49
+    stats["max_abs_kappa_band"] = float(kappa[band].abs().max())
+    water = state.alpha > 0.5
+    for name, q, ax in (("u", state.u, 0), ("v", state.v, 1),
+                        ("w", state.w, 2)):
+        wet = st.cells_to_faces_avg(water.float(), ax) > 0.5
+        stats[f"max_abs_{name}_water"] = float(q[wet].abs().max())
+        stats[f"max_abs_{name}_air"] = float(q[~wet].abs().max())
+    log("  largest |u|, |v|, |w| at faces in water / air (m/s): " + "; ".join(
+        f"{q} {stats[f'max_abs_{q}_water']:.3e} / "
+        f"{stats[f'max_abs_{q}_air']:.3e}" for q in "uvw")
+        + f"; sqrt(sigma / (rho_w h)) "
+        f"{np.sqrt(SIGMA_WATER / (csf.rho1 * float(h))):.3e}")
+    log(f"  capillary bound {dt_cap:.4e} s binds at {len(binds)} of "
+        f"{N_CSF} steps ({binds}); CFL dt in [{min(dts):.4e}, "
+        f"{max(dts):.4e}] s; max |kappa| in the interface band "
+        f"{stats['max_abs_kappa_band']:.4e} 1/m; flagship sigma = 0 "
+        f"(phase 3): {main_stats['ms_per_step']:.3f} ms/step")
+    if max(dts) > dt_cap * (1 + 1e-6):
+        raise AssertionError(f"CSF step: a CFL dt {max(dts)} above the "
+                             f"capillary bound {dt_cap}")
+    gated = build(OFTPP_FINISH_PALLAS="1")
+    _, _, _, stats["finish_gated"] = drive(
+        "CSF step built with OFTPP_FINISH_PALLAS=1, same state", gated,
+        state, gated.init_precond(state), params, N_GATED, N_GATED, n_fluid,
+        DEFAULT_PATH)
+    log("  momentum_finish launched 0 times with OFTPP_FINISH_PALLAS=1 "
+        "(kappa is set)")
+
+    stats["ops_per_step"], stats["busy_ms_per_step"] = ops_per_step(
+        steps_from(step, state, params), 2)
+    stats["sigma0_ops_per_step"], stats["sigma0_busy_ms_per_step"] = \
+        ops_per_step(steps_from(default_step, state, params), 2)
+
+    # The step's CSF calls alone, on the state reached: the capillary
+    # bound, κ, the three face sources and their dt·source adds.
+    controls = SolverControls()
+    beta = [1.0 / st.cells_to_faces_avg(mixture_density(state.alpha, csf),
+                                        ax) for ax in range(3)]
+    vels = (state.u, state.v, state.w)
+
+    def csf_alone(n):
+        for _ in range(n):
+            capillary_dt(csf, controls, geom.spacing, torch.float32, dev)
+            k = mom.curvature(state.alpha, geom.spacing, vfrac=ga["vfrac"],
+                              method=controls.csf_curvature)
+            for ax in range(3):
+                vels[ax] + state.dt * mom.csf_force(
+                    state.alpha, k, csf.sigma, ax, geom.spacing[ax], beta[ax])
+
+    stats["csf_own_ops_per_step"], stats["csf_own_busy_ms_per_step"] = \
+        ops_per_step(csf_alone, 2)
+    log(f"[CSF vs sigma = 0, same state, torch.profiler, 2 steps] CSF "
+        f"{stats['ops_per_step']:.1f} device ops, "
+        f"{stats['busy_ms_per_step']:.3f} ms busy per step; sigma = 0 "
+        f"{stats['sigma0_ops_per_step']:.1f}, "
+        f"{stats['sigma0_busy_ms_per_step']:.3f} (its dt grows past the "
+        f"capillary bound, and its CG takes more iterations); the step's "
+        f"CSF calls alone {stats['csf_own_ops_per_step']:.1f} ops, "
+        f"{stats['csf_own_busy_ms_per_step']:.3f} ms busy")
+    stats["vs_plain"] = hold_to_plain("CSF step",
+                                      steps_from(step, state, params))
+    return stats, launches
+
+
+def phase_tiled(dev, props, sweep):
+    """The tiled sweep (module docstring, phase 10): 128 cases merged along
+    x, use_pallas=True, N_TILED steps from rest; the step built with
+    OFTPP_FINISH_PALLAS=1; the seven kernels on one tiled step's operands;
+    kernels against plain versions; 8 cases tiled against the batched
+    sweep; the numbers beside phase 6's batched sweep (`sweep`).
+    Returns the phase's stats, the kernel rows at the tiled shape and the
+    launch counts of its main run."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import SolverControls
+    from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
+    from openfoam_tpp_tpu_torch.parallel.sweep import (batch_params,
+                                                       batch_states,
+                                                       make_sweep_step)
+    from openfoam_tpp_tpu_torch.parallel.tiled_sweep import (
+        make_tiled_sweep_step, tile_geometry, tile_state, untile)
+
+    geom = build_tank_geometry(**SWEEP_TANK, round_to=8)
+    tshape = tuple(tile_geometry(geom, TILED_CASES).shape)
+    n_fluid = geom.n_fluid_cells * TILED_CASES
+    log(f"[tiled sweep] {TILED_CASES} cases of {geom.shape} "
+        f"({geom.n_fluid_cells} fluid cells each) along x: {tshape}, "
+        f"{n_fluid} fluid cells")
+    if tshape != TILED_SHAPE or n_fluid != TILED_FLUID:
+        raise AssertionError(f"tiled grid {tshape} with {n_fluid} fluid "
+                             f"cells, not {TILED_SHAPE} with {TILED_FLUID}")
+    rows = [{"R": 0.002 + 2e-5 * i, "freq": 1.5 + 0.01 * i, "duration": 10.0}
+            for i in range(TILED_CASES)]
+    params = batch_params(rows, device=dev)
+
+    def build(n, **env):
+        with environ(**env):   # gates and knobs are read at build time
+            core = make_tiled_sweep_step(geom, n, props,
+                                         SolverControls(use_pallas=True),
+                                         device=dev)
+
+        def stp(s, p, precond=None):
+            return (*core(s, p), None)
+        stp.init_precond = lambda s: None
+        return stp
+
+    step = build(TILED_CASES)
+    start = tile_state(geom, TILED_CASES, device=dev)
+    state, _, launches, stats = drive(
+        f"tiled sweep step: {TILED_CASES} cases, use_pallas=True, from rest",
+        step, start, None, params, N_TILED, N_TILED_TIMED, n_fluid,
+        DEFAULT_PATH)
+    vfrac = torch.as_tensor(geom.vfrac, device=dev)
+    nx = geom.shape[0]
+    mass = lambda a: (a.reshape(TILED_CASES, nx, *a.shape[1:])
+                      * vfrac).sum(dim=(1, 2, 3))
+    m0, m1 = mass(start.alpha), mass(state.alpha)
+    drift = float(((m1 - m0).abs() / m0).max())
+    stats["max_block_mass_drift"] = drift
+    log(f"  per-block mass: largest relative change {drift:.3e} (limit "
+        f"{TILED_TOLS['mass']:.0e})")
+    if drift > TILED_TOLS["mass"]:
+        raise AssertionError(f"tiled sweep: block mass drift {drift}")
+    gated = build(TILED_CASES, OFTPP_FINISH_PALLAS="1")
+    _, _, _, stats["finish_gated"] = drive(
+        "tiled sweep step built with OFTPP_FINISH_PALLAS=1, same state",
+        gated, state, None, params, N_GATED, N_GATED, n_fluid, DEFAULT_PATH)
+    log("  momentum_finish launched 0 times with OFTPP_FINISH_PALLAS=1 "
+        "(G_x and G_y vary along x)")
+
+    log(f"[kernels on the operands of one tiled step from that state, "
+        f"{tshape}]")
+    tiled_rows = {name: {} for name in STEP_ROWS}
+    phase_step_operands(step, state, params, tiled_rows)
+
+    run = steps_from(step, state, params)
+    stats["ops_per_step"], stats["busy_ms_per_step"] = ops_per_step(run, 2)
+    stats["vs_plain"] = hold_to_plain("tiled sweep step", run)
+
+    # TILED_VS_SWEEP cases tiled against the batched sweep of the same
+    # cases (the batch-native 7-point kernels, case axis trailing).
+    k = TILED_VS_SWEEP
+    sub = batch_params(rows[:k], device=dev)
+    ts, small = tile_state(geom, k, device=dev), build(k)
+    vs = batch_states(geom, k, device=dev)
+    vstep = make_sweep_step(geom, props, SolverControls(), device=dev)
+    for _ in range(N_TILED_VS_SWEEP):
+        ts, _, _ = small(ts, sub)
+        vs, _ = vstep(vs, sub)
+    torch.cuda.synchronize()
+    a_t = untile(ts.alpha, k)
+    a_v = np.moveaxis(vs.alpha.cpu().numpy(), -1, 0)
+    w_t = untile(ts.w, k)
+    w_v = np.moveaxis(vs.w.cpu().numpy(), -1, 0)
+    vf = geom.vfrac
+    m0 = (untile(tile_state(geom, 1, device=dev).alpha, 1)[0] * vf).sum()
+    pair = {
+        "t": float(np.abs(float(ts.t) - vs.t.cpu().numpy()).max()
+                   / float(ts.t)),
+        "dt": abs(float(ts.dt) - float(vs.dt.min())) / float(vs.dt.min()),
+        "alpha": float(np.abs(a_t - a_v).max()),
+        "w": float(np.abs(w_t - w_v).max()),
+        "mass": float(max(abs((a_t[i] * vf).sum() - m0) / m0
+                          for i in range(k)))}
+    stats["vs_batched_sweep"] = pair
+    log(f"[tiled vs batched sweep, {k} cases, {N_TILED_VS_SWEEP} steps from "
+        "rest] " + "; ".join(f"{f} {v:.3e} (limit {TILED_TOLS[f]:.0e})"
+                             for f, v in pair.items()))
+    bad = [f for f, v in pair.items() if v > TILED_TOLS[f]]
+    if bad:
+        raise AssertionError(f"tiled vs batched sweep: {bad} {pair}")
+
+    b = sweep["make_sweep_step"]
+    log(f"[tiled sweep vs phase 6's batched sweep of {TILED_CASES} cases at "
+        f"round_to=4, one run each] tiled {stats['ms_per_step']:.3f} "
+        f"ms/step, {stats['cell_updates_per_s']:.4e} aggregate "
+        f"cell-updates/s, {stats['ops_per_step']:.1f} ops and "
+        f"{stats['busy_ms_per_step']:.3f} ms busy per step; batched "
+        f"{b['ms_per_step']:.3f} ms/step, {b['agg_cell_updates_per_s']:.4e}, "
+        f"{b['ops_per_step']:.1f} ops, {b['busy_ms_per_step']:.3f} ms busy")
+    return stats, tiled_rows, launches
 
 
 def main() -> int:
@@ -1999,6 +2469,14 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
+    laps, t_lap = {}, [t_start]
+
+    def lap(phase):
+        """Log and keep the wall seconds since the last lap."""
+        now = time.perf_counter()
+        laps[phase] = now - t_lap[0]
+        t_lap[0] = now
+        log(f"[phase {phase}] {laps[phase]:.1f} s")
 
     # 1. build
     t0 = time.perf_counter()
@@ -2018,6 +2496,8 @@ def main() -> int:
     log(f"[geometry] {geom.shape}, {n_fluid} fluid cells, "
         f"{time.perf_counter() - t0:.1f} s")
 
+    lap("1")
+
     # 2. kernels against their plain versions
     log(f"[kernels vs plain] shape {geom.shape}, {REPS} timed launches each")
     spacing = tuple(float(h) for h in geom.spacing)
@@ -2030,6 +2510,8 @@ def main() -> int:
         f"shape {geom.shape} in {N_SHARDS} x-shards, {REPS} timed launches "
         "each")
     rows.update(phase_halo_kernels(geom.shape, spacing, dev))
+
+    lap("2")
 
     # 3. the step path: the bench's configuration from rest, then the
     # five configurations from the state it reached
@@ -2080,68 +2562,67 @@ def main() -> int:
                     f"{runs[k]['p_iters_hist']}"
                     for k in ("use_pallas", "sweeps2", "sweeps2_fused_rz_off")))
 
+    lap("3")
+
     # 3b. the x-sharded step from the same state
     halo_launches, sharded = phase_sharded(build, state, params, n_fluid)
     for k in HALO_PATH:
         launches[k] = halo_launches[k]
+    lap("3b")
 
     # 4. the whole step, kernels against plain versions, from one state:
     # the finish-on step with one sweep, with two, and with two and the
     # separate r·z (together all eleven entry points are swapped)
-    def run(stp, n):
-        s, b = state, stp.init_precond(state)
-        its = []
-        for _ in range(n):
-            s, dd, b = stp(s, params, precond=b)
-            its.append(int(dd.p_iters))
-        return s, its
-
-    # Per call the kernels match their plain versions to an ulp (phase 2).
-    # Over 5 steps an ulp can flip the rounding of a bf16 λ (2^-8 of that
-    # face's antidiffusive flux), which moves an interface cell's alpha by
-    # ~1e-4 (limit 1e-3) and, where the density jumps 1000:1, its face
-    # velocities by a few 1e-3 of the field's scale (limit 1e-2); p is
-    # held to 1e-4 of its scale, the CG tolerance's order.
-    tols = {"alpha": ("abs", 1e-3), "u": ("rel", 1e-2), "v": ("rel", 1e-2),
-            "w": ("rel", 1e-2), "p": ("rel", 1e-4)}
-    for label, env in (("one sweep", finish), ("two sweeps", {**finish, **sweeps2}),
+    for label, env in (("one sweep", finish),
+                       ("two sweeps", {**finish, **sweeps2}),
                        ("two sweeps, r·z apart", {**finish, **rz_off})):
-        stp = build(**env)
-        s_k, it_k = run(stp, N_CMP)
-        with contextlib.ExitStack() as stack:
-            for m, attr, plain in counters().values():
-                stack.enter_context(mock.patch.object(m, attr, plain))
-            s_p, it_p = run(stp, N_CMP)
-        torch.cuda.synchronize()
-        log(f"[step kernels vs plain, {label}] {N_CMP} steps; p_iters kernels "
-            f"{it_k} plain {it_p}")
-        bad = []
-        for k, (kind_t, tol) in tols.items():
-            err, scale = max_err(getattr(s_k, k), getattr(s_p, k))
-            lim = tol if kind_t == "abs" else tol * scale
-            log(f"  {k}: max_abs_err {err:.3e} limit {lim:.3e} "
-                f"(scale {scale:.3e})")
-            if err > lim:
-                bad.append(f"{k}: {err} > {lim}")
-        if bad:
-            raise AssertionError(f"step kernels vs plain, {label}: {bad}")
-        if any(abs(a - b) > 1 for a, b in zip(it_k, it_p)):
-            raise AssertionError(f"{label}: p_iters differ by more than 1: "
-                                 f"{it_k} {it_p}")
+        hold_to_plain(f"step, {label}",
+                      steps_from(build(**env), state, params))
+
+    lap("4")
 
     # 5. the case path, as a user drives it
     case_launches, case = phase_case(geom)
     for k in CHEB2_RZ:
         launches[k] = case_launches[k]
+    lap("5")
 
     # 6. the sweep step; 7. the manager's sweep
     sweep_launches, sweep = phase_sweep(dev, props)
     for k in BATCH_PATH:
         launches[k] = sweep_launches[k]
+    lap("6")
     _, manager = phase_manager(dev)
+    lap("7")
 
     # 8. the 6DoF path
     tank6dof = phase_6dof(dev, props, rows)
+    lap("8")
+
+    # 9. surface tension on the flagship; 10. the tiled sweep
+    csf, csf_launches = phase_csf(dev, geom, props, params, step, main)
+    lap("9")
+    tiled, tiled_rows, tiled_launches = phase_tiled(dev, props, sweep)
+    lap("10")
+    log("[kernels: flagship (phase 2 / a flagship step's operands) and the "
+        f"tiled {TILED_SHAPE} step's operands, us per call; of the V-cycle "
+        "rows the finest level's calls, then the mean of all]")
+    for name in STEP_ROWS:
+        r, t = rows[name], tiled_rows[name]
+        # The finest level: the calls that move the most bytes.
+        rf, tf = (max(x["step_levels"], key=lambda lv: lv["bytes"])
+                  for x in (r, t))
+        every = (f"  all {sum(lv['calls'] for lv in t['step_levels'])} "
+                 f"calls {t['step_ms'] * 1e3:.1f} (flagship "
+                 f"{r['step_ms'] * 1e3:.1f})"
+                 if len(t["step_levels"]) > 1 else "")
+        log(f"  {name:17s} flagship {r['ms'] * 1e3:.1f} / "
+            f"{rf['ms'] * 1e3:.1f} (bound {rf['bound_ms'] * 1e3:.2f})  "
+            f"tiled {tf['ms'] * 1e3:.1f} (bound {tf['bound_ms'] * 1e3:.2f}, "
+            f"{tf['ms'] / tf['bound_ms']:.2f}x){every}"
+            f"  launches per step: CSF "
+            f"{csf['launches_per_step'][name]:.2f}, tiled "
+            f"{tiled['launches_per_step'][name]:.2f}")
 
     out = []
     for name in REPLACES:
@@ -2153,7 +2634,10 @@ def main() -> int:
     detail = {"kernels": out, "shape": list(geom.shape), "fluid_cells": n_fluid,
               "runs": {"use_pallas_from_rest": main, "same_state": runs,
                        "sharded": sharded, "case_path": case, "sweep": sweep,
-                       "runsweep": manager, "tank6dof": tank6dof}}
+                       "runsweep": manager, "tank6dof": tank6dof,
+                       "csf": csf, "tiled": tiled},
+              "tiled_kernel_rows": tiled_rows, "phase_seconds": laps,
+              "launches": {"csf": csf_launches, "tiled": tiled_launches}}
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)
     with open(os.path.join(repo, "perf_out", "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1)

@@ -2,12 +2,15 @@
 
     python -m openfoam_tpp_tpu_torch --headless --base-dir D --case C --action run
     python -m openfoam_tpp_tpu_torch --headless --base-dir D --case C --action interface
+    python -m openfoam_tpp_tpu_torch --headless --base-dir D --case C --action profile
     python -m openfoam_tpp_tpu_torch --headless --base-dir D --action runsweep [--case A,B|all] [--percase-dt]
     python -m openfoam_tpp_tpu_torch --headless --base-dir D --action build6dof [--params Lx=20,mesh=1] [--motion-table F | --native-table]
     python -m openfoam_tpp_tpu_torch --headless --base-dir D --action config
 
-Port of the headless `run`, `interface`, `runsweep`, `build6dof` and
-`config` verbs of openfoam_tpp_tpu/manager/cli.py. The solver verbs run
+Port of the headless `run`, `interface`, `profile`, `runsweep`,
+`build6dof` and `config` verbs of openfoam_tpp_tpu/manager/cli.py
+(`profile`: OFTPP_PROFILE_STEPS steps, default 20, under torch.profiler;
+utils/profiling.py). The solver verbs run
 on the CUDA device unless `--device cpu` is given. The interactive menu
 and the other verbs and flags of that command line are not ported yet:
 asking for one exits non-zero. PyTorch runs eagerly, so there is no dependency bootstrap and
@@ -25,7 +28,7 @@ import tempfile
 from openfoam_tpp_tpu_torch.config import DEFAULTS
 from openfoam_tpp_tpu_torch.manager import cases as case_mgr
 
-NOT_PORTED = ("flow", "profile", "video")
+NOT_PORTED = ("flow", "video")
 
 
 def action_interface(case_dir: str, device="cuda") -> bool:
@@ -51,6 +54,17 @@ def action_run(case_dir: str, device="cuda") -> bool:
     return True
 
 
+def action_profile(case_dir: str, device="cuda") -> bool:
+    """torch.profiler trace + per-step timing of a case
+    (utils/profiling.py)."""
+    from openfoam_tpp_tpu_torch.utils.profiling import profile_case
+
+    print(f"  ⏱  Profiling {os.path.basename(case_dir)} ...")
+    n = int(os.environ.get("OFTPP_PROFILE_STEPS", "20"))
+    profile_case(case_dir, n_steps=n, device=device)
+    return True
+
+
 def action_runsweep(case_dirs: list[str], lockstep: bool = True,
                     device="cuda") -> bool:
     """Run many cases as batches on one card (manager/sweeprun.py).
@@ -69,7 +83,8 @@ def action_runsweep(case_dirs: list[str], lockstep: bool = True,
     return True
 
 
-ACTIONS = {"interface": action_interface, "run": action_run}
+ACTIONS = {"interface": action_interface, "run": action_run,
+           "profile": action_profile}
 
 
 def _default_6dof_table() -> str | None:

@@ -9,6 +9,14 @@ versions reuse.
 Forcing uses the total-pressure formulation (see the JAX module's note):
 the uniform body acceleration G(t) is added to face velocities in the
 time step and p absorbs the hydrostatic profile.
+
+Surface tension (Brackbill CSF, σκ∇α at the faces): `csf_force`, and the
+curvature estimators `smooth_alpha`, `curvature_vof`, `curvature_hf` and
+`curvature` (the height-function / smoothed-VoF blend). They keep the
+JAX module's operation order, so their f32 results track it. Like the
+rest of the step they take a trailing case axis, (nx, ny, nz, B), with
+the spacing as floats or per-case (B,) tensors; the height function sums
+over z and pads x and y only.
 """
 
 from __future__ import annotations
@@ -111,18 +119,130 @@ def explicit_rhs(vels, rho_phi, mu, div_u, spacing, dev2=True):
 
 
 def explicit_update(vels, vcs, rho_old, rho_new, apertures, dt, G,
-                    extra=None):
-    """q* = (ρ_f^old·q + dt·vc)/ρ_f^new + dt·G [+ dt·extra] per component,
-    zero where the aperture is 0 (ρ_f: arithmetic face means). `extra`:
-    an optional per-axis source on each face grid (the rotating frame's
-    accelerations, solver/frame.py)."""
+                    extra=None, csf=None):
+    """q* = (ρ_f^old·q + dt·vc)/ρ_f^new + dt·G [+ dt·extra] [+ dt·csf] per
+    component, three separate adds as in the JAX step, zero where the
+    aperture is 0 (ρ_f: arithmetic face means). A component of G that is
+    3-D and varies along its own axis (the tiled sweep's per-block G_x) is
+    face-averaged first. `extra`: an optional per-axis source on each face
+    grid (the rotating frame's accelerations, solver/frame.py); `csf`: the
+    per-axis surface-tension acceleration (`csf_force`)."""
     out = []
     for ax, (q, vc, ap) in enumerate(zip(vels, vcs, apertures)):
         rof = st.cells_to_faces_avg(rho_old, ax)
         rnf = st.cells_to_faces_avg(rho_new, ax)
         q_star = (rof * q + dt * vc) / rnf
-        q_star = q_star + dt * G[ax]
+        Gc = G[ax]
+        if (isinstance(Gc, torch.Tensor) and Gc.dim() == 3
+                and Gc.shape[ax] > 1):
+            Gc = st.cells_to_faces_avg(Gc, ax)
+        q_star = q_star + dt * Gc
         if extra is not None:
             q_star = q_star + dt * extra[ax]
+        if csf is not None:
+            q_star = q_star + dt * csf[ax]
         out.append(torch.where(ap > 0.0, q_star, 0.0))
     return out
+
+
+# ------------------------------------------------------------------ CSF
+
+def csf_force(alpha, kappa, sigma, axis, h, beta_face):
+    """Continuum-surface-force σ κ_f ∂α/∂n · β_f at the `axis` faces."""
+    kf = st.cells_to_faces_avg(kappa, axis)
+    da = st.gradient_at_faces(alpha, axis, h)
+    return sigma * kf * da * beta_face
+
+
+def smooth_alpha(alpha, n=2):
+    """`n` passes of 7-point averaging of the VoF field, for the curvature
+    estimate only (alpha itself is never smoothed)."""
+    for _ in range(n):
+        sm = alpha
+        for ax in range(3):
+            sm = sm + st.shift_down(alpha, ax) + st.shift_up(alpha, ax)
+        # XLA folds the JAX module's `sm / 7.0` into this f32 product.
+        alpha = sm * (1.0 / 7.0)
+    return alpha
+
+
+def curvature_vof(alpha, spacing, eps=1e-8, n_smooth=2):
+    """κ = −∇·n̂ from smoothed VoF gradients (cell-centred); also returns
+    the cell gradient and its magnitude, (gx, gy, gz, |g| + eps)."""
+    hx, hy, hz = spacing
+    alpha = smooth_alpha(alpha, n_smooth)
+    gx = st.faces_to_cells_avg(st.gradient_at_faces(alpha, 0, hx), 0)
+    gy = st.faces_to_cells_avg(st.gradient_at_faces(alpha, 1, hy), 1)
+    gz = st.faces_to_cells_avg(st.gradient_at_faces(alpha, 2, hz), 2)
+    mag = torch.sqrt(gx * gx + gy * gy + gz * gz) + eps
+    nxf = st.cells_to_faces_avg(gx / mag, 0)
+    nyf = st.cells_to_faces_avg(gy / mag, 1)
+    nzf = st.cells_to_faces_avg(gz / mag, 2)
+    kv = -st.divergence(nxf, nyf, nzf, spacing)
+    return kv, (gx, gy, gz, mag)
+
+
+def _pad_xy(a, edge):
+    """One slab on both ends of dims 0 and 1: the edge value (`edge`) or
+    zero / False; a trailing case axis passes through."""
+    for d in (0, 1):
+        lo, hi = a.narrow(d, 0, 1), a.narrow(d, a.shape[d] - 1, 1)
+        if not edge:
+            lo = hi = torch.zeros_like(lo)
+        a = torch.cat([lo, a, hi], dim=d)
+    return a
+
+
+def curvature_hf(alpha, spacing, vfrac):
+    """Column height-function curvature κ(x, y), with a unit z axis that
+    broadcasts over z: H = Σ_k α·hz over each wet (i, j) column, then
+    κ = −(H_xx(1+H_y²) + H_yy(1+H_x²) − 2 H_x H_y H_xy) / W³,
+    W = √(1+H_x²+H_y²), central differences; a neighbour column with no
+    fluid cell gives way to the column's own H (zero gradient at walls).
+    Returns (nx, ny, 1), or (nx, ny, 1, B) on a batch."""
+    hx, hy, hz = spacing
+    wet = vfrac.amax(dim=2) > 0.0
+    H = torch.where(wet, alpha.sum(dim=2) * hz, 0.0)
+    nx, ny = H.shape[0], H.shape[1]
+    Hp = _pad_xy(H, edge=True)
+    wp = _pad_xy(wet, edge=False)
+
+    def nb(di, dj):
+        v = Hp[1 + di:1 + di + nx, 1 + dj:1 + dj + ny]
+        m = wp[1 + di:1 + di + nx, 1 + dj:1 + dj + ny]
+        return torch.where(m, v, H)
+
+    He, Hw = nb(1, 0), nb(-1, 0)
+    Hn, Hs = nb(0, 1), nb(0, -1)
+    Hx = (He - Hw) / (2.0 * hx)
+    Hy = (Hn - Hs) / (2.0 * hy)
+    Hxx = (He - 2.0 * H + Hw) / (hx * hx)
+    Hyy = (Hn - 2.0 * H + Hs) / (hy * hy)
+    Hxy = (nb(1, 1) - nb(1, -1) - nb(-1, 1) + nb(-1, -1)) / (4.0 * hx * hy)
+    W2 = 1.0 + Hx * Hx + Hy * Hy
+    k2d = -(Hxx * (1.0 + Hy * Hy) + Hyy * (1.0 + Hx * Hx)
+            - 2.0 * Hx * Hy * Hxy) / (W2 * torch.sqrt(W2))
+    return torch.where(wet, k2d, 0.0).unsqueeze(2)
+
+
+def curvature(alpha, spacing, vfrac=None, method="blend", eps=1e-8,
+              n_smooth=2):
+    """CSF curvature (cell-centred). "blend" weights the height function
+    by the interface's verticality n_z²/|n|² through the clip ramp
+    clip((w − 0.25)·2, 0, 1): pure HF on a near-horizontal interface,
+    pure smoothed VoF on a vertical one; "hf" / "vof" force one
+    estimator ("hf" needs `vfrac`)."""
+    if method == "hf":
+        if vfrac is None:
+            raise ValueError(
+                "curvature(method='hf') requires vfrac (the cell fluid "
+                "fractions): the height function integrates alpha over "
+                "wet columns; pass vfrac or use method='vof'/'blend'")
+        return curvature_hf(alpha, spacing, vfrac).expand(alpha.shape)
+    kv, (gx, gy, gz, mag) = curvature_vof(alpha, spacing, eps, n_smooth)
+    if method == "vof" or vfrac is None:
+        return kv
+    kh = curvature_hf(alpha, spacing, vfrac)
+    w = (gz * gz) / (mag * mag)
+    w = torch.clamp((w - 0.25) * 2.0, 0.0, 1.0)
+    return w * kh + (1.0 - w) * kv

@@ -2,8 +2,9 @@
 
     per Δt: adapt dt from Co/alphaCo → α sub-cycles (MULES ×3) →
     explicit momentum (van Leer convection with rhoPhi, viscous, dev2) →
-    uniform effective-gravity forcing G(t) = g − a_frame(t) →
-    pressure projection (MG-preconditioned CG) → velocity correction.
+    uniform effective-gravity forcing G(t) = g − a_frame(t) [+ CSF
+    surface tension] → pressure projection (MG-preconditioned CG) →
+    velocity correction.
 
 `make_step(geom, props, controls, device=...)` returns
 `step(state, params) -> (state', diag)`. PyTorch runs eagerly, so there
@@ -28,19 +29,24 @@ one device, with every `SolverControls` the JAX step takes there. A
 motion table replaces the orbit's G(t) by Rᵀ(g_lab − a(t)); with
 rotation the step adds the centrifugal, Euler and Coriolis accelerations
 of the tank frame (solver/frame.py) at the face coordinates `face_xyz`,
-which `make_step` builds. With `use_pallas` the
+which `make_step` builds. Surface tension (`props.sigma != 0`) adds the
+capillary dt bound, the curvature of the advected alpha
+(`controls.csf_curvature`) and the CSF source (solver/momentum.py), all
+plain PyTorch, as in the JAX step. `forcing(t, params) -> (Gx, Gy, Gz)`
+replaces G(t): the tiled sweep's per-block acceleration
+(parallel/tiled_sweep.py), whose x component varies along x and is
+face-averaged. With `use_pallas` the
 step runs the fused kernels behind the JAX step's gates, read when the
 step is built: the momentum right-hand side (`OFTPP_MOM_PALLAS`), the
 projection epilogue on the last corrector (`OFTPP_CORR_PALLAS`) and,
 opt-in, the momentum finish (`OFTPP_FINISH_PALLAS=1`; off under a
-rotating frame, whose sources come between the density scaling and the
-wall mask, as in the JAX step). The pressure
+rotating frame or surface tension, whose sources come between the
+density scaling and the wall mask, and for a forcing component that is
+not 0-d, as in the JAX step). The pressure
 solver's knobs (`poisson.SolverKnobs`: OFTPP_SMOOTH_SWEEPS and the rest)
 are read at the same moment and handed to the pressure solve. The gates
 alone decide: the kernels take any 3-D f32 grid (the JAX kernels' slab and
-VMEM shape checks are TPU limits), and a non-f32 operand raises. The
-arguments of the JAX step outside this slice (`forcing=`, the tiled
-sweep's; CSF) raise NotImplementedError.
+VMEM shape checks are TPU limits), and a non-f32 operand raises.
 
 `spmd=SpmdCtx(n)` (parallel/spmd.py) is the JAX package's x-sharded step:
 every kernel call site becomes a per-shard island with the halo kernels
@@ -143,11 +149,20 @@ def geometry_arrays(geom: TankGeometry, dtype=torch.float32, device="cuda"):
             "top_open": as_t(geom.top_open)}
 
 
-def _check_slice(props, controls, motion=None, spmd=None, forcing=None):
+def capillary_dt(props, controls, spacing, dtype, device):
+    """Brackbill's capillary-wave dt limit on the finest spacing, formed in
+    `dtype` as the JAX step forms it in f32 (per case for a per-case
+    spacing)."""
+    hx, hy, hz = (torch.as_tensor(h, dtype=dtype, device=device)
+                  for h in spacing)
+    h_min = torch.minimum(torch.minimum(hx, hy), hz)
+    return controls.max_capillary_co * torch.sqrt(
+        (props.rho1 + props.rho2) * h_min ** 3
+        / (4.0 * np.pi * abs(props.sigma)))
+
+
+def _check_slice(controls, motion=None, spmd=None):
     """Raise for every argument of the JAX step this port does not cover."""
-    if forcing is not None:
-        raise NotImplementedError(
-            "forcing= (the tiled sweep's per-block G) is not ported yet")
     if spmd is not None and not isinstance(spmd, SpmdCtx):
         raise TypeError(f"spmd= takes a parallel.spmd.SpmdCtx, not "
                         f"{type(spmd).__name__}")
@@ -159,9 +174,6 @@ def _check_slice(props, controls, motion=None, spmd=None, forcing=None):
         raise NotImplementedError(
             "spmd= with batch_lanes: a sweep is not sharded through spmd "
             "(in the JAX package either)")
-    if props.sigma != 0.0:
-        raise NotImplementedError("surface tension (sigma != 0, CSF) is "
-                                  "not ported yet")
 
 
 def make_step_core(props: PhysicalProperties = PhysicalProperties(),
@@ -176,13 +188,15 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
     `controls.precond_refresh` steps; the operator is fresh every step.
 
     `motion` (a TableMotion): table-driven forcing; with rotation it
-    needs `face_xyz`, the three axes' face_coordinates.
+    needs `face_xyz`, the three axes' face_coordinates. `forcing(t,
+    params) -> (Gx, Gy, Gz)` replaces the uniform G(t); each component
+    is 0-d, or 3-D and broadcast against its face grid.
 
     The fused kernels write zeros for u's face-nx row, so they run only
     with `sealed_x` (the last x-aperture plane is all zero, true of every
     shipped geometry); an env force of one of them on an unsealed
     geometry raises ValueError, as in the JAX step."""
-    _check_slice(props, controls, motion=motion, spmd=spmd, forcing=forcing)
+    _check_slice(controls, motion=motion, spmd=spmd)
     rot_enabled = motion is not None and motion.has_rotation
     if rot_enabled and face_xyz is None:
         raise ValueError("rotational motion requires face_xyz coordinates")
@@ -201,7 +215,10 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
     use_mules_k = use_k and not controls.batch_lanes
     fct_bf16 = _fct_bf16_enabled(controls)
     use_mom_k = sealed_x and _mom_pallas_enabled(controls)
+    # The finish kernel adds a uniform G alone: off under a rotating frame
+    # or CSF (and, at call time, for a forcing component that is not 0-d).
     use_finish_k = (use_mom_k and spmd is None and not rot_enabled
+                    and props.sigma == 0.0
                     and _finish_pallas_enabled(controls))
     use_corr_k = sealed_x and _corr_pallas_enabled(controls)
     knobs = poisson.SolverKnobs.from_env()
@@ -264,6 +281,9 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
             dt_cfl = (torch.minimum(dt_cfl, dt_diff)
                       if isinstance(dt_diff, torch.Tensor)   # per-case hz
                       else torch.clamp(dt_cfl, max=dt_diff))
+        if props.sigma != 0.0 and controls.max_capillary_co > 0.0:
+            dt_cfl = torch.minimum(dt_cfl, capillary_dt(
+                props, controls, spacing, fdt, dev))
         if sync_axis is not None:
             # Lockstep sweeps: every case takes the batch-minimum CFL dt,
             # so case times stay bitwise identical.
@@ -320,7 +340,12 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
 
         # --- explicit conservative momentum (no pressure) ---
         t_mid = state.t + 0.5 * dt
-        G = effective_g(t_mid, params)
+        G = (forcing(t_mid, params) if forcing is not None
+             else effective_g(t_mid, params))
+        kappa = None
+        if props.sigma != 0.0:
+            kappa = mom.curvature(alpha_new, spacing, vfrac=ga["vfrac"],
+                                  method=controls.csf_curvature)
         vels = (state.u, state.v, state.w)
         frame = None
         if rot_enabled:
@@ -343,15 +368,25 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
         else:
             vcs = mom.explicit_rhs(vels, rho_phi, mu, div_u, spacing,
                                    dev2=controls.dev2_stress)
-        if use_finish_k:
+        # The finish kernel takes one uniform (3,) G: a forcing component
+        # that is not 0-d keeps it off (a Python number counts as 0-d).
+        if use_finish_k and all(getattr(g, "dim", lambda: 0)() == 0
+                                for g in G):
             # The kernel takes au cell-shaped (a contiguous view) and
             # writes u's zero face-nx row itself.
             u_c, v_c, w_c = _mfk.momentum_finish(
                 *vels, (vcs[0][:-1], vcs[1], vcs[2]), rho_old, rho_new,
-                *apertures, dt, G)
+                *apertures, dt,
+                G if isinstance(G, torch.Tensor) else torch.stack(
+                    [torch.as_tensor(g, dtype=fdt, device=dev) for g in G]))
         else:
+            # CSF: global plain tensors, sharded step or not, as in JAX.
+            csf = (None if kappa is None else
+                   [mom.csf_force(alpha_new, kappa, props.sigma, ax,
+                                  spacing[ax], beta_f[ax])
+                    for ax in range(3)])
             u_c, v_c, w_c = mom.explicit_update(vels, vcs, rho_old, rho_new,
-                                                apertures, dt, G, frame)
+                                                apertures, dt, G, frame, csf)
 
         # --- projection (PIMPLE corrector loop) ---
         p_new = state.p
@@ -427,7 +462,7 @@ def make_step(geom: TankGeometry,
     planes). `motion` (a TableMotion on `device`): the 6DoF tank's
     table-driven forcing; the face coordinates of its rotating frame are
     built here."""
-    _check_slice(props, controls, motion=motion, spmd=spmd)
+    _check_slice(controls, motion=motion, spmd=spmd)
     if spmd is not None:
         spmd.local_shape(geom.shape)
     ga = geometry_arrays(geom, dtype, device=device)

@@ -3,7 +3,8 @@
 A kernel shorter than its wrapper's host cost, timed by events around a
 loop of calls, reads the host's issue rate. `device_ms` queues the timed
 calls behind a device-side wait long enough for the host to enqueue all
-of them, so the events measure the device alone.
+of them, so the events measure the device alone. `busy_union_us` reads a
+torch.profiler trace's device busy time.
 """
 
 from __future__ import annotations
@@ -34,3 +35,19 @@ def device_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def busy_union_us(events) -> float:
+    """µs in which at least one of a torch.profiler trace's device events
+    (kernels, copies, fills) runs: the union of their intervals."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == cuda)
+    total, start, end = 0.0, None, None
+    for s, e in spans:
+        if end is None or s > end:
+            total += 0.0 if end is None else end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    return total + (0.0 if end is None else end - start)

@@ -6,13 +6,15 @@
                                          [--warm-default]
                                          [--sweep 128 | --sweep-box]
                                          [--spmd 4] [--variant KERNEL:NAME]
-                                         [--tank6dof]
+                                         [--tank6dof] [--csf]
+                                         [--tiled 128]
 
 Runs the flagship case (H0.208/D0.2/R0.004/f1.88, mesh 0.00185,
 round_to=8 → 112³) through openfoam_tpp_tpu_torch's `make_step` with
 SolverControls(use_pallas=True) (the bench's configuration) and carry_precond,
 `--warm` steps from rest, then traces `--steps` steps with
-torch.profiler. `--set VAR=VALUE` (repeatable) sets an OFTPP_* variable
+torch.profiler (the last half of the warm-up steps are timed with the
+profiler off). `--set VAR=VALUE` (repeatable) sets an OFTPP_* variable
 while the step is built, e.g. the two-sweep smoother with or without its
 fused kernels (OFTPP_SMOOTH_SWEEPS=2, OFTPP_FUSED_CHEB=0);
 `--warm-default` warms up with the default step instead, and builds the
@@ -40,6 +42,16 @@ halo kernel per slab.
 mesh=0.25, chamfer=0.2, z0=-20)` (80×80×160), filled to z = 0 with a
 0.01 s first step, under the gen6DoF sine table resampled as
 `build_case_motion` does (chip_smoke.py phase 8's configuration).
+
+`--csf` profiles the flagship step with water's surface tension against
+air (sigma 0.072 N/m: the capillary dt bound, the curvature and the CSF
+source; chip_smoke.py phase 9's configuration).
+
+`--tiled N` profiles the tiled sweep step instead: N cases of the default
+tank at round_to=8 (16×16×50 each) merged along x (2048×16×50 for N =
+128), the sweep rows above, `make_tiled_sweep_step(...,
+SolverControls(use_pallas=True))` (chip_smoke.py phase 10's
+configuration).
 
 `--variant KERNEL:NAME` profiles the step with one of
 scripts/port_kernel_variants.py's source variants of a kernel (its
@@ -84,20 +96,6 @@ def variant_tree(repo, spec):
     return root
 
 
-def busy_union_us(events, cuda):
-    """µs in which at least one of the trace's device events runs."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == cuda)
-    total, start, end = 0.0, None, None
-    for s, e in spans:
-        if end is None or s > end:
-            total += 0.0 if end is None else end - start
-            start, end = s, e
-        else:
-            end = max(end, e)
-    return total + (0.0 if end is None else end - start)
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--warm", type=int, default=30)
@@ -109,11 +107,16 @@ def main() -> int:
     ap.add_argument("--warm-default", action="store_true")
     ap.add_argument("--variant", metavar="KERNEL:NAME")
     ap.add_argument("--tank6dof", action="store_true")
+    ap.add_argument("--csf", action="store_true")
+    ap.add_argument("--tiled", type=int, default=0, metavar="N")
     args = ap.parse_args()
     if args.warm_default and args.sweep:
         ap.error("--warm-default profiles the single-grid step, not --sweep")
     if args.tank6dof and (args.sweep or args.sweep_box or args.spmd):
         ap.error("--tank6dof profiles the unsharded single-tank step")
+    if args.tiled and (args.sweep or args.sweep_box or args.spmd
+                       or args.tank6dof or args.csf or args.warm_default):
+        ap.error("--tiled profiles the tiled sweep step alone")
 
     def set_vars():   # read when the step is built, below
         for pair in args.set:
@@ -137,6 +140,7 @@ def main() -> int:
     from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
     from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
     from openfoam_tpp_tpu_torch.solver.timestep import make_step
+    from openfoam_tpp_tpu_torch.utils.devtime import busy_union_us
 
     dev = torch.device("cuda")
     motion = None
@@ -154,21 +158,35 @@ def main() -> int:
             rows = read_6dof_table(generate_sine_motion_table(
                 os.path.join(d, "6DoF.dat")))
         motion = TableMotion.from_table(*rows, resample_dt=0.05, device=dev)
-    elif args.sweep or args.sweep_box:
+    elif args.sweep or args.sweep_box or args.tiled:
         geom = build_tank_geometry(H=0.1, D=0.02, mesh=0.002, geo="flat",
-                                   round_to=4)
+                                   round_to=8 if args.tiled else 4)
     else:
         geom = build_tank_geometry(H=0.208, D=0.2, mesh=0.00185, geo="flat",
                                    round_to=8)
-    if args.sweep:
+    sweep_rows = [{"R": 0.002 + 2e-5 * i, "freq": 1.5 + 0.01 * i,
+                   "duration": 10.0} for i in range(args.sweep or args.tiled)]
+    if args.tiled:
+        from openfoam_tpp_tpu_torch.parallel.sweep import batch_params
+        from openfoam_tpp_tpu_torch.parallel.tiled_sweep import (
+            make_tiled_sweep_step, tile_state)
+
+        tiled_step = make_tiled_sweep_step(
+            geom, args.tiled, PhysicalProperties(),
+            SolverControls(use_pallas=True), device=dev)
+        params = batch_params(sweep_rows, device=dev)
+        state = tile_state(geom, args.tiled, device=dev)
+        bundle = None
+
+        def step(state, params, precond=None):
+            return (*tiled_step(state, params), None)
+    elif args.sweep:
         from openfoam_tpp_tpu_torch.parallel.sweep import (batch_params,
                                                            batch_states,
                                                            make_sweep_step)
 
         sweep_step = make_sweep_step(geom, device=dev)
-        params = batch_params(
-            [{"R": 0.002 + 2e-5 * i, "freq": 1.5 + 0.01 * i, "duration": 10.0}
-             for i in range(args.sweep)], device=dev)
+        params = batch_params(sweep_rows, device=dev)
         state = batch_states(geom, args.sweep, device=dev)
         bundle = None
 
@@ -176,7 +194,8 @@ def main() -> int:
             return (*sweep_step(state, params), None)
     else:
         def build():
-            return make_step(geom, PhysicalProperties(),
+            return make_step(geom, PhysicalProperties(
+                                 sigma=0.072 if args.csf else 0.0),
                              SolverControls(use_pallas=True),
                              carry_precond=True,
                              spmd=SpmdCtx(args.spmd) if args.spmd else None,
@@ -192,8 +211,15 @@ def main() -> int:
         state = (init_state(geom, fill_height=0.0, dt0=0.01, device=dev)
                  if args.tank6dof else init_state(geom, device=dev))
         bundle = step.init_precond(state)
-    for _ in range(args.warm):
+    # The last half of the warm-up steps, timed with the profiler off.
+    n_quiet = args.warm - args.warm // 2
+    for i in range(args.warm):
+        if i == args.warm // 2:
+            torch.cuda.synchronize()
+            t_quiet = time.perf_counter()
         state, d, bundle = step(state, params, precond=bundle)
+    torch.cuda.synchronize()
+    quiet = (time.perf_counter() - t_quiet) / n_quiet if n_quiet else None
     if args.warm_default:
         set_vars()
         step = build()
@@ -214,17 +240,22 @@ def main() -> int:
     kernels = [e for e in events if getattr(e, dev_attr) > 0
                and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     summed_us = sum(getattr(e, dev_attr) for e in kernels)
-    busy_us = busy_union_us(prof.events(), torch.autograd.DeviceType.CUDA)
+    busy_us = busy_union_us(prof.events())
     n_launch = sum(e.count for e in kernels)
     n = args.steps
-    what = (f"{args.sweep}-case sweep of " if args.sweep else
+    what = (f"{args.tiled}-case tiled sweep, " if args.tiled else
+            f"{args.sweep}-case sweep of " if args.sweep else
             f"{args.spmd}-shard step of " if args.spmd else
-            "6DoF step of the chamfered tank " if args.tank6dof else "")
+            "6DoF step of the chamfered tank " if args.tank6dof else
+            "CSF (sigma 0.072 N/m) step of " if args.csf else "")
     print(f"[profile] {what}{geom.shape}, {n} steps after {args.warm}"
           f"{' of the default step' if args.warm_default else ''}, "
           f"{' '.join(args.set) or 'defaults'}"
           f"{f'; variant {args.variant}' if args.variant else ''}; p_iters "
           f"{iters}")
+    if quiet is not None:
+        print(f"  wall {quiet * 1e3:.3f} ms/step over the last {n_quiet} "
+              f"warm-up steps (profiler off)")
     print(f"  wall {wall / n * 1e3:.3f} ms/step (profiler on); device busy "
           f"{busy_us / n / 1e3:.3f} ms/step (kernel time summed "
           f"{summed_us / n / 1e3:.3f}); idle share "
@@ -237,10 +268,11 @@ def main() -> int:
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)
     tag = "".join("_" + pair for pair in args.set) + (
         "_" + re.sub(r"\W+", "_", args.variant) if args.variant else "") + (
+        f"_tiled{args.tiled}" if args.tiled else
         f"_sweep{args.sweep}" if args.sweep else
         "_sweep_box" if args.sweep_box else
         f"_spmd{args.spmd}" if args.spmd else
-        "_tank6dof" if args.tank6dof else "")
+        "_tank6dof" if args.tank6dof else "") + ("_csf" if args.csf else "")
     with open(os.path.join(repo, "perf_out", f"port_step_profile{tag}.txt"),
               "w") as f:
         f.write("\n".join(lines) + "\n")

@@ -450,7 +450,7 @@ def test_unported_case_arguments_raise(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv,rc", [
     (["--headless", "--case", "c", "--action", "flow"], 2),
     (["--headless", "--case", "c", "--action", "video"], 2),
-    (["--headless", "--case", "c", "--action", "profile"], 2),
+    (["--headless", "--case", "c", "--action", "profile", "--submit"], 2),
     (["--headless", "--action", "runsweep", "--devices", "2"], 2),
     (["--headless", "--action", "build6dof", "--submit"], 2),
     (["--headless", "--action", "config", "--devices", "2"], 2),

@@ -45,7 +45,10 @@ launch, a z march per column with the dots finished through the ticket)
 at the same edges and on a grid of one block: Â·p bitwise equal to the
 single-grid kernel on every case, the dots within 1e-5 of the plain sums
 and bitwise from call to call, and the one ticket shared in sequence
-with the single-grid apply-dot and the cheb2 post-dot."""
+with the single-grid apply-dot and the cheb2 post-dot. Built with
+OFTPP_FINISH_PALLAS=1, the momentum finish kernel launches 0 times with
+surface tension and in the tiled sweep, and once a step under a forcing
+of three 0-d components."""
 
 import numpy as np
 import pytest
@@ -946,3 +949,53 @@ def test_momentum_rhs_at_f1_spacings(dev):
     scale = max(float(r.abs().max()) for r in p_out)
     assert all(float((g - r).abs().max()) <= 1e-5 * scale
                for g, r in zip(k_out, p_out))
+
+
+@pytest.mark.parametrize("what", ["csf", "tiled", "forcing_0d"])
+def test_finish_kernel_gates_on_the_card(dev, what, monkeypatch):
+    """Steps built with OFTPP_FINISH_PALLAS=1 and use_pallas=True on the
+    card: with surface tension (κ set) and in the tiled sweep (G_x, G_y
+    vary along x) the finish kernel launches 0 times while the momentum
+    RHS launches once a step; a forcing of three 0-d components launches
+    it once a step."""
+    from openfoam_tpp_tpu_torch.config import (PhysicalProperties,
+                                               SolverControls)
+    from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
+    from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
+    from openfoam_tpp_tpu_torch.parallel import tiled_sweep as ts
+    from openfoam_tpp_tpu_torch.parallel.sweep import batch_params
+    from openfoam_tpp_tpu_torch.solver import timestep
+
+    monkeypatch.setenv("OFTPP_FINISH_PALLAS", "1")
+    controls = SolverControls(use_pallas=True)
+    geom = build_tank_geometry(H=0.04, D=0.016, mesh=0.004, geo="flat")
+    params = CaseParams.make(0.002, 2.5, 1.0, device=dev)
+    if what == "csf":
+        step = timestep.make_step(geom, PhysicalProperties(sigma=0.072),
+                                  controls, device=dev)
+        state = init_state(geom, device=dev)
+    elif what == "tiled":
+        step = ts.make_tiled_sweep_step(geom, 3, PhysicalProperties(),
+                                        controls, device=dev)
+        state = ts.tile_state(geom, 3, device=dev)
+        params = batch_params([{"R": 0.002 + 0.001 * i, "freq": 2.5,
+                                "duration": 1.0} for i in range(3)],
+                              device=dev)
+    else:
+        core = timestep.make_step_core(
+            PhysicalProperties(), controls, forcing=lambda t, p: (
+                0.0 * t, 0.1 + 0.0 * t, -9.81 + 0.0 * t))
+        ga = timestep.geometry_arrays(geom, device=dev)
+        spacing = tuple(float(h) for h in geom.spacing)
+
+        def step(s, p):
+            return core(s, p, ga, spacing)
+        state = init_state(geom, device=dev)
+    mfk.momentum_finish.launches = 0
+    mrk.momentum_rhs.launches = 0
+    for _ in range(2):
+        state, _ = step(state, params)
+    torch.cuda.synchronize()
+    assert mrk.momentum_rhs.launches == 2
+    assert mfk.momentum_finish.launches == (2 if what == "forcing_0d" else 0)
+    assert bool(torch.isfinite(state.u).all())

@@ -13,7 +13,7 @@ import torch
 from openfoam_tpp_tpu.config import SolverControls as JControls
 from openfoam_tpp_tpu.ops.pallas import momentum_rhs as jmrk
 from openfoam_tpp_tpu.solver import timestep as jtimestep
-from openfoam_tpp_tpu_torch.config import SolverControls
+from openfoam_tpp_tpu_torch.config import PhysicalProperties, SolverControls
 from openfoam_tpp_tpu_torch.core.motion import TableMotion
 from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
 from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
@@ -39,12 +39,14 @@ import openfoam_tpp_tpu_torch.manager.runner
 import openfoam_tpp_tpu_torch.manager.sweeprun
 import openfoam_tpp_tpu_torch.parallel.sweep
 import openfoam_tpp_tpu_torch.parallel.spmd
+import openfoam_tpp_tpu_torch.parallel.tiled_sweep
 import openfoam_tpp_tpu_torch.ops.kernels.halo7
 import openfoam_tpp_tpu_torch.post.interface
 import openfoam_tpp_tpu_torch.post.isosurface
 import openfoam_tpp_tpu_torch.post.probes
 import openfoam_tpp_tpu_torch.utils.io
 import openfoam_tpp_tpu_torch.utils.naming
+import openfoam_tpp_tpu_torch.utils.profiling
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "openfoam_tpp_tpu")
              and sys.modules[m] is not None)
@@ -158,8 +160,10 @@ def test_out_of_slice_arguments_raise():
     with pytest.raises(NotImplementedError, match="spmd"):
         timestep.make_step(geom, controls=SolverControls(batch_lanes=True),
                            spmd=SpmdCtx(4), device="cpu")
-    with pytest.raises(NotImplementedError, match="forcing"):
-        timestep.make_step_core(forcing=lambda t, p: None)
+    # forcing= (the tiled sweep's hook) and surface tension are in the
+    # slice (tests/test_torch_tiled_sweep.py, tests/test_torch_csf.py).
+    timestep.make_step_core(forcing=lambda t, p: None)
+    timestep.make_step_core(PhysicalProperties(sigma=0.072))
 
 
 GATE_VARS = ("OFTPP_MOM_PALLAS", "OFTPP_FINISH_PALLAS", "OFTPP_CORR_PALLAS",
@@ -257,3 +261,55 @@ def test_rank3_calls_reach_the_rank3_kernels_only():
         tsp.apply_dot_7pt(p, w)
     assert {k: v for k, v in calls.items() if k.endswith("_nb")} == {
         "apply_7pt_nb": 1, "resid_scaled_7pt_nb": 1, "apply_dot_7pt_nb": 1}
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_chip_smoke_counts_a_steps_7pt_calls(tiled):
+    """chip_smoke.py's `vcycle_calls`, with which it checks that its spies
+    on a step's operands saw every apply_7pt and resid_scaled_7pt call:
+    per step (p_iters + 1) V-cycles of its count, and two more applies
+    for the CG's true residual, on a single grid and on a tiled one
+    (long in x, 2 cells wide at its coarsest level)."""
+    from openfoam_tpp_tpu_torch.ops.kernels import seven_point as tsp
+    from openfoam_tpp_tpu_torch.parallel import tiled_sweep as tts
+    from openfoam_tpp_tpu_torch.parallel.sweep import batch_params
+    from openfoam_tpp_tpu_torch.solver.poisson import SolverKnobs
+
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    if tiled:
+        geom = build_tank_geometry(H=0.1, D=0.02, mesh=0.004, round_to=8)
+        n = 8
+        core = tts.make_tiled_sweep_step(
+            geom, n, controls=SolverControls(use_pallas=True), device="cpu")
+        state = tts.tile_state(geom, n, device="cpu")
+        params = batch_params([{"R": 0.002 + 2e-5 * i, "freq": 1.5,
+                                "duration": 1.0} for i in range(n)],
+                              device="cpu")
+    else:
+        geom = build_tank_geometry(H=0.04, D=0.048, mesh=0.004, round_to=4)
+        core = timestep.make_step(
+            geom, controls=SolverControls(use_pallas=True), device="cpu")
+        state = init_state(geom, device="cpu")
+        params = CaseParams.make(0.004, 1.88, 0.5, device="cpu")
+    calls = {"apply_7pt": 0, "resid_scaled_7pt": 0}
+
+    def spy(name):
+        fn = getattr(tsp, name)
+
+        def run(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+
+        return mock.patch.object(tsp, name, run)
+
+    n_apply, n_resid = chip_smoke.vcycle_calls(tuple(state.alpha.shape),
+                                               SolverKnobs())
+    with spy("apply_7pt"), spy("resid_scaled_7pt"):
+        for _ in range(3):
+            calls.update(apply_7pt=0, resid_scaled_7pt=0)
+            state, diag = core(state, params)
+            vcycles = int(diag.p_iters) + 1
+            assert calls == {"apply_7pt": vcycles * n_apply + 2,
+                             "resid_scaled_7pt": vcycles * n_resid}
