@@ -138,7 +138,31 @@ Phases, each fatal on any fault (nothing is caught):
      cases tiled against `make_sweep_step` of the same 8 after
      N_TILED_VS_SWEEP steps from rest (the JAX tiled-sweep test's
      bounds); ms/step, aggregate cell-updates/s and ops per step beside
-     phase 6's batched sweep.
+     phase 6's batched sweep;
+ 11. the manager's top layer, right after phase 5 and on its case (the
+     three snapshots kept): (a) `--action flow` against the reference's
+     potential-flow oracle (A_PT 3.146940e-02 m to 1e-7, F 0.056894 to
+     1e-6) and its CSV's rows; (b) `--action video`: one frame per
+     snapshot, the file written and decoded (PIL for MJPEG AVI, cv2 for
+     MP4), render s per frame and the dashboard's s, the host's
+     matplotlib / PIL / imageio / cv2 (without matplotlib: the verb's
+     refusal, rc 1); (d) `--action run --submit`: the script's #SBATCH
+     lines (gpu partition, gpu:1, one node), rc 1 without sbatch, and
+     its body run with bash resumes the finished case (0 steps);
+     (e) OFTPP_DEBUG_NANS=1 from the t = 0.05 checkpoint in fresh cases
+     of duration 0.06 s: the trapped clean run against the untrapped one
+     (fields bitwise, else phase 4's limits; p_iters equal; ms/step of
+     each), a NaN in an interior u cell raising FloatingPointError at
+     step 1 with no later checkpoint, and a NaN operand of the MULES flux
+     kernel caught by the kernel hook; (c) the menu in this process on
+     piped answers: build the flagship (0.02 s), run it on the card,
+     postprocess with flow and interface: rc 0, case.json byte-equal to
+     setup_case's, the seven default kernels launched (flux_all 3,
+     fct_iter 9, momentum_rhs and correct_divmax 1 per step), phase 3's
+     checks on the run. After phase 7 it prints utils/resources.py's
+     constants as this run measured them (phase 5's rate and bytes per
+     fluid cell, phase 7's per fluid cell of the batch, the card's
+     memory).
 
 It then prints the `kernels` JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. It exits non-zero, printing no
@@ -276,6 +300,10 @@ CMP_TOLS = {"alpha": ("abs", 1e-3), "u": ("rel", 1e-2), "v": ("rel", 1e-2),
 # tiled against batched cases after N_TILED_VS_SWEEP steps.
 TILED_TOLS = {"t": 1e-6, "dt": 1e-5, "alpha": 5e-4, "w": 5e-3, "mass": 1e-3}
 N_PROFILE = 3         # steps the profile verb traces (after its 3 warm-up)
+# Phase 11: the flagship built, run and postprocessed through the menu.
+MENU_CASE = dict(H=0.208, D=0.2, mesh=0.00185, geo="flat", R=0.004,
+                 freq=1.88, duration=0.02, dt=0.001, ramp=2.0)
+TRAP_T_END = 0.15     # the trap's cost: steps from phase 5's t = 0.05 to this
 # The stats keys of utils/profiling.py's profile_case (the JAX module's).
 PROFILE_KEYS = ("n_steps", "fluid_cells", "grid", "device", "mean_step_ms",
                 "p50_step_ms", "p95_step_ms", "cell_updates_per_sec",
@@ -1484,12 +1512,14 @@ def check_halo_launches(label, launches, stats, n_shards, sweeps):
         "call; every single-grid row 0 times")
 
 
-def phase_case(geom):
+def phase_case(geom, base):
     """The case path at full width: `setup_case` of the flagship with a
-    0.1 s duration, `run_case` on the card with OFTPP_SMOOTH_SWEEPS=2, a
-    second `run_case`, `extract_interface`, then the command line's
-    `--action profile` on that case. Returns the launch counts of the
-    first run (set to 0 just before it, read just after) and its stats."""
+    0.1 s duration under `base`, `run_case` on the card with
+    OFTPP_SMOOTH_SWEEPS=2 (its device bytes above what was allocated
+    before it: the peak of max_memory_allocated), a second `run_case`,
+    `extract_interface`, then the command line's `--action profile` on
+    that case. Returns the launch counts of the first run (set to 0 just
+    before it, read just after) and its stats, with the case directory."""
     import torch
 
     from openfoam_tpp_tpu_torch.manager import cli
@@ -1529,136 +1559,144 @@ def phase_case(geom):
     # stands in for it, the count lands here.
     resid.launches = 0
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_case_") as base:
-        case_dir = setup_case(case_params, base)
-        lines = []
+    case_dir = setup_case(case_params, base)
+    lines = []
 
-        def case_log(line):
-            lines.append(line)
-            log("  | " + line)
+    def case_log(line):
+        lines.append(line)
+        log("  | " + line)
 
-        for f in fns.values():
-            f.launches = 0
-        with environ(OFTPP_SMOOTH_SWEEPS="2"), \
-                mock.patch.object(poisson, "solve_pcg", pcg), \
-                mock.patch.object(sp, "resid_scaled_7pt", resid):
-            stats = run_case(case_dir, log=case_log)
-        torch.cuda.synchronize()
-        launches = {k: f.launches for k, f in fns.items()}
-        launches["resid_scaled_7pt"] = resid.launches
-        steps = stats["steps"]
-        hist = {int(k): int(v)
-                for k, v in zip(*np.unique(solves, return_counts=True))}
-        log(f"[case path] {steps} steps to t={stats['sim_seconds']:.3f} s in "
-            f"{stats['wall_seconds']:.2f} s wall, "
-            f"{stats['cell_steps_per_sec']:.4e} cell-updates/s; writing "
-            f"checkpoints and probes {stats['io_seconds']:.2f} s; per write "
-            f"{[(i['steps'], round(i['wall_seconds'], 2)) for i in stats['intervals']]}")
-        log(f"  p_iters histogram {hist}; kernel launches {launches}")
-        if geom.n_fluid_cells != stats["n_cells"] or len(solves) != steps:
-            raise AssertionError(f"case path: {stats['n_cells']} cells, "
-                                 f"{len(solves)} solves in {steps} steps")
-        ran = {k for k, v in launches.items() if v > 0}
-        if ran != set(DEFAULT_PATH + CHEB2_RZ):
-            raise AssertionError(f"case path: kernels launched {sorted(ran)}")
-        vcycles = sum(solves) + steps
-        for k in CHEB2_RZ:
-            if launches[k] != vcycles:
-                raise AssertionError(f"case path: {k} launched {launches[k]} "
-                                     f"times in {vcycles} V-cycles")
-        if top_resid[0]:
-            raise AssertionError(f"case path: {top_resid[0]} unfused smoother "
-                                 "passes on the top level")
-        if max(solves) >= 50:
-            raise AssertionError(f"case path: p_iters reached {max(solves)}")
-        courants = [float(x) for ln in lines
-                    for x in re.findall(r"\bCo = ([0-9.eE+-]+)", ln)]
-        if len(courants) != 2 or max(courants) > 0.6:
-            raise AssertionError(f"case path: Courant per write {courants}")
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with environ(OFTPP_SMOOTH_SWEEPS="2"), \
+            mock.patch.object(poisson, "solve_pcg", pcg), \
+            mock.patch.object(sp, "resid_scaled_7pt", resid):
+        stats = run_case(case_dir, log=case_log)
+    torch.cuda.synchronize()
+    run_bytes = torch.cuda.max_memory_allocated() - mem0
+    launches = {k: f.launches for k, f in fns.items()}
+    launches["resid_scaled_7pt"] = resid.launches
+    steps = stats["steps"]
+    hist = {int(k): int(v)
+            for k, v in zip(*np.unique(solves, return_counts=True))}
+    log(f"[case path] {steps} steps to t={stats['sim_seconds']:.3f} s in "
+        f"{stats['wall_seconds']:.2f} s wall, "
+        f"{stats['cell_steps_per_sec']:.4e} cell-updates/s; writing "
+        f"checkpoints and probes {stats['io_seconds']:.2f} s; per write "
+        f"{[(i['steps'], round(i['wall_seconds'], 2)) for i in stats['intervals']]}")
+    log(f"  p_iters histogram {hist}; kernel launches {launches}")
+    log(f"  device bytes of the run (peak above what was allocated "
+        f"before it) {run_bytes}: {run_bytes / stats['n_cells']:.1f} per "
+        f"fluid cell")
+    if geom.n_fluid_cells != stats["n_cells"] or len(solves) != steps:
+        raise AssertionError(f"case path: {stats['n_cells']} cells, "
+                             f"{len(solves)} solves in {steps} steps")
+    ran = {k for k, v in launches.items() if v > 0}
+    if ran != set(DEFAULT_PATH + CHEB2_RZ):
+        raise AssertionError(f"case path: kernels launched {sorted(ran)}")
+    vcycles = sum(solves) + steps
+    for k in CHEB2_RZ:
+        if launches[k] != vcycles:
+            raise AssertionError(f"case path: {k} launched {launches[k]} "
+                                 f"times in {vcycles} V-cycles")
+    if top_resid[0]:
+        raise AssertionError(f"case path: {top_resid[0]} unfused smoother "
+                             "passes on the top level")
+    if max(solves) >= 50:
+        raise AssertionError(f"case path: p_iters reached {max(solves)}")
+    courants = [float(x) for ln in lines
+                for x in re.findall(r"\bCo = ([0-9.eE+-]+)", ln)]
+    if len(courants) != 2 or max(courants) > 0.6:
+        raise AssertionError(f"case path: Courant per write {courants}")
 
-        # Checkpoints at t = 0, 0.05, 0.1: the time is the f32 target
-        # bitwise; fields finite, alpha in [0, 1].
-        chks = list_checkpoints(case_dir)
-        if len(chks) != 3:
-            raise AssertionError(f"case path: checkpoints {chks}")
-        for k, (_, path) in enumerate(chks):
-            c = load_checkpoint(path)
-            want = float(np.float32(k) * np.float32(0.05))
-            if float(c["t"]) != want:
-                raise AssertionError(f"case path: {path} holds t={c['t']!r}, "
-                                     f"not {want!r}")
-            if not all(np.isfinite(c[f]).all() for f in "alpha u v w p".split()):
-                raise AssertionError(f"case path: non-finite field in {path}")
-            if c["alpha"].min() < 0.0 or c["alpha"].max() > 1.0:
-                raise AssertionError(f"case path: alpha out of [0, 1] in {path}")
-        if int(c["step"]) != steps or not is_case_done(case_dir):
-            raise AssertionError("case path: the last checkpoint is not the "
-                                 "run's end")
+    # Checkpoints at t = 0, 0.05, 0.1: the time is the f32 target
+    # bitwise; fields finite, alpha in [0, 1].
+    chks = list_checkpoints(case_dir)
+    if len(chks) != 3:
+        raise AssertionError(f"case path: checkpoints {chks}")
+    for k, (_, path) in enumerate(chks):
+        c = load_checkpoint(path)
+        want = float(np.float32(k) * np.float32(0.05))
+        if float(c["t"]) != want:
+            raise AssertionError(f"case path: {path} holds t={c['t']!r}, "
+                                 f"not {want!r}")
+        if not all(np.isfinite(c[f]).all() for f in "alpha u v w p".split()):
+            raise AssertionError(f"case path: non-finite field in {path}")
+        if c["alpha"].min() < 0.0 or c["alpha"].max() > 1.0:
+            raise AssertionError(f"case path: alpha out of [0, 1] in {path}")
+    if int(c["step"]) != steps or not is_case_done(case_dir):
+        raise AssertionError("case path: the last checkpoint is not the "
+                             "run's end")
 
-        # Probe files: one row per solver step; the water probe (z = H/4
-        # under a surface at H/2) reads ρ_w·g·depth.
-        tables = {}
-        for name in ("p", "eta"):
-            with open(os.path.join(case_dir, "postProcessing", "probes", "0",
-                                   name)) as f:
-                tables[name] = np.array([[float(v) for v in ln.split()]
-                                         for ln in f if not ln.startswith("#")])
-            if len(tables[name]) != steps:
-                raise AssertionError(f"case path: {len(tables[name])} rows in "
-                                     f"probes/0/{name} for {steps} steps")
-        hydro = 998.2 * 9.81 * (0.208 / 4)
-        log(f"  water probe first row {tables['p'][0, 1]:.2f} Pa "
-            f"(ρ_w·g·depth {hydro:.2f}), air probe {tables['p'][0, 2]:.3f} Pa; "
-            f"η gauges {tables['eta'][-1, 1:]}")
-        if abs(tables["p"][0, 1] - hydro) > 0.05 * hydro:
-            raise AssertionError("case path: water probe off ρ_w·g·depth")
+    # Probe files: one row per solver step; the water probe (z = H/4
+    # under a surface at H/2) reads ρ_w·g·depth.
+    tables = {}
+    for name in ("p", "eta"):
+        with open(os.path.join(case_dir, "postProcessing", "probes", "0",
+                               name)) as f:
+            tables[name] = np.array([[float(v) for v in ln.split()]
+                                     for ln in f if not ln.startswith("#")])
+        if len(tables[name]) != steps:
+            raise AssertionError(f"case path: {len(tables[name])} rows in "
+                                 f"probes/0/{name} for {steps} steps")
+    hydro = 998.2 * 9.81 * (0.208 / 4)
+    log(f"  water probe first row {tables['p'][0, 1]:.2f} Pa "
+        f"(ρ_w·g·depth {hydro:.2f}), air probe {tables['p'][0, 2]:.3f} Pa; "
+        f"η gauges {tables['eta'][-1, 1:]}")
+    if abs(tables["p"][0, 1] - hydro) > 0.05 * hydro:
+        raise AssertionError("case path: water probe off ρ_w·g·depth")
 
-        # A second run resumes and has nothing left to do.
-        lines2 = []
-        again = run_case(case_dir, log=lines2.append)
-        if again["steps"] != 0 or not any("Resuming" in ln for ln in lines2):
-            raise AssertionError(f"case path: second run {again}, {lines2}")
+    # A second run resumes and has nothing left to do.
+    lines2 = []
+    again = run_case(case_dir, log=lines2.append)
+    if again["steps"] != 0 or not any("Resuming" in ln for ln in lines2):
+        raise AssertionError(f"case path: second run {again}, {lines2}")
 
-        geom2 = build_case_geometry(load_case_params(case_dir),
-                                    _case_shape_hint(case_dir))
-        out_dir = extract_interface(case_dir, geom2,
-                                    iterate_snapshots(case_dir))
-        with open(os.path.join(out_dir, "interface_summary.csv")) as f:
-            summary = f.read().splitlines()
-        log(f"  interface_summary.csv {summary}")
-        first = [float(v) for v in summary[1].split(",")]
-        if (tuple(geom2.shape) != top_shape or len(summary) != 4
-                or max(abs(z - 0.104) for z in first[1:4]) > geom.spacing[2]):
-            raise AssertionError(f"case path: interface summary {summary}")
+    geom2 = build_case_geometry(load_case_params(case_dir),
+                                _case_shape_hint(case_dir))
+    out_dir = extract_interface(case_dir, geom2,
+                                iterate_snapshots(case_dir))
+    with open(os.path.join(out_dir, "interface_summary.csv")) as f:
+        summary = f.read().splitlines()
+    log(f"  interface_summary.csv {summary}")
+    first = [float(v) for v in summary[1].split(",")]
+    if (tuple(geom2.shape) != top_shape or len(summary) != 4
+            or max(abs(z - 0.104) for z in first[1:4]) > geom.spacing[2]):
+        raise AssertionError(f"case path: interface summary {summary}")
 
-        # The profile verb on that case, from its last checkpoint.
-        for f in fns.values():
-            f.launches = 0
-        with environ(OFTPP_PROFILE_STEPS=str(N_PROFILE)):
-            rc = cli.main(["--headless", "--base-dir", base, "--case",
-                           os.path.basename(case_dir), "--action", "profile"])
-        torch.cuda.synchronize()
-        prof_launches = {k: f.launches for k, f in fns.items() if f.launches}
-        out_dir = os.path.join(case_dir, "postProcessing", "profile")
-        with open(os.path.join(out_dir, "summary.txt")) as f:
-            prof = dict(ln.rstrip("\n").split(": ", 1)
-                        for ln in f if ln.strip())
-        with open(os.path.join(out_dir, TRACE_FILE)) as f:
-            events = json.load(f)["traceEvents"]
-        n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
-        log(f"[profile verb] rc {rc}; summary {prof}; trace "
-            f"{os.path.getsize(os.path.join(out_dir, TRACE_FILE)) / 1e6:.1f}"
-            f" MB with {n_kernels} kernel events; kernel launches "
-            f"{prof_launches}")
-        if (rc != 0 or tuple(prof) != PROFILE_KEYS
-                or prof["n_steps"] != str(N_PROFILE)
-                or prof["device"] != torch.cuda.get_device_name(0)
-                or n_kernels == 0 or set(prof_launches) != set(DEFAULT_PATH)):
-            raise AssertionError(f"profile verb: rc {rc}, summary {prof}, "
-                                 f"{n_kernels} kernel events, launches "
-                                 f"{prof_launches}")
+    # The profile verb on that case, from its last checkpoint.
+    for f in fns.values():
+        f.launches = 0
+    with environ(OFTPP_PROFILE_STEPS=str(N_PROFILE)):
+        rc = cli.main(["--headless", "--base-dir", base, "--case",
+                       os.path.basename(case_dir), "--action", "profile"])
+    torch.cuda.synchronize()
+    prof_launches = {k: f.launches for k, f in fns.items() if f.launches}
+    out_dir = os.path.join(case_dir, "postProcessing", "profile")
+    with open(os.path.join(out_dir, "summary.txt")) as f:
+        prof = dict(ln.rstrip("\n").split(": ", 1)
+                    for ln in f if ln.strip())
+    with open(os.path.join(out_dir, TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"[profile verb] rc {rc}; summary {prof}; trace "
+        f"{os.path.getsize(os.path.join(out_dir, TRACE_FILE)) / 1e6:.1f}"
+        f" MB with {n_kernels} kernel events; kernel launches "
+        f"{prof_launches}")
+    if (rc != 0 or tuple(prof) != PROFILE_KEYS
+            or prof["n_steps"] != str(N_PROFILE)
+            or prof["device"] != torch.cuda.get_device_name(0)
+            or n_kernels == 0 or set(prof_launches) != set(DEFAULT_PATH)):
+        raise AssertionError(f"profile verb: rc {rc}, summary {prof}, "
+                             f"{n_kernels} kernel events, launches "
+                             f"{prof_launches}")
     return launches, {**stats, "p_iters_hist": hist, "profile": prof,
-                      "profile_launches": prof_launches}
+                      "profile_launches": prof_launches,
+                      "device_bytes": run_bytes, "case_dir": case_dir,
+                      "params": case_params}
 
 
 def drive_sweep(label, step, states, params, n_steps, n_timed, n_fluid,
@@ -1891,12 +1929,16 @@ def phase_manager(dev):
                 "--base-dir", base]
         for f in fns.values():
             f.launches = 0
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         if cli.main(argv) != 0 or len(calls) != 1:
             raise AssertionError(f"manager: runsweep failed ({len(calls)} "
                                  "batches)")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        sweep_bytes = torch.cuda.max_memory_allocated() - mem0
         launches = {k: f.launches for k, f in fns.items()}
         stats = dict(calls[0])
         steps = stats["steps"]
@@ -1907,6 +1949,13 @@ def phase_manager(dev):
             f"{stats['agg_cell_updates_per_sec']:.4e} aggregate "
             f"cell-updates/s")
         log(f"  kernel launches { {k: v for k, v in launches.items() if v} }")
+        # The batch's fluid cells, from its aggregate rate's definition.
+        cells = round(stats["agg_cell_updates_per_sec"]
+                      * stats["wall_seconds"] / steps)
+        log(f"  device bytes of the runsweep (peak above what was allocated "
+            f"before it) {sweep_bytes}: {sweep_bytes / SWEEP_CASES:.0f} per "
+            f"case, {sweep_bytes / cells:.1f} per fluid cell of the batch "
+            f"({cells} cells)")
         ran = {k for k, v in launches.items() if v > 0}
         if ran != set(BATCH_PATH) or stats["n_cases"] != SWEEP_CASES:
             raise AssertionError(f"manager: kernels launched {sorted(ran)}")
@@ -1970,7 +2019,428 @@ def phase_manager(dev):
             raise AssertionError("manager: the lax case did not take fewer "
                                  f"steps than the stiff one: {own_steps}")
     return launches, {**stats, "runsweep_wall_seconds": wall,
-                      "percase_dt_steps": own_steps}
+                      "percase_dt_steps": own_steps,
+                      "device_bytes": sweep_bytes, "fluid_cells": cells}
+
+
+class _Tee:
+    """sys.stdout for a block: every line logged (indented) and kept."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def value(self):
+        return "".join(self.text)
+
+
+@contextlib.contextmanager
+def tee_stdout():
+    """Keep what the block prints to stdout (still shown)."""
+    tee = _Tee(sys.stdout)
+    saved, sys.stdout = sys.stdout, tee
+    try:
+        yield tee
+    finally:
+        sys.stdout = saved
+
+
+def video_frames(path):
+    """Frames decoded from the video at `path`: an MJPEG AVI's JPEG chunks
+    through PIL, an MP4 through cv2; None when no decoder is present."""
+    if path.endswith(".avi"):
+        try:
+            from PIL import Image
+        except ImportError:
+            return None
+        import io
+
+        data = open(path, "rb").read()
+        pos, frames = data.index(b"movi") + 4, []
+        while data[pos:pos + 4] == b"00dc":
+            size = int.from_bytes(data[pos + 4:pos + 8], "little")
+            frames.append(np.asarray(Image.open(io.BytesIO(
+                data[pos + 8:pos + 8 + size])).convert("RGB")))
+            pos += 8 + size + size % 2
+        return frames
+    try:
+        import cv2
+    except ImportError:
+        return None
+    cap, frames = cv2.VideoCapture(path), []
+    while True:
+        ok, fr = cap.read()
+        if not ok:
+            break
+        frames.append(fr)
+    cap.release()
+    return frames
+
+
+def phase_top(dev, base, case):
+    """The manager's top layer on phase 5's flagship case (module
+    docstring, phase 11). Returns its numbers."""
+    import shutil
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import (PhysicalProperties,
+                                               SolverControls)
+    from openfoam_tpp_tpu_torch.core.state import CaseParams
+    from openfoam_tpp_tpu_torch.manager import cli
+    from openfoam_tpp_tpu_torch.manager.cases import setup_case
+    from openfoam_tpp_tpu_torch.manager.runner import (get_compiled_advance,
+                                                       run_case)
+    from openfoam_tpp_tpu_torch.ops.kernels import mules_flux as mfx
+    from openfoam_tpp_tpu_torch.post import avi
+    from openfoam_tpp_tpu_torch.solver import poisson
+    from openfoam_tpp_tpu_torch.utils import nan_trap
+    from openfoam_tpp_tpu_torch.utils import potential_flow as pf
+    from openfoam_tpp_tpu_torch.utils.io import (list_checkpoints,
+                                                 load_checkpoint, to_state)
+
+    case_dir = case["case_dir"]
+    name = os.path.basename(case_dir)
+    out = {}
+
+    def headless(*argv):
+        with tee_stdout() as tee:
+            rc = cli.main(["--headless", "--base-dir", base, "--case", name,
+                           *argv])
+        return rc, tee.value()
+
+    # (a) --action flow: the reference's post_flow.117896.out oracle.
+    t0 = time.perf_counter()
+    rc, text = headless("--action", "flow")
+    csv = os.path.join(case_dir, "postProcessing", "potential_flow",
+                       "potential_flow_wall.csv")
+    with open(csv) as f:
+        rows = f.read().splitlines()
+    a_pt = float(rows[1].split(",")[2])       # t = 0, θ = 0: A_PT cos 0
+    froude = float(re.search(r"Froude Number \(F\):\s+([0-9.]+)",
+                             text).group(1))
+    want_rows = 1 + len(np.arange(0.0, 0.1 + 0.01, 0.01)) * 64
+    log(f"[top: flow] rc {rc}; A_PT {a_pt:.6e} m (oracle 3.146940e-02), F "
+        f"{froude} (oracle 0.056894); {len(rows)} CSV rows ({want_rows} "
+        f"expected); {time.perf_counter() - t0:.2f} s")
+    if (rc != 0 or abs(a_pt - 3.146940e-02) > 1e-7
+            or abs(froude - 0.056894) > 1e-6 or len(rows) != want_rows):
+        raise AssertionError("top: flow verb off its oracle")
+    out["flow"] = {"A_PT": a_pt, "F": froude, "rows": len(rows)}
+
+    # (b) --action video on the three snapshots.
+    have = {}
+    for mod in ("matplotlib", "PIL", "imageio", "cv2"):
+        try:
+            have[mod] = getattr(__import__(mod), "__version__", "?")
+        except ImportError:
+            have[mod] = None
+    log(f"[top: video] host libraries {have}")
+    encodes, dash_s = [], []
+    real_save, real_dash = avi.save_video, pf.generate_dashboard_animation
+
+    def save_spy(path, frames, *a, **k):
+        t = time.perf_counter()
+        got = real_save(path, frames, *a, **k)
+        encodes.append((got, len(frames), frames[0].shape,
+                        time.perf_counter() - t))
+        return got
+
+    def dash_spy(*a, **k):
+        t = time.perf_counter()
+        got = real_dash(*a, **k)
+        dash_s.append(time.perf_counter() - t)
+        return got
+
+    t0 = time.perf_counter()
+    with mock.patch.object(avi, "save_video", save_spy), \
+            mock.patch.object(pf, "generate_dashboard_animation", dash_spy):
+        rc, text = headless("--action", "video")
+    video_s = time.perf_counter() - t0
+    if have["matplotlib"] is None:
+        log("[top: video] no video rendered: matplotlib is missing here, and "
+            f"the verb refuses as the JAX package's does (rc {rc})")
+        if rc != 1 or "matplotlib not available" not in text:
+            raise AssertionError(f"top: video without matplotlib: rc {rc}")
+        out["video"] = {"libraries": have, "rendered": False}
+    else:
+        path, n_frames, shape, enc_s = encodes[0]
+        frames = video_frames(path)
+        render_s = video_s - sum(dash_s) - enc_s
+        log(f"[top: video] rc {rc}; {path} ({os.path.getsize(path)} bytes), "
+            f"{n_frames} frames of {shape}, "
+            f"{'%d decoded' % len(frames) if frames is not None else 'no decoder'}"
+            f"; render {render_s / n_frames:.2f} s per frame, encode "
+            f"{enc_s:.2f} s, dashboard {sum(dash_s):.2f} s "
+            f"({encodes[-1][1]} frames); {video_s:.2f} s in all")
+        if (rc != 0 or n_frames != 3 or not os.path.getsize(path)
+                or (frames is not None and len(frames) != 3)
+                or len(dash_s) != 1):
+            raise AssertionError(f"top: video rc {rc}, {encodes}")
+        out["video"] = {"libraries": have, "rendered": True, "path": path,
+                        "frames": n_frames,
+                        "render_s_per_frame": render_s / n_frames,
+                        "encode_s": enc_s, "dashboard_s": dash_s[0],
+                        "dashboard_frames": encodes[-1][1]}
+
+    # (d) --submit on that case, then the job's body run with bash. The
+    # job starts in the directory the script was written from: this
+    # checkout's root, where `python -m openfoam_tpp_tpu_torch` resolves.
+    with contextlib.chdir(os.path.dirname(os.path.abspath(__file__))):
+        rc, text = headless("--action", "run", "--submit")
+    script = os.path.join(case_dir, "run_simulation.slurm")
+    with open(script) as f:
+        body = f.read()
+    sbatch = [ln for ln in body.splitlines() if ln.startswith("#SBATCH")]
+    log(f"[top: submit] rc {rc} (sbatch {shutil.which('sbatch')}); {sbatch}")
+    if (rc != (0 if shutil.which("sbatch") else 1)
+            or "#SBATCH --gres=gpu:1" not in sbatch
+            or "#SBATCH --nodes=1" not in sbatch
+            or "#SBATCH --partition=gpu" not in sbatch):
+        raise AssertionError("top: submit script")
+    # The job runs `python`: this interpreter, under that name.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bin_") as bin_dir:
+        shim = os.path.join(bin_dir, "python")
+        with open(shim, "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        os.chmod(shim, 0o755)
+        t0 = time.perf_counter()
+        job = subprocess.run(
+            ["bash", script], capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PATH": bin_dir + os.pathsep
+                 + os.environ.get("PATH", "")})
+    job_s = time.perf_counter() - t0
+    log("  | " + "\n  | ".join(job.stdout.strip().splitlines()[-4:]))
+    log(f"[top: submit] the job's body: rc {job.returncode} in {job_s:.1f} s")
+    if (job.returncode != 0 or "Resuming" not in job.stdout
+            or "Done: 0 steps" not in job.stdout):
+        raise AssertionError(f"top: the job's body failed: {job.stderr[-2000:]}")
+    out["submit"] = {"sbatch_lines": sbatch, "job_seconds": job_s}
+
+    # (e) OFTPP_DEBUG_NANS=1 from phase 5's t = 0.05 checkpoint, in fresh
+    # cases of duration 0.06 s.
+    src = load_checkpoint(os.path.join(case_dir, "chk_t0.050000.npz"))
+    trap_params = {**case["params"], "duration": 0.06}
+
+    def fresh(label, payload):
+        d = setup_case(trap_params, os.path.join(base, label))
+        np.savez(os.path.join(d, "chk_t0.050000.npz"), **payload)
+        return d
+
+    def trapped_run(label, payload, env):
+        d = fresh(label, payload)
+        iters = []
+        real_pcg = poisson.solve_pcg
+
+        def pcg(*a, **k):
+            res = real_pcg(*a, **k)
+            iters.append(int(res[2]))
+            return res
+
+        lines = []
+        with environ(**env), mock.patch.object(poisson, "solve_pcg", pcg):
+            stats = run_case(d, log=lines.append)
+        torch.cuda.synchronize()
+        return d, stats, iters, lines
+
+    runs = {}
+    for label, env in (("off", {}), ("on", {"OFTPP_DEBUG_NANS": "1"})):
+        d, stats, iters, lines = trapped_run(f"trap_{label}", src, env)
+        last = load_checkpoint(list_checkpoints(d)[-1][1])
+        runs[label] = (stats, iters, last, lines)
+    (s_off, i_off, c_off, _), (s_on, i_on, c_on, l_on) = runs["off"], runs["on"]
+    if not any("NaN trap on" in ln for ln in l_on):
+        raise AssertionError("top: the trap did not say it was on")
+    diffs = {f: float(np.max(np.abs(c_on[f].astype(np.float64) - c_off[f])))
+             for f in "alpha u v w p".split()}
+    bitwise = all(np.array_equal(c_on[f], c_off[f]) for f in c_off)
+    log(f"[top: trap] clean run_case from t=0.05 to 0.06: {s_on['steps']} "
+        f"steps; fields bitwise equal {bitwise} (max |on - off| {diffs}); "
+        f"p_iters on {i_on}, off {i_off}")
+    if not bitwise:
+        for f, (kind, lim) in CMP_TOLS.items():
+            scale = 1.0 if kind == "abs" else max(
+                float(np.max(np.abs(c_off[f]))), 1e-30)
+            if diffs[f] > lim * scale:
+                raise AssertionError(f"top: trap on/off {f} differs by "
+                                     f"{diffs[f]}")
+    if i_on != i_off or s_on["steps"] != s_off["steps"]:
+        raise AssertionError("top: p_iters or steps differ with the trap on")
+    # The trap's cost: run_case's advance from the same checkpoint to
+    # t = TRAP_T_END, off, on, off, on (no checkpoint or probe writes).
+    geom, advance = get_compiled_advance(case["params"], PhysicalProperties(),
+                                         SolverControls(), case_dir,
+                                         device=dev)
+    cp = CaseParams.make(R=case["params"]["R"], freq=case["params"]["freq"],
+                         duration=TRAP_T_END, ramp=case["params"]["ramp"],
+                         device=dev)
+    timing, ends = {"off": [], "on": []}, {}
+    for on in (False, True, False, True):
+        state = to_state(src, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with nan_trap.trap_nans(on) as trap:
+            state, _, n, _ = advance(state, cp, TRAP_T_END)
+            torch.cuda.synchronize()
+        label = "on" if on else "off"
+        timing[label].append((time.perf_counter() - t0) / n * 1e3)
+        ends.setdefault(label, (n, state, trap.checked if on else 0))
+    n_on, st_on, checked = ends["on"]
+    n_off, st_off, _ = ends["off"]
+    adv_bitwise = n_on == n_off and all(
+        torch.equal(getattr(st_on, f), getattr(st_off, f))
+        for f in ("alpha", "u", "v", "w", "p", "t", "dt"))
+    ms_on, ms_off = min(timing["on"]), min(timing["off"])
+    log(f"[top: trap] advance from t=0.05 to {TRAP_T_END}: {n_on} steps; "
+        f"trap on {timing['on']} ms/step, off {timing['off']} ms/step "
+        f"(host wall, off/on/off/on); {checked / n_on:.0f} outputs checked a "
+        f"step; fields bitwise equal {adv_bitwise}")
+    if not adv_bitwise:
+        raise AssertionError("top: the trapped advance is not bitwise")
+
+    bad = dict(src)
+    bad["u"] = bad["u"].copy()
+    nx, ny, nz = bad["u"].shape
+    bad["u"][nx // 2, ny // 2, nz // 4] = np.nan
+    d = fresh("trap_nan", bad)
+    try:
+        with environ(OFTPP_DEBUG_NANS="1"):
+            run_case(d, log=lambda ln: None)
+    except FloatingPointError as e:
+        nan_msg = str(e)
+    else:
+        raise AssertionError("top: a NaN in u did not trap")
+    chks = [t for t, _ in list_checkpoints(d)]
+    log(f"[top: trap] NaN in u[{nx // 2}, {ny // 2}, {nz // 4}]: "
+        f"FloatingPointError: {nan_msg}; checkpoints after it {chks}")
+    if "step 1 " not in nan_msg or " at openfoam_tpp_tpu_torch/" not in nan_msg \
+            or len(chks) != 1:
+        raise AssertionError("top: the NaN trap's error or writes")
+
+    # A NaN that first comes out of a CUDA kernel: the MULES flux kernel
+    # on the flagship grid with one NaN in alpha.
+    g = torch.Generator(device=dev).manual_seed(11)
+    shape = tuple(src["alpha"].shape)
+    alpha = torch.rand(shape, device=dev, generator=g)
+    alpha[shape[0] // 2, shape[1] // 2, shape[2] // 2] = float("nan")
+    ones = tuple(torch.ones(shape, device=dev) for _ in range(3))
+    try:
+        with nan_trap.trap_nans(True):
+            mfx.flux_all(alpha, ones, ones)
+    except FloatingPointError as e:
+        kernel_msg = str(e)
+    else:
+        raise AssertionError("top: the kernel hook did not fire")
+    log(f"[top: trap] NaN operand of flux_all: FloatingPointError: "
+        f"{kernel_msg}")
+    if "CUDA kernel flux_all (mules_flux)" not in kernel_msg:
+        raise AssertionError("top: the kernel hook's error")
+    out["trap"] = {"steps": n_on, "ms_per_step_on": timing["on"],
+                   "ms_per_step_off": timing["off"], "bitwise": bitwise,
+                   "outputs_checked_per_step": checked / n_on,
+                   "nan_error": nan_msg, "kernel_error": kernel_msg}
+    return out
+
+
+
+def phase_menu(base):
+    """(c) The interactive menu in this process on piped answers: build
+    the flagship (0.02 s), run it on the default device, postprocess it
+    with flow and interface, exit. Returns its numbers."""
+    import io
+    import shutil
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import DEFAULTS
+    from openfoam_tpp_tpu_torch.manager import cli
+    from openfoam_tpp_tpu_torch.manager.cases import list_cases, setup_case
+    from openfoam_tpp_tpu_torch.utils.io import list_checkpoints, load_checkpoint
+
+    menu_base = os.path.join(base, "menu")
+    os.makedirs(menu_base)
+    build = [str(MENU_CASE[k]) for k in DEFAULTS if k != "n_cpus"]
+    run = ["2", "1"] + (["n"] if shutil.which("sbatch") else [])
+    answers = ["1", *build, *run, "3", "1", "3", "3", "1", "2", "6"]
+    fns = {k: getattr(m, a) for k, (m, a, _) in counters().items()}
+    for f in fns.values():
+        f.launches = 0
+    saved_in, sys.stdin = sys.stdin, io.StringIO("\n".join(answers) + "\n")
+    t0 = time.perf_counter()
+    try:
+        with tee_stdout() as tee:
+            rc = cli.main(["--base-dir", menu_base])
+    finally:
+        sys.stdin = saved_in
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in fns.items() if f.launches}
+    text = tee.value()
+    names = list_cases(menu_base)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ref_") as ref:
+        with open(os.path.join(setup_case(MENU_CASE, ref), "case.json"),
+                  "rb") as f:
+            want = f.read()
+    case_dir = os.path.join(menu_base, names[0])
+    with open(os.path.join(case_dir, "case.json"), "rb") as f:
+        got = f.read()
+    chks = list_checkpoints(case_dir)
+    c = load_checkpoint(chks[-1][1])
+    steps = int(c["step"])
+    courants = [float(x) for x in re.findall(r"\bCo = ([0-9.eE+-]+)", text)]
+    iters = [int(x) for x in re.findall(r"p: iters (\d+)", text)]
+    rate = re.search(r"\(([0-9.e+-]+) cell-updates/s\)", text)
+    log(f"\n[top: menu] rc {rc} in {wall:.1f} s; cases {names}; case.json "
+        f"byte-equal to setup_case's {got == want}; {steps} steps to "
+        f"t={float(c['t'])!r}; Courant per write {courants}, p iters {iters}; "
+        f"{rate.group(1) if rate else '?'} cell-updates/s; kernel launches "
+        f"{launches}")
+    want_per_step = {"flux_all": 3, "fct_iter": 9, "momentum_rhs": 1,
+                     "correct_divmax": 1}
+    if (rc != 0 or len(names) != 1 or got != want or steps == 0
+            or set(launches) != set(DEFAULT_PATH)
+            or any(launches[k] != n * steps for k, n in want_per_step.items())):
+        raise AssertionError("top: menu run")
+    if float(c["t"]) != float(np.float32(0.02)) or len(chks) != 2:
+        raise AssertionError(f"top: menu checkpoints {chks}")
+    fields = [c[f] for f in "alpha u v w p".split()]
+    if (not all(np.isfinite(v).all() for v in fields)
+            or c["alpha"].min() < 0.0 or c["alpha"].max() > 1.0
+            or not courants or max(courants) > 0.6
+            or not iters or max(iters) >= 50):
+        raise AssertionError("top: menu run's checks")
+    post = os.path.join(case_dir, "postProcessing")
+    for f in ("potential_flow/potential_flow_wall.csv",
+              "interface/interface_summary.csv"):
+        if not os.path.getsize(os.path.join(post, f)):
+            raise AssertionError(f"top: menu postprocess wrote no {f}")
+    return {"rc": rc, "wall_seconds": wall, "steps": steps,
+            "launches": launches,
+            "cell_updates_per_s": float(rate.group(1)) if rate else None}
+
+
+def resource_constants(case, manager):
+    """utils/resources.py's constants as this run measured them: phase 5's
+    run_case rate and device bytes per fluid cell, phase 7's per fluid
+    cell of the 128-case batch, and the card's memory."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.utils import resources
+
+    got = {"GPU_CELL_UPDATES_PER_SEC": case["cell_steps_per_sec"],
+           "BYTES_PER_CELL": case["device_bytes"] / case["n_cells"],
+           "SWEEP_BYTES_PER_CELL": (manager["device_bytes"]
+                                    / manager["fluid_cells"]),
+           "DEVICE_BYTES": torch.cuda.get_device_properties(0).total_memory}
+    log("[top: resource constants] measured in this run / in "
+        "utils/resources.py: " + "; ".join(
+            f"{k} {v:.6g} / {getattr(resources, k):.6g}"
+            for k, v in got.items()))
+    return got
 
 
 def tank6dof_motion(dev, dt):
@@ -2581,11 +3051,16 @@ def main() -> int:
 
     lap("4")
 
-    # 5. the case path, as a user drives it
-    case_launches, case = phase_case(geom)
-    for k in CHEB2_RZ:
-        launches[k] = case_launches[k]
-    lap("5")
+    # 5. the case path, as a user drives it; 11. the manager's top layer,
+    # on that case first
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_case_") as base:
+        case_launches, case = phase_case(geom, base)
+        for k in CHEB2_RZ:
+            launches[k] = case_launches[k]
+        lap("5")
+        top = phase_top(dev, base, case)
+        top["menu"] = phase_menu(base)
+        lap("11")
 
     # 6. the sweep step; 7. the manager's sweep
     sweep_launches, sweep = phase_sweep(dev, props)
@@ -2594,6 +3069,7 @@ def main() -> int:
     lap("6")
     _, manager = phase_manager(dev)
     lap("7")
+    top["resources"] = resource_constants(case, manager)
 
     # 8. the 6DoF path
     tank6dof = phase_6dof(dev, props, rows)
@@ -2635,7 +3111,7 @@ def main() -> int:
               "runs": {"use_pallas_from_rest": main, "same_state": runs,
                        "sharded": sharded, "case_path": case, "sweep": sweep,
                        "runsweep": manager, "tank6dof": tank6dof,
-                       "csf": csf, "tiled": tiled},
+                       "csf": csf, "tiled": tiled, "top": top},
               "tiled_kernel_rows": tiled_rows, "phase_seconds": laps,
               "launches": {"csf": csf_launches, "tiled": tiled_launches}}
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)

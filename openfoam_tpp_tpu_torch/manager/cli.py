@@ -1,34 +1,36 @@
-"""Headless command line of the port.
+"""Command line of the port: the interactive manager and its headless verbs.
 
-    python -m openfoam_tpp_tpu_torch --headless --base-dir D --case C --action run
-    python -m openfoam_tpp_tpu_torch --headless --base-dir D --case C --action interface
-    python -m openfoam_tpp_tpu_torch --headless --base-dir D --case C --action profile
+    python -m openfoam_tpp_tpu_torch [--base-dir D] [--device cpu]        (the menu)
+    python -m openfoam_tpp_tpu_torch --headless --base-dir D --case C --action run|interface|flow|video|profile [--submit [--partition P]]
     python -m openfoam_tpp_tpu_torch --headless --base-dir D --action runsweep [--case A,B|all] [--percase-dt]
     python -m openfoam_tpp_tpu_torch --headless --base-dir D --action build6dof [--params Lx=20,mesh=1] [--motion-table F | --native-table]
     python -m openfoam_tpp_tpu_torch --headless --base-dir D --action config
 
-Port of the headless `run`, `interface`, `profile`, `runsweep`,
-`build6dof` and `config` verbs of openfoam_tpp_tpu/manager/cli.py
-(`profile`: OFTPP_PROFILE_STEPS steps, default 20, under torch.profiler;
-utils/profiling.py). The solver verbs run
-on the CUDA device unless `--device cpu` is given. The interactive menu
-and the other verbs and flags of that command line are not ported yet:
-asking for one exits non-zero. PyTorch runs eagerly, so there is no dependency bootstrap and
-no compile cache to set up.
+Port of openfoam_tpp_tpu/manager/cli.py on one card: the menu (build
+cases from MATLAB-style ranges, run them or run them as batches, post-
+process, build a 6DoF case, show the configuration), the verbs, and
+`--submit` (a Slurm job per case on a GPU partition, manager/submit.py).
+`profile` runs OFTPP_PROFILE_STEPS steps (default 20) under
+torch.profiler (utils/profiling.py). The solver verbs and the menu run on
+the CUDA device unless `--device cpu` is given; `flow` (potential theory)
+and `video` (matplotlib frames of the checkpoints) run on the host.
+`--devices` (runs over several cards) is not ported: asking for it exits
+2. The dependency check runs first (utils/bootstrap.py). PyTorch runs
+eagerly, so there is no compile cache to set up.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 
 from openfoam_tpp_tpu_torch.config import DEFAULTS
 from openfoam_tpp_tpu_torch.manager import cases as case_mgr
-
-NOT_PORTED = ("flow", "video")
+from openfoam_tpp_tpu_torch.utils import naming, resources
 
 
 def action_interface(case_dir: str, device="cuda") -> bool:
@@ -44,6 +46,37 @@ def action_interface(case_dir: str, device="cuda") -> bool:
                             device=device)
     print(f"  ✅ Extraction complete: {out}")
     return True
+
+
+def action_flow(case_dir: str, device=None) -> bool:
+    """Potential-flow prediction of the case (host numpy; `device` is not
+    used): liquid depth d = H/2, the case's own duration."""
+    from openfoam_tpp_tpu_torch.utils import potential_flow as pf
+
+    params = case_mgr.load_case_params(case_dir)
+    print(f"  📐 Generating potential flow prediction for "
+          f"{os.path.basename(case_dir)}...")
+    out_dir = os.path.join(case_dir, "postProcessing", "potential_flow")
+    os.makedirs(out_dir, exist_ok=True)
+    out, summary = pf.generate_wall_elevation_csv(
+        out_dir,
+        R=params["D"] / 2.0,
+        a=params["R"],
+        freq=params["freq"],
+        d=params["H"] / 2.0,
+        duration=params["duration"],
+    )
+    pf.print_summary(summary)
+    print(f"  ✅ Potential flow data saved: {out}")
+    return True
+
+
+def action_video(case_dir: str, device=None) -> bool:
+    """Free-surface video of the case's checkpoints (host matplotlib;
+    `device` is not used)."""
+    from openfoam_tpp_tpu_torch.post.video import generate_video
+
+    return generate_video(case_dir)
 
 
 def action_run(case_dir: str, device="cuda") -> bool:
@@ -83,7 +116,8 @@ def action_runsweep(case_dirs: list[str], lockstep: bool = True,
     return True
 
 
-ACTIONS = {"interface": action_interface, "run": action_run,
+ACTIONS = {"interface": action_interface, "flow": action_flow,
+           "video": action_video, "run": action_run,
            "profile": action_profile}
 
 
@@ -150,15 +184,177 @@ def display_config(base_dir: str = "."):
         print(f"    {c}  [{status}]")
 
 
+# ------------------------------------------------------------------- menus
+
+def _prompt(msg: str, default: str = "") -> str:
+    try:
+        raw = input(msg).strip()
+    except EOFError:
+        return default
+    return raw or default
+
+
+def menu_build_cases(base_dir: str = "."):
+    """Per-parameter entry with MATLAB ranges; zip/Cartesian sweep
+    semantics (the reference's main.py:431-566)."""
+    print("\n--- Build Cases ---")
+    print("Enter values (or MATLAB ranges start:step:end, comma lists).")
+    sweep = {}
+    for key, dv in DEFAULTS.items():
+        if key == "n_cpus":
+            continue
+        raw = _prompt(f"  {key} [{dv}]: ", str(dv))
+        if key == "geo":
+            vals = [v.strip() for v in raw.split(",")]
+            for v in vals:
+                if v not in ("flat", "cap"):
+                    print(f"  ⚠ invalid geo {v!r}, using 'flat'")
+            vals = [v if v in ("flat", "cap") else "flat" for v in vals]
+            sweep[key] = vals
+        else:
+            try:
+                sweep[key] = naming.parse_range(raw)
+            except ValueError as e:
+                print(f"  ⚠ {e}; using default")
+                sweep[key] = [dv]
+
+    def confirm(n):
+        return _prompt(
+            f"  Cartesian product gives {n} cases. Proceed? [y/N]: ", "n"
+        ).lower().startswith("y")
+
+    rows, mode = case_mgr.expand_sweep(sweep, confirm_cartesian=confirm)
+    if not rows:
+        print("  Cancelled.")
+        return
+    print(f"  {len(rows)} case(s) ({mode} mode):")
+    for row in rows:
+        est = resources.estimate_resources({**DEFAULTS, **row})
+        d = case_mgr.setup_case(row, base_dir)
+        print(f"   ✅ {os.path.basename(d)}  — {est.summary()}")
+
+
+def menu_run_cases(base_dir: str = ".", device="cuda"):
+    all_cases = case_mgr.list_cases(base_dir)
+    if not all_cases:
+        print("  No cases found. Build some first.")
+        return
+    print("\n--- Run Cases ---")
+    for i, c in enumerate(all_cases):
+        params = case_mgr.load_case_params(os.path.join(base_dir, c))
+        done = case_mgr.is_case_done(os.path.join(base_dir, c))
+        prog = case_mgr.case_progress(os.path.join(base_dir, c))
+        status = "✅ done" if done else (
+            f"▶ t={prog:g}/{params['duration']:g}s" if prog > 0 else "· new"
+        )
+        print(f"  {i + 1}. {c}  [{status}]")
+    sel = _prompt("Select cases (e.g. 1,3-5 or all): ", "")
+    if not sel:
+        return
+    # Cluster submission ("Are you on Oscar?" in the reference's user
+    # guide): offered when a Slurm scheduler is present.
+    submit = False
+    if shutil.which("sbatch"):
+        submit = _prompt(
+            "Submit to Slurm instead of running locally? [y/N]: ", "n"
+        ).lower().startswith("y")
+    picked = [os.path.join(base_dir, all_cases[idx])
+              for idx in naming.parse_indices(sel, len(all_cases))]
+    if submit:
+        from openfoam_tpp_tpu_torch.manager.submit import submit_case
+
+        for case_dir in picked:
+            submit_case(case_dir, "run")
+        return
+    batched = len(picked) > 1 and _prompt(
+        f"Run the {len(picked)} cases as batches "
+        "(one batch per compatible group)? [y/N]: ", "n"
+    ).lower().startswith("y")
+    if batched:
+        action_runsweep(picked, device=device)
+    else:
+        for case_dir in picked:
+            action_run(case_dir, device=device)
+
+
+def menu_postprocess(base_dir: str = ".", device="cuda"):
+    all_cases = case_mgr.list_cases(base_dir)
+    if not all_cases:
+        print("  No cases found.")
+        return
+    print("\n--- Postprocess ---")
+    for i, c in enumerate(all_cases):
+        print(f"  {i + 1}. {c}")
+    sel = _prompt("Select cases (e.g. 1,3-5 or all): ", "")
+    if not sel:
+        return
+    print("  Actions: 1) video  2) interface  3) flow (potential theory)")
+    act = _prompt("Action [2]: ", "2")
+    action = {"1": "video", "2": "interface", "3": "flow"}.get(act, "interface")
+    for idx in naming.parse_indices(sel, len(all_cases)):
+        ACTIONS[action](os.path.join(base_dir, all_cases[idx]), device=device)
+
+
+def menu_build_6dof(base_dir: str = "."):
+    """Interactive build for the closed-tank 6DoF family (the reference's
+    sloshingTank3D6DoF)."""
+    print("\n--- Build 6DoF closed-tank case ---")
+    overrides = {}
+    for key in ("Lx", "Ly", "Lz", "mesh", "chamfer", "duration", "dt"):
+        dv = case_mgr.DEFAULTS_6DOF[key]
+        raw = _prompt(f"  {key} [{dv}]: ", str(dv))
+        try:
+            overrides[key] = float(raw)
+        except ValueError:
+            print(f"  ⚠ invalid {key}; using default")
+            overrides[key] = dv
+    table = _prompt(
+        "  Motion table path [blank = gen6DoF sine table]: ", ""
+    ) or None
+    use_native = False
+    if table is None and _default_6dof_table():
+        use_native = _prompt(
+            "  Generate table with native gen6dof? [Y/n]: ", "y"
+        ).lower().startswith("y")
+    build_6dof_case(overrides, base_dir, motion_table=table,
+                    use_native=use_native)
+
+
+def main_menu(base_dir: str = ".", device="cuda"):
+    while True:
+        print("\n========== CUDA Sloshing Manager ==========")
+        print(" 1. Build cases (parameter sweeps)")
+        print(" 2. Run cases (CUDA solver, resume-aware)")
+        print(" 3. Postprocess (interface / flow / video)")
+        print(" 4. Build 6DoF closed-tank case")
+        print(" 5. Show configuration")
+        print(" 6. Exit")
+        choice = _prompt("Choice: ", "6")
+        if choice == "1":
+            menu_build_cases(base_dir)
+        elif choice == "2":
+            menu_run_cases(base_dir, device=device)
+        elif choice == "3":
+            menu_postprocess(base_dir, device=device)
+        elif choice == "4":
+            menu_build_6dof(base_dir)
+        elif choice == "5":
+            display_config(base_dir)
+        else:
+            return
+
+
+# --------------------------------------------------------------------- main
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Sloshing simulation manager (PyTorch/CUDA port)")
     ap.add_argument("--headless", action="store_true",
-                    help="non-interactive mode (the only one ported)")
+                    help="non-interactive mode (reference parity)")
     ap.add_argument("--case", help="case directory name")
     ap.add_argument("--action",
                     choices=sorted(ACTIONS) + ["build6dof", "config",
-                                               "runsweep"] + list(NOT_PORTED),
+                                               "runsweep"],
                     help="headless action")
     ap.add_argument("--base-dir", default=".", help="cases root directory")
     ap.add_argument("--params", default="",
@@ -172,30 +368,37 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs "
                          "the plain PyTorch path)")
+    ap.add_argument("--submit", action="store_true",
+                    help="submit the action as a Slurm job on one GPU "
+                         "instead of running it in-process")
+    ap.add_argument("--partition", default="gpu", help="Slurm partition")
     ap.add_argument("--percase-dt", action="store_true",
                     help="runsweep: per-case adaptive dt with holds at "
                          "write targets (solo-run parity) instead of the "
                          "lockstep batch-min dt")
-    ap.add_argument("--submit", action="store_true",
-                    help="Slurm submission (not ported yet)")
     ap.add_argument("--devices", type=str, default=None,
                     help="sharded runs over several cards and sweep "
                          "farming (not ported yet: they come with the "
                          "torch.distributed slice)")
     args = ap.parse_args(argv)
 
-    unported = [what for what, asked in (
-        ("the interactive menu (use --headless)", not args.headless),
-        (f"--action {args.action}", args.action in NOT_PORTED),
-        ("--submit", args.submit),
-        ("--devices (runs over several cards come with the "
-         "torch.distributed slice; the x-sharded step is "
-         "make_step(spmd=SpmdCtx(n)), its shards on one card)",
-         args.devices not in (None, "1")),
-    ) if asked]
-    if unported:
-        print(f"❌ not ported yet: {', '.join(unported)}", file=sys.stderr)
+    # Dependency self-check (the reference's venv bootstrap, main.py:9-95):
+    # OFTPP_BOOTSTRAP=1 enables venv self-provisioning and re-exec.
+    from openfoam_tpp_tpu_torch.utils.bootstrap import ensure_dependencies
+
+    if not ensure_dependencies(base_dir=args.base_dir):
         return 2
+
+    if args.devices not in (None, "1"):
+        print("❌ not ported yet: --devices (runs over several cards come "
+              "with the torch.distributed slice; the x-sharded step is "
+              "make_step(spmd=SpmdCtx(n)), its shards on one card)",
+              file=sys.stderr)
+        return 2
+
+    if not args.headless:
+        main_menu(args.base_dir, device=args.device)
+        return 0
     if args.action == "config":
         display_config(args.base_dir)
         return 0
@@ -233,6 +436,11 @@ def main(argv=None):
     if not os.path.isdir(case_dir):
         print(f"❌ case not found: {case_dir}")
         return 1
+    if args.submit:
+        from openfoam_tpp_tpu_torch.manager.submit import submit_case
+
+        return 0 if submit_case(case_dir, args.action,
+                                partition=args.partition) else 1
     print(f"Post-processing: {args.action} on {args.case}"
           if args.action != "run" else f"Running: {args.case}")
     return 0 if ACTIONS[args.action](case_dir, device=args.device) else 1

@@ -13,6 +13,10 @@ executable; PyTorch runs eagerly, so the loop is a Python loop and there
 is nothing to cache: the step is built anew (and the OFTPP_* variables
 read) at every `get_compiled_advance`. Sharded runs over several cards
 are not ported yet and raise NotImplementedError.
+
+OFTPP_DEBUG_NANS=1 runs `run_case` under utils/nan_trap.py's trap: the
+first operation or kernel that outputs a NaN raises FloatingPointError
+before anything later is written (the JAX package's jax_debug_nans).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from openfoam_tpp_tpu_torch.post.probes import (ProbeWriter,
 from openfoam_tpp_tpu_torch.solver.timestep import (StepDiagnostics,
                                                     geometry_arrays,
                                                     make_step, make_step_ga)
+from openfoam_tpp_tpu_torch.utils import nan_trap
 from openfoam_tpp_tpu_torch.utils.io import (latest_checkpoint,
                                              list_checkpoints,
                                              load_checkpoint, read_6dof_table,
@@ -75,7 +80,10 @@ def make_advance(step_fn, max_steps: int = _MAX_STEPS_PER_WRITE,
     A step_fn built by make_step_ga (its `takes_ga` attribute marks it)
     changes the signature to `advance(state, params, t_target, ga[,
     probe_pack])`; `sampler` is then post.probes.sample_row(state,
-    pack)."""
+    pack).
+
+    While a NaN trap is current (utils/nan_trap.py), each step adds one
+    to its step count, which its error names."""
     init_precond = getattr(step_fn, "init_precond", None)
     takes_ga = getattr(step_fn, "takes_ga", False)
 
@@ -94,8 +102,11 @@ def make_advance(step_fn, max_steps: int = _MAX_STEPS_PER_WRITE,
         bundle = None
         if init_precond is not None:
             bundle = init_precond(state, *ga_args)
+        trap = nan_trap.current()
         n = 0
         while n < max_steps and bool(state.t < t_target):
+            if trap is not None:
+                trap.step += 1
             if init_precond is None:
                 state, diag = step_fn(state, params, *ga_args,
                                       t_stop=t_target)
@@ -235,7 +246,21 @@ def run_case(
     """Run (or resume) a case to its encoded duration on `device`.
     Returns run stats: the JAX package's keys, plus `io_seconds` (host
     time spent writing checkpoints and probe files) and `intervals` (per
-    write target: simulated time, steps, wall seconds)."""
+    write target: simulated time, steps, wall seconds).
+
+    With OFTPP_DEBUG_NANS=1 the run is trapped for NaN (utils/nan_trap.py;
+    the trap is on for this call only, where the JAX package's setting
+    holds for the process)."""
+    with nan_trap.trap_nans() as trap:
+        if trap is not None:
+            log(f"  (NaN trap on, {nan_trap.ENV_FLAG}=1: sigFpe-parity NaN "
+                "trapping)")
+        return _run_case(case_dir, props, controls, log, write_checkpoints,
+                         devices, device)
+
+
+def _run_case(case_dir, props, controls, log, write_checkpoints, devices,
+              device) -> dict:
     params = load_case_params(case_dir)
     is_6dof = params.get("model") == "tank6dof"
     geom, advance = get_compiled_advance(

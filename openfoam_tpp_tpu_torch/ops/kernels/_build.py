@@ -9,7 +9,9 @@ source, all at once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``check`` raises if it is not 0 (a refused launch never runs and a later
-synchronize would not report it).
+synchronize would not report it). Each entry point hands ``check`` the
+outputs of its launch: while utils/nan_trap.py's trap is on
+(``OFTPP_DEBUG_NANS=1``), ``nan_hook`` looks at them for NaN.
 """
 
 from __future__ import annotations
@@ -101,9 +103,16 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check(rc: int, what: str) -> None:
+#: NanTrap.check_kernel while a NaN trap is on, else None.
+nan_hook = None
+
+
+def check(rc: int, what: str, *outputs) -> None:
+    """Raise if a launch was refused; hand its `outputs` to `nan_hook`."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+    if nan_hook is not None:
+        nan_hook(what, outputs)
 
 
 def route(t, what: str) -> str:

@@ -123,7 +123,7 @@ def correct_divmax(dp, u_s, v_s, w_s, beta_f, ax, ay, az, vfrac, top_open,
         _build.ptr(partial), _build.ptr(div_max),
         _build.ptr(_build.ticket(dp.device)), nx, ny, nz,
         *(float(h) for h in spacing), _build.stream_of(dp))
-    _build.check(rc, "correct_divmax")
+    _build.check(rc, "correct_divmax", *outs, div_max)
     correct_divmax.launches += 1
     return (*outs, div_max)
 
@@ -191,7 +191,7 @@ def correct_divmax_h(dp, h_dp_lo, h_dp_hi, u_p, h_u, v_s, w_s, bx_p, h_bx, by,
         _build.ptr(partial), _build.ptr(div_max),
         _build.ptr(_build.ticket(dp.device)), nx, ny, nz,
         *(float(h) for h in spacing), _build.stream_of(dp))
-    _build.check(rc, "correct_divmax_h")
+    _build.check(rc, "correct_divmax_h", *outs, div_max)
     correct_divmax_h.launches += 1
     return (*outs, div_max)
 

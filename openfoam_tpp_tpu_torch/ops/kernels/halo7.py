@@ -121,7 +121,7 @@ def _launch(mode, p, h_lo, h_hi, wx_hi, split, diag=None, b=None, out=None,
         *(_build.ptr(w) for w in split), opt(diag), opt(b), _build.ptr(out),
         opt(partial), opt(dot), opt(ticket), opt(acc), *p.shape,
         _build.stream_of(p))
-    _build.check(rc, "seven_point_halo")
+    _build.check(rc, "seven_point_halo", out, dot)
     return out, dot
 
 

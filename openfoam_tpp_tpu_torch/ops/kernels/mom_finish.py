@@ -65,7 +65,7 @@ def momentum_finish(u, v, w, vc, rho_old, rho_new, ax, ay, az, dt, G):
         *(_build.ptr(t) for t in (dt, G, rho_old, rho_new, u, v, w, *vc,
                                   ax, ay, az, *outs)),
         nx, ny, nz, _build.stream_of(rho_old))
-    _build.check(rc, "momentum_finish")
+    _build.check(rc, "momentum_finish", *outs)
     momentum_finish.launches += 1
     return tuple(outs)
 

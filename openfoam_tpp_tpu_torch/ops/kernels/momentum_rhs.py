@@ -78,7 +78,7 @@ def momentum_rhs(u, v, w, rho_phi, mu, div_u, spacing, dev2=True):
         nul if div_u is None else _build.ptr(div_u),
         *(_build.ptr(o) for o in outs), nx, ny, nz,
         *(float(h) for h in spacing), _build.stream_of(mu))
-    _build.check(rc, "momentum_rhs")
+    _build.check(rc, "momentum_rhs", *outs)
     momentum_rhs.launches += 1
     return tuple(outs)
 
@@ -152,7 +152,7 @@ def momentum_rhs_h(u_p, v, w, rpx_p, rpy, rpz, mu, div_u, halos, spacing,
         ctypes.cast(halo_ptrs, ctypes.c_void_p),
         *(_build.ptr(o) for o in outs), nx, ny, nz,
         *(float(h) for h in spacing), _build.stream_of(mu))
-    _build.check(rc, "momentum_rhs_halo")
+    _build.check(rc, "momentum_rhs_halo", *outs)
     momentum_rhs_h.launches += 1
     return tuple(outs)
 

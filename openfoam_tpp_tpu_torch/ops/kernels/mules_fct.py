@@ -150,7 +150,7 @@ def fct_iter(lams, antis, alpha_low, amax, amin, dt_iv, spacing, eps=1e-12):
         *(_build.ptr(c) for c in (alpha_low, amax, amin, dt_iv)),
         *(_build.ptr(o) for o in outs), nx, ny, nz, hx, hy, hz, float(eps),
         _build.stream_of(alpha_low))
-    _build.check(rc, "mules_fct")
+    _build.check(rc, "mules_fct", *outs)
     fct_iter.launches += 1
     return tuple(outs)
 
@@ -203,7 +203,7 @@ def fct_iter_h(lams, lam_halos, antis, anti_halos, cell_lo_halos, alpha_low,
         ctypes.cast(halo_ptrs, ctypes.c_void_p),
         *(_build.ptr(o) for o in outs), nx, ny, nz, hx, hy, hz, float(eps),
         _build.stream_of(alpha_low))
-    _build.check(rc, "mules_fct_halo")
+    _build.check(rc, "mules_fct_halo", *outs)
     fct_iter_h.launches += 1
     return tuple(outs)
 

@@ -115,7 +115,7 @@ def flux_all(alpha, phis, ucs, anti_dtype=None):
         _DTYPES[ucs[0].dtype], _DTYPES[a_dt], _build.ptr(alpha),
         *(_build.ptr(f) for f in phis), *(_build.ptr(u) for u in ucs),
         *(_build.ptr(o) for o in outs), nx, ny, nz, _build.stream_of(alpha))
-    _build.check(rc, "mules_flux")
+    _build.check(rc, "mules_flux", *outs)
     flux_all.launches += 1
     lx, ax_, ly, ay_, lz, az_ = outs
     return (lx, ly, lz), (ax_, ay_, az_)
@@ -151,7 +151,7 @@ def flux_all_h(alpha, h_lo, h_hi, phis, ucs, anti_dtype=None, out=None):
         _build.ptr(h_lo), _build.ptr(h_hi), *(_build.ptr(f) for f in phis),
         *(_build.ptr(u) for u in ucs), *(_build.ptr(o) for o in outs),
         nx, ny, nz, _build.stream_of(alpha))
-    _build.check(rc, "mules_flux_halo")
+    _build.check(rc, "mules_flux_halo", *outs)
     flux_all_h.launches += 1
     lx, ax_, ly, ay_, lz, az_ = outs
     return (lx, ly, lz), (ax_, ay_, az_)

@@ -186,7 +186,7 @@ def _launch(mode, p, split, diag=None, b=None):
         mode, _DTYPES[p.dtype], int(diag is not None), _build.ptr(p),
         *(_build.ptr(w) for w in split), opt(diag), opt(b), _build.ptr(out),
         opt(partial), opt(dot), opt(ticket), nx, ny, nz, _build.stream_of(p))
-    _build.check(rc, "seven_point")
+    _build.check(rc, "seven_point", out, dot)
     return out, dot
 
 
@@ -269,7 +269,7 @@ def _batch_launch(mode, p, split, diag=None, b=None):
         *(_build.ptr(w) for w in split), opt(diag), opt(b), _build.ptr(out),
         opt(partial), opt(dots), opt(ticket), nx, ny, nz, nb,
         _build.stream_of(p))
-    _build.check(rc, "seven_point_batch")
+    _build.check(rc, "seven_point_batch", out, dots)
     return out, dots
 
 
@@ -346,7 +346,7 @@ def _cheb_launch(mode, x, b, split, lmax, lmin_frac, out_dtype):
         *(_build.ptr(w) for w in split), _build.ptr(out), opt(out2),
         opt(partial), opt(dot), opt(ticket), *cheb_coefs(lmax, lmin_frac),
         *b.shape, _build.stream_of(b))
-    _build.check(rc, "cheb2")
+    _build.check(rc, "cheb2", out, out2, dot)
     return out, out2, dot
 
 

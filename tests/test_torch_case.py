@@ -448,21 +448,76 @@ def test_unported_case_arguments_raise(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,rc", [
-    (["--headless", "--case", "c", "--action", "flow"], 2),
-    (["--headless", "--case", "c", "--action", "video"], 2),
-    (["--headless", "--case", "c", "--action", "profile", "--submit"], 2),
     (["--headless", "--action", "runsweep", "--devices", "2"], 2),
-    (["--headless", "--action", "build6dof", "--submit"], 2),
     (["--headless", "--action", "config", "--devices", "2"], 2),
-    (["--headless", "--case", "c", "--action", "run", "--submit"], 2),
     (["--headless", "--case", "c", "--action", "run", "--devices", "2"], 2),
-    (["--case", "c", "--action", "run"], 2),                    # the menu
     (["--headless", "--case", "no_such_case", "--action", "run"], 1),
 ])
 def test_cli_refuses_what_is_not_ported(argv, rc, tmp_path, capsys):
     assert tcli.main(["--base-dir", str(tmp_path)] + argv) == rc
     err = capsys.readouterr()
     assert ("not ported yet" in err.err) == (rc == 2)
+
+
+@pytest.fixture(scope="module")
+def tiny_run(tmp_path_factory):
+    """The tiny case run by the port (checkpoints at 0, 0.05 and 0.1)."""
+    base = tmp_path_factory.mktemp("cli")
+    case = tcases.setup_case(TINY, str(base))
+    trunner.run_case(case, device="cpu", log=lambda *a: None)
+    return case
+
+
+@pytest.mark.parametrize("verb", ["flow", "video", "profile --submit",
+                                  "build6dof --submit", "run --submit",
+                                  "menu"])
+def test_cli_runs_the_verbs_it_once_refused(verb, tiny_run, monkeypatch,
+                                            capsys):
+    """What the command line refused until the top layer was ported: the
+    `flow` and `video` verbs, `--submit` (the Slurm script written, exit
+    1 without sbatch, as in the JAX package; build6dof builds and ignores
+    it) and the interactive menu (EOF on stdin: Exit at once)."""
+    import shutil
+
+    from openfoam_tpp_tpu_torch.utils import potential_flow as tpf
+
+    base, name = os.path.dirname(tiny_run), os.path.basename(tiny_run)
+    monkeypatch.setattr(shutil, "which", lambda cmd: None)
+    # The 80-frame dashboard is held against JAX's in tests/test_torch_post.py.
+    monkeypatch.setattr(tpf, "generate_dashboard_animation",
+                        lambda path, **k: (path, {}))
+    head = ["--base-dir", base]
+    action, *flags = verb.split()
+    if verb == "menu":
+        monkeypatch.setattr("sys.stdin", __import__("io").StringIO(""))
+        argv, rc = head, 0
+    elif action == "build6dof":
+        argv, rc = head + ["--headless", "--action", action,
+                           "--params", "mesh=0.05,duration=0.1", *flags], 0
+    else:
+        argv = head + ["--headless", "--case", name, "--action", action,
+                       *flags]
+        rc = 1 if flags else 0
+    assert tcli.main(argv) == rc
+    out = capsys.readouterr()
+    assert "not ported yet" not in out.err
+    post = os.path.join(tiny_run, "postProcessing")
+    if verb == "flow":
+        assert os.path.getsize(os.path.join(
+            post, "potential_flow", "potential_flow_wall.csv"))
+    elif verb == "video":
+        assert any(f.startswith("animation.")
+                   for f in os.listdir(os.path.join(post, "video")))
+    elif verb == "build6dof --submit":
+        assert any(c.startswith("case_6dof") for c in tcases.list_cases(base))
+    elif verb == "menu":
+        assert out.out.count("Choice: ") == 1
+    else:
+        script = ("run_simulation.slurm" if action == "run"
+                  else f"postprocess_{action}.slurm")
+        text = open(os.path.join(tiny_run, script)).read()
+        assert f"--action {action}" in text and "--gres=gpu:1" in text
+        assert "sbatch not found" in out.out
 
 
 def test_get_compiled_advance_controls(monkeypatch):

@@ -48,7 +48,9 @@ and bitwise from call to call, and the one ticket shared in sequence
 with the single-grid apply-dot and the cheb2 post-dot. Built with
 OFTPP_FINISH_PALLAS=1, the momentum finish kernel launches 0 times with
 surface tension and in the tiled sweep, and once a step under a forcing
-of three 0-d components."""
+of three 0-d components. Under the NaN trap (OFTPP_DEBUG_NANS=1) a NaN
+operand of each of the 21 entry points raises from the kernel hook, but
+the FCT limiter's, whose clip maps a NaN λ to a finite one."""
 
 import numpy as np
 import pytest
@@ -999,3 +1001,124 @@ def test_finish_kernel_gates_on_the_card(dev, what, monkeypatch):
     assert mrk.momentum_rhs.launches == 2
     assert mfk.momentum_finish.launches == (2 if what == "forcing_0d" else 0)
     assert bool(torch.isfinite(state.u).all())
+
+
+def _nan_cases(rng, dev):
+    """name → (call, operand to poison): every kernel entry point on
+    operands made outside the trap; one NaN is written into the operand
+    before the call."""
+    p, b, w, d, alpha, phis, ucs, lams, antis, cells = _halo_inputs(
+        rng, dev, torch.float32)
+    p4, b4 = (_at(rng, dev, (6, 5, 11, 8)) for _ in range(2))
+    w4 = [_at(rng, dev, (6, 5, 11, 8), lo=0.05, hi=0.3) for _ in range(3)]
+    vel, rp, mu, div_u = _mom_operands(rng, dev, SHAPE)
+    corr = _corr_operands(rng, dev, SHAPE, True)
+    vc = _faces(rng, dev, SHAPE, -50, 50)
+    vc = (vc[0][:-1].contiguous(), vc[1], vc[2])
+    ro, rn = _arr(rng, dev, lo=1, hi=998), _arr(rng, dev, lo=1, hi=998)
+    aps = corr[5:8]
+    dt, G = torch.tensor(2.9e-3, device=dev), torch.tensor(
+        [0.31, -0.12, -9.81], device=dev)
+    h, sp_ = (0.011, 0.009, 0.013), (0.004, 0.004, 0.0035)
+    s = 1
+    sl = lambda ts: tuple(CTX4.split(t)[s] for t in ts)
+    lo, hi = sm.exchange_halo(CTX4.split(p), 1, CTX4)[s]
+    wx_hi = sm.exchange_hi(CTX4.split(w[0]), 1, CTX4)[s]
+    p_s, b_s, w_s = sl((p,))[0], sl((b,))[0], sl(w)
+    a_lo, a_hi = sm.exchange_halo(CTX4.split(alpha), 2, CTX4)[s]
+    ex = lambda t, **k: sm.exchange_halo(CTX4.split(t), 1, CTX4, **k)[s]
+    lh = [ex(t, hi_edge="zero") for t in lams]
+    ah = [ex(t, hi_edge="zero") for t in antis]
+    fct_h = (sl(lams), (lh[0], (lh[1][0], None), (lh[2][0], None)),
+             sl(antis), (ah[0], (ah[1][0], None), (ah[2][0], None)),
+             tuple(ex(c)[0] for c in cells), *sl(cells), sp_)
+    nx = SHAPE[0]
+    exh = lambda t, wd, **k: sm.exchange_halo(CTX4.split(t, nx), wd, CTX4,
+                                              **k)[2]
+    halos = (*exh(vel[0], 2, hi_edge="zero"), *exh(vel[1], 2),
+             *exh(vel[2], 2), *exh(rp[0], 1, hi_edge="zero"),
+             exh(rp[1], 1)[0], exh(rp[2], 1)[0], *exh(mu, 1),
+             exh(div_u, 1, lo_edge="zero")[0])
+    part = lambda t: CTX4.split(t, nx)[2]
+    mom_h = (*(part(t) for t in (*vel, *rp, mu, div_u)), halos, h)
+    dp = corr[0]
+    dlo, dhi = sm.exchange_halo(CTX4.split(dp), 1, CTX4)[2]
+    hi3 = [sm.exchange_hi(CTX4.split(t, nx), 1, CTX4)[2]
+           for t in (corr[1], corr[4][0], corr[5])]
+    corr_h = (part(dp), dlo, dhi, part(corr[1]), hi3[0], part(corr[2]),
+              part(corr[3]), part(corr[4][0]), hi3[1], part(corr[4][1]),
+              part(corr[4][2]), part(corr[5]), hi3[2], part(corr[6]),
+              part(corr[7]), part(corr[8]), part(corr[9]), part(corr[10]),
+              corr[11], corr[12])
+    return {
+        "apply_7pt": (lambda: sp.apply_7pt(p, w), p),
+        "resid_scaled_7pt": (lambda: sp.resid_scaled_7pt(p, w, d, b), p),
+        "apply_dot_7pt": (lambda: sp.apply_dot_7pt(p, w), p),
+        "apply_7pt_nb": (lambda: sp.apply_7pt_nb(p4, w4), p4),
+        "resid_scaled_7pt_nb": (lambda: sp.resid_scaled_7pt_nb(p4, w4, None,
+                                                               b4), p4),
+        "apply_dot_7pt_nb": (lambda: sp.apply_dot_7pt_nb(p4, w4), p4),
+        "cheb2_pre_7pt": (lambda: sp.cheb2_pre_7pt(b, w, 2.0, 0.1), b),
+        "cheb2_post_7pt": (lambda: sp.cheb2_post_7pt(p, b, w, 2.0, 0.1), p),
+        "cheb2_post_dot_7pt": (lambda: sp.cheb2_post_dot_7pt(p, b, w, 2.0,
+                                                             0.1), p),
+        "flux_all": (lambda: mfx.flux_all(alpha, phis, ucs), alpha),
+        "fct_iter": (lambda: mf.fct_iter(lams, antis, *cells, sp_), lams[0]),
+        "momentum_rhs": (lambda: mrk.momentum_rhs(*vel, rp, mu, div_u, h),
+                         vel[0]),
+        "correct_divmax": (lambda: ck.correct_divmax(*corr), dp),
+        "momentum_finish": (lambda: mfk.momentum_finish(
+            *vel, vc, ro, rn, *aps, dt, G), vel[0]),
+        "apply_7pt_h": (lambda: halo7.apply_7pt_h(p_s, lo, hi, wx_hi, w_s),
+                        p_s),
+        "resid_scaled_7pt_h": (lambda: halo7.resid_scaled_7pt_h(
+            p_s, lo, hi, wx_hi, w_s, b_s), p_s),
+        "apply_dot_7pt_h": (lambda: halo7.apply_dot_7pt_h(
+            p_s, lo, hi, wx_hi, w_s), p_s),
+        "flux_all_h": (lambda: mfx.flux_all_h(sl((alpha,))[0], a_lo,
+                                              a_hi[:1], sl(phis), sl(ucs)),
+                       a_lo),
+        "fct_iter_h": (lambda: mf.fct_iter_h(*fct_h), fct_h[0][0]),
+        "momentum_rhs_h": (lambda: mrk.momentum_rhs_h(*mom_h), mom_h[0]),
+        "correct_divmax_h": (lambda: ck.correct_divmax_h(*corr_h), corr_h[0]),
+    }
+
+
+# The FCT limiter's clip01 is fminf(fmaxf(v, 0), 1): CUDA's fminf/fmaxf
+# return the other operand for a NaN, so a NaN λ leaves the kernel as 0
+# and its neighbours' limiters as if the face were closed. Its plain
+# version (torch.clamp) keeps the NaN.
+SWALLOWS_NAN = ("fct_iter", "fct_iter_h")
+
+
+@pytest.mark.parametrize("name", [
+    "apply_7pt", "resid_scaled_7pt", "apply_dot_7pt", "apply_7pt_nb",
+    "resid_scaled_7pt_nb", "apply_dot_7pt_nb", "cheb2_pre_7pt",
+    "cheb2_post_7pt", "cheb2_post_dot_7pt", "flux_all", "fct_iter",
+    "momentum_rhs", "correct_divmax", "momentum_finish", "apply_7pt_h",
+    "resid_scaled_7pt_h", "apply_dot_7pt_h", "flux_all_h", "fct_iter_h",
+    "momentum_rhs_h", "correct_divmax_h"])
+def test_nan_trap_hook_sees_each_kernel(dev, name):
+    """Under the NaN trap (OFTPP_DEBUG_NANS=1) a NaN operand of each
+    kernel entry point raises FloatingPointError from the kernel hook
+    (`_build.check`), naming the entry point and this file's line. The
+    FCT limiter maps the NaN to a finite λ (SWALLOWS_NAN): the hook looks
+    at its outputs, finds none, and they are finite."""
+    from openfoam_tpp_tpu_torch.utils import nan_trap
+
+    call, operand = _nan_cases(np.random.default_rng(12), dev)[name]
+    flat = operand.view(-1)
+    flat[flat.numel() // 2] = float("nan")
+    if name in SWALLOWS_NAN:
+        with nan_trap.trap_nans(True) as trap:
+            out = call()
+        assert trap.checked >= len(out)
+        assert all(bool(torch.isfinite(t).all()) for t in out)
+        return
+    trap = None
+    with pytest.raises(FloatingPointError,
+                       match=rf"CUDA kernel {name} .* at tests/"
+                             r"test_torch_cuda\.py:\d+, step 0"):
+        with nan_trap.trap_nans(True) as trap:
+            call()
+    assert trap.checked >= 1 and _build.nan_hook is None

@@ -36,6 +36,7 @@ import openfoam_tpp_tpu_torch.ops.kernels._build
 import openfoam_tpp_tpu_torch.manager.cases
 import openfoam_tpp_tpu_torch.manager.cli
 import openfoam_tpp_tpu_torch.manager.runner
+import openfoam_tpp_tpu_torch.manager.submit
 import openfoam_tpp_tpu_torch.manager.sweeprun
 import openfoam_tpp_tpu_torch.parallel.sweep
 import openfoam_tpp_tpu_torch.parallel.spmd
@@ -44,9 +45,15 @@ import openfoam_tpp_tpu_torch.ops.kernels.halo7
 import openfoam_tpp_tpu_torch.post.interface
 import openfoam_tpp_tpu_torch.post.isosurface
 import openfoam_tpp_tpu_torch.post.probes
+import openfoam_tpp_tpu_torch.post.avi
+import openfoam_tpp_tpu_torch.post.video
+import openfoam_tpp_tpu_torch.utils.bootstrap
 import openfoam_tpp_tpu_torch.utils.io
+import openfoam_tpp_tpu_torch.utils.nan_trap
 import openfoam_tpp_tpu_torch.utils.naming
+import openfoam_tpp_tpu_torch.utils.potential_flow
 import openfoam_tpp_tpu_torch.utils.profiling
+import openfoam_tpp_tpu_torch.utils.resources
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "openfoam_tpp_tpu")
              and sys.modules[m] is not None)
@@ -78,9 +85,10 @@ def test_no_module_of_the_port_names_jax():
 
 
 def test_command_line_runs_without_jax(tmp_path):
-    """`python -m openfoam_tpp_tpu_torch` with jax blocked: an unported
-    verb exits 2, and the card is the default device (absent here, so
-    `run` fails naming `--device cpu`'s counterpart)."""
+    """`python -m openfoam_tpp_tpu_torch` with jax blocked: the host verbs
+    `flow` and `video` run, `--devices` (not ported) exits 2, and the card
+    is the default device (absent here, so `run` fails naming `--device
+    cpu`'s counterpart)."""
     from openfoam_tpp_tpu_torch.manager.cases import setup_case
 
     case = setup_case(dict(H=0.04, D=0.02, mesh=0.004, R=0.002, freq=3.0,
@@ -96,6 +104,11 @@ def test_command_line_runs_without_jax(tmp_path):
             cwd=REPO, capture_output=True, text=True, timeout=300)
 
     out = run("--action", "flow")
+    assert out.returncode == 0, out.stderr
+    assert os.path.exists(os.path.join(case, "postProcessing",
+                                       "potential_flow",
+                                       "potential_flow_wall.csv"))
+    out = run("--action", "run", "--devices", "2")
     assert out.returncode == 2 and "not ported yet" in out.stderr
     out = run("--action", "run")
     assert out.returncode != 0 and "device='cpu'" in out.stderr
@@ -107,6 +120,9 @@ def test_command_line_runs_without_jax(tmp_path):
     assert out.returncode == 0, out.stderr
     assert os.path.exists(os.path.join(case, "postProcessing", "interface",
                                        "interface_summary.csv"))
+    out = run("--action", "video")
+    assert out.returncode == 0, out.stderr
+    assert "Video saved" in out.stdout and "Dashboard animation" in out.stdout
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
