@@ -104,9 +104,28 @@ __device__ __forceinline__ void st(float* a, int64_t i, float v) { a[i] = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* a, int64_t i, float v) {
   a[i] = __float2bfloat16_rn(v);
 }
-__device__ __forceinline__ float clip01(float v) {
-  return fminf(fmaxf(v, 0.0f), 1.0f);
+// The clamps, maxima and minima keep a NaN operand, as torch.clamp and
+// torch.minimum (the plain version) and jnp.clip / jnp.minimum (the TPU
+// kernel) do, where CUDA's fminf / fmaxf would return the other operand:
+// PTX max.NaN / min.NaN (sm_80 on), one instruction each as fmaxf /
+// fminf are, give a NaN if either operand is one. On other operands they
+// are max / min, so the bits (signed zeros included) are the plain
+// version's on the card.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float clip01(float v) {
+  return min_nan(max_nan(v, 0.0f), 1.0f);
+}
+__device__ __forceinline__ float pos(float v) { return max_nan(v, 0.0f); }
+__device__ __forceinline__ float neg(float v) { return min_nan(v, 0.0f); }
 
 template <typename T>
 struct Args {
@@ -182,12 +201,12 @@ __device__ __forceinline__ RPM rpm(const Args<T>& a, float lxl, float axl,
   const float rxl = (1.0f - lxl) * axl, rxh = (1.0f - lxh) * axh;
   const float ryl = (1.0f - lyl) * ayl, ryh = (1.0f - lyh) * ayh;
   const float rzl = (1.0f - lzl) * azl, rzh = (1.0f - lzh) * azh;
-  float p_in = (fmaxf(rxl, 0.0f) - fminf(rxh, 0.0f)) * a.rhx;
-  p_in = p_in + (fmaxf(ryl, 0.0f) - fminf(ryh, 0.0f)) * a.rhy;
-  p_in = p_in + (fmaxf(rzl, 0.0f) - fminf(rzh, 0.0f)) * a.rhz;
-  float p_out = (fmaxf(rxh, 0.0f) - fminf(rxl, 0.0f)) * a.rhx;
-  p_out = p_out + (fmaxf(ryh, 0.0f) - fminf(ryl, 0.0f)) * a.rhy;
-  p_out = p_out + (fmaxf(rzh, 0.0f) - fminf(rzl, 0.0f)) * a.rhz;
+  float p_in = (pos(rxl) - neg(rxh)) * a.rhx;
+  p_in = p_in + (pos(ryl) - neg(ryh)) * a.rhy;
+  p_in = p_in + (pos(rzl) - neg(rzh)) * a.rhz;
+  float p_out = (pos(rxh) - neg(rxl)) * a.rhx;
+  p_out = p_out + (pos(ryh) - neg(ryl)) * a.rhy;
+  p_out = p_out + (pos(rzh) - neg(rzl)) * a.rhz;
   RPM r;
   r.rp = clip01((amax - work) / (dv * p_in + a.eps));
   r.rm = clip01((work - amin) / (dv * p_out + a.eps));
@@ -198,7 +217,8 @@ __device__ __forceinline__ RPM rpm(const Args<T>& a, float lxl, float axl,
 __device__ __forceinline__ float upd(float lam, float anti, RPM left,
                                      RPM self) {
   const float rem = (1.0f - lam) * anti;
-  const float c = rem >= 0.0f ? fminf(left.rm, self.rp) : fminf(left.rp, self.rm);
+  const float c =
+      rem >= 0.0f ? min_nan(left.rm, self.rp) : min_nan(left.rp, self.rm);
   return clip01(lam + (1.0f - lam) * c);
 }
 

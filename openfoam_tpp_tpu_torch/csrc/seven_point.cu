@@ -56,22 +56,37 @@
 // overlap, so they run on one stream. A launch that faults part-way leaves it
 // non-zero; the process must then start again, as after any CUDA fault.
 //
-// Halo variants (`seven_point_halo_launch`) replace the TPU kernels in
-// openfoam_tpp_tpu/ops/pallas/halo7.py: apply_7pt_h (halo7.py:141),
-// resid_scaled_7pt_h (:160) and apply_dot_7pt_h (:179), the per-shard
-// kernels of the x-sharded step. They are the same kernels with HALO set:
-// the x-neighbour loads that fall outside the shard's slab read the
-// exchanged planes instead (p's ±1 planes h_lo / h_hi, and wx_hi, the next
-// shard's first wxl plane, for the last plane's high-face term
-// wx_hi·h_hi). They never clamp: at the global ends the halo content
-// carries the clamp. Same bytes plus three planes, same bound; the dot is
-// the caller's `acc` (the shards before this one) plus this shard's. What
-// a resid island of four 28-plane shards loses against the single grid is
-// each launch's ramp and drain, not bytes: its launches after the first
-// are chained (mode 3) by programmatic dependent launch, so the next
-// shard's blocks start while the last ones drain; each chained launch
-// waits for the one before it before it exits, so the island is complete
-// when its last launch is.
+// Halo variants replace the TPU kernels in openfoam_tpp_tpu/ops/pallas/
+// halo7.py: apply_7pt_h (halo7.py:141), resid_scaled_7pt_h (:160) and
+// apply_dot_7pt_h (:179), the per-shard kernels of the x-sharded step.
+// They do the single-grid arithmetic, but the x-neighbour loads that fall
+// outside a shard's slab read the exchanged planes instead (p's ±1 planes
+// h_lo / h_hi, and wx_hi, the next shard's first wxl plane, for the last
+// plane's high-face term wx_hi·h_hi). They never clamp: at the global
+// ends the halo content carries the clamp. Same bytes plus three planes,
+// same bound.
+//
+// Apply and resid (`seven_point_slabs_launch`) take a table of slabs: one
+// launch covers every slab the process holds, as the TPU mesh runs an
+// island's shards at once. The table (at most kMaxSlabs descriptors, each
+// a slab's p, its three halo planes, weights, diag, b and out; every slab
+// the same (nx, ny, nz)) is a kernel parameter, read in place from the
+// constant bank (__grid_constant__); the grid's z dimension walks all
+// S·nx planes and a block finds its slab from blockIdx.z. A block
+// addresses each operand from its plane's first cell (uniform in the
+// block) plus the cell's place in the plane: the per-cell halo selects
+// and 64-bit index math of a shard kernel, and a division for the slab,
+// took the first table kernel to 1.6× the single grid (PERF.md §6). A slab's
+// x-neighbours beyond its planes come from its own halo pointers, never
+// from the next slab's memory, so a table of one slab with received halo
+// planes is the form a process holding one shard launches. Launched one
+// shard at a time (even chained by programmatic dependent launch), an
+// island of four 28-plane shards lost three launches' ramp and drain
+// against the single grid, not bytes (PERF.md §6, rows 11a-b).
+//
+// Apply-dot (`seven_point_halo_launch`, mode 2) stays one launch a shard:
+// its dot is the caller's `acc` (the shards before this one) plus this
+// shard's, so the chain of shards adds exactly what the single grid adds.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -80,7 +95,8 @@
 namespace {
 
 // Block: 32 cells along z (one warp, contiguous) × 8 along y; the grid's
-// z dimension walks x. No integer division in the index math.
+// z dimension walks x (and the slabs of a table). No integer division in
+// the index math (a table's slab index is a multiply-high).
 constexpr int kBX = 32, kBY = 8, kBlock = kBX * kBY;
 constexpr int kWarps = kBlock / 32;
 // apply-dot: blocks per launch, about kWaves times what the card holds at
@@ -92,7 +108,9 @@ constexpr int kPerWarp = 16;   // planes per warp per batch of the final sum
 constexpr int kPlanes = kWarps * kPerWarp;
 static_assert(kWarps == 8, "the row tree adds 8 warp sums");
 
-enum Mode { kApply = 0, kResid = 1, kApplyDot = 2, kResidChained = 3 };
+enum Mode { kApply = 0, kResid = 1, kApplyDot = 2 };
+// Slabs one apply / resid launch takes at most (the table's size).
+constexpr int kMaxSlabs = 16;
 
 __device__ __forceinline__ float ld(const float* a, int64_t i) { return a[i]; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* a, int64_t i) {
@@ -115,24 +133,14 @@ struct Halo {
 };
 
 // Σ_f w_f·p_nb for cell c = (i, j, k); same products and add order as
-// `_nb_core`: wl·xm + xh + wy·ym + yh + wz·zm + zh. With HALO the
-// x-neighbours outside the slab come from the halo planes h.
-template <typename T, bool HALO>
+// `_nb_core`: wl·xm + xh + wy·ym + yh + wz·zm + zh.
+template <typename T>
 __device__ __forceinline__ float nb_sum(const T* p, const T* wx, const T* wy,
-                                        const T* wz, const Halo<T>& h,
-                                        int64_t c, int i, int j, int k, int nx,
-                                        int ny, int nz) {
+                                        const T* wz, int64_t c, int i, int j,
+                                        int k, int nx, int ny, int nz) {
   const int64_t sx = (int64_t)ny * nz, sy = nz;
-  const int64_t q = (int64_t)j * nz + k;   // the cell's place in an x-plane
-  float xm, xh;
-  if (HALO) {
-    xm = i > 0 ? ld(p, c - sx) : ld(h.lo, q);
-    xh = (i + 1 < nx) ? ld(wx, c + sx) * ld(p, c + sx)
-                      : ld(h.wx_hi, q) * ld(h.hi, q);
-  } else {
-    xm = ld(p, i > 0 ? c - sx : c);
-    xh = (i + 1 < nx) ? ld(wx, c + sx) * ld(p, c + sx) : 0.0f;
-  }
+  const float xm = ld(p, i > 0 ? c - sx : c);
+  const float xh = (i + 1 < nx) ? ld(wx, c + sx) * ld(p, c + sx) : 0.0f;
   const float ym = ld(p, j > 0 ? c - sy : c);
   const float zm = ld(p, k > 0 ? c - 1 : c);
   const float yh = (j + 1 < ny) ? ld(wy, c + sy) * ld(p, c + sy) : 0.0f;
@@ -146,39 +154,91 @@ __device__ __forceinline__ float nb_sum(const T* p, const T* wx, const T* wy,
   return s;
 }
 
-template <typename T, int MODE, bool DIAG, bool HALO>
-__global__ void __launch_bounds__(kBlock)
-seven_point_kernel(const T* __restrict__ p, const Halo<T> h,
-                   const T* __restrict__ wx,
-                   const T* __restrict__ wy, const T* __restrict__ wz,
-                   const T* __restrict__ diag, const T* __restrict__ b,
-                   T* __restrict__ out, int nx, int ny, int nz) {
-  constexpr bool kChain = HALO && MODE == kResid;
-  // A shard's resid launch lets the next shard's start (programmatic
-  // dependent launch; a no-op unless that one is launched chained).
-  if (kChain) asm volatile("griddepcontrol.launch_dependents;");
-  const int k = blockIdx.x * kBX + threadIdx.x;
-  const int j = blockIdx.y * kBY + threadIdx.y;
-  const int i = blockIdx.z;
-  if (k >= nz || j >= ny) return;
-  const int64_t c = ((int64_t)i * ny + j) * nz + k;
-  const float pc = ld(p, c);
-  const float nb = nb_sum<T, HALO>(p, wx, wy, wz, h, c, i, j, k, nx, ny, nz);
-  float v;
+// Apply (A·p, or Â·p without DIAG) or resid ((b − A·p)/diag, or b − Â·p)
+// of cell c from p there and its neighbour sum.
+template <typename T, int MODE, bool DIAG>
+__device__ __forceinline__ float value(float pc, float nb,
+                                       const T* __restrict__ diag,
+                                       const T* __restrict__ b, int64_t c) {
   if (MODE == kResid) {
     if (DIAG) {
       const float d = ld(diag, c);
-      v = (ld(b, c) - (d * pc - nb)) / d;
-    } else {
-      v = ld(b, c) - (pc - nb);
+      return (ld(b, c) - (d * pc - nb)) / d;
     }
-  } else {
-    v = DIAG ? ld(diag, c) * pc - nb : pc - nb;
+    return ld(b, c) - (pc - nb);
   }
-  st(out, c, v);
-  // A chained launch completes only after the launch before it (a no-op
-  // for one that is not chained). Thread (0, 0) of every block gets here.
-  if (kChain) asm volatile("griddepcontrol.wait;" ::: "memory");
+  return DIAG ? ld(diag, c) * pc - nb : pc - nb;
+}
+
+template <typename T, int MODE, bool DIAG>
+__global__ void __launch_bounds__(kBlock)
+seven_point_kernel(const T* __restrict__ p, const T* __restrict__ wx,
+                   const T* __restrict__ wy, const T* __restrict__ wz,
+                   const T* __restrict__ diag, const T* __restrict__ b,
+                   T* __restrict__ out, int nx, int ny, int nz) {
+  const int k = blockIdx.x * kBX + threadIdx.x;
+  const int j = blockIdx.y * kBY + threadIdx.y;
+  if (k >= nz || j >= ny) return;
+  const int i = blockIdx.z;
+  const int64_t c = ((int64_t)i * ny + j) * nz + k;
+  const float pc = ld(p, c);
+  const float nb = nb_sum<T>(p, wx, wy, wz, c, i, j, k, nx, ny, nz);
+  st(out, c, value<T, MODE, DIAG>(pc, nb, diag, b, c));
+}
+
+// One slab of an apply / resid table: its operands, its halo planes and
+// its output. `diag` / `b` are null where the mode does not read them.
+template <typename T>
+struct Slab {
+  const T *p;
+  Halo<T> h;
+  const T *wx, *wy, *wz, *diag, *b;
+  T* out;
+};
+template <typename T>
+struct Slabs {
+  Slab<T> s[kMaxSlabs];
+};
+
+// Every slab of the table in one grid: blockIdx.z = slab · nx + plane.
+// The slab is blockIdx.z / nx as a multiply-high by magic = ⌈2^32 / nx⌉
+// (exact for blockIdx.z and nx below 2^16). Each operand is addressed
+// from its x plane's first cell, the same for the whole block (the halo
+// plane where the x-neighbour lies beyond the slab), plus the cell's
+// place q in the plane; the products and adds are nb_sum's, in its order.
+template <typename T, int MODE, bool DIAG>
+__global__ void __launch_bounds__(kBlock)
+seven_point_slabs_kernel(const __grid_constant__ Slabs<T> t, int nx, int ny,
+                         int nz, unsigned magic) {
+  const int k = blockIdx.x * kBX + threadIdx.x;
+  const int j = blockIdx.y * kBY + threadIdx.y;
+  if (k >= nz || j >= ny) return;
+  const int z = blockIdx.z;
+  const int n = nx == 1 ? z : (int)__umulhi((unsigned)z, magic);
+  const int i = z - n * nx;
+  const Slab<T>& s = t.s[n];
+  const int64_t sx = (int64_t)ny * nz, c0 = i * sx;
+  const bool up = i + 1 < nx;
+  const T* pc = s.p + c0;
+  const T* pm = i > 0 ? pc - sx : s.h.lo;
+  const T* pp = up ? pc + sx : s.h.hi;
+  const T* wxp = up ? s.wx + c0 + sx : s.h.wx_hi;
+  const T* wxc = s.wx + c0;
+  const T* wyc = s.wy + c0;
+  const T* wzc = s.wz + c0;
+  const int64_t q = (int64_t)j * nz + k;
+  const float pq = ld(pc, q);
+  const float ym = ld(pc, j > 0 ? q - nz : q);
+  const float zm = ld(pc, k > 0 ? q - 1 : q);
+  const float yh = (j + 1 < ny) ? ld(wyc, q + nz) * ld(pc, q + nz) : 0.0f;
+  const float zh = (k + 1 < nz) ? ld(wzc, q + 1) * ld(pc, q + 1) : 0.0f;
+  float nb = ld(wxc, q) * ld(pm, q);
+  nb = nb + ld(wxp, q) * ld(pp, q);
+  nb = nb + ld(wyc, q) * ym;
+  nb = nb + yh;
+  nb = nb + ld(wzc, q) * zm;
+  nb = nb + zh;
+  st(s.out, c0 + q, value<T, MODE, DIAG>(pq, nb, s.diag, s.b, c0 + q));
 }
 
 // The shuffle tree over the 32 lanes of a warp: lane 0 ends with the sum.
@@ -321,23 +381,6 @@ int chunk_planes(K kernel, int tiles, int nx) {
   return cx < kMaxCX ? cx : kMaxCX;
 }
 
-// Launches `kernel` as a programmatic dependent of the launch before it
-// on the stream.
-template <typename... Params, typename... Args>
-void launch_chained(void (*kernel)(Params...), dim3 grid, dim3 block,
-                    cudaStream_t stream, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.stream = stream;
-  cudaLaunchAttribute chain;
-  chain.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  chain.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &chain;
-  cfg.numAttrs = 1;
-  cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
 template <typename T, bool HALO>
 void launch(int mode, int has_diag, const void* p, const void* const* halo,
             const void* wx, const void* wy, const void* wz, const void* diag,
@@ -365,23 +408,49 @@ void launch(int mode, int has_diag, const void* p, const void* const* halo,
         P, H, WX, WY, WZ, O, partial, ticket, acc, dot, nx, ny, nz, cx);
     return;
   }
+  if (HALO) return;   // halo apply / resid: launch_slabs
   const dim3 grid((nz + kBX - 1) / kBX, (ny + kBY - 1) / kBY, nx);
   if (mode == kApply) {
     if (has_diag)
-      seven_point_kernel<T, kApply, true, HALO><<<grid, block, 0, stream>>>(
-          P, H, WX, WY, WZ, D, B, O, nx, ny, nz);
+      seven_point_kernel<T, kApply, true><<<grid, block, 0, stream>>>(
+          P, WX, WY, WZ, D, B, O, nx, ny, nz);
     else
-      seven_point_kernel<T, kApply, false, HALO><<<grid, block, 0, stream>>>(
-          P, H, WX, WY, WZ, D, B, O, nx, ny, nz);
+      seven_point_kernel<T, kApply, false><<<grid, block, 0, stream>>>(
+          P, WX, WY, WZ, D, B, O, nx, ny, nz);
+  } else if (has_diag) {
+    seven_point_kernel<T, kResid, true><<<grid, block, 0, stream>>>(
+        P, WX, WY, WZ, D, B, O, nx, ny, nz);
   } else {
-    const auto kernel = has_diag ? seven_point_kernel<T, kResid, true, HALO>
-                                 : seven_point_kernel<T, kResid, false, HALO>;
-    if (HALO && mode == kResidChained)
-      launch_chained(kernel, grid, block, stream, P, H, WX, WY, WZ, D, B, O,
-                     nx, ny, nz);
-    else
-      kernel<<<grid, block, 0, stream>>>(P, H, WX, WY, WZ, D, B, O, nx, ny, nz);
+    seven_point_kernel<T, kResid, false><<<grid, block, 0, stream>>>(
+        P, WX, WY, WZ, D, B, O, nx, ny, nz);
   }
+}
+
+// Apply (mode 0) or resid (mode 1) over `n` slabs; `ptrs` holds kSlabPtrs
+// pointers a slab, in Slab<T>'s order.
+constexpr int kSlabPtrs = 10;
+template <typename T>
+int launch_slabs(int mode, int has_diag, int n, const void* const* ptrs,
+                 int nx, int ny, int nz, cudaStream_t stream) {
+  Slabs<T> t = {};
+  for (int m = 0; m < n; ++m) {
+    const void* const* q = ptrs + m * kSlabPtrs;
+    const auto in = [&](int u) { return static_cast<const T*>(q[u]); };
+    t.s[m] = {in(0), {in(1), in(2), in(3)}, in(4), in(5), in(6), in(7),
+              in(8), static_cast<T*>(const_cast<void*>(q[9]))};
+  }
+  const dim3 grid((nz + kBX - 1) / kBX, (ny + kBY - 1) / kBY, n * nx);
+  const dim3 block(kBX, kBY);
+  const auto kernel =
+      mode == kApply
+          ? (has_diag ? seven_point_slabs_kernel<T, kApply, true>
+                      : seven_point_slabs_kernel<T, kApply, false>)
+          : (has_diag ? seven_point_slabs_kernel<T, kResid, true>
+                      : seven_point_slabs_kernel<T, kResid, false>);
+  const unsigned magic =
+      nx > 1 ? (unsigned)(((1ull << 32) + nx - 1) / nx) : 0u;
+  kernel<<<grid, block, 0, stream>>>(t, nx, ny, nz, magic);
+  return (int)cudaGetLastError();
 }
 
 template <bool HALO>
@@ -413,10 +482,7 @@ int seven_point_num_partials(int nx, int ny, int nz) {
   return ((nz + kBX - 1) / kBX) * ((ny + kBY - 1) / kBY) * nx;
 }
 
-// mode: 0 apply, 1 resid, 2 apply+dot (unit diagonal only); the halo
-// entry also 3: resid chained after the launch before it on the stream
-// (programmatic dependent launch: it may start while that one drains and
-// completes after it, so it must not read that launch's output).
+// mode: 0 apply, 1 resid, 2 apply+dot (unit diagonal only).
 // dtype: 0 float32, 1 bfloat16. `diag`/`b`/`partial`/`dot`/`ticket` may be
 // null where the mode does not read them; `ticket` is one unsigned
 // counter that is 0 between calls (apply-dot leaves it so).
@@ -430,11 +496,32 @@ int seven_point_launch(int mode, int dtype, int has_diag, const void* p,
                          stream);
 }
 
-// The same on one shard's (nx, ny, nz) slab, with its halo planes (each
-// (1, ny, nz), the slab's dtype): h_lo / h_hi p's planes x = −1 / nx, and
-// wx_hi the next shard's first wxl plane. The dot is `acc` (the previous
-// shards' dot, f32; null: 0) plus this shard's planes, added in the order
-// the single-grid kernel adds them, so a chain of shards gives its dot.
+// Slabs one seven_point_slabs_launch takes at most.
+int seven_point_max_slabs() { return kMaxSlabs; }
+
+// Apply (mode 0) or resid (mode 1) on `n_slabs` (1 … kMaxSlabs) x-slabs of
+// (nx, ny, nz) cells each, in one launch. `table` holds 10 pointers a
+// slab: p, h_lo, h_hi, wx_hi, wx, wy, wz, diag, b, out. The halo planes
+// are (1, ny, nz), the slabs' dtype: h_lo / h_hi p's planes x = −1 / nx,
+// and wx_hi the next shard's first wxl plane. `diag` (with has_diag) and
+// `b` (resid) as in seven_point_launch; no slab's `out` may overlap any
+// slab's operands. dtype as above.
+int seven_point_slabs_launch(int mode, int dtype, int has_diag, int n_slabs,
+                             const void* const* table, int nx, int ny, int nz,
+                             void* stream) {
+  if (n_slabs < 1 || n_slabs > kMaxSlabs || (mode != kApply && mode != kResid))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_slabs<float>(mode, has_diag, n_slabs, table, nx, ny, nz, s);
+  return launch_slabs<__nv_bfloat16>(mode, has_diag, n_slabs, table, nx, ny,
+                                     nz, s);
+}
+
+// Apply-dot (mode 2 only) on one shard's (nx, ny, nz) slab, with its halo
+// planes as above. The dot is `acc` (the previous shards' dot, f32; null:
+// 0) plus this shard's planes, added in the order the single-grid kernel
+// adds them, so a chain of shards gives its dot.
 int seven_point_halo_launch(int mode, int dtype, int has_diag, const void* p,
                             const void* h_lo, const void* h_hi,
                             const void* wx_hi, const void* wx, const void* wy,
@@ -442,6 +529,7 @@ int seven_point_halo_launch(int mode, int dtype, int has_diag, const void* p,
                             void* out, void* partial, void* dot, void* ticket,
                             const void* acc, int nx, int ny, int nz,
                             void* stream) {
+  if (mode != kApplyDot) return (int)cudaErrorInvalidValue;
   const void* halo[3] = {h_lo, h_hi, wx_hi};
   return dispatch<true>(mode, dtype, has_diag, p, halo, wx, wy, wz, diag, b,
                         out, partial, dot, ticket, acc, nx, ny, nz, stream);

@@ -12,25 +12,30 @@ which gives the slab's last high-x face term wx_hi·h_hi. At the global
 ends the island fills the halos with the clamp planes, which reproduces
 the single-grid result bitwise.
 
-Each entry point launches the halo instantiation of
-csrc/seven_point.cu (the same per-cell code as the single-grid kernels,
-with the x-neighbour loads taken from the halo planes outside the slab)
-for CUDA tensors and runs its plain version (`*_plain`) for CPU tensors;
-any other device raises. The plain version puts the halo planes in front
-of and behind the slab and runs the single-grid plain function on that
-extended block: the stencil reaches one plane each way, the halos are
-one plane wide, so every cell of the slab sees exactly its true
-neighbours (the extended block's own edge clamps only touch the halo
-planes' outputs, which are dropped). Weights of the extended planes that
-no kept output reads are zero.
+Each entry point launches the halo form of csrc/seven_point.cu (the
+single-grid kernels' per-cell arithmetic, with the x-neighbour loads
+taken from the halo planes outside the slab) for CUDA tensors and
+runs its plain version (`*_plain`) for CPU tensors; any other device
+raises. The plain version puts the halo planes in front of and behind
+the slab and runs the single-grid plain function on that extended
+block: the stencil reaches one plane each way, the halos are one plane
+wide, so every cell of the slab sees exactly its true neighbours (the
+extended block's own edge clamps only touch the halo planes' outputs,
+which are dropped). Weights of the extended planes that no kept output
+reads are zero.
 
-`out=` (optional) takes a contiguous tensor of p's shape and dtype, a
-slab view of the island's global output, and the result is written into
-it. `resid_scaled_7pt_h(..., chained=True)` launches its kernel as a
-programmatic dependent of the launch before it on the stream (the
-island's launch for the shard before): its blocks may start while that
-launch drains, and it completes only after it. Each entry point counts
-its kernel launches in `.launches`.
+The island entry points `apply_7pt_hs` and `resid_scaled_7pt_hs` take
+every slab an island holds (at most MAX_SLABS, all one shape, dtype and
+device), each with its own halo planes, as parallel lists, and launch
+one kernel over all of them: the shards run together, as the TPU mesh
+runs them. `apply_7pt_h` and `resid_scaled_7pt_h` are that launch with a
+table of one slab, the form a process holding one shard launches. The
+island's plain versions run the per-shard plain functions slab by slab.
+
+`out=` (`outs=`, one per slab) optionally takes contiguous tensors of
+p's shape and dtype, slab views of the island's global output, and the
+result is written into them. Each entry point counts its kernel
+launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -43,7 +48,9 @@ from openfoam_tpp_tpu_torch.ops.kernels import _build
 from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
 from openfoam_tpp_tpu_torch.ops.stencil import sum_cells
 
-_RESID_CHAINED = 3   # the C entry's mode for a chained resid launch
+# Slabs one island launch takes at most: csrc/seven_point.cu kMaxSlabs
+# (`seven_point_max_slabs()`).
+MAX_SLABS = 16
 
 
 def _extend(p, h_lo, h_hi, wx_hi, split, *extra, fill=0.0):
@@ -83,6 +90,25 @@ def apply_dot_7pt_h_plain(p, h_lo, h_hi, wx_hi, split, out=None, acc=None):
     return ap, dot if acc is None else acc + dot
 
 
+def _each(ts, n):
+    return [None] * n if ts is None else ts
+
+
+def apply_7pt_hs_plain(ps, h_los, h_his, wx_his, splits, diags=None,
+                       outs=None):
+    n = len(ps)
+    return [apply_7pt_h_plain(*a) for a in zip(
+        ps, h_los, h_his, wx_his, splits, _each(diags, n), _each(outs, n))]
+
+
+def resid_scaled_7pt_hs_plain(ps, h_los, h_his, wx_his, splits, bs,
+                              diags=None, outs=None):
+    n = len(ps)
+    return [resid_scaled_7pt_h_plain(*a) for a in zip(
+        ps, h_los, h_his, wx_his, splits, bs, _each(diags, n),
+        _each(outs, n))]
+
+
 # ------------------------------------------------------------------ kernels
 
 def _check(p, h_lo, h_hi, wx_hi, split, *extra, out=None):
@@ -95,6 +121,31 @@ def _check(p, h_lo, h_hi, wx_hi, split, *extra, out=None):
                              f"contiguous {p.dtype} {plane} on {p.device}")
 
 
+def _check_table(what, ps, h_los, h_his, wx_his, splits, bs=None,
+                 diags=None, outs=None):
+    """An island's slabs: 1 … MAX_SLABS of them, one list entry each
+    (`bs`, `diags`, `outs` None, or one per slab: diagonals for all or
+    for none), every slab a valid operand set of one shape, dtype and
+    device."""
+    n = len(ps)
+    if not 1 <= n <= MAX_SLABS:
+        raise ValueError(f"{what}: 1 to {MAX_SLABS} slabs a launch, got {n}")
+    for ts in (h_los, h_his, wx_his, splits, bs, diags, outs):
+        if ts is not None and len(ts) != n:
+            raise ValueError(f"{what}: one entry per slab in every list")
+    if diags is not None and any(d is None for d in diags):
+        raise ValueError(f"{what}: a diagonal for every slab or for none")
+    p0 = ps[0]
+    for m, p in enumerate(ps):
+        if (p.shape != p0.shape or p.dtype != p0.dtype
+                or p.device != p0.device):
+            raise ValueError(f"{what}: every slab must share the first's "
+                             f"shape, dtype and device")
+        extra = [t[m] for t in (diags, bs) if t is not None]
+        _check(p, h_los[m], h_his[m], wx_his[m], splits[m], *extra,
+               out=None if outs is None else outs[m])
+
+
 def _lib():
     lib = sp._lib()
     if not getattr(lib, "_halo_typed", False):
@@ -102,27 +153,61 @@ def _lib():
         lib.seven_point_halo_launch.argtypes = ([ci, ci, ci] + [vp] * 14
                                                 + [ci] * 3 + [vp])
         lib.seven_point_halo_launch.restype = ci
+        lib.seven_point_slabs_launch.argtypes = ([ci] * 4 + [vp] + [ci] * 3
+                                                 + [vp])
+        lib.seven_point_slabs_launch.restype = ci
+        lib.seven_point_max_slabs.argtypes = []
+        lib.seven_point_max_slabs.restype = ci
         lib._halo_typed = True
     return lib
 
 
-def _launch(mode, p, h_lo, h_hi, wx_hi, split, diag=None, b=None, out=None,
-            acc=None):
+def _launch_slabs(mode, ps, h_los, h_his, wx_his, splits, bs=None,
+                  diags=None, outs=None):
+    """One launch of apply (sp._APPLY) or resid (sp._RESID) over the
+    slabs; returns their outputs."""
     lib = _lib()
-    out = torch.empty_like(p) if out is None else out
-    partial = dot = ticket = None
-    if mode == sp._APPLY_DOT:
-        partial, dot, ticket = sp._dot_scratch(lib, p)
-    nul = ctypes.c_void_p(None)
-    opt = lambda t: nul if t is None else _build.ptr(t)
-    rc = lib.seven_point_halo_launch(
-        mode, sp._DTYPES[p.dtype], int(diag is not None), _build.ptr(p),
-        *(_build.ptr(h) for h in (h_lo, h_hi, wx_hi)),
-        *(_build.ptr(w) for w in split), opt(diag), opt(b), _build.ptr(out),
-        opt(partial), opt(dot), opt(ticket), opt(acc), *p.shape,
-        _build.stream_of(p))
-    _build.check(rc, "seven_point_halo", out, dot)
-    return out, dot
+    n = len(ps)
+    outs = [torch.empty_like(p) if o is None else o
+            for p, o in zip(ps, _each(outs, n))]
+    table = (ctypes.c_void_p * (10 * n))()
+    table[:] = [None if t is None else t.data_ptr() for m in range(n)
+                for t in (ps[m], h_los[m], h_his[m], wx_his[m], *splits[m],
+                          _each(diags, n)[m], _each(bs, n)[m], outs[m])]
+    rc = lib.seven_point_slabs_launch(
+        mode, sp._DTYPES[ps[0].dtype], int(diags is not None), n, table,
+        *ps[0].shape, _build.stream_of(ps[0]))
+    _build.check(rc, "seven_point_slabs", *outs)
+    return outs
+
+
+def apply_7pt_hs(ps, h_los, h_his, wx_his, splits, diags=None, outs=None):
+    """A(p) on every slab of an island in one launch; per slab its halo
+    planes as `apply_7pt_h` takes them. Returns the outputs, a list."""
+    _check_table("apply_7pt_hs", ps, h_los, h_his, wx_his, splits,
+                 diags=diags, outs=outs)
+    if _build.route(ps[0], "apply_7pt_hs") == "cpu":
+        return apply_7pt_hs_plain(ps, h_los, h_his, wx_his, splits, diags,
+                                  outs)
+    res = _launch_slabs(sp._APPLY, ps, h_los, h_his, wx_his, splits,
+                        diags=diags, outs=outs)
+    apply_7pt_hs.launches += 1
+    return res
+
+
+def resid_scaled_7pt_hs(ps, h_los, h_his, wx_his, splits, bs, diags=None,
+                        outs=None):
+    """(b − A·p)/diag (b − Â·p with `diags=None`) on every slab of an
+    island in one launch. Returns the outputs, a list."""
+    _check_table("resid_scaled_7pt_hs", ps, h_los, h_his, wx_his, splits,
+                 bs=bs, diags=diags, outs=outs)
+    if _build.route(ps[0], "resid_scaled_7pt_hs") == "cpu":
+        return resid_scaled_7pt_hs_plain(ps, h_los, h_his, wx_his, splits,
+                                         bs, diags, outs)
+    res = _launch_slabs(sp._RESID, ps, h_los, h_his, wx_his, splits, bs=bs,
+                        diags=diags, outs=outs)
+    resid_scaled_7pt_hs.launches += 1
+    return res
 
 
 def apply_7pt_h(p, h_lo, h_hi, wx_hi, split, diag=None, out=None):
@@ -131,26 +216,21 @@ def apply_7pt_h(p, h_lo, h_hi, wx_hi, split, diag=None, out=None):
     if _build.route(p, "apply_7pt_h") == "cpu":
         return apply_7pt_h_plain(p, h_lo, h_hi, wx_hi, split, diag, out)
     _check(p, h_lo, h_hi, wx_hi, split, diag, out=out)
-    res, _ = _launch(sp._APPLY, p, h_lo, h_hi, wx_hi, split, diag=diag,
-                     out=out)
+    res, = _launch_slabs(sp._APPLY, [p], [h_lo], [h_hi], [wx_hi], [split],
+                         diags=None if diag is None else [diag], outs=[out])
     apply_7pt_h.launches += 1
     return res
 
 
-def resid_scaled_7pt_h(p, h_lo, h_hi, wx_hi, split, b, diag=None, out=None,
-                       chained=False):
-    """(b − A·p)/diag (b − Â·p with `diag=None`) on one shard.
-    `chained`: this call comes right after the island's resid launch for
-    the shard before it, on the same stream, and reads nothing that launch
-    writes; the kernel is then launched as its programmatic dependent (it
-    may start while that launch drains, and completes only after it), so
-    the island is complete when its last launch is."""
+def resid_scaled_7pt_h(p, h_lo, h_hi, wx_hi, split, b, diag=None, out=None):
+    """(b − A·p)/diag (b − Â·p with `diag=None`) on one shard."""
     if _build.route(p, "resid_scaled_7pt_h") == "cpu":
         return resid_scaled_7pt_h_plain(p, h_lo, h_hi, wx_hi, split, b, diag,
                                         out)
     _check(p, h_lo, h_hi, wx_hi, split, diag, b, out=out)
-    res, _ = _launch(_RESID_CHAINED if chained else sp._RESID, p, h_lo, h_hi,
-                     wx_hi, split, diag=diag, b=b, out=out)
+    res, = _launch_slabs(sp._RESID, [p], [h_lo], [h_hi], [wx_hi], [split],
+                         bs=[b], diags=None if diag is None else [diag],
+                         outs=[out])
     resid_scaled_7pt_h.launches += 1
     return res
 
@@ -168,11 +248,21 @@ def apply_dot_7pt_h(p, h_lo, h_hi, wx_hi, split, out=None, acc=None):
                             or acc.device != p.device):
         raise ValueError("apply_dot_7pt_h: acc must be a 0-d f32 tensor on "
                          f"{p.device}")
-    res, dot = _launch(sp._APPLY_DOT, p, h_lo, h_hi, wx_hi, split, out=out,
-                       acc=acc)
+    lib = _lib()
+    out = torch.empty_like(p) if out is None else out
+    partial, dot, ticket = sp._dot_scratch(lib, p)
+    rc = lib.seven_point_halo_launch(
+        sp._APPLY_DOT, sp._DTYPES[p.dtype], 0, _build.ptr(p),
+        *(_build.ptr(h) for h in (h_lo, h_hi, wx_hi)),
+        *(_build.ptr(w) for w in split), None, None, _build.ptr(out),
+        _build.ptr(partial), _build.ptr(dot), _build.ptr(ticket),
+        None if acc is None else _build.ptr(acc), *p.shape,
+        _build.stream_of(p))
+    _build.check(rc, "seven_point_halo", out, dot)
     apply_dot_7pt_h.launches += 1
-    return res, dot
+    return out, dot
 
 
-for _fn in (apply_7pt_h, resid_scaled_7pt_h, apply_dot_7pt_h):
+for _fn in (apply_7pt_h, resid_scaled_7pt_h, apply_dot_7pt_h, apply_7pt_hs,
+            resid_scaled_7pt_hs):
     _fn.launches = 0

@@ -12,9 +12,11 @@ Here, on one card, `SpmdCtx(n_shards=S)` cuts each island's global
 tensors into S x-slabs of the same tensor. x is the leading, contiguous
 dimension, so a slab and every plane of it is a contiguous view: an
 interior halo is a view of the neighbour slab's planes (no copy), and
-only the global-edge fills are small materialized planes. Each island
-runs the halo kernel once per slab, writing the slab's output into the
-preallocated global output at its x offset, and reduces the per-shard
+only the global-edge fills are small materialized planes. The 7-point
+apply and resid islands launch one kernel over all held slabs, as the
+mesh runs its shards at once; every other island runs its halo kernel
+once per slab. Each writes a slab's output into the preallocated global
+output at its x offset, and reduces the per-shard
 scalars in shard order (a fixed order, so CG iteration counts repeat
 from run to run): the max directly, the CG curvature dot as a chain in
 which each shard's kernel adds its planes to the previous shards' dot,
@@ -154,35 +156,36 @@ def _seven_point_halos(p, split, ctx):
     return ps, ws, halos, wx_hi
 
 
-def apply_7pt(p, split, ctx: SpmdCtx, diag=None):
-    """Â(p) (or A(p) with diag), per shard with ±1 halos of p. The
-    face-lite wxl weight also sends its first plane left: the
-    neighbour's missing high-face weight, zero at the global end (the
-    sealed wall's boundary-face weight)."""
+def _seven_point_island(island, p, split, ctx, *cells, diag=None):
+    """`island` (an island entry point of halo7) over the held slabs, one
+    launch per halo7.MAX_SLABS of them; `cells`: further cell arrays."""
     ps, ws, halos, wx_hi = _seven_point_halos(p, split, ctx)
+    cols = [ps, [h[0] for h in halos], [h[1] for h in halos], wx_hi,
+            [tuple(w[s] for w in ws) for s in range(len(ps))],
+            *(ctx.split(c) for c in cells)]
     ds = None if diag is None else ctx.split(diag)
     out = torch.empty_like(p)
     outs = ctx.split(out)
-    for s in ctx.held:
-        halo7.apply_7pt_h(ps[s], *halos[s], wx_hi[s], tuple(w[s] for w in ws),
-                          diag=None if ds is None else ds[s], out=outs[s])
+    for g in range(0, len(ps), halo7.MAX_SLABS):
+        part = slice(g, g + halo7.MAX_SLABS)
+        island(*(c[part] for c in cols),
+               diags=None if ds is None else ds[part], outs=outs[part])
     return out
+
+
+def apply_7pt(p, split, ctx: SpmdCtx, diag=None):
+    """Â(p) (or A(p) with diag), per shard with ±1 halos of p, all held
+    shards in one launch. The face-lite wxl weight also sends its first
+    plane left: the neighbour's missing high-face weight, zero at the
+    global end (the sealed wall's boundary-face weight)."""
+    return _seven_point_island(halo7.apply_7pt_hs, p, split, ctx, diag=diag)
 
 
 def resid_scaled_7pt(p, split, ctx: SpmdCtx, b, diag=None):
-    """(b − A·p)/diag (or b − Â·p), per shard with ±1 halos of p; each
-    shard's launch after the first is chained to the one before it."""
-    ps, ws, halos, wx_hi = _seven_point_halos(p, split, ctx)
-    bs = ctx.split(b)
-    ds = None if diag is None else ctx.split(diag)
-    out = torch.empty_like(p)
-    outs = ctx.split(out)
-    for s in ctx.held:
-        halo7.resid_scaled_7pt_h(ps[s], *halos[s], wx_hi[s],
-                                 tuple(w[s] for w in ws), bs[s],
-                                 diag=None if ds is None else ds[s],
-                                 out=outs[s], chained=s != ctx.held[0])
-    return out
+    """(b − A·p)/diag (or b − Â·p), per shard with ±1 halos of p, all held
+    shards in one launch."""
+    return _seven_point_island(halo7.resid_scaled_7pt_hs, p, split, ctx, b,
+                               diag=diag)
 
 
 def apply_dot_7pt(p, split, ctx: SpmdCtx):

@@ -23,13 +23,16 @@ apply_dot_7pt in f32 (CG's), correct_divmax with an open top and zero
 wall faces, cheb2_pre_7pt in bf16 and cheb2_post_dot_7pt from bf16 to
 f32 (the V-cycle's). The V-cycle residual b − Â·p or (b − A·p)/diag
 (mode 1 of seven_point.cu and seven_point_batch.cu) runs in cases
-instead: `resid_scaled_7pt_h` as the x-sharded step's island (4 halo
-launches over x-slabs of the 112³ inputs) and as the single-grid kernel
-at 112³, 14³ and 4³, `resid_scaled_7pt_nb` at the sweep's three levels
+instead: `resid_scaled_7pt_h` as the x-sharded step's island over 4
+x-slabs of the 112³ inputs (one launch over a table of the 4 slabs; and
+4 launches of a table of one slab each; a source without the slab table
+launches the 4 halo launches of its design in both) and as the
+single-grid kernel at 112³, 14³ and 4³, `resid_scaled_7pt_nb` at the sweep's three levels
 (12×12×50, 6×6×25, 3×3×13, 128 cases); every case in f32 and bf16, unit
 and with diagonal, each build's output held bitwise against the
-unchanged source's; timed in bf16, the island unit and with diagonal, the
-single grid and the sweep unit at the top level, with diagonal below.
+unchanged source's; timed in bf16, the island unit and with diagonal (its
+one-slab launches unit), the single grid and the sweep unit at the top
+level, with diagonal below.
 `apply_dot_7pt_nb` (the sweep CG's batch apply-dot, mode 2 of
 seven_point_batch.cu) runs at the sweep's 12×12×50×128 in f32: each
 build's Â·p held bitwise and its per-case dots to 1e-5 against the
@@ -61,6 +64,9 @@ Variants:
                 tile 4 x 32      (y, z) tiles of 4 × 32 cells, six warps
                                  (8 × 32, ten warps)
                 fast division    nvcc -prec-div=false
+                isnan selects    the NaN-keeping max / min as isnan tests
+                                 around fmaxf / fminf (as built: PTX
+                                 max.NaN / min.NaN)
   momentum_rhs  IEEE division    the limiter's division IEEE-rounded (as
                                  built: div.full.f32, 2 ulp)
                 two-division limiter
@@ -113,10 +119,14 @@ Variants:
                                  __launch_bounds__ minimum blocks: at most
                                  40 / 32 registers (none)
   resid_scaled_7pt_h
-                no dependent launch
-                                 each island launch waits for the one
-                                 before it to end (as built: chained by
-                                 programmatic dependent launch)
+                table by switch  a block copies its slab's descriptor from
+                                 the table with a switch over the slab
+                                 (constant offsets; as built: indexed by
+                                 the slab)
+                ldg loads        every operand load through __ldg (the
+                                 read-only path; as built: plain loads)
+                division         the slab as blockIdx.z / nx (as built:
+                                 a multiply-high by ⌈2^32 / nx⌉)
   apply_dot_7pt_nb
                 unroll 2 / 4     the plane loop unrolled (not unrolled)
                 4 / 16 z warps   warps (sets of z planes) per block (8)
@@ -239,9 +249,26 @@ for _k in ("cheb2_pre_7pt", "cheb2_post_dot_7pt"):
            for n in ("0.5", "2.0")},
         **{f"{n} blocks per SM": [(CHEB_BOUNDS, CHEB_BOUNDS.replace(
             "(kBlock)", f"(kBlock, {n})"))] for n in "34"}}
-EDITS["resid_scaled_7pt_h"] = {"no dependent launch": [(
-    "chain.val.programmaticStreamSerializationAllowed = 1;",
-    "chain.val.programmaticStreamSerializationAllowed = 0;")]}
+# The island's launch forms are cases (RESID_CASES); the edits change how
+# a block of the slab-table kernel reads its slab and its operands.
+SLAB_READ = "  const Slab<T>& s = t.s[n];\n"
+SLAB_SWITCH = ("  Slab<T> s;\n  switch (n) {\n"
+               + "".join(f"    case {m}: s = t.s[{m}]; break;\n"
+                         for m in range(15))
+               + "    default: s = t.s[15]; break;\n  }\n")
+LD = ("__device__ __forceinline__ float ld(const float* a, int64_t i) "
+      "{ return a[i]; }\n__device__ __forceinline__ float ld(const "
+      "__nv_bfloat16* a, int64_t i) {\n  return __bfloat162float(a[i]);\n}")
+LDG = ("__device__ __forceinline__ float ld(const float* a, int64_t i) "
+       "{ return __ldg(a + i); }\n__device__ __forceinline__ float ld(const "
+       "__nv_bfloat16* a, int64_t i) {\n  return __bfloat162float(__ldg(a + "
+       "i));\n}")
+EDITS["resid_scaled_7pt_h"] = {
+    "table by switch": [(SLAB_READ, SLAB_SWITCH)],
+    "ldg loads": [(LD, LDG)],
+    "division": [(
+        "  const int n = nx == 1 ? z : (int)__umulhi((unsigned)z, magic);",
+        "  const int n = z / nx;")]}
 BCOLS = "constexpr int kCB = 32, kCC = 1,"
 EDITS["resid_scaled_7pt_nb"] = {
     **{f"{n} columns": [(BCOLS, BCOLS.replace("kCC = 1", f"kCC = {n}"))]
@@ -268,6 +295,11 @@ EDITS["apply_dot_7pt_nb"] = {
                      "  if (nb > 0) return;\n  rows[warp][lane] = acc;\n"
                      "  __syncthreads();\n  if (warp == 0")],
     "diag no final sum": [("  if (!last) return;\n", "  if (nb > 0) return;\n")]}
+EDITS["fct_iter"]["isnan selects"] = [
+    ('  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));',
+     "  r = isnan(a) ? a : isnan(b) ? b : fmaxf(a, b);"),
+    ('  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));',
+     "  r = isnan(a) ? a : isnan(b) ? b : fminf(a, b);")]
 FLAGS = {"fct_iter": {"fast division": ["-prec-div=false"]},
          "flux_all": {"fast division": ["-prec-div=false"]}}
 ENTRY = {"fct_iter": "mules_fct_launch", "momentum_rhs": "momentum_rhs_launch",
@@ -303,6 +335,7 @@ MAIN = {"fct_iter": [("fct_iter_kernel", "nv_bfloat16Lb0E")],
         "cheb2_pre_7pt": [("cheb2_kernelI13__nv_bfloat16S", "Li0E")],
         "cheb2_post_dot_7pt": [("cheb2_kernelI13__nv_bfloat16fLi2E",)],
         "resid_scaled_7pt_h": [
+            ("seven_point_slabs_kernelI13__nv_bfloat16Li1ELb0E",),
             ("seven_point_kernelI13__nv_bfloat16Li1ELb0ELb1E",)],
         "resid_scaled_7pt_nb": [
             ("resid_batch_kernelI13__nv_bfloat16Lb0E",),
@@ -614,11 +647,15 @@ RESID = ("resid_scaled_7pt_h", "resid_scaled_7pt_nb")
 # The V-cycle residual's cases: (form, shape, the (dtype, diag) pairs
 # timed); every form is run in f32 and bf16, unit and with diagonal, and
 # held bitwise against the unchanged source. "island": the x-sharded
-# step's 4 halo launches over x-slabs; "single": the single-grid kernel
+# step's island over 4 x-slabs, one launch of a table of 4 slabs;
+# "island1": 4 launches of a table of one slab ("island" and "island1"
+# alike: the 4 halo launches of a source without the table, chained where
+# the source chains them); "single": the single-grid kernel
 # (row 2: the top level of the default step, unit, and two coarse levels
 # with their diagonal); "batch": the sweep's three levels, 128 cases.
 RESID_CASES = {
     "resid_scaled_7pt_h": [("island", SHAPE, [("bf16", False), ("bf16", True)]),
+                           ("island1", SHAPE, [("bf16", False)]),
                            ("single", SHAPE, [("bf16", False)]),
                            ("single", (14, 14, 14), [("bf16", True)]),
                            ("single", (4, 4, 4), [("bf16", True)])],
@@ -644,10 +681,12 @@ def resid_operands(torch, shape, dtype, diag, seed, dev):
 
 def resid_launch(torch, _build, lib_path, text, form, p, w, d, b, out):
     """(launch, bytes) of one resid call of `form` with the build at
-    `lib_path` (source `text`): mode 1 of its C entry point, an island
-    being N_SHARDS halo launches over x-slabs with the global-end halos the
-    island fills, each after the first chained to the one before it (mode
-    3) where the source chains launches."""
+    `lib_path` (source `text`): mode 1 of its C entry point. An island
+    covers N_SHARDS x-slabs with the global-end halos the island fills:
+    one launch of their table ("island"), or one launch per slab of a
+    table of one ("island1"); a source without the table launches its
+    halo entry per slab, each after the first chained to the one before
+    it (mode 3) where the source chains launches."""
     lib = ctypes.CDLL(lib_path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     ptr = lambda t: ctypes.c_void_p(None) if t is None else _build.ptr(t)
@@ -666,12 +705,10 @@ def resid_launch(torch, _build, lib_path, text, form, p, w, d, b, out):
         calls, keep = [(*head, *map(ptr, (p, *w, d, b, out, *nul)),
                         *p.shape, stream)], []
     else:
-        fn = lib.seven_point_halo_launch
-        fn.argtypes = [ci] * 3 + [vp] * 14 + [ci] * 3 + [vp]
         nx = p.shape[0]
         nxl = nx // N_SHARDS
         plane = lambda t, q: t[min(max(q, 0), nx - 1)][None].contiguous()
-        calls, keep = [], []
+        calls, keep, table = [], [], []
         for sh in range(N_SHARDS):
             x0, x1 = sh * nxl, (sh + 1) * nxl
             halo = (plane(p, x0 - 1), plane(p, x1),
@@ -679,12 +716,27 @@ def resid_launch(torch, _build, lib_path, text, form, p, w, d, b, out):
             keep.append(halo)
             n_bytes += read_bytes(halo)
             slab = lambda t: None if t is None else t[x0:x1]
-            chained = sh > 0 and "griddepcontrol" in text
-            calls.append((3 if chained else 1, *head[1:],
-                          *map(ptr, (slab(p), *halo, *map(slab, w),
-                                            slab(d), slab(b), slab(out), None,
-                                            None, None, None)),
-                          nxl, *p.shape[1:], stream))
+            table.append([slab(p), *halo, *map(slab, w), slab(d), slab(b),
+                          slab(out)])
+        if "int seven_point_slabs_launch(" in text:
+            fn = lib.seven_point_slabs_launch
+            fn.argtypes = [ci] * 4 + [vp] + [ci] * 3 + [vp]
+            groups = [table] if form == "island" else [[t] for t in table]
+            for group in groups:
+                ptrs = (vp * (10 * len(group)))()
+                ptrs[:] = [None if t is None else t.data_ptr()
+                           for row in group for t in row]
+                keep.append(ptrs)
+                calls.append((*head, len(group), ptrs, nxl, *p.shape[1:],
+                              stream))
+        else:
+            fn = lib.seven_point_halo_launch
+            fn.argtypes = [ci] * 3 + [vp] * 14 + [ci] * 3 + [vp]
+            for sh, row in enumerate(table):
+                chained = sh > 0 and "griddepcontrol" in text
+                calls.append((3 if chained else 1, *head[1:],
+                              *map(ptr, (*row, None, None, None, None)),
+                              nxl, *p.shape[1:], stream))
 
     def launch():
         for args in calls:

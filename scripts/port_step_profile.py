@@ -24,8 +24,8 @@ CUDA kernel times; memcpy/memset included), the device idle share
 1 − busy/wall, kernel launches per step, and the kernels by device
 time. Device busy is the time at least one kernel runs (the union of
 the kernels' intervals); the kernel time summed is printed beside it
-(the two differ where kernels overlap, as the x-sharded step's chained
-resid launches do). The full table goes to perf_out/port_step_profile.txt.
+(the two differ where kernels overlap). The full table goes to
+perf_out/port_step_profile.txt.
 
 `--sweep N` profiles the sweep step instead: N cases of the default tank
 (H 0.1, D 0.02, mesh 0.002, round_to=4 → 12×12×50 each, forcing rows
@@ -34,8 +34,9 @@ case axis trailing. `--sweep-box` profiles the solo step of one such case
 (`use_pallas=True`), which the sweep replaces N times over.
 
 `--spmd S` profiles the flagship's x-sharded step, `make_step(...,
-spmd=SpmdCtx(S))`: S x-slabs of the grid on the one card, each island a
-halo kernel per slab.
+spmd=SpmdCtx(S))`: S x-slabs of the grid on the one card; the 7-point
+apply and resid islands are one launch over the slabs, every other
+island a halo kernel per slab.
 
 `--tank6dof` profiles the 6DoF step instead: the reference tutorial's
 20 × 20 × 40 m tank as `build_chamfer_tank_geometry(20, 20, 40,

@@ -27,16 +27,20 @@ single-grid kernel's. The FCT limiter and momentum RHS also at spacing
 (0.002, 0.013, 0.004), where 1.0f / (float)h is an ulp off the
 (float)(1.0 / h) that the plain versions' division by a Python float
 multiplies by: the limiter (single grid and every shard) bitwise equal
-to plain, the momentum RHS to 1e-5 of scale. The cheb2 smoothers (every mode and type pair) and
+to plain, the momentum RHS to 1e-5 of scale. With a NaN λ, anti or
+alpha_low and operands of ±0 the limiter puts NaN where its plain version
+does and equals it bit for bit elsewhere. The cheb2 smoothers (every mode and type pair) and
 the projection epilogue (open and closed top, a NaN in a fluid cell) at
 such shapes too: the smoothers bitwise equal to their plain versions, the
 post-dot's dot repeating bitwise with the ticket back at 0; the epilogue's
 velocities and div max bitwise equal to the plain version on the card
 (both multiply by the f32 reciprocal of the spacing), its islands bitwise
-equal to the single grid. The V-cycle residual: its island, with the
-launches after the first chained, bitwise equal to the single-grid
-kernel at slabs of 2, 3 and 18 planes and of 3 planes of a wide grid,
-and complete for the plain op that reads it next; its batch form (a z
+equal to the single grid. The 7-point apply and residual islands: one
+launch over a table of the held slabs, bitwise equal to the single-grid
+kernel at slabs of 1, 2, 3 and 18 planes, of 3 planes of a wide grid and
+of 112³ cut into 1, 2, 4 and 8 slabs, unaligned operands included, in
+chunks of at most 16 slabs beyond that; the residual island complete for
+the plain op that reads it next; its batch form (a z
 march over case pairs from 2**18 elements) at odd and small B, short z
 and single columns, below and at that size, within the family's bounds
 of its plain version and bitwise equal to the single-grid kernel on
@@ -49,8 +53,8 @@ with the single-grid apply-dot and the cheb2 post-dot. Built with
 OFTPP_FINISH_PALLAS=1, the momentum finish kernel launches 0 times with
 surface tension and in the tiled sweep, and once a step under a forcing
 of three 0-d components. Under the NaN trap (OFTPP_DEBUG_NANS=1) a NaN
-operand of each of the 21 entry points raises from the kernel hook, but
-the FCT limiter's, whose clip maps a NaN λ to a finite one."""
+operand of each of the 21 entry points, and of the two island entry
+points, raises from the kernel hook."""
 
 import numpy as np
 import pytest
@@ -352,18 +356,20 @@ def _halo_inputs(rng, dev, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_halo_islands_equal_single_grid_kernels(dev, dtype):
     """4 shards of halo kernels against the single-grid kernel on the
-    whole grid: bitwise, the dot to 1e-6 relative. One launch per shard."""
+    whole grid: bitwise, the dot to 1e-6 relative. One launch per island
+    for apply and resid (none per shard), one per shard for the rest."""
     rng = np.random.default_rng(5)
     p, b, w, d, alpha, phis, ucs, lams, antis, cells = _halo_inputs(
         rng, dev, dtype)
-    n0 = (halo7.apply_7pt_h.launches, halo7.resid_scaled_7pt_h.launches)
+    fns = (halo7.apply_7pt_hs, halo7.resid_scaled_7pt_hs, halo7.apply_7pt_h,
+           halo7.resid_scaled_7pt_h)
+    n0 = [f.launches for f in fns]
     for diag in (None, d):
         assert torch.equal(sm.apply_7pt(p, w, CTX4, diag=diag),
                            sp.apply_7pt(p, w, diag))
         assert torch.equal(sm.resid_scaled_7pt(p, w, CTX4, b, diag=diag),
                            sp.resid_scaled_7pt(p, w, diag, b))
-    assert (halo7.apply_7pt_h.launches - n0[0],
-            halo7.resid_scaled_7pt_h.launches - n0[1]) == (8, 8)
+    assert [f.launches - n for f, n in zip(fns, n0)] == [2, 2, 0, 0]
     ap, dot = sm.apply_dot_7pt(p, w, CTX4)
     ap1, dot1 = sp.apply_dot_7pt(p, w)
     assert torch.equal(ap, ap1)
@@ -718,8 +724,8 @@ def test_correct_divmax_island_at_tiling_edges(dev, shape, open_top):
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
-# The resid island (launches chained): ISLAND_EDGES, and slabs of 3
-# planes of a grid of many (y, z) blocks.
+# The resid island (one launch over the held slabs): ISLAND_EDGES, and
+# slabs of 3 planes of a grid of many (y, z) blocks.
 RESID_ISLANDS = ISLAND_EDGES + [(12, 264, 1024)]
 
 
@@ -727,16 +733,88 @@ RESID_ISLANDS = ISLAND_EDGES + [(12, 264, 1024)]
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_resid_island_at_tiling_edges(dev, dtype, shape):
     """4 shards of the resid halo kernel, unit and with diagonal: bitwise
-    equal to the single-grid kernel, four launches per island call."""
+    equal to the single-grid kernel, one launch per island call."""
     rng = np.random.default_rng(18)
     p, w = _dot_operands(rng, dev, shape, dtype)
     b = _at(rng, dev, shape, dtype)
     d = _at(rng, dev, shape, dtype, 1.5, 2.5)
     for diag in (None, d):
-        n0 = halo7.resid_scaled_7pt_h.launches
+        n0 = (halo7.resid_scaled_7pt_hs.launches,
+              halo7.resid_scaled_7pt_h.launches)
         got = sm.resid_scaled_7pt(p, w, CTX4, b, diag=diag)
-        assert halo7.resid_scaled_7pt_h.launches == n0 + 4
+        assert (halo7.resid_scaled_7pt_hs.launches,
+                halo7.resid_scaled_7pt_h.launches) == (n0[0] + 1, n0[1])
         assert torch.equal(got, sp.resid_scaled_7pt(p, w, diag, b))
+
+
+def _island_by_hand(island, p, w, n, *cells, diag=None):
+    """`island` (halo7.apply_7pt_hs or resid_scaled_7pt_hs) once over p
+    cut into n equal x-slabs, with the halos the island exchanges (slabs
+    of one plane too, which SpmdCtx refuses); the global output."""
+    nxl = p.shape[0] // n
+    cut = lambda t: [t[s * nxl:(s + 1) * nxl] for s in range(n)]
+    ctx = sm.SpmdCtx(n)
+    ps, ws = cut(p), [cut(x) for x in w]
+    halos = sm.exchange_halo(ps, 1, ctx)
+    out = torch.full_like(p, float("nan"))
+    island(ps, [h[0] for h in halos], [h[1] for h in halos],
+           sm.exchange_hi(ws[0], 1, ctx),
+           [tuple(x[s] for x in ws) for s in range(n)],
+           *(cut(c) for c in cells),
+           diags=None if diag is None else cut(diag), outs=cut(out))
+    return out
+
+
+@pytest.mark.parametrize("n_slabs", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", RESID_ISLANDS + [(112, 112, 112)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seven_point_island_tables(dev, dtype, shape, n_slabs):
+    """One launch of apply / resid over a table of 1, 2, 4 or 8 slabs
+    (where nx divides), unit and with diagonal: bitwise equal to the
+    single-grid kernel, and the same bits from operands that start one
+    element past an aligned address."""
+    if shape[0] % n_slabs:
+        n_slabs = shape[0]   # 8 and 12 planes: slabs of one plane
+    rng = np.random.default_rng(23)
+    p, w = _dot_operands(rng, dev, shape, dtype)
+    b = _at(rng, dev, shape, dtype)
+    d = _at(rng, dev, shape, dtype, 1.5, 2.5)
+    odd = lambda ts: [_misaligned(t) for t in ts]
+    for diag in (None, d):
+        n0 = (halo7.apply_7pt_hs.launches, halo7.resid_scaled_7pt_hs.launches)
+        got_a = _island_by_hand(halo7.apply_7pt_hs, p, w, n_slabs, diag=diag)
+        got_r = _island_by_hand(halo7.resid_scaled_7pt_hs, p, w, n_slabs, b,
+                                diag=diag)
+        assert (halo7.apply_7pt_hs.launches,
+                halo7.resid_scaled_7pt_hs.launches) == (n0[0] + 1, n0[1] + 1)
+        assert torch.equal(got_a, sp.apply_7pt(p, w, diag))
+        assert torch.equal(got_r, sp.resid_scaled_7pt(p, w, diag, b))
+        dm = None if diag is None else _misaligned(diag)
+        assert torch.equal(_island_by_hand(
+            halo7.apply_7pt_hs, _misaligned(p), odd(w), n_slabs, diag=dm),
+            got_a)
+        assert torch.equal(_island_by_hand(
+            halo7.resid_scaled_7pt_hs, _misaligned(p), odd(w), n_slabs,
+            _misaligned(b), diag=dm), got_r)
+
+
+def test_seven_point_island_cap_and_chunks(dev):
+    """The source's table holds halo7.MAX_SLABS slabs: a table that full
+    is one launch and bitwise, one more raises; an SpmdCtx of more shards
+    than that launches its islands in chunks of MAX_SLABS, bitwise."""
+    assert halo7._lib().seven_point_max_slabs() == halo7.MAX_SLABS
+    rng = np.random.default_rng(24)
+    n = halo7.MAX_SLABS
+    p, w = _dot_operands(rng, dev, (4 * n, 7, 40))
+    b = _at(rng, dev, p.shape)
+    got = _island_by_hand(halo7.resid_scaled_7pt_hs, p, w, n, b)
+    assert torch.equal(got, sp.resid_scaled_7pt(p, w, None, b))
+    with pytest.raises(ValueError, match="slabs a launch"):
+        _island_by_hand(halo7.resid_scaled_7pt_hs, p, w, 2 * n, b)
+    n0 = halo7.resid_scaled_7pt_hs.launches
+    got = sm.resid_scaled_7pt(p, w, sm.SpmdCtx(2 * n), b)
+    assert halo7.resid_scaled_7pt_hs.launches == n0 + 2
+    assert torch.equal(got, sp.resid_scaled_7pt(p, w, None, b))
 
 
 def _misaligned(t):
@@ -863,10 +941,9 @@ def test_apply_dot_batch_and_others_share_the_ticket(dev):
 
 
 def test_resid_island_is_complete_for_the_next_op(dev):
-    """The island's shard launches after the first are chained to the one
-    before it (programmatic dependent launch). Plain PyTorch ops issued
-    right after the island see every shard's values: 20 islands at the
-    flagship's 112³ (four 28-plane shards) on changing right-hand sides,
+    """The island is one launch over its four slabs. Plain PyTorch ops
+    issued right after the island see every shard's values: 20 islands at
+    the flagship's 112³ (four 28-plane shards) on changing right-hand sides,
     unit and with diagonal, each followed at once by a copy and a sum of
     its output, against the single-grid kernel."""
     rng = np.random.default_rng(20)
@@ -926,6 +1003,53 @@ def test_fct_iter_bitwise_at_f1_spacings(dev, dtype):
             args = _fct_h_args(start, antis, cells, F1_SPACING, s)
             assert all(torch.equal(g, r) for g, r in zip(
                 mf.fct_iter_h(*args), mf.fct_iter_h_plain(*args)))
+
+
+def _same_bits(got, ref):
+    """NaN at the same places, every other value bit for bit (signed zeros
+    included)."""
+    nan = torch.isnan(got)
+    as_int = torch.int32 if got.dtype == torch.float32 else torch.int16
+    return (got.dtype == ref.dtype and torch.equal(nan, torch.isnan(ref))
+            and torch.equal(got.view(as_int)[~nan], ref.view(as_int)[~nan]))
+
+
+# The NaN operand of the limiter: λ of an x face, anti of a y face or
+# alpha_low, in the last plane of CTX4's second slab (the third reads it
+# through its halo).
+FCT_NAN_AT = {"lambda x": (0, 0), "anti y": (1, 1), "alpha_low": (2, 0)}
+
+
+@pytest.mark.parametrize("where", list(FCT_NAN_AT))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fct_iter_keeps_nan_as_plain(dev, dtype, where):
+    """One NaN λ, anti or alpha_low, λ and anti of +0 or −0 on about a
+    quarter of the faces, spacing (0.002, 0.013, 0.004): fct_iter and
+    every shard of fct_iter_h give NaN exactly where their plain versions
+    do and equal them bit for bit elsewhere; so does the island against
+    the single grid."""
+    rng = np.random.default_rng(25)
+    lams, antis, cells = _fct_operands(rng, dev, SHAPE, dtype)
+
+    def zeros(t):
+        at = torch.from_numpy(rng.uniform(size=SHAPE) < 0.25).to(dev)
+        z = np.where(rng.uniform(size=SHAPE) < 0.5, 0.0, -0.0)
+        return torch.where(at, torch.from_numpy(z.astype(np.float32)).to(
+            dev).to(t.dtype), t)
+
+    lams, antis = tuple(map(zeros, lams)), tuple(map(zeros, antis))
+    kind, n = FCT_NAN_AT[where]
+    (lams, antis, cells)[kind][n][9, 6, 18] = float("nan")
+    got = mf.fct_iter(lams, antis, *cells, F1_SPACING)
+    ref = mf.fct_iter_plain(lams, antis, *cells, F1_SPACING)
+    assert all(_same_bits(g, r) for g, r in zip(got, ref))
+    assert any(bool(torch.isnan(g).any()) for g in got)
+    island = sm.fct_iters(lams, antis, *cells, F1_SPACING, 1, CTX4)
+    assert all(_same_bits(g, r) for g, r in zip(island, got))
+    for s in CTX4.held:
+        args = _fct_h_args(lams, antis, cells, F1_SPACING, s)
+        assert all(_same_bits(g, r) for g, r in zip(
+            mf.fct_iter_h(*args), mf.fct_iter_h_plain(*args)))
 
 
 def test_momentum_rhs_at_f1_spacings(dev):
@@ -1084,13 +1208,6 @@ def _nan_cases(rng, dev):
     }
 
 
-# The FCT limiter's clip01 is fminf(fmaxf(v, 0), 1): CUDA's fminf/fmaxf
-# return the other operand for a NaN, so a NaN λ leaves the kernel as 0
-# and its neighbours' limiters as if the face were closed. Its plain
-# version (torch.clamp) keeps the NaN.
-SWALLOWS_NAN = ("fct_iter", "fct_iter_h")
-
-
 @pytest.mark.parametrize("name", [
     "apply_7pt", "resid_scaled_7pt", "apply_dot_7pt", "apply_7pt_nb",
     "resid_scaled_7pt_nb", "apply_dot_7pt_nb", "cheb2_pre_7pt",
@@ -1101,20 +1218,12 @@ SWALLOWS_NAN = ("fct_iter", "fct_iter_h")
 def test_nan_trap_hook_sees_each_kernel(dev, name):
     """Under the NaN trap (OFTPP_DEBUG_NANS=1) a NaN operand of each
     kernel entry point raises FloatingPointError from the kernel hook
-    (`_build.check`), naming the entry point and this file's line. The
-    FCT limiter maps the NaN to a finite λ (SWALLOWS_NAN): the hook looks
-    at its outputs, finds none, and they are finite."""
+    (`_build.check`), naming the entry point and this file's line."""
     from openfoam_tpp_tpu_torch.utils import nan_trap
 
     call, operand = _nan_cases(np.random.default_rng(12), dev)[name]
     flat = operand.view(-1)
     flat[flat.numel() // 2] = float("nan")
-    if name in SWALLOWS_NAN:
-        with nan_trap.trap_nans(True) as trap:
-            out = call()
-        assert trap.checked >= len(out)
-        assert all(bool(torch.isfinite(t).all()) for t in out)
-        return
     trap = None
     with pytest.raises(FloatingPointError,
                        match=rf"CUDA kernel {name} .* at tests/"
@@ -1122,3 +1231,21 @@ def test_nan_trap_hook_sees_each_kernel(dev, name):
         with nan_trap.trap_nans(True) as trap:
             call()
     assert trap.checked >= 1 and _build.nan_hook is None
+
+
+@pytest.mark.parametrize("name", ["apply_7pt_hs", "resid_scaled_7pt_hs"])
+def test_nan_trap_hook_sees_the_island_entries(dev, name):
+    """A NaN in p of a 4-shard apply or resid island raises from the kernel
+    hook, naming the island entry point and the island's line."""
+    from openfoam_tpp_tpu_torch.utils import nan_trap
+
+    p, b, w = _halo_inputs(np.random.default_rng(12), dev, torch.float32)[:3]
+    p.view(-1)[p.numel() // 2] = float("nan")
+    island = {"apply_7pt_hs": lambda: sm.apply_7pt(p, w, CTX4),
+              "resid_scaled_7pt_hs": lambda: sm.resid_scaled_7pt(
+                  p, w, CTX4, b)}[name]
+    with pytest.raises(FloatingPointError,
+                       match=rf"CUDA kernel {name} .* at openfoam_tpp_tpu_"
+                             r"torch/parallel/spmd\.py:\d+, step 0"):
+        with nan_trap.trap_nans(True):
+            island()

@@ -154,6 +154,53 @@ def test_fct_iter_matches_pallas(dt):
         _close(lam_t[ax], lam_j[ax], F32_RTOL if dt == "f32" else BF16_RTOL)
 
 
+# One NaN operand of the limiter, in a cell away from every edge: λ of an
+# x face, anti of a y face, or alpha_low of a cell.
+NAN_AT = {"lambda x": ("lam", 0), "anti y": ("anti", 1), "alpha_low": ("cell", 0)}
+
+
+@pytest.mark.parametrize("where", list(NAN_AT))
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_fct_iter_keeps_a_nan_as_pallas_does(dt, where):
+    """A NaN in λ, anti or alpha_low: the JAX kernel (interpret mode) and
+    the port's plain version put NaN at the same faces, and agree to the
+    FCT tolerance everywhere else (the CUDA kernel is held bitwise to the
+    plain version, NaN positions included, in tests/test_torch_cuda.py)."""
+    rng = np.random.default_rng(6)
+    jdt, tdt = _DT[dt]
+    lams = [rng.uniform(0, 1, SHAPE).astype(np.float32) for _ in range(3)]
+    antis = [rng.standard_normal(SHAPE).astype(np.float32) * 1e-3
+             for _ in range(3)]
+    al = rng.uniform(0, 1, SHAPE).astype(np.float32)
+    amax = np.minimum(al + rng.uniform(0, 0.2, SHAPE), 1).astype(np.float32)
+    amin = np.maximum(al - rng.uniform(0, 0.2, SHAPE), 0).astype(np.float32)
+    dt_iv = rng.uniform(1e-4, 2e-4, SHAPE).astype(np.float32)
+    cells = [al, amax, amin, dt_iv]
+    kind, n = NAN_AT[where]
+    {"lam": lams, "anti": antis, "cell": cells}[kind][n][5, 4, 3] = np.nan
+    spacing = (0.004, 0.004, 0.0035)
+    got = tfct.fct_iter_plain(
+        tuple(torch.from_numpy(l).to(tdt) for l in lams),
+        tuple(torch.from_numpy(a).to(tdt) for a in antis),
+        *(torch.from_numpy(c) for c in cells), spacing)
+    want = jfct.fct_iter(tuple(jnp.asarray(l, jdt) for l in lams),
+                         tuple(jnp.asarray(a, jdt) for a in antis),
+                         *(jnp.asarray(c) for c in cells), spacing,
+                         interpret=True)
+    rtol = F32_RTOL if dt == "f32" else BF16_RTOL
+    n_nan = 0
+    for g_t, w_j in zip(got, want):
+        assert g_t.dtype == tdt
+        g = g_t.float().numpy()
+        w = np.asarray(jnp.asarray(w_j, jnp.float32))
+        assert np.array_equal(np.isnan(g), np.isnan(w))
+        n_nan += int(np.isnan(g).sum())
+        ok = ~np.isnan(w)
+        scale = max(float(np.abs(w[ok]).max()), 1e-30)
+        assert float(np.abs(g[ok] - w[ok]).max()) <= rtol * scale
+    assert n_nan >= 1
+
+
 def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():
     """A CPU tensor takes the plain version and launches nothing; a tensor
     on any device but CUDA or CPU raises instead of falling back."""

@@ -57,14 +57,16 @@ N_STEPS = 3
 PARAMS = dict(R=0.002, freq=3.0, duration=1.0)
 
 # name -> (module, attribute): the single-grid kernel entry points, which
-# the sharded step must not reach, and the halo entry points it must.
+# the sharded step must not reach, and the halo entry points it must (the
+# 7-point apply and resid through their island entry points, one call an
+# island).
 SINGLE = {n: (m, n) for m, ns in (
     (t7, ("apply_7pt", "resid_scaled_7pt", "apply_dot_7pt", "cheb2_pre_7pt",
           "cheb2_post_7pt", "cheb2_post_dot_7pt")),
     (tflux, ("flux_all",)), (tfct, ("fct_iter",)), (tmrk, ("momentum_rhs",)),
     (tck, ("correct_divmax",)), (tfk, ("momentum_finish",))) for n in ns}
 HALO = {n: (m, n) for m, ns in (
-    (th7, ("apply_7pt_h", "resid_scaled_7pt_h", "apply_dot_7pt_h")),
+    (th7, ("apply_7pt_hs", "resid_scaled_7pt_hs", "apply_dot_7pt_h")),
     (tflux, ("flux_all_h",)), (tfct, ("fct_iter_h",)),
     (tmrk, ("momentum_rhs_h",)), (tck, ("correct_divmax_h",))) for n in ns}
 
@@ -164,9 +166,9 @@ def test_sharded_step_two_sweeps_takes_the_generic_smoother(
     assert not single, dict(single)
     # Two sweeps: the entry pass takes one resid, its residual one, the
     # exit pass two; 4 islands per V-cycle, one V-cycle per CG iteration
-    # plus one, 4 shards each.
+    # plus one, each island one call over its 4 shards.
     vcycles = sum(iters) + N_STEPS
-    assert halo["resid_scaled_7pt_h"] == 4 * 4 * vcycles
+    assert halo["resid_scaled_7pt_hs"] == 4 * vcycles
     assert all(i < 30 for i in iters)
     assert np.isfinite(got["p"]).all()
 

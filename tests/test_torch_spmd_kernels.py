@@ -333,6 +333,82 @@ def test_correct_divmax_halo_matches_pallas(s):
     np.testing.assert_allclose(float(got[3]), float(want[3]), rtol=1e-6)
 
 
+def _island_operands(tdt, n_shards):
+    """The 7-point inputs cut into `n_shards` slabs: per slab (p, h_lo,
+    h_hi, wx_hi, split, b, diag), as lists."""
+    ctx = tsm.SpmdCtx(n_shards)
+    p, b, diag, w = _seven_point_inputs(tdt)
+    ps, ws = ctx.split(p), [ctx.split(x) for x in w]
+    halos = tsm.exchange_halo(ps, 1, ctx)
+    return (ps, [h[0] for h in halos], [h[1] for h in halos],
+            tsm.exchange_hi(ws[0], 1, ctx),
+            [tuple(x[s] for x in ws) for s in range(n_shards)],
+            ctx.split(b), ctx.split(diag))
+
+
+@pytest.mark.parametrize("n_slabs", [1, 2, 4])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_seven_point_island_entries_match_shards_and_pallas(dt, n_slabs):
+    """`apply_7pt_hs` / `resid_scaled_7pt_hs` on a table of 1, 2 or 4 slabs
+    (their plain versions, on the CPU): bitwise the per-shard plain
+    functions slab by slab, and each slab against the JAX halo kernel in
+    interpret mode; `outs=` written in place."""
+    jdt, tdt = _DT[dt]
+    rtol = F32_RTOL if dt == "f32" else BF16_STENCIL_RTOL
+    ps, los, his, wx_his, splits, bs, ds = _island_operands(tdt, n_slabs)
+    for diags in (None, ds):
+        each = diags or [None] * n_slabs
+        outs = [torch.full_like(p, float("nan")) for p in ps]
+        got_a = th7.apply_7pt_hs(ps, los, his, wx_his, splits, diags=diags,
+                                 outs=outs)
+        got_r = th7.resid_scaled_7pt_hs(ps, los, his, wx_his, splits, bs,
+                                        diags=diags)
+        assert all(g is o for g, o in zip(got_a, outs))
+        for s in range(n_slabs):
+            args = (ps[s], los[s], his[s], wx_his[s], splits[s])
+            assert torch.equal(got_a[s], th7.apply_7pt_h_plain(
+                *args, diag=each[s]))
+            assert torch.equal(got_r[s], th7.resid_scaled_7pt_h_plain(
+                *args, bs[s], diag=each[s]))
+            hj = tuple(_j(h, jdt) for h in args[1:4])
+            wj = tuple(_j(x, jdt) for x in splits[s])
+            _close(got_a[s], jh7.apply_7pt_h(
+                _j(ps[s], jdt), *hj, wj, diag=_j(each[s], jdt),
+                interpret=True), rtol)
+            _close(got_r[s], jh7.resid_scaled_7pt_h(
+                _j(ps[s], jdt), *hj, wj, _j(bs[s], jdt),
+                diag=_j(each[s], jdt), interpret=True), rtol)
+
+
+def test_seven_point_island_entries_refuse_bad_tables():
+    """More slabs than one launch takes, slabs of mixed shape or dtype,
+    lists of another length and diagonals for some slabs only: ValueError
+    on the CPU as on the card."""
+    ps, los, his, wx_his, splits, bs, ds = _island_operands(torch.float32, 4)
+    many = th7.MAX_SLABS + 1
+    with pytest.raises(ValueError, match="slabs a launch"):
+        th7.apply_7pt_hs(ps[:1] * many, los[:1] * many, his[:1] * many,
+                         wx_his[:1] * many, splits[:1] * many)
+    with pytest.raises(ValueError, match="slabs a launch"):
+        th7.resid_scaled_7pt_hs([], [], [], [], [], [])
+    short = [p[:-1] for p in ps]
+    with pytest.raises(ValueError, match="share the first"):
+        th7.apply_7pt_hs([ps[0], short[1]], los[:2], his[:2], wx_his[:2],
+                         splits[:2])
+    mixed = [ps[0], ps[1].to(torch.bfloat16)]
+    with pytest.raises(ValueError, match="share the first"):
+        th7.resid_scaled_7pt_hs(mixed, los[:2], his[:2], wx_his[:2],
+                                splits[:2], bs[:2])
+    with pytest.raises(ValueError, match="one entry per slab"):
+        th7.resid_scaled_7pt_hs(ps, los, his, wx_his, splits, bs[:3])
+    with pytest.raises(ValueError, match="for none"):
+        th7.apply_7pt_hs(ps, los, his, wx_his, splits,
+                         diags=[ds[0], None, ds[2], ds[3]])
+    with pytest.raises(ValueError):   # a halo plane of another dtype
+        th7.apply_7pt_hs(ps, [los[0].double()] + los[1:], his, wx_his,
+                         splits)
+
+
 # --------------------------------------------------------------------- (c)
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -390,11 +466,14 @@ def test_correction_island_equals_single_grid(open_top):
 def test_islands_launch_nothing_on_the_cpu():
     """CPU tensors take the plain versions: no launch is counted."""
     fns = (th7.apply_7pt_h, th7.resid_scaled_7pt_h, th7.apply_dot_7pt_h,
+           th7.apply_7pt_hs, th7.resid_scaled_7pt_hs,
            tflux.flux_all_h, tfct.fct_iter_h, tmrk.momentum_rhs_h,
            tck.correct_divmax_h)
     before = [f.launches for f in fns]
     p, b, _, w = _seven_point_inputs(torch.float32)
     tsm.apply_dot_7pt(p, w, CTX)
+    tsm.apply_7pt(p, w, CTX)
+    tsm.resid_scaled_7pt(p, w, CTX, b)
     assert [f.launches for f in fns] == before
     m = torch.empty((8, NY, NZ), device="meta")
     plane = torch.empty((1, NY, NZ), device="meta")
