@@ -166,7 +166,40 @@ Phases, each fatal on any fault (nothing is caught):
      checks on the run. After phase 7 it prints utils/resources.py's
      constants as this run measured them (phase 5's rate and bytes per
      fluid cell, phase 7's per fluid cell of the batch, the card's
-     memory).
+     memory);
+ 12. the device mesh on one card (parallel/sharding.py): (a) phase 6's
+     128 cases through the lockstep geometry step farmed by
+     `sharded_step` over `make_mesh(4, case_axis=4, devices=[cuda:0] * 4)`
+     (32 cases a position, the parts carried on their device from step to
+     step), N_FARM steps from rest beside the unfarmed step's run from
+     rest: ms/step, device ops and busy ms per step (torch.profiler, 2
+     steps), the launches of rows 10a–c, every case's t and dt equal
+     across the positions, the farm's fields within phase 4's limits of
+     the unfarmed batch's, the slowest case's p_iters histogram equal and
+     every case's p_iters within 1 at every step (the batch kernels keep
+     their bits in a 32-case part, checked on seeded operands, but the
+     plain per-case sums over the cells do not); on a machine with
+     more than one card the same farm over distinct cards (else it says
+     it did not run); then `--action runsweep --devices 4 --device
+     cuda:0` through `cli.main` on phase 7's study against the unfarmed
+     `runsweep` of the same cases (checkpoint times bitwise, fields
+     within phase 4's limits of each case's scale, the velocities' plus
+     the farm's drift measured by scripts/farm_gap.py, FARM_DRIFT·t,
+     probe rows and times equal), and the same farm with a planted fault
+     (two cases exchange their forcing across positions 0 and 1), which
+     that check must refuse;
+     (b)
+     `run_case(devices=4, device="cuda:0")` on the flagship for 0.1 s:
+     the grid rounded as the JAX package rounds it (128×128×112), only
+     the halo kernels launched (11a–b once an island, the rest 4 times),
+     killed after the first interval and resumed, the final checkpoint
+     against the SpmdCtx(1) step through the same advance (bitwise, else
+     phase 3b's limits); (c) `run_case(devices="2x2", device="cuda:0")`
+     for 0.05 s: 112³, the global step with the seven default kernels
+     (flux_all 3, fct_iter 9, momentum_rhs and correct_divmax 1 per
+     step), bitwise the same case run alone on the card; then phase 8's
+     6DoF tank case with `devices=2` for 0.05 s, the same kernels,
+     bitwise the case alone.
 
 It then prints the `kernels` JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. It exits non-zero, printing no
@@ -176,6 +209,7 @@ result, when no CUDA device is available or the package is missing.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -183,6 +217,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import unittest.mock as mock
 
 import numpy as np
@@ -312,6 +347,31 @@ TRAP_T_END = 0.15     # the trap's cost: steps from phase 5's t = 0.05 to this
 PROFILE_KEYS = ("n_steps", "fluid_cells", "grid", "device", "mean_step_ms",
                 "p50_step_ms", "p95_step_ms", "cell_updates_per_sec",
                 "final_dt", "p_iters", "trace_dir")
+# Phase 12: the device mesh on one card. The farm: phase 6's SWEEP_CASES
+# cases over FARM_POSITIONS case positions of one card (32 cases each),
+# N_FARM steps from rest (the first number to cut, before any width).
+FARM_POSITIONS = 4
+N_FARM = N_SWEEP
+N_FARM_TIMED = N_SWEEP_TIMED
+# The farm's velocity drift from the unfarmed batch, per second of
+# simulated time (m/s per s): hold_runsweep adds FARM_DRIFT·t to phase
+# 4's velocity limits. Set from scripts/farm_gap.py on an H100 (phase
+# 7's study, seeds 0-3): the parts' per-case CG dots differ in their last
+# bits from step 1 on, and at the write times the largest velocity gap
+# was 6.95e-4 m/s at 0.05 s and 1.33e-3 at 0.1 s (0.0139 m/s per s at
+# most: FARM_DRIFT is 1.44x that); the planted fault of `SwappedParams`
+# reached 3.08e-3 at 0.1 s (1.54x FARM_DRIFT·t).
+FARM_DRIFT = 0.02
+# The flagship case of the x and NxM decompositions (phase 5's, the
+# ramp the 20 s run's 2 s): `run_case(devices=4)` rounds nx and ny to
+# 8·4 = 32, the JAX package's rounding for its kernel islands.
+MESH_CASE = dict(H=0.208, D=0.2, geo="flat", R=0.004, freq=1.88,
+                 mesh=0.00185, dt=0.001, ramp=2.0)
+SHARDED_RUN_SHAPE = (128, 128, 112)
+# Where two runs' fields differ, the next CFL dt follows the largest
+# speed, whose limit is 1e-2 of its scale (SHARD_TOLS, CMP_TOLS): dt is
+# held to the same 1e-2 relative. The write times stay bitwise.
+DT_TOL = {"dt": ("rel", 1e-2, 0.0)}
 # Spacings at which 1.0f / (float)h is an ulp off (float)(1.0 / h), the
 # reciprocal PyTorch's CUDA division by a Python float multiplies by
 # (the plain versions'); the flagship's 0.00185 is not one of them.
@@ -1826,6 +1886,17 @@ def drive_sweep(label, step, states, params, n_steps, n_timed, n_fluid,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_timed
     launches = {k: f.launches for k, f in fns.items()}
+    stats = sweep_checks(label, states, diags, launches, wall, n_steps,
+                         n_timed, n_fluid, lockstep)
+    return states, launches, stats
+
+
+def sweep_checks(label, states, diags, launches, wall, n_steps, n_timed,
+                 n_fluid, lockstep):
+    """drive_sweep's stats and checks of a run that ended in the batched
+    `states` (every case on one device) after `diags` (one per step)."""
+    import torch
+
     iters = torch.stack([d.p_iters for d in diags]).cpu().numpy()   # (n, B)
     co = float(torch.stack([d.courant for d in diags]).max())
     a_min = float(torch.stack([d.alpha_min for d in diags]).min())
@@ -1839,6 +1910,7 @@ def drive_sweep(label, step, states, params, n_steps, n_timed, n_fluid,
              "timed_steps": n_timed, "ms_per_step": wall / n_timed * 1e3,
              "agg_cell_updates_per_s": n_fluid * n_timed / wall,
              "p_iters_max_hist": hist, "p_iters_case_hist": case_hist,
+             "p_iters": iters.tolist(),
              "p_iters_mean": float(iters.mean()),
              "max_courant": co, "sim_t_min": float(t.min()),
              "sim_t_max": float(t.max()),
@@ -1872,7 +1944,7 @@ def drive_sweep(label, step, states, params, n_steps, n_timed, n_fluid,
     if lockstep and not bool((states.t == states.t[0]).all()):
         raise AssertionError(f"{label}: case times differ: {t.min()!r} .. "
                              f"{t.max()!r}")
-    return states, launches, stats
+    return stats
 
 
 def phase_sweep(dev, props):
@@ -3023,6 +3095,607 @@ def phase_tiled(dev, props, sweep):
     return stats, tiled_rows, launches
 
 
+def cat_diags(diags):
+    """One StepDiagnostics of a farm's step: its positions' per-case
+    diagnostics in case order, on the first position's device."""
+    from openfoam_tpp_tpu_torch.solver.timestep import StepDiagnostics
+    import torch
+
+    dev = diags[0].p_iters.device
+    return StepDiagnostics(*(torch.cat([x.to(dev) for x in xs])
+                             for xs in zip(*diags)))
+
+
+def drive_farm(label, farm, parts, pparts, n_steps, n_timed, n_fluid):
+    """drive_sweep over a farm: `n_steps` of `farm` from the
+    per-position `parts`, which stay on their positions' devices between
+    steps, the last `n_timed` timed, with every launch count set to 0 just
+    before and read just after; drive_sweep's checks on the gathered
+    batch, and lockstep across the positions: every case's t and dt
+    equal."""
+    import torch
+
+    fns = {k: getattr(m, a) for k, (m, a, _) in counters().items()}
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    diags = []
+    for i in range(n_steps):
+        if i == n_steps - n_timed:
+            torch.cuda.synchronize()
+            t_timed = time.perf_counter()
+        parts, d = farm(parts, pparts)
+        diags.append(cat_diags(d))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_timed
+    launches = {k: f.launches for k, f in fns.items()}
+    states = farm.sharding.gather(parts, device=parts[0].t.device)
+    stats = sweep_checks(label, states, diags, launches, wall, n_steps,
+                         n_timed, n_fluid, lockstep=True)
+    if not bool((states.dt == states.dt[0]).all()):
+        raise AssertionError(f"{label}: case dt differ across positions")
+    log(f"  lockstep over {len(parts)} positions: every case at t = "
+        f"{float(states.t[0])!r}, dt = {float(states.dt[0])!r}")
+    return parts, states, launches, stats
+
+
+def hold_farm(label, got, ref, got_stats, ref_stats):
+    """The farm's batch against the unfarmed one: every field of every
+    case within phase 4's limits (CMP_TOLS, of the field's scale over the
+    batch); the slowest case's p_iters histogram equal, and every case's
+    p_iters at every step within 1 (phase 6's rule for two runs whose
+    sums differ in their last bits), with the every-case histograms side
+    by side. Returns the errors."""
+    out, bad = {"bitwise": True}, []
+    for k, (kind_t, tol) in CMP_TOLS.items():
+        g, r = getattr(got, k), getattr(ref, k)
+        per_case = (g - r).abs().flatten(0, -2).max(dim=0).values
+        err, scale = float(per_case.max()), float(r.abs().max())
+        lim = tol if kind_t == "abs" else tol * scale
+        out["bitwise"] &= err == 0.0
+        out[k] = {"max_abs_err": err, "worst_case": int(per_case.argmax()),
+                  "scale": scale, "limit": lim}
+        log(f"  {k}: max_abs_err {err:.3e} (case {int(per_case.argmax())}) "
+            f"limit {lim:.3e} (scale {scale:.3e})")
+        if err > lim:
+            bad.append(f"{k}: {err} > {lim}")
+    it_got, it_ref = (np.asarray(x["p_iters"]) for x in (got_stats,
+                                                        ref_stats))
+    d_it = int(np.abs(it_got - it_ref).max())
+    moved = int((it_got != it_ref).sum())
+    out.update(max_p_iters_diff=d_it, case_steps_moved=moved,
+               case_hists=[got_stats["p_iters_case_hist"],
+                           ref_stats["p_iters_case_hist"]])
+    if got_stats["p_iters_max_hist"] != ref_stats["p_iters_max_hist"]:
+        bad.append(f"slowest case's p_iters histogram: "
+                   f"{got_stats['p_iters_max_hist']} against "
+                   f"{ref_stats['p_iters_max_hist']}")
+    if d_it > 1:
+        bad.append(f"a case's p_iters differ by {d_it} > 1")
+    log(f"[{label}] fields bitwise equal: {out['bitwise']}; slowest case's "
+        f"p_iters histogram {got_stats['p_iters_max_hist']} against "
+        f"{ref_stats['p_iters_max_hist']}; every case and step "
+        f"{got_stats['p_iters_case_hist']} against "
+        f"{ref_stats['p_iters_case_hist']}: {moved} of "
+        f"{it_got.size} case-steps moved, by at most {d_it}")
+    if bad:
+        raise AssertionError(f"{label}: {bad}")
+    return out
+
+
+def batch_width_bits(dev):
+    """Which per-case results of the sweep step's operations keep their
+    bits when phase 6's batch (12×12×50×128, seeded operands) is cut into
+    the farm's parts of SWEEP_CASES / FARM_POSITIONS cases: the batch
+    resid (its two bodies), the batch apply-dot's output and dots, and
+    the plain per-case sum over the cells (solver/poisson.py `_dot`)."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.ops import stencil as st
+    from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
+
+    rng = np.random.default_rng(12)
+    shape = (12, 12, 50, SWEEP_CASES)
+    arr = lambda lo, hi: torch.from_numpy(
+        rng.uniform(lo, hi, shape).astype(np.float32)).to(dev)
+    p, b = arr(-1.0, 1.0), arr(-1.0, 1.0)
+    w = [arr(0.05, 0.3) for _ in range(3)]
+    w[0][0], w[1][:, 0], w[2][:, :, 0] = 0, 0, 0
+    k = SWEEP_CASES // FARM_POSITIONS
+    parts = [slice(i * k, (i + 1) * k) for i in range(FARM_POSITIONS)]
+
+    def cut(fn):
+        whole = fn(p, tuple(w), b)
+        pieces = [fn(p[..., sl].contiguous(),
+                     tuple(x[..., sl].contiguous() for x in w),
+                     b[..., sl].contiguous()) for sl in parts]
+        return whole, pieces
+
+    out = {}
+    whole, pieces = cut(lambda q, ww, r: sp.resid_scaled_7pt_nb(q, ww, None,
+                                                                r))
+    out["resid_scaled_7pt_nb"] = torch.equal(whole, torch.cat(pieces, -1))
+    whole, pieces = cut(lambda q, ww, r: sp.apply_dot_7pt_nb(q, ww))
+    out["apply_dot_7pt_nb output"] = torch.equal(
+        whole[0], torch.cat([x[0] for x in pieces], -1))
+    out["apply_dot_7pt_nb dots"] = torch.equal(
+        whole[1], torch.cat([x[1] for x in pieces]))
+    whole, pieces = cut(lambda q, ww, r: st.sum_cells(q * r))
+    out["sum_cells"] = torch.equal(whole, torch.cat(pieces))
+    log(f"[mesh: bits of a {k}-case part against the {SWEEP_CASES}-case "
+        f"batch, seeded operands] {out}")
+    return out
+
+
+def phase_mesh(dev, props, geom, sweep):
+    """The device mesh on one card (module docstring, phase 12): (a) the
+    farm and `runsweep --devices 4`, (b) `run_case(devices=4)`, (c)
+    `run_case(devices="2x2")`. `geom`: phase 3's flagship grid; `sweep`:
+    phase 6's stats. Returns the phase's stats."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import SolverControls
+    from openfoam_tpp_tpu_torch.parallel import sharding as sh
+    from openfoam_tpp_tpu_torch.parallel.sweep import (batch_params,
+                                                       batch_states_geom,
+                                                       build_batched_geometry,
+                                                       make_geom_sweep_step)
+
+    out = {}
+    # (a) the farm: phase 6's rows through the lockstep geometry step.
+    rows = [{**SWEEP_TANK, "R": 0.002 + 2e-5 * i, "freq": 1.5 + 0.01 * i,
+             "duration": 10.0} for i in range(SWEEP_CASES)]
+    bgeom = build_batched_geometry(rows, round_to=4, device=dev)
+    params = batch_params(rows, device=dev)
+    n_fluid = sum(g.n_fluid_cells for g in bgeom.geoms)
+    step = make_geom_sweep_step(bgeom, props, SolverControls())
+    ref, _, ref_stats = drive_sweep(
+        "mesh: unfarmed lockstep geometry step, from rest", step,
+        batch_states_geom(bgeom), params, N_FARM, N_FARM_TIMED, n_fluid,
+        lockstep=True)
+
+    def farm_on(devices):
+        mesh = sh.make_mesh(len(devices), case_axis=len(devices),
+                            devices=devices)
+        farm = sh.sharded_step(
+            [make_geom_sweep_step(g, props, SolverControls())
+             for g in sh.shard_batched_geometry(bgeom, mesh)], mesh,
+            batched=True)
+        parts = farm.sharding.put(batch_states_geom(bgeom))
+        pparts = sh.params_sharding(mesh, batched=True).put(params)
+        return farm, parts, pparts
+
+    farm, parts, pparts = farm_on([dev] * FARM_POSITIONS)
+    label = (f"mesh: farm over {FARM_POSITIONS} case positions of {dev}, "
+             f"{SWEEP_CASES // FARM_POSITIONS} cases each, from rest")
+    parts, got, launches, stats = drive_farm(
+        label, farm, parts, pparts, N_FARM, N_FARM_TIMED, n_fluid)
+    log(f"  launches of rows 10a-c: "
+        f"{ {k: launches[k] for k in BATCH_PATH} } "
+        f"(unfarmed: { {k: ref_stats['launches_per_step'][k] * N_FARM for k in BATCH_PATH} })")
+    # Each position holds 12×12×50×32 = 230,400 elements, under the batch
+    # resid's kMarchFrom = 2^18 (csrc/seven_point_batch.cu): the positions
+    # take its other body, so bits may differ from the 128-case batch.
+    stats["hold"] = hold_farm(label, got, ref, stats, ref_stats)
+    stats["bits_by_batch_width"] = batch_width_bits(dev)
+
+    def run_farm(n):
+        nonlocal parts
+        for _ in range(n):
+            parts, _ = farm(parts, pparts)
+
+    stats["ops_per_step"], stats["busy_ms_per_step"] = ops_per_step(run_farm,
+                                                                    2)
+    r_state = [ref]
+
+    def run_ref(n):
+        for _ in range(n):
+            r_state[0], _ = step(r_state[0], params)
+
+    ref_stats["ops_per_step"], ref_stats["busy_ms_per_step"] = ops_per_step(
+        run_ref, 2)
+    log(f"[mesh farm vs the unfarmed batch, {SWEEP_CASES} cases, one run "
+        f"each] farm {stats['ms_per_step']:.3f} ms/step, "
+        f"{stats['ops_per_step']:.1f} device ops and "
+        f"{stats['busy_ms_per_step']:.3f} ms busy per step; unfarmed "
+        f"{ref_stats['ms_per_step']:.3f} ms/step, "
+        f"{ref_stats['ops_per_step']:.1f} ops, "
+        f"{ref_stats['busy_ms_per_step']:.3f} ms busy (phase 6's lockstep "
+        f"step {sweep['lockstep_geom']['ms_per_step']:.3f} ms/step, its "
+        f"make_sweep_step {sweep['make_sweep_step']['ops_per_step']:.1f} "
+        f"ops, {sweep['make_sweep_step']['busy_ms_per_step']:.3f} ms busy)")
+    out["farm"], out["unfarmed"] = stats, ref_stats
+    n_cards = torch.cuda.device_count()
+    k = min(n_cards, FARM_POSITIONS)
+    if k > 1 and SWEEP_CASES % k == 0:
+        cards = [torch.device("cuda", i) for i in range(k)]
+        farm2, parts2, pparts2 = farm_on(cards)
+        label2 = f"mesh: farm over {k} distinct cards, from rest"
+        _, got2, _, stats2 = drive_farm(label2, farm2, parts2, pparts2,
+                                        N_FARM, N_FARM_TIMED, n_fluid)
+        stats2["hold"] = hold_farm(label2, got2, ref, stats2, ref_stats)
+        out["farm_distinct_cards"] = stats2
+    else:
+        log(f"[mesh farm on distinct cards] did not run: "
+            f"torch.cuda.device_count() = {n_cards}")
+    out["runsweep"] = phase_mesh_runsweep(dev)
+    out["x_run"] = phase_mesh_x_run(dev)
+    out["nxm_run"] = phase_mesh_nxm_run(dev, geom)
+    return out
+
+
+def probe_table(case_dir, name):
+    with open(os.path.join(case_dir, "postProcessing", "probes", "0",
+                           name)) as f:
+        return np.array([[float(v) for v in ln.split()]
+                         for ln in f if not ln.startswith("#")])
+
+
+class SwappedParams:
+    """A planted fault of the farm: the first case of position 0 and the
+    second of position 1 exchange their forcing parameters (in
+    `runsweep`'s order of phase 7's study every position holds the same
+    32 (R, freq) pairs in the same order: these two differ in freq, 1.5
+    against 1.6 Hz)."""
+
+    def __init__(self, real):
+        self.real = real
+
+    def __call__(self, mesh, batched=False):
+        sharding = self.real(mesh, batched)
+        return types.SimpleNamespace(put=lambda tree: self.swap(
+            sharding.put(tree)))
+
+    @staticmethod
+    def swap(parts):
+        a, b = parts[0], parts[1]
+        fa = {f.name: getattr(a, f.name).clone()
+              for f in dataclasses.fields(a)}
+        fb = {f.name: getattr(b, f.name).clone()
+              for f in dataclasses.fields(b)}
+        for k in fa:
+            fa[k][0], fb[k][1] = getattr(b, k)[1], getattr(a, k)[0]
+        return [type(a)(**fa), type(b)(**fb), *parts[2:]]
+
+
+def hold_runsweep(pairs):
+    """Per case (farmed dir, unfarmed dir) the checkpoints' times bitwise,
+    and each checkpoint's fields within phase 4's limits of the case's
+    own scale, the velocities' plus FARM_DRIFT·t; the probe files' rows
+    and times equal, p within 2e-3 of its scale and η within phase 4's
+    alpha limit over the tank's height (1e-3 · H). Returns (the largest
+    error over its limit per field, the faults)."""
+    from openfoam_tpp_tpu_torch.manager.cases import load_case_params
+    from openfoam_tpp_tpu_torch.utils.io import list_checkpoints, load_checkpoint
+
+    worst, bad = {}, []
+    for d, e in pairs:
+        cf, co = list_checkpoints(d), list_checkpoints(e)
+        if [t for t, _ in cf] != [t for t, _ in co] \
+                or cf[-1][0] != round(MANAGER_SWEEP["duration"], 6):
+            bad.append(f"{d}: checkpoints {cf} against {co}")
+            continue
+        for (_, fp), (_, op) in zip(cf[1:], co[1:]):
+            got, want = load_checkpoint(fp), load_checkpoint(op)
+            if got["t"] != want["t"]:
+                bad.append(f"{fp}: t {got['t']!r} against {want['t']!r}")
+            for k, (kind_t, tol) in CMP_TOLS.items():
+                err = float(np.abs(got[k] - want[k]).max())
+                lim = tol if kind_t == "abs" else tol * float(
+                    np.abs(want[k]).max())
+                if k in "uvw":
+                    lim += FARM_DRIFT * float(want["t"])
+                worst[k] = max(worst.get(k, 0.0), err / lim if lim else err)
+                if err > lim:
+                    bad.append(f"{fp}: {k} {err} > {lim}")
+        height = load_case_params(d)["H"]
+        for name, lim_of in (("p", lambda b: 2e-3 * np.abs(b).max()),
+                             ("eta", lambda b: 1e-3 * height)):
+            a, b = probe_table(d, name), probe_table(e, name)
+            if a.shape != b.shape or not np.array_equal(a[:, 0], b[:, 0]):
+                bad.append(f"{d}: probes/0/{name} {a.shape} against "
+                           f"{b.shape}")
+                continue
+            err, lim = (float(np.abs(a[:, 1:] - b[:, 1:]).max()),
+                        lim_of(b[:, 1:]))
+            worst[f"probe_{name}"] = max(worst.get(f"probe_{name}", 0.0),
+                                         err / lim)
+            if err > lim:
+                bad.append(f"{d}: probes/0/{name} {err} > {lim}")
+    return worst, bad
+
+
+def phase_mesh_runsweep(dev):
+    """(a) `runsweep --devices 4 --device cuda:0` on phase 7's study
+    through `cli.main`, against the unfarmed `runsweep` of the same cases
+    (`hold_runsweep`: the velocities' limit adds the farm's drift from
+    the batch that scripts/farm_gap.py measured, FARM_DRIFT); then the
+    same farm with a planted fault (`SwappedParams`: two cases of
+    positions 0 and 1 exchange their forcing), which the same check
+    must refuse."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.manager import cli
+    from openfoam_tpp_tpu_torch.manager.cases import expand_sweep, setup_case
+    from openfoam_tpp_tpu_torch.parallel import sharding as sh
+
+    fns = {k: getattr(m, a) for k, (m, a, _) in counters().items()}
+    rows, _ = expand_sweep(MANAGER_SWEEP)
+    card = f"{dev.type}:{dev.index or 0}"
+    farmed = ["--devices", str(FARM_POSITIONS)]
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_farm_") as base:
+        for sub, extra in (("farm", farmed), ("one", []), ("swap", farmed)):
+            dirs = [setup_case(r, os.path.join(base, sub)) for r in rows]
+            for f in fns.values():
+                f.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                text = stack.enter_context(tee_stdout())
+                if sub == "swap":
+                    stack.enter_context(mock.patch.object(
+                        sh, "params_sharding",
+                        SwappedParams(sh.params_sharding)))
+                rc = cli.main(["--headless", "--action", "runsweep", "--case",
+                               "all", "--base-dir", os.path.join(base, sub),
+                               "--device", card] + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: f.launches for k, f in fns.items() if f.launches}
+            done = re.findall(r"Batch done: (\d+) cases x (\d+) steps",
+                              text.value())
+            log(f"[mesh runsweep {sub}: {' '.join(extra) or 'unfarmed'} "
+                f"--device {card}] rc {rc}, {len(dirs)} cases, {done}, "
+                f"{wall:.2f} s wall; kernel launches {launches}")
+            if rc != 0 or set(launches) != set(BATCH_PATH) or len(done) != 1:
+                raise AssertionError(f"mesh runsweep {sub}: rc {rc}, "
+                                     f"launches {launches}, batches {done}")
+            if extra and f"over {FARM_POSITIONS} devices" not in text.value():
+                raise AssertionError("mesh runsweep: the batch was not farmed")
+            runs[sub] = {"dirs": dirs, "wall_seconds": wall,
+                         "steps": int(done[0][1]), "launches": launches}
+        worst, bad = hold_runsweep(zip(runs["farm"]["dirs"],
+                                       runs["one"]["dirs"]))
+        s_worst, s_bad = hold_runsweep(zip(runs["swap"]["dirs"],
+                                           runs["one"]["dirs"]))
+    log(f"  farmed against unfarmed, {len(rows)} cases: steps "
+        f"{runs['farm']['steps']} and {runs['one']['steps']}; largest error "
+        f"over its limit per field {worst}")
+    log(f"  planted fault (one case of position 0 and one of position 1 "
+        f"exchange their forcing): "
+        f"{len(s_bad)} faults found, largest error over its limit per "
+        f"field {s_worst}")
+    if bad or runs["farm"]["steps"] != runs["one"]["steps"]:
+        raise AssertionError(f"mesh runsweep: {bad[:5]} ({len(bad)} faults)")
+    if not s_bad:
+        raise AssertionError("mesh runsweep: the planted fault passed the "
+                             "farm's check")
+    return {k: {kk: v for kk, v in r.items() if kk != "dirs"}
+            for k, r in runs.items()} | {"worst_over_limit": worst,
+                                         "swap_worst_over_limit": s_worst,
+                                         "swap_faults": len(s_bad)}
+
+
+def advance_to(geom, controls, spmd, params, dev, targets):
+    """The runner's advance of `make_step(geom, controls, spmd=spmd)` from
+    rest through the write targets: what `run_case` computes on that
+    grid. Returns the final state."""
+    from openfoam_tpp_tpu_torch.config import PhysicalProperties
+    from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
+    from openfoam_tpp_tpu_torch.manager.runner import make_advance
+    from openfoam_tpp_tpu_torch.post.probes import (default_probe_points,
+                                                    default_wave_columns,
+                                                    make_probe_sampler)
+    from openfoam_tpp_tpu_torch.solver.timestep import make_step
+
+    step = make_step(geom, PhysicalProperties(), controls, carry_precond=True,
+                     spmd=spmd, device=dev)
+    sampler, width = make_probe_sampler(geom, default_probe_points(geom),
+                                        default_wave_columns(geom), device=dev)
+    adv = make_advance(step, sampler=sampler, sample_width=width)
+    state = init_state(geom, dt0=params["dt"], device=dev)
+    cp = CaseParams.make(params["R"], params["freq"], params["duration"],
+                         params["ramp"], device=dev)
+    for t in targets:
+        state = adv(state, cp, t)[0]
+    return state
+
+
+def hold_checkpoint(label, chk, state, tols):
+    """A checkpoint's fields against a state: bitwise, or within `tols`
+    (field: (kind, limit, floor))."""
+    out, bad = {}, []
+    for k in ("alpha", "u", "v", "w", "p", "t", "dt"):
+        ref = getattr(state, k).cpu().numpy()
+        err = float(np.abs(chk[k] - ref).max())
+        scale = float(np.abs(ref).max())
+        out[k] = {"max_abs_err": err, "scale": scale}
+        if k in tols and err:
+            kind_t, tol, floor = tols[k]
+            lim = max(tol if kind_t == "abs" else tol * scale, floor)
+            out[k]["limit"] = lim
+            if err > lim:
+                bad.append(f"{k}: {err} > {lim}")
+        elif err:
+            bad.append(f"{k}: {err} (held bitwise)")
+    bitwise = all(v["max_abs_err"] == 0.0 for v in out.values())
+    log(f"  {label}: bitwise {bitwise}; "
+        + "; ".join(f"{k} {v['max_abs_err']:.3e}" for k, v in out.items()))
+    if bad:
+        raise AssertionError(f"{label}: {bad}")
+    return {"bitwise": bitwise, **out}
+
+
+def phase_mesh_x_run(dev):
+    """(b) `run_case(devices=4, device="cuda:0")` on the flagship for two
+    write intervals: the grid rounded as the JAX package rounds it, the
+    halo kernels alone launched (11a-b once an island, the rest 4 times),
+    killed after the first interval and resumed; the final checkpoint
+    against the SpmdCtx(1) step through the same advance (bitwise; else
+    phase 3b's limits)."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import SolverControls
+    from openfoam_tpp_tpu_torch.manager.cases import setup_case
+    from openfoam_tpp_tpu_torch.manager.runner import (build_case_geometry,
+                                                       run_case)
+    from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
+    from openfoam_tpp_tpu_torch.solver import poisson
+    from openfoam_tpp_tpu_torch.utils.io import list_checkpoints, load_checkpoint
+
+    params = {**MESH_CASE, "duration": 0.1}
+    card = f"{dev.type}:{dev.index or 0}"
+    geom = build_case_geometry(params, devices=N_SHARDS, device=dev)
+    log(f"[mesh run_case(devices={N_SHARDS}, device={card!r})] flagship "
+        f"grid rounded to {geom.shape} ({geom.n_fluid_cells} fluid cells)")
+    if tuple(geom.shape) != SHARDED_RUN_SHAPE:
+        raise AssertionError(f"mesh x run: grid {geom.shape}")
+    fns = {k: getattr(m, a) for k, (m, a, _) in counters().items()}
+    solves = []
+    real_pcg = poisson.solve_pcg
+
+    def pcg(*a, **k):
+        res = real_pcg(*a, **k)
+        solves.append(int(res[2]))
+        return res
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_xrun_") as base:
+        case = setup_case(params, base)
+        for f in fns.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        with mock.patch.object(poisson, "solve_pcg", pcg):
+            stats = run_case(case, devices=N_SHARDS, device=card,
+                             log=lambda ln: log("  | " + ln))
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in fns.items()}
+        steps = stats["steps"]
+        ms = stats["wall_seconds"] / max(steps, 1) * 1e3
+        log(f"  {steps} steps in {stats['wall_seconds']:.2f} s wall "
+            f"({ms:.1f} ms/step with writes; writing "
+            f"{stats['io_seconds']:.2f} s); p_iters {solves}")
+        ran = {k for k, v in launches.items() if v}
+        if ran != set(HALO_PATH) or len(solves) != steps:
+            raise AssertionError(f"mesh x run: kernels {sorted(ran)}, "
+                                 f"{len(solves)} solves for {steps} steps")
+        check_halo_launches("mesh x run", launches,
+                            {"steps": steps, "p_iters": solves}, N_SHARDS, 1)
+        chks = list_checkpoints(case)
+        for t, path in chks:
+            if t > 0.05 + 1e-9:
+                os.remove(path)
+        again = run_case(case, devices=N_SHARDS, device=card,
+                         log=lambda ln: log("  | " + ln))
+        chks = list_checkpoints(case)
+        if [round(t, 6) for t, _ in chks] != [0.0, 0.05, 0.1] \
+                or again["steps"] >= steps:
+            raise AssertionError(f"mesh x run: resume gave {chks}, "
+                                 f"{again['steps']} steps")
+        final = load_checkpoint(chks[-1][1])
+        probe_rows = len(probe_table(case, "p"))
+    targets = [float(np.float32(k) * np.float32(0.05)) for k in (1, 2)]
+    one = advance_to(geom, SolverControls(use_pallas=True), SpmdCtx(1),
+                     params, dev, targets)
+    held = hold_checkpoint("resumed 4-shard run against SpmdCtx(1)", final,
+                           one, {**SHARD_TOLS, **DT_TOL})
+    if probe_rows != int(final["step"]):
+        raise AssertionError(f"mesh x run: {probe_rows} probe rows for "
+                             f"{final['step']} steps")
+    return {"shape": list(geom.shape), "steps": steps,
+            "resumed_steps": again["steps"], "wall_seconds":
+            stats["wall_seconds"], "io_seconds": stats["io_seconds"],
+            "ms_per_step_with_writes": ms, "p_iters": solves,
+            "launches": {k: launches[k] for k in HALO_PATH},
+            "against_spmd1": held}
+
+
+def run_alone_and_on_mesh(label, setup, devices, card):
+    """One case set up twice (`setup(base) -> case dir`), run by
+    `run_case` on `card` alone and over the mesh `devices` (positions
+    sharing the card), each with every launch count set to 0 just before
+    and read just after: (stats, launches, final checkpoint) of each."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.manager.runner import run_case
+    from openfoam_tpp_tpu_torch.utils.io import list_checkpoints, load_checkpoint
+
+    fns = {k: getattr(m, a) for k, (m, a, _) in counters().items()}
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as base:
+        for name, devs in (("mesh", devices), ("alone", None)):
+            case = setup(os.path.join(base, name))
+            for f in fns.values():
+                f.launches = 0
+            torch.cuda.synchronize()
+            stats = run_case(case, devices=devs, device=card,
+                             log=lambda ln: log(f"  | [{name}] " + ln))
+            torch.cuda.synchronize()
+            launches = {k: f.launches for k, f in fns.items() if f.launches}
+            out[name] = (stats, launches,
+                         load_checkpoint(list_checkpoints(case)[-1][1]))
+    for name, (stats, launches, _) in out.items():
+        ms = stats["wall_seconds"] / max(stats["steps"], 1) * 1e3
+        log(f"[{label}, {name}] {stats['steps']} steps in "
+            f"{stats['wall_seconds']:.2f} s wall ({ms:.1f} ms/step with "
+            f"writes), kernel launches {launches}")
+    return out
+
+
+def phase_mesh_nxm_run(dev, geom):
+    """(c) `run_case(devices="2x2", device="cuda:0")` on the flagship for
+    one write interval: the JAX package's grid for 2x2 (112³, phase 3's),
+    the global step with the single-grid kernels (the seven default ones,
+    flux_all 3, fct_iter 9, momentum_rhs and correct_divmax once a step),
+    the same path as the case run alone on the card, so its checkpoint
+    is held bitwise against the lone run's. Then phase 8's 6DoF tank
+    case (0.05 s) with `devices=2` against the same case alone: the
+    same kernels, bitwise."""
+    from openfoam_tpp_tpu_torch.manager.cases import (setup_case,
+                                                      setup_case_6dof)
+    from openfoam_tpp_tpu_torch.manager.runner import build_case_geometry
+
+    params = {**MESH_CASE, "duration": 0.05}
+    card = f"{dev.type}:{dev.index or 0}"
+    g2 = build_case_geometry(params, devices="2x2", device=dev)
+    six = {"Lx": TANK6DOF["Lx"], "Ly": TANK6DOF["Ly"], "Lz": TANK6DOF["Lz"],
+           "mesh": TANK6DOF["mesh"], "chamfer": TANK6DOF["chamfer"],
+           "duration": 0.05, "dt": DT0_6DOF}
+    want_per_step = {"flux_all": 3, "fct_iter": 9, "momentum_rhs": 1,
+                     "correct_divmax": 1}
+    out = {"shape": list(g2.shape)}
+    for key, label, setup, devices in (
+            ("nxm", f"mesh run_case(devices='2x2', device={card!r})",
+             lambda b: setup_case(params, b), "2x2"),
+            ("tank6dof", f"mesh 6DoF run_case(devices=2, device={card!r})",
+             lambda b: setup_case_6dof(six, b), 2)):
+        runs = run_alone_and_on_mesh(label, setup, devices, card)
+        (stats, launches, final), (_, alone_l, alone) = (runs["mesh"],
+                                                          runs["alone"])
+        bad = []
+        if (set(launches) != set(DEFAULT_PATH) or launches != alone_l
+                or any(launches[k] != n * stats["steps"]
+                       for k, n in want_per_step.items())):
+            bad.append(f"launches {launches} (alone {alone_l})")
+        diff = {k: float(np.abs(final[k] - alone[k]).max())
+                for k in ("alpha", "u", "v", "w", "p", "t", "dt", "step")}
+        if any(diff.values()):
+            bad.append(f"against the lone run {diff} (held bitwise)")
+        log(f"  {label}: kernels as alone {launches == alone_l}; against "
+            f"the lone run, bitwise {not any(diff.values())}")
+        if key == "nxm" and (tuple(g2.shape) != tuple(geom.shape)
+                             or final["alpha"].shape != tuple(geom.shape)):
+            bad.append(f"grid {g2.shape}, phase 3's {tuple(geom.shape)}")
+        if bad:
+            raise AssertionError(f"{label}: {bad}")
+        ms = stats["wall_seconds"] / max(stats["steps"], 1) * 1e3
+        out[key] = {"steps": stats["steps"],
+                    "wall_seconds": stats["wall_seconds"],
+                    "ms_per_step_with_writes": ms, "launches": launches,
+                    "bitwise_alone": True}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3185,6 +3858,10 @@ def main() -> int:
     lap("9")
     tiled, tiled_rows, tiled_launches = phase_tiled(dev, props, sweep)
     lap("10")
+
+    # 12. the device mesh on one card
+    mesh = phase_mesh(torch.device("cuda", 0), props, geom, sweep)
+    lap("12")
     log("[kernels: flagship (phase 2 / a flagship step's operands) and the "
         f"tiled {TILED_SHAPE} step's operands, us per call; of the V-cycle "
         "rows the finest level's calls, then the mean of all]")
@@ -3216,7 +3893,8 @@ def main() -> int:
               "runs": {"use_pallas_from_rest": main, "same_state": runs,
                        "sharded": sharded, "case_path": case, "sweep": sweep,
                        "runsweep": manager, "tank6dof": tank6dof,
-                       "csf": csf, "tiled": tiled, "top": top},
+                       "csf": csf, "tiled": tiled, "top": top,
+                       "mesh": mesh},
               "tiled_kernel_rows": tiled_rows, "phase_seconds": laps,
               "launches": {"csf": csf_launches, "tiled": tiled_launches}}
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)

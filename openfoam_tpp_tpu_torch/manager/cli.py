@@ -2,7 +2,8 @@
 
     python -m openfoam_tpp_tpu_torch [--base-dir D] [--device cpu]        (the menu)
     python -m openfoam_tpp_tpu_torch --headless --base-dir D --case C --action run|interface|flow|video|profile [--submit [--partition P]]
-    python -m openfoam_tpp_tpu_torch --headless --base-dir D --action runsweep [--case A,B|all] [--percase-dt]
+    python -m openfoam_tpp_tpu_torch --headless --base-dir D --case C --action run --devices N[xM] --device cuda:0
+    python -m openfoam_tpp_tpu_torch --headless --base-dir D --action runsweep [--case A,B|all] [--percase-dt] [--devices N --device cuda:0]
     python -m openfoam_tpp_tpu_torch --headless --base-dir D --action build6dof [--params Lx=20,mesh=1] [--motion-table F | --native-table]
     python -m openfoam_tpp_tpu_torch --headless --base-dir D --action config
 
@@ -14,9 +15,14 @@ process, build a 6DoF case, show the configuration), the verbs, and
 torch.profiler (utils/profiling.py). The solver verbs and the menu run on
 the CUDA device unless `--device cpu` is given; `flow` (potential theory)
 and `video` (matplotlib frames of the checkpoints) run on the host.
-`--devices` (runs over several cards) is not ported: asking for it exits
-2. The dependency check runs first (utils/bootstrap.py). PyTorch runs
-eagerly, so there is no compile cache to set up.
+`--devices N[xM]` runs a case over a device mesh of that many positions
+(`run`: the grid's x, or x and y, axes; `runsweep`: each batch's case
+axis, a remainder that does not divide N run apart), each position on
+the device `--device` gives it: `cuda` the first N cards, an indexed
+device (`cuda:0`, `cpu`) all on that one, a comma list one each
+(parallel/sharding.py; a `run` over distinct cards is not ported). The
+dependency check runs first (utils/bootstrap.py). PyTorch runs eagerly,
+so there is no compile cache to set up.
 """
 
 from __future__ import annotations
@@ -79,11 +85,13 @@ def action_video(case_dir: str, device=None) -> bool:
     return generate_video(case_dir)
 
 
-def action_run(case_dir: str, device="cuda") -> bool:
+def action_run(case_dir: str, device="cuda", devices=None) -> bool:
     from openfoam_tpp_tpu_torch.manager.runner import run_case
 
-    print(f"  🚀 Running {os.path.basename(case_dir)} ...")
-    run_case(case_dir, device=device)
+    print(f"  🚀 Running {os.path.basename(case_dir)} ..."
+          + (f" ({devices}-device sharded)" if devices not in (None, 1, "1")
+             else ""))
+    run_case(case_dir, devices=devices, device=device)
     return True
 
 
@@ -99,20 +107,38 @@ def action_profile(case_dir: str, device="cuda") -> bool:
 
 
 def action_runsweep(case_dirs: list[str], lockstep: bool = True,
-                    device="cuda") -> bool:
-    """Run many cases as batches on one card (manager/sweeprun.py).
-    `lockstep=False` (--percase-dt) gives every case its own adaptive dt
-    (solo-run parity). A group of one case runs through `run`."""
+                    device="cuda", devices=None) -> bool:
+    """Run many cases as batches (manager/sweeprun.py). `lockstep=False`
+    (--percase-dt) gives every case its own adaptive dt (solo-run
+    parity). A group of one case runs through `run`.
+
+    `devices=N` farms each batch over an N-position case-axis mesh on the
+    devices `device` gives (device.py); a group remainder that does not
+    divide N runs unfarmed on the first of them."""
+    from openfoam_tpp_tpu_torch.device import device_positions
     from openfoam_tpp_tpu_torch.manager.sweeprun import (group_cases,
                                                          run_cases_batched)
+    from openfoam_tpp_tpu_torch.parallel.sharding import parse_devices
+
+    d_x, d_y = parse_devices(devices)
+    n_dev = d_x * d_y
+    first = device_positions(device, n_dev)[0] if n_dev > 1 else device
 
     for group in group_cases(case_dirs):
-        if len(group) == 1:
-            action_run(group[0], device=device)
-        else:
-            print(f"  🚀 Batched run: {len(group)} cases in one batch"
-                  + ("" if lockstep else " (per-case dt)"))
-            run_cases_batched(group, lockstep=lockstep, device=device)
+        chunks = [(group, 1)]
+        if n_dev > 1 and len(group) > 1:
+            head = len(group) - (len(group) % n_dev)
+            chunks = ([(group[:head], n_dev)] if head else []) \
+                + ([(group[head:], 1)] if head < len(group) else [])
+        for part, nd in chunks:
+            if len(part) == 1:
+                action_run(part[0], device=first)
+            else:
+                print(f"  🚀 Batched run: {len(part)} cases in one batch"
+                      + (f" over {nd} devices" if nd > 1 else "")
+                      + ("" if lockstep else " (per-case dt)"))
+                run_cases_batched(part, lockstep=lockstep, devices=nd,
+                                  device=device if nd > 1 else first)
     return True
 
 
@@ -367,7 +393,9 @@ def main(argv=None):
                          "native gen6dof binary")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs "
-                         "the plain PyTorch path)")
+                         "the plain PyTorch path); with --devices N also "
+                         "an indexed device (cuda:0) for all N positions, "
+                         "or a comma list of N devices")
     ap.add_argument("--submit", action="store_true",
                     help="submit the action as a Slurm job on one GPU "
                          "instead of running it in-process")
@@ -377,9 +405,13 @@ def main(argv=None):
                          "write targets (solo-run parity) instead of the "
                          "lockstep batch-min dt")
     ap.add_argument("--devices", type=str, default=None,
-                    help="sharded runs over several cards and sweep "
-                         "farming (not ported yet: they come with the "
-                         "torch.distributed slice)")
+                    help="run over a mesh of N device positions: with "
+                         "run, the grid's x axis (or 'NxM' for x and y) on "
+                         "positions that share one device; with runsweep, "
+                         "each batch's case axis farmed over the N "
+                         "positions (see --device); a farm whose positions "
+                         "share one card launches every kernel once per "
+                         "position and is slower than the plain batch")
     args = ap.parse_args(argv)
 
     # Dependency self-check (the reference's venv bootstrap, main.py:9-95):
@@ -387,13 +419,6 @@ def main(argv=None):
     from openfoam_tpp_tpu_torch.utils.bootstrap import ensure_dependencies
 
     if not ensure_dependencies(base_dir=args.base_dir):
-        return 2
-
-    if args.devices not in (None, "1"):
-        print("❌ not ported yet: --devices (runs over several cards come "
-              "with the torch.distributed slice; the x-sharded step is "
-              "make_step(spmd=SpmdCtx(n)), its shards on one card)",
-              file=sys.stderr)
         return 2
 
     if not args.headless:
@@ -429,7 +454,8 @@ def main(argv=None):
             print("Nothing to run.")
             return 0
         return 0 if action_runsweep(dirs, lockstep=not args.percase_dt,
-                                    device=args.device) else 1
+                                    device=args.device,
+                                    devices=args.devices) else 1
     if not (args.case and args.action):
         ap.error("--headless requires --case and --action")
     case_dir = os.path.join(args.base_dir, args.case)
@@ -443,7 +469,11 @@ def main(argv=None):
                                 partition=args.partition) else 1
     print(f"Post-processing: {args.action} on {args.case}"
           if args.action != "run" else f"Running: {args.case}")
-    return 0 if ACTIONS[args.action](case_dir, device=args.device) else 1
+    if args.action == "run" and args.devices:
+        ok = action_run(case_dir, device=args.device, devices=args.devices)
+    else:
+        ok = ACTIONS[args.action](case_dir, device=args.device)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -11,8 +11,18 @@ checkpoint is automatic (`startFrom latestTime` parity).
 The JAX package jits the advance as one device loop and caches the
 executable; PyTorch runs eagerly, so the loop is a Python loop and there
 is nothing to cache: the step is built anew (and the OFTPP_* variables
-read) at every `get_compiled_advance`. Sharded runs over several cards
-are not ported yet and raise NotImplementedError.
+read) at every `get_compiled_advance`.
+
+`devices=N` (or 'NxM') lays the case's grid over a device mesh
+(parallel/sharding.py) whose positions share one device: with N > 1 the
+x-sharded step with its per-shard kernel islands (parallel/spmd.py)
+where the JAX package runs them, else the global step on the rounded
+grid (GSPMD's counterpart), with the kernels on a CUDA device
+(`step_choice`; the run logs which). Positions on distinct cards raise
+NotImplementedError (ROADMAP.md §1 item 7). The run carries a global
+SimState and writes global checkpoints, as the JAX package writes them
+(it packs the state only to cross its sharded jit, a boundary the port
+does not have).
 
 OFTPP_DEBUG_NANS=1 runs `run_case` under utils/nan_trap.py's trap: the
 first operation or kernel that outputs a NaN raises FloatingPointError
@@ -22,6 +32,7 @@ before anything later is written (the JAX package's jax_debug_nans).
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 
@@ -31,11 +42,13 @@ import torch
 from openfoam_tpp_tpu_torch.config import PhysicalProperties, SolverControls
 from openfoam_tpp_tpu_torch.core.motion import TableMotion
 from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
-from openfoam_tpp_tpu_torch.device import resolve_device
+from openfoam_tpp_tpu_torch.device import device_positions, resolve_device
 from openfoam_tpp_tpu_torch.manager.cases import load_case_params
 from openfoam_tpp_tpu_torch.mesh import (build_box_geometry,
                                          build_chamfer_tank_geometry,
                                          build_tank_geometry)
+from openfoam_tpp_tpu_torch.parallel import sharding as sh
+from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
 from openfoam_tpp_tpu_torch.post.probes import (ProbeWriter,
                                                 default_probe_points,
                                                 default_wave_columns,
@@ -123,12 +136,32 @@ def make_advance(step_fn, max_steps: int = _MAX_STEPS_PER_WRITE,
     return advance
 
 
+def _spmd_kernels_wanted(device) -> bool:
+    """True when a 1-D x-sharded run should use the per-shard kernel
+    islands (parallel/spmd.py): on a CUDA device, or with
+    OFTPP_SPMD_PALLAS=interpret (the islands' plain versions on the CPU,
+    the CPU tests' mode); OFTPP_SPMD_PALLAS=0 turns them off. Shared by
+    the geometry rounding policy and the step builder so they agree: the
+    islands want nx a multiple of 8 per shard, a rounding the plain
+    global step must not pay (the grid would differ from a solo run of
+    the same case). The JAX package asks the same of its backend (TPU)."""
+    env = os.environ.get("OFTPP_SPMD_PALLAS", "1")
+    if env == "0":
+        return False
+    return torch.device(device).type == "cuda" or env == "interpret"
+
+
 def build_case_geometry(params: dict, shape_hint: tuple | None = None,
-                        devices=None):
+                        devices=None, device="cuda"):
     """Geometry for a case. `shape_hint` (from an existing checkpoint's
     alpha shape) keeps resumed/postprocessed cases consistent with the
-    grid they were started on, across round_to policy changes."""
-    _check_slice(devices)
+    grid they were started on, across round_to policy changes.
+    `devices` (int N or 'NxM'): the grid's x (and y) extents must divide
+    the device-mesh axes for sharded runs — rounds nx/ny up (with solid
+    zero-aperture padding) when 8-rounding alone does not; `device` (the
+    positions' device) decides, with OFTPP_SPMD_PALLAS, whether the 1-D
+    kernel islands' rounding comes first. The same setting gives the
+    JAX package's shapes, so checkpoints resume across the packages."""
     if params.get("model") == "tank6dof":
         if float(params.get("chamfer", 0.0)) > 0.0:
             # The tutorial tank's true shape class: 45°-chamfered bottom
@@ -141,29 +174,34 @@ def build_case_geometry(params: dict, shape_hint: tuple | None = None,
             params["Lx"], params["Ly"], params["Lz"], params["mesh"],
             z0=-params["Lz"] / 2.0, open_top=False,
         )
+    dx, dy = sh.parse_devices(devices)
     # round_to=8: nx/ny padded (with solid, zero-aperture cells) to a
     # multiple of 8, as the JAX package does, so both build the same grid.
-    for r in (8, 1):
+    rounds = [8, 1]
+    if dx * dy > 1:
+        cands = [math.lcm(8, max(dx, dy))]
+        if dy == 1 and _spmd_kernels_wanted(device):
+            # The 1-D x decomposition with per-shard kernels: the local nx
+            # stays a multiple of 8, so nx rounds to 8·dx first; the lcm
+            # candidate remains for cases built under the other rounding.
+            cands = [8 * dx] + cands
+        rounds = cands + rounds
+    for r in rounds:
         geom = build_tank_geometry(
             H=params["H"], D=params["D"], mesh=params["mesh"],
             geo=params["geo"], round_to=r,
         )
         if shape_hint is not None and tuple(geom.shape) != tuple(shape_hint):
             continue
+        if dx * dy > 1 and (geom.shape[0] % dx or geom.shape[1] % dy):
+            continue
         return geom
     raise ValueError(
         f"no geometry for {params} matches checkpoint grid {shape_hint}"
-        " — was the case built with different parameters?"
+        + (f" with (nx, ny) divisible by ({dx}, {dy}) devices"
+           if devices else "")
+        + " — was the case built with different parameters?"
     )
-
-
-def _check_slice(devices=None):
-    if devices not in (None, 1, "1"):
-        raise NotImplementedError(
-            f"devices={devices!r}: sharded runs over several cards come with "
-            "the torch.distributed slice (not ported yet); the x-sharded "
-            "step itself is make_step(spmd=SpmdCtx(n)), whose shards share "
-            "one card")
 
 
 def _case_shape_hint(case_dir: str):
@@ -187,37 +225,96 @@ def build_case_motion(params: dict, case_dir: str, device="cuda"):
                                   device=device)
 
 
+def _mesh_device(devices, device):
+    """(x shards, y shards, the one device of the run's mesh positions)."""
+    d_x, d_y = sh.parse_devices(devices)
+    positions = device_positions(device, d_x * d_y)
+    if d_x * d_y > 1:
+        mesh = sh.make_mesh(d_x * d_y, case_axis=1, y_axis=d_y,
+                            devices=positions)
+        positions = sh.case_devices(mesh)
+    return d_x, d_y, resolve_device(positions[0])
+
+
+def step_choice(params: dict, shape, d_x: int, d_y: int, dev):
+    """(spmd, use the kernels, what runs) for a case on a (d_x, d_y) mesh
+    whose positions share `dev`.
+
+    The 1-D x decomposition with nx a multiple of 8·d_x runs the x-sharded
+    step (`SpmdCtx(d_x)`, its halo kernel islands) where
+    `_spmd_kernels_wanted`. Every other run computes the global step,
+    which is what GSPMD computes on a shared device: on a CUDA device it
+    runs with the single-grid kernels, as on one device (the JAX package
+    runs 'NxM', a sharded 6DoF case and a grid the islands do not divide
+    without kernels, since Pallas does not run under GSPMD; the port has
+    no such limit). On the CPU the caller's controls stand."""
+    n_dev = d_x * d_y
+    if n_dev > 1:
+        why = ("'NxM'" if d_y > 1
+               else "a 6DoF case" if params.get("model") == "tank6dof"
+               else f"nx {shape[0]} not a multiple of 8·{d_x}"
+               if shape[0] % (8 * d_x)
+               else None if _spmd_kernels_wanted(dev)
+               else "OFTPP_SPMD_PALLAS=0")
+        if why is None:
+            return (SpmdCtx(d_x), True,
+                    f"x-sharded step over {d_x} shards (halo kernel islands)")
+    else:
+        why = "one device"
+    if dev.type == "cuda":
+        return None, True, f"global step with the single-grid kernels ({why})"
+    return None, False, f"global step, the caller's controls ({why})"
+
+
 def get_compiled_advance(params: dict, props: PhysicalProperties,
                          controls: SolverControls, case_dir: str | None = None,
                          devices=None, device="cuda"):
-    """Returns (geom, advance) for a single-device case, with the
-    preconditioner carried through the advance loop and the probe sampler
-    run every step. `advance(state, case_params, t_target) -> (state,
-    diag, n_steps, samples)`. An analytic-orbital case runs the
-    geometry-as-operands step (make_step_ga); a 6DoF case the closure step
-    (make_step) with the motion of its case directory's table.
+    """Returns (geom, advance) with the preconditioner carried through the
+    advance loop and the probe sampler run every step. `advance(state,
+    case_params, t_target) -> (state, diag, n_steps, samples)`.
 
-    On a CUDA device the hand-written kernels are turned on
-    (`use_pallas=True`), whatever the grid: they take any shape. On the
-    CPU the caller's controls stand as they are."""
-    dev = resolve_device(device)
+    An analytic-orbital case runs the geometry-as-operands step
+    (make_step_ga), a 6DoF case the closure step (make_step) with the
+    motion of its case directory's table. On a CUDA device the
+    hand-written kernels are turned on (`use_pallas=True`), whatever the
+    grid: they take any shape. On the CPU the caller's controls stand.
+
+    `devices` (N > 1 or 'NxM', positions sharing one device): the same
+    steps on the rounded grid (`step_choice`), except that the 1-D x
+    decomposition runs the x-sharded closure step (`spmd=SpmdCtx(N)`)."""
+    d_x, d_y, dev = _mesh_device(devices, device)
+    geom, advance, _ = _compiled_advance(params, props, controls, case_dir,
+                                         devices, d_x, d_y, dev)
+    return geom, advance
+
+
+def _compiled_advance(params, props, controls, case_dir, devices, d_x, d_y,
+                      dev):
+    """get_compiled_advance on a resolved mesh: (geom, advance, what
+    runs)."""
+    n_dev = d_x * d_y
+    is_6dof = params.get("model") == "tank6dof"
     shape_hint = _case_shape_hint(case_dir) if case_dir else None
-    geom = build_case_geometry(params, shape_hint, devices=devices)
-    if dev.type == "cuda":
+    geom = build_case_geometry(params, shape_hint,
+                               devices=devices if n_dev > 1 else None,
+                               device=dev)
+    spmd, use_k, what = step_choice(params, geom.shape, d_x, d_y, dev)
+    if use_k:
         controls = dataclasses.replace(controls, use_pallas=True)
     k_env = os.environ.get("OFTPP_PRECOND_REFRESH")
     if k_env is not None:
         controls = dataclasses.replace(controls, precond_refresh=int(k_env))
 
     points, columns = default_probe_points(geom), default_wave_columns(geom)
-    if params.get("model") == "tank6dof":
+    if is_6dof or spmd is not None:
         motion = (build_case_motion(params, case_dir, device=dev)
                   if case_dir else None)
         step = make_step(geom, props, controls, motion=motion,
-                         carry_precond=True, device=dev)
+                         carry_precond=True, spmd=spmd, device=dev)
         sampler, width = make_probe_sampler(geom, points, columns,
                                             device=dev)
-        return geom, make_advance(step, sampler=sampler, sample_width=width)
+        return geom, make_advance(step, sampler=sampler,
+                                  sample_width=width), what
 
     step = make_step_ga(geom.spacing, props, controls,
                         open_top=bool(np.any(geom.top_open > 0)),
@@ -231,7 +328,7 @@ def get_compiled_advance(params: dict, props: PhysicalProperties,
     def advance(state, case_params, t_target):
         return inner(state, case_params, t_target, ga, pack)
 
-    return geom, advance
+    return geom, advance, what
 
 
 def run_case(
@@ -248,6 +345,12 @@ def run_case(
     time spent writing checkpoints and probe files) and `intervals` (per
     write target: simulated time, steps, wall seconds).
 
+    `devices` (int N, or 'NxM' for a 2-D x·y decomposition): the grid's
+    spatial axes over a mesh of that many positions, which must share one
+    device: `device` as an indexed device ("cuda:0", "cpu") or a list
+    that repeats one (device.py `device_positions`). Checkpoints, probes
+    and resume work as on one device: the state is written globally.
+
     With OFTPP_DEBUG_NANS=1 the run is trapped for NaN (utils/nan_trap.py;
     the trap is on for this call only, where the JAX package's setting
     holds for the process)."""
@@ -263,12 +366,15 @@ def _run_case(case_dir, props, controls, log, write_checkpoints, devices,
               device) -> dict:
     params = load_case_params(case_dir)
     is_6dof = params.get("model") == "tank6dof"
-    geom, advance = get_compiled_advance(
-        params, props, controls, case_dir, devices=devices, device=device)
+    d_x, d_y, device = _mesh_device(devices, device)
+    geom, advance, what = _compiled_advance(params, props, controls, case_dir,
+                                            devices, d_x, d_y, device)
     n_cells = geom.n_fluid_cells
     log(f"  Mesh: {geom.shape[0]}x{geom.shape[1]}x{geom.shape[2]} grid, "
         f"{n_cells} fluid cells (h={params['mesh']:g} m, "
-        f"geo={params.get('geo', geom.geo)})")
+        f"geo={params.get('geo', geom.geo)})"
+        + (f", {devices} mesh positions (x·y) on {device}: {what}"
+           if d_x * d_y > 1 else ""))
 
     if is_6dof:
         # The motion comes from the case's table; the params are inert.

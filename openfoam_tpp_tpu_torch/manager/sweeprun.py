@@ -20,6 +20,14 @@ The JAX package jits the advance as one device loop; here it is a Python
 loop that reads `min(t) < t_target` on the host once per step. Probe rows
 go into a preallocated device buffer by index and reach the host once per
 advance call.
+
+`devices=N` farms the batch over an N-position `case`-axis mesh
+(parallel/sharding.py): each position steps its slice of the cases on its
+own device, with the batch-native kernels, and only the lockstep dt's
+minimum crosses positions (none with `lockstep=False`). The JAX package
+farms in the leading layout and lets GSPMD split it; here the host
+splits the batch, in the trailing layout the batch-native kernels need.
+One device is the farm of one position.
 """
 
 from __future__ import annotations
@@ -31,10 +39,11 @@ import torch
 
 from openfoam_tpp_tpu_torch.config import PhysicalProperties, SolverControls
 from openfoam_tpp_tpu_torch.core.state import SimState
-from openfoam_tpp_tpu_torch.device import resolve_device
+from openfoam_tpp_tpu_torch.device import device_positions, resolve_device
 from openfoam_tpp_tpu_torch.manager.cases import load_case_params
+from openfoam_tpp_tpu_torch.parallel import sharding as sh
 from openfoam_tpp_tpu_torch.parallel.sweep import (_STATE_FIELDS,
-                                                   _stack_states,
+                                                   _min_over, _stack_states,
                                                    batch_params,
                                                    batch_states_geom,
                                                    build_batched_geometry,
@@ -80,11 +89,16 @@ def _unpack_case(states: SimState, i: int, axis: int = -1) -> SimState:
     return SimState(**{k: take(getattr(states, k)) for k in _STATE_FIELDS})
 
 
-def _save_all(case_dirs, states: SimState):
-    """One checkpoint per case, from one host copy of the batch."""
-    host = SimState(**{k: getattr(states, k).cpu() for k in _STATE_FIELDS})
-    for i, d in enumerate(case_dirs):
-        save_checkpoint(d, _unpack_case(host, i))
+def _save_all(case_dirs, parts: list):
+    """One checkpoint per case, from one host copy of each part of the
+    batch (the parts hold the cases in order)."""
+    i = 0
+    for states in parts:
+        host = SimState(**{k: getattr(states, k).cpu()
+                           for k in _STATE_FIELDS})
+        for j in range(host.t.shape[0]):
+            save_checkpoint(case_dirs[i], _unpack_case(host, j))
+            i += 1
 
 
 def run_cases_batched(case_dirs: list[str],
@@ -97,13 +111,13 @@ def run_cases_batched(case_dirs: list[str],
     write interval. Returns aggregate stats (the JAX package's keys, plus
     `io_seconds`: host time spent writing checkpoints and probe files).
 
-    Farming the batch over several devices (`devices=N`) is not ported
-    yet."""
-    if devices not in (None, 1):
-        raise NotImplementedError(
-            f"devices={devices!r}: farming a batch over several devices is "
-            "not ported yet (one device only)")
-    dev = resolve_device(device)
+    `devices=N` farms the batch over an N-position case-axis mesh, each
+    position on the device `device` gives it ("cuda": the first N cards;
+    "cuda:0" or "cpu": all on that one; a list: one each). Requires
+    len(case_dirs) % N == 0 (action_runsweep splits the remainder off).
+    The farm runs in the trailing layout: `axis` must be -1."""
+    n_dev = int(np.prod(sh.parse_devices(devices)))
+    positions = device_positions(device, n_dev)
     rows = [load_case_params(d) for d in case_dirs]
     if any(r.get("model") == "tank6dof" for r in rows):
         raise NotImplementedError("model 'tank6dof' runs alone (run_case, "
@@ -118,57 +132,77 @@ def run_cases_batched(case_dirs: list[str],
             f"durations={durations})")
     duration = durations.pop()
     n = len(case_dirs)
+    if n % n_dev:
+        raise ValueError(
+            f"run_cases_batched: {n} cases do not divide over {n_dev} "
+            "devices — split the group first (action_runsweep does)")
+    if axis not in (-1, 3):
+        raise ValueError(f"axis={axis}: the farm runs with the case axis "
+                         "trailing (axis=-1)")
+    mesh = sh.make_mesh(n_dev, case_axis=n_dev, devices=positions)
+    sharding = sh.state_sharding(mesh, batched=True)
+    dev = resolve_device(sharding.devices[0])
+    for d in sharding.devices[1:]:
+        resolve_device(d)
 
+    # The whole batch's shared grid, then each position's part of it.
     bgeom = build_batched_geometry(rows, round_to=4, axis=axis, device=dev)
-    params = batch_params(rows, device=dev)
-    sweep_step = make_geom_sweep_step(bgeom, props, controls,
-                                      lockstep=lockstep)
+    bgeoms = sh.shard_batched_geometry(bgeom, mesh)
+    pparts = sh.params_sharding(mesh, batched=True).put(
+        batch_params(rows, device=dev))
+    farm = sh.sharded_step([make_geom_sweep_step(g, props, controls,
+                                                 lockstep=lockstep)
+                            for g in bgeoms], mesh, batched=True)
 
     # Resume: all cases in a group share the same progress time.
     io_seconds = 0.0
     chks = [latest_checkpoint(d) for d in case_dirs]
     if all(c is not None for c in chks):
-        states = _stack_states([to_state(load_checkpoint(c[1]), device=dev)
-                                for c in chks])
-        t_now = float(states.t[0])
+        parts = sharding.put(_stack_states(
+            [to_state(load_checkpoint(c[1]), device="cpu") for c in chks]))
+        t_now = float(parts[0].t[0])
         log(f"  Resuming {n} cases from t={t_now:.4f} s")
     else:
-        states = batch_states_geom(bgeom, dt0=rows[0]["dt"])
+        parts = [batch_states_geom(g, dt0=rows[0]["dt"]) for g in bgeoms]
         t_now = 0.0
         t_io = time.time()
-        _save_all(case_dirs, states)
+        _save_all(case_dirs, parts)
         io_seconds += time.time() - t_io
 
     # Per-timestep probe channels, as in the solo runner: every case
     # samples its p probes AND η wave gauges at EVERY solver step into a
     # device-side row buffer, flushed per write interval. Per-case probe
-    # constants ride as one case-stacked pack, so mixed (H, D) geometries
-    # sample in one pass.
+    # constants ride as one case-stacked pack per position, so mixed
+    # (H, D) geometries sample in one pass.
     probes, gauges, packs = [], [], []
     for d, g in zip(case_dirs, bgeom.geoms):
         pts = default_probe_points(g)
         cols = default_wave_columns(g)
-        packs.append(probe_pack(g, pts, cols, device=dev))
+        packs.append(probe_pack(g, pts, cols, device="cpu"))
         probes.append(ProbeWriter(d, pts, "p", start_time=t_now))
         gauges.append(ProbeWriter(
             d, np.column_stack([cols, np.zeros(len(cols))]), "eta",
             start_time=t_now))
     n_pts = len(default_probe_points(bgeom.geoms[0]))
     row_width = 1 + n_pts + len(default_wave_columns(bgeom.geoms[0]))
-    bpack = stack_packs(packs)
+    bpacks = [{k: a.to(d) for k, a in stack_packs(packs[sl]).items()}
+              for sl, d in zip(sharding.slices(n), sharding.devices)]
 
-    def advance(states, t_target):
+    def advance(parts, t_target):
         """Steps until every case has reached t_target (bounded by
-        _MAX_STEPS): (states, n_steps, row buffer)."""
+        _MAX_STEPS): (parts, n_steps, row buffer per part)."""
         t_stop = torch.as_tensor(t_target, dtype=torch.float32, device=dev)
-        buf = torch.zeros((_MAX_STEPS, n, row_width), dtype=torch.float32,
-                          device=dev)
+        bufs = [torch.zeros((_MAX_STEPS, p.t.shape[0], row_width),
+                            dtype=torch.float32, device=p.t.device)
+                for p in parts]
         k = 0
-        while k < _MAX_STEPS and bool(states.t.min() < t_stop):
-            states, _ = sweep_step(states, params, t_stop=t_stop)
-            buf[k] = sample_rows_batched(states, bpack)
+        while k < _MAX_STEPS and bool(
+                _min_over([p.t.min() for p in parts]) < t_stop):
+            parts, _ = farm(parts, pparts, t_stop=t_stop)
+            for buf, p, bp in zip(bufs, parts, bpacks):
+                buf[k] = sample_rows_batched(p, bp)
             k += 1
-        return states, k, buf
+        return parts, k, bufs
 
     w = controls.write_interval
     w32 = np.float32(w)
@@ -183,13 +217,14 @@ def run_cases_batched(case_dirs: list[str],
     steps = 0
     for t_target in targets:
         while True:
-            states, k, buf = advance(states, t_target)
+            parts, k, bufs = advance(parts, t_target)
             steps += k
             if k:
                 # (k, n, width) per-step rows; duplicate rows from cases
                 # held at their write target (--percase-dt) are dropped
                 # by append_rows' time dedup.
-                rows_k = buf[:k].cpu().numpy()
+                rows_k = np.concatenate([b[:k].cpu().numpy() for b in bufs],
+                                        axis=1)
                 t_io = time.time()
                 for i in range(n):
                     probes[i].append_rows(rows_k[:, i, 0],
@@ -197,13 +232,15 @@ def run_cases_batched(case_dirs: list[str],
                     gauges[i].append_rows(rows_k[:, i, 0],
                                           rows_k[:, i, 1 + n_pts :])
                 io_seconds += time.time() - t_io
-            if float(states.t.min()) >= t_target or k == 0:
+            if float(_min_over([p.t.min() for p in parts])) >= t_target \
+                    or k == 0:
                 break
         t_io = time.time()
-        _save_all(case_dirs, states)
+        _save_all(case_dirs, parts)
         io_seconds += time.time() - t_io
-        log(f"Time = {t_target:.6g} s  ({n} cases, "
-            f"dt = {float(states.dt[0]):.3e})")
+        log(f"Time = {t_target:.6g} s  ({n} cases"
+            + (f" over {n_dev} devices" if n_dev > 1 else "")
+            + f", dt = {float(parts[0].dt[0]):.3e})")
 
     wall = time.time() - wall0
     cells = sum(g.n_fluid_cells for g in bgeom.geoms)

@@ -16,18 +16,26 @@ Here the step itself is rank-polymorphic (solver/timestep.py): the case
 axis trails every grid array, (nx, ny, nz, B), per-case scalars are (B,)
 tensors, and reductions are per case. With B innermost a stencil shift
 never touches it, a row of B cases is contiguous, and tiny per-case grids
-fill the card. Only the trailing layout (`axis=-1`) is ported: the
-leading one exists in the JAX package for sharding over devices.
+fill the card. The leading layout (`axis=0`, (B, nx, ny, nz)) is taken
+too: its step moves the case axis to the back on the way in and to the
+front on the way out, and runs plain PyTorch (the batch-native kernels
+need the trailing case axis), as the JAX package routes a leading axis
+to its jnp path.
 
 Lockstep sweeps share one adaptive dt (the batch minimum); with
 `lockstep=False` every case keeps its own dt and cases that have reached
-`t_stop` are held while the others catch up.
+`t_stop` are held while the others catch up. Each sweep step carries its
+`Lockstep` (the step cut where its batch minima fall): `lockstep_step`
+runs it over one batch or over the parts of a batch farmed over a device
+mesh (parallel/sharding.py), taking each minimum over every part.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -38,27 +46,35 @@ from openfoam_tpp_tpu_torch.device import resolve_device
 from openfoam_tpp_tpu_torch.mesh.geometry import (TankGeometry,
                                                   build_tank_geometry,
                                                   natural_shape)
-from openfoam_tpp_tpu_torch.solver.timestep import (geometry_arrays,
+from openfoam_tpp_tpu_torch.solver.timestep import (Cfl, geometry_arrays,
                                                     make_step_core)
 
 _STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
 _PARAM_FIELDS = tuple(f.name for f in dataclasses.fields(CaseParams))
 
 
-def _check_axis(axis):
-    if axis not in (-1, 3):
-        raise NotImplementedError(
-            f"axis={axis}: only the trailing case axis (axis=-1) is ported; "
-            "the leading layout exists for sharding over devices")
+def _trailing(axis) -> bool:
+    """True for the trailing case axis, False for the leading one."""
+    if axis not in (0, -1, 3):
+        raise ValueError(f"axis={axis}: the case axis leads (0) or trails "
+                         "(-1) the grid axes")
+    return axis != 0
 
 
-def _stack_states(states: list) -> SimState:
+def _stack_states(states: list, axis: int = -1) -> SimState:
     """Per-case SimStates → one batched SimState: grid leaves stacked on a
-    new trailing axis, scalar leaves into (B,)."""
+    new case axis (`axis`), scalar leaves into (B,)."""
     return SimState(**{
         k: torch.stack([getattr(s, k) for s in states],
-                       0 if getattr(states[0], k).dim() == 0 else -1)
+                       0 if getattr(states[0], k).dim() == 0 else axis)
         for k in _STATE_FIELDS})
+
+
+def _move_case_axis(states: SimState, src: int, dst: int) -> SimState:
+    """The grid leaves' case axis moved from `src` to `dst` (contiguous);
+    the (B,) leaves as they are."""
+    move = lambda a: a if a.dim() <= 1 else a.movedim(src, dst).contiguous()
+    return SimState(**{k: move(getattr(states, k)) for k in _STATE_FIELDS})
 
 
 def batch_params(param_rows: list[dict], device="cuda") -> CaseParams:
@@ -74,21 +90,96 @@ def batch_params(param_rows: list[dict], device="cuda") -> CaseParams:
 
 def batch_states(geom: TankGeometry, n: int, dt0: float = 1e-3,
                  axis: int = -1, device="cuda") -> SimState:
-    """n identical quiescent initial states, the case axis trailing."""
-    _check_axis(axis)
+    """n identical quiescent initial states, the case axis trailing (or
+    leading: axis=0)."""
+    trailing = _trailing(axis)
     s = init_state(geom, dt0=dt0, device=device)
 
     def rep(a):
         if a.dim() == 0:
             return a.expand(n).clone()
-        return a.unsqueeze(-1).expand(*a.shape, n).contiguous()
+        if trailing:
+            return a.unsqueeze(-1).expand(*a.shape, n).contiguous()
+        return a.unsqueeze(0).expand(n, *a.shape).contiguous()
 
     return SimState(**{k: rep(getattr(s, k)) for k in _STATE_FIELDS})
 
 
-def _sync_dt(states: SimState) -> SimState:
-    return dataclasses.replace(
-        states, dt=states.dt.min().expand_as(states.dt).clone())
+class Lockstep(NamedTuple):
+    """A sweep step (trailing layout) cut where its batch minima fall."""
+
+    sync_dt: bool      # the step starts from the batch minimum of states.dt
+    # states -> timestep.Cfl before the batch minimum of its dt; None:
+    # every case keeps its own CFL dt.
+    cfl: Callable | None
+    finish: Callable   # (states, params, cfl, t_stop) -> (states', diag)
+
+
+def _min_over(values):
+    """The minimum of 0-d tensors that may lie on several devices, on the
+    first one's device; a single value as it is."""
+    out = values[0]
+    for v in values[1:]:
+        out = torch.minimum(out, v.to(out.device))
+    return out
+
+
+def lockstep_step(locks: list, states: list, params: list, t_stop=None):
+    """One step of every part of a batch: `locks`, `states` and `params`
+    hold one Lockstep, trailing-layout SimState and CaseParams per part
+    (per mesh position). The batch minima are taken over all parts: that
+    of states.dt before the step and that of the CFL dt within it, which
+    a farm's positions thus share as the cases of one batch do. Returns
+    (states', diags), a list each; with one part, the ops are those of
+    the unsplit step."""
+    lock = locks[0]
+    if lock.sync_dt:
+        dt0 = _min_over([s.dt.min() for s in states])
+        states = [dataclasses.replace(s, dt=dt0.to(s.dt.device)
+                                      .expand_as(s.dt).clone())
+                  for s in states]
+    cfls = [None] * len(states)
+    if lock.cfl is not None:
+        cfls = []
+        for lk, s in zip(locks, states):
+            with on_device(s.t.device):
+                cfls.append(lk.cfl(s))
+        dt_min = _min_over([c.dt.min() for c in cfls])
+        cfls = [c.synced(dt_min.to(c.dt.device)) for c in cfls]
+    out = []
+    for lk, s, p, c in zip(locks, states, params, cfls):
+        with on_device(s.t.device):
+            out.append(lk.finish(s, p, c, t_stop))
+    return [o[0] for o in out], [o[1] for o in out]
+
+
+def on_device(dev):
+    """The CUDA device of a part current while its step runs: the
+    hand-written kernels launch on the current device's context."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _sweep_step_of(lock: Lockstep, trailing: bool, takes_t_stop: bool):
+    """The sweep step over one whole batch, in its layout; `lockstep`
+    holds its parts for a farm."""
+    if trailing:
+        def run(states, params, t_stop=None):
+            new, diag = lockstep_step([lock], [states], [params], t_stop)
+            return new[0], diag[0]
+    else:
+        def run(states, params, t_stop=None):
+            new, diag = lockstep_step([lock], [_move_case_axis(states, 0, -1)],
+                                      [params], t_stop)
+            return _move_case_axis(new[0], -1, 0), diag[0]
+
+    if takes_t_stop:
+        sweep_step = run
+    else:
+        def sweep_step(states: SimState, params: CaseParams):
+            return run(states, params)
+    sweep_step.lockstep = lock
+    return sweep_step
 
 
 def _sweep_kernel_policy(axis, device) -> dict:
@@ -105,7 +196,7 @@ def _sweep_kernel_policy(axis, device) -> dict:
       =1 — the JAX package's legacy mode (all kernels through the Pallas
         batching rule) has no counterpart here."""
     env = os.environ.get("OFTPP_SWEEP_PALLAS", "auto")
-    trailing = axis in (-1, 3)
+    trailing = _trailing(axis)
     if env == "1":
         raise NotImplementedError(
             "OFTPP_SWEEP_PALLAS=1 (every single-grid kernel once per case) "
@@ -130,8 +221,9 @@ def make_sweep_step(geom: TankGeometry,
     weights depend on each case's alpha, so the pressure passes are
     batched operands and run the batch-native kernels even though the
     geometry is shared; the geometry arrays are repeated along the case
-    axis once, when the first batch arrives."""
-    _check_axis(axis)
+    axis once per batch width and device the step meets (a farm's
+    positions may lie on several devices)."""
+    trailing = _trailing(axis)
     dev = resolve_device(device)
     controls = dataclasses.replace(controls,
                                    **_sweep_kernel_policy(axis, dev))
@@ -140,16 +232,18 @@ def make_sweep_step(geom: TankGeometry,
     core = make_step_core(props, controls,
                           open_top=bool(np.any(geom.top_open > 0)),
                           sealed_x=bool(np.all(geom.ax[-1] == 0.0)))
-    ga_by_n: dict[int, dict] = {}
+    ga_by_n: dict[tuple, dict] = {}
 
-    def sweep_step(states: SimState, params: CaseParams):
-        n = states.t.shape[0]
-        if n not in ga_by_n:
-            ga_by_n[n] = {k: a.unsqueeze(-1).expand(*a.shape, n).contiguous()
-                          for k, a in ga1.items()}
-        return core(_sync_dt(states), params, ga_by_n[n], spacing)
+    def finish(states, params, cfl, t_stop):
+        key = (states.t.shape[0], states.t.device)
+        if key not in ga_by_n:
+            ga_by_n[key] = {k: a.to(key[1]).unsqueeze(-1)
+                            .expand(*a.shape, key[0]).contiguous()
+                            for k, a in ga1.items()}
+        return core(states, params, ga_by_n[key], spacing, t_stop=t_stop)
 
-    return sweep_step
+    return _sweep_step_of(Lockstep(True, None, finish), trailing,
+                          takes_t_stop=False)
 
 
 # ------------------------------------------------- geometry-batched sweeps
@@ -162,7 +256,7 @@ class BatchedGeometry:
     operand); `spacing` is (n, 3)."""
 
     geoms: list                  # per-case TankGeometry (host post-processing)
-    ga: dict                     # stacked device arrays, case axis trailing
+    ga: dict                     # stacked device arrays, case axis at `axis`
     spacing: torch.Tensor        # (n_cases, 3)
     shape: tuple                 # shared (nx, ny, nz)
     axis: int
@@ -176,8 +270,9 @@ def build_batched_geometry(rows: list[dict], round_to: int = 8,
                            axis: int = -1, device="cuda") -> BatchedGeometry:
     """Build the shared-grid batched geometry for sweep rows with
     (possibly) different H, D, geo. All rows must share `mesh` (group
-    cases at different resolutions into separate batches)."""
-    _check_axis(axis)
+    cases at different resolutions into separate batches). The case axis
+    of `ga` trails the grid axes, or leads them with axis=0."""
+    trailing = _trailing(axis)
     dev = resolve_device(device)
     meshes = {float(r["mesh"]) for r in rows}
     if len(meshes) > 1:
@@ -199,12 +294,13 @@ def build_batched_geometry(rows: list[dict], round_to: int = 8,
                 force_shape=shared)
         geoms.append(built[key])
     per_geom = {id(g): geometry_arrays(g, device=dev) for g in built.values()}
-    ga = {k: torch.stack([per_geom[id(g)][k] for g in geoms], -1)
+    ga = {k: torch.stack([per_geom[id(g)][k] for g in geoms],
+                         -1 if trailing else 0)
           for k in ("vfrac", "ax", "ay", "az", "top_open")}
     spacing = torch.as_tensor(np.asarray([g.spacing for g in geoms],
                                          np.float32), device=dev)
     return BatchedGeometry(geoms=geoms, ga=ga, spacing=spacing, shape=shared,
-                           axis=-1)
+                           axis=-1 if trailing else 0)
 
 
 def batch_states_geom(bgeom: BatchedGeometry, dt0: float = 1e-3) -> SimState:
@@ -213,7 +309,7 @@ def batch_states_geom(bgeom: BatchedGeometry, dt0: float = 1e-3) -> SimState:
     dev = bgeom.spacing.device
     per_geom = {id(g): init_state(g, dt0=dt0, device=dev)
                 for g in {id(g): g for g in bgeom.geoms}.values()}
-    return _stack_states([per_geom[id(g)] for g in bgeom.geoms])
+    return _stack_states([per_geom[id(g)] for g in bgeom.geoms], bgeom.axis)
 
 
 def make_geom_sweep_step(bgeom: BatchedGeometry,
@@ -232,11 +328,14 @@ def make_geom_sweep_step(bgeom: BatchedGeometry,
     catch up — a lax case takes its solo step count, not the
     batch-stiffest one."""
     dev = bgeom.spacing.device
+    trailing = _trailing(bgeom.axis)
     controls = dataclasses.replace(
         controls, **_sweep_kernel_policy(bgeom.axis, dev))
-    core = make_step_core(props, controls, open_top=True,
-                          sync_axis="case" if lockstep else None)
+    core = make_step_core(props, controls, open_top=True)
     spacing = tuple(bgeom.spacing[:, d].contiguous() for d in range(3))
+    # The step runs in the trailing layout: a leading ga is moved once.
+    ga = (bgeom.ga if trailing else
+          {k: a.movedim(0, -1).contiguous() for k, a in bgeom.ga.items()})
 
     def _hold_done(old: SimState, new: SimState, done):
         """Keep the old (held) state of the cases where `done`; the mask
@@ -245,19 +344,21 @@ def make_geom_sweep_step(bgeom: BatchedGeometry,
                                           getattr(new, k))
                            for k in _STATE_FIELDS})
 
-    def sweep_step(states: SimState, params: CaseParams, t_stop=None):
-        if lockstep:
-            return core(_sync_dt(states), params, bgeom.ga, spacing,
-                        t_stop=t_stop)
-        new_states, diag = core(states, params, bgeom.ga, spacing,
-                                t_stop=t_stop)
-        if t_stop is None:
+    def cfl(states: SimState) -> Cfl:
+        return core.cfl_dt(states, ga, spacing)
+
+    def finish(states, params, cfl, t_stop):
+        new_states, diag = core(states, params, ga, spacing, t_stop=t_stop,
+                                cfl=cfl)
+        if lockstep or t_stop is None:
             return new_states, diag
         done = states.t >= torch.as_tensor(t_stop, dtype=states.t.dtype,
                                            device=states.t.device)
         return _hold_done(states, new_states, done), diag
 
-    return sweep_step
+    lock = (Lockstep(True, cfl, finish) if lockstep
+            else Lockstep(False, None, finish))
+    return _sweep_step_of(lock, trailing, takes_t_stop=True)
 
 
 def run_sweep(geom, param_rows: list[dict], t_end: float,

@@ -17,9 +17,12 @@ Parameter sweeps: the step is rank-polymorphic. Grid arrays are
 (nx, ny, nz, B); the per-case scalars (t, dt, step, the forcing
 parameters, a per-case spacing) are then (B,) tensors, which broadcast
 against the trailing axis as they are, and every reduction is over the
-cells only, so the diagnostics come back per case. `sync_axis` (any
-value but None) gives every case the batch minimum of the CFL dt, which
-is what `lax.pmin` over the vmapped axis does in the JAX step;
+cells only, so the diagnostics come back per case. A lockstep sweep
+gives every case the batch minimum of the CFL dt, which is what
+`lax.pmin` over the vmapped axis does in the JAX step: it calls
+`step.cfl_dt`, takes the minimum (over every position of a farm's
+device mesh) and hands the step the result as `cfl=`
+(parallel/sweep.py `lockstep_step`);
 `batch_lanes` keeps MULES on its plain path while the 7-point passes run
 the batch-native kernels (parallel/sweep.py sets both).
 
@@ -140,6 +143,23 @@ class StepDiagnostics(NamedTuple):
     alpha_max: torch.Tensor
 
 
+class Cfl(NamedTuple):
+    """The adaptive-dt block's results, which the rest of the step reads:
+    the fluid mask, the Courant numbers at the old dt and the CFL dt
+    (per case on a batched step). A lockstep farm (parallel/sharding.py)
+    takes the batch minimum of `dt` over every position of its mesh
+    between `step.cfl_dt` and the step that is handed the result."""
+
+    fluid: torch.Tensor
+    courant: torch.Tensor
+    alpha_courant: torch.Tensor
+    dt: torch.Tensor
+
+    def synced(self, dt_min) -> "Cfl":
+        """Every case's CFL dt replaced by `dt_min` (0-d)."""
+        return self._replace(dt=dt_min.expand_as(self.dt).clone())
+
+
 def geometry_arrays(geom: TankGeometry, dtype=torch.float32, device="cuda"):
     """Upload the static geometry to device tensors once."""
     dev = resolve_device(device)
@@ -179,9 +199,11 @@ def _check_slice(controls, motion=None, spmd=None):
 def make_step_core(props: PhysicalProperties = PhysicalProperties(),
                    controls: SolverControls = SolverControls(),
                    motion=None, open_top: bool = True, face_xyz=None,
-                   forcing=None, sync_axis=None, carry_precond: bool = False,
+                   forcing=None, carry_precond: bool = False,
                    sealed_x: bool = True, spmd=None):
-    """Build `step(state, params, ga, spacing, t_stop=None, precond=None)`.
+    """Build `step(state, params, ga, spacing, t_stop=None, precond=None,
+    cfl=None)`. `cfl` (a `Cfl` from `step.cfl_dt`, its dt synchronized
+    by the caller) replaces the step's own adaptive-dt block.
 
     With `carry_precond` the step also takes and returns the bf16
     preconditioner bundle (poisson.make_bundle), rebuilt every
@@ -256,17 +278,12 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
         co_a = dt * st.max_cells(torch.where(fluid & near_if, speed, 0.0))
         return co, co_a * (1.0 + controls.c_alpha)
 
-    def step(state: SimState, params, ga, spacing, t_stop=None,
-             precond=None):
+    def cfl_dt(state: SimState, ga, spacing, fluid=None) -> Cfl:
+        """The adaptive dt (adjustTimeStep) of every case, all on the
+        device, before a lockstep sweep's batch minimum."""
         hx, hy, hz = spacing
-        fdt = state.dt.dtype
-        dev = state.dt.device
-        if spmd is not None and state.alpha.dim() != 3:
-            raise NotImplementedError(
-                "spmd= on a batched state: a sweep is not sharded through "
-                "spmd (in the JAX package either)")
-        fluid = ga["vfrac"] > 0.0
-        # --- adaptive dt (adjustTimeStep), all on the device ---
+        if fluid is None:
+            fluid = ga["vfrac"] > 0.0
         co, co_a = courant_numbers(state.u, state.v, state.w, state.alpha,
                                    state.dt, fluid, spacing)
         limit = torch.minimum(
@@ -283,11 +300,20 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
                       else torch.clamp(dt_cfl, max=dt_diff))
         if props.sigma != 0.0 and controls.max_capillary_co > 0.0:
             dt_cfl = torch.minimum(dt_cfl, capillary_dt(
-                props, controls, spacing, fdt, dev))
-        if sync_axis is not None:
-            # Lockstep sweeps: every case takes the batch-minimum CFL dt,
-            # so case times stay bitwise identical.
-            dt_cfl = dt_cfl.min().expand_as(dt_cfl).clone()
+                props, controls, spacing, state.dt.dtype, state.dt.device))
+        return Cfl(fluid, co, co_a, dt_cfl)
+
+    def step(state: SimState, params, ga, spacing, t_stop=None,
+             precond=None, cfl=None):
+        fdt = state.dt.dtype
+        dev = state.dt.device
+        if spmd is not None and state.alpha.dim() != 3:
+            raise NotImplementedError(
+                "spmd= on a batched state: a sweep is not sharded through "
+                "spmd (in the JAX package either)")
+        if cfl is None:
+            cfl = cfl_dt(state, ga, spacing)
+        fluid, co, co_a, dt_cfl = cfl
         # --- adjustableRunTime: land exactly on the write grid / t_stop ---
         w = float(controls.write_interval)
         if w > 0.0:
@@ -443,6 +469,7 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
             use_pallas=use_k, spmd=spmd)
         return make_bundle(pack)
 
+    step.cfl_dt = cfl_dt
     if carry_precond:
         step.init_precond = init_precond
     return step

@@ -423,23 +423,51 @@ def test_interface_modes_match_jax(tiny_runs):
     assert rows.shape == (1, 5) and rows[0, 4] > 0
 
 
-def test_unported_case_arguments_raise(tmp_path, monkeypatch):
+def test_unported_case_arguments_raise(tiny_runs, tmp_path, monkeypatch):
+    """`devices=`, refused until the device mesh was ported, runs on mesh
+    positions that share one device: 2 x-positions of the tiny case take
+    the plain global step on the JAX package's grid (the CPU wants no
+    kernel islands), bitwise the unsharded run's, as the same step on the
+    same operands; 'NxM' builds JAX's grid; a 6DoF case runs sharded as
+    it runs alone. What still raises: x positions on distinct cards,
+    a missing card, a foreign checkpoint grid."""
     case = tcases.setup_case(TINY, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="sharded"):
-        trunner.run_case(case, devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        trunner.get_compiled_advance(TINY, TProps(), TControls(), devices="2x2",
-                                     device="cpu")
-    # A 6DoF case runs (tests/test_torch_6dof.py), but not sharded either.
-    six = tcases.setup_case_6dof({"Lx": 0.2, "Ly": 0.2, "Lz": 0.2,
-                                  "mesh": 0.05, "duration": 0.1},
-                                 str(tmp_path))
-    with pytest.raises(NotImplementedError, match="sharded"):
-        trunner.run_case(six, devices=2, device="cpu")
+    stats = trunner.run_case(case, devices=2, device="cpu",
+                             log=lambda *a: None)
+    assert stats["steps"] == tiny_runs["tstats"]["steps"]
+    for (t, path), (t0, ref) in zip(tio.list_checkpoints(case),
+                                    tio.list_checkpoints(tiny_runs["tdir"])):
+        got, want = tio.load_checkpoint(path), tio.load_checkpoint(ref)
+        assert t == t0
+        for k in FIELDS:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    geom, _ = trunner.get_compiled_advance(TINY, TProps(), TControls(),
+                                           devices="2x2", device="cpu")
+    assert geom.shape == jrunner.build_case_geometry(TINY,
+                                                     devices="2x2").shape
+    # A 6DoF case runs sharded as it runs alone.
+    small = {"Lx": 0.2, "Ly": 0.2, "Lz": 0.2, "mesh": 0.05, "duration": 0.1}
+    six = tcases.setup_case_6dof(small, str(tmp_path))
+    alone = tcases.setup_case_6dof(small, str(tmp_path / "alone"))
+    trunner.run_case(six, devices=2, device="cpu", log=lambda *a: None)
+    trunner.run_case(alone, device="cpu", log=lambda *a: None)
+    got, want = (tio.load_checkpoint(tio.latest_checkpoint(d)[1])
+                 for d in (six, alone))
+    assert float(got["t"]) == float(np.float32(0.1))
+    for k in FIELDS:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    # x positions on distinct cards: the spatial decomposition over cards
+    # is not ported (torch.device objects: no card is touched).
+    with pytest.raises(NotImplementedError, match="item 7"):
+        trunner.run_case(case, devices=2,
+                         device=[torch.device("cuda:0"),
+                                 torch.device("cuda:1")])
     # The card is the default device, and its absence raises.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trunner.run_case(case)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trunner.run_case(case, devices=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tinterface.extract_interface(case, tbuild(**TANK), [])
     # A checkpoint of another grid than the case's parameters give.
@@ -448,15 +476,31 @@ def test_unported_case_arguments_raise(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,rc", [
-    (["--headless", "--action", "runsweep", "--devices", "2"], 2),
-    (["--headless", "--action", "config", "--devices", "2"], 2),
-    (["--headless", "--case", "c", "--action", "run", "--devices", "2"], 2),
+    (["--headless", "--action", "runsweep", "--devices", "2", "--device",
+      "cpu"], 0),
+    (["--headless", "--action", "config", "--devices", "2"], 0),
+    (["--headless", "--case", "{case}", "--action", "run", "--devices", "2",
+      "--device", "cpu"], 0),
     (["--headless", "--case", "no_such_case", "--action", "run"], 1),
 ])
 def test_cli_refuses_what_is_not_ported(argv, rc, tmp_path, capsys):
+    """`--devices 2`, refused until the device mesh was ported, runs on
+    `--device cpu` and exits 0 (runsweep farms the two cases over two
+    positions, run shards the case's x axis); a missing case exits 1."""
+    short = dict(TINY, duration=0.05)
+    names = [os.path.basename(tcases.setup_case(dict(short, R=r),
+                                                str(tmp_path)))
+             for r in (0.002, 0.001)]
+    argv = [a.replace("{case}", names[0]) for a in argv]
     assert tcli.main(["--base-dir", str(tmp_path)] + argv) == rc
-    err = capsys.readouterr()
-    assert ("not ported yet" in err.err) == (rc == 2)
+    out = capsys.readouterr().out
+    if "runsweep" in argv:
+        assert "2 cases in one batch over 2 devices" in out
+    if "run" in argv and rc == 0:
+        assert "2-device sharded" in out
+    ran = [n for n in names if tcases.is_case_done(os.path.join(tmp_path, n))]
+    assert ran == (names if "runsweep" in argv
+                   else names[:1] if "run" in argv and rc == 0 else [])
 
 
 @pytest.fixture(scope="module")

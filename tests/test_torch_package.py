@@ -40,6 +40,8 @@ import openfoam_tpp_tpu_torch.manager.submit
 import openfoam_tpp_tpu_torch.manager.sweeprun
 import openfoam_tpp_tpu_torch.parallel.sweep
 import openfoam_tpp_tpu_torch.parallel.spmd
+import openfoam_tpp_tpu_torch.parallel.packed
+import openfoam_tpp_tpu_torch.parallel.sharding
 import openfoam_tpp_tpu_torch.parallel.tiled_sweep
 import openfoam_tpp_tpu_torch.ops.kernels.halo7
 import openfoam_tpp_tpu_torch.post.interface
@@ -86,18 +88,21 @@ def test_no_module_of_the_port_names_jax():
 
 def test_command_line_runs_without_jax(tmp_path):
     """`python -m openfoam_tpp_tpu_torch` with jax blocked: the host verbs
-    `flow` and `video` run, `--devices` (not ported) exits 2, and the card
-    is the default device (absent here, so `run` fails naming `--device
-    cpu`'s counterpart)."""
+    `flow` and `video` run, `--devices 2 --device cpu` (refused until the
+    device mesh was ported) runs a case over two x positions of the host,
+    and the card is the default device (absent here, so `run` fails
+    naming `--device cpu`'s counterpart)."""
     from openfoam_tpp_tpu_torch.manager.cases import setup_case
 
     case = setup_case(dict(H=0.04, D=0.02, mesh=0.004, R=0.002, freq=3.0,
                            duration=0.05, dt=0.0005), str(tmp_path))
+    sharded = setup_case(dict(H=0.04, D=0.02, mesh=0.004, R=0.001, freq=3.0,
+                              duration=0.05, dt=0.0005), str(tmp_path))
     boot = ("import sys, runpy; sys.modules['jax'] = None; "
             "sys.modules['openfoam_tpp_tpu'] = None; "
             "runpy.run_module('openfoam_tpp_tpu_torch', run_name='__main__')")
 
-    def run(*args):
+    def run(*args, case=case):
         return subprocess.run(
             [sys.executable, "-c", boot, "--headless", "--base-dir",
              str(tmp_path), "--case", os.path.basename(case), *args],
@@ -108,8 +113,11 @@ def test_command_line_runs_without_jax(tmp_path):
     assert os.path.exists(os.path.join(case, "postProcessing",
                                        "potential_flow",
                                        "potential_flow_wall.csv"))
-    out = run("--action", "run", "--devices", "2")
-    assert out.returncode == 2 and "not ported yet" in out.stderr
+    out = run("--action", "run", "--devices", "2", "--device", "cpu",
+              case=sharded)
+    assert out.returncode == 0, out.stderr
+    assert "2-device sharded" in out.stdout and "Done: " in out.stdout
+    assert os.path.exists(os.path.join(sharded, "chk_t0.050000.npz"))
     out = run("--action", "run")
     assert out.returncode != 0 and "device='cpu'" in out.stderr
     out = run("--action", "run", "--device", "cpu")
@@ -156,14 +164,12 @@ def test_out_of_slice_arguments_raise():
     # The default kernel configuration is in the slice: it builds and runs.
     state, diag = _run_default_steps(geom, 1)
     assert int(state.step) == 1 and bool(torch.isfinite(state.w).all())
-    # The sweep slice: `batch_lanes` and `sync_axis` build (a single grid
-    # has nothing to synchronize, and only MULES reads batch_lanes).
+    # The sweep slice: `batch_lanes` builds (only MULES reads it).
     step = timestep.make_step(geom, device="cpu", controls=SolverControls(
         use_pallas=True, batch_lanes=True, mom_pallas=False))
     s1, _ = step(init_state(geom, device="cpu"),
                  CaseParams.make(0.004, 1.88, 0.5, device="cpu"))
     assert int(s1.step) == 1
-    timestep.make_step_core(sync_axis="case")
     # A table motion is in the slice (tests/test_torch_6dof.py); a rotating
     # one with spmd= raises, as the JAX package never builds that pair.
     rotating = TableMotion.from_table([0.0, 1.0], [[0, 0, 0]] * 2,

@@ -397,19 +397,59 @@ def test_expand_sweep_matches_jax(sweep, mode, n):
 # ------------------------------------------------- (h) what is left out
 
 def test_left_out_sweep_arguments_raise(tmp_path, monkeypatch, capsys):
+    """What the sweep path still refuses; axis=0 and devices=2, which it
+    refused until the device mesh was ported, run and are held against
+    axis=-1 (bitwise: the leading step runs the trailing one's plain
+    ops on a moved copy) and the unfarmed batch (the run bounds above:
+    the farm's parts reduce over fewer cases a call, which moves the
+    CPU's sum order)."""
     tg = tbuild(H=0.04, D=0.02, mesh=0.004, geo="flat", round_to=4)
-    with pytest.raises(NotImplementedError, match="axis=0"):
-        tsw.make_sweep_step(tg, axis=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="axis=0"):
-        tsw.batch_states(tg, 2, axis=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="axis=0"):
-        tsw.build_batched_geometry(GEOM_ROWS, axis=0, device="cpu")
-    dirs = [tcases.setup_case(r, str(tmp_path)) for r in ROWS[:2]]
-    with pytest.raises(NotImplementedError, match="devices=2"):
-        tsweeprun.run_cases_batched(dirs, devices=2, device="cpu")
+    par = tsw.batch_params([{"R": 0.002, "freq": 3.0, "duration": 0.05},
+                            {"R": 0.001, "freq": 2.0, "duration": 0.05}],
+                           device="cpu")
+    lead = tsw.batch_states(tg, 2, axis=0, device="cpu")
+    trail = tsw.batch_states(tg, 2, device="cpu")
+    assert lead.alpha.shape == (2, 8, 8, 10) and lead.t.shape == (2,)
+    got, _ = tsw.make_sweep_step(tg, axis=0, device="cpu")(lead, par)
+    want, _ = tsw.make_sweep_step(tg, device="cpu")(trail, par)
+    for k in FIELDS:
+        a = getattr(got, k)
+        assert torch.equal(a if a.dim() <= 1 else a.movedim(0, -1),
+                           getattr(want, k)), k
+    bg0 = tsw.build_batched_geometry(GEOM_ROWS, axis=0, device="cpu")
+    bg1 = tsw.build_batched_geometry(GEOM_ROWS, device="cpu")
+    assert bg0.axis == 0 and bg0.ga["vfrac"].shape == (2, 8, 8, 10)
+    got, _ = tsw.make_geom_sweep_step(bg0)(tsw.batch_states_geom(bg0), par)
+    want, _ = tsw.make_geom_sweep_step(bg1)(tsw.batch_states_geom(bg1), par)
+    for k in FIELDS:
+        a = getattr(got, k)
+        assert torch.equal(a if a.dim() <= 1 else a.movedim(0, -1),
+                           getattr(want, k)), k
+    short = [dict(r, duration=0.05) for r in ROWS[:2]]
+    dirs = [tcases.setup_case(r, str(tmp_path / "farm")) for r in short]
+    one = [tcases.setup_case(r, str(tmp_path / "one")) for r in short]
     assert tcli.main(["--headless", "--action", "runsweep", "--base-dir",
-                      str(tmp_path), "--devices", "2"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+                      str(tmp_path / "farm"), "--devices", "2", "--device",
+                      "cpu"]) == 0
+    assert "over 2 devices" in capsys.readouterr().out
+    tsweeprun.run_cases_batched(one, device="cpu", log=quiet)
+    for d, e in zip(dirs, one):
+        got = tio.load_checkpoint(tio.latest_checkpoint(d)[1])
+        want = tio.load_checkpoint(tio.latest_checkpoint(e)[1])
+        assert got["t"] == want["t"] == np.float32(0.05)
+        assert got["step"] == want["step"]
+        assert np.abs(got["alpha"] - want["alpha"]).max() <= 5e-4
+        for k in ("u", "v", "w"):
+            assert np.abs(got[k] - want[k]).max() \
+                <= 2e-4 * np.abs(want[k]).max(), k
+        assert np.abs(got["p"] - want["p"]).max() \
+            <= 5e-5 * np.abs(want["p"]).max()
+        for name in ("p", "eta"):
+            path = os.path.join("postProcessing", "probes", "0", name)
+            np.testing.assert_array_equal(_table(os.path.join(d, path))[1][:, 0],
+                                          _table(os.path.join(e, path))[1][:, 0])
+    with pytest.raises(ValueError, match="do not divide"):
+        tsweeprun.run_cases_batched(dirs + one[:1], devices=2, device="cpu")
     six = tmp_path / "case_6dof"
     os.makedirs(six)
     with open(six / "case.json", "w") as f:
