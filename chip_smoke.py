@@ -199,7 +199,31 @@ Phases, each fatal on any fault (nothing is caught):
      (flux_all 3, fct_iter 9, momentum_rhs and correct_divmax 1 per
      step), bitwise the same case run alone on the card; then phase 8's
      6DoF tank case with `devices=2` for 0.05 s, the same kernels,
-     bitwise the case alone.
+     bitwise the case alone; (d) the x-sharded step over ranks, one
+     spawned process a shard (parallel/ranks.py): (i) one rank under
+     NCCL on the card, N_RANK1 flagship steps (128×128×112) from rest,
+     bitwise the single-process SpmdCtx(1) step with the same launches;
+     which gloo collectives take CUDA tensors (two ranks on the card);
+     (ii-a) four ranks sharing the card under gloo, N_RANK_STATE steps
+     from phase 3's 112³ state (local nx 28 → 14 → 7: the V-cycle
+     gathers its second coarse level on every rank) against the
+     single-process SpmdCtx(4) step from that state: the first step's
+     alpha and dt bitwise, after the last every field within phase 4's
+     limits, p_iters within 1, only the halo kernels on every rank;
+     (ii) `run_case(devices=4, device="cuda:0", ranks=True)`: four ranks
+     sharing the card under gloo on (b)'s case, killed after the first
+     interval and resumed from (b)'s own t = 0.05 checkpoint (rank 0
+     reads it and scatters it): from that state p_iters within 1 of
+     (b)'s at every step and the final checkpoint within phase 3b's
+     limits of (b)'s; write times bitwise (b)'s; from rest the p_iters
+     and the checkpoints at 0.05 and 0.1 are printed beside (b)'s, not
+     held (once a last bit of a CG dot moves a stop, the two runs part at
+     the CG tolerance, the size of the flow this early);
+     (iii) every rank launched the halo kernels alone (11a-b
+     once an island call, the rest once a call), and per step each rank's
+     plane exchanges, bytes sent, all-reduces and host seconds in them;
+     (iv) with more than one card, the same run over min(count, 4)
+     distinct cards under NCCL (else it says it did not run).
 
 It then prints the `kernels` JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. It exits non-zero, printing no
@@ -368,6 +392,9 @@ FARM_DRIFT = 0.02
 MESH_CASE = dict(H=0.208, D=0.2, geo="flat", R=0.004, freq=1.88,
                  mesh=0.00185, dt=0.001, ramp=2.0)
 SHARDED_RUN_SHAPE = (128, 128, 112)
+# Phase 3's flagship grid (112³).
+FLAGSHIP = dict(H=0.208, D=0.2, mesh=0.00185, geo="flat", round_to=8)
+FLAGSHIP_SHAPE = (112, 112, 112)
 # Where two runs' fields differ, the next CFL dt follows the largest
 # speed, whose limit is 1e-2 of its scale (SHARD_TOLS, CMP_TOLS): dt is
 # held to the same 1e-2 relative. The write times stay bitwise.
@@ -3227,11 +3254,13 @@ def batch_width_bits(dev):
     return out
 
 
-def phase_mesh(dev, props, geom, sweep):
+def phase_mesh(dev, props, geom, sweep, flagship, flagship_params):
     """The device mesh on one card (module docstring, phase 12): (a) the
     farm and `runsweep --devices 4`, (b) `run_case(devices=4)`, (c)
-    `run_case(devices="2x2")`. `geom`: phase 3's flagship grid; `sweep`:
-    phase 6's stats. Returns the phase's stats."""
+    `run_case(devices="2x2")`, (d) the x-sharded step over ranks. `geom`:
+    phase 3's flagship grid; `sweep`: phase 6's stats; `flagship` and
+    `flagship_params`: phase 3's state and forcing, as numpy. Returns the
+    phase's stats."""
     import torch
 
     from openfoam_tpp_tpu_torch.config import SolverControls
@@ -3319,8 +3348,11 @@ def phase_mesh(dev, props, geom, sweep):
         log(f"[mesh farm on distinct cards] did not run: "
             f"torch.cuda.device_count() = {n_cards}")
     out["runsweep"] = phase_mesh_runsweep(dev)
-    out["x_run"] = phase_mesh_x_run(dev)
+    out["x_run"], x_final, x_times = phase_mesh_x_run(dev)
     out["nxm_run"] = phase_mesh_nxm_run(dev, geom)
+    out["x_ranks"] = phase_mesh_x_ranks(dev, out["x_run"], x_final, x_times,
+                                        flagship, flagship_params)
+    out["x_run"].pop("first_checkpoint")
     return out
 
 
@@ -3502,9 +3534,11 @@ def advance_to(geom, controls, spmd, params, dev, targets):
     return state
 
 
-def hold_checkpoint(label, chk, state, tols):
+def hold_checkpoint(label, chk, state, tols, held=True, drift=0.0):
     """A checkpoint's fields against a state: bitwise, or within `tols`
-    (field: (kind, limit, floor))."""
+    (field: (kind, limit, floor)), the velocities' limits plus `drift`
+    (m/s); `held=False` reports the fields and their limits without
+    holding them."""
     out, bad = {}, []
     for k in ("alpha", "u", "v", "w", "p", "t", "dt"):
         ref = getattr(state, k).cpu().numpy()
@@ -3514,6 +3548,7 @@ def hold_checkpoint(label, chk, state, tols):
         if k in tols and err:
             kind_t, tol, floor = tols[k]
             lim = max(tol if kind_t == "abs" else tol * scale, floor)
+            lim += drift if k in "uvw" else 0.0
             out[k]["limit"] = lim
             if err > lim:
                 bad.append(f"{k}: {err} > {lim}")
@@ -3521,8 +3556,10 @@ def hold_checkpoint(label, chk, state, tols):
             bad.append(f"{k}: {err} (held bitwise)")
     bitwise = all(v["max_abs_err"] == 0.0 for v in out.values())
     log(f"  {label}: bitwise {bitwise}; "
-        + "; ".join(f"{k} {v['max_abs_err']:.3e}" for k, v in out.items()))
-    if bad:
+        + "; ".join(f"{k} {v['max_abs_err']:.3e}" for k, v in out.items())
+        + ("" if held else f" (reported, not held; over the limits: "
+           f"{bad or 'none'})"))
+    if bad and held:
         raise AssertionError(f"{label}: {bad}")
     return {"bitwise": bitwise, **out}
 
@@ -3533,7 +3570,9 @@ def phase_mesh_x_run(dev):
     halo kernels alone launched (11a-b once an island, the rest 4 times),
     killed after the first interval and resumed; the final checkpoint
     against the SpmdCtx(1) step through the same advance (bitwise; else
-    phase 3b's limits)."""
+    phase 3b's limits). Returns (stats, with the t = 0.05 checkpoint's
+    file under "first_checkpoint", the final checkpoint, the write times
+    of the checkpoints)."""
     import torch
 
     from openfoam_tpp_tpu_torch.config import SolverControls
@@ -3593,6 +3632,9 @@ def phase_mesh_x_run(dev):
             raise AssertionError(f"mesh x run: resume gave {chks}, "
                                  f"{again['steps']} steps")
         final = load_checkpoint(chks[-1][1])
+        times = [float(load_checkpoint(p)["t"]) for _, p in chks]
+        with open(chks[1][1], "rb") as f:   # the t = 0.05 checkpoint
+            first_chk = f.read()
         probe_rows = len(probe_table(case, "p"))
     targets = [float(np.float32(k) * np.float32(0.05)) for k in (1, 2)]
     one = advance_to(geom, SolverControls(use_pallas=True), SpmdCtx(1),
@@ -3602,12 +3644,14 @@ def phase_mesh_x_run(dev):
     if probe_rows != int(final["step"]):
         raise AssertionError(f"mesh x run: {probe_rows} probe rows for "
                              f"{final['step']} steps")
-    return {"shape": list(geom.shape), "steps": steps,
-            "resumed_steps": again["steps"], "wall_seconds":
-            stats["wall_seconds"], "io_seconds": stats["io_seconds"],
-            "ms_per_step_with_writes": ms, "p_iters": solves,
-            "launches": {k: launches[k] for k in HALO_PATH},
-            "against_spmd1": held}
+    return ({"shape": list(geom.shape), "steps": steps,
+             "first_interval_steps": stats["intervals"][0]["steps"],
+             "first_checkpoint": first_chk,
+             "resumed_steps": again["steps"], "wall_seconds":
+             stats["wall_seconds"], "io_seconds": stats["io_seconds"],
+             "ms_per_step_with_writes": ms, "p_iters": solves,
+             "launches": {k: launches[k] for k in HALO_PATH},
+             "against_spmd1": held}, final, times)
 
 
 def run_alone_and_on_mesh(label, setup, devices, card):
@@ -3696,6 +3740,451 @@ def phase_mesh_nxm_run(dev, geom):
     return out
 
 
+# Phase 12d: the x-sharded step over ranks (parallel/ranks.py).
+N_RANK1 = 10           # steps of (i): one NCCL rank against SpmdCtx(1)
+N_RANK_STATE = 3       # steps of (ii-a): four ranks from phase 3's state
+PROBE_TIMEOUT_S = 60   # the gloo probe's collectives wait at most this
+
+
+def sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def rank_one_job(ctx, log, params, n_steps):
+    """Phase 12d (i), in the one rank's process (rank 0 of 1, NCCL):
+    `n_steps` of the flagship's x-sharded step from rest as the rank
+    (`SpmdCtx(1, ranks=ctx)`) and as the single-process SpmdCtx(1) step,
+    each with its preconditioner carry, in turns (rank, single, single,
+    rank: the first run of the process pays its warm-up). Returns the
+    fields' comparison of each pair, and each run's p_iters, ms/step and
+    launches."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import (PhysicalProperties,
+                                               SolverControls)
+    from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
+    from openfoam_tpp_tpu_torch.manager.runner import build_case_geometry
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+    from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
+    from openfoam_tpp_tpu_torch.solver.timestep import make_step
+
+    dev = ctx.device
+    geom = build_case_geometry(params, devices=N_SHARDS, device=dev)
+    cp = CaseParams.make(params["R"], params["freq"], params["duration"],
+                         params["ramp"], device=dev)
+
+    def run(spmd):
+        step = make_step(geom, PhysicalProperties(),
+                         SolverControls(use_pallas=True), carry_precond=True,
+                         spmd=spmd, device=dev)
+        state = init_state(geom, dt0=params["dt"], device=dev)
+        if spmd.ranks is not None:
+            state = rk.scatter_state(state, geom.shape, ctx)
+        bundle = step.init_precond(state)
+        before = rk.launch_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        iters = []
+        for _ in range(n_steps):
+            state, diag, bundle = step(state, cp, precond=bundle)
+            iters.append(diag.p_iters)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        after = rk.launch_counts()
+        return state, {"p_iters": [int(i) for i in iters],
+                       "ms_per_step": wall / n_steps * 1e3,
+                       "launches": {k: after[k] - before[k] for k in after
+                                    if after[k] != before[k]}}
+
+    rank, single = SpmdCtx(1, ranks=ctx), SpmdCtx(1)
+    turns = [run(spmd) for spmd in (rank, single, single, rank)]
+    fields = ("alpha", "u", "v", "w", "p", "t", "dt", "step")
+    pairs = [(turns[0][0], turns[1][0]), (turns[3][0], turns[2][0])]
+    return {"grid": list(geom.shape), "backend": ctx.backend,
+            "bitwise": all(torch.equal(getattr(a, k), getattr(b, k))
+                           for a, b in pairs for k in fields),
+            "max_abs_diff": {k: max(float((getattr(a, k).double()
+                                           - getattr(b, k).double())
+                                          .abs().max()) for a, b in pairs)
+                             for k in fields},
+            "rank": turns[0][1], "single": turns[1][1],
+            "ms_per_step_turns": {
+                "rank": [turns[0][1]["ms_per_step"], turns[3][1]["ms_per_step"]],
+                "single": [turns[1][1]["ms_per_step"],
+                           turns[2][1]["ms_per_step"]]},
+            "exchange": ctx.stats.as_dict()}
+
+
+def rank_state_job(ctx, log, tank, init, params, n_steps):
+    """Phase 12d (ii-a), in each rank's process: `n_steps` of the
+    x-sharded step over the ranks from phase 3's state `init` (numpy;
+    rank 0 scatters it), and on rank 0 the single-process
+    SpmdCtx(world) step from the same state. Every rank returns its
+    launches and exchange stats; rank 0 also both runs' p_iters and, for
+    the first and the last step, each field's largest difference and
+    scale."""
+    from openfoam_tpp_tpu_torch.config import (PhysicalProperties,
+                                               SolverControls)
+    from openfoam_tpp_tpu_torch.core.state import (params_from_numpy,
+                                                   state_from_numpy,
+                                                   state_to_numpy)
+    from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+    from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
+    from openfoam_tpp_tpu_torch.solver.timestep import make_step
+
+    dev = ctx.device
+    geom = build_tank_geometry(**tank)
+    par = params_from_numpy(params, device=dev)
+
+    def steps(spmd, state):
+        step = make_step(geom, PhysicalProperties(),
+                         SolverControls(use_pallas=True), carry_precond=True,
+                         spmd=spmd, device=dev)
+        bundle = step.init_precond(state)
+        states, iters = [], []
+        for _ in range(n_steps):
+            state, diag, bundle = step(state, par, precond=bundle)
+            states.append(state)
+            iters.append(int(diag.p_iters))
+        return states[0], states[-1], iters
+
+    whole = state_from_numpy(init, device=dev) if ctx.rank == 0 else None
+    before = rk.launch_counts()
+    first, last, iters = steps(SpmdCtx(ctx.world, ranks=ctx),
+                               rk.scatter_state(whole, geom.shape, ctx))
+    after = rk.launch_counts()
+    first, last = (state_to_numpy(rk.gather_state(s, ctx))
+                   for s in (first, last))
+    out = {"launches": {k: after[k] - before[k] for k in after
+                        if after[k] != before[k]},
+           "iters": iters, "exchange": ctx.stats.as_dict()}
+    if ctx.rank == 0:
+        r_first, r_last, r_iters = steps(SpmdCtx(ctx.world), whole)
+        diff = lambda a, b: {k: (float(np.abs(a[k] - b[k]).max()),
+                                 float(np.abs(b[k]).max()))
+                             for k in ("alpha", "u", "v", "w", "p", "t",
+                                       "dt")}
+        out.update(ref_iters=r_iters,
+                   first=diff(first, state_to_numpy(r_first)),
+                   last=diff(last, state_to_numpy(r_last)))
+    return out
+
+
+def gloo_cuda_job(ctx, log):
+    """Which gloo collectives take CUDA tensors here (ranks sharing a
+    card): all_reduce, broadcast and all_gather tried once each on a
+    CUDA tensor, the result checked. Point-to-point is not tried: gloo
+    takes CPU tensors there (PyTorch's backend table), and the ranks
+    stage their planes through the host."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.full((4,), float(ctx.rank + 1), device=ctx.device)
+    world = ctx.world
+
+    def all_reduce():
+        x = t.clone()
+        dist.all_reduce(x)
+        return x, torch.full((4,), world * (world + 1) / 2)
+
+    def broadcast():
+        x = t.clone()
+        dist.broadcast(x, 0)
+        return x, torch.ones(4)
+
+    def all_gather():
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+        return torch.cat(parts), torch.cat([torch.full((4,), r + 1.0)
+                                            for r in range(world)])
+
+    out = {}
+    for name, fn in (("all_reduce", all_reduce), ("broadcast", broadcast),
+                     ("all_gather", all_gather)):
+        try:
+            got, want = fn()
+            sync(ctx.device)
+            out[name] = ("takes CUDA tensors" if torch.equal(got.cpu(), want)
+                         else f"wrong result {got.cpu().tolist()}")
+        except (RuntimeError, ValueError) as e:
+            out[name] = "refuses CUDA tensors: " + str(e).splitlines()[0][:160]
+    out["send/recv"] = "not tried (CPU tensors only); staged through the host"
+    return out
+
+
+def rank_launches(counts):
+    """A rank's 'module.function' launch counts under chip_smoke's row
+    names."""
+    names = {f"{m.__name__.rsplit('.', 1)[1]}.{a}": k
+             for k, (m, a, _) in counters().items()}
+    return {names[k]: v for k, v in counts.items() if k in names}
+
+
+def hold_rank_steps(label, res):
+    """`rank_state_job`'s results: the first step's alpha and dt bitwise
+    the single-process step's (the dt is a maximum, MULES has no sum over
+    the grid), after the last step every field within phase 4's limits
+    (`SHARD_TOLS`) of it, p_iters within 1 at every step, every rank's
+    launches the halo kernels' alone."""
+    r0 = res[0]
+    bad = []
+    for r, rs in enumerate(res):
+        launches = rank_launches(rs["launches"])
+        ran = {k for k, v in launches.items() if v}
+        if ran != set(HALO_PATH) or rs["iters"] != r0["iters"]:
+            bad.append(f"rank {r}: kernels {sorted(ran)}, p_iters "
+                       f"{rs['iters']}")
+    for k in ("alpha", "dt"):
+        if r0["first"][k][0] != 0.0:
+            bad.append(f"first step {k}: {r0['first'][k][0]} (held bitwise)")
+    for k, (kind_t, tol, floor) in SHARD_TOLS.items():
+        err, scale = r0["last"][k]
+        lim = max(tol if kind_t == "abs" else tol * scale, floor)
+        if err > lim:
+            bad.append(f"after {N_RANK_STATE} steps {k}: {err} > {lim}")
+    d_it = max(abs(a - b) for a, b in zip(r0["iters"], r0["ref_iters"]))
+    if d_it > 1:
+        bad.append(f"p_iters {r0['iters']} against {r0['ref_iters']}")
+    log(f"[{label}] {N_RANK_STATE} steps against SpmdCtx({len(res)}) in one "
+        f"process: first step alpha and dt bitwise "
+        f"{r0['first']['alpha'][0] == 0.0 and r0['first']['dt'][0] == 0.0}"
+        f" (first step: " + "; ".join(
+            f"{k} {e:.3e} of {sc:.3e}" for k, (e, sc) in r0["first"].items())
+        + f"); after the last: " + "; ".join(
+            f"{k} {e:.3e} of {sc:.3e}" for k, (e, sc) in r0["last"].items())
+        + f"; p_iters {r0['iters']} / {r0['ref_iters']}; every rank launched "
+        f"the halo kernels alone")
+    if bad:
+        raise AssertionError(f"{label}: {bad}")
+    return {k: r0[k] for k in ("first", "last", "iters", "ref_iters")}
+
+
+def hold_rank_run(label, stats, ref_iters):
+    """A run_case over ranks: every rank launched the halo kernels alone
+    (11a-b once an island call, the rest once a call: one slab a rank)
+    with the same p_iters, which lie within 1 of `ref_iters` step by step
+    (None: not held); per step its ms, plane exchanges, bytes, reductions
+    and host seconds in them, each rank's. Returns those numbers."""
+    steps = stats["steps"]
+    per_rank = []
+    for r, rs in enumerate(stats["ranks"]):
+        launches = rank_launches(rs["launches"])
+        ran = {k for k, v in launches.items() if v}
+        if ran != set(HALO_PATH) or rs["p_iters"] != stats["ranks"][0][
+                "p_iters"] or len(rs["p_iters"]) != steps:
+            raise AssertionError(f"{label}, rank {r}: kernels {sorted(ran)}, "
+                                 f"p_iters {rs['p_iters']}")
+        check_halo_launches(f"{label}, rank {r} on {rs['device']}",
+                            launches, {"steps": steps,
+                                       "p_iters": rs["p_iters"]}, 1, 1)
+        row = {"device": rs["device"], "backend": rs["backend"],
+               "exchanges_per_step": rs["exchanges"] / steps,
+               "bytes_per_step": rs["bytes"] / steps,
+               "all_reduces_per_step": rs["all_reduces"] / steps,
+               "gathers": rs["gathers"],
+               "exchange_s_per_step": rs["seconds"] / steps,
+               "launches": {k: launches[k] for k in HALO_PATH}}
+        per_rank.append(row)
+        log(f"  rank {r} ({rs['device']}, {rs['backend']}): per step "
+            f"{row['exchanges_per_step']:.1f} plane exchanges, "
+            f"{row['bytes_per_step'] / 1e6:.3f} MB sent, "
+            f"{row['all_reduces_per_step']:.1f} all-reduces, "
+            f"{row['exchange_s_per_step'] * 1e3:.1f} ms host in them "
+            f"({rs['gathers']} whole-array gathers in the run)")
+    iters = stats["ranks"][0]["p_iters"]
+    ms = stats["wall_seconds"] / max(steps, 1) * 1e3
+    log(f"  {label}: {steps} steps, {ms:.1f} ms/step with writes (writing "
+        f"{stats['io_seconds']:.2f} s); p_iters {iters}")
+    if ref_iters is not None:
+        if len(iters) != len(ref_iters):
+            raise AssertionError(f"{label}: {len(iters)} steps against "
+                                 f"{len(ref_iters)}")
+        d_it = max(abs(a - b) for a, b in zip(iters, ref_iters))
+        log(f"  {label}: p_iters against phase 12b's {ref_iters}: largest "
+            f"difference {d_it}")
+        if d_it > 1:
+            raise AssertionError(f"{label}: p_iters differ by {d_it} > 1")
+    return {"steps": steps, "ms_per_step_with_writes": ms,
+            "io_seconds": stats["io_seconds"], "p_iters": iters,
+            "ranks": per_rank}
+
+
+def run_ranks_killed_and_resumed(label, params, devices, device, ranks,
+                                 restart):
+    """`run_case(devices=..., device=..., ranks=...)` of a fresh flagship
+    case over two write intervals, killed after the first and resumed
+    from `restart` (the bytes of another run's t = 0.05 checkpoint, put in
+    place of this run's): (first run's stats, resumed run's stats, this
+    run's own checkpoint at 0.05, its checkpoint at 0.1 before the kill,
+    the final checkpoint, the write times after each run, probe rows)."""
+    from openfoam_tpp_tpu_torch.manager.cases import setup_case
+    from openfoam_tpp_tpu_torch.manager.runner import run_case
+    from openfoam_tpp_tpu_torch.utils.io import (list_checkpoints,
+                                                 load_checkpoint)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_xranks_") as base:
+        case = setup_case(params, base)
+        times, runs = [], []
+        for kill in (True, False):
+            runs.append(run_case(case, devices=devices, device=device,
+                                 ranks=ranks,
+                                 log=lambda ln: log(f"  | [{label}] " + ln)))
+            chks = list_checkpoints(case)
+            times.append([float(load_checkpoint(p)["t"]) for _, p in chks])
+            if kill:
+                own = [load_checkpoint(p) for _, p in chks[1:]]
+                os.remove(chks[2][1])
+                with open(chks[1][1], "wb") as f:
+                    f.write(restart)
+        final = load_checkpoint(list_checkpoints(case)[-1][1])
+        rows = len(probe_table(case, "p"))
+    return runs[0], runs[1], own[0], own[1], final, times, rows
+
+
+def run_case_fresh(params, devices, device, label):
+    """`run_case` of a fresh case: its stats."""
+    from openfoam_tpp_tpu_torch.manager.cases import setup_case
+    from openfoam_tpp_tpu_torch.manager.runner import run_case
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_xranks_") as base:
+        return run_case(setup_case(params, base), devices=devices,
+                        device=device,
+                        log=lambda ln: log(f"  | [{label}] " + ln))
+
+
+def hold_ranks_to_12b(label, x_run, x_final, x_times, run):
+    """A killed and resumed run over ranks (`run_ranks_killed_and_resumed`
+    restarted from phase 12b's t = 0.05 checkpoint) against phase 12b's
+    run: from that same state, every step's p_iters within 1 of 12b's and
+    the final checkpoint within phase 3b's limits of 12b's, the
+    velocities' plus FARM_DRIFT·0.05 s (the drift of the farm's parts
+    from the batch, whose CG dots differ in their last bits as the
+    ranks' do from one process's: the ranks add their slabs' sums in rank
+    order, one process sums the whole grid); the write times bitwise, a
+    probe row a step. From rest the two runs are reported, not held: a
+    moved last bit moves a CG stop, and from then on they part at the CG
+    tolerance, the size of the velocities this early in the ramp."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.utils.io import load_checkpoint
+
+    first, again, own_half, own_end, final, times, rows = run
+    with tempfile.NamedTemporaryFile(suffix=".npz") as f:
+        f.write(x_run["first_checkpoint"])
+        f.flush()
+        x_half = load_checkpoint(f.name)
+    n1 = x_run["first_interval_steps"]
+    out = hold_rank_run(label, first, None)
+    iters, ref = out["p_iters"], x_run["p_iters"]
+    d_rest = max(abs(a - b) for a, b in zip(iters, ref))
+    log(f"  {label}, from rest: p_iters {iters} against phase 12b's {ref} "
+        f"({len(iters)} and {len(ref)} steps; largest difference {d_rest}, "
+        "not held: the trajectories part at the first moved stop)")
+    out["from_rest_max_p_iters_diff"] = d_rest
+    out["resumed"] = hold_rank_run(label + ", resumed from phase 12b's "
+                                   "t = 0.05 checkpoint", again, ref[n1:])
+    tols = {**SHARD_TOLS, **DT_TOL}
+    as_state = lambda d: types.SimpleNamespace(
+        **{k: torch.as_tensor(v) for k, v in d.items()})
+    out["own_at_0.05"] = hold_checkpoint(
+        f"{label}, own t = 0.05 checkpoint against phase 12b's", own_half,
+        as_state(x_half), tols, held=False)
+    out["own_at_0.1"] = hold_checkpoint(
+        f"{label}, own t = 0.1 checkpoint against phase 12b's", own_end,
+        as_state(x_final), tols, held=False)
+    out["final"] = hold_checkpoint(
+        f"{label}, resumed, final against phase 12b's", final,
+        as_state(x_final), tols,
+        drift=FARM_DRIFT * (float(x_final["t"]) - float(x_half["t"])))
+    if times != [x_times, x_times] or rows != int(final["step"]):
+        raise AssertionError(f"{label}: write times {times} against "
+                             f"{x_times}; {rows} probe rows for "
+                             f"{final['step']} steps")
+    log(f"  {label}: write times bitwise phase 12b's {x_times}; {rows} "
+        "probe rows, one a step")
+    return out
+
+
+def phase_mesh_x_ranks(dev, x_run, x_final, x_times, flagship,
+                       flagship_params):
+    """(d) The x-sharded step over ranks, one process a shard
+    (parallel/ranks.py): (i) one rank under NCCL on the card against the
+    SpmdCtx(1) step (bitwise); gloo's CUDA collectives probed; (ii)
+    `run_case(devices=4, device=card, ranks=True)` of the flagship, four
+    ranks sharing the card under gloo, killed after the first interval and
+    resumed, held against phase 12b's run (`x_run`, its final checkpoint
+    and write times); (iii) each rank's launches and exchange counts;
+    (iv) over min(count, 4) distinct cards under NCCL where the host has
+    more than one."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+
+    card = f"cuda:{dev.index or 0}" if dev.type == "cuda" else str(dev)
+    params = {**MESH_CASE, "duration": 0.1}
+    out = {}
+    t0 = time.perf_counter()
+    (one,) = rk.launch(rank_one_job, [card], args=(params, N_RANK1),
+                       log=lambda ln: log("  | " + ln))
+    want = {k: v for k, v in one["single"]["launches"].items()}
+    log(f"[mesh x over ranks (i): 1 rank, {one['backend']}, {card}] "
+        f"{N_RANK1} flagship steps {one['grid']} from rest in "
+        f"{time.perf_counter() - t0:.1f} s with the spawn: bitwise "
+        f"SpmdCtx(1) {one['bitwise']} (max diffs {one['max_abs_diff']}); "
+        f"ms/step in turns (rank, single, single, rank): "
+        f"{one['ms_per_step_turns']}; p_iters "
+        f"{one['rank']['p_iters']} / {one['single']['p_iters']}")
+    if (not one["bitwise"] or one["rank"]["launches"] != want
+            or one["rank"]["p_iters"] != one["single"]["p_iters"]):
+        raise AssertionError(f"mesh x over ranks (i): bitwise "
+                             f"{one['bitwise']}, launches "
+                             f"{one['rank']['launches']} against {want}")
+    out["one_rank"] = one
+    try:
+        probe = rk.launch(gloo_cuda_job, [card] * 2,
+                          timeout_s=PROBE_TIMEOUT_S,
+                          log=lambda ln: log("  | " + ln))[0]
+    except RuntimeError as e:   # the probe informs; it decides nothing
+        probe = {"probe": f"failed: {e}"}
+    log(f"[mesh x over ranks: gloo collectives on CUDA tensors, 2 ranks on "
+        f"{card}] {probe}")
+    out["gloo_cuda"] = probe
+
+    label = (f"mesh x over ranks (ii-a): {N_SHARDS} ranks sharing {card}, "
+             f"phase 3's state ({FLAGSHIP_SHAPE})")
+    res = rk.launch(rank_state_job, [card] * N_SHARDS,
+                    args=(FLAGSHIP, flagship, flagship_params, N_RANK_STATE),
+                    log=lambda ln: log("  | " + ln))
+    out["from_phase3"] = hold_rank_steps(label, res)
+
+    label = f"mesh x over ranks (ii): {N_SHARDS} ranks sharing {card}"
+    run = run_ranks_killed_and_resumed(label, params, N_SHARDS, card, True,
+                                       x_run["first_checkpoint"])
+    out["shared_card"] = hold_ranks_to_12b(label, x_run, x_final, x_times,
+                                           run)
+    n_cards = torch.cuda.device_count()
+    k = min(n_cards, N_SHARDS)
+    if k == N_SHARDS:
+        label = f"mesh x over ranks (iv): {k} distinct cards"
+        run = run_ranks_killed_and_resumed(label, params, k, "cuda", False,
+                                           x_run["first_checkpoint"])
+        out["distinct_cards"] = hold_ranks_to_12b(label, x_run, x_final,
+                                                  x_times, run)
+    elif k > 1:
+        # Another grid (nx rounds to 8·k): held as a run alone.
+        label = f"mesh x over ranks (iv): {k} distinct cards"
+        first = run_case_fresh(params, k, "cuda", label)
+        out["distinct_cards"] = hold_rank_run(label, first, None)
+    else:
+        log(f"[mesh x over ranks (iv): distinct cards] did not run: "
+            f"device_count = {n_cards}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3706,7 +4195,8 @@ def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     from openfoam_tpp_tpu_torch.config import PhysicalProperties, SolverControls
-    from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
+    from openfoam_tpp_tpu_torch.core.state import (CaseParams, init_state,
+                                                   state_to_numpy)
     from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
     from openfoam_tpp_tpu_torch.ops.kernels import _build
     from openfoam_tpp_tpu_torch.solver.timestep import make_step
@@ -3738,8 +4228,7 @@ def main() -> int:
 
     # 3's geometry first: phase 2 uses its shape.
     t0 = time.perf_counter()
-    geom = build_tank_geometry(H=0.208, D=0.2, mesh=0.00185, geo="flat",
-                               round_to=8)
+    geom = build_tank_geometry(**FLAGSHIP)
     n_fluid = geom.n_fluid_cells
     log(f"[geometry] {geom.shape}, {n_fluid} fluid cells, "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3860,7 +4349,10 @@ def main() -> int:
     lap("10")
 
     # 12. the device mesh on one card
-    mesh = phase_mesh(torch.device("cuda", 0), props, geom, sweep)
+    mesh = phase_mesh(torch.device("cuda", 0), props, geom, sweep,
+                      state_to_numpy(state),
+                      {k: getattr(params, k).cpu().numpy()
+                       for k in ("orbit_radius", "omega", "ramp_time")})
     lap("12")
     log("[kernels: flagship (phase 2 / a flagship step's operands) and the "
         f"tiled {TILED_SHAPE} step's operands, us per call; of the V-cycle "

@@ -18,11 +18,20 @@ read) at every `get_compiled_advance`.
 x-sharded step with its per-shard kernel islands (parallel/spmd.py)
 where the JAX package runs them, else the global step on the rounded
 grid (GSPMD's counterpart), with the kernels on a CUDA device
-(`step_choice`; the run logs which). Positions on distinct cards raise
-NotImplementedError (ROADMAP.md §1 item 7). The run carries a global
-SimState and writes global checkpoints, as the JAX package writes them
-(it packs the state only to cross its sharded jit, a boundary the port
-does not have).
+(`step_choice`; the run logs which). The run carries a global SimState
+and writes global checkpoints, as the JAX package writes them (it packs
+the state only to cross its sharded jit, a boundary the port does not
+have).
+
+Positions on distinct cards run as ranks, one spawned process a position
+(parallel/ranks.py; OpenFOAM's `mpirun -np N foamRun -parallel`): each
+rank steps its x-slab of the 1-D x decomposition with the halo kernel
+islands on its own card (`_rank_run`), rank 0 reads a resumed state and
+scatters it, and gathers each checkpoint and the probe rows and writes
+them: the same files, with the same write times. NCCL joins ranks on
+distinct cards; `ranks=True` runs the ranks on positions that share a
+device too, under gloo. 'NxM', a 6DoF case and a grid the islands do
+not divide raise NotImplementedError there (`rank_choice`).
 
 OFTPP_DEBUG_NANS=1 runs `run_case` under utils/nan_trap.py's trap: the
 first operation or kernel that outputs a NaN raises FloatingPointError
@@ -339,6 +348,7 @@ def run_case(
     write_checkpoints: bool = True,
     devices=None,
     device="cuda",
+    ranks: bool = False,
 ) -> dict:
     """Run (or resume) a case to its encoded duration on `device`.
     Returns run stats: the JAX package's keys, plus `io_seconds` (host
@@ -346,20 +356,40 @@ def run_case(
     write target: simulated time, steps, wall seconds).
 
     `devices` (int N, or 'NxM' for a 2-D x·y decomposition): the grid's
-    spatial axes over a mesh of that many positions, which must share one
-    device: `device` as an indexed device ("cuda:0", "cpu") or a list
-    that repeats one (device.py `device_positions`). Checkpoints, probes
-    and resume work as on one device: the state is written globally.
+    spatial axes over a mesh of that many positions, one device each from
+    `device` (device.py `device_positions`: "cuda" the first N cards, an
+    indexed device or "cpu" all on it, or a list). Positions that share
+    one device run in this process. Positions on distinct cards run the
+    x-sharded step as N ranks, one process a position (parallel/ranks.py,
+    `_run_case_ranks`); `ranks=True` runs the ranks where positions share
+    a device too (gloo between them).
+    Checkpoints, probes and resume work as on one device: the state is
+    written globally (by rank 0).
 
     With OFTPP_DEBUG_NANS=1 the run is trapped for NaN (utils/nan_trap.py;
     the trap is on for this call only, where the JAX package's setting
-    holds for the process)."""
+    holds for the process; each rank traps its own)."""
+    d_x, d_y = sh.parse_devices(devices)
+    positions = device_positions(device, d_x * d_y)
+    if ranks or len(set(positions)) > 1:
+        return _run_case_ranks(case_dir, props, controls, log,
+                               write_checkpoints, devices, positions)
     with nan_trap.trap_nans() as trap:
         if trap is not None:
             log(f"  (NaN trap on, {nan_trap.ENV_FLAG}=1: sigFpe-parity NaN "
                 "trapping)")
         return _run_case(case_dir, props, controls, log, write_checkpoints,
                          devices, device)
+
+
+def _case_params(params, device):
+    if params.get("model") == "tank6dof":
+        # The motion comes from the case's table; the params are inert.
+        return CaseParams.make(R=0.0, freq=0.0, duration=params["duration"],
+                               device=device)
+    return CaseParams.make(R=params["R"], freq=params["freq"],
+                           duration=params["duration"], ramp=params["ramp"],
+                           device=device)
 
 
 def _run_case(case_dir, props, controls, log, write_checkpoints, devices,
@@ -369,23 +399,9 @@ def _run_case(case_dir, props, controls, log, write_checkpoints, devices,
     d_x, d_y, device = _mesh_device(devices, device)
     geom, advance, what = _compiled_advance(params, props, controls, case_dir,
                                             devices, d_x, d_y, device)
-    n_cells = geom.n_fluid_cells
-    log(f"  Mesh: {geom.shape[0]}x{geom.shape[1]}x{geom.shape[2]} grid, "
-        f"{n_cells} fluid cells (h={params['mesh']:g} m, "
-        f"geo={params.get('geo', geom.geo)})"
+    log(_mesh_line(geom, params)
         + (f", {devices} mesh positions (x·y) on {device}: {what}"
            if d_x * d_y > 1 else ""))
-
-    if is_6dof:
-        # The motion comes from the case's table; the params are inert.
-        case_params = CaseParams.make(R=0.0, freq=0.0,
-                                      duration=params["duration"],
-                                      device=device)
-    else:
-        case_params = CaseParams.make(
-            R=params["R"], freq=params["freq"], duration=params["duration"],
-            ramp=params["ramp"], device=device,
-        )
 
     io_seconds = 0.0
     chk = latest_checkpoint(case_dir)
@@ -401,17 +417,42 @@ def _run_case(case_dir, props, controls, log, write_checkpoints, devices,
             save_checkpoint(case_dir, state)
             io_seconds += time.time() - t_io
 
+    def save(state):
+        save_checkpoint(case_dir, state)
+
+    def samples(buf, n):
+        return buf[:n].cpu().numpy()
+
+    return _time_loop(case_dir, params, geom, controls, advance,
+                      _case_params(params, device), state, log,
+                      write_checkpoints, save, samples, io_seconds)
+
+
+def _mesh_line(geom, params):
+    return (f"  Mesh: {geom.shape[0]}x{geom.shape[1]}x{geom.shape[2]} grid, "
+            f"{geom.n_fluid_cells} fluid cells (h={params['mesh']:g} m, "
+            f"geo={params.get('geo', geom.geo)})")
+
+
+def _time_loop(case_dir, params, geom, controls, advance, case_params, state,
+               log, write_checkpoints, save, samples, io_seconds,
+               writes=True):
+    """Advance `state` to the case's duration, one write interval at a
+    time: `samples(buf, n)` gives the interval's probe rows (numpy) and
+    `save(state)` writes a checkpoint. `writes=False` (ranks other than
+    0): no probe file is opened or written (`samples` gives None)."""
     # Per-timestep probe channels: pressure probes + η wave gauges,
     # accumulated on the device every solver step and flushed at each
     # write interval.
     probe_pts = default_probe_points(geom)
     wave_cols = default_wave_columns(geom)
     t_now = float(state.t)
-    probes = ProbeWriter(case_dir, probe_pts, "p", start_time=t_now)
-    gauges = ProbeWriter(
-        case_dir,
-        np.column_stack([wave_cols, np.zeros(len(wave_cols))]),
-        "eta", start_time=t_now)
+    if writes:
+        probes = ProbeWriter(case_dir, probe_pts, "p", start_time=t_now)
+        gauges = ProbeWriter(
+            case_dir,
+            np.column_stack([wave_cols, np.zeros(len(wave_cols))]),
+            "eta", start_time=t_now)
     n_pts = len(probe_pts)
 
     duration = params["duration"]
@@ -440,11 +481,12 @@ def _run_case(case_dir, props, controls, log, write_checkpoints, devices,
             state, diag, n, buf = advance(state, case_params, t_target)
             steps_t += n
             if n:
-                rows = buf[:n].cpu().numpy()
-                t_io = time.time()
-                probes.append_rows(rows[:, 0], rows[:, 1 : 1 + n_pts])
-                gauges.append_rows(rows[:, 0], rows[:, 1 + n_pts :])
-                io_seconds += time.time() - t_io
+                rows = samples(buf, n)
+                if writes:
+                    t_io = time.time()
+                    probes.append_rows(rows[:, 0], rows[:, 1 : 1 + n_pts])
+                    gauges.append_rows(rows[:, 0], rows[:, 1 + n_pts :])
+                    io_seconds += time.time() - t_io
             if float(state.t) >= t_target or n == 0:
                 break
             log(f"  (write target {t_target:.6g} s not reached in "
@@ -452,7 +494,7 @@ def _run_case(case_dir, props, controls, log, write_checkpoints, devices,
         steps_total += steps_t
         if write_checkpoints:
             t_io = time.time()
-            save_checkpoint(case_dir, state)
+            save(state)
             io_seconds += time.time() - t_io
         intervals.append({"t": float(state.t), "steps": steps_t,
                           "wall_seconds": time.time() - wall_t})
@@ -466,6 +508,7 @@ def _run_case(case_dir, props, controls, log, write_checkpoints, devices,
 
     wall = time.time() - wall0
     sim_time = float(state.t) - t_now
+    n_cells = geom.n_fluid_cells
     stats = {
         "n_cells": n_cells,
         "steps": steps_total,
@@ -480,6 +523,123 @@ def _run_case(case_dir, props, controls, log, write_checkpoints, devices,
         f"{wall:.1f} s wall ({stats['cell_steps_per_sec']:.3g} cell-updates/s)"
     )
     return stats
+
+
+def rank_choice(params: dict, shape, d_x: int, d_y: int, dev) -> str:
+    """What the ranks run for a case on a (d_x, d_y) mesh of one process a
+    position ('what runs', for the run's log), or NotImplementedError for
+    what the rank form does not run yet: the 1-D x decomposition with nx
+    a multiple of 8·d_x and the kernel islands alone run over ranks (the
+    JAX package runs the others as GSPMD's plain step)."""
+    why = ("'NxM'" if d_y > 1
+           else "a 6DoF case" if params.get("model") == "tank6dof"
+           else f"nx {shape[0]} not a multiple of 8·{d_x}"
+           if shape[0] % (8 * d_x)
+           else None if _spmd_kernels_wanted(dev)
+           else "the kernel islands off (OFTPP_SPMD_PALLAS; on the CPU "
+                "their plain versions need OFTPP_SPMD_PALLAS=interpret)")
+    if why is not None:
+        raise NotImplementedError(
+            f"{why} over ranks, one process a mesh position: the next slice "
+            "of the decomposition over cards (ROADMAP.md §1 item 2); put "
+            "the positions on one device (device='cuda:0') to run it in "
+            "one process")
+    return f"x-sharded step over {d_x} ranks (halo kernel islands)"
+
+
+def _run_case_ranks(case_dir, props, controls, log, write_checkpoints,
+                    devices, positions) -> dict:
+    """`run_case` over ranks: one spawned process a mesh position
+    (parallel/ranks.py `launch`), each running `_rank_run` on its slab.
+    Returns rank 0's stats with `ranks` added: every rank's exchange
+    stats and kernel launch counts."""
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+
+    params = load_case_params(case_dir)
+    d_x, d_y = sh.parse_devices(devices)
+    geom = build_case_geometry(params, _case_shape_hint(case_dir),
+                               devices=devices, device=positions[0])
+    what = rank_choice(params, geom.shape, d_x, d_y, positions[0])
+    backend = rk.backend_for(positions)
+    shared = len(set(positions)) < len(positions)
+    log(_mesh_line(geom, params)
+        + f", {devices} mesh positions on "
+        f"{', '.join(str(p) for p in positions)}: {what}, backend {backend}"
+        + (" (ranks share a device)" if shared else ""))
+    results = rk.launch(_rank_run, positions, log=log,
+                        args=(case_dir, props, controls, write_checkpoints,
+                              d_x))
+    stats = results[0]["stats"]
+    stats["ranks"] = [{"device": str(p), "backend": backend, **r["ranks"]}
+                      for p, r in zip(positions, results)]
+    return stats
+
+
+def _rank_run(ctx, log, case_dir, props, controls, write_checkpoints, d_x):
+    """One rank of `run_case`: the x-sharded step (`SpmdCtx(d_x,
+    ranks=ctx)`) on this rank's slab; rank 0 reads the resumed state and
+    scatters it, gathers each checkpoint and the probe rows and writes
+    them. Returns {"stats" (rank 0's run stats), "ranks": {exchange stats,
+    kernel launches, p_iters of every step}}."""
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+    from openfoam_tpp_tpu_torch.post.probes import make_rank_sampler
+
+    dev = ctx.device
+    lead = ctx.rank == 0
+    params = load_case_params(case_dir)
+    chk = latest_checkpoint(case_dir) if lead else None
+    hint = ctx.broadcast(None if chk is None else tuple(
+        load_checkpoint(chk[1])["alpha"].shape))
+    geom = build_case_geometry(params, hint, devices=d_x, device=dev)
+    controls = dataclasses.replace(controls, use_pallas=True)
+    k_env = os.environ.get("OFTPP_PRECOND_REFRESH")
+    if k_env is not None:
+        controls = dataclasses.replace(controls, precond_refresh=int(k_env))
+    inner = make_step(geom, props, controls, carry_precond=True,
+                      spmd=SpmdCtx(d_x, ranks=ctx), device=dev)
+    iters = []
+
+    def step(*a, **k):
+        out = inner(*a, **k)
+        iters.append(out[1].p_iters)
+        return out
+
+    step.init_precond = inner.init_precond
+    sampler, width, rows = make_rank_sampler(
+        geom, default_probe_points(geom), default_wave_columns(geom), ctx,
+        device=dev)
+    advance = make_advance(step, sampler=sampler, sample_width=width)
+
+    io_seconds = 0.0
+    whole = None
+    if lead and chk is not None:
+        whole = to_state(load_checkpoint(chk[1]), device="cpu")
+        log(f"  Resuming from t={chk[0]:.4f} s ({chk[1]})")
+    elif lead:
+        whole = init_state(geom, dt0=params["dt"], device="cpu")
+        if write_checkpoints:
+            t_io = time.time()
+            save_checkpoint(case_dir, whole)
+            io_seconds += time.time() - t_io
+    state = rk.scatter_state(whole, geom.shape, ctx)
+
+    def save(state):
+        whole = rk.gather_state(state, ctx)
+        if lead:
+            save_checkpoint(case_dir, whole)
+
+    def samples(buf, n):
+        out = rows(ctx.all_gather(buf[:n]))
+        return out.cpu().numpy() if lead else None
+
+    with nan_trap.trap_nans():
+        stats = _time_loop(case_dir, params, geom, controls, advance,
+                           _case_params(params, dev), state, log,
+                           write_checkpoints, save, samples, io_seconds,
+                           writes=lead)
+    return {"stats": stats, "ranks": {
+        **ctx.stats.as_dict(), "launches": rk.launch_counts(),
+        "p_iters": [int(i) for i in iters]}}
 
 
 def iterate_snapshots(case_dir: str):

@@ -13,7 +13,8 @@ the CPU) in the cell lower-face layout; the bf16 λ/anti streams are on
 only on that path and only with `fct_bf16`, as in the JAX package.
 With `spmd` (parallel/spmd.py, the x-sharded step) the flux build runs as
 the per-shard `flux_all` island and all limiter iterations of a subcycle
-as one `fct_iters` island.
+as one `fct_iters` island; in a rank process (parallel/ranks.py) every
+x-neighbour access between them goes through ops/stencil.py's exchange.
 """
 
 from __future__ import annotations
@@ -29,16 +30,16 @@ from openfoam_tpp_tpu_torch.parallel import spmd as sm
 def _neighbor_max(a):
     out = a
     for ax in range(3):
-        out = torch.maximum(out, torch.maximum(st.shift_down(a, ax),
-                                               st.shift_up(a, ax)))
+        down, up = st.shift_both(a, ax)
+        out = torch.maximum(out, torch.maximum(down, up))
     return out
 
 
 def _neighbor_min(a):
     out = a
     for ax in range(3):
-        out = torch.minimum(out, torch.minimum(st.shift_down(a, ax),
-                                               st.shift_up(a, ax)))
+        down, up = st.shift_both(a, ax)
+        out = torch.minimum(out, torch.minimum(down, up))
     return out
 
 
@@ -97,9 +98,11 @@ def _div(fluxes, spacing):
 
 
 def _cell_to_faces(arrs):
-    """Re-append the implicit zero upper-boundary plane per axis."""
+    """Re-append the implicit zero upper-boundary plane per axis (along x
+    in a rank, the right neighbour's first face, except at the global
+    end)."""
     fx, fy, fz = arrs
-    return [torch.cat([fx, torch.zeros_like(fx[:1])], 0),
+    return [torch.cat([fx, st.x_next_plane(fx)], 0),
             torch.cat([fy, torch.zeros_like(fy[:, :1])], 1),
             torch.cat([fz, torch.zeros_like(fz[:, :, :1])], 2)]
 

@@ -10,11 +10,60 @@ kernel's agreement with its plain version rests on these clamps.
 Every function indexes dims 0–2 only, so arrays may carry a trailing case
 axis, (nx, ny, nz, B) (parameter sweeps): it passes through untouched.
 `sum_cells`, `max_cells` and `min_cells` reduce over the cells alone.
+
+In a rank process of the x-sharded step (parallel/ranks.py) the arrays
+are x-slabs, and `x_slabs(ranks, nxl)` makes that known for the block it
+opens: there every x-neighbour access at a slab's interior boundary
+takes the neighbour rank's plane (one `exchange` a call), the clamp or
+the zero stays at the global ends alone, and the three cell reductions
+reduce over the ranks. The same operands meet in the same order as on
+the whole grid, so every value but the reductions' is the whole grid's,
+bit for bit. `x_slabs(None)` closes it again for code that works on
+whole arrays (the kernels' plain versions, the gathered multigrid
+levels).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+# (RankCtx, local nx of the fine grid) while a rank's step runs, else None.
+_X = None
+
+
+@contextlib.contextmanager
+def x_slabs(ranks, nxl: int | None = None):
+    """Within the block, x-arrays are this rank's slabs of `nxl` cells
+    (`ranks` a parallel.ranks.RankCtx); `ranks=None`: whole arrays."""
+    global _X
+    prev, _X = _X, (None if ranks is None else (ranks, nxl))
+    try:
+        yield
+    finally:
+        _X = prev
+
+
+def x_ranks():
+    """The RankCtx of the open `x_slabs` block, or None."""
+    return None if _X is None else _X[0]
+
+
+def _x_ghosts(a, lo=True, hi=True):
+    """(lo, hi): the planes just outside an x-slab from the neighbour
+    ranks, None at a global end or where not asked. A face array (nxl + 1
+    planes) holds the plane it shares with the right neighbour, so its
+    ghosts lie one plane further out."""
+    ranks, nxl = _X
+    f = 1 if a.shape[0] == nxl + 1 else 0
+    n = a.shape[0]
+    return ranks.exchange(a[f:f + 1] if hi else None,
+                          a[n - 1 - f:n - f] if lo else None)
+
+
+def _along_x(axis):
+    return axis == 0 and _X is not None
 
 
 def _sl(axis, s):
@@ -24,57 +73,94 @@ def _sl(axis, s):
     return tuple(out)
 
 
+def _reduce(local, op):
+    return local if _X is None else _X[0].all_reduce(local, op=op)
+
+
 def sum_cells(t):
     """Sum over the cells: everything on a single grid, dims (0, 1, 2) —
     one value per case — on a batched (nx, ny, nz, B) one."""
-    return t.sum() if t.dim() == 3 else t.sum(dim=(0, 1, 2))
+    return _reduce(t.sum() if t.dim() == 3 else t.sum(dim=(0, 1, 2)), "sum")
 
 
 def max_cells(t):
-    return t.max() if t.dim() == 3 else t.amax(dim=(0, 1, 2))
+    return _reduce(t.max() if t.dim() == 3 else t.amax(dim=(0, 1, 2)), "max")
 
 
 def min_cells(t):
-    return t.min() if t.dim() == 3 else t.amin(dim=(0, 1, 2))
+    return _reduce(t.min() if t.dim() == 3 else t.amin(dim=(0, 1, 2)), "min")
 
 
 def shift_down(a, axis):
     """result[i] = a[i-1], edge-clamped at i=0."""
-    return torch.cat([a[_sl(axis, slice(0, 1))], a[_sl(axis, slice(0, -1))]],
-                     dim=axis)
+    first = a[_sl(axis, slice(0, 1))]
+    if _along_x(axis):
+        lo, _ = _x_ghosts(a, hi=False)
+        first = first if lo is None else lo
+    return torch.cat([first, a[_sl(axis, slice(0, -1))]], dim=axis)
 
 
 def shift_up(a, axis):
     """result[i] = a[i+1], edge-clamped at i=n-1."""
-    return torch.cat([a[_sl(axis, slice(1, None))], a[_sl(axis, slice(-1, None))]],
-                     dim=axis)
+    last = a[_sl(axis, slice(-1, None))]
+    if _along_x(axis):
+        _, hi = _x_ghosts(a, lo=False)
+        last = last if hi is None else hi
+    return torch.cat([a[_sl(axis, slice(1, None))], last], dim=axis)
+
+
+def shift_both(a, axis):
+    """(shift_down(a, axis), shift_up(a, axis)), with one exchange."""
+    if not _along_x(axis):
+        return shift_down(a, axis), shift_up(a, axis)
+    lo, hi = _x_ghosts(a)
+    return (torch.cat([a[:1] if lo is None else lo, a[:-1]]),
+            torch.cat([a[1:], a[-1:] if hi is None else hi]))
+
+
+def x_next_plane(a):
+    """The plane after an x-array's last (cells in the lower-face layout):
+    zeros at the global end, the right neighbour rank's first plane at a
+    slab's interior boundary."""
+    if _X is not None:
+        _, hi = _X[0].exchange(a[:1], None)
+        if hi is not None:
+            return hi
+    return torch.zeros_like(a[:1])
+
+
+def _faces_from_cells(c, axis, mid, edge):
+    """Faces of a cell array: `mid(left, right)` at every face between two
+    cells, `edge(c's end plane)` at the global ends; along x in a rank, the
+    slab's end faces pair its end cells with the neighbours' planes."""
+    lo = edge(c[_sl(axis, slice(0, 1))])
+    hi = edge(c[_sl(axis, slice(-1, None))])
+    if _along_x(axis):
+        g_lo, g_hi = _x_ghosts(c)
+        if g_lo is not None:
+            lo = mid(g_lo, c[:1])
+        if g_hi is not None:
+            hi = mid(c[-1:], g_hi)
+    inner = mid(c[_sl(axis, slice(0, -1))], c[_sl(axis, slice(1, None))])
+    return torch.cat([lo, inner, hi], dim=axis)
 
 
 def cells_to_faces_avg(c, axis):
     """Arithmetic face interpolation; boundary faces take the edge cell."""
-    lo = c[_sl(axis, slice(0, 1))]
-    hi = c[_sl(axis, slice(-1, None))]
-    mid = 0.5 * (c[_sl(axis, slice(0, -1))] + c[_sl(axis, slice(1, None))])
-    return torch.cat([lo, mid, hi], dim=axis)
+    return _faces_from_cells(c, axis, lambda a, b: 0.5 * (a + b),
+                             lambda e: e)
 
 
 def cells_to_faces_harmonic(c, axis, eps=1e-30):
     """Harmonic face interpolation."""
-    a = c[_sl(axis, slice(0, -1))]
-    b = c[_sl(axis, slice(1, None))]
-    mid = 2.0 * a * b / (a + b + eps)
-    lo = c[_sl(axis, slice(0, 1))]
-    hi = c[_sl(axis, slice(-1, None))]
-    return torch.cat([lo, mid, hi], dim=axis)
+    return _faces_from_cells(c, axis, lambda a, b: 2.0 * a * b / (a + b + eps),
+                             lambda e: e)
 
 
 def gradient_at_faces(c, axis, h):
     """(c[i] - c[i-1]) / h at interior faces, 0 at domain-boundary faces."""
-    d = (c[_sl(axis, slice(1, None))] - c[_sl(axis, slice(0, -1))]) / h
-    zshape = list(d.shape)
-    zshape[axis] = 1
-    z = torch.zeros(zshape, dtype=d.dtype, device=d.device)
-    return torch.cat([z, d, z], dim=axis)
+    return _faces_from_cells(c, axis, lambda a, b: (b - a) / h,
+                             torch.zeros_like)
 
 
 def faces_to_cells_avg(f, axis):
@@ -85,8 +171,14 @@ def faces_to_cells_avg(f, axis):
 def face_lr(c, axis):
     """Cell values seen from each face: (left/donor-below, right/donor-above),
     both face-shaped along `axis`; boundary faces clamp."""
-    cl = torch.cat([c[_sl(axis, slice(0, 1))], c], dim=axis)
-    cr = torch.cat([c, c[_sl(axis, slice(-1, None))]], dim=axis)
+    lo = c[_sl(axis, slice(0, 1))]
+    hi = c[_sl(axis, slice(-1, None))]
+    if _along_x(axis):
+        g_lo, g_hi = _x_ghosts(c)
+        lo = lo if g_lo is None else g_lo
+        hi = hi if g_hi is None else g_hi
+    cl = torch.cat([lo, c], dim=axis)
+    cr = torch.cat([c, hi], dim=axis)
     return cl, cr
 
 
@@ -119,8 +211,9 @@ def vanleer_limited(delta_up, delta_down, eps=1e-30):
 def vanleer_faces(c, flux, axis):
     """Second-order MUSCL face reconstruction with the van Leer limiter,
     upwinded by flux sign: c_f = c_d + 0.5·φ(r)·(c_a − c_d)."""
-    dm = c - shift_down(c, axis)
-    dp = shift_up(c, axis) - c
+    down, up = shift_both(c, axis)
+    dm = c - down
+    dp = up - c
     up_plus = c + 0.5 * vanleer_limited(dm, dp)
     up_minus = c - 0.5 * vanleer_limited(dp, dm)
     fl, _ = face_lr(up_plus, axis)
@@ -131,11 +224,13 @@ def vanleer_faces(c, flux, axis):
 def max27(a):
     """Max over the 3x3x3 neighbourhood (edge-clamped)."""
     for ax in range(3):
-        a = torch.maximum(a, torch.maximum(shift_down(a, ax), shift_up(a, ax)))
+        down, up = shift_both(a, ax)
+        a = torch.maximum(a, torch.maximum(down, up))
     return a
 
 
 def min27(a):
     for ax in range(3):
-        a = torch.minimum(a, torch.minimum(shift_down(a, ax), shift_up(a, ax)))
+        down, up = shift_both(a, ax)
+        a = torch.minimum(a, torch.minimum(down, up))
     return a

@@ -19,9 +19,10 @@ position, and drives every position itself.
   * The x and y axes cut the grid. Positions that share one device
     compute the global step, which is what GSPMD computes: the 1-D x
     islands of parallel/spmd.py (`SpmdCtx`) or the global step
-    (manager/runner.py `step_choice`). Spatial positions on distinct devices
-    raise NotImplementedError: the code between islands works on global
-    tensors, and spreading it over cards is ROADMAP.md §1 item 7.
+    (manager/runner.py `step_choice`). Spatial positions on distinct
+    devices are not this process's to drive: `run_case` runs them as
+    ranks, one process a position (parallel/ranks.py), and here they
+    raise NotImplementedError.
 
 Several positions share one card only through an explicit device list
 that repeats it, as JAX's virtual CPU devices share the host. The parts
@@ -102,17 +103,20 @@ def parse_devices(spec) -> tuple[int, int]:
 
 def case_devices(mesh: DeviceMesh) -> list[torch.device]:
     """The device of each case position: the one device its x and y
-    positions share. Distinct devices along x or y raise."""
+    positions share. Distinct devices along x or y raise: one process
+    drives them only as ranks."""
     out = []
     for block in mesh.devices:
         devs = list(dict.fromkeys(block.ravel()))
         if len(devs) > 1:
             raise NotImplementedError(
                 f"a mesh whose x/y positions lie on distinct devices "
-                f"({[str(d) for d in devs]}): the spatial decomposition "
-                "over several cards is not ported (ROADMAP.md §1 item 7); "
-                "repeat one device along x and y (devices=['cuda:0'] * N) "
-                "to run it on one card")
+                f"({[str(d) for d in devs]}) in one process: spatial "
+                "positions on distinct cards run as ranks, one process a "
+                "position (run_case(devices=N), parallel/ranks.py; the 1-D "
+                "x decomposition only, 'NxM' is the next slice of ROADMAP.md "
+                "§1 item 2); repeat one device along x and y "
+                "(devices=['cuda:0'] * N) to run them in one process")
         out.append(devs[0])
     return out
 

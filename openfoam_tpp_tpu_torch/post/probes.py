@@ -6,6 +6,14 @@ fixed points every timestep (the OpenFOAM `probes` functionObject) into
 interpolation of cell-centered fields, no host sync) and `ProbeWriter`
 writes the same text layout: the file format is the contract, so the
 writer is numpy and file I/O exactly as in the JAX package.
+
+In a rank process of the x-sharded step (parallel/ranks.py) a probe's
+cells, or a wave column, may lie on any rank: `make_rank_sampler` gives
+each rank a raw row from its own slab (every trilinear corner value and
+every η it holds, zeros elsewhere), and rank 0 picks each entry from its
+owner once per write interval and blends the corners as `sample_row`
+does, so the rows are the whole grid's, bit for bit, with no host sync
+added per step.
 """
 
 from __future__ import annotations
@@ -140,12 +148,25 @@ def _trilinear(field, pts, origin, spacing, lane=None):
     """Trilinear sample with origin/spacing as (3,) tensor operands. With
     `lane` (the case indices, (B,)): `field` is (nx, ny, nz, B), `pts`
     (B, n, 3), origin and spacing (B, 3), and the result (B, n)."""
+    corners, weights = _corners(pts, origin, spacing, field.shape[:3], lane)
+
+    def g(i, j, k):
+        if lane is not None:
+            return field[i, j, k, lane[:, None]]
+        return field[i, j, k]
+
+    return _blend([g(*c) for c in corners], *weights)
+
+
+def _corners(pts, origin, spacing, shape, lane=None):
+    """The trilinear stencil of `pts`: its 8 corner cells (i, j, k) in
+    `_blend`'s order and the weights (tx, ty, tz)."""
     if lane is not None:
         origin, spacing = origin[:, None, :], spacing[:, None, :]
     fx = (pts[..., 0] - origin[..., 0]) / spacing[..., 0] - 0.5
     fy = (pts[..., 1] - origin[..., 1]) / spacing[..., 1] - 0.5
     fz = (pts[..., 2] - origin[..., 2]) / spacing[..., 2] - 0.5
-    nx, ny, nz = field.shape[:3]
+    nx, ny, nz = shape
 
     def clamp(i, n):
         return torch.clamp(i, 0, n - 1)
@@ -157,19 +178,68 @@ def _trilinear(field, pts, origin, spacing, lane=None):
     tx = torch.clamp(fx - i0, 0.0, 1.0)
     ty = torch.clamp(fy - j0, 0.0, 1.0)
     tz = torch.clamp(fz - k0, 0.0, 1.0)
+    corners = [(i, j, k) for j in (j0, j1) for k in (k0, k1)
+               for i in (i0, i1)]
+    return corners, (tx, ty, tz)
 
-    def g(i, j, k):
-        if lane is not None:
-            return field[i, j, k, lane[:, None]]
-        return field[i, j, k]
 
-    c00 = g(i0, j0, k0) * (1 - tx) + g(i1, j0, k0) * tx
-    c01 = g(i0, j0, k1) * (1 - tx) + g(i1, j0, k1) * tx
-    c10 = g(i0, j1, k0) * (1 - tx) + g(i1, j1, k0) * tx
-    c11 = g(i0, j1, k1) * (1 - tx) + g(i1, j1, k1) * tx
+def _blend(v, tx, ty, tz):
+    """Trilinear blend of the 8 corner values of `_corners`."""
+    c00 = v[0] * (1 - tx) + v[1] * tx
+    c01 = v[2] * (1 - tx) + v[3] * tx
+    c10 = v[4] * (1 - tx) + v[5] * tx
+    c11 = v[6] * (1 - tx) + v[7] * tx
     c0 = c00 * (1 - ty) + c10 * ty
     c1 = c01 * (1 - ty) + c11 * ty
     return c0 * (1 - tz) + c1 * tz
+
+
+def make_rank_sampler(geom: TankGeometry, points, columns, ranks,
+                      device="cuda"):
+    """The probe sampler of one rank of the x-sharded step (`ranks` a
+    parallel.ranks.RankCtx): (sampler, raw width, rows). `sampler(state)`
+    on the rank's slab state gives its raw row, [t, the 8 corner values of
+    each point, η of each column], with 0 for what other ranks hold;
+    `rows(parts)`, on the raw rows (n, raw width) of every rank in rank
+    order, gives the n rows `sample_row` gives on the whole grid."""
+    dev = resolve_device(device)
+    pack = probe_pack(geom, points, columns, device=dev)
+    nxl = geom.shape[0] // ranks.world
+    off = ranks.rank * nxl
+    corners, weights = _corners(pack["pts"], pack["origin"], pack["spacing"],
+                                geom.shape)
+    gi, gj, gk = (torch.stack([c[a] for c in corners], -1) for a in range(3))
+    mine = (gi >= off) & (gi < off + nxl)
+    li = torch.clamp(gi - off, 0, nxl - 1)
+    ci = pack["ci"]
+    col_mine = (ci >= off) & (ci < off + nxl)
+    lci = torch.clamp(ci - off, 0, nxl - 1)
+    z0, hz = pack["origin"][2], pack["spacing"][2]
+    vnorm = torch.clamp(pack["vcol"].max(dim=-1).values, min=1e-6)
+    # Each raw entry's rank: t from rank 0, a corner or a column from the
+    # rank holding its x.
+    owner = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                       gi.reshape(-1) // nxl, ci // nxl])
+    n_pts = gi.shape[0]
+
+    def sampler(state):
+        vals = torch.where(mine, state.p[li, gj, gk], 0.0)
+        acol = state.alpha[lci, pack["cj"], :] * pack["vcol"]
+        eta = torch.where(col_mine, z0 + hz * acol.sum(dim=-1) / vnorm, 0.0)
+        return torch.cat([state.t.reshape(1).float(),
+                          vals.reshape(-1).float(), eta.float()])
+
+    def rows(parts):
+        raw = torch.stack(parts)                        # (world, n, width)
+        cols = torch.arange(raw.shape[-1], device=raw.device)
+        picked = raw[owner.to(raw.device), :, cols].T   # (n, width)
+        v = picked[:, 1:1 + 8 * n_pts].reshape(-1, n_pts, 8)
+        p_vals = _blend([v[..., c] for c in range(8)],
+                        *(w.to(raw.device) for w in weights))
+        return torch.cat([picked[:, :1], p_vals, picked[:, 1 + 8 * n_pts:]],
+                         dim=1)
+
+    return sampler, 1 + 8 * n_pts + len(ci), rows
 
 
 class ProbeWriter:

@@ -36,6 +36,18 @@ fused cheb2 smoothers are off on sharded levels (two sweeps there take
 the generic smoother, whose inner residual is the island), as in the JAX
 package.
 
+In a rank process of the x-sharded step (`SpmdCtx(ranks=...)`,
+parallel/ranks.py) every array is the rank's x-slab: the dots all-reduce
+(ops/stencil.py `sum_cells`), the plain coarse levels exchange their
+x-neighbour planes, and the hierarchy is the global one. Its levels and
+shapes follow from the global shape; a level stays a slab while its
+local nx is even (2:1 pairs within the rank), and the first level whose
+local nx is odd is gathered whole on every rank once per bundle (its
+operator) and once per visit (its right-hand side): every rank runs it
+and the levels below redundantly and keeps its own slab of the
+correction, OpenFOAM GAMG's processor agglomeration. The cycle is the
+single-process sharded cycle's, bit for bit.
+
 CG loop: the JAX `lax.while_loop` is a Python loop here that reads
 `rr > tol2` on the host once per iteration — one device sync per CG
 iteration (plus one before the first). CUDA graphs are future work.
@@ -114,6 +126,8 @@ class _Level:
     unit_diag: bool = False
     spmd: object = None         # parallel.spmd.SpmdCtx: the kernel applies
                                 # run as per-shard islands
+    agg: object = None          # parallel.ranks.RankCtx: the first level
+                                # gathered whole on every rank
 
 
 @dataclasses.dataclass
@@ -141,10 +155,11 @@ def _weights_apply(level: _Level, p):
             return sm.apply_7pt(p, level.split, level.spmd, diag=diag)
         return sp.apply_7pt(p, level.split, diag)
     wx, wy, wz = level.wx, level.wy, level.wz
+    (xd, xu), (yd, yu), (zd, zu) = (st.shift_both(p, ax) for ax in range(3))
     nb = (
-        wx[:-1] * st.shift_down(p, 0) + wx[1:] * st.shift_up(p, 0)
-        + wy[:, :-1] * st.shift_down(p, 1) + wy[:, 1:] * st.shift_up(p, 1)
-        + wz[:, :, :-1] * st.shift_down(p, 2) + wz[:, :, 1:] * st.shift_up(p, 2)
+        wx[:-1] * xd + wx[1:] * xu
+        + wy[:, :-1] * yd + wy[:, 1:] * yu
+        + wz[:, :, :-1] * zd + wz[:, :, 1:] * zu
     )
     if level.unit_diag:
         return p - nb
@@ -279,10 +294,15 @@ def _coarsen_face_weights(w, axis):
     return w
 
 
-def _build_coarse_levels(wx, wy, wz, extra, max_coarse=9, min_cells=256):
-    """Physical Galerkin hierarchy strictly below the given fine level."""
+def _build_coarse_levels(wx, wy, wz, extra, max_coarse=9, min_cells=256,
+                         ranks=None):
+    """Physical Galerkin hierarchy strictly below the given fine level.
+    `ranks`: the operands are this rank's x-slabs; the hierarchy is the
+    global one, the first level of odd local nx and those below it
+    gathered whole (`_Level.agg` marks the first)."""
     levels = []
-    shape = tuple(extra.shape[:3])
+    world = 1 if ranks is None else ranks.world
+    shape = (extra.shape[0] * world,) + tuple(extra.shape[1:3])
     while (len(levels) < max_coarse
            and shape[0] * shape[1] * shape[2] > min_cells
            and min(shape) > 2):
@@ -290,16 +310,32 @@ def _build_coarse_levels(wx, wy, wz, extra, max_coarse=9, min_cells=256):
         wy = _coarsen_face_weights(wy, 1)
         wz = _coarsen_face_weights(wz, 2)
         extra = _restrict_cells(extra)
-        shape = tuple(extra.shape[:3])
         diag = (wx[:-1] + wx[1:] + wy[:, :-1] + wy[:, 1:]
                 + wz[:, :, :-1] + wz[:, :, 1:] + extra)
         diag = torch.where(diag > 0, diag, 1.0)
-        levels.append(_Level(wx=wx, wy=wy, wz=wz, diag=diag, shape=shape))
+        agg = None
+        if world > 1 and extra.shape[0] % 2:
+            agg = ranks
+            wx = ranks.gather_x(wx, faces=True)
+            wy, wz, diag, extra = (ranks.gather_x(t)
+                                   for t in (wy, wz, diag, extra))
+            world = 1
+        shape = (extra.shape[0] * world,) + tuple(extra.shape[1:3])
+        levels.append(_Level(wx=wx, wy=wy, wz=wz, diag=diag,
+                             shape=tuple(extra.shape[:3]), agg=agg))
     return levels
 
 
 def _vcycle(levels, li, b, k: SolverKnobs):
     level = levels[li]
+    if level.agg is not None and st.x_ranks() is not None:
+        # The first gathered level: its right-hand side whole on every
+        # rank, the rest of the cycle on whole levels, this rank's slab of
+        # the correction.
+        bg = level.agg.gather_x(b)
+        with st.x_slabs(None):
+            xg = _vcycle(levels, li, bg, k)
+        return level.agg.slab(xg, xg.shape[0])
     if li == len(levels) - 1:
         return _jacobi(level, None, b, k.coarsest_sweeps)
     x = _smooth(level, None, b, k)
@@ -409,10 +445,13 @@ def build_operator(geom_arrays, spacing, rho, top_open, use_pallas=False,
     return problem, pack
 
 
-def _bundle_entry(wx, wy, wz, use_pallas, diag=None):
+def _bundle_entry(wx, wy, wz, use_pallas, diag=None, agg=False):
     """One hierarchy level: face-lite split weights on the kernel path,
-    face weights otherwise. `diag=None` = unit-diagonal level."""
+    face weights otherwise. `diag=None` = unit-diagonal level; `agg`: the
+    first level a rank process holds whole."""
     d = {}
+    if agg:
+        d["agg"] = True
     if diag is not None:
         d["diag"] = diag
     if use_pallas:
@@ -428,19 +467,25 @@ def make_bundle(pack, use_pallas=False, knobs: SolverKnobs = SolverKnobs(),
     Galerkin coarse hierarchy coarsened directly in bf16 (f32 with
     `knobs.precond_f32`). Reusing a stale bundle is physics-exact (it is
     only the preconditioner). Under `spmd` the coarse levels keep face
-    weights (the plain path), as in the JAX package."""
+    weights (the plain path), as in the JAX package; under `spmd.ranks`
+    the hierarchy is the global one (module docstring)."""
     lp = knobs.precond_dtype
     top = _bundle_entry(pack["hwx"].to(lp), pack["hwy"].to(lp),
                         pack["hwz"].to(lp), use_pallas)
     coarse = [_bundle_entry(lev.wx, lev.wy, lev.wz,
-                            use_pallas and spmd is None, diag=lev.diag)
+                            use_pallas and spmd is None, diag=lev.diag,
+                            agg=lev.agg is not None)
               for lev in _build_coarse_levels(
                   pack["wx"].to(lp), pack["wy"].to(lp), pack["wz"].to(lp),
-                  pack["extra"].to(lp))]
+                  pack["extra"].to(lp),
+                  ranks=None if spmd is None else spmd.ranks)]
     return {"top": top, "coarse": coarse, "inv_s": pack["inv_s"].to(lp)}
 
 
 def _level_from_entry(d, unit_diag, spmd=None):
+    """A _Level from a bundle entry; `spmd` runs a split level's kernel
+    passes as islands and carries a rank process's gathered level."""
+    agg = (spmd.ranks if d.get("agg") and spmd is not None else None)
     split = d.get("split")
     if split is not None:
         return _Level(wx=None, wy=None, wz=None, diag=d.get("diag"),
@@ -449,7 +494,7 @@ def _level_from_entry(d, unit_diag, spmd=None):
     wx, wy, wz = d["faces"]
     shape = (wx.shape[0] - 1,) + tuple(wx.shape[1:3])
     return _Level(wx=wx, wy=wy, wz=wz, diag=d.get("diag"), shape=shape,
-                  unit_diag=unit_diag)
+                  unit_diag=unit_diag, agg=agg)
 
 
 def attach_precond(problem: PoissonProblem, bundle,
@@ -458,7 +503,7 @@ def attach_precond(problem: PoissonProblem, bundle,
     """Wire a make_bundle dict into the problem's precond closures; with
     `spmd` the top level's kernel passes run as per-shard islands."""
     top16 = _level_from_entry(bundle["top"], unit_diag=True, spmd=spmd)
-    coarse16 = [_level_from_entry(d, unit_diag=False)
+    coarse16 = [_level_from_entry(d, unit_diag=False, spmd=spmd)
                 for d in bundle["coarse"]]
     inv_s16 = bundle["inv_s"]
     lp = inv_s16.dtype

@@ -60,10 +60,22 @@ one card the n shards are x-slabs of the same tensors. The momentum
 finish kernel stays off under `spmd` (no halo form), as in the JAX step.
 `spmd` with a rotating motion raises NotImplementedError (the JAX
 package never builds that pair).
+
+`spmd=SpmdCtx(n, ranks=ctx)` is the same step in one rank process of n
+(parallel/ranks.py): `make_step` uploads the rank's x-slab of the
+geometry, the state is the rank's slab (parallel/ranks.py
+`scatter_state`), and the step runs inside ops/stencil.py's `x_slabs`
+block, so every x-neighbour access between the islands takes the
+neighbour rank's plane and every reduction (the Courant numbers, the
+dots, the alpha bounds, the div max) is over the ranks: the dt, the CG's
+stop and every diagnostic come out alike on every rank. The rank form
+runs the islands' configuration only: a motion table, surface tension,
+`forcing=` or a fused-kernel gate turned off raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import NamedTuple
 
@@ -160,10 +172,15 @@ class Cfl(NamedTuple):
         return self._replace(dt=dt_min.expand_as(self.dt).clone())
 
 
-def geometry_arrays(geom: TankGeometry, dtype=torch.float32, device="cuda"):
-    """Upload the static geometry to device tensors once."""
+def geometry_arrays(geom: TankGeometry, dtype=torch.float32, device="cuda",
+                    ranks=None):
+    """Upload the static geometry to device tensors once; with `ranks` (a
+    parallel.ranks.RankCtx) this rank's x-slab of it."""
     dev = resolve_device(device)
-    as_t = lambda a: torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+    nx = geom.shape[0]
+    cut = (lambda a: a) if ranks is None else (lambda a: ranks.slab(a, nx))
+    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(
+        cut(np.asarray(a))), device=dev).to(dtype)
     return {"vfrac": as_t(geom.vfrac), "ax": as_t(geom.ax),
             "ay": as_t(geom.ay), "az": as_t(geom.az),
             "top_open": as_t(geom.top_open)}
@@ -194,6 +211,11 @@ def _check_slice(controls, motion=None, spmd=None):
         raise NotImplementedError(
             "spmd= with batch_lanes: a sweep is not sharded through spmd "
             "(in the JAX package either)")
+    if spmd is not None and spmd.ranks is not None and motion is not None:
+        raise NotImplementedError(
+            "a motion table on the x-sharded step over ranks (a sharded "
+            "6DoF case on distinct cards): the next slice of the "
+            "decomposition over cards (ROADMAP.md §1 item 2)")
 
 
 def make_step_core(props: PhysicalProperties = PhysicalProperties(),
@@ -244,6 +266,23 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
                     and _finish_pallas_enabled(controls))
     use_corr_k = sealed_x and _corr_pallas_enabled(controls)
     knobs = poisson.SolverKnobs.from_env()
+    ranks = None if spmd is None else spmd.ranks
+    if ranks is not None:
+        why = ("surface tension" if props.sigma != 0.0
+               else "forcing=" if forcing is not None
+               else "the momentum RHS off its island" if not use_mom_k
+               else "the projection epilogue off its island"
+               if not use_corr_k else None)
+        if why is not None:
+            raise NotImplementedError(
+                f"the x-sharded step over ranks with {why}: the rank form "
+                "runs the islands' configuration only")
+
+    def slabs(state):
+        """The stencil's x-slab block of a rank process."""
+        if ranks is None:
+            return contextlib.nullcontext()
+        return st.x_slabs(ranks, state.alpha.shape[0])
 
     def make_bundle(pack):
         return poisson.make_bundle(pack, use_pallas=use_k, knobs=knobs,
@@ -305,6 +344,11 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
 
     def step(state: SimState, params, ga, spacing, t_stop=None,
              precond=None, cfl=None):
+        with slabs(state):
+            return step_slab(state, params, ga, spacing, t_stop, precond,
+                             cfl)
+
+    def step_slab(state, params, ga, spacing, t_stop, precond, cfl):
         fdt = state.dt.dtype
         dev = state.dt.device
         if spmd is not None and state.alpha.dim() != 3:
@@ -464,10 +508,11 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
     def init_precond(state, ga, spacing):
         """The first bundle of a time loop's carry."""
         rho = mixture_density(state.alpha, props)
-        _, pack = poisson.build_operator(
-            ga, spacing, rho, ga["top_open"] if open_top else None,
-            use_pallas=use_k, spmd=spmd)
-        return make_bundle(pack)
+        with slabs(state):
+            _, pack = poisson.build_operator(
+                ga, spacing, rho, ga["top_open"] if open_top else None,
+                use_pallas=use_k, spmd=spmd)
+            return make_bundle(pack)
 
     step.cfl_dt = cfl_dt
     if carry_precond:
@@ -486,13 +531,20 @@ def make_step(geom: TankGeometry,
     -> (state', diag, precond')`, and `step.init_precond(state)` builds
     the first bundle of a time loop's carry. `spmd=SpmdCtx(n)`: the
     x-sharded step (the grid's nx must divide into n slabs of at least two
-    planes). `motion` (a TableMotion on `device`): the 6DoF tank's
-    table-driven forcing; the face coordinates of its rotating frame are
-    built here."""
+    planes); `SpmdCtx(n, ranks=ctx)`: this rank's part of it, on the
+    rank's slab of the geometry (an even number of planes: the multigrid's
+    2:1 pairs start within the rank). `motion` (a TableMotion on
+    `device`): the 6DoF tank's table-driven forcing; the face coordinates
+    of its rotating frame are built here."""
     _check_slice(controls, motion=motion, spmd=spmd)
+    ranks = None
     if spmd is not None:
-        spmd.local_shape(geom.shape)
-    ga = geometry_arrays(geom, dtype, device=device)
+        nxl = spmd.local_shape(geom.shape)[0]
+        ranks = spmd.ranks
+        if ranks is not None and nxl % 2:
+            raise ValueError(f"x-slabs of {nxl} planes over ranks: the "
+                             "rank form takes an even number")
+    ga = geometry_arrays(geom, dtype, device=device, ranks=ranks)
     spacing = tuple(float(s) for s in geom.spacing)
     open_top = bool(np.any(geom.top_open > 0))
     face_xyz = (tuple(fr.face_coordinates(geom, ax, device)

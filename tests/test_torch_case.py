@@ -429,8 +429,9 @@ def test_unported_case_arguments_raise(tiny_runs, tmp_path, monkeypatch):
     the plain global step on the JAX package's grid (the CPU wants no
     kernel islands), bitwise the unsharded run's, as the same step on the
     same operands; 'NxM' builds JAX's grid; a 6DoF case runs sharded as
-    it runs alone. What still raises: x positions on distinct cards,
-    a missing card, a foreign checkpoint grid."""
+    it runs alone. What raises: a missing card (x positions on distinct
+    cards run as ranks and need theirs), 'NxM' and a grid the islands do
+    not divide on distinct cards, a foreign checkpoint grid."""
     case = tcases.setup_case(TINY, str(tmp_path))
     stats = trunner.run_case(case, devices=2, device="cpu",
                              log=lambda *a: None)
@@ -456,12 +457,19 @@ def test_unported_case_arguments_raise(tiny_runs, tmp_path, monkeypatch):
     assert float(got["t"]) == float(np.float32(0.1))
     for k in FIELDS:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    # x positions on distinct cards: the spatial decomposition over cards
-    # is not ported (torch.device objects: no card is touched).
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trunner.run_case(case, devices=2,
-                         device=[torch.device("cuda:0"),
-                                 torch.device("cuda:1")])
+    # x positions on distinct cards run as ranks, one process a card:
+    # without a card the launch refuses before any process starts. The
+    # next slice's cases raise there: 'NxM', and this case's grid (its
+    # checkpoints are the 8×8×10 of the run above, which the islands do
+    # not divide). torch.device objects: no card is touched.
+    cards = [torch.device(f"cuda:{i}") for i in range(4)]
+    fresh = tcases.setup_case(TINY, str(tmp_path / "fresh"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trunner.run_case(fresh, devices=2, device=cards[:2])
+    with pytest.raises(NotImplementedError, match="not a multiple of 8·2"):
+        trunner.run_case(case, devices=2, device=cards[:2])
+    with pytest.raises(NotImplementedError, match="'NxM' over ranks"):
+        trunner.run_case(fresh, devices="2x2", device=cards)
     # The card is the default device, and its absence raises.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -42,6 +42,7 @@ import openfoam_tpp_tpu_torch.parallel.sweep
 import openfoam_tpp_tpu_torch.parallel.spmd
 import openfoam_tpp_tpu_torch.parallel.packed
 import openfoam_tpp_tpu_torch.parallel.sharding
+import openfoam_tpp_tpu_torch.parallel.ranks
 import openfoam_tpp_tpu_torch.parallel.tiled_sweep
 import openfoam_tpp_tpu_torch.ops.kernels.halo7
 import openfoam_tpp_tpu_torch.post.interface
@@ -72,16 +73,21 @@ def test_imports_without_jax():
 
 
 def test_no_module_of_the_port_names_jax():
-    """No source of the port, nor chip_smoke.py, imports jax or the JAX
-    package (the blocked-import run above loads them all without)."""
+    """No source of the port, nor chip_smoke.py, nor what the rank
+    processes of tests/test_torch_ranks.py import (parallel/ranks.py and
+    tests/torch_rank_jobs.py), imports jax or the JAX package (the
+    blocked-import run above loads them all without)."""
     import re
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|openfoam_tpp_tpu)\b",
                      re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "torch_rank_jobs.py")]
     for root, _, names in os.walk(os.path.join(REPO, "openfoam_tpp_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 25
+    assert os.path.join(REPO, "openfoam_tpp_tpu_torch", "parallel",
+                        "ranks.py") in files
     bad = [f for f in files if pat.search(open(f).read())]
     assert not bad, bad
 

@@ -142,15 +142,15 @@ def test_make_mesh_and_device_positions():
         tsh.make_mesh(4, devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="does not divide"):
         tsh.make_mesh(6, case_axis=4, devices=["cpu"] * 6)
-    # x (or y) positions on distinct cards raise naming the roadmap item;
-    # case positions may lie on distinct cards (the farm). No card is
-    # touched.
+    # x (or y) positions on distinct cards raise in one process, naming
+    # the rank form that runs them; case positions may lie on distinct
+    # cards (the farm). No card is touched.
     cards = [torch.device("cuda:0"), torch.device("cuda:1")]
     for m in (tsh.make_mesh(2, devices=cards),
               tsh.make_mesh(2, y_axis=2, devices=cards)):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="run as ranks"):
             tsh.state_sharding(m)
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="run as ranks"):
             tsh.sharded_step(lambda s, p: (s, None), m)
     farm = tsh.state_sharding(tsh.make_mesh(2, case_axis=2, devices=cards),
                               batched=True)
@@ -319,6 +319,45 @@ def test_farmed_lockstep_geometry_sweep(unfarmed):
         a = getattr(lead, k)
         assert torch.equal(a if a.dim() <= 1 else a.movedim(0, -1),
                            getattr(ref, k)), k
+
+
+def _held_in_lockstep(farm, before, after):
+    """The lockstep check: the farm's one step from `before` gave every
+    case of every part the smallest of the parts' own CFL dt, and part 1
+    (the fast one) is where it binds."""
+    own = [float(s.lockstep.cfl(p).dt.min())
+           for s, p in zip(farm.steps, before)]
+    assert own[1] < own[0], own
+    for part in after:
+        np.testing.assert_array_equal(part.dt.numpy(),
+                                      np.full(part.dt.shape, own[1],
+                                              np.float32))
+
+
+def test_farm_steps_every_case_at_the_binding_parts_dt():
+    """The farm's lockstep: one part's cases start with a 10 m/s x
+    velocity, so their CFL dt binds; after one farmed step every case of
+    both parts carries that part's minimum (the CFL dt the step took).
+    The same farm with each part keeping its own dt (each part stepped
+    alone) must fail the check."""
+    rows = [dict(TANK, **r) for r in ROWS]
+    bg = tsw.build_batched_geometry(rows, round_to=4, device="cpu")
+    par = tsw.batch_params(ROWS, device="cpu")
+    mesh = tsh.make_mesh(2, case_axis=2, devices=["cpu"] * 2)
+    sharding = tsh.state_sharding(mesh, batched=True)
+    farm = tsh.sharded_step([tsw.make_geom_sweep_step(g)
+                             for g in tsh.shard_batched_geometry(bg, mesh)],
+                            mesh, batched=True)
+    parts = sharding.put(tsw.batch_states_geom(bg, dt0=4e-4))
+    fast = bg.ga["ax"][..., 2:] > 0.0
+    parts[1] = dataclasses.replace(parts[1], u=torch.where(fast, 10.0, 0.0))
+    pparts = tsh.params_sharding(mesh, batched=True).put(par)
+    after, _ = farm(parts, pparts)
+    _held_in_lockstep(farm, parts, after)
+    own = [tsw.lockstep_step([s.lockstep], [p], [q])[0][0]
+           for s, p, q in zip(farm.steps, parts, pparts)]
+    with pytest.raises(AssertionError):
+        _held_in_lockstep(farm, parts, own)
 
 
 def test_farmed_run_cases_batched_matches_unfarmed(tmp_path):
