@@ -30,7 +30,12 @@ Phases, each fatal on any fault (nothing is caught):
      1.0f / (float)h is an ulp off the plain versions' (float)(1.0 / h),
      and with a NaN λ among λ and anti of ±0 (NaN where plain has NaN,
      bit for bit elsewhere), and `momentum_rhs(_h)` there to their
-     tolerance;
+     tolerance; then `correct_divmax_h` in its closed-top form on the
+     6DoF tutorial tank's operands (phase 8's 80×80×160 chamfered tank
+     cut into 4 x-slabs of 20 planes: its apertures and volume fractions,
+     seeded fields), every slab bitwise its plain version and the island
+     bitwise the single-grid kernel, its 4 launches timed beside their
+     bytes and bound;
   3. drive the step path: the flagship single-tank case
      (H0.208/D0.2/R0.004/f1.88, mesh 0.00185, round_to=8 → 112³) through
      `make_step(..., carry_precond=True)` in the bench's configuration,
@@ -223,7 +228,33 @@ Phases, each fatal on any fault (nothing is caught):
      once an island call, the rest once a call), and per step each rank's
      plane exchanges, bytes sent, all-reduces and host seconds in them;
      (iv) with more than one card, the same run over min(count, 4)
-     distinct cards under NCCL (else it says it did not run).
+     distinct cards under NCCL (else it says it did not run);
+     (e) the 6DoF tank and a grid that is not a multiple of 8·N over
+     ranks: (i) one NCCL rank on the card, N_RANK1_6DOF steps of phase
+     8's tank from phase 8's state under its motion, bitwise the
+     single-process SpmdCtx(1) step with the same launches (the halo
+     kernels alone; rank, single, single, rank in turns, ms/step of
+     each); (ii) `run_case(devices=4, device="cuda:0", ranks=True)` of
+     phase 8's case (0.1 s, x-slabs of nxl = 20 planes, which its log
+     names), four gloo ranks sharing the card, killed after the first
+     interval and resumed from the lone run's t = 0.05 checkpoint, held
+     against phase 8's lone run: write times bitwise, case.json and
+     6DoF.dat byte-equal, every rank's motion table the case's bit for
+     bit, the final checkpoint within phase 3b's limits plus
+     FARM_DRIFT·0.05 s, the resumed p_iters within 1 of the one-process
+     SpmdCtx(4) step's from that checkpoint (whether equal is printed)
+     and printed beside the lone run's; from rest the p_iters and its
+     own checkpoints are printed beside the lone run's, not held;
+     (iii) phase 5's 112³ case copied with its t = 0 and 0.05
+     checkpoints and resumed to 0.1 s by `run_case(devices=4,
+     device="cuda:0", ranks=True)` with OFTPP_SMOOTH_SWEEPS=2, as phase 5
+     ran it (nxl 28 → 14 → 7, the odd level gathered): the checkpoint's
+     grid kept, write times bitwise phase 5's, the final checkpoint
+     within phase 3b's limits of phase 5's, the p_iters printed beside
+     phase 5's; (iv) for (ii) and (iii), per rank, the launches of rows
+     11a–12d and of no single-grid kernel, and per step the plane
+     exchanges, bytes sent, all-reduces and host s in them, with the
+     run's ms/step with and without writes and its p_iters histogram.
 
 It then prints the `kernels` JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. It exits non-zero, printing no
@@ -373,7 +404,9 @@ PROFILE_KEYS = ("n_steps", "fluid_cells", "grid", "device", "mean_step_ms",
                 "final_dt", "p_iters", "trace_dir")
 # Phase 12: the device mesh on one card. The farm: phase 6's SWEEP_CASES
 # cases over FARM_POSITIONS case positions of one card (32 cases each),
-# N_FARM steps from rest (the first number to cut, before any width).
+# N_FARM steps from rest, not fewer: at 15 the farm's velocity gaps
+# exceed phase 4's limits, relative to the smaller early flow (measured
+# on an H100).
 FARM_POSITIONS = 4
 N_FARM = N_SWEEP
 N_FARM_TIMED = N_SWEEP_TIMED
@@ -1822,6 +1855,12 @@ def phase_case(geom, base):
     if int(c["step"]) != steps or not is_case_done(case_dir):
         raise AssertionError("case path: the last checkpoint is not the "
                              "run's end")
+    # Phase 12e resumes a copy of this case over ranks: its checkpoints
+    # as written.
+    chk_bytes = []
+    for _, path in chks:
+        with open(path, "rb") as f:
+            chk_bytes.append((os.path.basename(path), f.read()))
 
     # Probe files: one row per solver step; the water probe (z = H/4
     # under a surface at H/2) reads ρ_w·g·depth.
@@ -1888,7 +1927,8 @@ def phase_case(geom, base):
     return launches, {**stats, "p_iters_hist": hist, "profile": prof,
                       "profile_launches": prof_launches,
                       "device_bytes": run_bytes, "case_dir": case_dir,
-                      "params": case_params}
+                      "params": case_params, "p_iters": solves,
+                      "checkpoints": chk_bytes}
 
 
 def drive_sweep(label, step, states, params, n_steps, n_timed, n_fluid,
@@ -2669,13 +2709,15 @@ def phase_6dof(dev, props, rows):
     import torch
 
     from openfoam_tpp_tpu_torch.config import SolverControls
-    from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
+    from openfoam_tpp_tpu_torch.core.state import (CaseParams, init_state,
+                                                   state_to_numpy)
     from openfoam_tpp_tpu_torch.manager.cases import (is_case_done,
                                                       setup_case_6dof)
     from openfoam_tpp_tpu_torch.manager.runner import run_case
     from openfoam_tpp_tpu_torch.mesh import build_chamfer_tank_geometry
     from openfoam_tpp_tpu_torch.ops.kernels import correction as ck
     from openfoam_tpp_tpu_torch.solver import frame as fr
+    from openfoam_tpp_tpu_torch.solver import poisson
     from openfoam_tpp_tpu_torch.solver.timestep import make_step
     from openfoam_tpp_tpu_torch.utils.io import list_checkpoints, load_checkpoint
 
@@ -2773,13 +2815,22 @@ def phase_6dof(dev, props, rows):
             "chamfer": TANK6DOF["chamfer"], "duration": 0.1,
             "dt": DT0_6DOF}
     fns = {k: getattr(m, a) for k, (m, a, _) in counters().items()}
+    solves = []
+    real_pcg = poisson.solve_pcg
+
+    def pcg(*a, **k):
+        res = real_pcg(*a, **k)
+        solves.append(int(res[2]))
+        return res
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_6dof_case_") as base:
         case_dir = setup_case_6dof(case, base)
         for f in fns.values():
             f.launches = 0
         lines = []
-        run_stats = run_case(case_dir, log=lambda ln: (lines.append(ln),
-                                                       log("  | " + ln)))
+        with mock.patch.object(poisson, "solve_pcg", pcg):
+            run_stats = run_case(case_dir, log=lambda ln: (
+                lines.append(ln), log("  | " + ln)))
         torch.cuda.synchronize()
         launches = {k: f.launches for k, f in fns.items()}
         log(f"[6DoF case path] {run_stats['steps']} steps to "
@@ -2813,12 +2864,24 @@ def phase_6dof(dev, props, rows):
         if again["steps"] != 0 or not any("Resuming" in ln for ln in lines2):
             raise AssertionError(f"6DoF case path: second run {again}, "
                                  f"{lines2}")
+        # Phase 12e holds the case over ranks against this lone run: its
+        # files, checkpoints, write times and p_iters.
+        lone = {"case": case, "p_iters": solves,
+                "first_interval_steps": run_stats["intervals"][0]["steps"],
+                "times": [float(load_checkpoint(p)["t"]) for _, p in chks],
+                "final": load_checkpoint(chks[-1][1])}
+        for key, rel in (("case_json", "case.json"),
+                         ("table", os.path.join("constant", "6DoF.dat")),
+                         ("first_checkpoint", chks[1][1])):
+            with open(os.path.join(case_dir, rel), "rb") as f:
+                lone[key] = f.read()
     return {"step": stats, "finish_gated": finish,
             "closed_top_correct_divmax": closed,
             "kernels_vs_plain_p_iters": vs_plain["p_iters"],
             "case_path": {k: run_stats[k] for k in
                           ("n_cells", "steps", "wall_seconds", "sim_seconds",
-                           "io_seconds", "intervals")}}
+                           "io_seconds", "intervals")},
+            "state": state_to_numpy(state), "lone_run": lone}
 
 
 def steps_from(step, state, params):
@@ -3356,9 +3419,10 @@ def phase_mesh(dev, props, geom, sweep, flagship, flagship_params):
     return out
 
 
-def probe_table(case_dir, name):
-    with open(os.path.join(case_dir, "postProcessing", "probes", "0",
-                           name)) as f:
+def probe_table(case_dir, name, start=0.0):
+    """A probe file's rows, of a run started at `start` s."""
+    with open(os.path.join(case_dir, "postProcessing", "probes",
+                           f"{start:g}", name)) as f:
         return np.array([[float(v) for v in ln.split()]
                          for ln in f if not ln.startswith("#")])
 
@@ -3753,34 +3817,28 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def rank_one_job(ctx, log, params, n_steps):
-    """Phase 12d (i), in the one rank's process (rank 0 of 1, NCCL):
-    `n_steps` of the flagship's x-sharded step from rest as the rank
-    (`SpmdCtx(1, ranks=ctx)`) and as the single-process SpmdCtx(1) step,
-    each with its preconditioner carry, in turns (rank, single, single,
-    rank: the first run of the process pays its warm-up). Returns the
-    fields' comparison of each pair, and each run's p_iters, ms/step and
-    launches."""
+def rank_turns(ctx, geom, cp, start, n_steps, motion=None):
+    """`n_steps` of the x-sharded step as the one rank (`SpmdCtx(1,
+    ranks=ctx)`) and as the single-process SpmdCtx(1) step, each from
+    `start()` (a fresh global state) with its preconditioner carry, in
+    turns (rank, single, single, rank: the first run of the process pays
+    its warm-up). Returns the fields' comparison of each pair, and each
+    run's p_iters, ms/step and launches."""
     import torch
 
     from openfoam_tpp_tpu_torch.config import (PhysicalProperties,
                                                SolverControls)
-    from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
-    from openfoam_tpp_tpu_torch.manager.runner import build_case_geometry
     from openfoam_tpp_tpu_torch.parallel import ranks as rk
     from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
     from openfoam_tpp_tpu_torch.solver.timestep import make_step
 
     dev = ctx.device
-    geom = build_case_geometry(params, devices=N_SHARDS, device=dev)
-    cp = CaseParams.make(params["R"], params["freq"], params["duration"],
-                         params["ramp"], device=dev)
 
     def run(spmd):
         step = make_step(geom, PhysicalProperties(),
-                         SolverControls(use_pallas=True), carry_precond=True,
-                         spmd=spmd, device=dev)
-        state = init_state(geom, dt0=params["dt"], device=dev)
+                         SolverControls(use_pallas=True), motion=motion,
+                         carry_precond=True, spmd=spmd, device=dev)
+        state = start()
         if spmd.ranks is not None:
             state = rk.scatter_state(state, geom.shape, ctx)
         bundle = step.init_precond(state)
@@ -3816,6 +3874,36 @@ def rank_one_job(ctx, log, params, n_steps):
                 "single": [turns[1][1]["ms_per_step"],
                            turns[2][1]["ms_per_step"]]},
             "exchange": ctx.stats.as_dict()}
+
+
+def rank_one_job(ctx, log, params, n_steps):
+    """Phase 12d (i), in the one rank's process (rank 0 of 1, NCCL):
+    `rank_turns` of the flagship's x-sharded step from rest."""
+    from openfoam_tpp_tpu_torch.core.state import CaseParams, init_state
+    from openfoam_tpp_tpu_torch.manager.runner import build_case_geometry
+
+    dev = ctx.device
+    geom = build_case_geometry(params, devices=N_SHARDS, device=dev)
+    cp = CaseParams.make(params["R"], params["freq"], params["duration"],
+                         params["ramp"], device=dev)
+    return rank_turns(ctx, geom, cp,
+                      lambda: init_state(geom, dt0=params["dt"], device=dev),
+                      n_steps)
+
+
+def rank_one_6dof_job(ctx, log, init, n_steps):
+    """Phase 12e (i), in the one rank's process (rank 0 of 1, NCCL):
+    `rank_turns` of the 6DoF tutorial tank's x-sharded step under phase
+    8's motion, from phase 8's state `init` (numpy)."""
+    from openfoam_tpp_tpu_torch.core.state import CaseParams, state_from_numpy
+    from openfoam_tpp_tpu_torch.mesh import build_chamfer_tank_geometry
+
+    dev = ctx.device
+    geom = build_chamfer_tank_geometry(**TANK6DOF)
+    cp = CaseParams.make(R=0.0, freq=0.0, duration=40.0, device=dev)
+    return rank_turns(ctx, geom, cp,
+                      lambda: state_from_numpy(init, device=dev), n_steps,
+                      motion=tank6dof_motion(dev, DT0_6DOF))
 
 
 def rank_state_job(ctx, log, tank, init, params, n_steps):
@@ -3963,12 +4051,14 @@ def hold_rank_steps(label, res):
     return {k: r0[k] for k in ("first", "last", "iters", "ref_iters")}
 
 
-def hold_rank_run(label, stats, ref_iters):
+def hold_rank_run(label, stats, ref_iters, ref_name="phase 12b's", sweeps=1):
     """A run_case over ranks: every rank launched the halo kernels alone
-    (11a-b once an island call, the rest once a call: one slab a rank)
-    with the same p_iters, which lie within 1 of `ref_iters` step by step
-    (None: not held); per step its ms, plane exchanges, bytes, reductions
-    and host seconds in them, each rank's. Returns those numbers."""
+    (11a-b once an island call, the rest once a call: one slab a rank;
+    `sweeps` smoothing sweeps) with the same p_iters, which lie within 1
+    of `ref_iters` step by step (None: not held); per step its ms with
+    and without writes, plane exchanges, bytes, reductions and host
+    seconds in them, each rank's; the p_iters histogram. Returns those
+    numbers."""
     steps = stats["steps"]
     per_rank = []
     for r, rs in enumerate(stats["ranks"]):
@@ -3980,7 +4070,7 @@ def hold_rank_run(label, stats, ref_iters):
                                  f"p_iters {rs['p_iters']}")
         check_halo_launches(f"{label}, rank {r} on {rs['device']}",
                             launches, {"steps": steps,
-                                       "p_iters": rs["p_iters"]}, 1, 1)
+                                       "p_iters": rs["p_iters"]}, 1, sweeps)
         row = {"device": rs["device"], "backend": rs["backend"],
                "exchanges_per_step": rs["exchanges"] / steps,
                "bytes_per_step": rs["bytes"] / steps,
@@ -3997,42 +4087,53 @@ def hold_rank_run(label, stats, ref_iters):
             f"({rs['gathers']} whole-array gathers in the run)")
     iters = stats["ranks"][0]["p_iters"]
     ms = stats["wall_seconds"] / max(steps, 1) * 1e3
-    log(f"  {label}: {steps} steps, {ms:.1f} ms/step with writes (writing "
-        f"{stats['io_seconds']:.2f} s); p_iters {iters}")
+    ms_bare = ((stats["wall_seconds"] - stats["io_seconds"])
+               / max(steps, 1) * 1e3)
+    hist = {int(k): int(v)
+            for k, v in zip(*np.unique(iters, return_counts=True))}
+    log(f"  {label}: {steps} steps, {ms:.1f} ms/step with writes, "
+        f"{ms_bare:.1f} without (writing {stats['io_seconds']:.2f} s); "
+        f"p_iters {iters}, histogram {hist}")
     if ref_iters is not None:
         if len(iters) != len(ref_iters):
             raise AssertionError(f"{label}: {len(iters)} steps against "
                                  f"{len(ref_iters)}")
         d_it = max(abs(a - b) for a, b in zip(iters, ref_iters))
-        log(f"  {label}: p_iters against phase 12b's {ref_iters}: largest "
+        log(f"  {label}: p_iters against {ref_name} {ref_iters}: largest "
             f"difference {d_it}")
         if d_it > 1:
             raise AssertionError(f"{label}: p_iters differ by {d_it} > 1")
     return {"steps": steps, "ms_per_step_with_writes": ms,
+            "ms_per_step_without_writes": ms_bare,
             "io_seconds": stats["io_seconds"], "p_iters": iters,
-            "ranks": per_rank}
+            "p_iters_hist": hist, "ranks": per_rank}
 
 
-def run_ranks_killed_and_resumed(label, params, devices, device, ranks,
-                                 restart):
-    """`run_case(devices=..., device=..., ranks=...)` of a fresh flagship
-    case over two write intervals, killed after the first and resumed
-    from `restart` (the bytes of another run's t = 0.05 checkpoint, put in
-    place of this run's): (first run's stats, resumed run's stats, this
-    run's own checkpoint at 0.05, its checkpoint at 0.1 before the kill,
-    the final checkpoint, the write times after each run, probe rows)."""
-    from openfoam_tpp_tpu_torch.manager.cases import setup_case
+def run_ranks_killed_and_resumed(label, setup, devices, device, ranks,
+                                 restart, lines=None):
+    """`run_case(devices=..., device=..., ranks=...)` of a fresh case
+    (`setup(base) -> case dir`) over two write intervals, killed after
+    the first and resumed from `restart` (the bytes of another run's t =
+    0.05 checkpoint, put in place of this run's): (first run's stats,
+    resumed run's stats, this run's own checkpoint at 0.05, its
+    checkpoint at 0.1 before the kill, the final checkpoint, the write
+    times after each run, probe rows, the bytes of case.json and
+    constant/6DoF.dat). `lines` collects the runs' log lines."""
     from openfoam_tpp_tpu_torch.manager.runner import run_case
     from openfoam_tpp_tpu_torch.utils.io import (list_checkpoints,
                                                  load_checkpoint)
 
+    def case_log(ln):
+        if lines is not None:
+            lines.append(ln)
+        log(f"  | [{label}] " + ln)
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_xranks_") as base:
-        case = setup_case(params, base)
+        case = setup(base)
         times, runs = [], []
         for kill in (True, False):
             runs.append(run_case(case, devices=devices, device=device,
-                                 ranks=ranks,
-                                 log=lambda ln: log(f"  | [{label}] " + ln)))
+                                 ranks=ranks, log=case_log))
             chks = list_checkpoints(case)
             times.append([float(load_checkpoint(p)["t"]) for _, p in chks])
             if kill:
@@ -4042,7 +4143,12 @@ def run_ranks_killed_and_resumed(label, params, devices, device, ranks,
                     f.write(restart)
         final = load_checkpoint(list_checkpoints(case)[-1][1])
         rows = len(probe_table(case, "p"))
-    return runs[0], runs[1], own[0], own[1], final, times, rows
+        files = {}
+        for rel in ("case.json", os.path.join("constant", "6DoF.dat")):
+            if os.path.exists(os.path.join(case, rel)):
+                with open(os.path.join(case, rel), "rb") as f:
+                    files[rel] = f.read()
+    return runs[0], runs[1], own[0], own[1], final, times, rows, files
 
 
 def run_case_fresh(params, devices, device, label):
@@ -4070,13 +4176,8 @@ def hold_ranks_to_12b(label, x_run, x_final, x_times, run):
     tolerance, the size of the velocities this early in the ramp."""
     import torch
 
-    from openfoam_tpp_tpu_torch.utils.io import load_checkpoint
-
-    first, again, own_half, own_end, final, times, rows = run
-    with tempfile.NamedTemporaryFile(suffix=".npz") as f:
-        f.write(x_run["first_checkpoint"])
-        f.flush()
-        x_half = load_checkpoint(f.name)
+    first, again, own_half, own_end, final, times, rows, _ = run
+    x_half = npz_from_bytes(x_run["first_checkpoint"])
     n1 = x_run["first_interval_steps"]
     out = hold_rank_run(label, first, None)
     iters, ref = out["p_iters"], x_run["p_iters"]
@@ -4124,8 +4225,14 @@ def phase_mesh_x_ranks(dev, x_run, x_final, x_times, flagship,
 
     from openfoam_tpp_tpu_torch.parallel import ranks as rk
 
+    from openfoam_tpp_tpu_torch.manager.cases import setup_case
+
     card = f"cuda:{dev.index or 0}" if dev.type == "cuda" else str(dev)
     params = {**MESH_CASE, "duration": 0.1}
+
+    def setup(base):
+        return setup_case(params, base)
+
     out = {}
     t0 = time.perf_counter()
     (one,) = rk.launch(rank_one_job, [card], args=(params, N_RANK1),
@@ -4162,7 +4269,7 @@ def phase_mesh_x_ranks(dev, x_run, x_final, x_times, flagship,
     out["from_phase3"] = hold_rank_steps(label, res)
 
     label = f"mesh x over ranks (ii): {N_SHARDS} ranks sharing {card}"
-    run = run_ranks_killed_and_resumed(label, params, N_SHARDS, card, True,
+    run = run_ranks_killed_and_resumed(label, setup, N_SHARDS, card, True,
                                        x_run["first_checkpoint"])
     out["shared_card"] = hold_ranks_to_12b(label, x_run, x_final, x_times,
                                            run)
@@ -4170,7 +4277,7 @@ def phase_mesh_x_ranks(dev, x_run, x_final, x_times, flagship,
     k = min(n_cards, N_SHARDS)
     if k == N_SHARDS:
         label = f"mesh x over ranks (iv): {k} distinct cards"
-        run = run_ranks_killed_and_resumed(label, params, k, "cuda", False,
+        run = run_ranks_killed_and_resumed(label, setup, k, "cuda", False,
                                            x_run["first_checkpoint"])
         out["distinct_cards"] = hold_ranks_to_12b(label, x_run, x_final,
                                                   x_times, run)
@@ -4183,6 +4290,340 @@ def phase_mesh_x_ranks(dev, x_run, x_final, x_times, flagship,
         log(f"[mesh x over ranks (iv): distinct cards] did not run: "
             f"device_count = {n_cards}")
     return out
+
+
+# Phase 12e: the 6DoF tank and a grid not a multiple of 8·N over ranks.
+N_RANK1_6DOF = 10      # steps of (i): one NCCL rank from phase 8's state
+
+
+def one_process_resume(geom, motion, params, chk_bytes, target, dev):
+    """The runner's advance of the one-process `SpmdCtx(N_SHARDS)` step
+    (with `motion`) from the checkpoint `chk_bytes` to `target`: what the
+    ranks compute from that state, their sums added in one process.
+    Returns (final state, p_iters of every step)."""
+    from openfoam_tpp_tpu_torch.config import (PhysicalProperties,
+                                               SolverControls)
+    from openfoam_tpp_tpu_torch.manager.runner import (_case_params,
+                                                       make_advance)
+    from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
+    from openfoam_tpp_tpu_torch.solver.timestep import make_step
+    from openfoam_tpp_tpu_torch.utils.io import to_state
+
+    inner = make_step(geom, PhysicalProperties(),
+                      SolverControls(use_pallas=True), motion=motion,
+                      carry_precond=True, spmd=SpmdCtx(N_SHARDS), device=dev)
+    iters = []
+
+    def step(*a, **k):
+        out = inner(*a, **k)
+        iters.append(int(out[1].p_iters))
+        return out
+
+    step.init_precond = inner.init_precond
+    state = to_state(npz_from_bytes(chk_bytes), device=dev)
+    state = make_advance(step)(state, _case_params(params, dev), target)[0]
+    return state, iters
+
+
+def npz_from_bytes(data):
+    """A checkpoint's fields from its file's bytes."""
+    from openfoam_tpp_tpu_torch.utils.io import load_checkpoint
+
+    with tempfile.NamedTemporaryFile(suffix=".npz") as f:
+        f.write(data)
+        f.flush()
+        return load_checkpoint(f.name)
+
+
+def velocity_gaps(label, chk, state):
+    """Log where two runs' velocities part: the largest gap of u, v and w
+    on faces between two water cells (alpha > 0.5 on both sides) and
+    between two air cells (alpha < 0.01), beside each set's scale.
+    Returns {field: (water gap, water scale, air gap, air scale)}."""
+    a, out = chk["alpha"], {}
+    for ax, k in enumerate("uvw"):
+        gap = np.abs(chk[k] - getattr(state, k).cpu().numpy())
+        ref = np.abs(getattr(state, k).cpu().numpy())
+        pad = np.pad(a, [(1, 1) if d == ax else (0, 0) for d in range(3)],
+                     mode="edge")
+        lo = pad[tuple(slice(0, -1) if d == ax else slice(None)
+                       for d in range(3))]
+        hi = pad[tuple(slice(1, None) if d == ax else slice(None)
+                       for d in range(3))]
+        row = []
+        for mask in ((lo > 0.5) & (hi > 0.5), (lo < 0.01) & (hi < 0.01)):
+            row += [float(gap[mask].max(initial=0.0)),
+                    float(ref[mask].max(initial=0.0))]
+        out[k] = tuple(row)
+    log(f"  {label}: largest velocity gap in water / air faces (scale): "
+        + "; ".join(f"{k} {w:.3e} ({ws:.3e}) / {r:.3e} ({rs:.3e})"
+                    for k, (w, ws, r, rs) in out.items()))
+    return out
+
+
+def phase_ranks_6dof(dev, six, case5):
+    """Phase 12e (module docstring): the 6DoF tutorial tank over ranks
+    against phase 8 (`six`: its state and lone case run), and phase 5's
+    112³ case (`case5`) resumed over ranks on its own grid. Returns the
+    phase's stats."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.core.state import state_to_numpy
+    from openfoam_tpp_tpu_torch.manager.cases import (load_case_params,
+                                                      setup_case,
+                                                      setup_case_6dof)
+    from openfoam_tpp_tpu_torch.manager.runner import (build_case_geometry,
+                                                       build_case_motion,
+                                                       run_case)
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+    from openfoam_tpp_tpu_torch.utils.io import (list_checkpoints,
+                                                 load_checkpoint)
+
+    card = f"cuda:{dev.index or 0}" if dev.type == "cuda" else str(dev)
+    out = {}
+    as_state = lambda d: types.SimpleNamespace(
+        **{k: torch.as_tensor(v) for k, v in d.items()})
+    tols = {**SHARD_TOLS, **DT_TOL}
+
+    # (i) one NCCL rank against the one-process SpmdCtx(1) step, bitwise.
+    t0 = time.perf_counter()
+    (one,) = rk.launch(rank_one_6dof_job, [card],
+                       args=(six["state"], N_RANK1_6DOF),
+                       log=lambda ln: log("  | " + ln))
+    ran = rank_launches(one["rank"]["launches"])
+    log(f"[6DoF over ranks (i): 1 rank, {one['backend']}, {card}] "
+        f"{N_RANK1_6DOF} steps of the {one['grid']} tutorial tank from phase "
+        f"8's state in {time.perf_counter() - t0:.1f} s with the spawn: "
+        f"bitwise SpmdCtx(1) {one['bitwise']} (max diffs "
+        f"{one['max_abs_diff']}); ms/step in turns (rank, single, single, "
+        f"rank): {one['ms_per_step_turns']}; p_iters "
+        f"{one['rank']['p_iters']} / {one['single']['p_iters']}; launches "
+        f"{ran}")
+    if (not one["bitwise"]
+            or one["rank"]["launches"] != one["single"]["launches"]
+            or one["rank"]["p_iters"] != one["single"]["p_iters"]
+            or {k for k, v in ran.items() if v} != set(HALO_PATH)):
+        raise AssertionError(f"6DoF over ranks (i): bitwise "
+                             f"{one['bitwise']}, launches "
+                             f"{one['rank']['launches']} against "
+                             f"{one['single']['launches']}")
+    out["one_rank"] = one
+
+    # (ii) four gloo ranks sharing the card: the tutorial case through
+    # run_case, killed after the first interval and resumed from the lone
+    # run's t = 0.05 checkpoint, held against phase 8's lone run.
+    lone = six["lone_run"]
+    label = f"6DoF over ranks (ii): {N_SHARDS} ranks sharing {card}"
+    lines = []
+    run = run_ranks_killed_and_resumed(
+        label, lambda base: setup_case_6dof(lone["case"], base), N_SHARDS,
+        card, True, lone["first_checkpoint"], lines)
+    first, again, own_half, own_end, final, times, rows, files = run
+    nxl = SHAPE_6DOF[0] // N_SHARDS
+    if not any(f"nxl = {nxl} planes" in ln for ln in lines):
+        raise AssertionError(f"{label}: no log line names nxl = {nxl}")
+    res = hold_rank_run(label, first, None)
+    n1 = lone["first_interval_steps"]
+    iters, ref = res["p_iters"], lone["p_iters"]
+    d_rest = max(abs(a - b) for a, b in zip(iters, ref))
+    log(f"  {label}, from rest: p_iters {iters} against the lone run's "
+        f"{ref} ({len(iters)} and {len(ref)} steps; largest difference "
+        f"{d_rest}, not held: the coarse levels run plain under spmd, "
+        "and the trajectories part at the first moved stop)")
+    res["from_rest_max_p_iters_diff"] = d_rest
+    # The same state through the one-process SpmdCtx(4) step: the ranks'
+    # preconditioner with the sums added in one process.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_6dof_table_") as d:
+        cdir = setup_case_6dof(lone["case"], d)
+        params = load_case_params(cdir)
+        motion = build_case_motion(params, cdir, device=dev)
+    one_state, one_iters = one_process_resume(
+        build_case_geometry(params), motion, params,
+        lone["first_checkpoint"], lone["times"][-1], dev)
+    res["resumed"] = hold_rank_run(
+        label + ", resumed from phase 8's t = 0.05 checkpoint", again,
+        one_iters, ref_name="the one-process SpmdCtx(4) step's from it")
+    r_iters = res["resumed"]["p_iters"]
+    res["resumed"]["p_iters_equal_one_process"] = r_iters == one_iters
+    res["resumed"]["lone_p_iters"] = ref[n1:]
+    log(f"  {label}, resumed: p_iters {r_iters}, equal to the one-process "
+        f"SpmdCtx(4) step's {one_iters}: {r_iters == one_iters}; the lone "
+        f"run's {ref[n1:]} (reported)")
+    lone_half = npz_from_bytes(lone["first_checkpoint"])
+    res["own_at_0.05"] = hold_checkpoint(
+        f"{label}, own t = 0.05 checkpoint against the lone run's", own_half,
+        as_state(lone_half), tols, held=False)
+    res["own_at_0.1"] = hold_checkpoint(
+        f"{label}, own t = 0.1 checkpoint against the lone run's", own_end,
+        as_state(lone["final"]), tols, held=False)
+    # Phase 3b's limits plus FARM_DRIFT·t: in the air (1/ρ a thousand
+    # times the water's) a last bit of the pressure is velocity noise, and
+    # any change in the order of the CG's sums moves it (the one-process
+    # sharded step parts from the lone run as far as the ranks do).
+    drift = FARM_DRIFT * float(lone["final"]["t"])
+    res["final"] = hold_checkpoint(
+        f"{label}, resumed, final against the lone run's", final,
+        as_state(lone["final"]), tols, drift=drift)
+    res["final_gaps"] = velocity_gaps(
+        f"{label}, resumed, against the lone run", final,
+        as_state(lone["final"]))
+    res["final_vs_one_process"] = hold_checkpoint(
+        f"{label}, resumed, final against the one-process SpmdCtx(4) "
+        "step's", final, one_state, tols, drift=drift)
+    res["one_process_vs_lone"] = hold_checkpoint(
+        "one-process SpmdCtx(4) step, resumed, final against the lone "
+        "run's", state_to_numpy(one_state), as_state(lone["final"]), tols,
+        held=False)
+    same_files = (files.get("case.json") == lone["case_json"]
+                  and files.get(os.path.join("constant", "6DoF.dat"))
+                  == lone["table"])
+    digests = {r["motion_sha256"] for r in first["ranks"] + again["ranks"]}
+    if (times != [lone["times"], lone["times"]] or rows != int(final["step"])
+            or not same_files or digests != {motion.sha256()}):
+        raise AssertionError(f"{label}: write times {times} against "
+                             f"{lone['times']}; {rows} probe rows for "
+                             f"{final['step']} steps; case files equal "
+                             f"{same_files}; table digests {digests}")
+    log(f"  {label}: write times bitwise the lone run's {lone['times']}; "
+        f"case.json and constant/6DoF.dat byte-equal; every rank's table "
+        f"bits the case's; {rows} probe rows, one a step")
+    out["tank6dof"] = res
+
+    # (iii) phase 5's 112³ case, copied with its t = 0.05 checkpoint and
+    # resumed over four gloo ranks (nxl 28 → 14 → 7: 112 is not a
+    # multiple of 8·4), held against phase 5's own t = 0.1 checkpoint.
+    label = (f"112^3 over ranks (iii): {N_SHARDS} ranks sharing {card}, "
+             "phase 5's case resumed at t = 0.05")
+    lines = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_b_ranks_") as base:
+        case_dir = setup_case(case5["params"], base)
+        for name, data in case5["checkpoints"][:2]:
+            with open(os.path.join(case_dir, name), "wb") as f:
+                f.write(data)
+        with environ(OFTPP_SMOOTH_SWEEPS="2"):   # as phase 5 ran it
+            stats = run_case(case_dir, devices=N_SHARDS, device=card,
+                             ranks=True, log=lambda ln: (
+                                 lines.append(ln),
+                                 log(f"  | [{label}] " + ln)))
+        chks = list_checkpoints(case_dir)
+        times = [float(load_checkpoint(p)["t"]) for _, p in chks]
+        final = load_checkpoint(chks[-1][1])
+        rows = len(probe_table(case_dir, "p", start=times[1]))
+    want = [float(npz_from_bytes(d)["t"]) for _, d in case5["checkpoints"]]
+    ref5 = npz_from_bytes(case5["checkpoints"][-1][1])
+    nxl = FLAGSHIP_SHAPE[0] // N_SHARDS
+    if (not any(f"nxl = {nxl} planes" in ln for ln in lines)
+            or final["alpha"].shape != FLAGSHIP_SHAPE or times != want
+            or rows != stats["steps"]):
+        raise AssertionError(f"{label}: grid {final['alpha'].shape}, write "
+                             f"times {times} against {want}, {rows} probe "
+                             f"rows for {stats['steps']} steps, log {lines}")
+    # The same state through the one-process SpmdCtx(4) step.
+    with environ(OFTPP_SMOOTH_SWEEPS="2"):
+        one_state, one_iters = one_process_resume(
+            build_case_geometry(case5["params"]), None, case5["params"],
+            case5["checkpoints"][1][1], want[-1], dev)
+    res = hold_rank_run(label, stats, one_iters, sweeps=2,
+                        ref_name="the one-process SpmdCtx(4) step's from it")
+    n1 = case5["intervals"][0]["steps"]
+    d_it = max(abs(a - b)
+               for a, b in zip(res["p_iters"], case5["p_iters"][n1:]))
+    log(f"  {label}: p_iters {res['p_iters']} against phase 5's "
+        f"{case5['p_iters'][n1:]} (reported; largest difference {d_it}); "
+        f"write times bitwise phase 5's {want}; {rows} probe rows, one a "
+        "step")
+    res["phase5_p_iters"] = case5["p_iters"][n1:]
+    drift = FARM_DRIFT * want[-1]
+    res["final"] = hold_checkpoint(
+        f"{label}, final against phase 5's t = 0.1 checkpoint", final,
+        as_state(ref5), tols, drift=drift)
+    res["final_gaps"] = velocity_gaps(
+        f"{label}, against phase 5", final, as_state(ref5))
+    res["final_vs_one_process"] = hold_checkpoint(
+        f"{label}, final against the one-process SpmdCtx(4) step's", final,
+        one_state, tols, drift=drift)
+    res["one_process_vs_phase5"] = hold_checkpoint(
+        "one-process SpmdCtx(4) step, resumed, final against phase 5's",
+        state_to_numpy(one_state), as_state(ref5), tols, held=False)
+    out["flagship_resumed"] = res
+    return out
+
+
+def phase_closed_top_halo(dev):
+    """Phase 2's halo part, (v): `correct_divmax_h` in its closed-top form
+    on the 6DoF tutorial tank's operands cut into N_SHARDS x-slabs
+    (20×80×160 each): the chamfered tank's apertures and volume
+    fractions, seeded dp, velocities, face 1/ρ and density, the
+    velocities zero where the aperture is; every slab bitwise its plain
+    version (the div max too), the island bitwise the single-grid
+    kernel; the N_SHARDS launches timed (device µs) beside their bytes
+    and bound. Returns the row."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.mesh import build_chamfer_tank_geometry
+    from openfoam_tpp_tpu_torch.ops.kernels import correction as ck
+    from openfoam_tpp_tpu_torch.parallel import spmd as sm
+    from openfoam_tpp_tpu_torch.solver.timestep import geometry_arrays
+    from openfoam_tpp_tpu_torch.utils.devtime import device_ms
+
+    geom = build_chamfer_tank_geometry(**TANK6DOF)
+    ga = geometry_arrays(geom, device=dev)
+    spacing = tuple(float(h) for h in geom.spacing)
+    nx, ny, nz = geom.shape
+    ctx = sm.SpmdCtx(N_SHARDS)
+    rng = np.random.default_rng(2017)
+
+    def arr(shape, lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+            np.float32)).to(dev)
+
+    aps = (ga["ax"], ga["ay"], ga["az"])
+    vel = tuple(torch.where(a > 0, arr(a.shape, -1.0, 1.0), 0.0) for a in aps)
+    beta = tuple(arr(a.shape, 8e-4, 1e-3) for a in aps)
+    dp, rho = arr(geom.shape, -50.0, 50.0), arr(geom.shape, 1.0, 998.0)
+    vfrac, topo = ga["vfrac"], ga["top_open"]
+    dt0 = torch.tensor(3.7e-3, device=dev)
+    dps = ctx.split(dp)
+    dh = sm.exchange_halo(dps, 1, ctx)
+    packed = [ctx.split(t, nx) for t in (vel[0], beta[0], aps[0])]
+    his = [sm.exchange_hi(t, 1, ctx) for t in packed]
+    rest = [ctx.split(t) for t in (*vel[1:], *beta[1:], *aps[1:], vfrac,
+                                   rho)]
+    ca = [(dps[i], *dh[i], packed[0][i], his[0][i], rest[0][i], rest[1][i],
+           packed[1][i], his[1][i], rest[2][i], rest[3][i], packed[2][i],
+           his[2][i], rest[4][i], rest[5][i], rest[6][i], None, rest[7][i],
+           dt0, spacing, False) for i in ctx.held]
+    kern = [lambda a=a: ck.correct_divmax_h(*a) for a in ca]
+    plain = [lambda a=a: ck.correct_divmax_h_plain(*a) for a in ca]
+    slabs = all(same_bits(k(), p()) for k, p in zip(kern, plain))
+    args = (dp, *vel, beta, *aps, vfrac, topo, rho, dt0, spacing)
+    island = same_bits(sm.correct_divmax(*args, ctx, open_top=False),
+                       ck.correct_divmax(*args, open_top=False))
+    torch.cuda.synchronize()
+    ms = device_ms(lambda: [k() for k in kern], REPS)
+    plain_ms = device_ms(lambda: [p() for p in plain], REPS)
+    single_ms = device_ms(lambda: ck.correct_divmax(*args, open_top=False),
+                          REPS)
+    # Phase 2's count of a call's bytes: every operand read once (the
+    # density's top plane; no atmosphere plane: the top is closed), u, v
+    # and w written once.
+    b = sum(nbytes(*a[:16], a[17][:, :, -1], a[3], a[5], a[6]) for a in ca)
+    bound_ms = b / HBM_BYTES_PER_S * 1e3
+    log(f"  correct_divmax_h   closed top, 6DoF slabs x{N_SHARDS} "
+        f"({nx // N_SHARDS}x{ny}x{nz}): every slab bitwise plain {slabs}, "
+        f"island bitwise the single-grid kernel {island}; kernels "
+        f"{ms * 1e3:.1f} us ({N_SHARDS} launches, {ms * 1e3 / N_SHARDS:.1f} "
+        f"a slab)  plain {plain_ms * 1e3:.1f} us  single-grid "
+        f"{single_ms * 1e3:.1f} us  bytes {b / 1e6:.2f} MB  bound "
+        f"{bound_ms * 1e3:.2f} us ({ms / bound_ms:.2f}x)")
+    if not (slabs and island):
+        raise AssertionError("correct_divmax_h closed top on the 6DoF "
+                             "slabs: not bitwise its plain version or the "
+                             "single-grid kernel")
+    return {"shape": [nx // N_SHARDS, ny, nz], "slabs": N_SHARDS, "ms": ms,
+            "plain_ms": plain_ms, "single_grid_ms": single_ms, "bytes": b,
+            "bound_ms": bound_ms, "bitwise_plain": slabs,
+            "bitwise_single_grid": island}
 
 
 def main() -> int:
@@ -4247,6 +4688,7 @@ def main() -> int:
         f"shape {geom.shape} in {N_SHARDS} x-shards, {REPS} timed launches "
         "each")
     rows.update(phase_halo_kernels(geom.shape, spacing, dev))
+    closed_halo = phase_closed_top_halo(dev)
 
     lap("2")
 
@@ -4354,6 +4796,11 @@ def main() -> int:
                       {k: getattr(params, k).cpu().numpy()
                        for k in ("orbit_radius", "omega", "ramp_time")})
     lap("12")
+    mesh["ranks_6dof"] = phase_ranks_6dof(dev, tank6dof, case)
+    lap("12e")
+    for key in ("state", "lone_run"):
+        tank6dof.pop(key)
+    case.pop("checkpoints")
     log("[kernels: flagship (phase 2 / a flagship step's operands) and the "
         f"tiled {TILED_SHAPE} step's operands, us per call; of the V-cycle "
         "rows the finest level's calls, then the mean of all]")
@@ -4388,6 +4835,7 @@ def main() -> int:
                        "csf": csf, "tiled": tiled, "top": top,
                        "mesh": mesh},
               "tiled_kernel_rows": tiled_rows, "phase_seconds": laps,
+              "closed_top_halo_6dof": closed_halo,
               "launches": {"csf": csf_launches, "tiled": tiled_launches}}
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)
     with open(os.path.join(repo, "perf_out", "chip_smoke.json"), "w") as f:

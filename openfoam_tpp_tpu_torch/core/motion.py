@@ -15,6 +15,8 @@ host. `motion_from_numpy` carries a JAX `TableMotion`'s arrays across.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
@@ -131,6 +133,14 @@ class TableMotion:
         om = np.gradient(r, t, axis=0)
         dom = np.gradient(om, t, axis=0)
         return TableMotion(t, acc, om, dom, r, device=device)
+
+    def sha256(self) -> str:
+        """Digest of the table's bits (times, accel, omega, domega, rot):
+        equal digests, equal forcing."""
+        h = hashlib.sha256()
+        for t in (self.times, self.accel, self.omega, self.domega, self.rot):
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()
 
     def acceleration(self, t):
         return interp(t, self.times, self.accel)

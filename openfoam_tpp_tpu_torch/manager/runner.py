@@ -30,8 +30,12 @@ islands on its own card (`_rank_run`), rank 0 reads a resumed state and
 scatters it, and gathers each checkpoint and the probe rows and writes
 them: the same files, with the same write times. NCCL joins ranks on
 distinct cards; `ranks=True` runs the ranks on positions that share a
-device too, under gloo. 'NxM', a 6DoF case and a grid the islands do
-not divide raise NotImplementedError there (`rank_choice`).
+device too, under gloo. The 6DoF tank runs there as the orbital case
+does (rank 0 reads its motion table and broadcasts it), and so does any
+grid whose nx divides into even x-slabs of at least two planes, 8·N or
+not (a checkpoint's grid resumed on more cards). 'NxM' raises
+NotImplementedError there, and a grid that does not divide so raises
+ValueError before a process is spawned (`rank_choice`).
 
 OFTPP_DEBUG_NANS=1 runs `run_case` under utils/nan_trap.py's trap: the
 first operation or kernel that outputs a NaN raises FloatingPointError
@@ -221,12 +225,19 @@ def _case_shape_hint(case_dir: str):
     return tuple(load_checkpoint(chk[1])["alpha"].shape)
 
 
-def build_case_motion(params: dict, case_dir: str, device="cuda"):
-    """TableMotion for the table-driven 6DoF model; None for the orbit."""
+def build_case_motion(params: dict, case_dir: str, device="cuda",
+                      ranks=None):
+    """TableMotion for the table-driven 6DoF model; None for the orbit.
+    With `ranks` (a parallel.ranks.RankCtx) rank 0 reads the case's table
+    and broadcasts its rows, so every rank builds the same bits."""
     if params.get("model") != "tank6dof":
         return None
-    t, trans, rot = read_6dof_table(
-        os.path.join(case_dir, "constant", "6DoF.dat"))
+    path = os.path.join(case_dir, "constant", "6DoF.dat")
+    if ranks is None:
+        t, trans, rot = read_6dof_table(path)
+    else:
+        t, trans, rot = ranks.broadcast(
+            read_6dof_table(path) if ranks.rank == 0 else None)
     # Resampled to the solver's dt scale for smooth finite-difference
     # accelerations (the reference table is 100 coarse samples).
     return TableMotion.from_table(t, trans, rot,
@@ -527,24 +538,32 @@ def _time_loop(case_dir, params, geom, controls, advance, case_params, state,
 
 def rank_choice(params: dict, shape, d_x: int, d_y: int, dev) -> str:
     """What the ranks run for a case on a (d_x, d_y) mesh of one process a
-    position ('what runs', for the run's log), or NotImplementedError for
-    what the rank form does not run yet: the 1-D x decomposition with nx
-    a multiple of 8·d_x and the kernel islands alone run over ranks (the
-    JAX package runs the others as GSPMD's plain step)."""
-    why = ("'NxM'" if d_y > 1
-           else "a 6DoF case" if params.get("model") == "tank6dof"
-           else f"nx {shape[0]} not a multiple of 8·{d_x}"
-           if shape[0] % (8 * d_x)
-           else None if _spmd_kernels_wanted(dev)
-           else "the kernel islands off (OFTPP_SPMD_PALLAS; on the CPU "
-                "their plain versions need OFTPP_SPMD_PALLAS=interpret)")
-    if why is not None:
+    position ('what runs', for the run's log): the 1-D x decomposition
+    with the kernel islands, the orbital case and the 6DoF tank alike, on
+    any nx that divides into d_x even x-slabs of at least MAX_HALO planes
+    (the JAX package's 8·N rounding is its kernels' need, not the
+    islands'). 'NxM' and the islands turned off raise
+    NotImplementedError; a grid that does not divide so raises
+    ValueError, before any process is spawned."""
+    if d_y > 1:
         raise NotImplementedError(
-            f"{why} over ranks, one process a mesh position: the next slice "
+            "'NxM' over ranks, one process a mesh position: the next slice "
             "of the decomposition over cards (ROADMAP.md §1 item 2); put "
             "the positions on one device (device='cuda:0') to run it in "
             "one process")
-    return f"x-sharded step over {d_x} ranks (halo kernel islands)"
+    nxl = SpmdCtx(d_x).local_shape(shape)[0]   # nx % d_x, nxl < MAX_HALO
+    if nxl % 2:
+        raise ValueError(
+            f"grid nx={shape[0]} over {d_x} ranks: x-slabs of nxl = {nxl} "
+            "planes, an odd number (the multigrid's 2:1 pairs start within "
+            "a rank)")
+    if not _spmd_kernels_wanted(dev):
+        raise NotImplementedError(
+            "the kernel islands off (OFTPP_SPMD_PALLAS; on the CPU their "
+            "plain versions need OFTPP_SPMD_PALLAS=interpret) over ranks: "
+            "the rank form runs the islands' configuration only")
+    return (f"x-sharded step over {d_x} ranks, x-slabs of nxl = {nxl} "
+            "planes (halo kernel islands)")
 
 
 def _run_case_ranks(case_dir, props, controls, log, write_checkpoints,
@@ -577,16 +596,18 @@ def _run_case_ranks(case_dir, props, controls, log, write_checkpoints,
 
 def _rank_run(ctx, log, case_dir, props, controls, write_checkpoints, d_x):
     """One rank of `run_case`: the x-sharded step (`SpmdCtx(d_x,
-    ranks=ctx)`) on this rank's slab; rank 0 reads the resumed state and
+    ranks=ctx)`) on this rank's slab, with the case's motion table for a
+    6DoF case; rank 0 reads the resumed state (or fills the tank) and
     scatters it, gathers each checkpoint and the probe rows and writes
     them. Returns {"stats" (rank 0's run stats), "ranks": {exchange stats,
-    kernel launches, p_iters of every step}}."""
+    kernel launches, p_iters of every step, the motion table's digest}}."""
     from openfoam_tpp_tpu_torch.parallel import ranks as rk
     from openfoam_tpp_tpu_torch.post.probes import make_rank_sampler
 
     dev = ctx.device
     lead = ctx.rank == 0
     params = load_case_params(case_dir)
+    is_6dof = params.get("model") == "tank6dof"
     chk = latest_checkpoint(case_dir) if lead else None
     hint = ctx.broadcast(None if chk is None else tuple(
         load_checkpoint(chk[1])["alpha"].shape))
@@ -595,8 +616,10 @@ def _rank_run(ctx, log, case_dir, props, controls, write_checkpoints, d_x):
     k_env = os.environ.get("OFTPP_PRECOND_REFRESH")
     if k_env is not None:
         controls = dataclasses.replace(controls, precond_refresh=int(k_env))
-    inner = make_step(geom, props, controls, carry_precond=True,
-                      spmd=SpmdCtx(d_x, ranks=ctx), device=dev)
+    motion = build_case_motion(params, case_dir, device=dev, ranks=ctx)
+    inner = make_step(geom, props, controls, motion=motion,
+                      carry_precond=True, spmd=SpmdCtx(d_x, ranks=ctx),
+                      device=dev)
     iters = []
 
     def step(*a, **k):
@@ -616,7 +639,8 @@ def _rank_run(ctx, log, case_dir, props, controls, write_checkpoints, d_x):
         whole = to_state(load_checkpoint(chk[1]), device="cpu")
         log(f"  Resuming from t={chk[0]:.4f} s ({chk[1]})")
     elif lead:
-        whole = init_state(geom, dt0=params["dt"], device="cpu")
+        whole = init_state(geom, fill_height=0.0 if is_6dof else None,
+                           dt0=params["dt"], device="cpu")
         if write_checkpoints:
             t_io = time.time()
             save_checkpoint(case_dir, whole)
@@ -639,7 +663,8 @@ def _rank_run(ctx, log, case_dir, props, controls, write_checkpoints, d_x):
                            writes=lead)
     return {"stats": stats, "ranks": {
         **ctx.stats.as_dict(), "launches": rk.launch_counts(),
-        "p_iters": [int(i) for i in iters]}}
+        "p_iters": [int(i) for i in iters],
+        "motion_sha256": None if motion is None else motion.sha256()}}
 
 
 def iterate_snapshots(case_dir: str):

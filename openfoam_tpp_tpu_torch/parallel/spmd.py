@@ -36,6 +36,13 @@ packed takes its last plane from the right neighbour. The islands run
 with ops/stencil.py's x-slab context closed: their kernels' plain
 versions work on whole blocks.
 
+Both forms run the orbital cylinder and the closed 6DoF tank, whose
+table forcing and rotating-frame sources are plain PyTorch between the
+islands and whose closed top takes the epilogue island's closed-top
+form (`correct_divmax(..., open_top=False)`). A slab needs MAX_HALO
+planes and nothing else of nx: the JAX package's multiple of 8 planes a
+shard is its Pallas tiling's, not the islands'.
+
 Halo-plane edge semantics at the GLOBAL domain ends reproduce the
 single-grid kernels: "clamp" edges replicate the edge plane (the
 edge-clamped shift), "zero" edges supply the implicit zero boundary

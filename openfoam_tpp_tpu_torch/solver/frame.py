@@ -27,10 +27,13 @@ from openfoam_tpp_tpu_torch.core import motion as mo
 from openfoam_tpp_tpu_torch.device import resolve_device
 
 
-def face_coordinates(geom, axis, device="cuda"):
+def face_coordinates(geom, axis, device="cuda", ranks=None):
     """(X, Y, Z) 1-D f32 coordinate tensors broadcastable to the `axis`
     face set: the face-normal coordinate on grid planes, the tangential
-    ones at cell centres (no 3-D coordinate tensors)."""
+    ones at cell centres (no 3-D coordinate tensors). With `ranks` (a
+    parallel.ranks.RankCtx) X is this rank's x-slab of the global
+    coordinates: nxl cell centres, or nxl + 1 x faces whose last is the
+    right neighbour's first, the same bits on both ranks."""
     dev = resolve_device(device)
     h, o = geom.spacing, geom.origin
     coords = []
@@ -40,6 +43,8 @@ def face_coordinates(geom, axis, device="cuda"):
             c = o[d] + np.arange(n + 1) * h[d]
         else:
             c = o[d] + (np.arange(n) + 0.5) * h[d]
+        if d == 0 and ranks is not None:
+            c = ranks.slab(c, n)
         shape = [1, 1, 1]
         shape[d] = -1
         coords.append(torch.as_tensor(c.reshape(shape).astype(np.float32),

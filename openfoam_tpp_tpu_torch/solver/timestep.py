@@ -58,8 +58,9 @@ solve's top level, the momentum RHS, the last corrector's epilogue),
 while the state and everything between islands stay global tensors. On
 one card the n shards are x-slabs of the same tensors. The momentum
 finish kernel stays off under `spmd` (no halo form), as in the JAX step.
-`spmd` with a rotating motion raises NotImplementedError (the JAX
-package never builds that pair).
+A motion table shards too, rotating or not: the 6DoF tank's frame
+sources are plain PyTorch between the islands, and its closed top runs
+the epilogue island's closed-top form.
 
 `spmd=SpmdCtx(n, ranks=ctx)` is the same step in one rank process of n
 (parallel/ranks.py): `make_step` uploads the rank's x-slab of the
@@ -68,8 +69,11 @@ geometry, the state is the rank's slab (parallel/ranks.py
 block, so every x-neighbour access between the islands takes the
 neighbour rank's plane and every reduction (the Courant numbers, the
 dots, the alpha bounds, the div max) is over the ranks: the dt, the CG's
-stop and every diagnostic come out alike on every rank. The rank form
-runs the islands' configuration only: a motion table, surface tension,
+stop and every diagnostic come out alike on every rank. A motion table
+runs there too (the 6DoF tank: each rank holds the same table bits, its
+rotating frame's sources take the rank's own x coordinates, and the
+closed tank's null-space projection and fluid mean sum over the ranks).
+The rank form runs the islands' configuration only: surface tension,
 `forcing=` or a fused-kernel gate turned off raise NotImplementedError.
 """
 
@@ -198,24 +202,15 @@ def capillary_dt(props, controls, spacing, dtype, device):
         / (4.0 * np.pi * abs(props.sigma)))
 
 
-def _check_slice(controls, motion=None, spmd=None):
+def _check_slice(controls, spmd=None):
     """Raise for every argument of the JAX step this port does not cover."""
     if spmd is not None and not isinstance(spmd, SpmdCtx):
         raise TypeError(f"spmd= takes a parallel.spmd.SpmdCtx, not "
                         f"{type(spmd).__name__}")
-    if spmd is not None and motion is not None and motion.has_rotation:
-        raise NotImplementedError(
-            "spmd= with a rotating motion= (the JAX package never builds "
-            "that pair: its 6DoF runs are unsharded)")
     if spmd is not None and controls.batch_lanes:
         raise NotImplementedError(
             "spmd= with batch_lanes: a sweep is not sharded through spmd "
             "(in the JAX package either)")
-    if spmd is not None and spmd.ranks is not None and motion is not None:
-        raise NotImplementedError(
-            "a motion table on the x-sharded step over ranks (a sharded "
-            "6DoF case on distinct cards): the next slice of the "
-            "decomposition over cards (ROADMAP.md §1 item 2)")
 
 
 def make_step_core(props: PhysicalProperties = PhysicalProperties(),
@@ -240,7 +235,7 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
     with `sealed_x` (the last x-aperture plane is all zero, true of every
     shipped geometry); an env force of one of them on an unsealed
     geometry raises ValueError, as in the JAX step."""
-    _check_slice(controls, motion=motion, spmd=spmd)
+    _check_slice(controls, spmd=spmd)
     rot_enabled = motion is not None and motion.has_rotation
     if rot_enabled and face_xyz is None:
         raise ValueError("rotational motion requires face_xyz coordinates")
@@ -535,8 +530,9 @@ def make_step(geom: TankGeometry,
     rank's slab of the geometry (an even number of planes: the multigrid's
     2:1 pairs start within the rank). `motion` (a TableMotion on
     `device`): the 6DoF tank's table-driven forcing; the face coordinates
-    of its rotating frame are built here."""
-    _check_slice(controls, motion=motion, spmd=spmd)
+    of its rotating frame are built here (under ranks, the rank's x
+    planes of them)."""
+    _check_slice(controls, spmd=spmd)
     ranks = None
     if spmd is not None:
         nxl = spmd.local_shape(geom.shape)[0]
@@ -547,7 +543,7 @@ def make_step(geom: TankGeometry,
     ga = geometry_arrays(geom, dtype, device=device, ranks=ranks)
     spacing = tuple(float(s) for s in geom.spacing)
     open_top = bool(np.any(geom.top_open > 0))
-    face_xyz = (tuple(fr.face_coordinates(geom, ax, device)
+    face_xyz = (tuple(fr.face_coordinates(geom, ax, device, ranks=ranks)
                       for ax in range(3))
                 if motion is not None and motion.has_rotation else None)
     core = make_step_core(props, controls, motion=motion, open_top=open_top,

@@ -525,15 +525,51 @@ def test_three_steps_match_jax(path, monkeypatch):
 
 
 def test_rotating_motion_with_spmd_raises():
-    """The JAX package never builds a sharded 6DoF step; a translating
-    table shards, a rotating one raises."""
+    """A rotating table shards (it raised before the rank form ran the
+    6DoF tank; the JAX package builds that pair too): the 8×8×12 closed
+    box filled to z = 0, 3 steps from rest of `SpmdCtx(4)` (x-slabs of 2
+    planes) against `SpmdCtx(1)`, with the closed-top epilogue island:
+    the first step's alpha and dt bitwise, p_iters equal, and after 3
+    steps the 3-step bounds above (on the CPU the islands' plain versions
+    sum the curvature dot slab by slab, so the CG iterates differ in
+    their last bits; on the card the 4-shard step is bitwise the
+    1-shard one, chip_smoke.py phase 3b). A translating table shards as
+    before."""
     tg = build_box_geometry(0.08, 0.08, 0.12, 0.01)
     tt, trans, rot = _tables()
     moving = tmo.TableMotion.from_table(tt, trans, 0 * rot, device="cpu")
     tmake(tg, motion=moving, spmd=SpmdCtx(4), device="cpu")
     rotating = tmo.TableMotion.from_table(tt, trans, rot, device="cpu")
-    with pytest.raises(NotImplementedError, match="rotating"):
-        tmake(tg, motion=rotating, spmd=SpmdCtx(4), device="cpu")
+    tp = CaseParams.make(R=0.0, freq=0.0, duration=1.0, device="cpu")
+    got = {}
+    for n in (4, 1):
+        step = tmake(tg, TProps(), TControls(use_pallas=True),
+                     motion=rotating, spmd=SpmdCtx(n), device="cpu")
+        s = init_state(tg, fill_height=0.0, dt0=2e-3, device="cpu")
+        iters, first = [], None
+        with mock.patch.object(tck, "correct_divmax_h",
+                               wraps=tck.correct_divmax_h) as corr:
+            for _ in range(3):
+                s, d = step(s, tp)
+                iters.append(int(d.p_iters))
+                first = first or state_to_numpy(s)
+        assert corr.call_count == 3 * n
+        assert all(c.kwargs["open_top"] is False
+                   for c in corr.call_args_list)
+        got[n] = (first, state_to_numpy(s), iters)
+    (f4, s4, it4), (f1, s1, it1) = got[4], got[1]
+    assert it4 == it1
+    for k in ("alpha", "dt", "t"):
+        np.testing.assert_array_equal(f4[k], f1[k], err_msg=k)
+    vscale = max(np.abs(s1[k]).max() for k in ("u", "v", "w"))
+    assert vscale > 1e-2   # the frame forces set the fluid moving
+    np.testing.assert_array_equal(s4["step"], s1["step"])
+    assert np.abs(s4["alpha"] - s1["alpha"]).max() <= 1e-5
+    for k in ("u", "v", "w"):
+        assert np.abs(s4[k] - s1[k]).max() <= 1e-3 * vscale, k
+    fluid = tg.vfrac > 0
+    p4, p1 = (x["p"] - x["p"][fluid].mean() for x in (s4, s1))
+    assert np.abs(p4 - p1).max() <= 1e-4 * np.abs(p1).max()
 
 
 def test_tutorial_tank_p_iters_track_jax(tmp_path):

@@ -430,8 +430,8 @@ def test_unported_case_arguments_raise(tiny_runs, tmp_path, monkeypatch):
     kernel islands), bitwise the unsharded run's, as the same step on the
     same operands; 'NxM' builds JAX's grid; a 6DoF case runs sharded as
     it runs alone. What raises: a missing card (x positions on distinct
-    cards run as ranks and need theirs), 'NxM' and a grid the islands do
-    not divide on distinct cards, a foreign checkpoint grid."""
+    cards run as ranks and need theirs, whatever the grid), 'NxM' on
+    distinct cards, a foreign checkpoint grid."""
     case = tcases.setup_case(TINY, str(tmp_path))
     stats = trunner.run_case(case, devices=2, device="cpu",
                              log=lambda *a: None)
@@ -458,15 +458,16 @@ def test_unported_case_arguments_raise(tiny_runs, tmp_path, monkeypatch):
     for k in FIELDS:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     # x positions on distinct cards run as ranks, one process a card:
-    # without a card the launch refuses before any process starts. The
-    # next slice's cases raise there: 'NxM', and this case's grid (its
-    # checkpoints are the 8×8×10 of the run above, which the islands do
-    # not divide). torch.device objects: no card is touched.
+    # without a card the launch refuses before any process starts, for a
+    # fresh case and for this case's grid too (its checkpoints are the
+    # 8×8×10 of the run above, not a multiple of 8·2: the rank form runs
+    # it as x-slabs of 4 planes). The next slice's case raises there:
+    # 'NxM'. torch.device objects: no card is touched.
     cards = [torch.device(f"cuda:{i}") for i in range(4)]
     fresh = tcases.setup_case(TINY, str(tmp_path / "fresh"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trunner.run_case(fresh, devices=2, device=cards[:2])
-    with pytest.raises(NotImplementedError, match="not a multiple of 8·2"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         trunner.run_case(case, devices=2, device=cards[:2])
     with pytest.raises(NotImplementedError, match="'NxM' over ranks"):
         trunner.run_case(fresh, devices="2x2", device=cards)

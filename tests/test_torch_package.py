@@ -176,13 +176,18 @@ def test_out_of_slice_arguments_raise():
     s1, _ = step(init_state(geom, device="cpu"),
                  CaseParams.make(0.004, 1.88, 0.5, device="cpu"))
     assert int(s1.step) == 1
-    # A table motion is in the slice (tests/test_torch_6dof.py); a rotating
-    # one with spmd= raises, as the JAX package never builds that pair.
+    # A table motion is in the slice (tests/test_torch_6dof.py), and so is
+    # a rotating one with spmd= (the sharded 6DoF tank: the JAX package
+    # builds the pair too; tests/test_torch_ranks_6dof.py holds it): it
+    # builds and steps.
     rotating = TableMotion.from_table([0.0, 1.0], [[0, 0, 0]] * 2,
                                       [[0, 0, 0], [0, 0, 10]], device="cpu")
-    with pytest.raises(NotImplementedError, match="motion"):
-        timestep.make_step(geom, motion=rotating, spmd=SpmdCtx(4),
-                           device="cpu")
+    step = timestep.make_step(geom, motion=rotating, spmd=SpmdCtx(4),
+                              controls=SolverControls(use_pallas=True),
+                              device="cpu")
+    s2, _ = step(init_state(geom, device="cpu"),
+                 CaseParams.make(0.0, 0.0, 0.5, device="cpu"))
+    assert int(s2.step) == 1 and bool(torch.isfinite(s2.u).all())
     # spmd= is in the slice (tests/test_torch_spmd.py); with a sweep's
     # batch_lanes it raises, as the JAX package shards no sweep through it.
     with pytest.raises(NotImplementedError, match="spmd"):

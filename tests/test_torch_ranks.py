@@ -27,8 +27,10 @@ only.
     the run that was not killed); against the unsharded step on the same
     grid, the JAX sharded-run test's bounds (alpha 5e-3, t 1e-9); one
     probe row a step.
-(e) 'NxM' and a 6DoF case on ranks raise NotImplementedError, as on
-    distinct cards (none is touched).
+(e) 'NxM' on ranks raises NotImplementedError, and a grid that does not
+    divide into even x-slabs raises ValueError, before any spawn, as on
+    distinct cards (none is touched). The 6DoF tank and grids that are
+    not a multiple of 8·N run over ranks: tests/test_torch_ranks_6dof.py.
 """
 
 import os
@@ -237,20 +239,33 @@ def test_run_case_over_ranks_resumes_and_matches(tmp_path, monkeypatch):
 
 
 def test_ranks_refuse_what_the_next_slice_brings(tmp_path, monkeypatch):
-    """'NxM' and a 6DoF case raise on the rank path, before a process is
-    spawned: on positions that share the host, and on distinct cards
-    (named only: none is touched here)."""
+    """'NxM' raises NotImplementedError on the rank path, and a grid that
+    does not divide into even x-slabs of at least two planes raises
+    ValueError naming nx, the ranks and the rule: nx % N != 0 (the 6DoF
+    tank's 4 planes over 3 ranks) and an odd nxl (its 6 planes over 2).
+    All before a process is spawned, on positions that share the host
+    and on distinct cards (named only: none is touched here)."""
     monkeypatch.setenv("OFTPP_SPMD_PALLAS", "interpret")
+
+    def no_spawn(*a, **k):
+        raise AssertionError("a rank process was spawned")
+
+    monkeypatch.setattr(rk, "launch", no_spawn)
     orbit = tcases.setup_case(RUN, str(tmp_path / "orbit"))
-    six = tcases.setup_case_6dof(
-        {"Lx": 0.2, "Ly": 0.2, "Lz": 0.4, "mesh": 0.05, "chamfer": 0.2,
-         "duration": 0.05, "dt": 0.002}, str(tmp_path / "six"))
-    for case, devices, why in ((orbit, "2x2", "'NxM'"),
-                               (six, 2, "a 6DoF case")):
-        n = 4 if devices == "2x2" else 2
+    six = {"Ly": 0.2, "Lz": 0.4, "mesh": 0.05, "chamfer": 0.2,
+           "duration": 0.05, "dt": 0.002}
+    four = tcases.setup_case_6dof({**six, "Lx": 0.2}, str(tmp_path / "c4"))
+    odd = tcases.setup_case_6dof({**six, "Lx": 0.3}, str(tmp_path / "c6"))
+    for case, devices, error, why in (
+            (orbit, "2x2", NotImplementedError, "'NxM'"),
+            (four, 3, ValueError, "nx=4 does not divide over 3 'x' "
+                                  "shards"),
+            (odd, 2, ValueError, "nx=6 over 2 ranks: x-slabs of nxl = 3 "
+                                 "planes, an odd number")):
+        n = 4 if devices == "2x2" else devices
         for device, ranks in (("cpu", True),
                               (",".join(f"cuda:{i}" for i in range(n)),
                                False)):
-            with pytest.raises(NotImplementedError, match=why):
+            with pytest.raises(error, match=why):
                 trunner.run_case(case, devices=devices, device=device,
                                  ranks=ranks, log=quiet)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from openfoam_tpp_tpu_torch.config import PhysicalProperties, SolverControls
+from openfoam_tpp_tpu_torch.core.motion import motion_from_numpy
 from openfoam_tpp_tpu_torch.core.state import (mixture_density,
                                                params_from_numpy,
                                                state_from_numpy,
@@ -33,6 +34,7 @@ from openfoam_tpp_tpu_torch.solver import poisson
 from openfoam_tpp_tpu_torch.solver.timestep import geometry_arrays, make_step
 
 CONTROLS = SolverControls(use_pallas=True, p_max_iters=30)
+MOTION_FIELDS = ("times", "accel", "omega", "domega", "rot")
 # The kernel entry points a step may reach: the islands' halo ones and
 # the single-grid ones, which the sharded step must not.
 ENTRY = {f"{m.__name__.rsplit('.', 1)[1]}.{n}": (m, n) for m, ns in (
@@ -71,14 +73,28 @@ def _steps(step, state, params, n_steps):
     return first, state, iters
 
 
-def steps(ctx, log, tank, init, params, n_steps, with_single=False):
+def geometry(spec):
+    """A tank from build_tank_geometry's keywords or, under a "box" key,
+    the closed box from build_box_geometry's."""
+    if "box" in spec:
+        return build_box_geometry(**spec["box"], open_top=False)
+    return build_tank_geometry(**spec)
+
+
+def steps(ctx, log, tank, init, params, n_steps, with_single=False,
+          table=None, controls=CONTROLS):
     """`n_steps` of the x-sharded step over the ranks from the numpy state
-    `init` (rank 0 scatters it). Every rank returns its entry-point call
-    counts and exchange stats; rank 0 also the gathered states after the
-    first and the last step and the p_iters. `with_single`: rank 0 also
-    runs `SpmdCtx(world)` in this process from the same state."""
-    geom = build_tank_geometry(**tank)
-    step = make_step(geom, PhysicalProperties(), CONTROLS,
+    `init` (rank 0 scatters it), on `geometry(tank)`, under the motion
+    `table` (numpy arrays named as TableMotion's fields) where given.
+    Every rank returns its entry-point call counts, exchange stats and
+    its motion's digest; rank 0 also the gathered states after the first
+    and the last step and the p_iters. `with_single`: rank 0 also runs
+    `SpmdCtx(world)` in this process from the same state."""
+    geom = geometry(tank)
+    motion = (None if table is None else
+              motion_from_numpy(*(table[k] for k in MOTION_FIELDS),
+                                device=ctx.device))
+    step = make_step(geom, PhysicalProperties(), controls, motion=motion,
                      spmd=SpmdCtx(ctx.world, ranks=ctx), device=ctx.device)
     par = params_from_numpy(params, device=ctx.device)
     whole = state_from_numpy(init, device=ctx.device)
@@ -95,13 +111,15 @@ def steps(ctx, log, tank, init, params, n_steps, with_single=False):
     first, last = (state_to_numpy(rk.gather_state(s, ctx))
                    for s in (first, last))
     out = {"calls": dict(calls), "stats": ctx.stats.as_dict(),
+           "motion": None if motion is None else motion.sha256(),
            "jax_loaded": sorted(m for m in sys.modules if m.split(".")[0]
                                 in ("jax", "jaxlib", "openfoam_tpp_tpu"))}
     if ctx.rank == 0:
         out.update(first=first, last=last, iters=iters)
         if with_single:
-            one = make_step(geom, PhysicalProperties(), CONTROLS,
-                            spmd=SpmdCtx(ctx.world), device=ctx.device)
+            one = make_step(geom, PhysicalProperties(), controls,
+                            motion=motion, spmd=SpmdCtx(ctx.world),
+                            device=ctx.device)
             f1, l1, i1 = _steps(one, whole, par, n_steps)
             out["single"] = {"first": state_to_numpy(f1),
                              "last": state_to_numpy(l1), "iters": i1}
