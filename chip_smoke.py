@@ -35,7 +35,19 @@ Phases, each fatal on any fault (nothing is caught):
      cut into 4 x-slabs of 20 planes: its apertures and volume fractions,
      seeded fields), every slab bitwise its plain version and the island
      bitwise the single-grid kernel, its 4 launches timed beside their
-     bytes and bound;
+     bytes and bound; then (vi) the halo kernels on the x·y blocks of
+     '2x2' ranks (56×56×112 each): per row of blocks a strip of the 112³
+     operands with the rows each island adds in y (1 a side; the MULES
+     fluxes 2 below and 1 above; the momentum RHS 2 a side; none at a
+     global end), the one-process island over two x-slabs of it (x
+     halos with the x·y corners), every island's owned rows bitwise the
+     single-grid kernel's; on each block the windowed apply-dot and
+     epilogue (the row window of the block's own rows) against their
+     plain versions (Â·p, the velocities and the div max bitwise, the dot
+     within DOT_RTOL), the blocks' maximum bitwise and their dots' sum
+     within DOT_RTOL of the single-grid kernel's, the 4 windowed launches
+     timed beside their bytes and bound, and a rank's y extension and
+     crop of the momentum island's operands timed;
   3. drive the step path: the flagship single-tank case
      (H0.208/D0.2/R0.004/f1.88, mesh 0.00185, round_to=8 → 112³) through
      `make_step(..., carry_precond=True)` in the bench's configuration,
@@ -254,7 +266,23 @@ Phases, each fatal on any fault (nothing is caught):
      phase 5's; (iv) for (ii) and (iii), per rank, the launches of rows
      11a–12d and of no single-grid kernel, and per step the plane
      exchanges, bytes sent, all-reduces and host s in them, with the
-     run's ms/step with and without writes and its p_iters histogram.
+     run's ms/step with and without writes and its p_iters histogram;
+     (f) 'NxM' over ranks, the 2-D x·y decomposition: (i) phase 5's 112³
+     case copied with its t = 0 and 0.05 checkpoints and resumed to 0.1
+     s by `run_case(devices="2x2", device="cuda:0", ranks=True)` with
+     OFTPP_SMOOTH_SWEEPS=2 (blocks of 56 × 56, which its log names),
+     (ii) phase 8's 6DoF case resumed the same way from the lone run's t
+     = 0.05 checkpoint (blocks of 40 × 40 × 160): each with the grid
+     kept, the write times bitwise, one probe row a step, every rank the
+     seven halo kernels alone (11a–b once an island call, the rest once a
+     call) with p_iters within 1 of the one-process SpmdCtx(4) step's
+     from the same checkpoint (12e's), the final checkpoint within phase
+     3b's limits plus FARM_DRIFT·t of phase 5's (the lone run's) and of
+     the one-process step's, and per rank and step the x-plane and y-row
+     exchanges, bytes sent, strided bytes copied, all-reduces and host s
+     in them, the run's ms/step with and without writes; (iii) with more
+     than one card (i) over distinct cards under NCCL ('2x2' with four,
+     '1x2' with two; else it says it did not run).
 
 It then prints the `kernels` JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. It exits non-zero, printing no
@@ -355,6 +383,10 @@ BATCH_PATH = ("apply_7pt_nb", "resid_scaled_7pt_nb", "apply_dot_7pt_nb")
 HALO_PATH = ("apply_7pt_h", "resid_scaled_7pt_h", "apply_dot_7pt_h",
              "flux_all_h", "fct_iter_h", "momentum_rhs_h", "correct_divmax_h")
 N_SHARDS = 4
+# 'NxM' over ranks (phase 2 (vi), phase 12f): the 2x2 rank grid, and the
+# widest y extension an island adds (parallel/spmd.py MAX_HALO).
+XY_GRID = (2, 2)
+MAX_HALO_ROWS = 2
 # Phase 8: the reference tutorial's 20 × 20 × 40 m tank in its true shape
 # class at 0.25 m (80×80×160, 865,280 fluid cells), filled to z = 0.
 TANK6DOF = {"Lx": 20.0, "Ly": 20.0, "Lz": 40.0, "mesh": 0.25,
@@ -4074,14 +4106,21 @@ def hold_rank_run(label, stats, ref_iters, ref_name="phase 12b's", sweeps=1):
         row = {"device": rs["device"], "backend": rs["backend"],
                "exchanges_per_step": rs["exchanges"] / steps,
                "bytes_per_step": rs["bytes"] / steps,
+               "y_exchanges_per_step": rs.get("y_exchanges", 0) / steps,
+               "y_bytes_per_step": rs.get("y_bytes", 0) / steps,
+               "copy_bytes_per_step": rs.get("copy_bytes", 0) / steps,
                "all_reduces_per_step": rs["all_reduces"] / steps,
                "gathers": rs["gathers"],
                "exchange_s_per_step": rs["seconds"] / steps,
                "launches": {k: launches[k] for k in HALO_PATH}}
         per_rank.append(row)
         log(f"  rank {r} ({rs['device']}, {rs['backend']}): per step "
-            f"{row['exchanges_per_step']:.1f} plane exchanges, "
-            f"{row['bytes_per_step'] / 1e6:.3f} MB sent, "
+            f"{row['exchanges_per_step']:.1f} x-plane exchanges "
+            f"({row['bytes_per_step'] / 1e6:.3f} MB sent), "
+            f"{row['y_exchanges_per_step']:.1f} y-row exchanges "
+            f"({row['y_bytes_per_step'] / 1e6:.3f} MB sent, "
+            f"{row['copy_bytes_per_step'] / 1e6:.3f} MB of strided rows "
+            f"copied contiguous), "
             f"{row['all_reduces_per_step']:.1f} all-reduces, "
             f"{row['exchange_s_per_step'] * 1e3:.1f} ms host in them "
             f"({rs['gathers']} whole-array gathers in the run)")
@@ -4474,6 +4513,8 @@ def phase_ranks_6dof(dev, six, case5):
         "one-process SpmdCtx(4) step, resumed, final against the lone "
         "run's", state_to_numpy(one_state), as_state(lone["final"]), tols,
         held=False)
+    # Phase 12f holds its 'NxM' runs against the same references.
+    out["_one_process_6dof"] = (one_state, one_iters)
     same_files = (files.get("case.json") == lone["case_json"]
                   and files.get(os.path.join("constant", "6DoF.dat"))
                   == lone["table"])
@@ -4546,6 +4587,427 @@ def phase_ranks_6dof(dev, six, case5):
         "one-process SpmdCtx(4) step, resumed, final against phase 5's",
         state_to_numpy(one_state), as_state(ref5), tols, held=False)
     out["flagship_resumed"] = res
+    out["_one_process_flagship"] = (one_state, one_iters)
+    return out
+
+
+def resume_over_ranks(label, params, setup, checkpoints, devices, device,
+                      ranks, env=None):
+    """`run_case(devices=..., device=..., ranks=...)` of a fresh case
+    (`setup(params, base)`) holding `checkpoints` ((file name, bytes)
+    pairs, the last the resume point): (stats, log lines, write times of
+    the checkpoints after the run, the final checkpoint, probe rows
+    written from the resume point)."""
+    from openfoam_tpp_tpu_torch.manager.runner import run_case
+    from openfoam_tpp_tpu_torch.utils.io import (list_checkpoints,
+                                                 load_checkpoint)
+
+    lines = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_xy_ranks_") as base:
+        case_dir = setup(params, base)
+        for name, data in checkpoints:
+            with open(os.path.join(case_dir, name), "wb") as f:
+                f.write(data)
+        t_resume = float(npz_from_bytes(checkpoints[-1][1])["t"])
+        with environ(**(env or {})):
+            stats = run_case(case_dir, devices=devices, device=device,
+                             ranks=ranks, log=lambda ln: (
+                                 lines.append(ln),
+                                 log(f"  | [{label}] " + ln)))
+        chks = list_checkpoints(case_dir)
+        times = [float(load_checkpoint(p)["t"]) for _, p in chks]
+        final = load_checkpoint(chks[-1][1])
+        rows = len(probe_table(case_dir, "p", start=t_resume))
+    return stats, lines, times, final, rows
+
+
+
+
+def phase_ranks_xy(dev, six, case5, refs):
+    """Phase 12f (module docstring): 'NxM' over ranks, the 2-D x·y
+    decomposition, on the card: (i) phase 5's 112³ case resumed over
+    '2x2' gloo ranks from its t = 0.05 checkpoint, (ii) phase 8's 6DoF
+    case resumed over '2x2' from the lone run's t = 0.05 checkpoint,
+    (iii) with more than one card the flagship over distinct cards under
+    NCCL. `refs`: phase 12e's one-process SpmdCtx(4) states and p_iters
+    from the same checkpoints. Returns the phase's stats."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.core.state import state_to_numpy
+    from openfoam_tpp_tpu_torch.manager.cases import (setup_case,
+                                                      setup_case_6dof)
+
+    card = f"cuda:{dev.index or 0}" if dev.type == "cuda" else str(dev)
+    grid = f"{XY_GRID[0]}x{XY_GRID[1]}"
+    out = {}
+    as_state = lambda d: types.SimpleNamespace(
+        **{k: torch.as_tensor(v) for k, v in d.items()})
+    tols = {**SHARD_TOLS, **DT_TOL}
+
+    def hold(label, run, want_times, shape, ref, ref_name, one, sweeps,
+             g=XY_GRID):
+        """The checks of one resumed 'NxM' run: the blocks its log names,
+        the checkpoint's grid kept, the write times bitwise the reference
+        run's, one probe row a step, every rank the seven halo kernels
+        alone with p_iters within 1 of the one-process step's, the final
+        checkpoint within phase 3b's limits plus FARM_DRIFT·t of the
+        reference run's and of the one-process step's."""
+        stats, lines, times, final, rows = run
+        blocks = f"{shape[0] // g[0]} x {shape[1] // g[1]}"
+        if (not any(f"nxl x nyl = {blocks}" in ln for ln in lines)
+                or tuple(final["alpha"].shape) != tuple(shape)
+                or times != want_times or rows != stats["steps"]):
+            raise AssertionError(f"{label}: grid {final['alpha'].shape}, "
+                                 f"write times {times} against {want_times}, "
+                                 f"{rows} probe rows for {stats['steps']} "
+                                 f"steps, log {lines}")
+        one_state, one_iters = one
+        res = hold_rank_run(label, stats, one_iters, sweeps=sweeps,
+                            ref_name="the one-process SpmdCtx(4) step's "
+                            "from it")
+        drift = FARM_DRIFT * want_times[-1]
+        res[f"final_vs_{ref_name}"] = hold_checkpoint(
+            f"{label}, final against {ref_name}'s", final, as_state(ref),
+            tols, drift=drift)
+        res["final_gaps"] = velocity_gaps(f"{label}, against {ref_name}",
+                                          final, as_state(ref))
+        res["final_vs_one_process"] = hold_checkpoint(
+            f"{label}, final against the one-process SpmdCtx(4) step's",
+            final, one_state, tols, drift=drift)
+        log(f"  {label}: write times bitwise {ref_name}'s {want_times}; "
+            f"{rows} probe rows, one a step; blocks of {blocks} cells")
+        return res
+
+    # (i) phase 5's 112³ case resumed over '2x2' (blocks 56 × 56 × 112).
+    label = (f"112^3 over {grid} ranks (i): gloo ranks sharing {card}, "
+             "phase 5's case resumed at t = 0.05")
+    want = [float(npz_from_bytes(d)["t"]) for _, d in case5["checkpoints"]]
+    t0 = time.perf_counter()
+    run = resume_over_ranks(label, case5["params"], setup_case,
+                            case5["checkpoints"][:2], grid, card, True,
+                            {"OFTPP_SMOOTH_SWEEPS": "2"})
+    res = hold(label, run, want, FLAGSHIP_SHAPE,
+               npz_from_bytes(case5["checkpoints"][-1][1]), "phase 5",
+               refs["_one_process_flagship"], 2)
+    n1 = case5["intervals"][0]["steps"]
+    res["phase5_p_iters"] = case5["p_iters"][n1:]
+    res["wall_s_with_spawn"] = time.perf_counter() - t0
+    log(f"  {label}: p_iters {res['p_iters']} against phase 5's "
+        f"{res['phase5_p_iters']} (reported); {res['wall_s_with_spawn']:.1f}"
+        " s with the spawn")
+    out["flagship"] = res
+
+    # (ii) phase 8's 6DoF case resumed over '2x2' (blocks 40 × 40 × 160).
+    lone = six["lone_run"]
+    label = (f"6DoF over {grid} ranks (ii): gloo ranks sharing {card}, "
+             "the lone run's case resumed at t = 0.05")
+    half = npz_from_bytes(lone["first_checkpoint"])
+    name = f"chk_t{float(half['t']):.6f}.npz"
+    t0 = time.perf_counter()
+    run = resume_over_ranks(label, lone["case"],
+                            lambda prm, base: setup_case_6dof(prm, base),
+                            [(name, lone["first_checkpoint"])], grid, card,
+                            True)
+    res = hold(label, run, lone["times"][1:], SHAPE_6DOF, lone["final"],
+               "the lone run", refs["_one_process_6dof"], 1)
+    n1 = lone["first_interval_steps"]
+    res["lone_p_iters"] = lone["p_iters"][n1:]
+    res["wall_s_with_spawn"] = time.perf_counter() - t0
+    log(f"  {label}: p_iters {res['p_iters']} against the lone run's "
+        f"{res['lone_p_iters']} (reported); {res['wall_s_with_spawn']:.1f} s"
+        " with the spawn")
+    out["tank6dof"] = res
+
+    # (iii) distinct cards under NCCL, where the machine has them.
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        d_x, d_y = (2, 2) if n_cards >= 4 else (1, 2)
+        cards = ",".join(f"cuda:{i}" for i in range(d_x * d_y))
+        label = (f"112^3 over {d_x}x{d_y} ranks (iii): NCCL on {cards}, "
+                 "phase 5's case resumed at t = 0.05")
+        run = resume_over_ranks(label, case5["params"], setup_case,
+                                case5["checkpoints"][:2], f"{d_x}x{d_y}",
+                                cards, False, {"OFTPP_SMOOTH_SWEEPS": "2"})
+        out["distinct_cards"] = {"grid": [d_x, d_y], **hold(
+            label, run, want, FLAGSHIP_SHAPE,
+            npz_from_bytes(case5["checkpoints"][-1][1]), "phase 5",
+            refs["_one_process_flagship"], 2, (d_x, d_y))}
+    else:
+        log(f"[{grid} over ranks (iii)] did not run: this machine has "
+            f"{n_cards} card")
+        out["distinct_cards"] = None
+    return out
+
+
+def phase_xy_halo_kernels(shape, spacing, dev, grid=XY_GRID):
+    """Phase 2's halo part, (vi): the halo kernels on the x·y blocks of
+    'NxM' ranks, at `shape` over a `grid` (N, M) of blocks, in one
+    process. For each row of blocks along y, a strip of the global
+    operands holds the block's rows plus the rows a rank adds in y for
+    that island (parallel/spmd.py `YBlock`: 1 a side for the 7-point
+    family, the FCT limiter and the epilogue, 2 below and 1 above for
+    the MULES fluxes, 2 a side for the momentum RHS; none at a global
+    end), and the one-process island over N x-slabs of the strip
+    exchanges the x halo planes of those rows, corners included, as the
+    ranks do. Every island's owned rows, gathered, are held bitwise
+    against the single-grid kernel's. Then on each of the N·M blocks the
+    windowed apply-dot and epilogue (rows 11c and 12d with the row window
+    of the block's own rows) against their plain versions: Â·p and the
+    corrected velocities bitwise, the div max bitwise, the dot within
+    DOT_RTOL (the plain sum adds in another order); the block maxima's
+    maximum bitwise and the blocks' dots' sum within DOT_RTOL of the
+    single-grid kernel's. The N·M windowed launches are timed beside
+    their bytes and bound, and so is a rank's y extension and crop of
+    the momentum island's operands. Returns the stats."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.ops.kernels import correction as ck
+    from openfoam_tpp_tpu_torch.ops.kernels import halo7
+    from openfoam_tpp_tpu_torch.ops.kernels import momentum_rhs as mrk
+    from openfoam_tpp_tpu_torch.ops.kernels import mules_fct as mf
+    from openfoam_tpp_tpu_torch.ops.kernels import mules_flux as mfx
+    from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
+    from openfoam_tpp_tpu_torch.parallel import spmd as sm
+    from openfoam_tpp_tpu_torch.utils.devtime import device_ms
+
+    n_x, n_y = grid
+    nx, ny, nz = shape
+    nyl = ny // n_y
+    ctx = sm.SpmdCtx(n_x)
+    rng = np.random.default_rng(2018)
+    f32 = torch.float32
+
+    def arr(lo=None, hi=None, s=shape, dtype=f32):
+        a = (rng.standard_normal(s) if lo is None
+             else rng.uniform(lo, hi, s)).astype(np.float32)
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    def faces(lo=-1.0, hi=1.0, walls=True):
+        f = [arr(lo, hi, s) for s in ((nx + 1, ny, nz), (nx, ny + 1, nz),
+                                      (nx, ny, nz + 1))]
+        if walls:
+            f[0][0], f[0][-1], f[1][:, 0], f[1][:, -1] = 0, 0, 0, 0
+            f[2][:, :, 0] = 0
+        return tuple(f)
+
+    def widths(iy, w):
+        return (w[0] if iy > 0 else 0, w[1] if iy < n_y - 1 else 0)
+
+    def strip(t, iy, w):
+        """Block row iy's strip of a global array (cells, or y faces)."""
+        lo, hi = widths(iy, w)
+        f = 1 if t.shape[1] == ny + 1 else 0
+        return t[:, iy * nyl - lo:(iy + 1) * nyl + hi + f].contiguous()
+
+    def owned(t, iy, w):
+        lo, _ = widths(iy, w)
+        f = 1 if t.shape[1] == lo + nyl + widths(iy, w)[1] + 1 else 0
+        return t[:, lo:lo + nyl + f]
+
+    def xy_island(name, w, fn, inputs, single):
+        """`fn(*strips)` (a tuple of outputs) on every block row's strips,
+        the owned rows gathered, against `single` (the single-grid
+        outputs): bitwise."""
+        outs = [torch.empty_like(r) for r in single]
+        for iy in range(n_y):
+            got = fn(*(None if t is None else strip(t, iy, w)
+                       for t in inputs))
+            for o, g in zip(outs, got):
+                f = 1 if o.shape[1] == ny + 1 else 0
+                o[:, iy * nyl:(iy + 1) * nyl + f] = owned(g, iy, w)
+        torch.cuda.synchronize()
+        same = all(torch.equal(o, r) for o, r in zip(outs, single))
+        log(f"  {name:18s} {n_x}x{n_y} blocks ({nx // n_x}x{nyl}x{nz}, "
+            f"y rows added {w}): owned rows "
+            f"{'bitwise' if same else 'DIFFER from'} the single-grid "
+            "kernel's")
+        if not same:
+            raise AssertionError(f"{name} on x·y blocks: the owned rows "
+                                 "differ from the single-grid kernel's")
+        return same
+
+    out = {"grid": list(grid), "block": [nx // n_x, nyl, nz]}
+    one = (1, 1)
+    p, b = arr(), arr()
+    wts = [arr(0.05, 0.3) for _ in range(3)]
+    wts[0][0], wts[1][:, 0], wts[2][:, :, 0] = 0, 0, 0
+    wts = tuple(wts)
+    out["apply_7pt_h"] = xy_island(
+        "apply_7pt_h", one, lambda p_, *w_: (sm.apply_7pt(p_, w_, ctx),),
+        (p, *wts), (sp.apply_7pt(p, wts),))
+    pb, bb = p.to(torch.bfloat16), b.to(torch.bfloat16)
+    wb = tuple(x.to(torch.bfloat16) for x in wts)
+    out["resid_scaled_7pt_h"] = xy_island(
+        "resid_scaled_7pt_h", one,
+        lambda p_, b_, *w_: (sm.resid_scaled_7pt(p_, w_, ctx, b_),),
+        (pb, bb, *wb), (sp.resid_scaled_7pt(pb, wb, None, bb),))
+    ap_single, dot_single = sp.apply_dot_7pt(p, wts)
+    out["apply_dot_7pt_h"] = xy_island(
+        "apply_dot_7pt_h", one,
+        lambda p_, *w_: (sm.apply_dot_7pt(p_, w_, ctx)[0],),
+        (p, *wts), (ap_single,))
+    alpha = arr(0, 1)
+    phis = tuple(1e-3 * arr() for _ in range(3))
+    ucs = tuple((1e-3 * arr()).to(torch.bfloat16) for _ in range(3))
+    bf = torch.bfloat16
+    lows, antis = mfx.flux_all(alpha, phis, ucs, bf)
+    out["flux_all_h"] = xy_island(
+        "flux_all_h", (2, 1),
+        lambda a_, *r: tuple(t for ts in sm.flux_all(
+            a_, r[:3], r[3:], ctx, anti_dtype=bf) for t in ts),
+        (alpha, *phis, *ucs), (*lows, *antis))
+    al = arr(0, 1)
+    cells = (al, torch.clamp(al + arr(0, 0.2), max=1.0),
+             torch.clamp(al - arr(0, 0.2), min=0.0), arr(1e-4, 2e-4))
+    lams = tuple(arr(0, 1, dtype=bf) for _ in range(3))
+    an = tuple((1e-3 * arr()).to(bf) for _ in range(3))
+    an[0][0], an[1][:, 0], an[2][:, :, 0] = 0, 0, 0
+    out["fct_iter_h"] = xy_island(
+        "fct_iter_h", one,
+        lambda *r: tuple(sm.fct_iters(r[:3], r[3:6], *r[6:], spacing, 1,
+                                      ctx)),
+        (*lams, *an, *cells), mf.fct_iter(lams, an, *cells, spacing))
+    vel, rp = faces(), faces()
+    mu, div_u = arr(1e-5, 2e-3), 0.1 * arr(-1, 1)
+    out["momentum_rhs_h"] = xy_island(
+        "momentum_rhs_h", (2, 2),
+        lambda u_, v_, w_, *r: sm.momentum_rhs(u_, v_, w_, r[:3], r[3],
+                                               r[4], spacing, ctx),
+        (*vel, *rp, mu, div_u),
+        mrk.momentum_rhs(*vel, rp, mu, div_u, spacing))
+    dp, vfrac = arr(-50, 50), arr(0, 1)
+    vfrac[vfrac < 0.1] = 0
+    beta = faces(8e-4, 1e-3, walls=False)
+    rho = arr(1, 998)
+    topo = (arr(0, 1)[:, :, 0] > 0.3).float().contiguous()
+    dt0 = torch.tensor(3.7e-3, device=dev)
+    aps = faces(0.0, 1.0)
+    for a in aps:
+        a[a < 0.2] = 0
+    corr = {}
+    for open_top in (True, False):
+        ops = (dp, *vel, *beta, *aps, vfrac, topo, rho)
+        single = ck.correct_divmax(dp, *vel, beta, *aps, vfrac, topo, rho,
+                                   dt0, spacing, open_top=open_top)
+        corr[open_top] = single
+        out[f"correct_divmax_h open_top={open_top}"] = xy_island(
+            f"correct_divmax_h{' open' if open_top else ' closed'}", one,
+            lambda d_, u_, v_, w_, b0, b1, b2, a0, a1, a2, vf, tp, rh,
+            top=open_top: sm.correct_divmax(
+                d_, u_, v_, w_, (b0, b1, b2), a0, a1, a2, vf, tp, rh, dt0,
+                spacing, ctx, open_top=top)[:3],
+            ops, single[:3])
+
+    # The windowed apply-dot and epilogue on each block.
+    dots, maxima, win = [], {True: [], False: []}, {}
+    ad_calls, ad_plain, ad_bytes = [], [], 0
+    cd_calls, cd_plain, cd_bytes = [], [], 0
+    for iy in range(n_y):
+        lo, _ = widths(iy, one)
+        rows = (lo, lo + nyl)
+        ps = ctx.split(strip(p, iy, one))
+        ws = [ctx.split(strip(x, iy, one)) for x in wts]
+        halos = sm.exchange_halo(ps, 1, ctx)
+        wx_hi = sm.exchange_hi(ws[0], 1, ctx)
+        st_c = {k: strip(t, iy, one) for k, t in (
+            ("dp", dp), ("u", vel[0]), ("v", vel[1]), ("w", vel[2]),
+            ("bx", beta[0]), ("by", beta[1]), ("bz", beta[2]),
+            ("ax", aps[0]), ("ay", aps[1]), ("az", aps[2]),
+            ("vf", vfrac), ("topo", topo), ("rho", rho))}
+        dps = ctx.split(st_c["dp"])
+        dh = sm.exchange_halo(dps, 1, ctx)
+        packed = [ctx.split(st_c[k], nx) for k in ("u", "bx", "ax")]
+        his = [sm.exchange_hi(t, 1, ctx) for t in packed]
+        rest = [ctx.split(st_c[k]) for k in ("v", "w", "by", "bz", "ay",
+                                             "az", "vf", "topo", "rho")]
+        for i in ctx.held:
+            a = (ps[i], *halos[i], wx_hi[i], tuple(x[i] for x in ws))
+            ad_calls.append(lambda a=a, r=rows: halo7.apply_dot_7pt_h(
+                *a, rows=r))
+            ad_plain.append(lambda a=a, r=rows: halo7.apply_dot_7pt_h_plain(
+                *a, rows=r))
+            ad_bytes += nbytes(ps[i], *halos[i], wx_hi[i], *a[4], ps[i])
+            for open_top in (True, False):
+                c = (dps[i], *dh[i], packed[0][i], his[0][i], rest[0][i],
+                     rest[1][i], packed[1][i], his[1][i], rest[2][i],
+                     rest[3][i], packed[2][i], his[2][i], rest[4][i],
+                     rest[5][i], rest[6][i],
+                     rest[7][i] if open_top else None, rest[8][i], dt0,
+                     spacing, open_top)
+                kern = lambda c=c, r=rows: ck.correct_divmax_h(*c, rows=r)
+                plain = lambda c=c, r=rows: ck.correct_divmax_h_plain(
+                    *c, rows=r)
+                got, ref = kern(), plain()
+                same = (all(torch.equal(g, q) for g, q in zip(got, ref)))
+                win.setdefault(f"correct_divmax_h {open_top}", []).append(
+                    same)
+                maxima[open_top].append(float(got[3]))
+                if open_top:
+                    cd_calls.append(kern)
+                    cd_plain.append(plain)
+                    cd_bytes += nbytes(*c[:16], c[16], c[17][:, :, -1],
+                                       c[3], c[5], c[6])
+    for kern, plain in zip(ad_calls, ad_plain):
+        (ap, d), (ap_p, d_p) = kern(), plain()
+        dots.append(float(d))
+        win.setdefault("apply_dot_7pt_h", []).append(
+            torch.equal(ap, ap_p)
+            and abs(float(d) - float(d_p)) <= DOT_RTOL * abs(float(d_p)))
+    torch.cuda.synchronize()
+    dot_sum = sum(dots)
+    dot_ok = abs(dot_sum - float(dot_single)) <= DOT_RTOL * abs(
+        float(dot_single))
+    max_ok = all(max(maxima[t]) == float(corr[t][3]) for t in (True, False))
+    ad_ms = device_ms(lambda: [k() for k in ad_calls], REPS)
+    ad_plain_ms = device_ms(lambda: [k() for k in ad_plain], REPS)
+    cd_ms = device_ms(lambda: [k() for k in cd_calls], REPS)
+    cd_plain_ms = device_ms(lambda: [k() for k in cd_plain], REPS)
+    n_blocks = n_x * n_y
+    for name, ms, pms, b in (("apply_dot_7pt_h", ad_ms, ad_plain_ms,
+                              ad_bytes),
+                             ("correct_divmax_h", cd_ms, cd_plain_ms,
+                              cd_bytes)):
+        bound = b / HBM_BYTES_PER_S * 1e3
+        out[f"{name} windowed"] = {
+            "ms": ms, "plain_ms": pms, "bytes": b, "bound_ms": bound,
+            "launches": n_blocks}
+        log(f"  {name:18s} windowed, {n_blocks} y-extended blocks: "
+            f"{ms * 1e3:.1f} us ({n_blocks} launches, "
+            f"{ms * 1e3 / n_blocks:.1f} a block)  plain {pms * 1e3:.1f} us  "
+            f"bytes {b / 1e6:.2f} MB  bound {bound * 1e3:.2f} us "
+            f"({ms / bound:.2f}x)")
+    # A rank's y extension and crop of the momentum island (8 operands
+    # in, 3 out) on the interior-corner block (2 rows added on one side).
+    lo_w = MAX_HALO_ROWS
+    mom_ops = (*vel, *rp, mu, div_u)
+    blk = [t[:nx // n_x, :nyl + (1 if t.shape[1] == ny + 1 else 0)]
+           .contiguous() for t in mom_ops]
+    nbr = [t[:nx // n_x, nyl + (1 if t.shape[1] == ny + 1 else 0):
+             nyl + (1 if t.shape[1] == ny + 1 else 0) + lo_w].contiguous()
+           for t in mom_ops]
+
+    def extend_crop():
+        ext = [torch.cat([a, h], 1) for a, h in zip(blk, nbr)]
+        return [e[:, :nyl].contiguous() for e in ext[:3]]
+
+    ext_ms = device_ms(extend_crop, REPS)
+    ext_bytes = 2 * sum(nbytes(a, h) for a, h in zip(blk, nbr)) + 2 * sum(
+        nbytes(e) for e in blk[:3])
+    out["y_extension_momentum"] = {"ms": ext_ms, "bytes": ext_bytes}
+    log(f"  y extension + crop of the momentum island on a block (8 "
+        f"operands + {lo_w} rows in, 3 outputs cropped): "
+        f"{ext_ms * 1e3:.1f} us, {ext_bytes / 1e6:.2f} MB moved")
+    ok = all(all(v) for v in win.values()) and dot_ok and max_ok
+    log(f"  windowed rows 11c/12d on {n_blocks} blocks: every block as its "
+        f"plain version {all(all(v) for v in win.values())} (Â·p, the "
+        f"velocities and the div max bitwise, the dot within {DOT_RTOL}); "
+        f"block maxima's max bitwise the single-grid div max {max_ok}; "
+        f"blocks' dots' sum {dot_sum!r} against the single-grid "
+        f"{float(dot_single)!r}: within {DOT_RTOL} {dot_ok}")
+    if not ok:
+        raise AssertionError(f"windowed halo kernels on x·y blocks: {win}, "
+                             f"dot {dot_ok}, max {max_ok}")
+    out["windowed_ok"] = ok
     return out
 
 
@@ -4689,6 +5151,9 @@ def main() -> int:
         "each")
     rows.update(phase_halo_kernels(geom.shape, spacing, dev))
     closed_halo = phase_closed_top_halo(dev)
+    log(f"[halo kernels on 'NxM' x·y blocks] shape {geom.shape} in "
+        f"{XY_GRID[0]}x{XY_GRID[1]} blocks, {REPS} timed launches each")
+    xy_halo = phase_xy_halo_kernels(geom.shape, spacing, dev)
 
     lap("2")
 
@@ -4798,6 +5263,11 @@ def main() -> int:
     lap("12")
     mesh["ranks_6dof"] = phase_ranks_6dof(dev, tank6dof, case)
     lap("12e")
+    mesh["ranks_xy"] = phase_ranks_xy(dev, tank6dof, case,
+                                      mesh["ranks_6dof"])
+    for key in ("_one_process_6dof", "_one_process_flagship"):
+        mesh["ranks_6dof"].pop(key)
+    lap("12f")
     for key in ("state", "lone_run"):
         tank6dof.pop(key)
     case.pop("checkpoints")
@@ -4836,6 +5306,7 @@ def main() -> int:
                        "mesh": mesh},
               "tiled_kernel_rows": tiled_rows, "phase_seconds": laps,
               "closed_top_halo_6dof": closed_halo,
+              "xy_block_halo": xy_halo,
               "launches": {"csf": csf_launches, "tiled": tiled_launches}}
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)
     with open(os.path.join(repo, "perf_out", "chip_smoke.json"), "w") as f:

@@ -58,7 +58,12 @@
 // row is written; the maximum is the shard's, reduced over the shards by
 // the caller. Same bytes plus five planes, same bound, and the same
 // arithmetic per face, so the shards composed equal the single-grid
-// kernel bitwise.
+// kernel bitwise. The halo launch takes a row window [y0, y1): only the
+// cells of those y rows enter the maximum (every face is corrected). A
+// rank of the 2-D x·y decomposition runs it on its block extended by the
+// y neighbours' rows (parallel/spmd.py) and passes its own rows; the full
+// window [0, ny), what the single grid and the 1-D decomposition pass,
+// leaves the maximum as it was.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,6 +99,7 @@ struct Args {
   float *ou, *ov, *ow, *partial, *div_max;
   unsigned* ticket;
   int nx, ny, nz, cx;   // cx: x planes per block
+  int y0, y1;           // the row window of the maximum
   float hx, hy, hz;     // the spacing
   float rhx, rhy, rhz;  // its f32 reciprocals
 };
@@ -125,6 +131,7 @@ correct_divmax_kernel(const Args a) {
   const int i0 = blockIdx.z * a.cx;
   const int i1 = i0 + a.cx < nx ? i0 + a.cx : nx;
   float val = 0.0f;   // the running maximum of this thread's cells
+  const bool owned = j >= a.y0 && j < a.y1;
   if (k < nz && j < ny) {
     const float dt = __ldg(a.dt);
     const int64_t sx = (int64_t)ny * nz, sy = nz;
@@ -202,7 +209,7 @@ correct_divmax_kernel(const Args a) {
 
       const float div = (gx(px1 - px0) + gy(py1 - py0)) + gz(pz1 - pz0);
       const float fluid = __ldg(a.vfrac + c) > 0.0f ? 1.0f : 0.0f;
-      val = nan_max(val, fabsf(div) * fluid);
+      if (owned) val = nan_max(val, fabsf(div) * fluid);
       dc = dn;
       qx0 = qx1;
       px0 = px1;
@@ -266,8 +273,8 @@ void run(Args& a, cudaStream_t s) {
 // div_max, ticket.
 template <bool HALO>
 int launch(int open_top, const void* const* f, const void* const* halo,
-           void* const* out, int nx, int ny, int nz, double hx, double hy,
-           double hz, void* stream) {
+           void* const* out, int nx, int ny, int nz, int y0, int y1,
+           double hx, double hy, double hz, void* stream) {
   auto F = [&](int n) { return static_cast<const float*>(f[n]); };
   Args a = {};
   a.dt = F(0);
@@ -300,6 +307,8 @@ int launch(int open_top, const void* const* f, const void* const* halo,
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;
+  a.y0 = y0;
+  a.y1 = y1;
   a.hx = (float)hx;
   a.hy = (float)hy;
   a.hz = (float)hz;
@@ -343,13 +352,14 @@ int correction_launch(int open_top, const void* dt, const void* dp, const void* 
                       double hy, double hz, void* stream) {
   const void* f[14] = {dt, dp, u, v, w, bx, by, bz, ax, ay, az, vfrac, topo, rho};
   void* out[6] = {ou, ov, ow, partial, div_max, ticket};
-  return launch<false>(open_top, f, nullptr, out, nx, ny, nz, hx, hy, hz,
-                       stream);
+  return launch<false>(open_top, f, nullptr, out, nx, ny, nz, 0, ny, hx, hy,
+                       hz, stream);
 }
 
 // The same on one shard's slab of nx cells along x: u, bx, ax and ou packed
 // to (nx, ny, nz); dp_lo, dp_hi dp's planes x = −1, nx; u_hi, bx_hi, ax_hi
-// the faces x = nx, all (1, ny, nz). div_max is the shard's.
+// the faces x = nx, all (1, ny, nz). div_max is the shard's over the rows
+// [y0, y1) (0 <= y0 <= y1 <= ny; [0, ny) is the whole slab).
 int correction_halo_launch(int open_top, const void* dt, const void* dp,
                            const void* dp_lo, const void* dp_hi, const void* u,
                            const void* u_hi, const void* v, const void* w,
@@ -358,12 +368,14 @@ int correction_halo_launch(int open_top, const void* dt, const void* dp,
                            const void* ay, const void* az, const void* vfrac,
                            const void* topo, const void* rho, void* ou, void* ov,
                            void* ow, void* partial, void* div_max, void* ticket,
-                           int nx, int ny, int nz, double hx, double hy,
-                           double hz, void* stream) {
+                           int nx, int ny, int nz, int y0, int y1, double hx,
+                           double hy, double hz, void* stream) {
+  if (y0 < 0 || y0 > y1 || y1 > ny) return (int)cudaErrorInvalidValue;
   const void* f[14] = {dt, dp, u, v, w, bx, by, bz, ax, ay, az, vfrac, topo, rho};
   const void* halo[5] = {dp_lo, dp_hi, u_hi, bx_hi, ax_hi};
   void* out[6] = {ou, ov, ow, partial, div_max, ticket};
-  return launch<true>(open_top, f, halo, out, nx, ny, nz, hx, hy, hz, stream);
+  return launch<true>(open_top, f, halo, out, nx, ny, nz, y0, y1, hx, hy, hz,
+                      stream);
 }
 
 }  // extern "C"

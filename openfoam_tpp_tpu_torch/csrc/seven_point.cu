@@ -87,6 +87,12 @@
 // Apply-dot (`seven_point_halo_launch`, mode 2) stays one launch a shard:
 // its dot is the caller's `acc` (the shards before this one) plus this
 // shard's, so the chain of shards adds exactly what the single grid adds.
+// It takes a row window [y0, y1): only the cells of those y rows enter
+// the dot (Â·p is written on every row). A rank of the 2-D x·y
+// decomposition runs it on its block extended by the y neighbours' rows
+// (parallel/spmd.py) and passes its own rows; with the full window
+// [0, ny), what a single grid and the 1-D decomposition pass, every term
+// is what it was, bit for bit.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -248,7 +254,8 @@ __device__ __forceinline__ float warp_tree(float v) {
 }
 
 // Â·p and p·Â·p (unit diagonal) over x planes i0 … i0 + cx − 1 of one
-// (y, z) tile; the per-cell arithmetic is nb_sum's, in its order. Per
+// (y, z) tile; the per-cell arithmetic is nb_sum's, in its order. A cell
+// outside the row window [y0, y1) adds 0 to the dot. Per
 // plane each warp (a z row of the tile) sums its cells' p·(Â·p) with
 // warp_tree; after the march one thread per plane adds the 8 row sums in
 // a fixed tree into partial[plane · tiles + tile]: the same values
@@ -262,7 +269,7 @@ apply_dot_kernel(const T* __restrict__ p, const Halo<T> h,
                  const T* __restrict__ wz, T* __restrict__ out,
                  float* __restrict__ partial, unsigned* __restrict__ ticket,
                  const float* __restrict__ acc_in, float* __restrict__ dot,
-                 int nx, int ny, int nz, int cx) {
+                 int nx, int ny, int nz, int cx, int y0, int y1) {
   __shared__ float rows[kMaxCX][kWarps];
   __shared__ float planes[kPlanes];
   __shared__ bool last;
@@ -274,6 +281,7 @@ apply_dot_kernel(const T* __restrict__ p, const Halo<T> h,
   const int i0 = blockIdx.z * cx;
   const int i1 = i0 + cx < nx ? i0 + cx : nx;
   const bool in = k < nz && j < ny;
+  const bool owned = j >= y0 && j < y1;   // the row window of the dot
   const int64_t sx = (int64_t)ny * nz, sy = nz;
   const int64_t q = (int64_t)j * nz + k;   // the cell's place in an x-plane
   int64_t c = i0 * sx + q;
@@ -311,7 +319,7 @@ apply_dot_kernel(const T* __restrict__ p, const Halo<T> h,
       s = s + zh;
       const float v = pc - s;
       st(out, c, v);
-      d = pc * rounded(T(), v);
+      d = owned ? pc * rounded(T(), v) : 0.0f;
       pm = pc;
       pc = pp;
       wxc = wxp;
@@ -386,7 +394,7 @@ void launch(int mode, int has_diag, const void* p, const void* const* halo,
             const void* wx, const void* wy, const void* wz, const void* diag,
             const void* b, void* out, float* partial, float* dot,
             unsigned* ticket, const float* acc, int nx, int ny, int nz,
-            cudaStream_t stream) {
+            int y0, int y1, cudaStream_t stream) {
   const dim3 block(kBX, kBY);
   const T* P = static_cast<const T*>(p);
   Halo<T> H = {nullptr, nullptr, nullptr};
@@ -405,7 +413,8 @@ void launch(int mode, int has_diag, const void* p, const void* const* halo,
     const dim3 grid((nz + kBX - 1) / kBX, (ny + kBY - 1) / kBY,
                     (nx + cx - 1) / cx);
     apply_dot_kernel<T, HALO><<<grid, block, 0, stream>>>(
-        P, H, WX, WY, WZ, O, partial, ticket, acc, dot, nx, ny, nz, cx);
+        P, H, WX, WY, WZ, O, partial, ticket, acc, dot, nx, ny, nz, cx, y0,
+        y1);
     return;
   }
   if (HALO) return;   // halo apply / resid: launch_slabs
@@ -458,7 +467,7 @@ int dispatch(int mode, int dtype, int has_diag, const void* p,
              const void* const* halo, const void* wx, const void* wy,
              const void* wz, const void* diag, const void* b, void* out,
              void* partial, void* dot, void* ticket, const void* acc, int nx,
-             int ny, int nz, void* stream) {
+             int ny, int nz, int y0, int y1, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
   float* d = static_cast<float*>(dot);
@@ -466,10 +475,10 @@ int dispatch(int mode, int dtype, int has_diag, const void* p,
   const float* ac = static_cast<const float*>(acc);
   if (dtype == 0)
     launch<float, HALO>(mode, has_diag, p, halo, wx, wy, wz, diag, b, out, part,
-                        d, tk, ac, nx, ny, nz, s);
+                        d, tk, ac, nx, ny, nz, y0, y1, s);
   else
     launch<__nv_bfloat16, HALO>(mode, has_diag, p, halo, wx, wy, wz, diag, b,
-                                out, part, d, tk, ac, nx, ny, nz, s);
+                                out, part, d, tk, ac, nx, ny, nz, y0, y1, s);
   return (int)cudaGetLastError();
 }
 
@@ -492,8 +501,8 @@ int seven_point_launch(int mode, int dtype, int has_diag, const void* p,
                        void* partial, void* dot, void* ticket, int nx, int ny,
                        int nz, void* stream) {
   return dispatch<false>(mode, dtype, has_diag, p, nullptr, wx, wy, wz, diag,
-                         b, out, partial, dot, ticket, nullptr, nx, ny, nz,
-                         stream);
+                         b, out, partial, dot, ticket, nullptr, nx, ny, nz, 0,
+                         ny, stream);
 }
 
 // Slabs one seven_point_slabs_launch takes at most.
@@ -520,19 +529,22 @@ int seven_point_slabs_launch(int mode, int dtype, int has_diag, int n_slabs,
 
 // Apply-dot (mode 2 only) on one shard's (nx, ny, nz) slab, with its halo
 // planes as above. The dot is `acc` (the previous shards' dot, f32; null:
-// 0) plus this shard's planes, added in the order the single-grid kernel
-// adds them, so a chain of shards gives its dot.
+// 0) plus this shard's planes over the rows [y0, y1) (0 <= y0 <= y1 <=
+// ny; [0, ny) is the whole slab), added in the order the single-grid
+// kernel adds them, so a chain of shards gives its dot.
 int seven_point_halo_launch(int mode, int dtype, int has_diag, const void* p,
                             const void* h_lo, const void* h_hi,
                             const void* wx_hi, const void* wx, const void* wy,
                             const void* wz, const void* diag, const void* b,
                             void* out, void* partial, void* dot, void* ticket,
-                            const void* acc, int nx, int ny, int nz,
-                            void* stream) {
-  if (mode != kApplyDot) return (int)cudaErrorInvalidValue;
+                            const void* acc, int nx, int ny, int nz, int y0,
+                            int y1, void* stream) {
+  if (mode != kApplyDot || y0 < 0 || y0 > y1 || y1 > ny)
+    return (int)cudaErrorInvalidValue;
   const void* halo[3] = {h_lo, h_hi, wx_hi};
   return dispatch<true>(mode, dtype, has_diag, p, halo, wx, wy, wz, diag, b,
-                        out, partial, dot, ticket, acc, nx, ny, nz, stream);
+                        out, partial, dot, ticket, acc, nx, ny, nz, y0, y1,
+                        stream);
 }
 
 }  // extern "C"

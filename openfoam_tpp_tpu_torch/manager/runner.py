@@ -25,17 +25,18 @@ have).
 
 Positions on distinct cards run as ranks, one spawned process a position
 (parallel/ranks.py; OpenFOAM's `mpirun -np N foamRun -parallel`): each
-rank steps its x-slab of the 1-D x decomposition with the halo kernel
-islands on its own card (`_rank_run`), rank 0 reads a resumed state and
-scatters it, and gathers each checkpoint and the probe rows and writes
-them: the same files, with the same write times. NCCL joins ranks on
-distinct cards; `ranks=True` runs the ranks on positions that share a
-device too, under gloo. The 6DoF tank runs there as the orbital case
-does (rank 0 reads its motion table and broadcasts it), and so does any
-grid whose nx divides into even x-slabs of at least two planes, 8·N or
-not (a checkpoint's grid resumed on more cards). 'NxM' raises
-NotImplementedError there, and a grid that does not divide so raises
-ValueError before a process is spawned (`rank_choice`).
+rank steps its x-slab of the 1-D x decomposition, or its x·y block of
+the 2-D one ('NxM', OpenFOAM's `hierarchical (N M 1)`), with the halo
+kernel islands on its own card (`_rank_run`), rank 0 reads a resumed
+state and scatters it, and gathers each checkpoint and the probe rows
+and writes them: the same files, with the same write times. NCCL joins
+ranks on distinct cards; `ranks=True` runs the ranks on positions that
+share a device too, under gloo. The 6DoF tank runs there as the orbital
+case does (rank 0 reads its motion table and broadcasts it), and so does
+any grid whose nx (and ny) divides into even slabs (and rows of blocks)
+of at least two cells, 8·N or not (a checkpoint's grid resumed on more
+cards). A grid that does not divide so raises ValueError before a
+process is spawned (`rank_choice`).
 
 OFTPP_DEBUG_NANS=1 runs `run_case` under utils/nan_trap.py's trap: the
 first operation or kernel that outputs a NaN raises FloatingPointError
@@ -371,9 +372,9 @@ def run_case(
     `device` (device.py `device_positions`: "cuda" the first N cards, an
     indexed device or "cpu" all on it, or a list). Positions that share
     one device run in this process. Positions on distinct cards run the
-    x-sharded step as N ranks, one process a position (parallel/ranks.py,
-    `_run_case_ranks`); `ranks=True` runs the ranks where positions share
-    a device too (gloo between them).
+    sharded step as N (or N·M, on x·y blocks) ranks, one process a
+    position (parallel/ranks.py, `_run_case_ranks`); `ranks=True` runs the
+    ranks where positions share a device too (gloo between them).
     Checkpoints, probes and resume work as on one device: the state is
     written globally (by rank 0).
 
@@ -538,30 +539,35 @@ def _time_loop(case_dir, params, geom, controls, advance, case_params, state,
 
 def rank_choice(params: dict, shape, d_x: int, d_y: int, dev) -> str:
     """What the ranks run for a case on a (d_x, d_y) mesh of one process a
-    position ('what runs', for the run's log): the 1-D x decomposition
-    with the kernel islands, the orbital case and the 6DoF tank alike, on
-    any nx that divides into d_x even x-slabs of at least MAX_HALO planes
-    (the JAX package's 8·N rounding is its kernels' need, not the
-    islands'). 'NxM' and the islands turned off raise
-    NotImplementedError; a grid that does not divide so raises
+    position ('what runs', for the run's log): the 1-D x decomposition,
+    or with d_y > 1 the 2-D x·y one, with the kernel islands, the orbital
+    case and the 6DoF tank alike, on any nx that divides into d_x even
+    x-slabs of at least MAX_HALO planes and any ny that divides into d_y
+    even rows of blocks of at least MAX_HALO (the JAX package's 8·N
+    rounding is its kernels' need, not the islands'). The islands turned
+    off raise NotImplementedError; a grid that does not divide so raises
     ValueError, before any process is spawned."""
-    if d_y > 1:
-        raise NotImplementedError(
-            "'NxM' over ranks, one process a mesh position: the next slice "
-            "of the decomposition over cards (ROADMAP.md §1 item 2); put "
-            "the positions on one device (device='cuda:0') to run it in "
-            "one process")
-    nxl = SpmdCtx(d_x).local_shape(shape)[0]   # nx % d_x, nxl < MAX_HALO
+    # nx % d_x, ny % d_y, nxl or nyl < MAX_HALO: ValueError
+    nxl, nyl = SpmdCtx(d_x, d_y).local_shape(shape)[:2]
     if nxl % 2:
         raise ValueError(
             f"grid nx={shape[0]} over {d_x} ranks: x-slabs of nxl = {nxl} "
             "planes, an odd number (the multigrid's 2:1 pairs start within "
             "a rank)")
+    if d_y > 1 and nyl % 2:
+        raise ValueError(
+            f"grid ny={shape[1]} over {d_y} ranks along y: blocks of nyl = "
+            f"{nyl} rows, an odd number (the multigrid's 2:1 pairs start "
+            "within a rank)")
     if not _spmd_kernels_wanted(dev):
         raise NotImplementedError(
             "the kernel islands off (OFTPP_SPMD_PALLAS; on the CPU their "
             "plain versions need OFTPP_SPMD_PALLAS=interpret) over ranks: "
             "the rank form runs the islands' configuration only")
+    if d_y > 1:
+        return (f"x·y-sharded step over {d_x}x{d_y} ranks (y fastest), "
+                f"blocks of nxl x nyl = {nxl} x {nyl} cells (halo kernel "
+                "islands on y-extended blocks)")
     return (f"x-sharded step over {d_x} ranks, x-slabs of nxl = {nxl} "
             "planes (halo kernel islands)")
 
@@ -569,7 +575,8 @@ def rank_choice(params: dict, shape, d_x: int, d_y: int, dev) -> str:
 def _run_case_ranks(case_dir, props, controls, log, write_checkpoints,
                     devices, positions) -> dict:
     """`run_case` over ranks: one spawned process a mesh position
-    (parallel/ranks.py `launch`), each running `_rank_run` on its slab.
+    (parallel/ranks.py `launch`, the (d_x, d_y) rank grid), each running
+    `_rank_run` on its block.
     Returns rank 0's stats with `ranks` added: every rank's exchange
     stats and kernel launch counts."""
     from openfoam_tpp_tpu_torch.parallel import ranks as rk
@@ -585,21 +592,22 @@ def _run_case_ranks(case_dir, props, controls, log, write_checkpoints,
         + f", {devices} mesh positions on "
         f"{', '.join(str(p) for p in positions)}: {what}, backend {backend}"
         + (" (ranks share a device)" if shared else ""))
-    results = rk.launch(_rank_run, positions, log=log,
+    results = rk.launch(_rank_run, positions, log=log, grid=(d_x, d_y),
                         args=(case_dir, props, controls, write_checkpoints,
-                              d_x))
+                              devices))
     stats = results[0]["stats"]
     stats["ranks"] = [{"device": str(p), "backend": backend, **r["ranks"]}
                       for p, r in zip(positions, results)]
     return stats
 
 
-def _rank_run(ctx, log, case_dir, props, controls, write_checkpoints, d_x):
-    """One rank of `run_case`: the x-sharded step (`SpmdCtx(d_x,
-    ranks=ctx)`) on this rank's slab, with the case's motion table for a
-    6DoF case; rank 0 reads the resumed state (or fills the tank) and
-    scatters it, gathers each checkpoint and the probe rows and writes
-    them. Returns {"stats" (rank 0's run stats), "ranks": {exchange stats,
+def _rank_run(ctx, log, case_dir, props, controls, write_checkpoints,
+              devices):
+    """One rank of `run_case`: the sharded step (`SpmdCtx(d_x, d_y,
+    ranks=ctx)`, ctx on the (d_x, d_y) rank grid) on this rank's block,
+    with the case's motion table for a 6DoF case; rank 0 reads the
+    resumed state (or fills the tank) and scatters it, gathers each
+    checkpoint and the probe rows and writes them. Returns {"stats" (rank 0's run stats), "ranks": {exchange stats,
     kernel launches, p_iters of every step, the motion table's digest}}."""
     from openfoam_tpp_tpu_torch.parallel import ranks as rk
     from openfoam_tpp_tpu_torch.post.probes import make_rank_sampler
@@ -611,14 +619,15 @@ def _rank_run(ctx, log, case_dir, props, controls, write_checkpoints, d_x):
     chk = latest_checkpoint(case_dir) if lead else None
     hint = ctx.broadcast(None if chk is None else tuple(
         load_checkpoint(chk[1])["alpha"].shape))
-    geom = build_case_geometry(params, hint, devices=d_x, device=dev)
+    geom = build_case_geometry(params, hint, devices=devices, device=dev)
     controls = dataclasses.replace(controls, use_pallas=True)
     k_env = os.environ.get("OFTPP_PRECOND_REFRESH")
     if k_env is not None:
         controls = dataclasses.replace(controls, precond_refresh=int(k_env))
     motion = build_case_motion(params, case_dir, device=dev, ranks=ctx)
     inner = make_step(geom, props, controls, motion=motion,
-                      carry_precond=True, spmd=SpmdCtx(d_x, ranks=ctx),
+                      carry_precond=True,
+                      spmd=SpmdCtx(*ctx.grid, ranks=ctx),
                       device=dev)
     iters = []
 

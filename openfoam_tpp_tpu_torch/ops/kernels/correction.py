@@ -29,7 +29,12 @@ density, on the planes no kept output reads) and runs
 `correct_divmax_plain` on that block, keeping the slab: a cell's faces
 read dp one plane each way and its own two x faces, which the halos
 cover, and the extra cells are solid, so they add nothing to the maximum.
-`out=` takes (u_c, v_c, w_c) slab views to write into.
+`out=` takes (u_c, v_c, w_c) slab views to write into. `rows=(y0, y1)`
+restricts the div max to the cells of y rows y0 … y1 − 1 (every face is
+corrected): a rank of the 2-D x·y decomposition runs the kernel on its
+block extended by its y neighbours' rows and passes its own; `rows=None`
+is the full window, bitwise what the entry point computed before it had
+a window.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 
 from openfoam_tpp_tpu_torch.ops import stencil as st
 from openfoam_tpp_tpu_torch.ops.kernels import _build
+from openfoam_tpp_tpu_torch.ops.kernels.halo7 import window
 
 
 def correct_velocities_plain(dp, u_s, v_s, w_s, beta_f, ax, ay, az, top_open,
@@ -58,20 +64,24 @@ def correct_velocities_plain(dp, u_s, v_s, w_s, beta_f, ax, ay, az, top_open,
             torch.where(az > 0.0, w_c, 0.0))
 
 
-def div_max_plain(u_c, v_c, w_c, ax, ay, az, vfrac, spacing):
+def div_max_plain(u_c, v_c, w_c, ax, ay, az, vfrac, spacing, rows=None):
     """max|∇·(A·q)| over the fluid cells, a 0-d tensor (per case, (B,),
-    on batched (nx, ny, nz, B) operands)."""
-    return st.max_cells(
-        torch.abs(st.divergence(ax * u_c, ay * v_c, az * w_c, spacing))
-        * (vfrac > 0.0))
+    on batched (nx, ny, nz, B) operands); `rows` (y0, y1): over the cells
+    of those y rows only."""
+    cells = (torch.abs(st.divergence(ax * u_c, ay * v_c, az * w_c, spacing))
+             * (vfrac > 0.0))
+    if rows is not None:
+        cells = cells[:, rows[0]:rows[1]]
+    return st.max_cells(cells)
 
 
 def correct_divmax_plain(dp, u_s, v_s, w_s, beta_f, ax, ay, az, vfrac,
-                         top_open, rho, dt, spacing, open_top=True):
+                         top_open, rho, dt, spacing, open_top=True,
+                         rows=None):
     u_c, v_c, w_c = correct_velocities_plain(dp, u_s, v_s, w_s, beta_f, ax,
                                              ay, az, top_open, rho, dt,
                                              spacing, open_top)
-    div_max = div_max_plain(u_c, v_c, w_c, ax, ay, az, vfrac, spacing)
+    div_max = div_max_plain(u_c, v_c, w_c, ax, ay, az, vfrac, spacing, rows)
     u_c[-1] = 0.0   # written as zeros, after the divergence, as the kernel does
     return u_c, v_c, w_c, div_max
 
@@ -85,7 +95,7 @@ def _lib():
         lib.correction_launch.restype = ci
         lib.correction_num_partials.argtypes = [ci] * 3
         lib.correction_num_partials.restype = ci
-        lib.correction_halo_launch.argtypes = ([ci] + [vp] * 25 + [ci] * 3
+        lib.correction_halo_launch.argtypes = ([ci] + [vp] * 25 + [ci] * 5
                                                + [cd] * 3 + [vp])
         lib.correction_halo_launch.restype = ci
         lib._typed = True
@@ -130,7 +140,10 @@ def correct_divmax(dp, u_s, v_s, w_s, beta_f, ax, ay, az, vfrac, top_open,
 
 def correct_divmax_h_plain(dp, h_dp_lo, h_dp_hi, u_p, h_u, v_s, w_s, bx_p,
                            h_bx, by, bz, ax_p, h_ax, ay, az, vfrac, top_open,
-                           rho, dt, spacing, open_top=True, out=None):
+                           rho, dt, spacing, open_top=True, out=None,
+                           rows=None):
+    y0, y1 = window(rows, dp.shape[1])
+
     def ext(t, lo=None, hi=None, fill=0.0):
         f = torch.full_like(t[:1], fill)
         return torch.cat([f if lo is None else lo, t, f if hi is None else hi])
@@ -142,7 +155,8 @@ def correct_divmax_h_plain(dp, h_dp_lo, h_dp_hi, u_p, h_u, v_s, w_s, bx_p,
         ext(dp, h_dp_lo, h_dp_hi), fx(u_p, h_u), ext(v_s), ext(w_s),
         (fx(bx_p, h_bx), ext(by), ext(bz)), fx(ax_p, h_ax), ext(ay), ext(az),
         ext(vfrac), None if top_open is None else ext(top_open),
-        ext(rho, fill=1.0), dt, spacing, open_top)
+        ext(rho, fill=1.0), dt, spacing, open_top,
+        None if (y0, y1) == (0, dp.shape[1]) else (y0, y1))
     vel = tuple(r[1:1 + dp.shape[0]] for r in res[:3])
     if out is not None:
         for o, r in zip(out, vel):
@@ -153,9 +167,10 @@ def correct_divmax_h_plain(dp, h_dp_lo, h_dp_hi, u_p, h_u, v_s, w_s, bx_p,
 
 def correct_divmax_h(dp, h_dp_lo, h_dp_hi, u_p, h_u, v_s, w_s, bx_p, h_bx, by,
                      bz, ax_p, h_ax, ay, az, vfrac, top_open, rho, dt, spacing,
-                     open_top=True, out=None):
+                     open_top=True, out=None, rows=None):
     """`correct_divmax` on one shard's slab: (u_c packed to cells, v_c,
-    w_c, this shard's div max as a 0-d tensor)."""
+    w_c, this shard's div max as a 0-d tensor, over the y rows `rows`
+    (y0, y1) only where given)."""
     where = _build.route(dp, "correct_divmax_h")
     nx, ny, nz = dp.shape
     cells = (nx, ny, nz)
@@ -173,7 +188,8 @@ def correct_divmax_h(dp, h_dp_lo, h_dp_hi, u_p, h_u, v_s, w_s, bx_p, h_bx, by,
         return correct_divmax_h_plain(dp, h_dp_lo, h_dp_hi, u_p, h_u, v_s, w_s,
                                       bx_p, h_bx, by, bz, ax_p, h_ax, ay, az,
                                       vfrac, top_open, rho, dt, spacing,
-                                      open_top, out)
+                                      open_top, out, rows)
+    y0, y1 = window(rows, ny)
     lib = _lib()
     outs = (list(out) if out is not None
             else [torch.empty(s, dtype=dp.dtype, device=dp.device)
@@ -189,7 +205,7 @@ def correct_divmax_h(dp, h_dp_lo, h_dp_hi, u_p, h_u, v_s, w_s, bx_p, h_bx, by,
                                   vfrac)),
         topo, _build.ptr(rho), *(_build.ptr(o) for o in outs),
         _build.ptr(partial), _build.ptr(div_max),
-        _build.ptr(_build.ticket(dp.device)), nx, ny, nz,
+        _build.ptr(_build.ticket(dp.device)), nx, ny, nz, y0, y1,
         *(float(h) for h in spacing), _build.stream_of(dp))
     _build.check(rc, "correct_divmax_h", *outs, div_max)
     correct_divmax_h.launches += 1

@@ -32,6 +32,13 @@ runs them. `apply_7pt_h` and `resid_scaled_7pt_h` are that launch with a
 table of one slab, the form a process holding one shard launches. The
 island's plain versions run the per-shard plain functions slab by slab.
 
+`apply_dot_7pt_h` takes a row window `rows=(y0, y1)`: only the cells of
+y rows y0 … y1 − 1 enter its dot (Â·p is computed on every row). A rank
+of the 2-D x·y decomposition runs it on its block extended by its y
+neighbours' rows and passes its own; `rows=None` is the full window
+(0, ny), the single grid's and the 1-D decomposition's, bitwise what the
+entry point computed before it had a window.
+
 `out=` (`outs=`, one per slab) optionally takes contiguous tensors of
 p's shape and dtype, slab views of the island's global output, and the
 result is written into them. Each entry point counts its kernel
@@ -83,10 +90,24 @@ def resid_scaled_7pt_h_plain(p, h_lo, h_hi, wx_hi, split, b, diag=None,
     return _give(sp.resid_scaled_7pt_plain(pe, se, de, be)[1:-1], out)
 
 
-def apply_dot_7pt_h_plain(p, h_lo, h_hi, wx_hi, split, out=None, acc=None):
+def window(rows, ny: int):
+    """(y0, y1) of a row window, `None` the full one (0, ny); raises
+    outside 0 <= y0 <= y1 <= ny."""
+    y0, y1 = (0, ny) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= y0 <= y1 <= ny:
+        raise ValueError(f"row window {rows} outside the block's {ny} rows")
+    return y0, y1
+
+
+def apply_dot_7pt_h_plain(p, h_lo, h_hi, wx_hi, split, out=None, acc=None,
+                          rows=None):
+    y0, y1 = window(rows, p.shape[1])
     pe, se = _extend(p, h_lo, h_hi, wx_hi, split)
     ap = _give(sp.apply_7pt_plain(pe, se)[1:-1], out)
-    dot = sum_cells(p.float() * ap.float())
+    prod = p.float() * ap.float()
+    if (y0, y1) != (0, p.shape[1]):
+        prod = prod[:, y0:y1]
+    dot = sum_cells(prod)
     return ap, dot if acc is None else acc + dot
 
 
@@ -151,7 +172,7 @@ def _lib():
     if not getattr(lib, "_halo_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.seven_point_halo_launch.argtypes = ([ci, ci, ci] + [vp] * 14
-                                                + [ci] * 3 + [vp])
+                                                + [ci] * 5 + [vp])
         lib.seven_point_halo_launch.restype = ci
         lib.seven_point_slabs_launch.argtypes = ([ci] * 4 + [vp] + [ci] * 3
                                                  + [vp])
@@ -235,14 +256,18 @@ def resid_scaled_7pt_h(p, h_lo, h_hi, wx_hi, split, b, diag=None, out=None):
     return res
 
 
-def apply_dot_7pt_h(p, h_lo, h_hi, wx_hi, split, out=None, acc=None):
+def apply_dot_7pt_h(p, h_lo, h_hi, wx_hi, split, out=None, acc=None,
+                    rows=None):
     """(Â·p, `acc` plus this shard's p·Â·p as a 0-d f32 tensor). `acc`
     (optional, a 0-d f32 tensor on p's device) is the dot of the shards
     before this one: the kernel adds this shard's planes to it in the
     order the single-grid kernel adds them, so the island's chain over
-    the shards gives the single-grid dot bitwise."""
+    the shards gives the single-grid dot bitwise. `rows` (y0, y1): the
+    dot over those y rows only (None: all)."""
     if _build.route(p, "apply_dot_7pt_h") == "cpu":
-        return apply_dot_7pt_h_plain(p, h_lo, h_hi, wx_hi, split, out, acc)
+        return apply_dot_7pt_h_plain(p, h_lo, h_hi, wx_hi, split, out, acc,
+                                     rows)
+    y0, y1 = window(rows, p.shape[1])
     _check(p, h_lo, h_hi, wx_hi, split, out=out)
     if acc is not None and (acc.shape != () or acc.dtype != torch.float32
                             or acc.device != p.device):
@@ -256,7 +281,7 @@ def apply_dot_7pt_h(p, h_lo, h_hi, wx_hi, split, out=None, acc=None):
         *(_build.ptr(h) for h in (h_lo, h_hi, wx_hi)),
         *(_build.ptr(w) for w in split), None, None, _build.ptr(out),
         _build.ptr(partial), _build.ptr(dot), _build.ptr(ticket),
-        None if acc is None else _build.ptr(acc), *p.shape,
+        None if acc is None else _build.ptr(acc), *p.shape, y0, y1,
         _build.stream_of(p))
     _build.check(rc, "seven_point_halo", out, dot)
     apply_dot_7pt_h.launches += 1

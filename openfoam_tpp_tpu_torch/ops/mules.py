@@ -14,7 +14,8 @@ only on that path and only with `fct_bf16`, as in the JAX package.
 With `spmd` (parallel/spmd.py, the x-sharded step) the flux build runs as
 the per-shard `flux_all` island and all limiter iterations of a subcycle
 as one `fct_iters` island; in a rank process (parallel/ranks.py) every
-x-neighbour access between them goes through ops/stencil.py's exchange.
+x- or y-neighbour access between them goes through ops/stencil.py's
+exchange.
 """
 
 from __future__ import annotations
@@ -99,11 +100,11 @@ def _div(fluxes, spacing):
 
 def _cell_to_faces(arrs):
     """Re-append the implicit zero upper-boundary plane per axis (along x
-    in a rank, the right neighbour's first face, except at the global
-    end)."""
+    or y in a rank, the upper neighbour's first face, except at the
+    global end)."""
     fx, fy, fz = arrs
-    return [torch.cat([fx, st.x_next_plane(fx)], 0),
-            torch.cat([fy, torch.zeros_like(fy[:, :1])], 1),
+    return [torch.cat([fx, st.next_plane(fx, 0)], 0),
+            torch.cat([fy, st.next_plane(fy, 1)], 1),
             torch.cat([fz, torch.zeros_like(fz[:, :, :1])], 2)]
 
 

@@ -11,14 +11,16 @@ Every function indexes dims 0–2 only, so arrays may carry a trailing case
 axis, (nx, ny, nz, B) (parameter sweeps): it passes through untouched.
 `sum_cells`, `max_cells` and `min_cells` reduce over the cells alone.
 
-In a rank process of the x-sharded step (parallel/ranks.py) the arrays
-are x-slabs, and `x_slabs(ranks, nxl)` makes that known for the block it
-opens: there every x-neighbour access at a slab's interior boundary
-takes the neighbour rank's plane (one `exchange` a call), the clamp or
-the zero stays at the global ends alone, and the three cell reductions
-reduce over the ranks. The same operands meet in the same order as on
-the whole grid, so every value but the reductions' is the whole grid's,
-bit for bit. `x_slabs(None)` closes it again for code that works on
+In a rank process of the sharded step (parallel/ranks.py) the arrays
+are x·y blocks, and `rank_block(ranks, nxl, nyl)` makes that known for
+the block it opens: there every x- or y-neighbour access at a block's
+interior boundary takes the neighbour rank's plane or row (one
+`exchange` a call, along that axis), the clamp or the zero stays at the
+global ends alone, and the three cell reductions reduce over all the
+ranks. The same operands meet in the same order as on the whole grid,
+so every value but the reductions' is the whole grid's, bit for bit.
+With one rank along y (the 1-D x decomposition) nothing crosses ranks
+along y. `rank_block(None)` closes it again for code that works on
 whole arrays (the kernels' plain versions, the gathered multigrid
 levels).
 """
@@ -29,41 +31,48 @@ import contextlib
 
 import torch
 
-# (RankCtx, local nx of the fine grid) while a rank's step runs, else None.
+# (RankCtx, local nx, local ny) while a rank's step runs, else None.
 _X = None
 
 
 @contextlib.contextmanager
-def x_slabs(ranks, nxl: int | None = None):
-    """Within the block, x-arrays are this rank's slabs of `nxl` cells
-    (`ranks` a parallel.ranks.RankCtx); `ranks=None`: whole arrays."""
+def rank_block(ranks, nxl: int | None = None, nyl: int | None = None):
+    """Within the block, arrays are this rank's x·y blocks of `nxl` ×
+    `nyl` cells (`ranks` a parallel.ranks.RankCtx); `ranks=None`: whole
+    arrays."""
     global _X
-    prev, _X = _X, (None if ranks is None else (ranks, nxl))
+    prev, _X = _X, (None if ranks is None else (ranks, nxl, nyl))
     try:
         yield
     finally:
         _X = prev
 
 
-def x_ranks():
-    """The RankCtx of the open `x_slabs` block, or None."""
+def block_ranks():
+    """The RankCtx of the open `rank_block`, or None."""
     return None if _X is None else _X[0]
 
 
-def _x_ghosts(a, lo=True, hi=True):
-    """(lo, hi): the planes just outside an x-slab from the neighbour
-    ranks, None at a global end or where not asked. A face array (nxl + 1
-    planes) holds the plane it shares with the right neighbour, so its
-    ghosts lie one plane further out."""
-    ranks, nxl = _X
-    f = 1 if a.shape[0] == nxl + 1 else 0
-    n = a.shape[0]
-    return ranks.exchange(a[f:f + 1] if hi else None,
-                          a[n - 1 - f:n - f] if lo else None)
+def _ghosts(a, axis, lo=True, hi=True):
+    """(lo, hi): the planes (axis 0) or rows (axis 1) just outside a
+    block from the neighbour ranks, None at a global end or where not
+    asked. A face array along `axis` (n + 1 planes) holds the plane it
+    shares with the upper neighbour, so its ghosts lie one plane further
+    out."""
+    ranks, n_local = _X[0], _X[1 + axis]
+    f = 1 if a.shape[axis] == n_local + 1 else 0
+    n = a.shape[axis]
+    return ranks.exchange(a[_sl(axis, slice(f, f + 1))] if hi else None,
+                          a[_sl(axis, slice(n - 1 - f, n - f))] if lo
+                          else None, axis=axis)
 
 
-def _along_x(axis):
-    return axis == 0 and _X is not None
+def _along(axis):
+    """True where `axis` crosses ranks in the open block: x, and y when
+    the rank grid has more than one row of ranks."""
+    if _X is None or axis > 1:
+        return False
+    return axis == 0 or _X[0].grid[1] > 1
 
 
 def _sl(axis, s):
@@ -94,8 +103,8 @@ def min_cells(t):
 def shift_down(a, axis):
     """result[i] = a[i-1], edge-clamped at i=0."""
     first = a[_sl(axis, slice(0, 1))]
-    if _along_x(axis):
-        lo, _ = _x_ghosts(a, hi=False)
+    if _along(axis):
+        lo, _ = _ghosts(a, axis, hi=False)
         first = first if lo is None else lo
     return torch.cat([first, a[_sl(axis, slice(0, -1))]], dim=axis)
 
@@ -103,44 +112,48 @@ def shift_down(a, axis):
 def shift_up(a, axis):
     """result[i] = a[i+1], edge-clamped at i=n-1."""
     last = a[_sl(axis, slice(-1, None))]
-    if _along_x(axis):
-        _, hi = _x_ghosts(a, lo=False)
+    if _along(axis):
+        _, hi = _ghosts(a, axis, lo=False)
         last = last if hi is None else hi
     return torch.cat([a[_sl(axis, slice(1, None))], last], dim=axis)
 
 
 def shift_both(a, axis):
     """(shift_down(a, axis), shift_up(a, axis)), with one exchange."""
-    if not _along_x(axis):
+    if not _along(axis):
         return shift_down(a, axis), shift_up(a, axis)
-    lo, hi = _x_ghosts(a)
-    return (torch.cat([a[:1] if lo is None else lo, a[:-1]]),
-            torch.cat([a[1:], a[-1:] if hi is None else hi]))
+    lo, hi = _ghosts(a, axis)
+    first, last = a[_sl(axis, slice(0, 1))], a[_sl(axis, slice(-1, None))]
+    return (torch.cat([first if lo is None else lo,
+                       a[_sl(axis, slice(0, -1))]], dim=axis),
+            torch.cat([a[_sl(axis, slice(1, None))],
+                       last if hi is None else hi], dim=axis))
 
 
-def x_next_plane(a):
-    """The plane after an x-array's last (cells in the lower-face layout):
-    zeros at the global end, the right neighbour rank's first plane at a
-    slab's interior boundary."""
-    if _X is not None:
-        _, hi = _X[0].exchange(a[:1], None)
+def next_plane(a, axis=0):
+    """The plane (axis 0) or row (axis 1) after an array's last (cells
+    in the lower-face layout): zeros at the global end, the upper
+    neighbour rank's first at a block's interior boundary."""
+    if _along(axis):
+        _, hi = _X[0].exchange(a[_sl(axis, slice(0, 1))], None, axis=axis)
         if hi is not None:
             return hi
-    return torch.zeros_like(a[:1])
+    return torch.zeros_like(a[_sl(axis, slice(0, 1))])
 
 
 def _faces_from_cells(c, axis, mid, edge):
     """Faces of a cell array: `mid(left, right)` at every face between two
-    cells, `edge(c's end plane)` at the global ends; along x in a rank, the
-    slab's end faces pair its end cells with the neighbours' planes."""
+    cells, `edge(c's end plane)` at the global ends; along x or y in a
+    rank, the block's end faces pair its end cells with the neighbours'
+    planes."""
     lo = edge(c[_sl(axis, slice(0, 1))])
     hi = edge(c[_sl(axis, slice(-1, None))])
-    if _along_x(axis):
-        g_lo, g_hi = _x_ghosts(c)
+    if _along(axis):
+        g_lo, g_hi = _ghosts(c, axis)
         if g_lo is not None:
-            lo = mid(g_lo, c[:1])
+            lo = mid(g_lo, c[_sl(axis, slice(0, 1))])
         if g_hi is not None:
-            hi = mid(c[-1:], g_hi)
+            hi = mid(c[_sl(axis, slice(-1, None))], g_hi)
     inner = mid(c[_sl(axis, slice(0, -1))], c[_sl(axis, slice(1, None))])
     return torch.cat([lo, inner, hi], dim=axis)
 
@@ -173,8 +186,8 @@ def face_lr(c, axis):
     both face-shaped along `axis`; boundary faces clamp."""
     lo = c[_sl(axis, slice(0, 1))]
     hi = c[_sl(axis, slice(-1, None))]
-    if _along_x(axis):
-        g_lo, g_hi = _x_ghosts(c)
+    if _along(axis):
+        g_lo, g_hi = _ghosts(c, axis)
         lo = lo if g_lo is None else g_lo
         hi = hi if g_hi is None else g_hi
     cl = torch.cat([lo, c], dim=axis)

@@ -1,33 +1,42 @@
-"""One process per card: the ranks of the x-sharded step under
+"""One process per card: the ranks of the sharded step under
 torch.distributed — the port's counterpart of the JAX package's mesh over
 distinct devices (openfoam_tpp_tpu/parallel/sharding.py) and of the
 collectives GSPMD emits there.
 
-The JAX package runs the x-sharded step as one GSPMD program over N
-devices. The port runs it as N processes, one a card (OpenFOAM's
-`decomposePar` → `mpirun -np N foamRun -parallel`): each rank holds its
-x-slab of every array and computes it alone, between the kernel islands
-too. What crosses ranks:
+The JAX package runs the sharded step as one GSPMD program over an
+(x, y) mesh of N·M devices. The port runs it as N·M processes, one a
+card (OpenFOAM's `decomposePar` with `hierarchical (N M 1)` →
+`mpirun -np N·M foamRun -parallel`): each rank holds its x·y block of
+every array and computes it alone, between the kernel islands too. What
+crosses ranks:
 
-  * plane exchanges (`RankCtx.exchange`): a slab's first or last planes
-    to its left or right neighbour, for the islands' halos
-    (parallel/spmd.py) and for every x-neighbour access between them
-    (ops/stencil.py);
+  * plane and row exchanges (`RankCtx.exchange(..., axis=)`): a block's
+    first or last x planes (axis 0) or y rows (axis 1) to its neighbour
+    below or above along that axis, for the islands' halos
+    (parallel/spmd.py) and for every x- or y-neighbour access between
+    them (ops/stencil.py). y rows of an (x, y, z) array are strided:
+    they are copied contiguous before they travel, and the stats count
+    those bytes (`copy_bytes`);
   * reductions (`RankCtx.all_reduce`, sum, max and min): each rank's
     partials are gathered to every rank and combined in rank order, so
     every rank holds the same bits and takes the same branch (the CG's
     stop test, the adaptive dt), whatever the backend's own algorithm;
-  * whole arrays (`gather_x`, `scatter_x`): the multigrid levels whose
-    2:1 pairs straddle two ranks (solver/poisson.py), checkpoints and
-    probe rows (rank 0 writes), a resumed state (rank 0 reads).
+  * whole arrays (`gather_block`, `scatter_block`): the multigrid levels
+    whose 2:1 pairs straddle two ranks (solver/poisson.py), checkpoints
+    and probe rows (rank 0 writes), a resumed state (rank 0 reads).
 
-Layout. The grid's nx cells split into `world` slabs of nxl = nx/world
-planes. An x-face array (nx + 1 planes) keeps nxl + 1 planes on every
-rank: its slab's lower faces and the next slab's first face, which the
-two ranks hold alike (the global face-nx wall plane is the last rank's).
-Every rank computes that shared plane from the same operands, so the two
-copies stay equal bit for bit; a face array a kernel island writes
-packed (nxl planes) takes its last plane from the right neighbour.
+Layout. The ranks form an (N, M) grid, N along x and M along y, in the
+order r = ix·M + iy (y fastest); `grid` defaults to (world, 1), the 1-D
+x decomposition. The grid's nx cells split into N slabs of nxl = nx/N
+planes and its ny cells into M rows of nyl = ny/M; rank r holds cells
+[ix·nxl, (ix+1)·nxl) × [iy·nyl, (iy+1)·nyl) × all of z. An x-face array
+(nx + 1 planes) keeps nxl + 1 planes on every rank: its block's lower
+faces and the next block's first face, which the two ranks hold alike
+(the global face-nx wall plane is the last rank's); a y-face array
+(ny + 1 rows) keeps nyl + 1 rows the same way. Every rank computes that
+shared plane or row from the same operands, so the two copies stay
+equal bit for bit; a face array a kernel island writes packed (nxl
+planes) takes its last plane from the right neighbour.
 
 Backends. NCCL when every rank has its own card; gloo when ranks share a
 card (NCCL refuses two ranks on one GPU) or run on the CPU. gloo's
@@ -93,12 +102,17 @@ def _unpack(buf, like):
 
 @dataclasses.dataclass
 class ExchangeStats:
-    """What one rank sent and waited for: plane exchanges (one a halo
-    call, both directions), bytes it sent in them, reductions, whole-array
-    gathers and scatters, and the host seconds spent in all of these."""
+    """What one rank sent and waited for: x-plane exchanges (one a halo
+    call, both directions) and the bytes it sent in them, the same for
+    y-row exchanges, the bytes of strided rows copied contiguous before
+    sending, reductions, whole-array gathers and scatters, and the host
+    seconds spent in all of these."""
 
     exchanges: int = 0
     bytes: int = 0
+    y_exchanges: int = 0
+    y_bytes: int = 0
+    copy_bytes: int = 0
     all_reduces: int = 0
     gathers: int = 0
     seconds: float = 0.0
@@ -110,21 +124,50 @@ class ExchangeStats:
 @dataclasses.dataclass(eq=False)
 class RankCtx:
     """This process's place among the ranks: its rank, the world size,
-    its torch.device and the backend of the default process group."""
+    its torch.device, the backend of the default process group and the
+    (N, M) rank grid (default (world, 1)); rank r sits at
+    (ix, iy) = (r // M, r % M)."""
 
     rank: int
     world: int
     device: torch.device
     backend: str
     stats: ExchangeStats = dataclasses.field(default_factory=ExchangeStats)
+    grid: tuple = None
+
+    def __post_init__(self):
+        if self.grid is None:
+            self.grid = (self.world, 1)
+        self.grid = tuple(int(g) for g in self.grid)
+        if len(self.grid) != 2 or self.grid[0] * self.grid[1] != self.world:
+            raise ValueError(f"a rank grid {self.grid} for {self.world} "
+                             "ranks: N·M must be the world size")
+
+    @property
+    def ix(self) -> int:
+        return self.rank // self.grid[1]
+
+    @property
+    def iy(self) -> int:
+        return self.rank % self.grid[1]
+
+    def neighbours(self, axis: int = 0):
+        """(lo, hi): the ranks below and above this one along x (axis 0)
+        or y (axis 1), None at a global end."""
+        n, m = self.grid
+        if axis == 0:
+            return (self.rank - m if self.ix > 0 else None,
+                    self.rank + m if self.ix < n - 1 else None)
+        return (self.rank - 1 if self.iy > 0 else None,
+                self.rank + 1 if self.iy < m - 1 else None)
 
     @property
     def left(self):
-        return self.rank - 1 if self.rank > 0 else None
+        return self.neighbours(0)[0]
 
     @property
     def right(self):
-        return self.rank + 1 if self.rank < self.world - 1 else None
+        return self.neighbours(0)[1]
 
     # --- transport ----------------------------------------------------
     def _staged(self, t):
@@ -135,22 +178,27 @@ class RankCtx:
     def _back(self, t):
         return t.to(self.device, non_blocking=True)
 
-    def exchange(self, send_lo, send_hi):
-        """Send `send_lo` to the left neighbour and `send_hi` to the right
-        one; returns (from_lo, from_hi): the left neighbour's `send_hi`
-        and the right neighbour's `send_lo` (None at a global end, or
-        where nothing of that side is sent). Each side is a tensor or a
-        list of tensors (any dtypes, sent as one message of bytes, and
-        received as a list of the same shapes). Every rank makes the same
-        call, so the shapes match."""
+    def exchange(self, send_lo, send_hi, axis: int = 0):
+        """Send `send_lo` to the neighbour below along `axis` (0: x, the
+        left one; 1: y) and `send_hi` to the one above; returns
+        (from_lo, from_hi): the lower neighbour's `send_hi` and the upper
+        neighbour's `send_lo` (None at a global end, or where nothing of
+        that side is sent). Each side is a tensor or a list of tensors
+        (any dtypes and strides, sent as one message of bytes, and
+        received as a list of the same shapes, contiguous). Every rank
+        makes the same call, so the shapes match."""
         t0 = time.perf_counter()
+        lo_peer, hi_peer = self.neighbours(axis)
         out = [None, None]
         sends, recvs = [], []
-        for t, peer in ((send_lo, self.left), (send_hi, self.right)):
+        for t, peer in ((send_lo, lo_peer), (send_hi, hi_peer)):
             if t is not None and peer is not None:
+                self.stats.copy_bytes += sum(
+                    x.numel() * x.element_size() for x in _listed(t)
+                    if not x.is_contiguous())
                 sends.append((self._staged(_pack(t)), peer))
-        for i, (like, peer) in enumerate(((send_hi, self.left),
-                                          (send_lo, self.right))):
+        for i, (like, peer) in enumerate(((send_hi, lo_peer),
+                                          (send_lo, hi_peer))):
             if like is not None and peer is not None:
                 n = sum(x.numel() * x.element_size() for x in _listed(like))
                 buf = torch.empty(n, dtype=torch.uint8,
@@ -170,8 +218,13 @@ class RankCtx:
                 r.wait()
             for i, buf, _, like in recvs:
                 out[i] = _unpack(self._back(buf), like)
-            self.stats.exchanges += 1
-            self.stats.bytes += sum(t.numel() for t, _ in sends)
+            sent = sum(t.numel() for t, _ in sends)
+            if axis == 0:
+                self.stats.exchanges += 1
+                self.stats.bytes += sent
+            else:
+                self.stats.y_exchanges += 1
+                self.stats.y_bytes += sent
         self.stats.seconds += time.perf_counter() - t0
         return out[0], out[1]
 
@@ -219,37 +272,60 @@ class RankCtx:
         return outs[0] if len(outs) == 1 else outs
 
     # --- whole arrays -------------------------------------------------
-    def slab(self, t, nx: int, rank: int | None = None):
-        """This rank's (or `rank`'s) x-slab of a global array of `nx`
-        cells along x (or nx + 1 faces: the slab's faces and the next
-        slab's first)."""
-        nxl = nx // self.world
-        lo = (self.rank if rank is None else rank) * nxl
-        faces = t.shape[0] == nx + 1
-        return t[lo:lo + nxl + (1 if faces else 0)]
+    def cut(self, t, n: int, axis: int, rank: int | None = None,
+            dim: int | None = None):
+        """This rank's (or `rank`'s) part along grid `axis` (0: x, 1: y)
+        of a global array of `n` cells there (or n + 1 faces: the block's
+        faces and the next block's first), cut along its dimension `dim`
+        (default `axis`; 0 for a 1-D coordinate array). Works on tensors
+        and numpy arrays."""
+        r = self.rank if rank is None else rank
+        i = r // self.grid[1] if axis == 0 else r % self.grid[1]
+        dim = axis if dim is None else dim
+        nl = n // self.grid[axis]
+        faces = t.shape[dim] == n + 1
+        sl = [slice(None)] * t.ndim
+        sl[dim] = slice(i * nl, (i + 1) * nl + (1 if faces else 0))
+        return t[tuple(sl)]
 
-    def gather_x(self, t, faces: bool = False):
-        """The global array from every rank's x-slab, on every rank (a
-        face array drops the planes its right neighbour holds too)."""
+    def block(self, t, shape, rank: int | None = None):
+        """This rank's (or `rank`'s) x·y block of a global array on a
+        grid of `shape` cells (nx, ny, ...): along x its slab, along y
+        (where the array has a second dimension) its rows; face arrays
+        keep the shared plane or row."""
+        t = self.cut(t, shape[0], 0, rank)
+        return self.cut(t, shape[1], 1, rank) if t.ndim > 1 else t
+
+    def gather_block(self, t, faces: int | None = None):
+        """The global array from every rank's block, on every rank.
+        `faces` (0 or 1): `t` is a face array along that axis, whose
+        blocks drop the plane or row their upper neighbour holds too."""
         t0 = time.perf_counter()
         parts = self._gather(t)
-        if faces:
-            parts = [p[:-1] for p in parts[:-1]] + parts[-1:]
+        n, m = self.grid
+        cols = []
+        for ix in range(n):
+            row = parts[ix * m:(ix + 1) * m]
+            if faces == 1:
+                row = [p[:, :-1] for p in row[:-1]] + row[-1:]
+            cols.append(torch.cat(row, 1) if m > 1 else row[0])
+        if faces == 0:
+            cols = [c[:-1] for c in cols[:-1]] + cols[-1:]
         self.stats.gathers += 1
         self.stats.seconds += time.perf_counter() - t0
-        return torch.cat(parts, 0)
+        return torch.cat(cols, 0)
 
-    def scatter_x(self, g, shape, dtype, nx: int):
-        """Rank 0's global array `g` (None on other ranks) cut into
-        x-slabs: each rank returns its own, `shape` and `dtype` (the slab's),
-        on its device."""
+    def scatter_block(self, g, shape, dtype, gshape):
+        """Rank 0's global array `g` (None on other ranks) on a grid of
+        `gshape` cells cut into blocks: each rank returns its own,
+        `shape` and `dtype` (the block's), on its device."""
         t0 = time.perf_counter()
         if self.rank == 0:
             g = g.to(self.device)
             for r in range(1, self.world):
-                part = self.slab(g, nx, rank=r)
+                part = self.block(g, gshape, rank=r)
                 dist.send(self._staged(part.contiguous()), r)
-            out = self.slab(g, nx).contiguous()
+            out = self.block(g, gshape).contiguous()
         else:
             buf = torch.empty(shape, dtype=dtype,
                               device="cpu" if self.backend == "gloo"
@@ -269,22 +345,23 @@ class RankCtx:
 
 # ------------------------------------------------------------------ state
 
-_CELL_FIELDS = ("alpha", "p", "v", "w")
+_CELL_FIELDS = ("alpha", "p", "w")
 
 
 def scatter_state(state, shape, ranks: RankCtx):
-    """Rank 0's global SimState (None elsewhere) as every rank's slab
-    state on its device: alpha, p, v and w by cells along x, u by faces,
-    the scalars whole."""
+    """Rank 0's global SimState (None elsewhere) as every rank's block
+    state on its device: each field cut by cells, or by faces along its
+    own axis, the scalars whole."""
     from openfoam_tpp_tpu_torch.core.state import SimState
 
     nx, ny, nz = shape
-    nxl = nx // ranks.world
-    shapes = {"alpha": (nxl, ny, nz), "p": (nxl, ny, nz),
-              "u": (nxl + 1, ny, nz), "v": (nxl, ny + 1, nz),
-              "w": (nxl, ny, nz + 1)}
-    f = {k: ranks.scatter_x(None if state is None else getattr(state, k),
-                            s, torch.float32, nx)
+    nxl, nyl = nx // ranks.grid[0], ny // ranks.grid[1]
+    shapes = {"alpha": (nxl, nyl, nz), "p": (nxl, nyl, nz),
+              "u": (nxl + 1, nyl, nz), "v": (nxl, nyl + 1, nz),
+              "w": (nxl, nyl, nz + 1)}
+    f = {k: ranks.scatter_block(None if state is None
+                                else getattr(state, k),
+                                s, torch.float32, shape)
          for k, s in shapes.items()}
     scalars = ranks.broadcast(None if state is None else
                               {k: getattr(state, k).cpu()
@@ -294,12 +371,14 @@ def scatter_state(state, shape, ranks: RankCtx):
 
 
 def gather_state(state, ranks: RankCtx):
-    """The global SimState on the CPU from every rank's slab (every rank
+    """The global SimState on the CPU from every rank's block (every rank
     takes part; all get it)."""
     from openfoam_tpp_tpu_torch.core.state import SimState
 
-    f = {k: ranks.gather_x(getattr(state, k)).cpu() for k in _CELL_FIELDS}
-    f["u"] = ranks.gather_x(state.u, faces=True).cpu()
+    f = {k: ranks.gather_block(getattr(state, k)).cpu()
+         for k in _CELL_FIELDS}
+    f["u"] = ranks.gather_block(state.u, faces=0).cpu()
+    f["v"] = ranks.gather_block(state.v, faces=1).cpu()
     return SimState(**f, **{k: getattr(state, k).cpu()
                             for k in ("t", "dt", "step")})
 
@@ -325,7 +404,7 @@ def launch_counts() -> dict:
 # ----------------------------------------------------------------- launch
 
 def _rank_main(i, world, positions, backend, store_path, fn, args, queue,
-               timeout_s):
+               timeout_s, grid=None):
     """One rank: join the group, run `fn(ctx, log, *args)`, hand its
     result to the parent."""
     dev = torch.device(positions[i])
@@ -338,7 +417,8 @@ def _rank_main(i, world, positions, backend, store_path, fn, args, queue,
         backend, store=dist.FileStore(store_path, world), rank=i,
         world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
     try:
-        ctx = RankCtx(rank=i, world=world, device=dev, backend=backend)
+        ctx = RankCtx(rank=i, world=world, device=dev, backend=backend,
+                      grid=grid)
 
         def log(line):
             if i == 0:
@@ -349,10 +429,12 @@ def _rank_main(i, world, positions, backend, store_path, fn, args, queue,
         dist.destroy_process_group()
 
 
-def launch(fn, positions, args=(), log=print, timeout_s: int = TIMEOUT_S):
+def launch(fn, positions, args=(), log=print, timeout_s: int = TIMEOUT_S,
+           grid=None):
     """Run `fn(ctx, log, *args)` on one spawned process per position
     (a torch.device or its name) and return each rank's result, in rank
-    order. `fn` and `args` are pickled: `fn` must be a module-level
+    order. `grid` (N, M): the ranks' x·y grid, N·M positions in the
+    order r = ix·M + iy (default (N, 1)). `fn` and `args` are pickled: `fn` must be a module-level
     function. Rank 0's `log(line)` calls reach `log` here while the ranks
     run. A rank that raises, or dies, ends the launch with RuntimeError
     naming the rank; the other ranks are stopped."""
@@ -365,7 +447,12 @@ def launch(fn, positions, args=(), log=print, timeout_s: int = TIMEOUT_S):
 
         _build.build_all()
     shared = len(set(positions)) < world
-    log(f"  ranks: {world} processes on "
+    grid = (world, 1) if grid is None else tuple(int(g) for g in grid)
+    if grid[0] * grid[1] != world:
+        raise ValueError(f"a rank grid {grid} for {world} positions")
+    log(f"  ranks: {world} processes"
+        + (f" ({grid[0]}x{grid[1]}, y fastest)" if grid[1] > 1 else "")
+        + " on "
         f"{', '.join(str(p) for p in positions)}, backend {backend}"
         + (" (ranks share a device: gloo, CUDA tensors through the host)"
            if shared and positions[0].type == "cuda" else ""))
@@ -384,7 +471,7 @@ def launch(fn, positions, args=(), log=print, timeout_s: int = TIMEOUT_S):
         procs = torch.multiprocessing.start_processes(
             _rank_main, args=(world, [str(p) for p in positions], backend,
                               os.path.join(tmp, "store"), fn, tuple(args),
-                              queue, timeout_s),
+                              queue, timeout_s, grid),
             nprocs=world, join=False, start_method="spawn")
         try:
             while True:

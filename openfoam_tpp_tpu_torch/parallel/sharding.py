@@ -113,9 +113,9 @@ def case_devices(mesh: DeviceMesh) -> list[torch.device]:
                 f"a mesh whose x/y positions lie on distinct devices "
                 f"({[str(d) for d in devs]}) in one process: spatial "
                 "positions on distinct cards run as ranks, one process a "
-                "position (run_case(devices=N), parallel/ranks.py; the 1-D "
-                "x decomposition only, 'NxM' is the next slice of ROADMAP.md "
-                "§1 item 2); repeat one device along x and y "
+                "position (run_case(devices=N or 'NxM'), parallel/ranks.py; "
+                "a case axis beside them on distinct cards is not ported, "
+                "ROADMAP.md §1 item 2); repeat one device along x and y "
                 "(devices=['cuda:0'] * N) to run them in one process")
         out.append(devs[0])
     return out

@@ -33,8 +33,29 @@ neighbour), and only the exchange and the reductions change: halos are
 planes received from the neighbour ranks, the maxima and the curvature
 dot all-reduce (one partial a rank), and a face array an island writes
 packed takes its last plane from the right neighbour. The islands run
-with ops/stencil.py's x-slab context closed: their kernels' plain
-versions work on whole blocks.
+with ops/stencil.py's rank block closed: their kernels' plain versions
+work on whole blocks.
+
+`SpmdCtx(N, M, ranks=ctx)` is the 2-D x·y decomposition over an (N, M)
+rank grid (OpenFOAM's `hierarchical (N M 1)`), one process a block of
+nxl × nyl cells (y-face arrays with nyl + 1 rows, the last shared with
+the upper neighbour); it exists over ranks only. Each island first
+extends the rank's block in y by its y neighbours' rows (`YBlock`, one
+row exchange), as many on each interior side as the island's x halos
+are wide (MAX_HALO for the momentum RHS, 2 below and 1 above for the
+MULES fluxes, 1 for the rest), nothing at a global y end. Only then does
+it exchange its x halo planes, cut from the x neighbours' y-extended
+blocks, so they carry the x·y corner cells that the momentum RHS's
+cross terms read. The unchanged halo kernels run on the extended block,
+and the rank's own rows are copied back out. This is the argument the
+halo kernels' plain versions rest on in x: a kernel reaches no further
+in y than the rows added, so the extended block's own end rules (a
+clamp, a zero wall face) act only on outputs that are dropped, and at a
+global y end no rows are added and the single grid's y rules apply where
+they do now. The two islands that reduce pass their kernels the row
+window of the rank's own rows, so ghost rows enter neither the CG
+curvature dot nor the div max. With M = 1 nothing is extended and every
+island is the 1-D decomposition's, bit for bit.
 
 Both forms run the orbital cylinder and the closed 6DoF tank, whose
 table forcing and rotating-frame sources are plain PyTorch between the
@@ -72,12 +93,14 @@ MAX_HALO = 2
 @dataclasses.dataclass(frozen=True)
 class SpmdCtx:
     """The step runs x-sharded into `n_shards` slabs with per-shard halo
-    kernels. `axis` names the sharded grid axis; only "x" (dimension 0)
-    exists, as in the JAX package. `ranks` (a parallel.ranks.RankCtx of
-    `n_shards` ranks): one process a shard, this one holding its rank's
-    slab."""
+    kernels, and over ranks also into `y_shards` rows of blocks. `axis`
+    names the sharded grid axis of the one-process form; only "x"
+    (dimension 0) exists, as in the JAX package. `ranks` (a
+    parallel.ranks.RankCtx on an (n_shards, y_shards) rank grid): one
+    process a shard, this one holding its rank's block."""
 
     n_shards: int
+    y_shards: int = 1
     axis: str = "x"
     ranks: object = None
 
@@ -85,11 +108,14 @@ class SpmdCtx:
         if self.axis != "x":
             raise ValueError(f"SpmdCtx shards the grid's x axis only, not "
                              f"{self.axis!r}")
-        if int(self.n_shards) < 1:
-            raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
-        if self.ranks is not None and self.ranks.world != self.n_shards:
-            raise ValueError(f"{self.n_shards} shards over "
-                             f"{self.ranks.world} ranks: one rank a shard")
+        if int(self.n_shards) < 1 or int(self.y_shards) < 1:
+            raise ValueError(f"n_shards and y_shards must be >= 1, got "
+                             f"{self.n_shards} and {self.y_shards}")
+        if self.ranks is not None and tuple(self.ranks.grid) != (
+                self.n_shards, self.y_shards):
+            raise ValueError(f"{self.n_shards}x{self.y_shards} shards over "
+                             f"a {self.ranks.grid[0]}x{self.ranks.grid[1]} "
+                             "rank grid: one rank a shard")
 
     @property
     def held(self):
@@ -101,18 +127,35 @@ class SpmdCtx:
 
     def supports(self, shape) -> bool:
         """nx divides over the shards into slabs of at least MAX_HALO
-        planes. No other gate: the CUDA kernels take any slab."""
+        planes, and ny over the y shards into rows of blocks of at least
+        MAX_HALO rows. No other gate: the CUDA kernels take any slab."""
         nx = shape[0]
-        return nx % self.n_shards == 0 and nx // self.n_shards >= MAX_HALO
+        ok = nx % self.n_shards == 0 and nx // self.n_shards >= MAX_HALO
+        if self.y_shards > 1:
+            ny = shape[1]
+            ok = ok and ny % self.y_shards == 0 and (
+                ny // self.y_shards >= MAX_HALO)
+        return ok
 
     def local_shape(self, shape):
-        """Per-shard shape of a dim-0-sharded cell array."""
-        if not self.supports(shape):
+        """Per-shard shape of a cell array (dim 0 sharded, and dim 1 with
+        y shards)."""
+        nx = shape[0]
+        if nx % self.n_shards or nx // self.n_shards < MAX_HALO:
             raise ValueError(
-                f"grid nx={shape[0]} does not divide over {self.n_shards} "
+                f"grid nx={nx} does not divide over {self.n_shards} "
                 f"'{self.axis}' shards into slabs of at least {MAX_HALO} "
                 f"planes (the widest halo)")
-        return (shape[0] // self.n_shards,) + tuple(shape[1:])
+        out = (nx // self.n_shards,) + tuple(shape[1:])
+        if self.y_shards > 1:
+            ny = shape[1]
+            if ny % self.y_shards or ny // self.y_shards < MAX_HALO:
+                raise ValueError(
+                    f"grid ny={ny} does not divide over {self.y_shards} 'y' "
+                    f"shards into blocks of at least {MAX_HALO} rows (the "
+                    f"widest halo): nyl = {ny / self.y_shards:g}")
+            out = out[:1] + (ny // self.y_shards,) + out[2:]
+        return out
 
     def split(self, a, nx=None):
         """The held x-slabs of `a` (views), one per entry of `held`. `nx`
@@ -126,12 +169,71 @@ class SpmdCtx:
 
 
 def _island(fn):
-    """An island runs with the stencil's x-slab context closed."""
+    """An island runs with the stencil's rank block closed."""
     @functools.wraps(fn)
     def run(*args, **kwargs):
-        with st.x_slabs(None):
+        with st.rank_block(None):
             return fn(*args, **kwargs)
     return run
+
+
+class YBlock:
+    """A rank's block extended in y for one island call: `lo` rows of
+    the lower y neighbour's block below it and `hi` of the upper one's
+    above it (none at a global y end, none with one row of ranks).
+    `nyl` is the block's own cell rows; a y-face array (nyl + 1 rows,
+    the last shared with the upper neighbour) extends to the extended
+    cells' rows + 1. `rows` is the rank's own cell rows in the extended
+    block, (lo, lo + nyl), or None where nothing is added."""
+
+    def __init__(self, ctx: SpmdCtx, nyl: int, width):
+        self.ctx, self.nyl, self.width = ctx, nyl, tuple(width)
+        self.lo = self.hi = 0
+        if ctx.ranks is not None and ctx.y_shards > 1:
+            down, up = ctx.ranks.neighbours(1)
+            self.lo = width[0] if down is not None else 0
+            self.hi = width[1] if up is not None else 0
+
+    @property
+    def on(self) -> bool:
+        return bool(self.lo or self.hi)
+
+    @property
+    def rows(self):
+        return (self.lo, self.lo + self.nyl) if self.on else None
+
+    def extend(self, *arrays):
+        """The arrays (a rank's blocks; None passes through) extended, in
+        one row exchange whatever their dtypes."""
+        if not self.on:
+            return list(arrays)
+        live = [a for a in arrays if a is not None]
+        f = [1 if a.shape[1] == self.nyl + 1 else 0 for a in live]
+        # The lower neighbour's top extension is my first rows (above a
+        # shared face row), the upper neighbour's bottom one my last.
+        w_lo, w_hi = self.width
+        to_lo = [a[:, g:g + w_hi] for a, g in zip(live, f)]
+        to_hi = [a[:, a.shape[1] - g - w_lo:a.shape[1] - g]
+                 for a, g in zip(live, f)]
+        from_lo, from_hi = self.ctx.ranks.exchange(to_lo, to_hi, axis=1)
+        from_lo, from_hi = iter(from_lo or ()), iter(from_hi or ())
+        out = []
+        for a in arrays:
+            if a is None:
+                out.append(None)
+                continue
+            parts = ([next(from_lo)] if self.lo else []) + [a] + (
+                [next(from_hi)] if self.hi else [])
+            out.append(torch.cat(parts, 1))
+        return out
+
+    def crop(self, t):
+        """The rank's own rows of an extended array (cells, or y faces
+        with the shared last row), contiguous."""
+        if not self.on:
+            return t
+        f = t.shape[1] - (self.lo + self.nyl + self.hi)
+        return t[:, self.lo:self.lo + self.nyl + f].contiguous()
 
 
 def _edge_fill(a, width, edge, lo):
@@ -230,8 +332,9 @@ def _fill_last_face(f, ctx: SpmdCtx):
 
 # --------------------------------------------------------------------- #
 # The islands, one per kernel family. Each takes GLOBAL tensors (the
-# rank's slabs under `ctx.ranks`) and returns GLOBAL results, with the
-# JAX island's signature.
+# rank's blocks under `ctx.ranks`) and returns GLOBAL results, with the
+# JAX island's signature. With y shards each first extends its inputs in
+# y (`YBlock`) and crops its outputs back to the rank's rows.
 # --------------------------------------------------------------------- #
 
 
@@ -247,6 +350,10 @@ def _seven_point_halos(p, split, ctx):
 def _seven_point_island(island, p, split, ctx, *cells, diag=None):
     """`island` (an island entry point of halo7) over the held slabs, one
     launch per halo7.MAX_SLABS of them; `cells`: further cell arrays."""
+    yb = YBlock(ctx, p.shape[1], (1, 1))
+    if yb.on:
+        p, *rest = yb.extend(p, *split, *cells, diag)
+        split, cells, diag = tuple(rest[:3]), rest[3:-1], rest[-1]
     ps, ws, halos, wx_hi = _seven_point_halos(p, split, ctx)
     cols = [ps, [h[0] for h in halos], [h[1] for h in halos], wx_hi,
             [tuple(w[s] for w in ws) for s in range(len(ps))],
@@ -258,7 +365,7 @@ def _seven_point_island(island, p, split, ctx, *cells, diag=None):
         part = slice(g, g + halo7.MAX_SLABS)
         island(*(c[part] for c in cols),
                diags=None if ds is None else ds[part], outs=outs[part])
-    return out
+    return yb.crop(out)
 
 
 def apply_7pt(p, split, ctx: SpmdCtx, diag=None):
@@ -282,7 +389,10 @@ def apply_dot_7pt(p, split, ctx: SpmdCtx):
     previous shards' in shard order (the psum of the partials, carried as
     a chain so that on the card the island's dot is the single-grid
     kernel's bitwise); under `ctx.ranks` each rank's dot is one partial,
-    all-reduced."""
+    all-reduced: with y shards the dot of its own rows of the y-extended
+    block (the kernel's row window)."""
+    yb = YBlock(ctx, p.shape[1], (1, 1))
+    p, *split = yb.extend(p, *split)
     ps, ws, halos, wx_hi = _seven_point_halos(p, split, ctx)
     out = torch.empty_like(p)
     outs = ctx.split(out)
@@ -290,16 +400,22 @@ def apply_dot_7pt(p, split, ctx: SpmdCtx):
     for s in range(len(ps)):
         dot = halo7.apply_dot_7pt_h(ps[s], *halos[s], wx_hi[s],
                                     tuple(w[s] for w in ws), out=outs[s],
-                                    acc=dot)[1]
+                                    acc=dot, rows=yb.rows)[1]
     if ctx.ranks is not None:
         dot = ctx.ranks.all_reduce(dot)
-    return out, dot
+    return yb.crop(out), dot
 
 
 @_island
 def flux_all(alpha, phis_cell, ucs_cell, ctx: SpmdCtx, anti_dtype=None):
     """All-axis MULES (low, anti) fluxes per shard: alpha's −2/−1/+1
-    x-planes exchanged with clamp edges (the edge-clamped shifts)."""
+    x-planes exchanged with clamp edges (the edge-clamped shifts); with
+    y shards on blocks extended by 2 rows below and 1 above (the same
+    reach along y)."""
+    yb = YBlock(ctx, alpha.shape[1], (2, 1))
+    if yb.on:
+        alpha, *rest = yb.extend(alpha, *phis_cell, *ucs_cell)
+        phis_cell, ucs_cell = rest[:3], rest[3:]
     a_s = ctx.split(alpha)
     ph = [ctx.split(f) for f in phis_cell]
     uc = [ctx.split(f) for f in ucs_cell]
@@ -315,6 +431,8 @@ def flux_all(alpha, phis_cell, ucs_cell, ctx: SpmdCtx, anti_dtype=None):
                        tuple(f[s] for f in uc), anti_dtype=anti_dtype,
                        out=(tuple(t[s] for t in lo_s),
                             tuple(t[s] for t in an_s)))
+    if yb.on:
+        lows, antis = (tuple(yb.crop(t) for t in ts) for ts in (lows, antis))
     return lows, antis
 
 
@@ -326,19 +444,26 @@ def fct_iters(lams0, antis, alpha_low, amax, amin, dt_iv, spacing,
     per iteration. x hi edges are zero (the implicit zero boundary face),
     lo edges clamp (harmless: zero antidiffusive boundary faces). λ is
     double-buffered: an iteration reads every slab's old λ, halos
-    included, before any slab's new λ may overwrite it."""
+    included, before any slab's new λ may overwrite it. With y shards the
+    anti and cell arrays are extended by a row each way once, λ before
+    every iteration, and each iteration's λ cropped to the rank's rows."""
+    yb = YBlock(ctx, alpha_low.shape[1], (1, 1))
+    antis = yb.extend(*antis)
     an = [ctx.split(a) for a in antis]
-    cells = [ctx.split(c) for c in (alpha_low, amax, amin, dt_iv)]
+    cells = [ctx.split(c) for c in yb.extend(alpha_low, amax, amin, dt_iv)]
     ah = exchange_halos(
         [(a, 1 if ax == 0 else (1, 0), "clamp", "zero")
          for ax, a in enumerate(an)]
         + [(c, (1, 0), "clamp", "clamp") for c in cells], ctx)
     ah, cell_los = ah[:3], [[h[0] for h in c] for c in ah[3:]]
-    bufs = [tuple(torch.empty_like(l) for l in lams0) for _ in
-            range(min(n_iters, 2))]
+    bufs = None
     lams = tuple(lams0)
     for it in range(n_iters):
-        ls = [ctx.split(l) for l in lams]
+        lams_e = yb.extend(*lams)
+        if bufs is None:
+            bufs = [tuple(torch.empty_like(l) for l in lams_e) for _ in
+                    range(min(n_iters, 2))]
+        ls = [ctx.split(l) for l in lams_e]
         lh = exchange_halos([(l, 1 if ax == 0 else (1, 0), "clamp", "zero")
                              for ax, l in enumerate(ls)], ctx)
         new = bufs[it % 2]
@@ -353,7 +478,7 @@ def fct_iters(lams0, antis, alpha_low, amax, amin, dt_iv, spacing,
                           tuple(c[s] for c in cell_los),
                           *(c[s] for c in cells), spacing, eps=eps,
                           out=tuple(o[s] for o in outs))
-        lams = new
+        lams = tuple(yb.crop(t) for t in new) if yb.on else new
     return lams
 
 
@@ -364,7 +489,14 @@ def momentum_rhs(u, v, w, rho_phi, mu, div_u, spacing, ctx: SpmdCtx,
     reach), rpx/μ at ±1, rpy/rpz/∇·U at −1. u and rpx enter packed to
     cells (u[:-1]: their global face-nx plane is the sealed wall, zero,
     and rides in the zero hi edge). Same signature and returns as the
-    single-grid entry point: au's zero wall plane is written again."""
+    single-grid entry point: au's zero wall plane is written again. With
+    y shards on blocks extended by MAX_HALO rows each way (the MUSCL reach
+    along y; the x halo planes then carry the x·y corners that the dev2
+    and convective cross terms read)."""
+    yb = YBlock(ctx, mu.shape[1], (MAX_HALO, MAX_HALO))
+    if yb.on:
+        u, v, w, *rho_phi, mu, div_u = yb.extend(u, v, w, *rho_phi, mu,
+                                                 div_u)
     rpx, rpy, rpz = rho_phi
     nx = mu.shape[0]
     us, rxs = ctx.split(u, nx), ctx.split(rpx, nx)
@@ -389,7 +521,8 @@ def momentum_rhs(u, v, w, rho_phi, mu, div_u, spacing, ctx: SpmdCtx,
                            mus[s], None if dus is None else dus[s], halos,
                            spacing, dev2=dev2,
                            out=(au_s[s], av_s[s], aw_s[s]))
-    return _fill_last_face(au, ctx), av, aw
+    au = _fill_last_face(au, ctx)
+    return yb.crop(au), yb.crop(av), yb.crop(aw)
 
 
 @_island
@@ -400,7 +533,14 @@ def correct_divmax(dp, u_s, v_s, w_s, beta_f, ax_ap, ay_ap, az_ap, vfrac,
     face-nx plane is the sealed wall, so the top edge fills zeros, the
     true values). Same signature and returns as the port's single-grid
     `correct_divmax` (`rho` the new cell density): u's zero wall plane
-    is written again and the div max is the maximum over the shards."""
+    is written again and the div max is the maximum over the shards.
+    With y shards on blocks extended by a row each way, the div max over
+    the rank's own rows (the kernel's row window)."""
+    yb = YBlock(ctx, dp.shape[1], (1, 1))
+    if yb.on:
+        (dp, u_s, v_s, w_s, *beta_f, ax_ap, ay_ap, az_ap, vfrac, top_open,
+         rho) = yb.extend(dp, u_s, v_s, w_s, *beta_f, ax_ap, ay_ap, az_ap,
+                          vfrac, top_open if open_top else None, rho)
     nx = dp.shape[0]
     bx, by, bz = beta_f
     dps = ctx.split(dp)
@@ -425,5 +565,7 @@ def correct_divmax(dp, u_s, v_s, w_s, beta_f, ax_ap, ay_ap, az_ap, vfrac,
             dps[s], *dh[s], u_p, h_u, v_, w_, bx_p, h_bx, by_, bz_, ax_p,
             h_ax, ay_, az_, vf_, None if topo is None else topo[s], rho_, dt,
             spacing, open_top=open_top,
-            out=(uc_s[s], vc_s[s], wc_s[s]))[3])
-    return _fill_last_face(uc, ctx), vc, wc, pmax_scalar(parts, ctx)
+            out=(uc_s[s], vc_s[s], wc_s[s]), rows=yb.rows)[3])
+    uc = _fill_last_face(uc, ctx)
+    return (yb.crop(uc), yb.crop(vc), yb.crop(wc),
+            pmax_scalar(parts, ctx))

@@ -7,9 +7,9 @@ interpolation of cell-centered fields, no host sync) and `ProbeWriter`
 writes the same text layout: the file format is the contract, so the
 writer is numpy and file I/O exactly as in the JAX package.
 
-In a rank process of the x-sharded step (parallel/ranks.py) a probe's
+In a rank process of the sharded step (parallel/ranks.py) a probe's
 cells, or a wave column, may lie on any rank: `make_rank_sampler` gives
-each rank a raw row from its own slab (every trilinear corner value and
+each rank a raw row from its own x·y block (every trilinear corner value and
 every η it holds, zeros elsewhere), and rank 0 picks each entry from its
 owner once per write interval and blends the corners as `sample_row`
 does, so the rows are the whole grid's, bit for bit, with no host sync
@@ -196,35 +196,42 @@ def _blend(v, tx, ty, tz):
 
 def make_rank_sampler(geom: TankGeometry, points, columns, ranks,
                       device="cuda"):
-    """The probe sampler of one rank of the x-sharded step (`ranks` a
+    """The probe sampler of one rank of the sharded step (`ranks` a
     parallel.ranks.RankCtx): (sampler, raw width, rows). `sampler(state)`
-    on the rank's slab state gives its raw row, [t, the 8 corner values of
-    each point, η of each column], with 0 for what other ranks hold;
+    on the rank's block state gives its raw row, [t, the 8 corner values
+    of each point, η of each column], with 0 for what other ranks hold;
     `rows(parts)`, on the raw rows (n, raw width) of every rank in rank
     order, gives the n rows `sample_row` gives on the whole grid."""
     dev = resolve_device(device)
     pack = probe_pack(geom, points, columns, device=dev)
-    nxl = geom.shape[0] // ranks.world
-    off = ranks.rank * nxl
+    n_x, n_y = ranks.grid
+    nxl, nyl = geom.shape[0] // n_x, geom.shape[1] // n_y
+    xo, yo = ranks.ix * nxl, ranks.iy * nyl
     corners, weights = _corners(pack["pts"], pack["origin"], pack["spacing"],
                                 geom.shape)
     gi, gj, gk = (torch.stack([c[a] for c in corners], -1) for a in range(3))
-    mine = (gi >= off) & (gi < off + nxl)
-    li = torch.clamp(gi - off, 0, nxl - 1)
-    ci = pack["ci"]
-    col_mine = (ci >= off) & (ci < off + nxl)
-    lci = torch.clamp(ci - off, 0, nxl - 1)
+
+    def local(i, j):
+        """(mine, local i, local j) of global cells (i, j)."""
+        mine = (i >= xo) & (i < xo + nxl) & (j >= yo) & (j < yo + nyl)
+        return (mine, torch.clamp(i - xo, 0, nxl - 1),
+                torch.clamp(j - yo, 0, nyl - 1))
+
+    mine, li, lj = local(gi, gj)
+    ci, cj = pack["ci"], pack["cj"]
+    col_mine, lci, lcj = local(ci, cj)
     z0, hz = pack["origin"][2], pack["spacing"][2]
     vnorm = torch.clamp(pack["vcol"].max(dim=-1).values, min=1e-6)
     # Each raw entry's rank: t from rank 0, a corner or a column from the
-    # rank holding its x.
+    # rank holding its (x, y), r = ix·M + iy.
     owner = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
-                       gi.reshape(-1) // nxl, ci // nxl])
+                       (gi.reshape(-1) // nxl) * n_y + gj.reshape(-1) // nyl,
+                       (ci // nxl) * n_y + cj // nyl])
     n_pts = gi.shape[0]
 
     def sampler(state):
-        vals = torch.where(mine, state.p[li, gj, gk], 0.0)
-        acol = state.alpha[lci, pack["cj"], :] * pack["vcol"]
+        vals = torch.where(mine, state.p[li, lj, gk], 0.0)
+        acol = state.alpha[lci, lcj, :] * pack["vcol"]
         eta = torch.where(col_mine, z0 + hz * acol.sum(dim=-1) / vnorm, 0.0)
         return torch.cat([state.t.reshape(1).float(),
                           vals.reshape(-1).float(), eta.float()])

@@ -36,17 +36,20 @@ fused cheb2 smoothers are off on sharded levels (two sweeps there take
 the generic smoother, whose inner residual is the island), as in the JAX
 package.
 
-In a rank process of the x-sharded step (`SpmdCtx(ranks=...)`,
-parallel/ranks.py) every array is the rank's x-slab: the dots all-reduce
-(ops/stencil.py `sum_cells`), the plain coarse levels exchange their
-x-neighbour planes, and the hierarchy is the global one. Its levels and
-shapes follow from the global shape; a level stays a slab while its
-local nx is even (2:1 pairs within the rank), and the first level whose
-local nx is odd is gathered whole on every rank once per bundle (its
-operator) and once per visit (its right-hand side): every rank runs it
-and the levels below redundantly and keeps its own slab of the
-correction, OpenFOAM GAMG's processor agglomeration. The cycle is the
-single-process sharded cycle's, bit for bit.
+In a rank process of the sharded step (`SpmdCtx(ranks=...)`,
+parallel/ranks.py) every array is the rank's x·y block: the dots
+all-reduce (ops/stencil.py `sum_cells`), the plain coarse levels exchange
+their x- and y-neighbour planes and rows, and the hierarchy is the
+global one. Its levels and shapes follow from the global shape; a level
+stays a block while its local nx and (with y shards) its local ny are
+even (2:1 pairs within the rank; a y-face weight keeps its shared last
+row, as an x-face weight its shared last plane), and the first level
+whose local nx or ny is odd is gathered whole on every rank once per
+bundle (its operator) and once per visit (its right-hand side): every
+rank runs it and the levels below redundantly and keeps its own block
+of the correction, OpenFOAM GAMG's processor agglomeration extended to
+2-D blocks. The cycle is the single-process sharded cycle's, bit for
+bit.
 
 CG loop: the JAX `lax.while_loop` is a Python loop here that reads
 `rr > tol2` on the host once per iteration — one device sync per CG
@@ -297,12 +300,13 @@ def _coarsen_face_weights(w, axis):
 def _build_coarse_levels(wx, wy, wz, extra, max_coarse=9, min_cells=256,
                          ranks=None):
     """Physical Galerkin hierarchy strictly below the given fine level.
-    `ranks`: the operands are this rank's x-slabs; the hierarchy is the
-    global one, the first level of odd local nx and those below it
-    gathered whole (`_Level.agg` marks the first)."""
+    `ranks`: the operands are this rank's x·y blocks; the hierarchy is
+    the global one, the first level of odd local nx (or, with y shards,
+    odd local ny) and those below it gathered whole (`_Level.agg` marks
+    the first)."""
     levels = []
-    world = 1 if ranks is None else ranks.world
-    shape = (extra.shape[0] * world,) + tuple(extra.shape[1:3])
+    n, m = (1, 1) if ranks is None else ranks.grid
+    shape = (extra.shape[0] * n, extra.shape[1] * m, extra.shape[2])
     while (len(levels) < max_coarse
            and shape[0] * shape[1] * shape[2] > min_cells
            and min(shape) > 2):
@@ -314,13 +318,14 @@ def _build_coarse_levels(wx, wy, wz, extra, max_coarse=9, min_cells=256,
                 + wz[:, :, :-1] + wz[:, :, 1:] + extra)
         diag = torch.where(diag > 0, diag, 1.0)
         agg = None
-        if world > 1 and extra.shape[0] % 2:
+        if (n > 1 and extra.shape[0] % 2) or (m > 1 and extra.shape[1] % 2):
             agg = ranks
-            wx = ranks.gather_x(wx, faces=True)
-            wy, wz, diag, extra = (ranks.gather_x(t)
-                                   for t in (wy, wz, diag, extra))
-            world = 1
-        shape = (extra.shape[0] * world,) + tuple(extra.shape[1:3])
+            wx = ranks.gather_block(wx, faces=0)
+            wy = ranks.gather_block(wy, faces=1)
+            wz, diag, extra = (ranks.gather_block(t)
+                               for t in (wz, diag, extra))
+            n = m = 1
+        shape = (extra.shape[0] * n, extra.shape[1] * m, extra.shape[2])
         levels.append(_Level(wx=wx, wy=wy, wz=wz, diag=diag,
                              shape=tuple(extra.shape[:3]), agg=agg))
     return levels
@@ -328,14 +333,14 @@ def _build_coarse_levels(wx, wy, wz, extra, max_coarse=9, min_cells=256,
 
 def _vcycle(levels, li, b, k: SolverKnobs):
     level = levels[li]
-    if level.agg is not None and st.x_ranks() is not None:
+    if level.agg is not None and st.block_ranks() is not None:
         # The first gathered level: its right-hand side whole on every
-        # rank, the rest of the cycle on whole levels, this rank's slab of
-        # the correction.
-        bg = level.agg.gather_x(b)
-        with st.x_slabs(None):
+        # rank, the rest of the cycle on whole levels, this rank's block
+        # of the correction.
+        bg = level.agg.gather_block(b)
+        with st.rank_block(None):
             xg = _vcycle(levels, li, bg, k)
-        return level.agg.slab(xg, xg.shape[0])
+        return level.agg.block(xg, xg.shape)
     if li == len(levels) - 1:
         return _jacobi(level, None, b, k.coarsest_sweeps)
     x = _smooth(level, None, b, k)

@@ -65,11 +65,16 @@ the epilogue island's closed-top form.
 `spmd=SpmdCtx(n, ranks=ctx)` is the same step in one rank process of n
 (parallel/ranks.py): `make_step` uploads the rank's x-slab of the
 geometry, the state is the rank's slab (parallel/ranks.py
-`scatter_state`), and the step runs inside ops/stencil.py's `x_slabs`
-block, so every x-neighbour access between the islands takes the
-neighbour rank's plane and every reduction (the Courant numbers, the
-dots, the alpha bounds, the div max) is over the ranks: the dt, the CG's
-stop and every diagnostic come out alike on every rank. A motion table
+`scatter_state`), and the step runs inside ops/stencil.py's `rank_block`,
+so every x-neighbour access between the islands takes the neighbour
+rank's plane and every reduction (the Courant numbers, the dots, the
+alpha bounds, the div max) is over the ranks: the dt, the CG's stop and
+every diagnostic come out alike on every rank. `spmd=SpmdCtx(n, m,
+ranks=ctx)` is the 2-D x·y decomposition over an (n, m) rank grid: the
+rank holds an x·y block of the geometry (the (nx, ny) `top_open` plane
+and the y apertures too) and of the state, the y-neighbour accesses
+between the islands take the neighbour rank's rows, and the islands run
+on y-extended blocks (parallel/spmd.py). It exists over ranks only. A motion table
 runs there too (the 6DoF tank: each rank holds the same table bits, its
 rotating frame's sources take the rank's own x coordinates, and the
 closed tank's null-space projection and fluid mean sum over the ranks).
@@ -179,10 +184,10 @@ class Cfl(NamedTuple):
 def geometry_arrays(geom: TankGeometry, dtype=torch.float32, device="cuda",
                     ranks=None):
     """Upload the static geometry to device tensors once; with `ranks` (a
-    parallel.ranks.RankCtx) this rank's x-slab of it."""
+    parallel.ranks.RankCtx) this rank's x·y block of it."""
     dev = resolve_device(device)
-    nx = geom.shape[0]
-    cut = (lambda a: a) if ranks is None else (lambda a: ranks.slab(a, nx))
+    cut = ((lambda a: a) if ranks is None
+           else (lambda a: ranks.block(a, geom.shape)))
     as_t = lambda a: torch.as_tensor(np.ascontiguousarray(
         cut(np.asarray(a))), device=dev).to(dtype)
     return {"vfrac": as_t(geom.vfrac), "ax": as_t(geom.ax),
@@ -211,6 +216,11 @@ def _check_slice(controls, spmd=None):
         raise NotImplementedError(
             "spmd= with batch_lanes: a sweep is not sharded through spmd "
             "(in the JAX package either)")
+    if spmd is not None and spmd.y_shards > 1 and spmd.ranks is None:
+        raise NotImplementedError(
+            f"spmd=SpmdCtx({spmd.n_shards}, {spmd.y_shards}) in one process: "
+            "the one-process form holds x-slabs only; the x·y blocks run "
+            "over ranks (SpmdCtx(n, m, ranks=ctx), parallel/ranks.py)")
 
 
 def make_step_core(props: PhysicalProperties = PhysicalProperties(),
@@ -274,10 +284,10 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
                 "runs the islands' configuration only")
 
     def slabs(state):
-        """The stencil's x-slab block of a rank process."""
+        """The stencil's x·y block of a rank process."""
         if ranks is None:
             return contextlib.nullcontext()
-        return st.x_slabs(ranks, state.alpha.shape[0])
+        return st.rank_block(ranks, *state.alpha.shape[:2])
 
     def make_bundle(pack):
         return poisson.make_bundle(pack, use_pallas=use_k, knobs=knobs,
@@ -528,17 +538,21 @@ def make_step(geom: TankGeometry,
     x-sharded step (the grid's nx must divide into n slabs of at least two
     planes); `SpmdCtx(n, ranks=ctx)`: this rank's part of it, on the
     rank's slab of the geometry (an even number of planes: the multigrid's
-    2:1 pairs start within the rank). `motion` (a TableMotion on
-    `device`): the 6DoF tank's table-driven forcing; the face coordinates
-    of its rotating frame are built here (under ranks, the rank's x
-    planes of them)."""
+    2:1 pairs start within the rank); `SpmdCtx(n, m, ranks=ctx)`: the
+    same on x·y blocks (ny into m even rows of blocks of at least two).
+    `motion` (a TableMotion on `device`): the 6DoF tank's table-driven
+    forcing; the face coordinates of its rotating frame are built here
+    (under ranks, the rank's x and y parts of them)."""
     _check_slice(controls, spmd=spmd)
     ranks = None
     if spmd is not None:
-        nxl = spmd.local_shape(geom.shape)[0]
+        nxl, nyl = spmd.local_shape(geom.shape)[:2]
         ranks = spmd.ranks
         if ranks is not None and nxl % 2:
             raise ValueError(f"x-slabs of {nxl} planes over ranks: the "
+                             "rank form takes an even number")
+        if ranks is not None and spmd.y_shards > 1 and nyl % 2:
+            raise ValueError(f"y-blocks of nyl = {nyl} rows over ranks: the "
                              "rank form takes an even number")
     ga = geometry_arrays(geom, dtype, device=device, ranks=ranks)
     spacing = tuple(float(s) for s in geom.spacing)

@@ -574,6 +574,9 @@ def island(torch, _build, kernel, lib_path, text, ins, outs):
 
     chain = (kernel == "apply_dot_7pt"
              and re.search(r"int seven_point_halo_launch\([^)]*acc", text))
+    # A source whose halo launch takes a row window gets the full one.
+    window = ((0, SHAPE[1]) if re.search(
+        rf"int {HALO_ENTRY[kernel]}\([^)]*int y1", text) else ())
     dot = None
     for sh in range(N_SHARDS):
         x0, x1 = sh * nxl, (sh + 1) * nxl
@@ -627,7 +630,8 @@ def island(torch, _build, kernel, lib_path, text, ins, outs):
         n_bytes += read_bytes([
             a for a in args if a is not None and a.dim() > 0 and a.numel() > 1
             and (kernel == "flux_all" or a is not part)], rho_slab)
-        fn.argtypes = ([ci] * len(lead) + [vp] * len(args) + [ci] * 3
+        fn.argtypes = ([ci] * len(lead) + [vp] * len(args)
+                       + [ci] * (3 + len(window))
                        + real_types(HALO_ENTRY[kernel], text)
                        + [vp])
         fn.restype = ci
@@ -637,8 +641,8 @@ def island(torch, _build, kernel, lib_path, text, ins, outs):
 
     def launch():
         for lead, ptrs, scal in calls:
-            _build.check(fn(*lead, *ptrs, nxl, SHAPE[1], SHAPE[2], *scal,
-                            stream), lib_path)
+            _build.check(fn(*lead, *ptrs, nxl, SHAPE[1], SHAPE[2], *window,
+                            *scal, stream), lib_path)
     launch.keep = keep
     return launch, n_bytes
 

@@ -429,9 +429,9 @@ def test_unported_case_arguments_raise(tiny_runs, tmp_path, monkeypatch):
     the plain global step on the JAX package's grid (the CPU wants no
     kernel islands), bitwise the unsharded run's, as the same step on the
     same operands; 'NxM' builds JAX's grid; a 6DoF case runs sharded as
-    it runs alone. What raises: a missing card (x positions on distinct
-    cards run as ranks and need theirs, whatever the grid), 'NxM' on
-    distinct cards, a foreign checkpoint grid."""
+    it runs alone. What raises: a missing card (x and 'NxM' positions on
+    distinct cards run as ranks and need theirs, whatever the grid), a
+    foreign checkpoint grid."""
     case = tcases.setup_case(TINY, str(tmp_path))
     stats = trunner.run_case(case, devices=2, device="cpu",
                              log=lambda *a: None)
@@ -461,15 +461,15 @@ def test_unported_case_arguments_raise(tiny_runs, tmp_path, monkeypatch):
     # without a card the launch refuses before any process starts, for a
     # fresh case and for this case's grid too (its checkpoints are the
     # 8×8×10 of the run above, not a multiple of 8·2: the rank form runs
-    # it as x-slabs of 4 planes). The next slice's case raises there:
-    # 'NxM'. torch.device objects: no card is touched.
+    # it as x-slabs of 4 planes), and for 'NxM' (x·y blocks of 4 × 4).
+    # torch.device objects: no card is touched.
     cards = [torch.device(f"cuda:{i}") for i in range(4)]
     fresh = tcases.setup_case(TINY, str(tmp_path / "fresh"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trunner.run_case(fresh, devices=2, device=cards[:2])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trunner.run_case(case, devices=2, device=cards[:2])
-    with pytest.raises(NotImplementedError, match="'NxM' over ranks"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         trunner.run_case(fresh, devices="2x2", device=cards)
     # The card is the default device, and its absence raises.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -27,10 +27,12 @@ only.
     the run that was not killed); against the unsharded step on the same
     grid, the JAX sharded-run test's bounds (alpha 5e-3, t 1e-9); one
     probe row a step.
-(e) 'NxM' on ranks raises NotImplementedError, and a grid that does not
-    divide into even x-slabs raises ValueError, before any spawn, as on
-    distinct cards (none is touched). The 6DoF tank and grids that are
-    not a multiple of 8·N run over ranks: tests/test_torch_ranks_6dof.py.
+(e) A grid that does not divide into even x-slabs, or ('NxM') into even
+    y rows of blocks, of at least two cells raises ValueError before any
+    spawn, as on distinct cards (none is touched). The 6DoF tank and
+    grids that are not a multiple of 8·N run over ranks:
+    tests/test_torch_ranks_6dof.py; 'NxM' over ranks:
+    tests/test_torch_ranks_xy.py.
 """
 
 import os
@@ -239,33 +241,40 @@ def test_run_case_over_ranks_resumes_and_matches(tmp_path, monkeypatch):
 
 
 def test_ranks_refuse_what_the_next_slice_brings(tmp_path, monkeypatch):
-    """'NxM' raises NotImplementedError on the rank path, and a grid that
-    does not divide into even x-slabs of at least two planes raises
-    ValueError naming nx, the ranks and the rule: nx % N != 0 (the 6DoF
-    tank's 4 planes over 3 ranks) and an odd nxl (its 6 planes over 2).
-    All before a process is spawned, on positions that share the host
-    and on distinct cards (named only: none is touched here)."""
+    """A grid that does not divide into even blocks of at least two cells
+    raises ValueError naming the grid, the ranks and the rule: along x
+    nx % N != 0 (the 6DoF tank's 4 planes over 3 ranks) and an odd nxl
+    (its 6 planes over 2); along y ('NxM', which runs over ranks) ny % M
+    != 0 (4 rows over 3), nyl < 2 (4 rows over 4) and an odd nyl (6 rows
+    over 2). All before a process is spawned, on positions that share the
+    host and on distinct cards (named only: none is touched here)."""
     monkeypatch.setenv("OFTPP_SPMD_PALLAS", "interpret")
 
     def no_spawn(*a, **k):
         raise AssertionError("a rank process was spawned")
 
     monkeypatch.setattr(rk, "launch", no_spawn)
-    orbit = tcases.setup_case(RUN, str(tmp_path / "orbit"))
     six = {"Ly": 0.2, "Lz": 0.4, "mesh": 0.05, "chamfer": 0.2,
            "duration": 0.05, "dt": 0.002}
     four = tcases.setup_case_6dof({**six, "Lx": 0.2}, str(tmp_path / "c4"))
     odd = tcases.setup_case_6dof({**six, "Lx": 0.3}, str(tmp_path / "c6"))
-    for case, devices, error, why in (
-            (orbit, "2x2", NotImplementedError, "'NxM'"),
-            (four, 3, ValueError, "nx=4 does not divide over 3 'x' "
-                                  "shards"),
-            (odd, 2, ValueError, "nx=6 over 2 ranks: x-slabs of nxl = 3 "
-                                 "planes, an odd number")):
-        n = 4 if devices == "2x2" else devices
+    odd_y = tcases.setup_case_6dof({**six, "Lx": 0.2, "Ly": 0.3},
+                                   str(tmp_path / "c6y"))
+    for case, devices, why in (
+            (four, 3, "nx=4 does not divide over 3 'x' shards"),
+            (odd, 2, "nx=6 over 2 ranks: x-slabs of nxl = 3 planes, an odd "
+                     "number"),
+            (four, "1x3", "ny=4 does not divide over 3 'y' shards"),
+            (four, "1x4", "ny=4 does not divide over 4 'y' shards into "
+                          "blocks of at least 2 rows"),
+            (odd_y, "1x2", "ny=6 over 2 ranks along y: blocks of nyl = 3 "
+                           "rows, an odd number")):
+        d_x, d_y = (devices, 1) if isinstance(devices, int) else map(
+            int, devices.split("x"))
+        n = d_x * d_y
         for device, ranks in (("cpu", True),
                               (",".join(f"cuda:{i}" for i in range(n)),
                                False)):
-            with pytest.raises(error, match=why):
+            with pytest.raises(ValueError, match=why):
                 trunner.run_case(case, devices=devices, device=device,
                                  ranks=ranks, log=quiet)

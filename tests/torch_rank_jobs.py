@@ -1,4 +1,4 @@
-"""What the rank processes of tests/test_torch_ranks.py run.
+"""What the rank processes of tests/test_torch_ranks*.py run.
 
 parallel/ranks.py `launch` pickles each job by its import path and runs
 it in spawned processes, one a rank; they import torch and the port
@@ -9,6 +9,7 @@ test file, which does). Each job returns numpy arrays and counts.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import sys
 import unittest.mock as mock
 
@@ -81,21 +82,32 @@ def geometry(spec):
     return build_tank_geometry(**spec)
 
 
+def on_grid(ctx, grid):
+    """The ranks of `ctx` laid on another (N, M) grid of the same world,
+    with fresh stats (None: `ctx` itself)."""
+    if grid is None:
+        return ctx
+    return dataclasses.replace(ctx, grid=tuple(grid),
+                               stats=rk.ExchangeStats())
+
+
 def steps(ctx, log, tank, init, params, n_steps, with_single=False,
-          table=None, controls=CONTROLS):
-    """`n_steps` of the x-sharded step over the ranks from the numpy state
-    `init` (rank 0 scatters it), on `geometry(tank)`, under the motion
-    `table` (numpy arrays named as TableMotion's fields) where given.
-    Every rank returns its entry-point call counts, exchange stats and
-    its motion's digest; rank 0 also the gathered states after the first
-    and the last step and the p_iters. `with_single`: rank 0 also runs
-    `SpmdCtx(world)` in this process from the same state."""
+          table=None, controls=CONTROLS, grid=None):
+    """`n_steps` of the sharded step over the ranks (on the rank grid
+    `grid`, default the launch's) from the numpy state `init` (rank 0
+    scatters it), on `geometry(tank)`, under the motion `table` (numpy
+    arrays named as TableMotion's fields) where given. Every rank returns
+    its entry-point call counts, exchange stats and its motion's digest;
+    rank 0 also the gathered states after the first and the last step
+    and the p_iters. `with_single`: rank 0 also runs the one-process
+    `SpmdCtx(N)` (N the grid's x ranks) from the same state."""
+    ctx = on_grid(ctx, grid)
     geom = geometry(tank)
     motion = (None if table is None else
               motion_from_numpy(*(table[k] for k in MOTION_FIELDS),
                                 device=ctx.device))
     step = make_step(geom, PhysicalProperties(), controls, motion=motion,
-                     spmd=SpmdCtx(ctx.world, ranks=ctx), device=ctx.device)
+                     spmd=SpmdCtx(*ctx.grid, ranks=ctx), device=ctx.device)
     par = params_from_numpy(params, device=ctx.device)
     whole = state_from_numpy(init, device=ctx.device)
     state = rk.scatter_state(whole if ctx.rank == 0 else None, geom.shape,
@@ -118,7 +130,7 @@ def steps(ctx, log, tank, init, params, n_steps, with_single=False,
         out.update(first=first, last=last, iters=iters)
         if with_single:
             one = make_step(geom, PhysicalProperties(), controls,
-                            motion=motion, spmd=SpmdCtx(ctx.world),
+                            motion=motion, spmd=SpmdCtx(ctx.grid[0]),
                             device=ctx.device)
             f1, l1, i1 = _steps(one, whole, par, n_steps)
             out["single"] = {"first": state_to_numpy(f1),
@@ -129,10 +141,10 @@ def steps(ctx, log, tank, init, params, n_steps, with_single=False,
 BOX = (0.096, 0.064, 0.04, 0.004)   # 24×16×10 at 4 mm, open top
 
 
-def vcycle_operands(seed):
+def vcycle_operands(seed, box=BOX):
     """The agglomeration test's whole-grid operands: the box's geometry
     arrays, a two-layer density and a seeded residual on the fluid."""
-    geom = build_box_geometry(*BOX, open_top=True)
+    geom = build_box_geometry(*box, open_top=True)
     ga = geometry_arrays(geom, device="cpu")
     nz = geom.shape[2]
     zc = (torch.arange(nz) + 0.5) / nz
@@ -145,7 +157,7 @@ def vcycle_operands(seed):
 
 def vcycle(geom, ga, rho, r, spmd):
     """One preconditioner application M̂⁻¹r of the step's bundle (its
-    V-cycle), on whole arrays or, in a rank, on its slabs."""
+    V-cycle), on whole arrays or, in a rank, on its blocks."""
     spacing = tuple(float(h) for h in geom.spacing)
     problem, pack = poisson.build_operator(ga, spacing, rho, ga["top_open"],
                                            use_pallas=True, spmd=spmd)
@@ -156,19 +168,177 @@ def vcycle(geom, ga, rho, r, spmd):
     return problem.precond_hat(r), bundle
 
 
-def vcycle_ranks(ctx, log, seed):
-    """`vcycle` over the ranks on each rank's slab of `vcycle_operands`;
-    every rank returns the gathered result, the local x extents of the
-    coarse levels and which level was gathered."""
+def vcycle_ranks(ctx, log, seed, box=BOX, grid=None):
+    """`vcycle` over the ranks (on the rank grid `grid`, default the
+    launch's) on each rank's block of `vcycle_operands`; every rank
+    returns the gathered result, the local x and y extents of the coarse
+    levels and which level was gathered."""
     from openfoam_tpp_tpu_torch.ops import stencil as st
 
-    geom, ga, rho, r = vcycle_operands(seed)
-    nx = geom.shape[0]
-    local = {k: ctx.slab(v, nx).contiguous() for k, v in ga.items()}
-    with st.x_slabs(ctx, nx // ctx.world):
-        z, bundle = vcycle(geom, local, ctx.slab(rho, nx).contiguous(),
-                           ctx.slab(r, nx).contiguous(),
-                           SpmdCtx(ctx.world, ranks=ctx))
+    ctx = on_grid(ctx, grid)
+    geom, ga, rho, r = vcycle_operands(seed, box)
+    shape = geom.shape
+    cut = lambda t: ctx.block(t, shape).contiguous()
+    local = {k: cut(v) for k, v in ga.items()}
+    with st.rank_block(ctx, shape[0] // ctx.grid[0], shape[1] // ctx.grid[1]):
+        z, bundle = vcycle(geom, local, cut(rho), cut(r),
+                           SpmdCtx(*ctx.grid, ranks=ctx))
     levels = [(e["faces"][0].shape[0] - 1, bool(e.get("agg")))
               for e in bundle["coarse"]]
-    return {"z": ctx.gather_x(z).numpy(), "levels": levels}
+    y_levels = [e["faces"][1].shape[1] - 1 for e in bundle["coarse"]]
+    return {"z": ctx.gather_block(z).numpy(), "levels": levels,
+            "y_levels": y_levels}
+
+
+def many(ctx, log, tasks):
+    """Several jobs of this module in one launch, in order: `tasks` is a
+    list of (job name, args, keyword args); returns their results, a
+    list, on every rank."""
+    return [globals()[name](ctx, log, *args, **kwargs)
+            for name, args, kwargs in tasks]
+
+
+ISLAND_SHAPE = (16, 12, 16)   # 2x2 ranks: blocks of 8 × 6 cells
+ISLAND_SPACING = (0.002, 0.0021, 0.0019)
+
+
+def island_operands(seed, shape=ISLAND_SHAPE):
+    """Seeded whole-grid operands of every island (numpy, f32), with the
+    zero wall faces the step gives them (tests/test_torch_spmd_kernels.py's
+    recipe)."""
+    rng = np.random.default_rng(seed)
+    nx, ny, nz = shape
+    f = lambda lo=None, hi=None, s=shape: (
+        rng.standard_normal(s) if lo is None
+        else rng.uniform(lo, hi, s)).astype(np.float32)
+
+    def faces(lo=-1.0, hi=1.0, walls=True):
+        out = [f(lo, hi, s) for s in ((nx + 1, ny, nz), (nx, ny + 1, nz),
+                                      (nx, ny, nz + 1))]
+        if walls:
+            out[0][0] = out[0][-1] = 0
+            out[1][:, 0] = out[1][:, -1] = 0
+            out[2][:, :, 0] = 0
+        return out
+
+    w = [f(0.05, 0.3) for _ in range(3)]
+    w[0][0], w[1][:, 0], w[2][:, :, 0] = 0, 0, 0
+    al = f(0, 1)
+    antis = [1e-3 * f() for _ in range(3)]
+    antis[0][0], antis[1][:, 0], antis[2][:, :, 0] = 0, 0, 0
+    aps = faces(0, 1)
+    for a in aps:
+        a[a < 0.2] = 0
+    vfrac = f(0, 1)
+    vfrac[vfrac < 0.1] = 0
+    return {
+        "p": f(), "b": f(), "diag": f(1.5, 2.5), "w": w,
+        "alpha": np.clip(f(-0.3, 1.3), 0, 1),
+        "phis": [1e-3 * f() for _ in range(3)],
+        "ucs": [1e-3 * f() for _ in range(3)],
+        "lams": [f(0, 1) for _ in range(3)], "antis": antis,
+        "cells": [al, np.minimum(al + f(0, 0.2), 1).astype(np.float32),
+                  np.maximum(al - f(0, 0.2), 0).astype(np.float32),
+                  f(1e-4, 2e-4)],
+        "vel": faces(), "rp": faces(), "mu": f(1e-5, 2e-3),
+        "div_u": 0.1 * f(-1, 1), "dp": f(-50, 50),
+        "beta": faces(8e-4, 1e-3, walls=False), "aps": aps, "vfrac": vfrac,
+        "topo": (rng.uniform(0, 1, (nx, ny)) > 0.3).astype(np.float32),
+        "rho": f(1, 998)}
+
+
+def _as_torch(ops, dtype, cut=lambda t: t):
+    """The operands as CPU tensors cut by `cut`: the 7-point and MULES
+    stream operands (p, b, diag, w, ucs, lams, antis) in `dtype`, the rest
+    in f32."""
+    low = {"p", "b", "diag", "w", "ucs", "lams", "antis"}
+    out = {}
+    for k, v in ops.items():
+        dt = dtype if k in low else torch.float32
+        conv = lambda a: cut(torch.from_numpy(np.asarray(a))).to(
+            dt).contiguous()
+        out[k] = [conv(a) for a in v] if isinstance(v, list) else conv(v)
+    return out
+
+
+def run_islands(t, spmd, dtype):
+    """Every island on the operands `t` (whole arrays with `spmd=None`:
+    the single-grid entry points): {name: output tensor or 0-d scalar}."""
+    from openfoam_tpp_tpu_torch.parallel import spmd as sm
+
+    h = ISLAND_SPACING
+    w, out = tuple(t["w"]), {}
+    anti = dtype if dtype != torch.float32 else None
+    if spmd is None:
+        out["apply"] = sp.apply_7pt(t["p"], w)
+        out["apply_diag"] = sp.apply_7pt(t["p"], w, t["diag"])
+        out["resid"] = sp.resid_scaled_7pt(t["p"], w, None, t["b"])
+        out["resid_diag"] = sp.resid_scaled_7pt(t["p"], w, t["diag"], t["b"])
+        out["apply_dot"], out["dot"] = sp.apply_dot_7pt(t["p"], w)
+        lows, antis = mfx.flux_all(t["alpha"], t["phis"], t["ucs"], anti)
+        lams = tuple(t["lams"])
+        for _ in range(3):
+            lams = mf.fct_iter(lams, t["antis"], *t["cells"], h)
+    else:
+        out["apply"] = sm.apply_7pt(t["p"], w, spmd)
+        out["apply_diag"] = sm.apply_7pt(t["p"], w, spmd, diag=t["diag"])
+        out["resid"] = sm.resid_scaled_7pt(t["p"], w, spmd, t["b"])
+        out["resid_diag"] = sm.resid_scaled_7pt(t["p"], w, spmd, t["b"],
+                                                diag=t["diag"])
+        out["apply_dot"], out["dot"] = sm.apply_dot_7pt(t["p"], w, spmd)
+        lows, antis = sm.flux_all(t["alpha"], t["phis"], t["ucs"], spmd,
+                                  anti_dtype=anti)
+        lams = sm.fct_iters(t["lams"], t["antis"], *t["cells"], h, 3, spmd)
+    out.update({f"low{a}": lows[a] for a in range(3)})
+    out.update({f"anti{a}": antis[a] for a in range(3)})
+    out.update({f"lam{a}": lams[a] for a in range(3)})
+    if dtype != torch.float32:
+        return out
+    for dev2 in (True, False):
+        args = (*t["vel"], t["rp"], t["mu"], t["div_u"], h)
+        res = (mrk.momentum_rhs(*args, dev2=dev2) if spmd is None
+               else sm.momentum_rhs(*args, spmd, dev2=dev2))
+        out.update({f"mom{a}_dev2_{dev2}": res[a] for a in range(3)})
+    for top in (True, False):
+        args = (t["dp"], *t["vel"], t["beta"], *t["aps"], t["vfrac"],
+                t["topo"], t["rho"], torch.tensor(3.7e-3))
+        res = (ck.correct_divmax(*args, h, open_top=top) if spmd is None
+               else sm.correct_divmax(*args, h, spmd, open_top=top))
+        out.update({f"corr{a}_top_{top}": res[a] for a in range(3)})
+        out[f"divmax_top_{top}"] = res[3]
+    return out
+
+
+def islands(ctx, log, seed, grid=None):
+    """Every island over the ranks (on the rank grid `grid`) on each
+    rank's block of `island_operands(seed)`, f32 and bf16; every rank
+    returns the gathered outputs (numpy, by name and dtype) and its call
+    counts of the entry points."""
+    from openfoam_tpp_tpu_torch.ops import stencil as st
+
+    ctx = on_grid(ctx, grid)
+    ops, shape = island_operands(seed), ISLAND_SHAPE
+    spmd = SpmdCtx(*ctx.grid, ranks=ctx)
+    res, calls = {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        t = _as_torch(ops, dtype, lambda a: ctx.block(a, shape))
+        counted, patches = _counted()
+        for p in patches:
+            p.start()
+        try:
+            with st.rank_block(ctx, shape[0] // ctx.grid[0],
+                               shape[1] // ctx.grid[1]):
+                out = run_islands(t, spmd, dtype)
+        finally:
+            for p in patches:
+                p.stop()
+        calls = dict(counted) if calls is None else calls
+        for k, v in out.items():
+            if v.dim() == 0:
+                res[f"{k} {dtype}"] = float(v)
+                continue
+            faces = (0 if v.shape[0] == shape[0] // ctx.grid[0] + 1
+                     else 1 if v.shape[1] == shape[1] // ctx.grid[1] + 1
+                     else None)
+            res[f"{k} {dtype}"] = ctx.gather_block(v, faces).float().numpy()
+    return {"out": res, "calls": calls}
