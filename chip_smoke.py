@@ -47,7 +47,16 @@ Phases, each fatal on any fault (nothing is caught):
      within DOT_RTOL), the blocks' maximum bitwise and their dots' sum
      within DOT_RTOL of the single-grid kernel's, the 4 windowed launches
      timed beside their bytes and bound, and a rank's y extension and
-     crop of the momentum island's operands timed;
+     crop of the momentum island's operands timed; then (vii) rows 10a-c
+     on the blocks of a sweep farmed over ranks: phase 6's 12×12×50×128
+     cut into 2x2 x·y blocks, each extended as a rank extends it (a cell
+     a side from the neighbouring blocks, none at a global end), the
+     unchanged 10a and 10b (f32 unit apply, bf16 unit and f32 diagonal
+     resid) bitwise the whole grid's kernel on the owned cells, the 10c
+     with the column window of the owned cells: Â·p bitwise, the dots
+     within DOT_RTOL of plain on the same window and, summed over the
+     blocks, of the whole grid's, the full window bitwise the call
+     without one; every launch timed beside its bytes and bound;
   3. drive the step path: the flagship single-tank case
      (H0.208/D0.2/R0.004/f1.88, mesh 0.00185, round_to=8 → 112³) through
      `make_step(..., carry_precond=True)` in the bench's configuration,
@@ -282,7 +291,33 @@ Phases, each fatal on any fault (nothing is caught):
      exchanges, bytes sent, strided bytes copied, all-reduces and host s
      in them, the run's ms/step with and without writes; (iii) with more
      than one card (i) over distinct cards under NCCL ('2x2' with four,
-     '1x2' with two; else it says it did not run).
+     '1x2' with two; else it says it did not run); (g) the last meshes
+     over ranks: (i) phase 6's 128-case `make_sweep_step` batch farmed
+     over a (case=2, x=2, y=2) grid of 8 gloo ranks sharing the card
+     (`ranks.launch(..., grid=(2, 2, 2))`, `shard_state` / `sharded_step`
+     / `gather` with `ranks=`; blocks of 6 × 6 × 50 × 64), N_FARM steps
+     from rest without the landing on the 0.05 s write grid (a last bit
+     of one case's dt moves its landing by a step): every rank launched
+     rows 10a-c and no other kernel, every case's t equal on every rank
+     of its case position, the gathered batch within phase 4's limits
+     plus FARM_DRIFT·t of phase 6's one-process batch run the same way
+     (each case at its own dt, so t and dt held as the resumed runs'
+     dt, and alpha by each case's liquid volume, within twice the
+     batch's own drift from the start) and every case's p_iters within
+     1 of its at every step (against phase 6's own run, with the
+     landing, reported),
+     per rank and step the exchanges, bytes, all-reduces and host s in
+     them, ms/step; (ii) phase 5's case resumed at t = 0.05 with σ =
+     0.072 N/m over '2x2' gloo ranks (the islands, the CSF terms plain
+     between them) to t = 0.075 against the same resume in one process,
+     (iii) phase
+     5's case resumed at t = 0.05 with OFTPP_SPMD_PALLAS=0 over four
+     ranks (the plain step on every block, no kernel launched) against
+     the one-process plain step from the same checkpoint (p_iters within
+     1 a step; against phase 5's run, kernels and two sweeps, reported):
+     each within phase 3b's limits plus FARM_DRIFT·Δt, the write times
+     equal; (iv) with more than one card the farm over
+     distinct cards under NCCL (else it says it did not run).
 
 It then prints the `kernels` JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. It exits non-zero, printing no
@@ -2158,7 +2193,7 @@ def phase_sweep(dev, props):
             raise AssertionError(f"sweep step kernels vs {label}: p_iters "
                                  "differ by more than 1")
     return launches, {"make_sweep_step": stats, "lockstep_geom": lock_stats,
-                      "solo_case": solo_stats}
+                      "solo_case": solo_stats, "_states": states}
 
 
 def phase_manager(dev):
@@ -3632,15 +3667,17 @@ def advance_to(geom, controls, spmd, params, dev, targets):
 
 def hold_checkpoint(label, chk, state, tols, held=True, drift=0.0):
     """A checkpoint's fields against a state: bitwise, or within `tols`
-    (field: (kind, limit, floor)), the velocities' limits plus `drift`
-    (m/s); `held=False` reports the fields and their limits without
-    holding them."""
+    (field: (kind, limit, floor), or None: reported, not held), the
+    velocities' limits plus `drift` (m/s); `held=False` reports the
+    fields and their limits without holding them."""
     out, bad = {}, []
     for k in ("alpha", "u", "v", "w", "p", "t", "dt"):
         ref = getattr(state, k).cpu().numpy()
         err = float(np.abs(chk[k] - ref).max())
         scale = float(np.abs(ref).max())
         out[k] = {"max_abs_err": err, "scale": scale}
+        if k in tols and tols[k] is None:
+            continue
         if k in tols and err:
             kind_t, tol, floor = tols[k]
             lim = max(tol if kind_t == "abs" else tol * scale, floor)
@@ -3837,7 +3874,9 @@ def phase_mesh_nxm_run(dev, geom):
 
 
 # Phase 12d: the x-sharded step over ranks (parallel/ranks.py).
-N_RANK1 = 10           # steps of (i): one NCCL rank against SpmdCtx(1)
+# Steps of (i): one NCCL rank against SpmdCtx(1) (cut from 10 so that
+# phase 12g fits the script's time).
+N_RANK1 = 4
 N_RANK_STATE = 3       # steps of (ii-a): four ranks from phase 3's state
 PROBE_TIMEOUT_S = 60   # the gloo probe's collectives wait at most this
 
@@ -4332,14 +4371,19 @@ def phase_mesh_x_ranks(dev, x_run, x_final, x_times, flagship,
 
 
 # Phase 12e: the 6DoF tank and a grid not a multiple of 8·N over ranks.
-N_RANK1_6DOF = 10      # steps of (i): one NCCL rank from phase 8's state
+# Steps of 12e (i): one NCCL rank from phase 8's state (cut from 10 as
+# N_RANK1).
+N_RANK1_6DOF = 4
 
 
-def one_process_resume(geom, motion, params, chk_bytes, target, dev):
+def one_process_resume(geom, motion, params, chk_bytes, target, dev,
+                       plain=False):
     """The runner's advance of the one-process `SpmdCtx(N_SHARDS)` step
-    (with `motion`) from the checkpoint `chk_bytes` to `target`: what the
-    ranks compute from that state, their sums added in one process.
-    Returns (final state, p_iters of every step)."""
+    (with `motion`; with `plain` the unsharded plain step, what
+    OFTPP_SPMD_PALLAS=0 runs on each rank's block) from the checkpoint
+    `chk_bytes` to `target`: what the ranks compute from that state,
+    their sums added in one process. Returns (final state, p_iters of
+    every step)."""
     from openfoam_tpp_tpu_torch.config import (PhysicalProperties,
                                                SolverControls)
     from openfoam_tpp_tpu_torch.manager.runner import (_case_params,
@@ -4349,8 +4393,9 @@ def one_process_resume(geom, motion, params, chk_bytes, target, dev):
     from openfoam_tpp_tpu_torch.utils.io import to_state
 
     inner = make_step(geom, PhysicalProperties(),
-                      SolverControls(use_pallas=True), motion=motion,
-                      carry_precond=True, spmd=SpmdCtx(N_SHARDS), device=dev)
+                      SolverControls(use_pallas=not plain), motion=motion,
+                      carry_precond=True,
+                      spmd=None if plain else SpmdCtx(N_SHARDS), device=dev)
     iters = []
 
     def step(*a, **k):
@@ -4592,12 +4637,14 @@ def phase_ranks_6dof(dev, six, case5):
 
 
 def resume_over_ranks(label, params, setup, checkpoints, devices, device,
-                      ranks, env=None):
-    """`run_case(devices=..., device=..., ranks=...)` of a fresh case
-    (`setup(params, base)`) holding `checkpoints` ((file name, bytes)
-    pairs, the last the resume point): (stats, log lines, write times of
-    the checkpoints after the run, the final checkpoint, probe rows
-    written from the resume point)."""
+                      ranks, env=None, props=None):
+    """`run_case(devices=..., device=..., ranks=..., props=...)` of a
+    fresh case (`setup(params, base)`) holding `checkpoints` ((file name,
+    bytes) pairs, the last the resume point): (stats, log lines, write
+    times of the checkpoints after the run, the final checkpoint, probe
+    rows written from the resume point)."""
+    from openfoam_tpp_tpu_torch.config import PhysicalProperties
+
     from openfoam_tpp_tpu_torch.manager.runner import run_case
     from openfoam_tpp_tpu_torch.utils.io import (list_checkpoints,
                                                  load_checkpoint)
@@ -4611,7 +4658,9 @@ def resume_over_ranks(label, params, setup, checkpoints, devices, device,
         t_resume = float(npz_from_bytes(checkpoints[-1][1])["t"])
         with environ(**(env or {})):
             stats = run_case(case_dir, devices=devices, device=device,
-                             ranks=ranks, log=lambda ln: (
+                             ranks=ranks,
+                             props=props or PhysicalProperties(),
+                             log=lambda ln: (
                                  lines.append(ln),
                                  log(f"  | [{label}] " + ln)))
         chks = list_checkpoints(case_dir)
@@ -4735,6 +4784,356 @@ def phase_ranks_xy(dev, six, case5, refs):
     else:
         log(f"[{grid} over ranks (iii)] did not run: this machine has "
             f"{n_cards} card")
+        out["distinct_cards"] = None
+    return out
+
+
+# Phase 12g: a sweep farmed over a (case, x, y) grid of ranks, and the
+# plain step over ranks (surface tension, OFTPP_SPMD_PALLAS=0).
+FARM_GRID = (2, 2, 2)   # (case, x, y): 8 ranks, blocks of 6 × 6 × 50 × 64
+
+
+def farm_rank_job(ctx, log, n_steps, n_timed, controls):
+    """Phase 12g (i), in each rank's process: phase 6's `make_sweep_step`
+    batch (SWEEP_CASES cases of SWEEP_TANK at round_to=4, from rest, under
+    `controls`) farmed over the (C, N, M) rank grid: the rank's case slice
+    of the batch cut to its x·y block (`shard_state(..., ranks=)`),
+    `n_steps` steps with the launch counts set to 0 just before and read
+    just after, the last `n_timed` timed. Returns the rank's launches,
+    p_iters and t per step, exchange stats, ms/step and block; rank 0 also
+    the gathered batch (numpy)."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import PhysicalProperties
+    from openfoam_tpp_tpu_torch.core.state import state_to_numpy
+    from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+    from openfoam_tpp_tpu_torch.parallel import sharding as sh
+    from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
+    from openfoam_tpp_tpu_torch.parallel.sweep import (batch_params,
+                                                       batch_states,
+                                                       make_sweep_step)
+
+    dev = ctx.device
+    geom = build_tank_geometry(**SWEEP_TANK, round_to=4)
+    mesh = sh.make_mesh(ctx.world, case_axis=ctx.cases, y_axis=ctx.grid[1],
+                        devices=[dev] * ctx.world)
+    step = make_sweep_step(geom, PhysicalProperties(), controls, device=dev,
+                           spmd=SpmdCtx(*ctx.grid, ranks=ctx))
+    farm = sh.sharded_step(step, mesh, batched=True, ranks=ctx)
+    parts = sh.shard_state(batch_states(geom, SWEEP_CASES, device=dev), mesh,
+                           batched=True, ranks=ctx)
+    pparts = sh.params_sharding(mesh, batched=True, ranks=ctx).put(
+        batch_params(sweep_rows(), device=dev))
+    fns = {k: getattr(m, a) for k, (m, a, _) in counters().items()}
+    for f in fns.values():
+        f.launches = 0
+    ctx.stats = rk.ExchangeStats()
+    torch.cuda.synchronize()
+    iters, times = [], []
+    for i in range(n_steps):
+        if i == n_steps - n_timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        parts, diags = farm(parts, pparts)
+        iters.append(diags[0].p_iters.cpu().tolist())
+        times.append(parts[0].t.cpu().tolist())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"launches": rk.launch_counts(), "p_iters": iters, "t": times,
+           "stats": ctx.stats.as_dict(), "ms_per_step": wall / n_timed * 1e3,
+           "block": list(parts[0].alpha.shape), "ic": ctx.ic}
+    whole = farm.sharding.gather(parts)
+    if whole is not None:
+        out["whole"] = state_to_numpy(whole)
+    return out
+
+
+def build_vfrac_sweep():
+    """Phase 6's tank's cell fluid fractions (nx, ny, nz)."""
+    from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
+
+    return build_tank_geometry(**SWEEP_TANK, round_to=4).vfrac
+
+
+def sweep_rows():
+    """Phase 6's forcing rows."""
+    return [{"R": 0.002 + 2e-5 * i, "freq": 1.5 + 0.01 * i, "duration": 10.0}
+            for i in range(SWEEP_CASES)]
+
+
+def farm_reference(dev, props, controls, n_steps):
+    """Phase 6's one-process `make_sweep_step` batch from rest under
+    `controls`: (its SimState after `n_steps`, the (n_steps, B) p_iters,
+    ms/step, the initial alpha as numpy)."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
+    from openfoam_tpp_tpu_torch.parallel.sweep import (batch_params,
+                                                       batch_states,
+                                                       make_sweep_step)
+
+    geom = build_tank_geometry(**SWEEP_TANK, round_to=4)
+    step = make_sweep_step(geom, props, controls, device=dev)
+    states = batch_states(geom, SWEEP_CASES, device=dev)
+    alpha0 = states.alpha.cpu().numpy()
+    params = batch_params(sweep_rows(), device=dev)
+    iters = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        states, d = step(states, params)
+        iters.append(d.p_iters.cpu().tolist())
+    torch.cuda.synchronize()
+    return (states, iters, (time.perf_counter() - t0) / n_steps * 1e3,
+            alpha0)
+
+
+def hold_farm_ranks(label, res, grid, ref, ref_iters, n_steps, alpha0):
+    """Phase 12g (i)'s checks of the farm over ranks against the
+    one-process batch (`ref`, its SimState after n_steps; `ref_iters` its
+    (n_steps, B) p_iters): every rank launched rows 10a-c and no other
+    kernel, every case's t equal on every rank of its case position, the
+    gathered batch within phase 4's limits plus FARM_DRIFT·t, t to 1e-6,
+    every case's p_iters within 1 at every step, each case's liquid volume
+    within twice the one-process batch's own drift from `alpha0` (the
+    initial alpha). Returns the numbers."""
+    import torch
+
+    group = grid[1] * grid[2]
+    per_rank, bad = [], []
+    for r, out in enumerate(res):
+        launches = rank_launches(out["launches"])
+        ran = {k for k, v in launches.items() if v}
+        lead = res[(r // group) * group]
+        if ran != set(BATCH_PATH):
+            bad.append(f"rank {r}: kernels {sorted(ran)}")
+        if out["t"] != lead["t"]:
+            bad.append(f"rank {r}: its cases' t differ from its case "
+                       "position's first rank's")
+        st = out["stats"]
+        per_rank.append({
+            "launches_per_step": {k: launches[k] / n_steps
+                                  for k in BATCH_PATH},
+            "exchanges_per_step": st["exchanges"] / n_steps,
+            "y_exchanges_per_step": st["y_exchanges"] / n_steps,
+            "bytes_per_step": (st["bytes"] + st["y_bytes"]) / n_steps,
+            "all_reduces_per_step": st["all_reduces"] / n_steps,
+            "exchange_s_per_step": st["seconds"] / n_steps,
+            "ms_per_step": out["ms_per_step"]})
+    iters = np.concatenate([np.asarray(res[c * group]["p_iters"])
+                            for c in range(grid[0])], axis=1)
+    d_it = int(np.abs(iters - np.asarray(ref_iters)).max())
+    moved = int((iters != np.asarray(ref_iters)).sum())
+    if d_it > 1:
+        bad.append(f"a case's p_iters differ by {d_it} > 1")
+    whole = res[0]["whole"]
+    t_end = float(np.max(whole["t"]))
+    t_ref = ref.t.cpu().numpy()
+    # Each case steps with its own CFL dt (make_sweep_step is not
+    # lockstep), so a CG stop moved by the farm's sum order moves that
+    # case's later dts and its t (on an H100: every case, by up to 3.7e-3
+    # of t after 30 steps; PERF.md §6). t and dt are held as the resumed
+    # runs' dt (DT_TOL); alpha, whose cells follow the interface through
+    # that time gap, is held by each case's liquid volume Σ α·vfrac: two
+    # runs that each keep it within d of the start are within 2d of each
+    # other (d the one-process batch's own drift; MULES conserves the
+    # volume up to its clamp to [0, 1] and f32 sums); its largest
+    # pointwise gap is reported.
+    t_gap = float(np.max(np.abs(whole["t"] - t_ref) / t_ref))
+    vfrac = np.asarray(build_vfrac_sweep())[..., None]
+    vol = lambda a: (np.asarray(a, np.float64) * vfrac).sum(axis=(0, 1, 2))
+    v_f, v_r, v_0 = (vol(whole["alpha"]), vol(ref.alpha.cpu().numpy()),
+                     vol(alpha0))
+    vol_gap = float(np.max(np.abs(v_f - v_r) / v_0))
+    drift = float(np.max(np.abs(v_r - v_0) / v_0))
+    log(f"  {label}: case times apart by at most {t_gap:.3e} of t (held to "
+        f"{DT_TOL['dt'][1]:.0e}); liquid volume per case apart by at most "
+        f"{vol_gap:.3e} of the start's (held to twice the one-process "
+        f"batch's own drift, {2 * drift:.3e})")
+    if t_gap > DT_TOL["dt"][1]:
+        bad.append(f"case times apart by {t_gap}")
+    if vol_gap > 2 * drift:
+        bad.append(f"a case's liquid volume apart by {vol_gap} > "
+                   f"{2 * drift}")
+    tols = {**SHARD_TOLS, **DT_TOL, "t": DT_TOL["dt"], "alpha": None}
+    as_state = types.SimpleNamespace(
+        **{k: getattr(ref, k) for k in ("alpha", "u", "v", "w", "p", "t",
+                                        "dt")})
+    try:
+        held = hold_checkpoint(f"{label}, gathered batch against the "
+                               "one-process batch's", whole, as_state, tols,
+                               drift=FARM_DRIFT * t_end)
+    except AssertionError as e:
+        bad.append(str(e))
+        held = None
+    r0 = per_rank[0]
+    log(f"  {label}: blocks {res[0]['block']}, per rank and step "
+        f"{r0['exchanges_per_step']:.1f} x and "
+        f"{r0['y_exchanges_per_step']:.1f} y exchanges "
+        f"({r0['bytes_per_step'] / 1e6:.3f} MB sent), "
+        f"{r0['all_reduces_per_step']:.1f} all-reduces, "
+        f"{r0['exchange_s_per_step'] * 1e3:.1f} ms host in them; "
+        f"launches per step {r0['launches_per_step']}; ms/step "
+        f"{[round(x['ms_per_step'], 1) for x in per_rank]}; p_iters against "
+        f"phase 6's: {moved} of {iters.size} case-steps moved, by at most "
+        f"{d_it}")
+    if bad:
+        raise AssertionError(f"{label}: {bad}")
+    return {"grid": list(grid), "block": res[0]["block"],
+            "ranks": per_rank, "max_p_iters_diff": d_it,
+            "case_steps_moved": moved, "hold": held,
+            "ms_per_step": max(x["ms_per_step"] for x in per_rank)}
+
+
+def phase_farm_ranks(dev, sweep, case5):
+    """Phase 12g (module docstring): (i) phase 6's sweep farmed over a
+    (case=2, x=2, y=2) grid of 8 gloo ranks sharing the card, held against
+    the same one-process batch, both without the write-grid landing, and
+    reported against phase 6's run (`sweep["_states"]`); (ii) phase 5's
+    flagship case resumed at t = 0.05 with σ = 0.072 N/m over '2x2' gloo
+    ranks to t = 0.075 against the same resume in one process; (iii)
+    phase 5's case resumed at t = 0.05 with OFTPP_SPMD_PALLAS=0 (the plain
+    step on every block) over four ranks against the one-process plain
+    step from the same checkpoint; (iv) the farm over distinct cards under
+    NCCL where the host has them. Returns the phase's stats."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import (PhysicalProperties,
+                                               SolverControls)
+    from openfoam_tpp_tpu_torch.manager.cases import setup_case
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+
+    card = f"cuda:{dev.index or 0}" if dev.type == "cuda" else str(dev)
+    out = {}
+    # Phase 6's batch lands every case on the 0.05 s write grid by its
+    # own dt: a last bit moved in one case's CFL dt moves its landing by
+    # a step (on an H100: one case 4.87e-3 s apart after 30 steps;
+    # PERF.md §6). The farm and its one-process batch run without the
+    # landing; phase 6's run (with it) is reported beside them.
+    controls = SolverControls(write_interval=0.0)
+    ref, ref_iters, ref_ms, alpha0 = farm_reference(
+        dev, PhysicalProperties(), controls, N_FARM)
+    n = int(np.prod(FARM_GRID))
+    label = (f"farm over {'x'.join(map(str, FARM_GRID))} ranks (case, x, y) "
+             f"(i): {n} gloo ranks sharing {card}, {SWEEP_CASES} cases from "
+             "rest")
+    t0 = time.perf_counter()
+    res = rk.launch(farm_rank_job, [card] * n, grid=FARM_GRID,
+                    args=(N_FARM, N_FARM_TIMED, controls),
+                    log=lambda ln: log("  | " + ln))
+    out["farm"] = hold_farm_ranks(label, res, FARM_GRID, ref, ref_iters,
+                                  N_FARM, alpha0)
+    out["farm"]["wall_s_with_spawn"] = time.perf_counter() - t0
+    out["farm"]["one_process_ms_per_step"] = ref_ms
+    six = sweep["_states"]
+    out["farm"]["vs_phase6_with_landing"] = {
+        k: float(np.abs(res[0]["whole"][k] - getattr(six, k).cpu().numpy()
+                        ).max()) for k in ("alpha", "w", "t")}
+    log(f"  {label}: {out['farm']['wall_s_with_spawn']:.1f} s with the "
+        f"spawn; the one-process batch {ref_ms:.3f} ms/step (phase 6's "
+        f"{sweep['make_sweep_step']['ms_per_step']:.3f}); against phase 6's "
+        f"run with the write-grid landing (reported): "
+        f"{out['farm']['vs_phase6_with_landing']}")
+
+    tols = {**SHARD_TOLS, **DT_TOL}
+    as_state = lambda d: types.SimpleNamespace(
+        **{k: torch.as_tensor(v) for k, v in d.items()})
+    sigma = PhysicalProperties(sigma=SIGMA_WATER)
+    chks = case5["checkpoints"][:2]
+    t_half = float(npz_from_bytes(chks[-1][1])["t"])
+    # (ii) σ over '2x2', against the same resume on one process, to
+    # t = 0.075 (the capillary bound halves dt: 19 steps to 0.1).
+    label = (f"flagship with σ = {SIGMA_WATER} N/m over "
+             f"{XY_GRID[0]}x{XY_GRID[1]} ranks (ii): gloo ranks sharing "
+             f"{card}, phase 5's case resumed at t = {t_half}")
+    grid = f"{XY_GRID[0]}x{XY_GRID[1]}"
+    t0 = time.perf_counter()
+    params = {**case5["params"], "duration": 0.075}
+    run = resume_over_ranks(label, params, setup_case, chks, grid, card,
+                            True, props=sigma)
+    lone = resume_over_ranks(label + ", one process", params, setup_case,
+                             chks, None, card, False, props=sigma)
+    stats, lines, times, final, rows = run
+    res = hold_rank_run(label, stats, None)
+    res["final"] = hold_checkpoint(
+        f"{label}, final against the one-process resume", final,
+        as_state(lone[3]), tols, drift=FARM_DRIFT * (float(final["t"])
+                                                     - t_half))
+    res["write_times"] = times
+    res["wall_s_with_spawn"] = time.perf_counter() - t0
+    if times != lone[2] or not any(f"σ = {SIGMA_WATER:g} N/m" in ln
+                                   for ln in lines):
+        raise AssertionError(f"{label}: write times {times} against "
+                             f"{lone[2]}, or the log does not name σ")
+    out["csf_2x2"] = res
+
+    # (iii) OFTPP_SPMD_PALLAS=0 over four ranks: the plain step on every
+    # block, no kernel launched; against the one-process plain step from
+    # the same checkpoint (held) and phase 5's run (reported).
+    label = (f"flagship with OFTPP_SPMD_PALLAS=0 over {N_SHARDS} ranks "
+             f"(iii): gloo ranks sharing {card}, phase 5's case resumed at "
+             f"t = {t_half}")
+    t0 = time.perf_counter()
+    stats, lines, times, final, rows = resume_over_ranks(
+        label, case5["params"], setup_case, chks, N_SHARDS, card, True,
+        env={"OFTPP_SPMD_PALLAS": "0"})
+    launched = [{k: v for k, v in rs["launches"].items() if v}
+                for rs in stats["ranks"]]
+    from openfoam_tpp_tpu_torch.manager.runner import build_case_geometry
+
+    ref5 = npz_from_bytes(case5["checkpoints"][-1][1])
+    one, one_iters = one_process_resume(
+        build_case_geometry(case5["params"]), None, case5["params"],
+        chks[-1][1], float(ref5["t"]), dev, plain=True)
+    res = {"steps": stats["steps"], "p_iters": stats["ranks"][0]["p_iters"],
+           "one_process_p_iters": one_iters,
+           "ms_per_step_with_writes": stats["wall_seconds"]
+           / max(stats["steps"], 1) * 1e3,
+           "ranks": [{k: rs[k] / max(stats["steps"], 1)
+                      for k in ("exchanges", "y_exchanges", "all_reduces",
+                                "seconds")} for rs in stats["ranks"]]}
+    res["final"] = hold_checkpoint(
+        f"{label}, final against the one-process plain step's", final, one,
+        tols, drift=FARM_DRIFT * (float(final["t"]) - t_half))
+    res["final_vs_phase5"] = hold_checkpoint(
+        f"{label}, final against phase 5's (kernels, two sweeps)", final,
+        as_state(ref5), tols, held=False,
+        drift=FARM_DRIFT * (float(final["t"]) - t_half))
+    d_it = max(abs(a - b) for a, b in zip(res["p_iters"], one_iters))
+    if len(one_iters) != len(res["p_iters"]) or d_it > 1:
+        raise AssertionError(f"{label}: p_iters {res['p_iters']} against the "
+                             f"one-process plain step's {one_iters}")
+    res["wall_s_with_spawn"] = time.perf_counter() - t0
+    log(f"  {label}: {res['steps']} steps, "
+        f"{res['ms_per_step_with_writes']:.1f} ms/step with writes, p_iters "
+        f"{res['p_iters']}; per rank and step "
+        f"{res['ranks'][0]}")
+    want = [float(npz_from_bytes(d)["t"]) for _, d in case5["checkpoints"]]
+    if (any(launched) or times != want or rows != stats["steps"]
+            or not any("OFTPP_SPMD_PALLAS=0" in ln for ln in lines)):
+        raise AssertionError(f"{label}: kernels launched {launched}, write "
+                             f"times {times} against {want}, {rows} probe "
+                             f"rows for {stats['steps']} steps, or the log "
+                             "does not name the plain step")
+    out["plain_4"] = res
+
+    # (iv) distinct cards under NCCL.
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        grid3 = ((2, 2, 2) if n_cards >= 8 else (2, 2, 1) if n_cards >= 4
+                 else (2, 1, 1))
+        k = int(np.prod(grid3))
+        label = (f"farm over {'x'.join(map(str, grid3))} ranks (iv): NCCL "
+                 f"on {k} distinct cards")
+        res = rk.launch(farm_rank_job, [f"cuda:{i}" for i in range(k)],
+                        grid=grid3, args=(N_FARM, N_FARM_TIMED, controls),
+                        log=lambda ln: log("  | " + ln))
+        out["distinct_cards"] = hold_farm_ranks(label, res, grid3, ref,
+                                                ref_iters, N_FARM, alpha0)
+    else:
+        log(f"[farm over ranks (iv): distinct cards] did not run: "
+            f"device_count = {n_cards}")
         out["distinct_cards"] = None
     return out
 
@@ -5011,6 +5410,116 @@ def phase_xy_halo_kernels(shape, spacing, dev, grid=XY_GRID):
     return out
 
 
+def phase_xy_batch_kernels(shape4, dev, grid=XY_GRID):
+    """Phase 2's batch part, (vii): rows 10a-c on the blocks of a sweep
+    farmed over a (case, x, y) grid of ranks, at phase 6's batched
+    `shape4` cut into a `grid` (N, M) of x·y blocks, in one process. Each
+    block is extended as a rank extends it (parallel/spmd.py `XYBlock`:
+    one cell a side in x and y from the neighbouring blocks, nothing at a
+    global end): the unchanged 10a and 10b on it, f32 unit apply and bf16
+    unit resid (the main-path variants) and f32 stored-diagonal resid,
+    bitwise the whole grid's kernel on the owned cells; the windowed 10c
+    (the column window of the owned cells) with Â·p bitwise the whole
+    grid's and the per-case dots within DOT_RTOL of its plain version on
+    the same window, the blocks' dots' sum within DOT_RTOL of the whole
+    grid's; the full window bitwise the call without one. Every launch
+    timed beside its bytes and bound. Returns the timings."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
+    from openfoam_tpp_tpu_torch.utils.devtime import device_ms
+
+    rng = np.random.default_rng(2026)
+    nx, ny = shape4[:2]
+    bx, by = nx // grid[0], ny // grid[1]
+
+    def arr(lo=None, hi=None, dtype=torch.float32):
+        a = (rng.standard_normal(shape4) if lo is None
+             else rng.uniform(lo, hi, shape4)).astype(np.float32)
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    out, bad = {}, []
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        p, b, d = arr(dtype=dtype), arr(dtype=dtype), arr(1.5, 2.5, dtype)
+        w = [arr(0.05, 0.3, dtype) for _ in range(3)]
+        w[0][0], w[1][:, 0], w[2][:, :, 0] = 0, 0, 0
+        w = tuple(w)
+        whole = {"apply unit": sp.apply_7pt_nb(p, w),
+                 "resid unit": sp.resid_scaled_7pt_nb(p, w, None, b),
+                 "resid diag": sp.resid_scaled_7pt_nb(p, w, d, b)}
+        ap_w, dots_w = sp.apply_dot_7pt_nb(p, w)
+        full = sp.apply_dot_7pt_nb(p, w, window=((0, nx), (0, ny)))
+        if not (torch.equal(full[0], ap_w) and torch.equal(full[1], dots_w)):
+            bad.append(f"{tag}: the full window is not bitwise the call "
+                       "without one")
+        total = None
+        for ix in range(grid[0]):
+            for iy in range(grid[1]):
+                x0, x1 = max(ix * bx - 1, 0), min((ix + 1) * bx + 1, nx)
+                y0, y1 = max(iy * by - 1, 0), min((iy + 1) * by + 1, ny)
+                own = ((ix * bx - x0, ix * bx - x0 + bx),
+                       (iy * by - y0, iy * by - y0 + by))
+                ext = lambda t: t[x0:x1, y0:y1].contiguous()
+                crop = lambda t: t[own[0][0]:own[0][1], own[1][0]:own[1][1]]
+                pe, be, de = ext(p), ext(b), ext(d)
+                we = tuple(ext(t) for t in w)
+                kern = {"apply unit": lambda: sp.apply_7pt_nb(pe, we),
+                        "resid unit": lambda: sp.resid_scaled_7pt_nb(
+                            pe, we, None, be),
+                        "resid diag": lambda: sp.resid_scaled_7pt_nb(
+                            pe, we, de, be),
+                        "apply_dot window": lambda: sp.apply_dot_7pt_nb(
+                            pe, we, window=own)}
+                sl = (slice(ix * bx, (ix + 1) * bx),
+                      slice(iy * by, (iy + 1) * by))
+                for name, fn in kern.items():
+                    got = fn()
+                    if name == "apply_dot window":
+                        ap, dots = got
+                        ref_d = sp.apply_dot_7pt_plain(pe, we, window=own)[1]
+                        rel = float(((dots - ref_d).abs()
+                                     / ref_d.abs()).max())
+                        total = dots if total is None else total + dots
+                        ok = torch.equal(crop(ap), ap_w[sl]) and (
+                            rel <= DOT_RTOL)
+                        ins, outs = (pe, *we), (pe, dots)
+                    else:
+                        ok = torch.equal(crop(got), whole[name][sl])
+                        rel = 0.0
+                        ins = (pe, *we) + ((be,) if "resid" in name else ()) \
+                            + ((de,) if "diag" in name else ())
+                        outs = (pe,)
+                    key = f"{name} {tag}"
+                    if not ok:
+                        bad.append(f"block ({ix}, {iy}) {key}: not bitwise "
+                                   f"the whole grid's (dot rel {rel:.3e})")
+                    if (ix, iy) != (0, 0) and key in out:
+                        continue
+                    # An interior-edged block (0, 0) of each variant timed.
+                    ms = device_ms(fn, REPS)
+                    nb = nbytes(*ins) + nbytes(*outs)
+                    bound = nb / HBM_BYTES_PER_S * 1e3
+                    out[key] = {"block": list(pe.shape), "ms": ms,
+                                "bytes": nb, "bound_ms": bound,
+                                "dot_rel_err": rel}
+                    log(f"  {key:24s} extended block {tuple(pe.shape)}: "
+                        f"bitwise the whole grid's owned cells {ok}"
+                        + (f", dots rel {rel:.3e} (tol {DOT_RTOL:.0e})"
+                           if "dot" in name else "")
+                        + f"  kernel {ms:.4f} ms  bytes {nb / 1e6:.2f} MB  "
+                        f"bound {bound:.4f} ms ({ms / bound:.2f}x)")
+        rel = float(((total - dots_w).abs() / dots_w.abs()).max())
+        log(f"  {tag}: the {grid[0] * grid[1]} blocks' windowed dots summed "
+            f"in block order against the whole grid's: max rel {rel:.3e} "
+            f"(tol {DOT_RTOL:.0e})")
+        out[f"dot_sum_rel_err {tag}"] = rel
+        if rel > DOT_RTOL:
+            bad.append(f"{tag}: the blocks' dots' sum rel {rel}")
+    if bad:
+        raise AssertionError(f"batch kernels on x·y blocks: {bad}")
+    return out
+
+
 def phase_closed_top_halo(dev):
     """Phase 2's halo part, (v): `correct_divmax_h` in its closed-top form
     on the 6DoF tutorial tank's operands cut into N_SHARDS x-slabs
@@ -5154,6 +5663,10 @@ def main() -> int:
     log(f"[halo kernels on 'NxM' x·y blocks] shape {geom.shape} in "
         f"{XY_GRID[0]}x{XY_GRID[1]} blocks, {REPS} timed launches each")
     xy_halo = phase_xy_halo_kernels(geom.shape, spacing, dev)
+    log(f"[batch kernels on the x·y blocks of a farm over ranks] shape "
+        f"{shape4} in {XY_GRID[0]}x{XY_GRID[1]} extended blocks, {REPS} "
+        "timed launches each")
+    xy_batch = phase_xy_batch_kernels(shape4, dev)
 
     lap("2")
 
@@ -5268,6 +5781,9 @@ def main() -> int:
     for key in ("_one_process_6dof", "_one_process_flagship"):
         mesh["ranks_6dof"].pop(key)
     lap("12f")
+    mesh["farm_ranks"] = phase_farm_ranks(dev, sweep, case)
+    sweep.pop("_states")
+    lap("12g")
     for key in ("state", "lone_run"):
         tank6dof.pop(key)
     case.pop("checkpoints")
@@ -5306,7 +5822,7 @@ def main() -> int:
                        "mesh": mesh},
               "tiled_kernel_rows": tiled_rows, "phase_seconds": laps,
               "closed_top_halo_6dof": closed_halo,
-              "xy_block_halo": xy_halo,
+              "xy_block_halo": xy_halo, "xy_block_batch": xy_batch,
               "launches": {"csf": csf_launches, "tiled": tiled_launches}}
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)
     with open(os.path.join(repo, "perf_out", "chip_smoke.json"), "w") as f:

@@ -46,6 +46,12 @@
 // block that draws a group's last ticket sums the group's partials with
 // all its warps: warp w adds columns w, w + kDZ, … in order, kDSlotRuns
 // loads in flight a thread, and the warps' sums are added in warp order.
+// A column window [x0, x1) × [y0, y1) restricts the dots to those
+// (x, y) columns: a column outside it writes a partial of 0 (its Â·p is
+// written all the same), so with the full window the dots are bitwise
+// those without one. A rank of a sweep farmed over ranks runs the kernel
+// on its block extended by a cell a side in x and y and passes the
+// columns it owns (parallel/spmd.py `XYBlock`).
 // No float atomics: the dots, and so every case's CG iteration count,
 // repeat bitwise from run to run, in an order set by the shape alone. At
 // the sweep's 12×12×50×128 on an H100 the main pass takes ~7.3 µs, the
@@ -290,16 +296,17 @@ __device__ __forceinline__ float warp_tree(float v) {
 // (blockIdx.x) and 32 consecutive cases (blockIdx.y), one case a thread:
 // warp w takes planes w, w + kDZ, …, each with nb_sum's arithmetic, and
 // adds its p·(Â·p) in plane order. The block's warps' sums go in warp
-// order to partial[column · B + case]; the block that draws its case
-// group's last ticket sums the group's partials into dots (see the
-// header).
+// order to partial[column · B + case], 0 for a column outside the
+// window [x0, x1) × [y0, y1); the block that draws its case group's last
+// ticket sums the group's partials into dots (see the header).
 template <typename T>
 __global__ void __launch_bounds__(kDBlock)
 apply_dot_batch_kernel(const T* __restrict__ p, const T* __restrict__ wx,
                        const T* __restrict__ wy, const T* __restrict__ wz,
                        T* __restrict__ out, float* __restrict__ partial,
                        unsigned* __restrict__ ticket, float* __restrict__ dots,
-                       int nx, int ny, int nz, int nb) {
+                       int nx, int ny, int nz, int nb, int x0, int x1, int y0,
+                       int y1) {
   __shared__ float rows[kDZ][32];
   __shared__ bool last;
   const int lane = threadIdx.x, warp = threadIdx.y;
@@ -326,7 +333,8 @@ apply_dot_batch_kernel(const T* __restrict__ p, const T* __restrict__ wx,
     const int used = nz < kDZ ? nz : kDZ;
     float s = rows[0][lane];
     for (int r = 1; r < used; ++r) s = s + rows[r][lane];
-    partial[(int64_t)col * nb + e] = s;
+    const bool owned = i >= x0 && i < x1 && j >= y0 && j < y1;
+    partial[(int64_t)col * nb + e] = owned ? s : 0.0f;
     __threadfence();   // visible before this block's ticket
   }
   __syncthreads();
@@ -371,7 +379,8 @@ template <typename T>
 void launch(int mode, int has_diag, const void* p, const void* wx,
             const void* wy, const void* wz, const void* diag, const void* b,
             void* out, float* partial, unsigned* ticket, float* dots, int nx,
-            int ny, int nz, int nb, cudaStream_t stream) {
+            int ny, int nz, int nb, int x0, int x1, int y0, int y1,
+            cudaStream_t stream) {
   const dim3 block(kBB, kBZ);
   const dim3 grid(nx * ny, (nz + kBZ - 1) / kBZ, (nb + kBB - 1) / kBB);
   const T* P = static_cast<const T*>(p);
@@ -404,8 +413,32 @@ void launch(int mode, int has_diag, const void* p, const void* wx,
   } else {
     apply_dot_batch_kernel<T><<<dim3(nx * ny, (nb + 31) / 32),
                                 dim3(32, kDZ), 0, stream>>>(
-        P, WX, WY, WZ, O, partial, ticket, dots, nx, ny, nz, nb);
+        P, WX, WY, WZ, O, partial, ticket, dots, nx, ny, nz, nb, x0, x1, y0,
+        y1);
   }
+}
+
+int checked_launch(int mode, int dtype, int has_diag, const void* p,
+                   const void* wx, const void* wy, const void* wz,
+                   const void* diag, const void* b, void* out, void* partial,
+                   void* dots, void* ticket, int nx, int ny, int nz, int nb,
+                   int x0, int x1, int y0, int y1, void* stream) {
+  if (nx < 1 || ny < 1 || nz < 1 || nb < 1 ||
+      (int64_t)nx * ny > 2147483647LL || (nz + kBZ - 1) / kBZ > 65535 ||
+      (nb + kBB - 1) / kBB > 65535 || x0 < 0 || x0 > x1 || x1 > nx ||
+      y0 < 0 || y0 > y1 || y1 > ny)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(partial);
+  unsigned* tk = static_cast<unsigned*>(ticket);
+  float* d = static_cast<float*>(dots);
+  if (dtype == 0)
+    launch<float>(mode, has_diag, p, wx, wy, wz, diag, b, out, part, tk, d, nx,
+                  ny, nz, nb, x0, x1, y0, y1, s);
+  else
+    launch<__nv_bfloat16>(mode, has_diag, p, wx, wy, wz, diag, b, out, part,
+                          tk, d, nx, ny, nz, nb, x0, x1, y0, y1, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -431,21 +464,22 @@ int seven_point_batch_launch(int mode, int dtype, int has_diag, const void* p,
                              const void* diag, const void* b, void* out,
                              void* partial, void* dots, void* ticket, int nx,
                              int ny, int nz, int nb, void* stream) {
-  if (nx < 1 || ny < 1 || nz < 1 || nb < 1 ||
-      (int64_t)nx * ny > 2147483647LL || (nz + kBZ - 1) / kBZ > 65535 ||
-      (nb + kBB - 1) / kBB > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(partial);
-  unsigned* tk = static_cast<unsigned*>(ticket);
-  float* d = static_cast<float*>(dots);
-  if (dtype == 0)
-    launch<float>(mode, has_diag, p, wx, wy, wz, diag, b, out, part, tk, d, nx,
-                  ny, nz, nb, s);
-  else
-    launch<__nv_bfloat16>(mode, has_diag, p, wx, wy, wz, diag, b, out, part,
-                          tk, d, nx, ny, nz, nb, s);
-  return (int)cudaGetLastError();
+  return checked_launch(mode, dtype, has_diag, p, wx, wy, wz, diag, b, out,
+                        partial, dots, ticket, nx, ny, nz, nb, 0, nx, 0, ny,
+                        stream);
+}
+
+// Apply-dot with the column window [x0, x1) × [y0, y1) of the dots
+// (0 <= x0 <= x1 <= nx, 0 <= y0 <= y1 <= ny; else cudaErrorInvalidValue);
+// the rest as seven_point_batch_launch's mode 2.
+int seven_point_batch_dot_launch(int dtype, const void* p, const void* wx,
+                                 const void* wy, const void* wz, void* out,
+                                 void* partial, void* dots, void* ticket,
+                                 int nx, int ny, int nz, int nb, int x0,
+                                 int x1, int y0, int y1, void* stream) {
+  return checked_launch(kApplyDot, dtype, 0, p, wx, wy, wz, nullptr, nullptr,
+                        out, partial, dots, ticket, nx, ny, nz, nb, x0, x1, y0,
+                        y1, stream);
 }
 
 }  // extern "C"

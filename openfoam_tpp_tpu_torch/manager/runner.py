@@ -24,19 +24,21 @@ the state only to cross its sharded jit, a boundary the port does not
 have).
 
 Positions on distinct cards run as ranks, one spawned process a position
-(parallel/ranks.py; OpenFOAM's `mpirun -np N foamRun -parallel`): each
-rank steps its x-slab of the 1-D x decomposition, or its x·y block of
-the 2-D one ('NxM', OpenFOAM's `hierarchical (N M 1)`), with the halo
-kernel islands on its own card (`_rank_run`), rank 0 reads a resumed
-state and scatters it, and gathers each checkpoint and the probe rows
-and writes them: the same files, with the same write times. NCCL joins
-ranks on distinct cards; `ranks=True` runs the ranks on positions that
-share a device too, under gloo. The 6DoF tank runs there as the orbital
-case does (rank 0 reads its motion table and broadcasts it), and so does
-any grid whose nx (and ny) divides into even slabs (and rows of blocks)
-of at least two cells, 8·N or not (a checkpoint's grid resumed on more
-cards). A grid that does not divide so raises ValueError before a
-process is spawned (`rank_choice`).
+(parallel/ranks.py; OpenFOAM's `mpirun -np N foamRun -parallel`): each rank
+steps its x-slab of the 1-D x decomposition, or its x·y block of the 2-D
+one ('NxM', OpenFOAM's `hierarchical (N M 1)`), with the halo kernel
+islands on its own card (`_rank_run`; OFTPP_SPMD_PALLAS=0, or the CPU
+without OFTPP_SPMD_PALLAS=interpret, runs the plain step on every block
+instead, and surface tension runs as on one device), rank 0 reads a resumed
+state and scatters it, and gathers each checkpoint and the probe rows and
+writes them: the same files, with the same write times. NCCL joins ranks on
+distinct cards; `ranks=True` runs the ranks on positions that share a
+device too, under gloo. The 6DoF tank runs there as the orbital case does
+(rank 0 reads its motion table and broadcasts it), and so does any grid
+whose nx (and ny) divides into even slabs (and rows of blocks) of at least
+two cells, 8·N or not (a checkpoint's grid resumed on more cards). A grid
+that does not divide so raises ValueError before a process is spawned
+(`rank_choice`).
 
 OFTPP_DEBUG_NANS=1 runs `run_case` under utils/nan_trap.py's trap: the
 first operation or kernel that outputs a NaN raises FloatingPointError
@@ -537,16 +539,20 @@ def _time_loop(case_dir, params, geom, controls, advance, case_params, state,
     return stats
 
 
-def rank_choice(params: dict, shape, d_x: int, d_y: int, dev) -> str:
+def rank_choice(params: dict, shape, d_x: int, d_y: int, dev,
+                props: PhysicalProperties = PhysicalProperties()) -> str:
     """What the ranks run for a case on a (d_x, d_y) mesh of one process a
     position ('what runs', for the run's log): the 1-D x decomposition,
-    or with d_y > 1 the 2-D x·y one, with the kernel islands, the orbital
-    case and the 6DoF tank alike, on any nx that divides into d_x even
-    x-slabs of at least MAX_HALO planes and any ny that divides into d_y
-    even rows of blocks of at least MAX_HALO (the JAX package's 8·N
-    rounding is its kernels' need, not the islands'). The islands turned
-    off raise NotImplementedError; a grid that does not divide so raises
-    ValueError, before any process is spawned."""
+    or with d_y > 1 the 2-D x·y one, the orbital case and the 6DoF tank
+    alike, on any nx that divides into d_x even x-slabs of at least
+    MAX_HALO planes and any ny that divides into d_y even rows of blocks
+    of at least MAX_HALO (the JAX package's 8·N rounding is its kernels'
+    need, not the islands'). With the kernel islands where
+    `_spmd_kernels_wanted` (on a card, or OFTPP_SPMD_PALLAS=interpret),
+    else the plain step on every block (OFTPP_SPMD_PALLAS=0, or the CPU:
+    the JAX package's GSPMD-jnp route); with surface tension the CSF
+    terms run plain between the islands. A grid that does not divide so
+    raises ValueError, before any process is spawned."""
     # nx % d_x, ny % d_y, nxl or nyl < MAX_HALO: ValueError
     nxl, nyl = SpmdCtx(d_x, d_y).local_shape(shape)[:2]
     if nxl % 2:
@@ -560,16 +566,21 @@ def rank_choice(params: dict, shape, d_x: int, d_y: int, dev) -> str:
             f"{nyl} rows, an odd number (the multigrid's 2:1 pairs start "
             "within a rank)")
     if not _spmd_kernels_wanted(dev):
-        raise NotImplementedError(
-            "the kernel islands off (OFTPP_SPMD_PALLAS; on the CPU their "
-            "plain versions need OFTPP_SPMD_PALLAS=interpret) over ranks: "
-            "the rank form runs the islands' configuration only")
+        terms = ("the plain step on every block (OFTPP_SPMD_PALLAS=0)"
+                 if os.environ.get("OFTPP_SPMD_PALLAS") == "0" else
+                 "the plain step on every block (no card: the islands' "
+                 "plain versions need OFTPP_SPMD_PALLAS=interpret)")
+    elif d_y > 1:
+        terms = "halo kernel islands on y-extended blocks"
+    else:
+        terms = "halo kernel islands"
+    if props.sigma != 0.0:
+        terms += f", surface tension σ = {props.sigma:g} N/m (CSF plain)"
     if d_y > 1:
         return (f"x·y-sharded step over {d_x}x{d_y} ranks (y fastest), "
-                f"blocks of nxl x nyl = {nxl} x {nyl} cells (halo kernel "
-                "islands on y-extended blocks)")
+                f"blocks of nxl x nyl = {nxl} x {nyl} cells ({terms})")
     return (f"x-sharded step over {d_x} ranks, x-slabs of nxl = {nxl} "
-            "planes (halo kernel islands)")
+            f"planes ({terms})")
 
 
 def _run_case_ranks(case_dir, props, controls, log, write_checkpoints,
@@ -585,7 +596,7 @@ def _run_case_ranks(case_dir, props, controls, log, write_checkpoints,
     d_x, d_y = sh.parse_devices(devices)
     geom = build_case_geometry(params, _case_shape_hint(case_dir),
                                devices=devices, device=positions[0])
-    what = rank_choice(params, geom.shape, d_x, d_y, positions[0])
+    what = rank_choice(params, geom.shape, d_x, d_y, positions[0], props)
     backend = rk.backend_for(positions)
     shared = len(set(positions)) < len(positions)
     log(_mesh_line(geom, params)
@@ -604,11 +615,13 @@ def _run_case_ranks(case_dir, props, controls, log, write_checkpoints,
 def _rank_run(ctx, log, case_dir, props, controls, write_checkpoints,
               devices):
     """One rank of `run_case`: the sharded step (`SpmdCtx(d_x, d_y,
-    ranks=ctx)`, ctx on the (d_x, d_y) rank grid) on this rank's block,
-    with the case's motion table for a 6DoF case; rank 0 reads the
-    resumed state (or fills the tank) and scatters it, gathers each
-    checkpoint and the probe rows and writes them. Returns {"stats" (rank 0's run stats), "ranks": {exchange stats,
-    kernel launches, p_iters of every step, the motion table's digest}}."""
+    ranks=ctx)`, ctx on the (d_x, d_y) rank grid) on this rank's block, its
+    kernel islands on where `_spmd_kernels_wanted` (else the plain step on
+    the block), with the case's motion table for a 6DoF case; rank 0 reads
+    the resumed state (or fills the tank) and scatters it, gathers each
+    checkpoint and the probe rows and writes them. Returns {"stats" (rank
+    0's run stats), "ranks": {exchange stats, kernel launches, p_iters of
+    every step, the motion table's digest}}."""
     from openfoam_tpp_tpu_torch.parallel import ranks as rk
     from openfoam_tpp_tpu_torch.post.probes import make_rank_sampler
 
@@ -620,7 +633,8 @@ def _rank_run(ctx, log, case_dir, props, controls, write_checkpoints,
     hint = ctx.broadcast(None if chk is None else tuple(
         load_checkpoint(chk[1])["alpha"].shape))
     geom = build_case_geometry(params, hint, devices=devices, device=dev)
-    controls = dataclasses.replace(controls, use_pallas=True)
+    controls = dataclasses.replace(controls,
+                                   use_pallas=_spmd_kernels_wanted(dev))
     k_env = os.environ.get("OFTPP_PRECOND_REFRESH")
     if k_env is not None:
         controls = dataclasses.replace(controls, precond_refresh=int(k_env))

@@ -18,15 +18,17 @@ kernel launches in `.launches`. Every call is one launch: the dots of
 the device's ticket counter (`_build.ticket`).
 
 Parameter sweeps stack many cases on a trailing axis: (nx, ny, nz, B).
-`apply_7pt`, `resid_scaled_7pt` and `apply_dot_7pt` dispatch on rank:
-rank 3 to the kernels above, rank 4 to the batch-native entry points
+`apply_7pt`, `resid_scaled_7pt` and `apply_dot_7pt` dispatch on rank: rank
+3 to the kernels above, rank 4 to the batch-native entry points
 `apply_7pt_nb`, `resid_scaled_7pt_nb` and `apply_dot_7pt_nb`
 (csrc/seven_point_batch.cu; port of
 openfoam_tpp_tpu/ops/pallas/seven_point_batch.py), each with its own
-`.launches`. The case axis never shifts, so no case reads another's
-data, and the dot of `apply_dot_7pt_nb` is per case, shape (B,), finished
-inside its one launch through the device's ticket counters (one per 32
-cases). The plain versions take either rank. The cheb2 smoothers are
+`.launches`. The case axis never shifts, so no case reads another's data,
+and the dot of `apply_dot_7pt_nb` is per case, shape (B,), finished inside
+its one launch through the device's ticket counters (one per 32 cases); its
+`window` restricts the dots to a window of (x, y) columns (what a rank of a
+sweep farmed over ranks owns of its extended block, parallel/spmd.py
+`XYBlock`). The plain versions take either rank. The cheb2 smoothers are
 single-grid only: on rank 4 the solver runs two sweeps as batch-kernel
 passes.
 """
@@ -86,10 +88,25 @@ def resid_scaled_7pt_plain(p, split, diag, b):
     return out.to(p.dtype)
 
 
-def apply_dot_7pt_plain(p, split):
+def _columns(window, shape):
+    """((x0, x1), (y0, y1)) of a column window, `None` the full one;
+    raises outside the grid's nx × ny columns."""
+    nx, ny = shape[0], shape[1]
+    (x0, x1), (y0, y1) = ((0, nx), (0, ny)) if window is None else window
+    if not (0 <= x0 <= x1 <= nx and 0 <= y0 <= y1 <= ny):
+        raise ValueError(f"column window {window} outside the grid's "
+                         f"{nx} x {ny} columns")
+    return (int(x0), int(x1)), (int(y0), int(y1))
+
+
+def apply_dot_7pt_plain(p, split, window=None):
     nb, c = _nb_sum_plain(p, split)
     ap = (c - nb).to(p.dtype)
-    return ap, sum_cells(c * ap.float())
+    prod = c * ap.float()
+    if window is not None:
+        (x0, x1), (y0, y1) = _columns(window, p.shape)
+        prod = prod[x0:x1, y0:y1]
+    return ap, sum_cells(prod)
 
 
 def cheb_coefs(lmax, lmin_frac):
@@ -247,27 +264,37 @@ def _batch_lib():
         lib.seven_point_batch_launch.restype = ci
         lib.seven_point_batch_num_partials.argtypes = [ci] * 3
         lib.seven_point_batch_num_partials.restype = ci
+        lib.seven_point_batch_dot_launch.argtypes = ([ci] + [vp] * 8
+                                                     + [ci] * 8 + [vp])
+        lib.seven_point_batch_dot_launch.restype = ci
         lib._typed = True
     return lib
 
 
-def _batch_launch(mode, p, split, diag=None, b=None):
+def _batch_launch(mode, p, split, diag=None, b=None, window=None):
     lib = _batch_lib()
     out = torch.empty_like(p)
     nx, ny, nz, nb = p.shape
-    partial = dots = ticket = None
-    if mode == _APPLY_DOT:
-        partial = torch.empty(
-            (lib.seven_point_batch_num_partials(nx, ny, nz), nb),
-            dtype=torch.float32, device=p.device)
-        dots = torch.empty((nb,), dtype=torch.float32, device=p.device)
-        ticket = _build.ticket(p.device, -(-nb // 32))
     nul = ctypes.c_void_p(None)
     opt = lambda t: nul if t is None else _build.ptr(t)
-    rc = lib.seven_point_batch_launch(
-        mode, _DTYPES[p.dtype], int(diag is not None), _build.ptr(p),
-        *(_build.ptr(w) for w in split), opt(diag), opt(b), _build.ptr(out),
-        opt(partial), opt(dots), opt(ticket), nx, ny, nz, nb,
+    if mode != _APPLY_DOT:
+        rc = lib.seven_point_batch_launch(
+            mode, _DTYPES[p.dtype], int(diag is not None), _build.ptr(p),
+            *(_build.ptr(w) for w in split), opt(diag), opt(b),
+            _build.ptr(out), nul, nul, nul, nx, ny, nz, nb,
+            _build.stream_of(p))
+        _build.check(rc, "seven_point_batch", out)
+        return out, None
+    (x0, x1), (y0, y1) = _columns(window, p.shape)
+    partial = torch.empty(
+        (lib.seven_point_batch_num_partials(nx, ny, nz), nb),
+        dtype=torch.float32, device=p.device)
+    dots = torch.empty((nb,), dtype=torch.float32, device=p.device)
+    ticket = _build.ticket(p.device, -(-nb // 32))
+    rc = lib.seven_point_batch_dot_launch(
+        _DTYPES[p.dtype], _build.ptr(p), *(_build.ptr(w) for w in split),
+        _build.ptr(out), _build.ptr(partial), _build.ptr(dots),
+        _build.ptr(ticket), nx, ny, nz, nb, x0, x1, y0, y1,
         _build.stream_of(p))
     _build.check(rc, "seven_point_batch", out, dots)
     return out, dots
@@ -293,13 +320,15 @@ def resid_scaled_7pt_nb(p, split, diag, b):
     return out
 
 
-def apply_dot_7pt_nb(p, split):
+def apply_dot_7pt_nb(p, split, window=None):
     """(Â·p, per-case p·Â·p) on a batched grid; the dots are a (B,) f32
-    tensor on p's device."""
+    tensor on p's device. `window` ((x0, x1), (y0, y1)): the dots over
+    the cells of those (x, y) columns only (Â·p everywhere); `None` is
+    the full window, bitwise the call without one."""
     if _build.route(p, "apply_dot_7pt_nb") == "cpu":
-        return apply_dot_7pt_plain(p, split)
+        return apply_dot_7pt_plain(p, split, window)
     _check(p, split, rank=4)
-    out, dots = _batch_launch(_APPLY_DOT, p, split)
+    out, dots = _batch_launch(_APPLY_DOT, p, split, window=window)
     apply_dot_7pt_nb.launches += 1
     return out, dots
 

@@ -17,10 +17,14 @@ the block it opens: there every x- or y-neighbour access at a block's
 interior boundary takes the neighbour rank's plane or row (one
 `exchange` a call, along that axis), the clamp or the zero stays at the
 global ends alone, and the three cell reductions reduce over all the
-ranks. The same operands meet in the same order as on the whole grid,
+ranks of the rank's case group (all the ranks but in a sweep farmed over
+a (C, N, M) rank grid, where each case position's ranks reduce its own
+cases). The same operands meet in the same order as on the whole grid,
 so every value but the reductions' is the whole grid's, bit for bit.
 With one rank along y (the 1-D x decomposition) nothing crosses ranks
-along y. `rank_block(None)` closes it again for code that works on
+along y. `pad` is the padding such code takes: a zero or clamp plane at
+a global end, the neighbour's plane at an interior boundary.
+`rank_block(None)` closes it again for code that works on
 whole arrays (the kernels' plain versions, the gathered multigrid
 levels).
 """
@@ -128,6 +132,28 @@ def shift_both(a, axis):
                        a[_sl(axis, slice(0, -1))]], dim=axis),
             torch.cat([a[_sl(axis, slice(1, None))],
                        last if hi is None else hi], dim=axis))
+
+
+def pad(a, axis, edge="zero"):
+    """`a` with one plane (axis 0) or row (axis 1) more at each end of
+    `axis` — zeros (`edge="zero"`) or a copy of the end plane
+    (`edge="clamp"`) at a global end, the neighbour rank's plane or row
+    at a block's interior boundary (one exchange). `a` is cell-shaped
+    along `axis` and may have any number of dimensions from axis + 1 on
+    (the height function's 2-D column arrays, with or without a case
+    axis); axis 2 pads at the ends alone."""
+    n = a.shape[axis]
+    lo, hi = a.narrow(axis, 0, 1), a.narrow(axis, n - 1, 1)
+    ends = (lo, hi)
+    if edge == "zero":
+        ends = (torch.zeros_like(lo), torch.zeros_like(hi))
+    elif edge != "clamp":
+        raise ValueError(f"pad: edge {edge!r} (zero or clamp)")
+    if _along(axis):
+        g_lo, g_hi = _X[0].exchange(lo, hi, axis=axis)
+        ends = (ends[0] if g_lo is None else g_lo,
+                ends[1] if g_hi is None else g_hi)
+    return torch.cat([ends[0], a, ends[1]], dim=axis)
 
 
 def next_plane(a, axis=0):

@@ -27,9 +27,18 @@ crosses ranks:
 
 Layout. The ranks form an (N, M) grid, N along x and M along y, in the
 order r = ix·M + iy (y fastest); `grid` defaults to (world, 1), the 1-D
-x decomposition. The grid's nx cells split into N slabs of nxl = nx/N
-planes and its ny cells into M rows of nyl = ny/M; rank r holds cells
-[ix·nxl, (ix+1)·nxl) × [iy·nyl, (iy+1)·nyl) × all of z. An x-face array
+x decomposition. A sweep farmed over ranks adds a case axis in front:
+a (C, N, M) grid, r = ic·N·M + ix·M + iy, where each of the C case
+groups (the N·M ranks of one case position) holds its slice of the
+batch's cases and cuts it into x·y blocks as above. Neighbours, cuts,
+blocks, whole-array gathers and scatters and the reductions stay within
+the rank's case group (one process group a case position, made by
+`make_groups`); only the lockstep minima of a sweep reduce over the
+whole world (`all_reduce(..., world=True)`). A (C, N, M) grid with C = 1
+is the (N, M) grid, bit for bit. The grid's nx cells split into N slabs
+of nxl = nx/N planes and its ny cells into M rows of nyl = ny/M; rank r
+holds cells [ix·nxl, (ix+1)·nxl) × [iy·nyl, (iy+1)·nyl) × all of z. An
+x-face array
 (nx + 1 planes) keeps nxl + 1 planes on every rank: its block's lower
 faces and the next block's first face, which the two ranks hold alike
 (the global face-nx wall plane is the last rank's); a y-face array
@@ -63,6 +72,7 @@ import os
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -125,8 +135,10 @@ class ExchangeStats:
 class RankCtx:
     """This process's place among the ranks: its rank, the world size,
     its torch.device, the backend of the default process group and the
-    (N, M) rank grid (default (world, 1)); rank r sits at
-    (ix, iy) = (r // M, r % M)."""
+    rank grid: (N, M) (default (world, 1)), or (C, N, M) with C case
+    positions in front, which sets `cases` = C and `grid` = (N, M). Rank
+    r sits at case position ic = r // (N·M) and, within its case group,
+    at (ix, iy) = (l // M, l % M), l = r % (N·M)."""
 
     rank: int
     world: int
@@ -134,26 +146,62 @@ class RankCtx:
     backend: str
     stats: ExchangeStats = dataclasses.field(default_factory=ExchangeStats)
     grid: tuple = None
+    cases: int = 1
+    # The case group's process group (None: the world's, with C = 1).
+    group: object = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         if self.grid is None:
-            self.grid = (self.world, 1)
-        self.grid = tuple(int(g) for g in self.grid)
-        if len(self.grid) != 2 or self.grid[0] * self.grid[1] != self.world:
-            raise ValueError(f"a rank grid {self.grid} for {self.world} "
-                             "ranks: N·M must be the world size")
+            self.grid = (self.world // self.cases, 1)
+        grid = tuple(int(g) for g in self.grid)
+        if len(grid) == 3:
+            self.cases, grid = grid[0], grid[1:]
+        self.grid = grid
+        if (len(grid) != 2
+                or self.cases * grid[0] * grid[1] != self.world):
+            shown = (self.cases, *grid) if self.cases > 1 else grid
+            raise ValueError(
+                f"a rank grid {shown} for {self.world} ranks: N·M must be "
+                "the world size (C·N·M with C case positions in front)")
+
+    @property
+    def group_size(self) -> int:
+        """N·M: the ranks of one case position."""
+        return self.grid[0] * self.grid[1]
+
+    @property
+    def ic(self) -> int:
+        """This rank's case position."""
+        return self.rank // self.group_size
+
+    @property
+    def lead(self) -> int:
+        """The first rank of this rank's case group."""
+        return self.ic * self.group_size
 
     @property
     def ix(self) -> int:
-        return self.rank // self.grid[1]
+        return (self.rank - self.lead) // self.grid[1]
 
     @property
     def iy(self) -> int:
-        return self.rank % self.grid[1]
+        return (self.rank - self.lead) % self.grid[1]
+
+    def make_groups(self):
+        """One process group a case position (every rank takes part, in
+        the same order); nothing with one case position, whose group is
+        the world."""
+        if self.cases > 1 and self.group is None:
+            n = self.group_size
+            for c in range(self.cases):
+                g = dist.new_group(list(range(c * n, (c + 1) * n)))
+                if c == self.ic:
+                    self.group = g
+        return self
 
     def neighbours(self, axis: int = 0):
         """(lo, hi): the ranks below and above this one along x (axis 0)
-        or y (axis 1), None at a global end."""
+        or y (axis 1) within its case group, None at a global end."""
         n, m = self.grid
         if axis == 0:
             return (self.rank - m if self.ix > 0 else None,
@@ -228,33 +276,34 @@ class RankCtx:
         self.stats.seconds += time.perf_counter() - t0
         return out[0], out[1]
 
-    def all_gather(self, t):
-        """Every rank's `t` (same shape everywhere), in rank order, on
-        this rank's device."""
+    def all_gather(self, t, world: bool = False):
+        """Every rank's `t` of the case group (of the `world`), same
+        shape everywhere, in rank order, on this rank's device."""
         t0 = time.perf_counter()
-        parts = self._gather(t)
+        parts = self._gather(t, world)
         self.stats.gathers += 1
         self.stats.seconds += time.perf_counter() - t0
         return parts
 
-    def _gather(self, t):
-        """`all_gather` uncounted: `t` travels as bytes, so any dtype
-        crosses bit for bit (gloo's gather refuses some, int16 among
-        them)."""
+    def _gather(self, t, world: bool = False):
+        """`all_gather` uncounted, over the case group (or the `world`):
+        `t` travels as bytes, so any dtype crosses bit for bit (gloo's
+        gather refuses some, int16 among them)."""
         wire = self._staged(t.contiguous().reshape(-1).view(torch.uint8))
-        parts = [torch.empty_like(wire) for _ in range(self.world)]
-        dist.all_gather(parts, wire)
+        n = self.world if world else self.group_size
+        parts = [torch.empty_like(wire) for _ in range(n)]
+        dist.all_gather(parts, wire, group=None if world else self.group)
         return [self._back(p).view(t.dtype).reshape(t.shape) for p in parts]
 
-    def all_reduce(self, *ts, op: str = "sum"):
-        """The sum, max or min over the ranks of each 0-d (or equally
-        shaped) tensor in `ts`, in one collective: the partials are
-        gathered and combined in rank order on every rank (a NaN
-        propagates, as torch.maximum does). One tensor in, one out;
-        several in, a tuple out."""
+    def all_reduce(self, *ts, op: str = "sum", world: bool = False):
+        """The sum, max or min over the ranks of the case group (every
+        rank with `world`) of each 0-d (or equally shaped) tensor in
+        `ts`, in one collective: the partials are gathered and combined
+        in rank order on every rank (a NaN propagates, as torch.maximum
+        does). One tensor in, one out; several in, a tuple out."""
         t0 = time.perf_counter()
         flat = torch.stack([t.reshape(-1) for t in ts])
-        parts = self._gather(flat)
+        parts = self._gather(flat, world)
         if op == "sum":
             total = parts[0]
             for p in parts[1:]:
@@ -275,11 +324,12 @@ class RankCtx:
     def cut(self, t, n: int, axis: int, rank: int | None = None,
             dim: int | None = None):
         """This rank's (or `rank`'s) part along grid `axis` (0: x, 1: y)
+        of its case group
         of a global array of `n` cells there (or n + 1 faces: the block's
         faces and the next block's first), cut along its dimension `dim`
         (default `axis`; 0 for a 1-D coordinate array). Works on tensors
         and numpy arrays."""
-        r = self.rank if rank is None else rank
+        r = (self.rank if rank is None else rank) % self.group_size
         i = r // self.grid[1] if axis == 0 else r % self.grid[1]
         dim = axis if dim is None else dim
         nl = n // self.grid[axis]
@@ -297,7 +347,9 @@ class RankCtx:
         return self.cut(t, shape[1], 1, rank) if t.ndim > 1 else t
 
     def gather_block(self, t, faces: int | None = None):
-        """The global array from every rank's block, on every rank.
+        """The global array from the blocks of the case group's ranks, on
+        each of them (any trailing dimensions, a batch's cases among
+        them, carried).
         `faces` (0 or 1): `t` is a face array along that axis, whose
         blocks drop the plane or row their upper neighbour holds too."""
         t0 = time.perf_counter()
@@ -316,13 +368,14 @@ class RankCtx:
         return torch.cat(cols, 0)
 
     def scatter_block(self, g, shape, dtype, gshape):
-        """Rank 0's global array `g` (None on other ranks) on a grid of
-        `gshape` cells cut into blocks: each rank returns its own,
-        `shape` and `dtype` (the block's), on its device."""
+        """The case group's first rank's global array `g` (None on the
+        other ranks) on a grid of `gshape` cells cut into blocks: each
+        rank of the group returns its own, `shape` and `dtype` (the
+        block's), on its device."""
         t0 = time.perf_counter()
-        if self.rank == 0:
+        if self.rank == self.lead:
             g = g.to(self.device)
-            for r in range(1, self.world):
+            for r in range(self.lead + 1, self.lead + self.group_size):
                 part = self.block(g, gshape, rank=r)
                 dist.send(self._staged(part.contiguous()), r)
             out = self.block(g, gshape).contiguous()
@@ -330,16 +383,19 @@ class RankCtx:
             buf = torch.empty(shape, dtype=dtype,
                               device="cpu" if self.backend == "gloo"
                               else self.device)
-            dist.recv(buf, 0)
+            dist.recv(buf, self.lead)
             out = self._back(buf)
         self.stats.gathers += 1
         self.stats.seconds += time.perf_counter() - t0
         return out
 
-    def broadcast(self, obj):
-        """Rank 0's picklable `obj` on every rank."""
-        box = [obj if self.rank == 0 else None]
-        dist.broadcast_object_list(box, src=0)
+    def broadcast(self, obj, group: bool = False):
+        """Rank 0's picklable `obj` on every rank (with `group`, the case
+        group's first rank's on the group's ranks)."""
+        src = self.lead if group else 0
+        box = [obj if self.rank == src else None]
+        dist.broadcast_object_list(box, src=src,
+                                   group=self.group if group else None)
         return box[0]
 
 
@@ -349,9 +405,9 @@ _CELL_FIELDS = ("alpha", "p", "w")
 
 
 def scatter_state(state, shape, ranks: RankCtx):
-    """Rank 0's global SimState (None elsewhere) as every rank's block
-    state on its device: each field cut by cells, or by faces along its
-    own axis, the scalars whole."""
+    """The case group's first rank's global SimState (None elsewhere) as
+    every rank's block state on its device: each field cut by cells, or
+    by faces along its own axis, the scalars whole."""
     from openfoam_tpp_tpu_torch.core.state import SimState
 
     nx, ny, nz = shape
@@ -365,14 +421,14 @@ def scatter_state(state, shape, ranks: RankCtx):
          for k, s in shapes.items()}
     scalars = ranks.broadcast(None if state is None else
                               {k: getattr(state, k).cpu()
-                               for k in ("t", "dt", "step")})
+                               for k in ("t", "dt", "step")}, group=True)
     return SimState(**f, **{k: v.to(ranks.device)
                             for k, v in scalars.items()})
 
 
 def gather_state(state, ranks: RankCtx):
-    """The global SimState on the CPU from every rank's block (every rank
-    takes part; all get it)."""
+    """The global SimState on the CPU from the blocks of the case group's
+    ranks (every rank of the group takes part; all get it)."""
     from openfoam_tpp_tpu_torch.core.state import SimState
 
     f = {k: ranks.gather_block(getattr(state, k)).cpu()
@@ -418,7 +474,7 @@ def _rank_main(i, world, positions, backend, store_path, fn, args, queue,
         world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
     try:
         ctx = RankCtx(rank=i, world=world, device=dev, backend=backend,
-                      grid=grid)
+                      grid=grid).make_groups()
 
         def log(line):
             if i == 0:
@@ -433,11 +489,12 @@ def launch(fn, positions, args=(), log=print, timeout_s: int = TIMEOUT_S,
            grid=None):
     """Run `fn(ctx, log, *args)` on one spawned process per position
     (a torch.device or its name) and return each rank's result, in rank
-    order. `grid` (N, M): the ranks' x·y grid, N·M positions in the
-    order r = ix·M + iy (default (N, 1)). `fn` and `args` are pickled: `fn` must be a module-level
-    function. Rank 0's `log(line)` calls reach `log` here while the ranks
-    run. A rank that raises, or dies, ends the launch with RuntimeError
-    naming the rank; the other ranks are stopped."""
+    order. `grid` (N, M): the ranks' x·y grid, N·M positions in the order r
+    = ix·M + iy (default (N, 1)); (C, N, M): C case positions of such
+    grids, r = ic·N·M + ix·M + iy. `fn` and `args` are pickled: `fn` must
+    be a module-level function. Rank 0's `log(line)` calls reach `log` here
+    while the ranks run. A rank that raises, or dies, ends the launch with
+    RuntimeError naming the rank; the other ranks are stopped."""
     positions = [torch.device(p) for p in positions]
     world = len(positions)
     backend = backend_for(positions)
@@ -448,10 +505,11 @@ def launch(fn, positions, args=(), log=print, timeout_s: int = TIMEOUT_S,
         _build.build_all()
     shared = len(set(positions)) < world
     grid = (world, 1) if grid is None else tuple(int(g) for g in grid)
-    if grid[0] * grid[1] != world:
+    if len(grid) not in (2, 3) or int(np.prod(grid)) != world:
         raise ValueError(f"a rank grid {grid} for {world} positions")
     log(f"  ranks: {world} processes"
-        + (f" ({grid[0]}x{grid[1]}, y fastest)" if grid[1] > 1 else "")
+        + (f" ({'x'.join(map(str, grid))}, y fastest)"
+           if grid[-1] > 1 or len(grid) == 3 else "")
         + " on "
         f"{', '.join(str(p) for p in positions)}, backend {backend}"
         + (" (ranks share a device: gloo, CUDA tensors through the host)"

@@ -24,6 +24,17 @@ position, and drives every position itself.
     ranks, one process a position (parallel/ranks.py), and here they
     raise NotImplementedError.
 
+  * Over ranks (the JAX package's multi-controller form, every process
+    running the same program): with `ranks=` (a parallel.ranks.RankCtx
+    on a (C, N, M) rank grid, one process a mesh position, from
+    `ranks.launch(fn, positions, grid=(C, N, M))`) every rank holds the
+    whole batch as its input and `shard_state` keeps its case
+    position's slice of the case axis cut to its x·y block; the step,
+    `make_sweep_step(..., spmd=SpmdCtx(N, M, ranks=ctx))`, steps that
+    block with the minima over every rank, and `gather` brings the whole
+    batch back to rank 0. A case axis beside spatial positions on
+    distinct cards runs this way.
+
 Several positions share one card only through an explicit device list
 that repeats it, as JAX's virtual CPU devices share the host. The parts
 are SimStates: the JAX package packs its state (parallel/packed.py) only
@@ -37,6 +48,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from openfoam_tpp_tpu_torch.ops import stencil as st
 from openfoam_tpp_tpu_torch.parallel.sweep import lockstep_step, on_device
 
 AXIS_NAMES = ("case", "x", "y")
@@ -114,9 +126,10 @@ def case_devices(mesh: DeviceMesh) -> list[torch.device]:
                 f"({[str(d) for d in devs]}) in one process: spatial "
                 "positions on distinct cards run as ranks, one process a "
                 "position (run_case(devices=N or 'NxM'), parallel/ranks.py; "
-                "a case axis beside them on distinct cards is not ported, "
-                "ROADMAP.md §1 item 2); repeat one device along x and y "
-                "(devices=['cuda:0'] * N) to run them in one process")
+                "a case axis beside them through ranks.launch(fn, "
+                "positions, grid=(C, N, M)) and this module's ranks= form); "
+                "repeat one device along x and y (devices=['cuda:0'] * N) "
+                "to run them in one process")
         out.append(devs[0])
     return out
 
@@ -126,14 +139,18 @@ class CaseSharding:
     """Which slice of the case axis each case position holds, and on which
     device. With `batched`, grid leaves (dim > 1) split on their trailing
     case axis and (B,) leaves on dim 0; unbatched, the one position holds
-    the whole tree."""
+    the whole tree. With `ranks` (a RankCtx): this rank's part alone, its
+    case position's slice cut to its x·y block of a grid of `shape`
+    cells."""
 
     devices: tuple
     batched: bool
+    ranks: object = None
+    shape: tuple = None
 
     def slices(self, n: int) -> list[slice]:
         """Each position's cases out of a batch of n."""
-        k = len(self.devices)
+        k = len(self.devices) if self.ranks is None else self.ranks.cases
         if n % k:
             raise ValueError(f"{n} cases do not divide over {k} case "
                              "positions")
@@ -141,7 +158,10 @@ class CaseSharding:
 
     def put(self, tree) -> list:
         """One part of `tree` (a dataclass of tensors) per position, each
-        contiguous on its position's device."""
+        contiguous on its position's device; over ranks a list of this
+        rank's part alone."""
+        if self.ranks is not None:
+            return [self._rank_part(tree)]
         if not self.batched:
             return [_tree_map(lambda a: a.to(self.devices[0]), tree)]
         # The case count: a state's t, or a CaseParams' first (B,) leaf.
@@ -156,8 +176,26 @@ class CaseSharding:
         return [part(sl, dev) for sl, dev in zip(self.slices(n),
                                                   self.devices)]
 
+    def _rank_part(self, tree):
+        """This rank's case slice of `tree`, its grid leaves cut to the
+        rank's x·y block (face leaves keep their shared plane or row)."""
+        r = self.ranks
+        first = getattr(tree, dataclasses.fields(tree)[0].name)
+        n = getattr(tree, "t", first).shape[0]
+        sl = self.slices(n)[r.ic]
+
+        def part(a):
+            a = a[sl] if a.dim() <= 1 else r.block(a[..., sl], self.shape)
+            return a.contiguous().to(r.device)
+
+        return _tree_map(part, tree)
+
     def gather(self, parts, device="cpu"):
-        """The inverse of `put`: one tree on `device`."""
+        """The inverse of `put`: one tree on `device`. Over ranks every
+        rank takes part and rank 0 gets the whole batch (the others
+        None)."""
+        if self.ranks is not None:
+            return self._rank_gather(parts[0], device)
         if not self.batched:
             return _tree_map(lambda a: a.to(device), parts[0])
         fields = [f.name for f in dataclasses.fields(parts[0])]
@@ -167,15 +205,58 @@ class CaseSharding:
             for k in fields})
 
 
+    def _rank_gather(self, part, device):
+        r = self.ranks
+        shape = getattr(part, "alpha", None)
+        shape = None if shape is None else tuple(shape.shape)
+
+        def faces(a):
+            if shape is None or a.dim() <= 1:
+                return None
+            return (0 if a.shape[0] == shape[0] + 1
+                    else 1 if a.shape[1] == shape[1] + 1 else None)
+
+        whole = {}
+        for f in dataclasses.fields(part):
+            a = getattr(part, f.name)
+            if a.dim() > 1:
+                a = r.gather_block(a, faces(a))
+            # Every case position's slice, in case order, on every rank.
+            cuts = r.all_gather(a, world=True)
+            whole[f.name] = (torch.cat(
+                [c.to(device) for c in cuts[::r.group_size]],
+                0 if a.dim() <= 1 else -1) if r.rank == 0 else None)
+        return type(part)(**whole) if r.rank == 0 else None
+
+
 def _tree_map(fn, tree):
     return type(tree)(**{f.name: fn(getattr(tree, f.name))
                          for f in dataclasses.fields(tree)})
 
 
-def state_sharding(mesh: DeviceMesh, batched: bool = False) -> CaseSharding:
+def _rank_mesh(mesh: DeviceMesh, ranks):
+    """Check that `mesh` is the rank grid of `ranks`: (C, N, M)."""
+    want = (ranks.cases, *ranks.grid)
+    if tuple(mesh.devices.shape) != want:
+        raise ValueError(f"a {mesh.devices.shape} mesh over ranks on a "
+                         f"{want} rank grid: one rank a mesh position")
+
+
+def state_sharding(mesh: DeviceMesh, batched: bool = False, ranks=None,
+                   shape=None) -> CaseSharding:
     """The sharding of a state (or, as `params_sharding`, of CaseParams):
     with `batched`, the case axis over the `case` mesh axis. The x and y
-    axes are computed whole on their one device (module docstring)."""
+    axes are computed whole on their one device (module docstring).
+    `ranks` (a RankCtx whose (C, N, M) grid is the mesh's, one process a
+    position): this rank's case slice of a batch on a grid of `shape`
+    cells (nx, ny, nz), cut to its x·y block."""
+    if ranks is not None:
+        _rank_mesh(mesh, ranks)
+        if not batched:
+            raise ValueError("over ranks the case axis is farmed: a batched "
+                             "state only (batched=True)")
+        return CaseSharding(devices=(ranks.device,), batched=True,
+                            ranks=ranks, shape=shape)
     devs = case_devices(mesh)
     if not batched and len(devs) > 1:
         raise ValueError(
@@ -187,10 +268,13 @@ def state_sharding(mesh: DeviceMesh, batched: bool = False) -> CaseSharding:
 params_sharding = state_sharding
 
 
-def shard_state(state, mesh: DeviceMesh, batched: bool = False) -> list:
+def shard_state(state, mesh: DeviceMesh, batched: bool = False,
+                ranks=None) -> list:
     """A SimState split over the mesh's case positions, each part on its
-    position's device: the form `sharded_step` takes and returns."""
-    return state_sharding(mesh, batched).put(state)
+    position's device: the form `sharded_step` takes and returns. With
+    `ranks`: [this rank's part], its case slice cut to its x·y block."""
+    shape = None if ranks is None else tuple(state.alpha.shape[:3])
+    return state_sharding(mesh, batched, ranks, shape).put(state)
 
 
 def shard_batched_geometry(bgeom, mesh: DeviceMesh) -> list:
@@ -211,12 +295,19 @@ class ShardedStep:
     and returns (parts', diags), a list each. The parts stay on their
     devices from step to step; `sharding.gather` joins them."""
 
-    def __init__(self, steps: list, mesh: DeviceMesh, batched: bool):
+    def __init__(self, steps: list, mesh: DeviceMesh, batched: bool,
+                 ranks=None):
         self.steps, self.mesh, self.batched = steps, mesh, batched
-        self.sharding = state_sharding(mesh, batched)
+        self.ranks = ranks
+        self.sharding = state_sharding(mesh, batched, ranks)
 
     def __call__(self, parts: list, params_parts: list, t_stop=None):
         locks = [getattr(s, "lockstep", None) for s in self.steps]
+        if self.ranks is not None:
+            block = parts[0].alpha.shape
+            with st.rank_block(self.ranks, block[0], block[1]):
+                return lockstep_step(locks, parts, params_parts, t_stop,
+                                     ranks=self.ranks)
         if None in locks:
             out = []
             for s, p, q in zip(self.steps, parts, params_parts):
@@ -227,14 +318,28 @@ class ShardedStep:
         return lockstep_step(locks, parts, params_parts, t_stop)
 
 
-def sharded_step(step_fn, mesh: DeviceMesh, batched: bool = False
-                 ) -> ShardedStep:
+def sharded_step(step_fn, mesh: DeviceMesh, batched: bool = False,
+                 ranks=None) -> ShardedStep:
     """The step over the mesh: every case position's part stepped on its
     device. `step_fn`: one step (a sweep step takes parts on any device
     when it was built by `make_sweep_step`), or one per case position (a
     geometry sweep's, each built on its part's BatchedGeometry). Sweep
     steps keep lockstep across positions: the batch minima of dt are
-    taken over every part, as GSPMD's global minimum does."""
+    taken over every part, as GSPMD's global minimum does.
+
+    `ranks` (the RankCtx of a (C, N, M) rank grid that is the mesh's):
+    this rank's part, from `shard_state(..., ranks=)`, stepped under the
+    stencil's rank block by `step_fn` =
+    `make_sweep_step(..., spmd=SpmdCtx(N, M, ranks=ctx))`, the lockstep
+    minima over every rank. The geometry sweep has no rank form."""
+    if ranks is not None:
+        _rank_mesh(mesh, ranks)
+        if getattr(step_fn, "ranks", None) is not ranks:
+            raise NotImplementedError(
+                "sharded_step(ranks=) takes the sweep step built for this "
+                "rank's block: make_sweep_step(geom, ..., spmd=SpmdCtx(N, "
+                "M, ranks=ctx)) (the geometry sweep has no rank form)")
+        return ShardedStep([step_fn], mesh, batched, ranks)
     n = len(case_devices(mesh))
     steps = list(step_fn) if isinstance(step_fn, (list, tuple)) \
         else [step_fn] * n

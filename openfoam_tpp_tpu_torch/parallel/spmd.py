@@ -57,6 +57,15 @@ window of the rank's own rows, so ghost rows enter neither the CG
 curvature dot nor the div max. With M = 1 nothing is extended and every
 island is the 1-D decomposition's, bit for bit.
 
+A sweep farmed over a (C, N, M) rank grid passes batched blocks,
+(nxl, nyl, nz, B/C), to the 7-point islands alone, on every multigrid
+level it holds as blocks (its MULES, momentum and correction terms are
+plain): the batch kernels of
+ops/kernels/seven_point.py have no halo form, so each call extends the
+block by a cell a side in x and y (`XYBlock`), runs the unchanged kernel
+on it and crops the owned cells; the apply-dot's per-case dot is over
+its column window of owned cells, all-reduced over the case group.
+
 Both forms run the orbital cylinder and the closed 6DoF tank, whose
 table forcing and rotating-frame sources are plain PyTorch between the
 islands and whose closed top takes the epilogue island's closed-top
@@ -84,6 +93,7 @@ from openfoam_tpp_tpu_torch.ops.kernels import halo7
 from openfoam_tpp_tpu_torch.ops.kernels import momentum_rhs as mrk
 from openfoam_tpp_tpu_torch.ops.kernels import mules_fct as mf
 from openfoam_tpp_tpu_torch.ops.kernels import mules_flux as mfx
+from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
 
 # The widest halo any island exchanges (u/v/w for the momentum RHS, alpha
 # for the MULES fluxes): a shard must hold at least this many planes.
@@ -103,6 +113,9 @@ class SpmdCtx:
     y_shards: int = 1
     axis: str = "x"
     ranks: object = None
+    # Case positions of a sweep farmed over a (C, N, M) rank grid (its
+    # ranks' `cases`): a batched block holds B/C of the batch's cases.
+    cases: int = None
 
     def __post_init__(self):
         if self.axis != "x":
@@ -116,6 +129,13 @@ class SpmdCtx:
             raise ValueError(f"{self.n_shards}x{self.y_shards} shards over "
                              f"a {self.ranks.grid[0]}x{self.ranks.grid[1]} "
                              "rank grid: one rank a shard")
+        held = 1 if self.ranks is None else self.ranks.cases
+        if self.cases is None:
+            object.__setattr__(self, "cases", held)
+        if int(self.cases) < 1 or (self.ranks is not None
+                                   and self.cases != held):
+            raise ValueError(f"{self.cases} case positions over ranks with "
+                             f"{held}: one case group a position")
 
     @property
     def held(self):
@@ -127,19 +147,23 @@ class SpmdCtx:
 
     def supports(self, shape) -> bool:
         """nx divides over the shards into slabs of at least MAX_HALO
-        planes, and ny over the y shards into rows of blocks of at least
-        MAX_HALO rows. No other gate: the CUDA kernels take any slab."""
+        planes, ny over the y shards into rows of blocks of at least
+        MAX_HALO rows, and a batch's cases over the case positions. No
+        other gate: the CUDA kernels take any slab."""
         nx = shape[0]
         ok = nx % self.n_shards == 0 and nx // self.n_shards >= MAX_HALO
         if self.y_shards > 1:
             ny = shape[1]
             ok = ok and ny % self.y_shards == 0 and (
                 ny // self.y_shards >= MAX_HALO)
+        if len(shape) == 4:
+            ok = ok and shape[3] % self.cases == 0
         return ok
 
     def local_shape(self, shape):
         """Per-shard shape of a cell array (dim 0 sharded, and dim 1 with
-        y shards)."""
+        y shards; a batched (nx, ny, nz, B) one's trailing case axis cut
+        into the case positions)."""
         nx = shape[0]
         if nx % self.n_shards or nx // self.n_shards < MAX_HALO:
             raise ValueError(
@@ -155,6 +179,11 @@ class SpmdCtx:
                     f"shards into blocks of at least {MAX_HALO} rows (the "
                     f"widest halo): nyl = {ny / self.y_shards:g}")
             out = out[:1] + (ny // self.y_shards,) + out[2:]
+        if len(shape) == 4:
+            if shape[3] % self.cases:
+                raise ValueError(f"{shape[3]} cases do not divide over "
+                                 f"{self.cases} case positions")
+            out = out[:3] + (shape[3] // self.cases,)
         return out
 
     def split(self, a, nx=None):
@@ -338,6 +367,60 @@ def _fill_last_face(f, ctx: SpmdCtx):
 # --------------------------------------------------------------------- #
 
 
+class XYBlock:
+    """A rank's batched (nxl, nyl, nz, B) block extended by one cell a
+    side in x and in y for the batch 7-point kernels, which have no halo
+    form: a row of each y neighbour's block (`YBlock`), then one plane of
+    each x neighbour's y-extended block (one plane exchange, so the x·y
+    corners travel), nothing at a global end. The unchanged kernels then
+    run on the extended block: an owned cell reads its neighbours where
+    the whole grid's kernel reads them, its own edge clamp and zero high
+    face act only at a global end, as on the whole grid, and the added
+    cells' outputs are cropped. `window` is the owned columns in the
+    extended block, ((x0, x1), (y0, y1))."""
+
+    def __init__(self, ctx: SpmdCtx, shape):
+        if ctx.ranks is None:
+            raise NotImplementedError(
+                "a batched block in the one-process SpmdCtx: a sweep runs "
+                "sharded over ranks only")
+        self.ctx, self.nxl, self.nyl = ctx, shape[0], shape[1]
+        self.yb = YBlock(ctx, shape[1], (1, 1))
+        down, up = ctx.ranks.neighbours(0)
+        self.lo, self.hi = int(down is not None), int(up is not None)
+
+    @property
+    def window(self):
+        y0 = self.yb.lo
+        return ((self.lo, self.lo + self.nxl), (y0, y0 + self.nyl))
+
+    def extend(self, *arrays):
+        """The cell arrays (None passes through) extended, in one row and
+        one plane exchange whatever their dtypes."""
+        arrays = self.yb.extend(*arrays)
+        live = [a for a in arrays if a is not None]
+        from_lo, from_hi = self.ctx.ranks.exchange(
+            [a[:1] for a in live], [a[-1:] for a in live])
+        from_lo, from_hi = iter(from_lo or ()), iter(from_hi or ())
+        return [None if a is None else torch.cat(
+            ([next(from_lo)] if self.lo else []) + [a]
+            + ([next(from_hi)] if self.hi else []), 0) for a in arrays]
+
+    def crop(self, t):
+        """The owned cells of an extended array, contiguous."""
+        (x0, x1), (y0, y1) = self.window
+        return t[x0:x1, y0:y1].contiguous()
+
+
+@_island
+def _batch_island(kernel, p, split, ctx, *cells, diag=None):
+    """`kernel` (a batch 7-point entry point of ops/kernels/seven_point.py,
+    `kernel(p, split, diag, *cells)`) on the rank's extended block."""
+    xb = XYBlock(ctx, p.shape)
+    pe, *rest = xb.extend(p, *split, diag, *cells)
+    return xb.crop(kernel(pe, tuple(rest[:3]), rest[3], *rest[4:]))
+
+
 def _seven_point_halos(p, split, ctx):
     ps = ctx.split(p)
     ws = [ctx.split(w) for w in split]
@@ -373,12 +456,17 @@ def apply_7pt(p, split, ctx: SpmdCtx, diag=None):
     shards in one launch. The face-lite wxl weight also sends its first
     plane left: the neighbour's missing high-face weight, zero at the
     global end (the sealed wall's boundary-face weight)."""
+    if p.dim() == 4:
+        return _batch_island(sp.apply_7pt_nb, p, split, ctx, diag=diag)
     return _seven_point_island(halo7.apply_7pt_hs, p, split, ctx, diag=diag)
 
 
 def resid_scaled_7pt(p, split, ctx: SpmdCtx, b, diag=None):
     """(b − A·p)/diag (or b − Â·p), per shard with ±1 halos of p, all held
     shards in one launch."""
+    if p.dim() == 4:
+        return _batch_island(sp.resid_scaled_7pt_nb, p, split, ctx, b,
+                             diag=diag)
     return _seven_point_island(halo7.resid_scaled_7pt_hs, p, split, ctx, b,
                                diag=diag)
 
@@ -390,7 +478,15 @@ def apply_dot_7pt(p, split, ctx: SpmdCtx):
     a chain so that on the card the island's dot is the single-grid
     kernel's bitwise); under `ctx.ranks` each rank's dot is one partial,
     all-reduced: with y shards the dot of its own rows of the y-extended
-    block (the kernel's row window)."""
+    block (the kernel's row window). A rank's batched block runs the batch
+    kernel on its extended block (`XYBlock`) with the column window of its
+    own cells, and its per-case dots are all-reduced over its case
+    group."""
+    if p.dim() == 4:
+        xb = XYBlock(ctx, p.shape)
+        pe, *se = xb.extend(p, *split)
+        ap, dot = sp.apply_dot_7pt_nb(pe, tuple(se), window=xb.window)
+        return xb.crop(ap), ctx.ranks.all_reduce(dot)
     yb = YBlock(ctx, p.shape[1], (1, 1))
     p, *split = yb.extend(p, *split)
     ps, ws, halos, wx_hi = _seven_point_halos(p, split, ctx)

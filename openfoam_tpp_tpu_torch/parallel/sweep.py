@@ -27,7 +27,10 @@ Lockstep sweeps share one adaptive dt (the batch minimum); with
 `t_stop` are held while the others catch up. Each sweep step carries its
 `Lockstep` (the step cut where its batch minima fall): `lockstep_step`
 runs it over one batch or over the parts of a batch farmed over a device
-mesh (parallel/sharding.py), taking each minimum over every part.
+mesh (parallel/sharding.py), taking each minimum over every part. A
+batch farmed over ranks (a (C, N, M) rank grid, one process a position)
+runs `make_sweep_step(..., spmd=SpmdCtx(N, M, ranks=ctx))` on each
+rank's block, and the minima reduce over every rank.
 """
 
 from __future__ import annotations
@@ -124,17 +127,26 @@ def _min_over(values):
     return out
 
 
-def lockstep_step(locks: list, states: list, params: list, t_stop=None):
+def lockstep_step(locks: list, states: list, params: list, t_stop=None,
+                  ranks=None):
     """One step of every part of a batch: `locks`, `states` and `params`
     hold one Lockstep, trailing-layout SimState and CaseParams per part
     (per mesh position). The batch minima are taken over all parts: that
     of states.dt before the step and that of the CFL dt within it, which
-    a farm's positions thus share as the cases of one batch do. Returns
-    (states', diags), a list each; with one part, the ops are those of
-    the unsplit step."""
+    a farm's positions thus share as the cases of one batch do. `ranks`
+    (a parallel.ranks.RankCtx): the part is this rank's block of a batch
+    farmed over ranks, and each minimum is taken over every rank (the
+    whole world: every case position's). Returns (states', diags), a
+    list each; with one part, the ops are those of the unsplit step."""
     lock = locks[0]
+
+    def batch_min(values):
+        out = _min_over(values)
+        return out if ranks is None else ranks.all_reduce(out, op="min",
+                                                           world=True)
+
     if lock.sync_dt:
-        dt0 = _min_over([s.dt.min() for s in states])
+        dt0 = batch_min([s.dt.min() for s in states])
         states = [dataclasses.replace(s, dt=dt0.to(s.dt.device)
                                       .expand_as(s.dt).clone())
                   for s in states]
@@ -144,7 +156,7 @@ def lockstep_step(locks: list, states: list, params: list, t_stop=None):
         for lk, s in zip(locks, states):
             with on_device(s.t.device):
                 cfls.append(lk.cfl(s))
-        dt_min = _min_over([c.dt.min() for c in cfls])
+        dt_min = batch_min([c.dt.min() for c in cfls])
         cfls = [c.synced(dt_min.to(c.dt.device)) for c in cfls]
     out = []
     for lk, s, p, c in zip(locks, states, params, cfls):
@@ -160,12 +172,15 @@ def on_device(dev):
             else contextlib.nullcontext())
 
 
-def _sweep_step_of(lock: Lockstep, trailing: bool, takes_t_stop: bool):
+def _sweep_step_of(lock: Lockstep, trailing: bool, takes_t_stop: bool,
+                   ranks=None):
     """The sweep step over one whole batch, in its layout; `lockstep`
-    holds its parts for a farm."""
+    holds its parts for a farm. `ranks`: the batch is this rank's block
+    of a batch farmed over ranks (the minima over every rank)."""
     if trailing:
         def run(states, params, t_stop=None):
-            new, diag = lockstep_step([lock], [states], [params], t_stop)
+            new, diag = lockstep_step([lock], [states], [params], t_stop,
+                                      ranks=ranks)
             return new[0], diag[0]
     else:
         def run(states, params, t_stop=None):
@@ -179,6 +194,7 @@ def _sweep_step_of(lock: Lockstep, trailing: bool, takes_t_stop: bool):
         def sweep_step(states: SimState, params: CaseParams):
             return run(states, params)
     sweep_step.lockstep = lock
+    sweep_step.ranks = ranks
     return sweep_step
 
 
@@ -211,9 +227,16 @@ def _sweep_kernel_policy(axis, device) -> dict:
 def make_sweep_step(geom: TankGeometry,
                     props: PhysicalProperties = PhysicalProperties(),
                     controls: SolverControls = SolverControls(),
-                    axis: int = -1, device="cuda"):
+                    axis: int = -1, device="cuda", spmd=None):
     """Batched step over forcing params, one shared geometry:
     (batched SimState, batched CaseParams) -> (same, per-case diagnostics).
+
+    `spmd=SpmdCtx(n, m, ranks=ctx)` (parallel/spmd.py, ctx on a (C, n, m)
+    rank grid; trailing layout): the step of one rank of a batch farmed
+    over ranks, on the rank's (nxl, nyl, nz, B/C) block of its case
+    position's cases (parallel/sharding.py `shard_state(..., ranks=)`):
+    the step over ranks on a batched block, every minimum of the
+    lockstep over every rank.
 
     The per-case adaptive dt is synchronized to the batch minimum before
     stepping, keeping all cases on a common time axis (each case then
@@ -224,14 +247,24 @@ def make_sweep_step(geom: TankGeometry,
     axis once per batch width and device the step meets (a farm's
     positions may lie on several devices)."""
     trailing = _trailing(axis)
+    ranks = None if spmd is None else spmd.ranks
+    if ranks is None and spmd is not None:
+        raise NotImplementedError(
+            "make_sweep_step(spmd=) in one process: a sweep is sharded over "
+            "ranks only (SpmdCtx(n, m, ranks=ctx))")
+    if ranks is not None and not trailing:
+        raise ValueError("a sweep over ranks takes the trailing case axis")
     dev = resolve_device(device)
     controls = dataclasses.replace(controls,
                                    **_sweep_kernel_policy(axis, dev))
-    ga1 = geometry_arrays(geom, device=dev)
+    if ranks is not None:
+        farm_block(geom.shape, ranks.cases, (ranks.cases, *ranks.grid))
+    ga1 = geometry_arrays(geom, device=dev, ranks=ranks)
     spacing = tuple(float(s) for s in geom.spacing)
     core = make_step_core(props, controls,
                           open_top=bool(np.any(geom.top_open > 0)),
-                          sealed_x=bool(np.all(geom.ax[-1] == 0.0)))
+                          sealed_x=bool(np.all(geom.ax[-1] == 0.0)),
+                          spmd=spmd)
     ga_by_n: dict[tuple, dict] = {}
 
     def finish(states, params, cfl, t_stop):
@@ -243,7 +276,91 @@ def make_sweep_step(geom: TankGeometry,
         return core(states, params, ga_by_n[key], spacing, t_stop=t_stop)
 
     return _sweep_step_of(Lockstep(True, None, finish), trailing,
-                          takes_t_stop=False)
+                          takes_t_stop=False, ranks=ranks)
+
+
+def farm_block(shape, n_cases: int, grid):
+    """(nxl, nyl, nz, B/C): the block each rank steps of a batch of
+    `n_cases` cases on a grid of `shape` cells farmed over a (C, N, M)
+    rank `grid`. ValueError where the cases do not divide over C, or nx
+    (ny, with M > 1) into N (M) even blocks of at least MAX_HALO cells
+    (the multigrid's 2:1 pairs start within a rank): callers check it
+    before any process is spawned."""
+    from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
+
+    c, n, m = grid
+    block = SpmdCtx(n, m, cases=c).local_shape((*shape[:3], n_cases))
+    for axis, k in ((0, n), (1, m)):
+        if k > 1 and block[axis] % 2:
+            raise ValueError(
+                f"grid {'xy'[axis]}-extent {shape[axis]} over {k} ranks: "
+                f"blocks of {block[axis]} cells, an odd number (the "
+                "multigrid's 2:1 pairs start within a rank)")
+    return block
+
+
+def _sweep_rank(ctx, log, geom, param_rows, t_end, props, controls,
+                max_steps):
+    """One rank of `run_sweep_ranks`: its block of the batch stepped to
+    t_end (the loop's test over every rank), the gathered batch on rank
+    0, and each rank's exchange stats, kernel launches and p_iters."""
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+    from openfoam_tpp_tpu_torch.parallel import sharding as sh
+    from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
+
+    dev = ctx.device
+    mesh = sh.make_mesh(ctx.world, case_axis=ctx.cases, y_axis=ctx.grid[1],
+                        devices=[dev] * ctx.world)
+    step = make_sweep_step(geom, props, controls, device=dev,
+                           spmd=SpmdCtx(*ctx.grid, ranks=ctx))
+    farm = sh.sharded_step(step, mesh, batched=True, ranks=ctx)
+    parts = sh.shard_state(batch_states(geom, len(param_rows), device=dev),
+                           mesh, batched=True, ranks=ctx)
+    pparts = sh.params_sharding(mesh, batched=True, ranks=ctx).put(
+        batch_params(param_rows, device=dev))
+    n, iters = 0, []
+    t_min = lambda: ctx.all_reduce(parts[0].t.min(), op="min", world=True)
+    while n < max_steps and bool(t_min() < t_end):
+        parts, diags = farm(parts, pparts)
+        iters.append(diags[0].p_iters.cpu().tolist())
+        n += 1
+    from openfoam_tpp_tpu_torch.core.state import state_to_numpy
+
+    # numpy crosses to the parent: a tensor's storage would be shared
+    # with a process that is about to end.
+    states = farm.sharding.gather(parts)
+    return {"states": None if states is None else state_to_numpy(states),
+            "n_steps": n,
+            "ranks": {**ctx.stats.as_dict(), "launches": rk.launch_counts(),
+                      "p_iters": iters}}
+
+
+def run_sweep_ranks(geom: TankGeometry, param_rows: list[dict], t_end: float,
+                    grid, positions,
+                    props: PhysicalProperties = PhysicalProperties(),
+                    controls: SolverControls = SolverControls(),
+                    max_steps: int = 100_000, log=print):
+    """`run_sweep` of a shared-geometry forcing sweep farmed over a
+    (C, N, M) grid of ranks, one spawned process a position in
+    `positions` (parallel/ranks.py; gloo where positions share a device):
+    each rank steps its case position's B/C cases on its x·y block with
+    `make_sweep_step(..., spmd=SpmdCtx(N, M, ranks=ctx))`, the lockstep
+    minima over every rank. Returns (states on the CPU, n_steps, each
+    rank's {exchange stats, "launches", "p_iters"}). The grid is checked
+    before any process is spawned (`farm_block`)."""
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+
+    grid = tuple(int(g) for g in grid)
+    block = farm_block(geom.shape, len(param_rows), grid)
+    log(f"  sweep of {len(param_rows)} cases over {'x'.join(map(str, grid))}"
+        f" ranks (case, x, y): blocks of {' x '.join(map(str, block))}")
+    from openfoam_tpp_tpu_torch.core.state import state_from_numpy
+
+    res = rk.launch(_sweep_rank, positions, log=log, grid=grid,
+                    args=(geom, param_rows, t_end, props, controls,
+                          max_steps))
+    return (state_from_numpy(res[0]["states"], device="cpu"),
+            res[0]["n_steps"], [r["ranks"] for r in res])
 
 
 # ------------------------------------------------- geometry-batched sweeps

@@ -16,7 +16,9 @@ curvature estimators `smooth_alpha`, `curvature_vof`, `curvature_hf` and
 JAX module's operation order, so their f32 results track it. Like the
 rest of the step they take a trailing case axis, (nx, ny, nz, B), with
 the spacing as floats or per-case (B,) tensors; the height function sums
-over z and pads x and y only.
+over z and pads x and y only. In a rank process of the step over ranks
+every pad at a block's interior boundary takes the neighbour rank's
+plane (ops/stencil.py `pad`), so the terms are the whole grid's.
 """
 
 from __future__ import annotations
@@ -29,11 +31,9 @@ _sl = st._sl
 
 
 def _zero_pad_axis(f, axis):
-    """Pad one zero slab on both ends of `axis`."""
-    shape = list(f.shape)
-    shape[axis] = 1
-    z = torch.zeros(shape, dtype=f.dtype, device=f.device)
-    return torch.cat([z, f, z], dim=axis)
+    """Pad one zero slab on both ends of `axis` (in a rank block, the
+    neighbour's slab at an interior boundary: ops/stencil.py `pad`)."""
+    return st.pad(f, axis, "zero")
 
 
 def convect_face_field(q, qax, rho_phi, spacing):
@@ -184,12 +184,11 @@ def curvature_vof(alpha, spacing, eps=1e-8, n_smooth=2):
 
 def _pad_xy(a, edge):
     """One slab on both ends of dims 0 and 1: the edge value (`edge`) or
-    zero / False; a trailing case axis passes through."""
+    zero / False; a trailing case axis passes through. In a rank block
+    the neighbours' columns at an interior boundary, x first, so the y
+    rows that travel carry the x·y corners (ops/stencil.py `pad`)."""
     for d in (0, 1):
-        lo, hi = a.narrow(d, 0, 1), a.narrow(d, a.shape[d] - 1, 1)
-        if not edge:
-            lo = hi = torch.zeros_like(lo)
-        a = torch.cat([lo, a, hi], dim=d)
+        a = st.pad(a, d, "clamp" if edge else "zero")
     return a
 
 

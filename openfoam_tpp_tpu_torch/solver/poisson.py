@@ -49,7 +49,13 @@ bundle (its operator) and once per visit (its right-hand side): every
 rank runs it and the levels below redundantly and keeps its own block
 of the correction, OpenFOAM GAMG's processor agglomeration extended to
 2-D blocks. The cycle is the single-process sharded cycle's, bit for
-bit.
+bit. On a sweep's batched block (a farm over a (C, N, M) rank grid)
+every reduction and gather is over the rank's case group, and the
+coarse levels keep the batch kernels as the one-process sweep does: on
+blocks extended by a cell a side (parallel/spmd.py `XYBlock`) down to
+the gathered level, on whole arrays from it on. Every level's values are
+then the unfarmed batch's, bit for bit; only the dots' sum order
+differs.
 
 CG loop: the JAX `lax.while_loop` is a Python loop here that reads
 `rr > tol2` on the host once per iteration — one device sync per CG
@@ -450,13 +456,17 @@ def build_operator(geom_arrays, spacing, rho, top_open, use_pallas=False,
     return problem, pack
 
 
-def _bundle_entry(wx, wy, wz, use_pallas, diag=None, agg=False):
+def _bundle_entry(wx, wy, wz, use_pallas, diag=None, agg=False,
+                  whole=False):
     """One hierarchy level: face-lite split weights on the kernel path,
     face weights otherwise. `diag=None` = unit-diagonal level; `agg`: the
-    first level a rank process holds whole."""
+    first level a rank process holds whole; `whole`: that level or one
+    below it."""
     d = {}
     if agg:
         d["agg"] = True
+    if whole:
+        d["whole"] = True
     if diag is not None:
         d["diag"] = diag
     if use_pallas:
@@ -473,29 +483,38 @@ def make_bundle(pack, use_pallas=False, knobs: SolverKnobs = SolverKnobs(),
     `knobs.precond_f32`). Reusing a stale bundle is physics-exact (it is
     only the preconditioner). Under `spmd` the coarse levels keep face
     weights (the plain path), as in the JAX package; under `spmd.ranks`
-    the hierarchy is the global one (module docstring)."""
+    the hierarchy is the global one (module docstring), and a batched
+    block's coarse levels keep the batch kernels of the one-process
+    sweep (on extended blocks, and whole from the gathered level on), so
+    every level's arithmetic is the unfarmed batch's."""
     lp = knobs.precond_dtype
     top = _bundle_entry(pack["hwx"].to(lp), pack["hwy"].to(lp),
                         pack["hwz"].to(lp), use_pallas)
-    coarse = [_bundle_entry(lev.wx, lev.wy, lev.wz,
-                            use_pallas and spmd is None, diag=lev.diag,
-                            agg=lev.agg is not None)
-              for lev in _build_coarse_levels(
-                  pack["wx"].to(lp), pack["wy"].to(lp), pack["wz"].to(lp),
-                  pack["extra"].to(lp),
-                  ranks=None if spmd is None else spmd.ranks)]
+    ranks = None if spmd is None else spmd.ranks
+    kernels = use_pallas and (spmd is None or (
+        ranks is not None and pack["wx"].dim() == 4))
+    coarse, whole = [], False
+    for lev in _build_coarse_levels(
+            pack["wx"].to(lp), pack["wy"].to(lp), pack["wz"].to(lp),
+            pack["extra"].to(lp), ranks=ranks):
+        whole = whole or lev.agg is not None
+        coarse.append(_bundle_entry(lev.wx, lev.wy, lev.wz, kernels,
+                                    diag=lev.diag, agg=lev.agg is not None,
+                                    whole=whole))
     return {"top": top, "coarse": coarse, "inv_s": pack["inv_s"].to(lp)}
 
 
 def _level_from_entry(d, unit_diag, spmd=None):
     """A _Level from a bundle entry; `spmd` runs a split level's kernel
-    passes as islands and carries a rank process's gathered level."""
+    passes as islands (not on a level a rank holds whole) and carries a
+    rank process's gathered level."""
     agg = (spmd.ranks if d.get("agg") and spmd is not None else None)
     split = d.get("split")
     if split is not None:
         return _Level(wx=None, wy=None, wz=None, diag=d.get("diag"),
                       shape=tuple(split[0].shape[:3]), split=split,
-                      unit_diag=unit_diag, spmd=spmd)
+                      unit_diag=unit_diag,
+                      spmd=None if d.get("whole") else spmd, agg=agg)
     wx, wy, wz = d["faces"]
     shape = (wx.shape[0] - 1,) + tuple(wx.shape[1:3])
     return _Level(wx=wx, wy=wy, wz=wz, diag=d.get("diag"), shape=shape,

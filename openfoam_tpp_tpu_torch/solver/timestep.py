@@ -78,8 +78,23 @@ on y-extended blocks (parallel/spmd.py). It exists over ranks only. A motion tab
 runs there too (the 6DoF tank: each rank holds the same table bits, its
 rotating frame's sources take the rank's own x coordinates, and the
 closed tank's null-space projection and fluid mean sum over the ranks).
-The rank form runs the islands' configuration only: surface tension,
-`forcing=` or a fused-kernel gate turned off raise NotImplementedError.
+The rank form runs every configuration of the one-process step but
+`forcing=` (which raises NotImplementedError): with a fused-kernel gate
+turned off (`mom_pallas=False`, OFTPP_MOM_PALLAS=0, OFTPP_CORR_PALLAS=0)
+the momentum RHS and the projection epilogue run their plain versions on
+the rank's block while the MULES and 7-point islands stay (MULES is
+plain with `use_pallas=False` and in a sweep, as in one process);
+with `use_pallas=False` everything on the block is plain (the JAX
+package's GSPMD-jnp route, OFTPP_SPMD_PALLAS=0); with surface tension
+the CSF terms run plain between the islands. Whatever runs plain is the
+whole grid's step on the block: every neighbour access and pad at an
+interior boundary takes the neighbour rank's plane (ops/stencil.py).
+A sweep's batched block runs over ranks too (`batch_lanes` with
+`SpmdCtx(n, m, ranks=ctx)` on a (C, n, m) rank grid: parallel/sweep.py
+`make_sweep_step(spmd=...)`): its step is the plain step above on a
+(nxl, nyl, nz, B/C) block, its 7-point passes the batch kernels on
+extended blocks (parallel/spmd.py), its reductions per case over the
+case group.
 """
 
 from __future__ import annotations
@@ -212,10 +227,12 @@ def _check_slice(controls, spmd=None):
     if spmd is not None and not isinstance(spmd, SpmdCtx):
         raise TypeError(f"spmd= takes a parallel.spmd.SpmdCtx, not "
                         f"{type(spmd).__name__}")
-    if spmd is not None and controls.batch_lanes:
+    if spmd is not None and controls.batch_lanes and spmd.ranks is None:
         raise NotImplementedError(
-            "spmd= with batch_lanes: a sweep is not sharded through spmd "
-            "(in the JAX package either)")
+            "spmd= with batch_lanes in one process: a sweep is not sharded "
+            "through spmd (in the JAX package either); over ranks it runs "
+            "on each rank's block (SpmdCtx(n, m, ranks=ctx), "
+            "parallel/sweep.py make_sweep_step)")
     if spmd is not None and spmd.y_shards > 1 and spmd.ranks is None:
         raise NotImplementedError(
             f"spmd=SpmdCtx({spmd.n_shards}, {spmd.y_shards}) in one process: "
@@ -272,16 +289,12 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
     use_corr_k = sealed_x and _corr_pallas_enabled(controls)
     knobs = poisson.SolverKnobs.from_env()
     ranks = None if spmd is None else spmd.ranks
-    if ranks is not None:
-        why = ("surface tension" if props.sigma != 0.0
-               else "forcing=" if forcing is not None
-               else "the momentum RHS off its island" if not use_mom_k
-               else "the projection epilogue off its island"
-               if not use_corr_k else None)
-        if why is not None:
-            raise NotImplementedError(
-                f"the x-sharded step over ranks with {why}: the rank form "
-                "runs the islands' configuration only")
+    if ranks is not None and forcing is not None:
+        # The forcing callback returns face-grid fields of the whole grid;
+        # no manager path passes it over ranks.
+        raise NotImplementedError(
+            "the step over ranks with forcing=: the callback's face-grid "
+            "fields would need the rank's block (ROADMAP.md §1)")
 
     def slabs(state):
         """The stencil's x·y block of a rank process."""
@@ -356,10 +369,11 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
     def step_slab(state, params, ga, spacing, t_stop, precond, cfl):
         fdt = state.dt.dtype
         dev = state.dt.device
-        if spmd is not None and state.alpha.dim() != 3:
+        if spmd is not None and ranks is None and state.alpha.dim() != 3:
             raise NotImplementedError(
-                "spmd= on a batched state: a sweep is not sharded through "
-                "spmd (in the JAX package either)")
+                "spmd= on a batched state in one process: a sweep is not "
+                "sharded through spmd (in the JAX package either); over "
+                "ranks it runs on each rank's block")
         if cfl is None:
             cfl = cfl_dt(state, ga, spacing)
         fluid, co, co_a, dt_cfl = cfl

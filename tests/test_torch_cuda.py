@@ -919,6 +919,41 @@ def test_apply_dot_batch_kernel_at_edges(dev, dtype, kind, cases):
     assert torch.equal(ap2, ap) and torch.equal(dots2, dots)
 
 
+WINDOWS = {"full": ((0, 12), (0, 10)), "interior": ((1, 7), (1, 6)),
+           "low corner": ((0, 6), (0, 5)), "one column": ((3, 4), (9, 10)),
+           "empty": ((4, 4), (0, 10))}
+
+
+@pytest.mark.parametrize("cases", [3, 64, 130])
+@pytest.mark.parametrize("window", list(WINDOWS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_dot_batch_kernel_column_window(dev, dtype, window, cases):
+    """The batch apply-dot with a column window (what a rank of a sweep
+    farmed over ranks passes for the owned cells of its extended block):
+    Â·p bitwise the call without a window, the dots within 1e-5 of the
+    plain version over the same window (0 for an empty one), the full
+    window bitwise the call without one, every ticket counter 0 after;
+    a window outside the grid raises."""
+    rng = np.random.default_rng(23)
+    p, w = _dot_operands(rng, dev, (12, 10, 9, cases), dtype)
+    ap, dots = sp.apply_dot_7pt_nb(p, w)
+    win = WINDOWS[window]
+    n0 = sp.apply_dot_7pt_nb.launches
+    ap_w, dots_w = sp.apply_dot_7pt_nb(p, w, window=win)
+    assert sp.apply_dot_7pt_nb.launches == n0 + 1
+    assert not bool(_build.ticket(p.device).any())
+    assert torch.equal(ap_w, ap)
+    _, ref = sp.apply_dot_7pt_plain(p, w, window=win)
+    if window == "full":
+        assert torch.equal(dots_w, dots)
+    elif window == "empty":
+        assert not bool(dots_w.any())
+    else:
+        assert float(((dots_w - ref).abs() / ref.abs()).max()) <= 1e-5
+    with pytest.raises(ValueError, match="column window"):
+        sp.apply_dot_7pt_nb(p, w, window=((0, 13), (0, 10)))
+
+
 def test_apply_dot_batch_and_others_share_the_ticket(dev):
     """The ticket counters through a one-block batch grid, a many-block
     one (the sweep's 12×12×50×128: four case groups, a counter each), the

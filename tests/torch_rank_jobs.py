@@ -83,16 +83,17 @@ def geometry(spec):
 
 
 def on_grid(ctx, grid):
-    """The ranks of `ctx` laid on another (N, M) grid of the same world,
-    with fresh stats (None: `ctx` itself)."""
+    """The ranks of `ctx` laid on another (N, M) or (C, N, M) grid of the
+    same world, with fresh stats (None: `ctx` itself); every rank makes
+    the new grid's case groups."""
     if grid is None:
         return ctx
-    return dataclasses.replace(ctx, grid=tuple(grid),
-                               stats=rk.ExchangeStats())
+    return dataclasses.replace(ctx, grid=tuple(grid), cases=1, group=None,
+                               stats=rk.ExchangeStats()).make_groups()
 
 
 def steps(ctx, log, tank, init, params, n_steps, with_single=False,
-          table=None, controls=CONTROLS, grid=None):
+          table=None, controls=CONTROLS, grid=None, props=None, env=None):
     """`n_steps` of the sharded step over the ranks (on the rank grid
     `grid`, default the launch's) from the numpy state `init` (rank 0
     scatters it), on `geometry(tank)`, under the motion `table` (numpy
@@ -100,14 +101,22 @@ def steps(ctx, log, tank, init, params, n_steps, with_single=False,
     its entry-point call counts, exchange stats and its motion's digest;
     rank 0 also the gathered states after the first and the last step
     and the p_iters. `with_single`: rank 0 also runs the one-process
-    `SpmdCtx(N)` (N the grid's x ranks) from the same state."""
+    `SpmdCtx(N)` (N the grid's x ranks) from the same state. `props`:
+    PhysicalProperties' keywords; `env`: OFTPP_* variables set while the
+    steps are built."""
     ctx = on_grid(ctx, grid)
     geom = geometry(tank)
+    props = PhysicalProperties(**(props or {}))
     motion = (None if table is None else
               motion_from_numpy(*(table[k] for k in MOTION_FIELDS),
                                 device=ctx.device))
-    step = make_step(geom, PhysicalProperties(), controls, motion=motion,
-                     spmd=SpmdCtx(*ctx.grid, ranks=ctx), device=ctx.device)
+    with mock.patch.dict("os.environ", env or {}):
+        step = make_step(geom, props, controls, motion=motion,
+                         spmd=SpmdCtx(*ctx.grid, ranks=ctx),
+                         device=ctx.device)
+        one = (make_step(geom, props, controls, motion=motion,
+                         spmd=SpmdCtx(ctx.grid[0]), device=ctx.device)
+               if with_single and ctx.rank == 0 else None)
     par = params_from_numpy(params, device=ctx.device)
     whole = state_from_numpy(init, device=ctx.device)
     state = rk.scatter_state(whole if ctx.rank == 0 else None, geom.shape,
@@ -129,9 +138,6 @@ def steps(ctx, log, tank, init, params, n_steps, with_single=False,
     if ctx.rank == 0:
         out.update(first=first, last=last, iters=iters)
         if with_single:
-            one = make_step(geom, PhysicalProperties(), controls,
-                            motion=motion, spmd=SpmdCtx(ctx.grid[0]),
-                            device=ctx.device)
             f1, l1, i1 = _steps(one, whole, par, n_steps)
             out["single"] = {"first": state_to_numpy(f1),
                              "last": state_to_numpy(l1), "iters": i1}
@@ -342,3 +348,108 @@ def islands(ctx, log, seed, grid=None):
                      else None)
             res[f"{k} {dtype}"] = ctx.gather_block(v, faces).float().numpy()
     return {"out": res, "calls": calls}
+
+
+def curvature(ctx, log, tank, alpha, grid=None):
+    """solver/momentum.py `curvature` (the blend) of the whole-grid numpy
+    `alpha` on every rank's block, gathered (numpy)."""
+    from openfoam_tpp_tpu_torch.ops import stencil as st
+    from openfoam_tpp_tpu_torch.solver import momentum as mom
+
+    ctx = on_grid(ctx, grid)
+    geom = geometry(tank)
+    cut = lambda a: ctx.block(torch.as_tensor(np.asarray(a)),
+                              geom.shape).contiguous()
+    spacing = tuple(float(h) for h in geom.spacing)
+    with st.rank_block(ctx, geom.shape[0] // ctx.grid[0],
+                       geom.shape[1] // ctx.grid[1]):
+        kappa = mom.curvature(cut(alpha), spacing,
+                              vfrac=cut(geom.vfrac.astype(np.float32)))
+    return ctx.gather_block(kappa).numpy()
+
+
+BATCH = ("apply_7pt_nb", "resid_scaled_7pt_nb", "apply_dot_7pt_nb")
+
+
+def _counted_batch():
+    """Patches counting the calls of the batch 7-point entry points (on
+    the CPU their plain versions run, and their launch counters stay 0)."""
+    calls = collections.Counter()
+    patches = []
+    for name in BATCH:
+        fn = getattr(sp, name)
+
+        def run(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+
+        patches.append(mock.patch.object(sp, name, run))
+    return calls, patches
+
+
+def _swapped(pparts, par, ic):
+    """The planted fault of `farm`: the first case of position 0 and the
+    second of position 1 exchange their forcing (`par` the whole batch's
+    CaseParams, `pparts` this rank's [part] of case position `ic`)."""
+    mine, theirs = {0: (0, 3), 1: (1, 0)}.get(ic, (None, None))
+    if mine is None:
+        return pparts
+    part = pparts[0]
+    fields = {}
+    for f in dataclasses.fields(part):
+        a = getattr(part, f.name).clone()
+        a[mine] = getattr(par, f.name)[theirs]
+        fields[f.name] = a
+    return [type(part)(**fields)]
+
+
+def farm(ctx, log, tank, rows, n_steps, grid, route="auto", swap=False):
+    """`make_sweep_step` over `rows` (one forcing each, the trailing case
+    axis) farmed over the (C, N, M) rank `grid`: every rank holds the
+    batch at rest (dt0 4e-4), keeps its case position's slice cut to its
+    x·y block (`shard_state(..., ranks=)`) and steps it `n_steps` times
+    under OFTPP_SWEEP_PALLAS=`route` ("auto": plain on the CPU;
+    "interpret": the 7-point passes through the batch kernels' entry
+    points on extended blocks). `swap` (4 rows over 2 case positions): a
+    planted fault, the first case of position 0 and the second of
+    position 1 exchange their forcing. Every rank returns its t and
+    p_iters per step, its batch entry-point call counts, exchange stats
+    and block shape; rank 0 also the gathered batch after the first and
+    the last step (numpy)."""
+    from openfoam_tpp_tpu_torch.parallel import sharding as sh
+    from openfoam_tpp_tpu_torch.parallel import sweep as sw
+
+    ctx = on_grid(ctx, grid)
+    geom = geometry(tank)
+    mesh = sh.make_mesh(ctx.world, case_axis=ctx.cases, y_axis=ctx.grid[1],
+                        devices=[ctx.device] * ctx.world)
+    with mock.patch.dict("os.environ", {"OFTPP_SWEEP_PALLAS": route}):
+        step = sw.make_sweep_step(geom, device=ctx.device,
+                                  spmd=SpmdCtx(*ctx.grid, ranks=ctx))
+    run = sh.sharded_step(step, mesh, batched=True, ranks=ctx)
+    sharding = sh.state_sharding(mesh, batched=True, ranks=ctx)
+    states = sw.batch_states(geom, len(rows), dt0=4e-4, device=ctx.device)
+    par = sw.batch_params(rows, device=ctx.device)
+    parts = sh.shard_state(states, mesh, batched=True, ranks=ctx)
+    pparts = sh.params_sharding(mesh, batched=True, ranks=ctx).put(par)
+    if swap:
+        pparts = _swapped(pparts, par, ctx.ic)
+    calls, patches = _counted_batch()
+    out = {"t": [], "iters": []}
+    for p in patches:
+        p.start()
+    try:
+        for i in range(n_steps):
+            parts, diags = run(parts, pparts)
+            out["t"].append(parts[0].t.numpy().copy())
+            out["iters"].append(diags[0].p_iters.numpy().copy())
+            if i in (0, n_steps - 1):
+                whole = sharding.gather(parts)
+                out["first" if i == 0 else "last"] = (
+                    None if whole is None else state_to_numpy(whole))
+    finally:
+        for p in patches:
+            p.stop()
+    out.update(calls=dict(calls), stats=ctx.stats.as_dict(),
+               block=tuple(parts[0].alpha.shape))
+    return out
