@@ -56,7 +56,16 @@ Phases, each fatal on any fault (nothing is caught):
      with the column window of the owned cells: Â·p bitwise, the dots
      within DOT_RTOL of plain on the same window and, summed over the
      blocks, of the whole grid's, the full window bitwise the call
-     without one; every launch timed beside its bytes and bound;
+     without one; every launch timed beside its bytes and bound; then
+     (viii) the shapes of phase 12h: rows 11a-12d on phase 10's
+     2048×16×50 tiled grid in 4 x-slabs (512×16×50: per slab against
+     plain, composed against the single-grid kernels, µs, bytes and
+     bound) and on the widest y-extended block of its '2x2' blocks
+     (1024×10×50, as two x-slabs of a 2048×10×50 strip), the '2x2'
+     islands' owned rows bitwise the single grid's with the windowed 11c
+     and 12d on the 1024×8 blocks, and rows 10a-c on the extended 2x2
+     blocks of a geometry sweep's case group (12×12×50×64 cut into 7×7
+     extended blocks, per-case weights), as in (vii);
   3. drive the step path: the flagship single-tank case
      (H0.208/D0.2/R0.004/f1.88, mesh 0.00185, round_to=8 → 112³) through
      `make_step(..., carry_precond=True)` in the bench's configuration,
@@ -317,7 +326,26 @@ Phases, each fatal on any fault (nothing is caught):
      1 a step; against phase 5's run, kernels and two sweeps, reported):
      each within phase 3b's limits plus FARM_DRIFT·Δt, the write times
      equal; (iv) with more than one card the farm over
-     distinct cards under NCCL (else it says it did not run).
+     distinct cards under NCCL (else it says it did not run); (h)
+     `forcing=` over ranks: (i) phase 10's 128-case tiled sweep
+     (2048×16×50) over 4 x-ranks and (ii) over '2x2' gloo ranks sharing
+     the card (`make_tiled_sweep_step(..., spmd=SpmdCtx(N, M,
+     ranks=ctx))` through `shard_state` / `sharded_step` / `gather`
+     unbatched, the forcing's whole-grid G_x and G_y cut to each block;
+     blocks of 512 × 16 and 1024 × 8), N_TILED_RANKS steps from rest,
+     against phase 10's one-process tiled step over the same steps:
+     every rank launched rows 11a-12d and no other kernel, p_iters within
+     1 at every step, the gathered state within phase 4's limits plus
+     FARM_DRIFT·t, every case's liquid volume within TILED_TOLS' mass
+     bound of the one-process run's; per rank and step the exchanges,
+     bytes, all-reduces and host s in them, ms/step; (iii) a 128-case
+     geometry sweep (phase 7's 8 freq × 4 R × 2 H × 2 D at round_to=4,
+     lockstep, without the landing on the write grid) over (case=2, x=2,
+     y=2) gloo ranks (`shard_batched_geometry(..., ranks=)`,
+     `make_geom_sweep_step(..., spmd=...)`; blocks of 6 × 6 × 50 × 64)
+     against the one-process geometry sweep, 12g's checks and every
+     case's t equal on every rank; (iv) with more than one card the tiled
+     sweep over distinct cards under NCCL (else it says it did not run).
 
 It then prints the `kernels` JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. It exits non-zero, printing no
@@ -1048,7 +1076,8 @@ def phase_batch_kernels(shape4, dev):
     return rows
 
 
-def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
+def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS,
+                       f1_checks=True):
     """The seven halo entry points of the x-sharded step at `shape` cut
     into `n_shards` x-slabs, in every dtype their route uses: per shard
     against the plain version (each row's single-grid tolerance), and the
@@ -1058,7 +1087,10 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
     on exchanged halos (`ms`; for apply and resid the one launch over a
     table of the S slabs, with the S launches of a table of one slab
     beside it), the S plain calls, the island with its exchanges and the
-    single-grid kernel. Returns the main-path rows."""
+    single-grid kernel. `f1_checks`: also `fct_iter_h` and
+    `momentum_rhs_h` at F1_SPACING and `fct_iter_h` with a NaN λ (checks
+    of the spacing and of the operands' values, which phase 2 makes at
+    112³ once). Returns the main-path rows."""
     import torch
 
     from openfoam_tpp_tpu_torch.ops.kernels import correction as ck
@@ -1283,6 +1315,8 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
                for i in held],
               lambda: sm.fct_iters(lams, antis, *cells, fct_h, 1, ctx),
               lambda: mf.fct_iter(lams, antis, *cells, fct_h), tol)
+        if not f1_checks:
+            continue
         # F1 (as in phase 2): every shard bitwise equal to plain at
         # spacings where the two reciprocal forms differ.
         f1 = fct_args(lams, antis, F1_SPACING)
@@ -1342,13 +1376,14 @@ def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS):
               lambda: mrk.momentum_rhs(*vel, rp, mu, div_u, spacing, dev2),
               MOM_RTOL)
     f1 = [ma[i][:9] + (F1_SPACING, True) for i in held]
-    check("momentum_rhs_h", "dev2 on, h F1", False,
-          [(lambda i=i: mrk.momentum_rhs_h(*f1[i]),
-            lambda i=i: mrk.momentum_rhs_h_plain(*f1[i]), f1[i][:8])
-           for i in held],
-          lambda: sm.momentum_rhs(*vel, rp, mu, div_u, F1_SPACING, ctx),
-          lambda: mrk.momentum_rhs(*vel, rp, mu, div_u, F1_SPACING),
-          MOM_RTOL)
+    if f1_checks:
+        check("momentum_rhs_h", "dev2 on, h F1", False,
+              [(lambda i=i: mrk.momentum_rhs_h(*f1[i]),
+                lambda i=i: mrk.momentum_rhs_h_plain(*f1[i]), f1[i][:8])
+               for i in held],
+              lambda: sm.momentum_rhs(*vel, rp, mu, div_u, F1_SPACING, ctx),
+              lambda: mrk.momentum_rhs(*vel, rp, mu, div_u, F1_SPACING),
+              MOM_RTOL)
 
     dp, vfrac = arr(-50, 50), arr(0, 1)
     vfrac[vfrac < 0.1] = 0
@@ -3160,8 +3195,7 @@ def phase_tiled(dev, props, sweep):
     if tshape != TILED_SHAPE or n_fluid != TILED_FLUID:
         raise AssertionError(f"tiled grid {tshape} with {n_fluid} fluid "
                              f"cells, not {TILED_SHAPE} with {TILED_FLUID}")
-    rows = [{"R": 0.002 + 2e-5 * i, "freq": 1.5 + 0.01 * i, "duration": 10.0}
-            for i in range(TILED_CASES)]
+    rows = tiled_case_rows()
     params = batch_params(rows, device=dev)
 
     def build(n, **env):
@@ -3250,6 +3284,12 @@ def phase_tiled(dev, props, sweep):
         f"{b['ms_per_step']:.3f} ms/step, {b['agg_cell_updates_per_s']:.4e}, "
         f"{b['ops_per_step']:.1f} ops, {b['busy_ms_per_step']:.3f} ms busy")
     return stats, tiled_rows, launches
+
+
+def tiled_case_rows():
+    """Phase 10's forcing rows."""
+    return [{"R": 0.002 + 2e-5 * i, "freq": 1.5 + 0.01 * i, "duration": 10.0}
+            for i in range(TILED_CASES)]
 
 
 def cat_diags(diags):
@@ -4372,8 +4412,8 @@ def phase_mesh_x_ranks(dev, x_run, x_final, x_times, flagship,
 
 # Phase 12e: the 6DoF tank and a grid not a multiple of 8·N over ranks.
 # Steps of 12e (i): one NCCL rank from phase 8's state (cut from 10 as
-# N_RANK1).
-N_RANK1_6DOF = 4
+# N_RANK1, then from 4 so that phase 12h fits the script's time).
+N_RANK1_6DOF = 2
 
 
 def one_process_resume(geom, motion, params, chk_bytes, target, dev,
@@ -4889,7 +4929,8 @@ def farm_reference(dev, props, controls, n_steps):
             alpha0)
 
 
-def hold_farm_ranks(label, res, grid, ref, ref_iters, n_steps, alpha0):
+def hold_farm_ranks(label, res, grid, ref, ref_iters, n_steps, alpha0,
+                    vfrac=None, ref_name="phase 6's"):
     """Phase 12g (i)'s checks of the farm over ranks against the
     one-process batch (`ref`, its SimState after n_steps; `ref_iters` its
     (n_steps, B) p_iters): every rank launched rows 10a-c and no other
@@ -4897,7 +4938,9 @@ def hold_farm_ranks(label, res, grid, ref, ref_iters, n_steps, alpha0):
     gathered batch within phase 4's limits plus FARM_DRIFT·t, t to 1e-6,
     every case's p_iters within 1 at every step, each case's liquid volume
     within twice the one-process batch's own drift from `alpha0` (the
-    initial alpha). Returns the numbers."""
+    initial alpha). `vfrac`: the cells' fluid fractions, (nx, ny, nz, 1)
+    or per case (nx, ny, nz, B) (default phase 6's tank's); `ref_name`
+    names the one-process run in the log. Returns the numbers."""
     import torch
 
     group = grid[1] * grid[2]
@@ -4941,7 +4984,8 @@ def hold_farm_ranks(label, res, grid, ref, ref_iters, n_steps, alpha0):
     # volume up to its clamp to [0, 1] and f32 sums); its largest
     # pointwise gap is reported.
     t_gap = float(np.max(np.abs(whole["t"] - t_ref) / t_ref))
-    vfrac = np.asarray(build_vfrac_sweep())[..., None]
+    if vfrac is None:
+        vfrac = np.asarray(build_vfrac_sweep())[..., None]
     vol = lambda a: (np.asarray(a, np.float64) * vfrac).sum(axis=(0, 1, 2))
     v_f, v_r, v_0 = (vol(whole["alpha"]), vol(ref.alpha.cpu().numpy()),
                      vol(alpha0))
@@ -4976,7 +5020,7 @@ def hold_farm_ranks(label, res, grid, ref, ref_iters, n_steps, alpha0):
         f"{r0['exchange_s_per_step'] * 1e3:.1f} ms host in them; "
         f"launches per step {r0['launches_per_step']}; ms/step "
         f"{[round(x['ms_per_step'], 1) for x in per_rank]}; p_iters against "
-        f"phase 6's: {moved} of {iters.size} case-steps moved, by at most "
+        f"{ref_name}: {moved} of {iters.size} case-steps moved, by at most "
         f"{d_it}")
     if bad:
         raise AssertionError(f"{label}: {bad}")
@@ -5133,6 +5177,375 @@ def phase_farm_ranks(dev, sweep, case5):
                                                 ref_iters, N_FARM, alpha0)
     else:
         log(f"[farm over ranks (iv): distinct cards] did not run: "
+            f"device_count = {n_cards}")
+        out["distinct_cards"] = None
+    return out
+
+
+# Phase 12h: `forcing=` over ranks: phase 10's tiled sweep over x·y
+# ranks; the geometry sweep over (case, x, y) ranks.
+TILED_RANK_GRIDS = {"(i) 4 x-ranks": (1, 4, 1), "(ii) 2x2": (1, 2, 2)}
+N_TILED_RANKS = 10      # steps from rest of each tiled run over ranks
+N_TILED_RANKS_TIMED = 6
+GEOM_RANK_GRID = (2, 2, 2)   # blocks of 6 × 6 × 50 × 64
+N_GEOM_RANKS = 10
+N_GEOM_RANKS_TIMED = 6
+
+
+def tiled_rank_job(ctx, log, grids, n_steps, n_timed):
+    """Phase 12h (i)-(ii), in each rank's process: `tiled_rank_run` on
+    each (1, N, M) rank grid of `grids` in turn (the launch's ranks laid
+    anew, with fresh stats). Returns its results, one a grid."""
+    import dataclasses
+
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+
+    return [tiled_rank_run(dataclasses.replace(
+        ctx, grid=tuple(g), cases=1, group=None,
+        stats=rk.ExchangeStats()).make_groups(), n_steps, n_timed)
+        for g in grids]
+
+
+def tiled_rank_run(ctx, n_steps, n_timed):
+    """Phase 10's tiled sweep (TILED_CASES tanks merged along x,
+    SolverControls(use_pallas=True)) over the (1, N, M) rank grid of
+    `ctx`, through the sharding API's unbatched `ranks=` form (the rank's
+    x·y block of the merged state, the params whole): `n_steps` from rest
+    with the launch counts set to 0 just before and read just after, the
+    last `n_timed` timed. Returns the rank's launches, p_iters and t per
+    step, exchange stats, ms/step and block; rank 0 also the gathered
+    state (numpy)."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import (PhysicalProperties,
+                                               SolverControls)
+    from openfoam_tpp_tpu_torch.core.state import state_to_numpy
+    from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+    from openfoam_tpp_tpu_torch.parallel import sharding as sh
+    from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
+    from openfoam_tpp_tpu_torch.parallel.sweep import batch_params
+    from openfoam_tpp_tpu_torch.parallel.tiled_sweep import (
+        make_tiled_sweep_step, tile_state)
+
+    dev = ctx.device
+    geom = build_tank_geometry(**SWEEP_TANK, round_to=8)
+    mesh = sh.make_mesh(ctx.world, y_axis=ctx.grid[1],
+                        devices=[dev] * ctx.world)
+    step = make_tiled_sweep_step(geom, TILED_CASES, PhysicalProperties(),
+                                 SolverControls(use_pallas=True), device=dev,
+                                 spmd=SpmdCtx(*ctx.grid, ranks=ctx))
+    run = sh.sharded_step(step, mesh, ranks=ctx)
+    parts = sh.shard_state(tile_state(geom, TILED_CASES, device=dev), mesh,
+                           ranks=ctx)
+    pparts = sh.params_sharding(mesh, ranks=ctx).put(
+        batch_params(tiled_case_rows(), device=dev))
+    fns = {k: getattr(m, a) for k, (m, a, _) in counters().items()}
+    for f in fns.values():
+        f.launches = 0
+    ctx.stats = rk.ExchangeStats()
+    torch.cuda.synchronize()
+    iters, times = [], []
+    for i in range(n_steps):
+        if i == n_steps - n_timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        parts, diags = run(parts, pparts)
+        iters.append(int(diags[0].p_iters))
+        times.append(float(parts[0].t))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"launches": rk.launch_counts(), "p_iters": iters, "t": times,
+           "stats": ctx.stats.as_dict(), "ms_per_step": wall / n_timed * 1e3,
+           "block": list(parts[0].alpha.shape)}
+    whole = run.sharding.gather(parts)
+    if whole is not None:
+        out["whole"] = state_to_numpy(whole)
+    return out
+
+
+def tiled_reference(dev, n_steps):
+    """Phase 10's one-process tiled step from rest: (its SimState after
+    `n_steps`, p_iters per step, ms/step, the initial alpha as numpy)."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import (PhysicalProperties,
+                                               SolverControls)
+    from openfoam_tpp_tpu_torch.mesh import build_tank_geometry
+    from openfoam_tpp_tpu_torch.parallel.sweep import batch_params
+    from openfoam_tpp_tpu_torch.parallel.tiled_sweep import (
+        make_tiled_sweep_step, tile_state)
+
+    geom = build_tank_geometry(**SWEEP_TANK, round_to=8)
+    step = make_tiled_sweep_step(geom, TILED_CASES, PhysicalProperties(),
+                                 SolverControls(use_pallas=True), device=dev)
+    state = tile_state(geom, TILED_CASES, device=dev)
+    alpha0 = state.alpha.cpu().numpy()
+    params = batch_params(tiled_case_rows(), device=dev)
+    iters = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state, d = step(state, params)
+        iters.append(int(d.p_iters))
+    torch.cuda.synchronize()
+    return (state, iters, (time.perf_counter() - t0) / n_steps * 1e3,
+            alpha0, geom.vfrac)
+
+
+def hold_tiled_ranks(label, res, grid, ref, ref_iters, n_steps, alpha0,
+                     vfrac):
+    """Phase 12h (i)-(ii)'s checks of the tiled sweep over ranks against
+    the one-process tiled run (`ref` after n_steps, `ref_iters` its
+    p_iters): every rank launched rows 11a-12d and no other kernel, t
+    equal on every rank, p_iters within 1 at every step, the gathered
+    state within phase 4's limits plus FARM_DRIFT·t (dt and t as the
+    resumed runs' dt), every case's liquid volume within TILED_TOLS'
+    mass bound of the one-process run's. Returns the numbers."""
+    per_rank, bad = [], []
+    for r, out in enumerate(res):
+        launches = rank_launches(out["launches"])
+        ran = {k for k, v in launches.items() if v}
+        if ran != set(HALO_PATH):
+            bad.append(f"rank {r}: kernels {sorted(ran)}")
+        if out["t"] != res[0]["t"] or out["p_iters"] != res[0]["p_iters"]:
+            bad.append(f"rank {r}: t or p_iters differ from rank 0's")
+        st = out["stats"]
+        per_rank.append({
+            "launches_per_step": {k: launches[k] / n_steps
+                                  for k in HALO_PATH},
+            "exchanges_per_step": st["exchanges"] / n_steps,
+            "y_exchanges_per_step": st["y_exchanges"] / n_steps,
+            "bytes_per_step": (st["bytes"] + st["y_bytes"]) / n_steps,
+            "copy_bytes_per_step": st["copy_bytes"] / n_steps,
+            "all_reduces_per_step": st["all_reduces"] / n_steps,
+            "gathers_per_step": st["gathers"] / n_steps,
+            "exchange_s_per_step": st["seconds"] / n_steps,
+            "ms_per_step": out["ms_per_step"]})
+    iters = res[0]["p_iters"]
+    d_it = max(abs(a - b) for a, b in zip(iters, ref_iters))
+    if len(iters) != len(ref_iters) or d_it > 1:
+        bad.append(f"p_iters {iters} against the one-process run's "
+                   f"{ref_iters}")
+    whole = res[0]["whole"]
+    t_end = float(whole["t"])
+    nx = vfrac.shape[0]
+    vol = lambda a: (np.asarray(a, np.float64).reshape(
+        TILED_CASES, nx, *vfrac.shape[1:]) * vfrac).sum(axis=(1, 2, 3))
+    v_f, v_r, v_0 = (vol(whole["alpha"]), vol(ref.alpha.cpu().numpy()),
+                     vol(alpha0))
+    vol_gap = float(np.max(np.abs(v_f - v_r) / v_0))
+    drift = float(np.max(np.abs(v_r - v_0) / v_0))
+    log(f"  {label}: every case's liquid volume within {vol_gap:.3e} of the "
+        f"one-process run's, of the start's (held to "
+        f"{TILED_TOLS['mass']:.0e}; the one-process run's own drift "
+        f"{drift:.3e})")
+    if vol_gap > TILED_TOLS["mass"]:
+        bad.append(f"a case's liquid volume apart by {vol_gap}")
+    tols = {**SHARD_TOLS, **DT_TOL, "t": DT_TOL["dt"]}
+    try:
+        held = hold_checkpoint(f"{label}, gathered state against the "
+                               "one-process tiled run's", whole, ref, tols,
+                               drift=FARM_DRIFT * t_end)
+    except AssertionError as e:
+        bad.append(str(e))
+        held = None
+    r0 = per_rank[0]
+    log(f"  {label}: blocks {res[0]['block']}, per rank and step "
+        f"{r0['exchanges_per_step']:.1f} x and "
+        f"{r0['y_exchanges_per_step']:.1f} y exchanges "
+        f"({r0['bytes_per_step'] / 1e6:.3f} MB sent, "
+        f"{r0['copy_bytes_per_step'] / 1e6:.3f} MB strided rows copied), "
+        f"{r0['all_reduces_per_step']:.1f} all-reduces, "
+        f"{r0['gathers_per_step']:.1f} gathers, "
+        f"{r0['exchange_s_per_step'] * 1e3:.1f} ms host in them; "
+        f"launches per step {r0['launches_per_step']}; ms/step "
+        f"{[round(x['ms_per_step'], 1) for x in per_rank]}; p_iters "
+        f"{iters} (one process {ref_iters})")
+    if bad:
+        raise AssertionError(f"{label}: {bad}")
+    return {"grid": list(grid), "block": res[0]["block"], "ranks": per_rank,
+            "p_iters": iters, "max_p_iters_diff": d_it, "hold": held,
+            "volume_gap": vol_gap, "volume_drift_one_process": drift,
+            "ms_per_step": max(x["ms_per_step"] for x in per_rank)}
+
+
+def geom_rank_rows():
+    """Phase 12h (iii)'s study: phase 7's grid of 128 cases (8 freq × 4 R
+    × 2 H × 2 D), as (geometry rows, forcing rows)."""
+    m = MANAGER_SWEEP
+    rows = [{"H": h, "D": d, "mesh": m["mesh"], "geo": m["geo"]}
+            for f in m["freq"] for r in m["R"] for h in m["H"]
+            for d in m["D"]]
+    prows = [{"R": r, "freq": f, "duration": m["duration"], "ramp": m["ramp"]}
+             for f in m["freq"] for r in m["R"] for _ in m["H"]
+             for _ in m["D"]]
+    return rows, prows
+
+
+def geom_rank_job(ctx, log, n_steps, n_timed, controls):
+    """Phase 12h (iii), in each rank's process: the lockstep geometry sweep
+    of `geom_rank_rows()` (round_to=4, from rest, under `controls`) farmed
+    over the (C, N, M) rank grid: the rank's part of the BatchedGeometry
+    (`shard_batched_geometry(..., ranks=)`) and of the batch, `n_steps`
+    with the launch counts set to 0 just before and read just after, the
+    last `n_timed` timed. Returns what `farm_rank_job` returns."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import PhysicalProperties
+    from openfoam_tpp_tpu_torch.core.state import state_to_numpy
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+    from openfoam_tpp_tpu_torch.parallel import sharding as sh
+    from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
+    from openfoam_tpp_tpu_torch.parallel.sweep import (
+        batch_params, batch_states_geom, build_batched_geometry,
+        make_geom_sweep_step)
+
+    dev = ctx.device
+    rows, prows = geom_rank_rows()
+    bgeom = build_batched_geometry(rows, round_to=4, device=dev)
+    mesh = sh.make_mesh(ctx.world, case_axis=ctx.cases, y_axis=ctx.grid[1],
+                        devices=[dev] * ctx.world)
+    step = make_geom_sweep_step(
+        sh.shard_batched_geometry(bgeom, mesh, ranks=ctx)[0],
+        PhysicalProperties(), controls, spmd=SpmdCtx(*ctx.grid, ranks=ctx))
+    farm = sh.sharded_step(step, mesh, batched=True, ranks=ctx)
+    parts = sh.shard_state(batch_states_geom(bgeom), mesh, batched=True,
+                           ranks=ctx)
+    pparts = sh.params_sharding(mesh, batched=True, ranks=ctx).put(
+        batch_params(prows, device=dev))
+    fns = {k: getattr(m, a) for k, (m, a, _) in counters().items()}
+    for f in fns.values():
+        f.launches = 0
+    ctx.stats = rk.ExchangeStats()
+    torch.cuda.synchronize()
+    iters, times = [], []
+    for i in range(n_steps):
+        if i == n_steps - n_timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        parts, diags = farm(parts, pparts)
+        iters.append(diags[0].p_iters.cpu().tolist())
+        times.append(parts[0].t.cpu().tolist())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"launches": rk.launch_counts(), "p_iters": iters, "t": times,
+           "stats": ctx.stats.as_dict(), "ms_per_step": wall / n_timed * 1e3,
+           "block": list(parts[0].alpha.shape), "ic": ctx.ic}
+    whole = farm.sharding.gather(parts)
+    if whole is not None:
+        out["whole"] = state_to_numpy(whole)
+    return out
+
+
+def geom_reference(dev, controls, n_steps):
+    """The one-process lockstep geometry sweep of `geom_rank_rows()` from
+    rest: (its SimState after `n_steps`, the (n_steps, B) p_iters,
+    ms/step, the initial alpha, the per-case fluid fractions)."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import PhysicalProperties
+    from openfoam_tpp_tpu_torch.parallel.sweep import (
+        batch_params, batch_states_geom, build_batched_geometry,
+        make_geom_sweep_step)
+
+    rows, prows = geom_rank_rows()
+    bgeom = build_batched_geometry(rows, round_to=4, device=dev)
+    step = make_geom_sweep_step(bgeom, PhysicalProperties(), controls)
+    states = batch_states_geom(bgeom)
+    alpha0 = states.alpha.cpu().numpy()
+    params = batch_params(prows, device=dev)
+    iters = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        states, d = step(states, params)
+        iters.append(d.p_iters.cpu().tolist())
+    torch.cuda.synchronize()
+    return (states, iters, (time.perf_counter() - t0) / n_steps * 1e3,
+            alpha0, bgeom.ga["vfrac"].cpu().numpy())
+
+
+def phase_tiled_geom_ranks(dev, tiled):
+    """Phase 12h (module docstring): (i) phase 10's 128-case tiled sweep
+    over 4 x-ranks and (ii) over '2x2', gloo ranks sharing the card,
+    N_TILED_RANKS steps from rest each, against phase 10's one-process
+    tiled step over the same steps; (iii) a 128-case geometry sweep over
+    (case=2, x=2, y=2) gloo ranks against the one-process geometry sweep;
+    (iv) the tiled sweep over distinct cards under NCCL where the host
+    has them. Returns the phase's stats."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.config import SolverControls
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+
+    card = f"cuda:{dev.index or 0}" if dev.type == "cuda" else str(dev)
+    out = {}
+    ref, ref_iters, ref_ms, alpha0, vfrac = tiled_reference(
+        dev, N_TILED_RANKS)
+    grids = list(TILED_RANK_GRIDS.values())
+    n = int(np.prod(grids[0]))
+    # One launch: the same ranks run each grid in turn.
+    t0 = time.perf_counter()
+    res = rk.launch(tiled_rank_job, [card] * n, grid=grids[0],
+                    args=(grids, N_TILED_RANKS, N_TILED_RANKS_TIMED),
+                    log=lambda ln: log("  | " + ln))
+    wall = time.perf_counter() - t0
+    for i, (name, grid) in enumerate(TILED_RANK_GRIDS.items()):
+        label = (f"tiled sweep over {name}: {n} gloo ranks sharing {card}, "
+                 f"{TILED_CASES} cases from rest")
+        out[name] = hold_tiled_ranks(label, [r[i] for r in res], grid, ref,
+                                     ref_iters, N_TILED_RANKS, alpha0, vfrac)
+    out["wall_s_with_spawn"] = wall
+    out["one_process_ms_per_step"] = ref_ms
+    log(f"  tiled sweep over ranks: the one-process tiled step beside them "
+        f"{ref_ms:.3f} ms/step from rest (phase 10's "
+        f"{tiled['ms_per_step']:.3f}); "
+        + "; ".join(f"{k} {out[k]['ms_per_step']:.1f} ms/step"
+                    for k in TILED_RANK_GRIDS)
+        + f"; {wall:.1f} s for both with the spawn")
+
+    # (iii) the lockstep geometry sweep over (case, x, y) ranks, without
+    # the landing on the write grid (as 12g).
+    controls = SolverControls(write_interval=0.0)
+    gref, giters, gms, galpha0, gvfrac = geom_reference(dev, controls,
+                                                        N_GEOM_RANKS)
+    n = int(np.prod(GEOM_RANK_GRID))
+    label = (f"geometry sweep over {'x'.join(map(str, GEOM_RANK_GRID))} "
+             f"ranks (case, x, y) (iii): {n} gloo ranks sharing {card}, "
+             f"{SWEEP_CASES} cases of 2 H x 2 D from rest")
+    t0 = time.perf_counter()
+    res = rk.launch(geom_rank_job, [card] * n, grid=GEOM_RANK_GRID,
+                    args=(N_GEOM_RANKS, N_GEOM_RANKS_TIMED, controls),
+                    log=lambda ln: log("  | " + ln))
+    if any(len(set(t)) != 1 or t != res[0]["t"][i][:1] * len(t)
+           for r in res for i, t in enumerate(r["t"])):
+        raise AssertionError(f"{label}: the cases' t are not in lockstep")
+    out["geometry"] = hold_farm_ranks(label, res, GEOM_RANK_GRID, gref,
+                                      giters, N_GEOM_RANKS, galpha0,
+                                      vfrac=gvfrac,
+                                      ref_name="the one-process sweep's")
+    out["geometry"]["wall_s_with_spawn"] = time.perf_counter() - t0
+    out["geometry"]["one_process_ms_per_step"] = gms
+    log(f"  {label}: every case at t = {res[0]['t'][-1][0]!r} on every rank; "
+        f"{out['geometry']['wall_s_with_spawn']:.1f} s with the spawn; the "
+        f"one-process geometry sweep {gms:.3f} ms/step")
+
+    # (iv) distinct cards under NCCL.
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        grid = (1, min(n_cards, 4), 1)
+        k = grid[1]
+        res = rk.launch(tiled_rank_job, [f"cuda:{i}" for i in range(k)],
+                        grid=grid, args=([grid], N_TILED_RANKS,
+                                         N_TILED_RANKS_TIMED),
+                        log=lambda ln: log("  | " + ln))
+        out["distinct_cards"] = hold_tiled_ranks(
+            f"tiled sweep over {k} x-ranks (iv): NCCL on {k} distinct cards",
+            [r[0] for r in res], grid, ref, ref_iters, N_TILED_RANKS, alpha0,
+            vfrac)
+    else:
+        log(f"[tiled sweep over ranks (iv): distinct cards] did not run: "
             f"device_count = {n_cards}")
         out["distinct_cards"] = None
     return out
@@ -5520,6 +5933,44 @@ def phase_xy_batch_kernels(shape4, dev, grid=XY_GRID):
     return out
 
 
+def phase_tiled_block_kernels(dev):
+    """Phase 2 (viii): the kernels at the shapes the tiled sweep over ranks
+    and the geometry sweep over (case, x, y) ranks give them (phase 12h):
+    rows 11a-12d on phase 10's TILED_SHAPE cut into N_SHARDS x-slabs
+    (`phase_halo_kernels`: per slab against plain, composed against the
+    single-grid kernels, µs, bytes and bound); on the widest y-extended
+    block of its '2x2' blocks (1024 × 10 × 50: 8 rows and the momentum
+    island's 2) as two x-slabs of that strip (`phase_halo_kernels` again);
+    the '2x2' islands' owned rows bitwise the single grid's and the
+    windowed 11c and 12d (`phase_xy_halo_kernels`); rows 10a-c on the
+    extended 2x2 blocks of a geometry sweep's case group, 64 cases of
+    12×12×50 with per-case weights (`phase_xy_batch_kernels`). Returns
+    the stats of each."""
+    nx, ny, nz = TILED_SHAPE
+    spacing = (SWEEP_TANK["mesh"],) * 3
+    out = {}
+    log(f"[halo kernels on the x-blocks of phase 10's tiled grid] shape "
+        f"{TILED_SHAPE} in {N_SHARDS} x-shards, {REPS} timed launches each")
+    out["x_blocks"] = phase_halo_kernels(TILED_SHAPE, spacing, dev,
+                                         f1_checks=False)
+    strip = (nx, ny // XY_GRID[1] + MAX_HALO_ROWS, nz)
+    log(f"[halo kernels on the widest y-extended block of the tiled grid's "
+        f"{XY_GRID[0]}x{XY_GRID[1]} blocks] strip {strip} in {XY_GRID[0]} "
+        f"x-shards, {REPS} timed launches each")
+    out["y_extended_blocks"] = phase_halo_kernels(
+        strip, spacing, dev, n_shards=XY_GRID[0], f1_checks=False)
+    log(f"[halo kernels on the tiled grid's 'NxM' x·y blocks] shape "
+        f"{TILED_SHAPE} in {XY_GRID[0]}x{XY_GRID[1]} blocks, {REPS} timed "
+        "launches each")
+    out["xy_blocks"] = phase_xy_halo_kernels(TILED_SHAPE, spacing, dev)
+    shape4 = (12, 12, 50, SWEEP_CASES // GEOM_RANK_GRID[0])
+    log(f"[batch kernels on the x·y blocks of a geometry sweep's case "
+        f"group] shape {shape4} in {XY_GRID[0]}x{XY_GRID[1]} extended "
+        f"blocks, {REPS} timed launches each")
+    out["geometry_batch_blocks"] = phase_xy_batch_kernels(shape4, dev)
+    return out
+
+
 def phase_closed_top_halo(dev):
     """Phase 2's halo part, (v): `correct_divmax_h` in its closed-top form
     on the 6DoF tutorial tank's operands cut into N_SHARDS x-slabs
@@ -5667,6 +6118,7 @@ def main() -> int:
         f"{shape4} in {XY_GRID[0]}x{XY_GRID[1]} extended blocks, {REPS} "
         "timed launches each")
     xy_batch = phase_xy_batch_kernels(shape4, dev)
+    tiled_blocks = phase_tiled_block_kernels(dev)
 
     lap("2")
 
@@ -5784,6 +6236,8 @@ def main() -> int:
     mesh["farm_ranks"] = phase_farm_ranks(dev, sweep, case)
     sweep.pop("_states")
     lap("12g")
+    mesh["tiled_geom_ranks"] = phase_tiled_geom_ranks(dev, tiled)
+    lap("12h")
     for key in ("state", "lone_run"):
         tank6dof.pop(key)
     case.pop("checkpoints")
@@ -5823,6 +6277,7 @@ def main() -> int:
               "tiled_kernel_rows": tiled_rows, "phase_seconds": laps,
               "closed_top_halo_6dof": closed_halo,
               "xy_block_halo": xy_halo, "xy_block_batch": xy_batch,
+              "tiled_and_geometry_blocks": tiled_blocks,
               "launches": {"csf": csf_launches, "tiled": tiled_launches}}
     os.makedirs(os.path.join(repo, "perf_out"), exist_ok=True)
     with open(os.path.join(repo, "perf_out", "chip_smoke.json"), "w") as f:

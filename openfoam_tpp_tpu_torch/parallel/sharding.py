@@ -30,10 +30,16 @@ position, and drives every position itself.
     `ranks.launch(fn, positions, grid=(C, N, M))`) every rank holds the
     whole batch as its input and `shard_state` keeps its case
     position's slice of the case axis cut to its x·y block; the step,
-    `make_sweep_step(..., spmd=SpmdCtx(N, M, ranks=ctx))`, steps that
-    block with the minima over every rank, and `gather` brings the whole
-    batch back to rank 0. A case axis beside spatial positions on
-    distinct cards runs this way.
+    `make_sweep_step` or `make_geom_sweep_step(..., spmd=SpmdCtx(N, M,
+    ranks=ctx))` (the latter on `shard_batched_geometry(..., ranks=)`),
+    steps that block with the minima over every rank, and `gather`
+    brings the whole batch back to rank 0. A case axis beside spatial
+    positions on distinct cards runs this way. Unbatched (`batched=False`
+    on a (1, N, M) grid, as JAX's `sharded_step(step, mesh)` cuts one
+    state over x·y): `shard_state` keeps the rank's x·y block of the one
+    state, the params stay whole on every rank, and the step is
+    `make_step` or `make_tiled_sweep_step(..., spmd=SpmdCtx(N, M,
+    ranks=ctx))`.
 
 Several positions share one card only through an explicit device list
 that repeats it, as JAX's virtual CPU devices share the host. The parts
@@ -177,15 +183,19 @@ class CaseSharding:
                                                   self.devices)]
 
     def _rank_part(self, tree):
-        """This rank's case slice of `tree`, its grid leaves cut to the
-        rank's x·y block (face leaves keep their shared plane or row)."""
+        """This rank's case slice of `tree` (unbatched: all of it), its
+        grid leaves cut to the rank's x·y block (face leaves keep their
+        shared plane or row); the other leaves whole."""
         r = self.ranks
-        first = getattr(tree, dataclasses.fields(tree)[0].name)
-        n = getattr(tree, "t", first).shape[0]
-        sl = self.slices(n)[r.ic]
+        if self.batched:
+            first = getattr(tree, dataclasses.fields(tree)[0].name)
+            sl = self.slices(getattr(tree, "t", first).shape[0])[r.ic]
 
         def part(a):
-            a = a[sl] if a.dim() <= 1 else r.block(a[..., sl], self.shape)
+            if self.batched:
+                a = a[sl] if a.dim() <= 1 else a[..., sl]
+            if a.dim() > 1:
+                a = r.block(a, self.shape)
             return a.contiguous().to(r.device)
 
         return _tree_map(part, tree)
@@ -221,6 +231,9 @@ class CaseSharding:
             a = getattr(part, f.name)
             if a.dim() > 1:
                 a = r.gather_block(a, faces(a))
+            if not self.batched:
+                whole[f.name] = a.to(device) if r.rank == 0 else None
+                continue
             # Every case position's slice, in case order, on every rank.
             cuts = r.all_gather(a, world=True)
             whole[f.name] = (torch.cat(
@@ -249,13 +262,17 @@ def state_sharding(mesh: DeviceMesh, batched: bool = False, ranks=None,
     axes are computed whole on their one device (module docstring).
     `ranks` (a RankCtx whose (C, N, M) grid is the mesh's, one process a
     position): this rank's case slice of a batch on a grid of `shape`
-    cells (nx, ny, nz), cut to its x·y block."""
+    cells (nx, ny, nz), cut to its x·y block; unbatched (C = 1), the
+    rank's x·y block of the one state, its other leaves whole (params
+    replicated)."""
     if ranks is not None:
         _rank_mesh(mesh, ranks)
-        if not batched:
-            raise ValueError("over ranks the case axis is farmed: a batched "
-                             "state only (batched=True)")
-        return CaseSharding(devices=(ranks.device,), batched=True,
+        if not batched and ranks.cases > 1:
+            raise ValueError(
+                f"an unbatched state on a rank grid with {ranks.cases} case "
+                "positions: it has no case axis to spread (a (1, N, M) "
+                "grid)")
+        return CaseSharding(devices=(ranks.device,), batched=batched,
                             ranks=ranks, shape=shape)
     devs = case_devices(mesh)
     if not batched and len(devs) > 1:
@@ -277,10 +294,19 @@ def shard_state(state, mesh: DeviceMesh, batched: bool = False,
     return state_sharding(mesh, batched, ranks, shape).put(state)
 
 
-def shard_batched_geometry(bgeom, mesh: DeviceMesh) -> list:
+def shard_batched_geometry(bgeom, mesh: DeviceMesh, ranks=None) -> list:
     """Each case position's part of a BatchedGeometry (trailing layout) on
     its device, on the shared grid of the whole batch: the operand of a
-    geometry sweep step built per position."""
+    geometry sweep step built per position. With `ranks` (a RankCtx
+    whose (C, N, M) grid is the mesh's): [this rank's part], its case
+    position's cases cut to its x·y block (parallel/sweep.py
+    `rank_geometry`), for `make_geom_sweep_step(part, spmd=SpmdCtx(N, M,
+    ranks=ctx))`."""
+    if ranks is not None:
+        from openfoam_tpp_tpu_torch.parallel.sweep import rank_geometry
+
+        _rank_mesh(mesh, ranks)
+        return [rank_geometry(bgeom, ranks)]
     sharding = state_sharding(mesh, batched=True)
     return [dataclasses.replace(
         bgeom, geoms=bgeom.geoms[sl],
@@ -303,6 +329,12 @@ class ShardedStep:
 
     def __call__(self, parts: list, params_parts: list, t_stop=None):
         locks = [getattr(s, "lockstep", None) for s in self.steps]
+        if self.ranks is not None and not self.batched:
+            # The step opens the rank's block itself.
+            args = (parts[0], params_parts[0])
+            new, diag = (self.steps[0](*args) if t_stop is None
+                         else self.steps[0](*args, t_stop=t_stop))
+            return [new], [diag]
         if self.ranks is not None:
             block = parts[0].alpha.shape
             with st.rank_block(self.ranks, block[0], block[1]):
@@ -329,16 +361,20 @@ def sharded_step(step_fn, mesh: DeviceMesh, batched: bool = False,
 
     `ranks` (the RankCtx of a (C, N, M) rank grid that is the mesh's):
     this rank's part, from `shard_state(..., ranks=)`, stepped under the
-    stencil's rank block by `step_fn` =
-    `make_sweep_step(..., spmd=SpmdCtx(N, M, ranks=ctx))`, the lockstep
-    minima over every rank. The geometry sweep has no rank form."""
+    stencil's rank block by `step_fn` built for that block with
+    `spmd=SpmdCtx(N, M, ranks=ctx)`: batched, `make_sweep_step` or
+    `make_geom_sweep_step` (the lockstep minima over every rank);
+    unbatched, on a (1, N, M) grid, `make_step` or
+    `make_tiled_sweep_step`."""
     if ranks is not None:
         _rank_mesh(mesh, ranks)
-        if getattr(step_fn, "ranks", None) is not ranks:
+        if getattr(step_fn, "ranks", None) is not ranks or (
+                batched and getattr(step_fn, "lockstep", None) is None):
             raise NotImplementedError(
-                "sharded_step(ranks=) takes the sweep step built for this "
-                "rank's block: make_sweep_step(geom, ..., spmd=SpmdCtx(N, "
-                "M, ranks=ctx)) (the geometry sweep has no rank form)")
+                "sharded_step(ranks=) takes the step built for this rank's "
+                "block with spmd=SpmdCtx(N, M, ranks=ctx): batched, "
+                "make_sweep_step or make_geom_sweep_step; unbatched, "
+                "make_step or make_tiled_sweep_step")
         return ShardedStep([step_fn], mesh, batched, ranks)
     n = len(case_devices(mesh))
     steps = list(step_fn) if isinstance(step_fn, (list, tuple)) \

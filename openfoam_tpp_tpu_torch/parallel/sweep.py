@@ -29,8 +29,9 @@ Lockstep sweeps share one adaptive dt (the batch minimum); with
 runs it over one batch or over the parts of a batch farmed over a device
 mesh (parallel/sharding.py), taking each minimum over every part. A
 batch farmed over ranks (a (C, N, M) rank grid, one process a position)
-runs `make_sweep_step(..., spmd=SpmdCtx(N, M, ranks=ctx))` on each
-rank's block, and the minima reduce over every rank.
+runs `make_sweep_step` or `make_geom_sweep_step(..., spmd=SpmdCtx(N, M,
+ranks=ctx))` on each rank's block, and the minima reduce over every
+rank; `run_sweep_ranks` takes either sweep, as `run_sweep` does.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from openfoam_tpp_tpu_torch.device import resolve_device
 from openfoam_tpp_tpu_torch.mesh.geometry import (TankGeometry,
                                                   build_tank_geometry,
                                                   natural_shape)
+from openfoam_tpp_tpu_torch.ops import stencil as st
 from openfoam_tpp_tpu_torch.solver.timestep import (Cfl, geometry_arrays,
                                                     make_step_core)
 
@@ -311,11 +313,16 @@ def _sweep_rank(ctx, log, geom, param_rows, t_end, props, controls,
     dev = ctx.device
     mesh = sh.make_mesh(ctx.world, case_axis=ctx.cases, y_axis=ctx.grid[1],
                         devices=[dev] * ctx.world)
-    step = make_sweep_step(geom, props, controls, device=dev,
-                           spmd=SpmdCtx(*ctx.grid, ranks=ctx))
+    spmd = SpmdCtx(*ctx.grid, ranks=ctx)
+    if isinstance(geom, BatchedGeometry):
+        geom = geom.to(dev)
+        step = make_geom_sweep_step(geom, props, controls, spmd=spmd)
+        states = batch_states_geom(geom)
+    else:
+        step = make_sweep_step(geom, props, controls, device=dev, spmd=spmd)
+        states = batch_states(geom, len(param_rows), device=dev)
     farm = sh.sharded_step(step, mesh, batched=True, ranks=ctx)
-    parts = sh.shard_state(batch_states(geom, len(param_rows), device=dev),
-                           mesh, batched=True, ranks=ctx)
+    parts = sh.shard_state(states, mesh, batched=True, ranks=ctx)
     pparts = sh.params_sharding(mesh, batched=True, ranks=ctx).put(
         batch_params(param_rows, device=dev))
     n, iters = 0, []
@@ -335,25 +342,37 @@ def _sweep_rank(ctx, log, geom, param_rows, t_end, props, controls,
                       "p_iters": iters}}
 
 
-def run_sweep_ranks(geom: TankGeometry, param_rows: list[dict], t_end: float,
+def run_sweep_ranks(geom, param_rows: list[dict], t_end: float,
                     grid, positions,
                     props: PhysicalProperties = PhysicalProperties(),
                     controls: SolverControls = SolverControls(),
                     max_steps: int = 100_000, log=print):
-    """`run_sweep` of a shared-geometry forcing sweep farmed over a
-    (C, N, M) grid of ranks, one spawned process a position in
-    `positions` (parallel/ranks.py; gloo where positions share a device):
-    each rank steps its case position's B/C cases on its x·y block with
-    `make_sweep_step(..., spmd=SpmdCtx(N, M, ranks=ctx))`, the lockstep
+    """`run_sweep` farmed over a (C, N, M) grid of ranks, one spawned
+    process a position in `positions` (parallel/ranks.py; gloo where
+    positions share a device). `geom`: a TankGeometry (a shared-geometry
+    forcing sweep: each rank steps its case position's B/C cases on its
+    x·y block with `make_sweep_step(..., spmd=SpmdCtx(N, M, ranks=ctx))`)
+    or a BatchedGeometry (a geometry sweep, lockstep, as `run_sweep`
+    runs it: `make_geom_sweep_step` on the rank's part of it); the
     minima over every rank. Returns (states on the CPU, n_steps, each
     rank's {exchange stats, "launches", "p_iters"}). The grid is checked
     before any process is spawned (`farm_block`)."""
     from openfoam_tpp_tpu_torch.parallel import ranks as rk
 
     grid = tuple(int(g) for g in grid)
+    what = "cases"
+    if isinstance(geom, BatchedGeometry):
+        if geom.n_cases != len(param_rows) or geom.ranks is not None:
+            raise ValueError(
+                f"a BatchedGeometry of {geom.n_cases} cases"
+                f"{' (a rank part)' if geom.ranks is not None else ''} for "
+                f"{len(param_rows)} rows: the whole batch's, one a row")
+        _trailing_geometry(geom)
+        geom, what = geom.to("cpu"), "cases of their own geometry"
     block = farm_block(geom.shape, len(param_rows), grid)
-    log(f"  sweep of {len(param_rows)} cases over {'x'.join(map(str, grid))}"
-        f" ranks (case, x, y): blocks of {' x '.join(map(str, block))}")
+    log(f"  sweep of {len(param_rows)} {what} over "
+        f"{'x'.join(map(str, grid))} ranks (case, x, y): blocks of "
+        f"{' x '.join(map(str, block))}")
     from openfoam_tpp_tpu_torch.core.state import state_from_numpy
 
     res = rk.launch(_sweep_rank, positions, log=log, grid=grid,
@@ -377,10 +396,47 @@ class BatchedGeometry:
     spacing: torch.Tensor        # (n_cases, 3)
     shape: tuple                 # shared (nx, ny, nz)
     axis: int
+    # The RankCtx whose part this is (`rank_geometry`: its case
+    # position's cases on its x·y block of `shape`), None for a batch.
+    ranks: object = None
 
     @property
     def n_cases(self) -> int:
         return len(self.geoms)
+
+    def to(self, device) -> "BatchedGeometry":
+        """The same geometry with its tensors on `device`."""
+        dev = torch.device(device)
+        return dataclasses.replace(
+            self, ga={k: a.to(dev) for k, a in self.ga.items()},
+            spacing=self.spacing.to(dev))
+
+
+def _trailing_geometry(bgeom: BatchedGeometry):
+    if bgeom.axis == 0:
+        raise ValueError("a geometry sweep over ranks takes the trailing "
+                         "case axis (build_batched_geometry(axis=-1))")
+
+
+def rank_geometry(bgeom: BatchedGeometry, ranks) -> BatchedGeometry:
+    """This rank's part of a whole BatchedGeometry (trailing case axis) on
+    the rank's device: its case position's cases (parallel/sharding.py's
+    slices), their cut-cell arrays cut to the rank's x·y block of the
+    shared grid (face arrays keep their shared plane or row), their
+    spacing rows. The grid is checked first (`farm_block`)."""
+    _trailing_geometry(bgeom)
+    if bgeom.ranks is not None:
+        raise ValueError("rank_geometry of a rank's part: pass the whole "
+                         "batch's BatchedGeometry")
+    n, k = bgeom.n_cases, ranks.cases
+    farm_block(bgeom.shape, n, (k, *ranks.grid))
+    sl = slice(ranks.ic * n // k, (ranks.ic + 1) * n // k)
+    dev = ranks.device
+    ga = {key: ranks.block(a[..., sl], bgeom.shape).contiguous().to(dev)
+          for key, a in bgeom.ga.items()}
+    return dataclasses.replace(
+        bgeom, geoms=bgeom.geoms[sl], ga=ga,
+        spacing=bgeom.spacing[sl].contiguous().to(dev), ranks=ranks)
 
 
 def build_batched_geometry(rows: list[dict], round_to: int = 8,
@@ -432,7 +488,7 @@ def batch_states_geom(bgeom: BatchedGeometry, dt0: float = 1e-3) -> SimState:
 def make_geom_sweep_step(bgeom: BatchedGeometry,
                          props: PhysicalProperties = PhysicalProperties(),
                          controls: SolverControls = SolverControls(),
-                         lockstep: bool = True):
+                         lockstep: bool = True, spmd=None):
     """Geometry-batched step: every case carries its own cut-cell arrays
     and spacing as batched operands; one step serves the whole
     (f, R, H, D, geo) sweep: `sweep_step(states, params, t_stop=None)`.
@@ -443,12 +499,32 @@ def make_geom_sweep_step(bgeom: BatchedGeometry,
     land exactly on each write target, and cases that have already
     reached `t_stop` are HELD (their state kept) while stiffer cases
     catch up — a lax case takes its solo step count, not the
-    batch-stiffest one."""
+    batch-stiffest one.
+
+    `spmd=SpmdCtx(n, m, ranks=ctx)` (ctx on a (C, n, m) rank grid;
+    trailing layout): the step of one rank of the geometry sweep farmed
+    over ranks, on `rank_geometry(bgeom, ctx)` (a whole batch's
+    geometry is cut here; parallel/sharding.py `shard_batched_geometry(
+    ..., ranks=)` gives the part) and on the rank's block of its case
+    position's states (`shard_state(..., ranks=)`): the step over ranks
+    on a batched block, each case's CFL dt and, with `lockstep=False`,
+    its held/done mask over its case group's ranks, the lockstep minimum
+    over every rank."""
+    ranks = None if spmd is None else spmd.ranks
+    if spmd is not None and ranks is None:
+        raise NotImplementedError(
+            "make_geom_sweep_step(spmd=) in one process: a sweep is sharded "
+            "over ranks only (SpmdCtx(n, m, ranks=ctx))")
+    if ranks is not None:
+        if bgeom.ranks is None:
+            bgeom = rank_geometry(bgeom, ranks)
+        elif bgeom.ranks is not ranks:
+            raise ValueError("a BatchedGeometry part of another rank")
     dev = bgeom.spacing.device
     trailing = _trailing(bgeom.axis)
     controls = dataclasses.replace(
         controls, **_sweep_kernel_policy(bgeom.axis, dev))
-    core = make_step_core(props, controls, open_top=True)
+    core = make_step_core(props, controls, open_top=True, spmd=spmd)
     spacing = tuple(bgeom.spacing[:, d].contiguous() for d in range(3))
     # The step runs in the trailing layout: a leading ga is moved once.
     ga = (bgeom.ga if trailing else
@@ -462,7 +538,10 @@ def make_geom_sweep_step(bgeom: BatchedGeometry,
                            for k in _STATE_FIELDS})
 
     def cfl(states: SimState) -> Cfl:
-        return core.cfl_dt(states, ga, spacing)
+        block = (contextlib.nullcontext() if ranks is None else
+                 st.rank_block(ranks, *states.alpha.shape[:2]))
+        with block:
+            return core.cfl_dt(states, ga, spacing)
 
     def finish(states, params, cfl, t_stop):
         new_states, diag = core(states, params, ga, spacing, t_stop=t_stop,
@@ -475,7 +554,7 @@ def make_geom_sweep_step(bgeom: BatchedGeometry,
 
     lock = (Lockstep(True, cfl, finish) if lockstep
             else Lockstep(False, None, finish))
-    return _sweep_step_of(lock, trailing, takes_t_stop=True)
+    return _sweep_step_of(lock, trailing, takes_t_stop=True, ranks=ranks)
 
 
 def run_sweep(geom, param_rows: list[dict], t_end: float,

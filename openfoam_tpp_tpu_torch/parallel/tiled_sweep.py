@@ -17,6 +17,18 @@ One adaptive dt governs the whole batch (the minimum over cases, as the
 lockstep sweep's). The JAX package advances the tiled state in a device
 `while_loop`; here `run_tiled_sweep` is a host loop that reads `t` once
 per step.
+
+The merged grid composes with the x (and y) decomposition, as in the
+JAX package's mesh: `make_tiled_sweep_step(..., spmd=SpmdCtx(N, M,
+ranks=ctx))` steps one rank's x·y block of it (parallel/ranks.py, a
+(1, N, M) rank grid), with the halo islands of parallel/spmd.py; the
+forcing keeps returning the whole grid's repeated G_x, G_y, which the
+step cuts to the block (solver/timestep.py `block_forcing`).
+`run_tiled_sweep_ranks` is `run_tiled_sweep` over such ranks, one
+spawned process a position. Where N divides the case count every rank
+boundary lies on a sealed junction; the plane exchanges still run
+there (nothing is skipped), so the step is the same program whatever
+the cut.
 """
 
 from __future__ import annotations
@@ -31,7 +43,7 @@ from openfoam_tpp_tpu_torch.core import motion as mo
 from openfoam_tpp_tpu_torch.core.state import CaseParams, SimState, init_state
 from openfoam_tpp_tpu_torch.device import resolve_device
 from openfoam_tpp_tpu_torch.mesh.geometry import TankGeometry
-from openfoam_tpp_tpu_torch.parallel.sweep import batch_params
+from openfoam_tpp_tpu_torch.parallel.sweep import batch_params, farm_block
 from openfoam_tpp_tpu_torch.solver.timestep import (geometry_arrays,
                                                     make_step_core)
 
@@ -84,18 +96,45 @@ def untile(arr, n_cases: int, face_x: bool = False) -> np.ndarray:
     return np.stack(np.split(a, n_cases, axis=0))
 
 
+def tiled_block(geom: TankGeometry, n_cases: int, grid) -> tuple:
+    """(nxl, nyl, nz): the block each rank steps of `n_cases` tiled cases
+    over a (1, N, M) (or (N, M)) rank `grid`. ValueError where the grid
+    has case positions (the cases are merged into one grid), or the
+    merged nx·n_cases (ny) does not divide into N (M) even blocks of at
+    least two cells (parallel/sweep.py `farm_block`'s rules); callers
+    check it before any process is spawned."""
+    grid = tuple(int(g) for g in grid)
+    if len(grid) == 2:
+        grid = (1, *grid)
+    if len(grid) != 3 or grid[0] != 1:
+        raise ValueError(
+            f"a tiled sweep over a {grid} rank grid: its cases are merged "
+            "into one grid along x, so the grid is (1, N, M)")
+    nx, ny, nz = geom.shape
+    return farm_block((nx * n_cases, ny, nz), 1, grid)[:3]
+
+
 def make_tiled_sweep_step(geom: TankGeometry, n_cases: int,
                           props: PhysicalProperties = PhysicalProperties(),
                           controls: SolverControls = SolverControls(),
-                          device="cuda"):
+                          device="cuda", spmd=None):
     """Step function advancing all tiled cases at once: `step(state,
     params, t_stop=None) -> (state', diag)` with `params` a batched
     CaseParams ((n_cases,) tensors, as from batch_params). `controls`
     are the caller's: `use_pallas=True` runs the single-grid kernels on
-    the merged grid."""
+    the merged grid. `spmd`: the x-sharded step (`SpmdCtx(N)`, x-slabs in
+    one process) or, with `SpmdCtx(N, M, ranks=ctx)` on a (1, N, M) rank
+    grid, one rank's x·y block of the merged grid (`tiled_block`), its
+    state from parallel/sharding.py `shard_state(..., ranks=)` and its
+    params whole."""
     dev = resolve_device(device)
+    ranks = None if spmd is None else spmd.ranks
+    if ranks is not None:
+        tiled_block(geom, n_cases, (ranks.cases, *ranks.grid))
     tgeom = tile_geometry(geom, n_cases)
-    ga = geometry_arrays(tgeom, device=dev)
+    if spmd is not None and ranks is None:
+        spmd.local_shape(tgeom.shape)
+    ga = geometry_arrays(tgeom, device=dev, ranks=ranks)
     spacing = tuple(float(s) for s in geom.spacing)
     nx = geom.shape[0]
 
@@ -108,11 +147,13 @@ def make_tiled_sweep_step(geom: TankGeometry, n_cases: int,
         gy = G[1].repeat_interleave(nx).reshape(-1, 1, 1)
         return gx, gy, G[2, 0]
 
-    core = make_step_core(props, controls, open_top=True, forcing=forcing)
+    core = make_step_core(props, controls, open_top=True, forcing=forcing,
+                          spmd=spmd)
 
     def step(state: SimState, params: CaseParams, t_stop=None):
         return core(state, params, ga, spacing, t_stop=t_stop)
 
+    step.ranks = ranks
     return step
 
 
@@ -130,3 +171,66 @@ def run_tiled_sweep(geom: TankGeometry, param_rows: list[dict], t_end: float,
         state, _ = step(state, params)
         k += 1
     return state, k
+
+
+def _tiled_rank(ctx, log, geom, param_rows, t_end, props, controls,
+                max_steps):
+    """One rank of `run_tiled_sweep_ranks`: its block of the merged grid
+    stepped to t_end (the loop's test over every rank), the gathered
+    state on rank 0, and each rank's exchange stats, kernel launches and
+    p_iters."""
+    from openfoam_tpp_tpu_torch.core.state import state_to_numpy
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+    from openfoam_tpp_tpu_torch.parallel import sharding as sh
+    from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
+
+    dev, n = ctx.device, len(param_rows)
+    mesh = sh.make_mesh(ctx.world, y_axis=ctx.grid[1],
+                        devices=[dev] * ctx.world)
+    step = make_tiled_sweep_step(geom, n, props, controls, device=dev,
+                                 spmd=SpmdCtx(*ctx.grid, ranks=ctx))
+    run = sh.sharded_step(step, mesh, ranks=ctx)
+    parts = sh.shard_state(tile_state(geom, n, device=dev), mesh, ranks=ctx)
+    pparts = sh.params_sharding(mesh, ranks=ctx).put(
+        batch_params(param_rows, device=dev))
+    k, iters = 0, []
+    t_min = lambda: ctx.all_reduce(parts[0].t, op="min")
+    while k < max_steps and bool(t_min() < t_end):
+        parts, diags = run(parts, pparts)
+        iters.append(int(diags[0].p_iters))
+        k += 1
+    # numpy crosses to the parent: a tensor's storage would be shared
+    # with a process that is about to end.
+    state = run.sharding.gather(parts)
+    return {"state": None if state is None else state_to_numpy(state),
+            "n_steps": k,
+            "ranks": {**ctx.stats.as_dict(), "launches": rk.launch_counts(),
+                      "p_iters": iters}}
+
+
+def run_tiled_sweep_ranks(geom: TankGeometry, param_rows: list[dict],
+                          t_end: float, grid, positions,
+                          props: PhysicalProperties = PhysicalProperties(),
+                          controls: SolverControls = SolverControls(),
+                          max_steps: int = 100_000, log=print):
+    """`run_tiled_sweep` over a (1, N, M) grid of ranks, one spawned
+    process a position in `positions` (parallel/ranks.py; gloo where
+    positions share a device, NCCL between cards): each rank steps its
+    x·y block of the merged grid with `make_tiled_sweep_step(...,
+    spmd=SpmdCtx(N, M, ranks=ctx))`. Returns (the merged state on the
+    CPU, n_steps, each rank's {exchange stats, "launches", "p_iters"}).
+    The grid is checked before any process is spawned (`tiled_block`)."""
+    from openfoam_tpp_tpu_torch.core.state import state_from_numpy
+    from openfoam_tpp_tpu_torch.parallel import ranks as rk
+
+    grid = tuple(int(g) for g in grid)
+    block = tiled_block(geom, len(param_rows), grid)
+    log(f"  tiled sweep of {len(param_rows)} cases "
+        f"({geom.shape[0] * len(param_rows)} x {geom.shape[1]} x "
+        f"{geom.shape[2]}) over {'x'.join(map(str, grid))} ranks: blocks "
+        f"of {' x '.join(map(str, block))}")
+    res = rk.launch(_tiled_rank, positions, log=log, grid=grid,
+                    args=(geom, param_rows, t_end, props, controls,
+                          max_steps))
+    return (state_from_numpy(res[0]["state"], device="cpu"),
+            res[0]["n_steps"], [r["ranks"] for r in res])

@@ -124,7 +124,9 @@ def explicit_update(vels, vcs, rho_old, rho_new, apertures, dt, G,
     component, three separate adds as in the JAX step, zero where the
     aperture is 0 (ρ_f: arithmetic face means). A component of G that is
     3-D and varies along its own axis (the tiled sweep's per-block G_x) is
-    face-averaged first. `extra`: an optional per-axis source on each face
+    face-averaged first, unless it is on that axis's faces already (a
+    rank's cut of the whole grid's faces, solver/timestep.py
+    `block_forcing`). `extra`: an optional per-axis source on each face
     grid (the rotating frame's accelerations, solver/frame.py); `csf`: the
     per-axis surface-tension acceleration (`csf_force`)."""
     out = []
@@ -134,7 +136,7 @@ def explicit_update(vels, vcs, rho_old, rho_new, apertures, dt, G,
         q_star = (rof * q + dt * vc) / rnf
         Gc = G[ax]
         if (isinstance(Gc, torch.Tensor) and Gc.dim() == 3
-                and Gc.shape[ax] > 1):
+                and Gc.shape[ax] not in (1, q.shape[ax])):
             Gc = st.cells_to_faces_avg(Gc, ax)
         q_star = q_star + dt * Gc
         if extra is not None:

@@ -78,8 +78,11 @@ on y-extended blocks (parallel/spmd.py). It exists over ranks only. A motion tab
 runs there too (the 6DoF tank: each rank holds the same table bits, its
 rotating frame's sources take the rank's own x coordinates, and the
 closed tank's null-space projection and fluid mean sum over the ranks).
-The rank form runs every configuration of the one-process step but
-`forcing=` (which raises NotImplementedError): with a fused-kernel gate
+The rank form runs every configuration of the one-process step. A
+`forcing=` callback keeps the JAX contract and returns whole-grid
+components; the step cuts them to the rank's block (`block_forcing`):
+each rank cuts its part of the same array, so the cut adds no
+collective. With a fused-kernel gate
 turned off (`mom_pallas=False`, OFTPP_MOM_PALLAS=0, OFTPP_CORR_PALLAS=0)
 the momentum RHS and the projection epilogue run their plain versions on
 the rank's block while the MULES and 7-point islands stay (MULES is
@@ -94,7 +97,10 @@ A sweep's batched block runs over ranks too (`batch_lanes` with
 `make_sweep_step(spmd=...)`): its step is the plain step above on a
 (nxl, nyl, nz, B/C) block, its 7-point passes the batch kernels on
 extended blocks (parallel/spmd.py), its reductions per case over the
-case group.
+case group. The tiled sweep's merged grid runs over x·y ranks the same
+way (parallel/tiled_sweep.py, `forcing=` cut per block), and the
+geometry sweep's batched block with each case's cut cells and spacing
+(parallel/sweep.py `make_geom_sweep_step(spmd=...)`).
 """
 
 from __future__ import annotations
@@ -240,6 +246,43 @@ def _check_slice(controls, spmd=None):
             "over ranks (SpmdCtx(n, m, ranks=ctx), parallel/ranks.py)")
 
 
+def block_forcing(G, ranks, nxl: int, nyl: int):
+    """A forcing's whole-grid components (JAX's contract: each 0-d, or
+    3-D and broadcast against its face grid) cut to this rank's x·y block
+    of nxl × nyl cells (`ranks` a parallel.ranks.RankCtx). A 0-d
+    component stays as it is. Along x and y an extent of 1 is kept and
+    the axis's global cell count is cut (RankCtx.cut); any other extent
+    raises ValueError. A component that varies along its own axis (the
+    tiled sweep's per-block G_x) is first averaged to its n + 1 faces on
+    the whole grid, then cut with the shared face plane: the low face
+    takes the left neighbour's last cell without an exchange, and the
+    faces are bitwise those the one-process step averages. Every rank
+    cuts its part of the same whole array: no collective."""
+    n_glob = (nxl * ranks.grid[0], nyl * ranks.grid[1])
+    out = []
+    for ax, g in enumerate(G):
+        if not isinstance(g, torch.Tensor) or g.dim() == 0:
+            out.append(g)
+            continue
+        if g.dim() < 3:
+            raise ValueError(
+                f"forcing component {'xyz'[ax]} of shape {tuple(g.shape)} "
+                "over ranks: 0-d, or 3-D and broadcast against its face grid")
+        for d in (0, 1):
+            if g.shape[d] == n_glob[d]:
+                if d == ax:
+                    with st.rank_block(None):
+                        g = st.cells_to_faces_avg(g, d)
+                g = ranks.cut(g, n_glob[d], d)
+            elif g.shape[d] != 1:
+                raise ValueError(
+                    f"forcing component {'xyz'[ax]} of shape "
+                    f"{tuple(g.shape)} over ranks: its {'xy'[d]} extent is "
+                    f"neither 1 nor the grid's {n_glob[d]} cells")
+        out.append(g)
+    return tuple(out)
+
+
 def make_step_core(props: PhysicalProperties = PhysicalProperties(),
                    controls: SolverControls = SolverControls(),
                    motion=None, open_top: bool = True, face_xyz=None,
@@ -256,7 +299,8 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
     `motion` (a TableMotion): table-driven forcing; with rotation it
     needs `face_xyz`, the three axes' face_coordinates. `forcing(t,
     params) -> (Gx, Gy, Gz)` replaces the uniform G(t); each component
-    is 0-d, or 3-D and broadcast against its face grid.
+    is 0-d, or 3-D and broadcast against its face grid (over ranks the
+    whole grid's, cut to the block by `block_forcing`).
 
     The fused kernels write zeros for u's face-nx row, so they run only
     with `sealed_x` (the last x-aperture plane is all zero, true of every
@@ -289,12 +333,6 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
     use_corr_k = sealed_x and _corr_pallas_enabled(controls)
     knobs = poisson.SolverKnobs.from_env()
     ranks = None if spmd is None else spmd.ranks
-    if ranks is not None and forcing is not None:
-        # The forcing callback returns face-grid fields of the whole grid;
-        # no manager path passes it over ranks.
-        raise NotImplementedError(
-            "the step over ranks with forcing=: the callback's face-grid "
-            "fields would need the rank's block (ROADMAP.md §1)")
 
     def slabs(state):
         """The stencil's x·y block of a rank process."""
@@ -429,8 +467,13 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
 
         # --- explicit conservative momentum (no pressure) ---
         t_mid = state.t + 0.5 * dt
-        G = (forcing(t_mid, params) if forcing is not None
-             else effective_g(t_mid, params))
+        if forcing is None:
+            G = effective_g(t_mid, params)
+        elif ranks is None:
+            G = forcing(t_mid, params)
+        else:
+            G = block_forcing(forcing(t_mid, params), ranks,
+                              *state.alpha.shape[:2])
         kappa = None
         if props.sigma != 0.0:
             kappa = mom.curvature(alpha_new, spacing, vfrac=ga["vfrac"],
@@ -585,11 +628,13 @@ def make_step(geom: TankGeometry,
                         precond=precond)
 
         step.init_precond = lambda state: core.init_precond(state, ga, spacing)
+        step.ranks = ranks
         return step
 
     def step(state, params, t_stop=None):
         return core(state, params, ga, spacing, t_stop=t_stop)
 
+    step.ranks = ranks
     return step
 
 

@@ -52,8 +52,9 @@ farms, eight once for the (2, 2, 2) farms.
     grid's.
 (e) Refusals: a (case=2, x=2) farm with an odd nxl raises ValueError
     before any spawn; `case_devices` in one process still raises,
-    naming the rank form; `forcing=` over ranks raises
-    NotImplementedError.
+    naming the rank form; `forcing=` over ranks builds (its components
+    are cut to the rank's block: tests/test_torch_ranks_tiled.py), and a
+    whole-grid component of another extent raises ValueError.
 """
 
 import dataclasses
@@ -88,7 +89,8 @@ from openfoam_tpp_tpu_torch.parallel import ranks as rk
 from openfoam_tpp_tpu_torch.parallel import sharding as tsh
 from openfoam_tpp_tpu_torch.parallel import sweep as tsw
 from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
-from openfoam_tpp_tpu_torch.solver.timestep import make_step_core
+from openfoam_tpp_tpu_torch.solver.timestep import (block_forcing,
+                                                    make_step_core)
 from openfoam_tpp_tpu_torch.utils import io as tio
 
 # tests/test_torch_step.py's tank (12 fluid cells across, whose
@@ -476,7 +478,9 @@ def test_farm_and_rank_refusals(monkeypatch):
     ctx = rk.RankCtx(rank=0, world=4, device=torch.device("cpu"),
                      backend="gloo", grid=(2, 2, 1))
     assert (ctx.cases, ctx.grid, ctx.group_size) == (2, (2, 1), 2)
-    with pytest.raises(NotImplementedError, match="forcing="):
-        make_step_core(forcing=lambda t, p: None, spmd=SpmdCtx(2, 1, ranks=ctx))
+    assert callable(make_step_core(forcing=lambda t, p: None,
+                                   spmd=SpmdCtx(2, 1, ranks=ctx)))
+    with pytest.raises(ValueError, match="neither 1 nor"):
+        block_forcing((torch.zeros(3, 1, 1), 0.0, -9.81), ctx, 4, 8)
     with pytest.raises(NotImplementedError, match="one process"):
         tsw.make_sweep_step(odd, device="cpu", spmd=SpmdCtx(2))

@@ -453,3 +453,110 @@ def farm(ctx, log, tank, rows, n_steps, grid, route="auto", swap=False):
     out.update(calls=dict(calls), stats=ctx.stats.as_dict(),
                block=tuple(parts[0].alpha.shape))
     return out
+
+
+def _gathered(sharding, parts):
+    whole = sharding.gather(parts)
+    return None if whole is None else state_to_numpy(whole)
+
+
+def tiled(ctx, log, tank, rows, n_steps, grid=None, controls=CONTROLS,
+          with_single=False):
+    """`make_tiled_sweep_step` of `rows` (one case each, merged along x)
+    over the ranks (on the (N, M) rank grid `grid`), through the sharding
+    API's unbatched `ranks=` form: every rank holds the merged state at
+    rest, keeps its x·y block (`shard_state(..., ranks=)`, the params
+    whole) and steps it `n_steps` times. Every rank returns its
+    entry-point call counts, exchange stats and block shape; rank 0 also
+    the gathered states after the first and the last step and the
+    p_iters, and with `with_single` the one-process `SpmdCtx(N)` tiled
+    step's from the same state."""
+    from openfoam_tpp_tpu_torch.parallel import sharding as sh
+    from openfoam_tpp_tpu_torch.parallel import sweep as sw
+    from openfoam_tpp_tpu_torch.parallel import tiled_sweep as ts
+
+    ctx = on_grid(ctx, grid)
+    geom, n = geometry(tank), len(rows)
+    mesh = sh.make_mesh(ctx.world, y_axis=ctx.grid[1],
+                        devices=[ctx.device] * ctx.world)
+    step = ts.make_tiled_sweep_step(geom, n, controls=controls,
+                                    device=ctx.device,
+                                    spmd=SpmdCtx(*ctx.grid, ranks=ctx))
+    run = sh.sharded_step(step, mesh, ranks=ctx)
+    whole = ts.tile_state(geom, n, device=ctx.device)
+    par = sw.batch_params(rows, device=ctx.device)
+    parts = sh.shard_state(whole, mesh, ranks=ctx)
+    pparts = sh.params_sharding(mesh, ranks=ctx).put(par)
+    calls, patches = _counted()
+    out = {"iters": []}
+    for p in patches:
+        p.start()
+    try:
+        for i in range(n_steps):
+            parts, diags = run(parts, pparts)
+            out["iters"].append(int(diags[0].p_iters))
+            if i in (0, n_steps - 1):
+                out["first" if i == 0 else "last"] = _gathered(run.sharding,
+                                                               parts)
+    finally:
+        for p in patches:
+            p.stop()
+    out.update(calls=dict(calls), stats=ctx.stats.as_dict(),
+               block=tuple(parts[0].alpha.shape))
+    if with_single and ctx.rank == 0:
+        one = ts.make_tiled_sweep_step(geom, n, controls=controls,
+                                       device=ctx.device,
+                                       spmd=SpmdCtx(ctx.grid[0]))
+        f1, l1, i1 = _steps(one, whole, par, n_steps)
+        out["single"] = {"first": state_to_numpy(f1),
+                         "last": state_to_numpy(l1), "iters": i1}
+    return out
+
+
+def geom_farm(ctx, log, rows, prows, n_steps, grid=None, lockstep=True,
+              route="auto", t_stop=None):
+    """`make_geom_sweep_step` of the geometry rows `rows` (their forcing
+    `prows`) farmed over the (C, N, M) rank `grid`: every rank builds the
+    whole BatchedGeometry (round_to=4) and the batch at rest (dt0 4e-4),
+    keeps its part (`shard_batched_geometry` / `shard_state(...,
+    ranks=)`) and steps it `n_steps` times (to `t_stop`) under
+    OFTPP_SWEEP_PALLAS=`route`. Every rank returns its t and p_iters per
+    step, its batch entry-point call counts, exchange stats and block;
+    rank 0 also the gathered batch after the first, the last but one
+    ("held": the step before the last) and the last step."""
+    from openfoam_tpp_tpu_torch.parallel import sharding as sh
+    from openfoam_tpp_tpu_torch.parallel import sweep as sw
+
+    ctx = on_grid(ctx, grid)
+    bgeom = sw.build_batched_geometry(rows, round_to=4, device=ctx.device)
+    mesh = sh.make_mesh(ctx.world, case_axis=ctx.cases, y_axis=ctx.grid[1],
+                        devices=[ctx.device] * ctx.world)
+    part = sh.shard_batched_geometry(bgeom, mesh, ranks=ctx)[0]
+    with mock.patch.dict("os.environ", {"OFTPP_SWEEP_PALLAS": route}):
+        step = sw.make_geom_sweep_step(part, lockstep=lockstep,
+                                       spmd=SpmdCtx(*ctx.grid, ranks=ctx))
+    run = sh.sharded_step(step, mesh, batched=True, ranks=ctx)
+    parts = sh.shard_state(sw.batch_states_geom(bgeom, dt0=4e-4), mesh,
+                           batched=True, ranks=ctx)
+    pparts = sh.params_sharding(mesh, batched=True, ranks=ctx).put(
+        sw.batch_params(prows, device=ctx.device))
+    calls, patches = _counted_batch()
+    out = {"t": [], "iters": []}
+    for p in patches:
+        p.start()
+    try:
+        for i in range(n_steps):
+            parts, diags = run(parts, pparts, t_stop=t_stop)
+            out["t"].append(parts[0].t.numpy().copy())
+            out["iters"].append(diags[0].p_iters.numpy().copy())
+            for name, at in (("first", 0), ("held", n_steps - 2),
+                             ("last", n_steps - 1)):
+                if i == at:
+                    out[name] = _gathered(run.sharding, parts)
+    finally:
+        for p in patches:
+            p.stop()
+    out.update(calls=dict(calls), stats=ctx.stats.as_dict(),
+               block=tuple(parts[0].alpha.shape),
+               spacing=part.spacing.numpy())
+    return out
