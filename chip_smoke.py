@@ -14,10 +14,18 @@ Phases, each fatal on any fault (nothing is caught):
      kernels one call runs (torch.profiler; one for apply-dot and its
      batch form, the MULES fluxes, the projection epilogue and the cheb2
      smoothers); the apply-dot and cheb2 post-dot dots and the div max
-     bitwise equal from call to call; the batch-native entry points at the sweep's
+     bitwise equal from call to call, all read against the card's launch
+     floor (an empty kernel of one block and of one wave, timed the same
+     way, printed first); the batch-native entry points at the sweep's
      12×12×50×128, and the batch resid also at the V-cycle's coarser
      6×6×25×128 and 3×3×13×128 levels with its diagonal (one case
-     bitwise equal to the single-grid kernel);
+     bitwise equal to the single-grid kernel); the batch apply at the
+     shapes the sweep paths launch it at and at its edges (B = 1, odd B,
+     B not a multiple of 64, nz of 13, 25 and 50, unaligned operands),
+     f32 and bf16, unit and with diagonal: the body it picks and every
+     body the operands allow bitwise the plain version, each other and,
+     per case, the single-grid kernel, its coarse-level main-path variant
+     (6×6×25×128 bf16 with diagonal) timed;
      then the seven halo entry points of the
      x-sharded step on those inputs cut into 4 x-shards: per shard against
      their plain versions, and the shards composed against the single-grid
@@ -50,9 +58,10 @@ Phases, each fatal on any fault (nothing is caught):
      crop of the momentum island's operands timed; then (vii) rows 10a-c
      on the blocks of a sweep farmed over ranks: phase 6's 12×12×50×128
      cut into 2x2 x·y blocks, each extended as a rank extends it (a cell
-     a side from the neighbouring blocks, none at a global end), the
-     unchanged 10a and 10b (f32 unit apply, bf16 unit and f32 diagonal
-     resid) bitwise the whole grid's kernel on the owned cells, the 10c
+     a side from the neighbouring blocks, none at a global end), 10a
+     (unit and with diagonal, every body) and the unchanged 10b (bf16
+     unit and f32 diagonal resid) bitwise the whole grid's kernel on the
+     owned cells, the 10c
      with the column window of the owned cells: Â·p bitwise, the dots
      within DOT_RTOL of plain on the same window and, summed over the
      blocks, of the whole grid's, the full window bitwise the call
@@ -996,9 +1005,11 @@ def phase_batch_kernels(shape4, dev):
         w[2][:, :, 0] = 0
         w = tuple(w)
         d = arr(1.5, 2.5, dtype)
-        # Main-path variants as for the single-grid family: f32 unit apply
-        # (CG true residual), bf16 unit resid (V-cycle top level), f32
-        # apply+dot (CG curvature step).
+        # Main-path variants: f32 unit apply (CG's true residual at the
+        # top level; the bf16 stored-diagonal apply of the V-cycle's
+        # coarse levels is held and timed at their shape below), bf16
+        # unit resid (V-cycle top level), f32 apply+dot (CG curvature
+        # step).
         for diag in (None, d):
             v = f"{tag} {'diag' if diag is not None else 'unit'}"
             check("apply_7pt_nb", v, tag == "f32" and diag is None,
@@ -1009,15 +1020,11 @@ def phase_batch_kernels(shape4, dev):
                   lambda: sp.resid_scaled_7pt_nb(p, w, diag, b),
                   lambda: sp.resid_scaled_7pt_plain(p, w, diag, b),
                   (p, *w, diag, b), (p,), tol)
-            looped = (
-                per_case(lambda q, x, y, z, dg: sp.apply_7pt(q, (x, y, z), dg),
-                         p, *w, diag),
-                per_case(lambda q, x, y, z, dg, r: sp.resid_scaled_7pt(
-                    q, (x, y, z), dg, r), p, *w, diag, b))
-            batch = (sp.apply_7pt_nb(p, w, diag),
-                     sp.resid_scaled_7pt_nb(p, w, diag, b))
-            if not all(torch.equal(g, r) for g, r in zip(batch, looped)):
-                raise AssertionError(f"batch kernels {v}: a case differs from "
+            # The apply's cases: hold_batch_apply below.
+            looped = per_case(lambda q, x, y, z, dg, r: sp.resid_scaled_7pt(
+                q, (x, y, z), dg, r), p, *w, diag, b)
+            if not torch.equal(sp.resid_scaled_7pt_nb(p, w, diag, b), looped):
+                raise AssertionError(f"batch resid {v}: a case differs from "
                                      "the single-grid kernel on that case")
         ap_k, dots_k = sp.apply_dot_7pt_nb(p, w)
         ap_p, dots_p = sp.apply_dot_7pt_plain(p, w)
@@ -1035,8 +1042,9 @@ def phase_batch_kernels(shape4, dev):
               lambda: sp.apply_dot_7pt_nb(p, w)[0],
               lambda: sp.apply_dot_7pt_plain(p, w)[0], (p, *w),
               (p, dots_k), tol)
-    log(f"  every case of the batch kernels equals the single-grid kernel on "
-        f"that case, bitwise ({n_cases} cases, f32 and bf16)")
+    log(f"  every case of the batch resid and apply-dot equals the "
+        f"single-grid kernel on that case, bitwise ({n_cases} cases, f32 and "
+        f"bf16)")
     # The V-cycle's two coarser levels of the sweep, where most of row
     # 10b's launches run: bf16 with the stored diagonal, against the plain
     # version and, bitwise, against the single-grid kernel on one case.
@@ -1073,7 +1081,113 @@ def phase_batch_kernels(shape4, dev):
         levels[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound}
     rows["resid_scaled_7pt_nb"]["levels"] = levels
+    rows["apply_7pt_nb"].update(hold_batch_apply(dev, rng))
     return rows
+
+
+# The batch apply (row 10a): the shapes the sweep paths launch it at (the
+# top level, f32 unit, and the V-cycle's first coarse level, bf16 with
+# its stored diagonal, of phase 6's batch and of a farm position of 32
+# cases) and its edges: B = 1, odd B, B not a multiple of 64, nz of 13,
+# 25 and 50 (none a multiple of the one-thread-per-element body's
+# 8-plane blocks).
+BATCH_APPLY_SHAPES = ((12, 12, 50, 128), (6, 6, 25, 128), (12, 12, 50, 32),
+                      (6, 6, 25, 32), (6, 6, 25, 1), (6, 6, 25, 3),
+                      (7, 7, 50, 96), (3, 3, 13, 130))
+# The main-path variant of the coarse levels, timed beside the top's.
+BATCH_APPLY_COARSE = ((6, 6, 25, 128), "bf16", "diag")
+
+
+def misaligned(t):
+    """A contiguous copy of t whose data starts one element past an
+    aligned address."""
+    import torch
+
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def batch_apply_bits(p, w, diag, per_case=True):
+    """Row 10a on (p, w, diag): the body `apply_body` picks and every
+    body the operands allow bitwise the plain version and each other,
+    with `per_case` every case bitwise the single-grid kernel on that
+    case, and unaligned copies of the operands the same bits (the
+    one-thread-per-element body). Returns the faults."""
+    from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
+
+    got = sp.apply_7pt_nb(p, w, diag)
+    bad = []
+    if not same_bits((got,), (sp.apply_7pt_plain(p, w, diag),)):
+        bad.append("the plain version")
+    for body in (sp.APPLY_BODIES if p.shape[-1] % 2 == 0 else ["element"]):
+        if not same_bits((sp.apply_7pt_nb(p, w, diag, body=body),), (got,)):
+            bad.append(f"the {body} body")
+    lane = lambda t, i: None if t is None else t[..., i].contiguous()
+    for i in range(p.shape[-1] if per_case else 0):
+        one = sp.apply_7pt(lane(p, i), [lane(x, i) for x in w], lane(diag, i))
+        if not same_bits((got[..., i],), (one,)):
+            bad.append(f"case {i} against the single-grid kernel")
+            break
+    odd = sp.apply_7pt_nb(misaligned(p), [misaligned(x) for x in w],
+                          None if diag is None else misaligned(diag))
+    if not same_bits((odd,), (got,)):
+        bad.append("unaligned operands")
+    return bad
+
+
+def hold_batch_apply(dev, rng):
+    """Row 10a at BATCH_APPLY_SHAPES, f32 and bf16, unit and with the
+    stored diagonal: `batch_apply_bits` on each; the coarse main-path
+    variant (BATCH_APPLY_COARSE) timed with its plain version beside its
+    bytes and bound. Returns {"levels": that row, "bodies": the body
+    picked at each shape}; raises on any fault."""
+    import torch
+
+    from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
+    from openfoam_tpp_tpu_torch.utils.devtime import device_ms
+
+    bad, picks, levels = [], {}, {}
+    for shape in BATCH_APPLY_SHAPES:
+        at = lambda dtype, lo=None, hi=None: torch.from_numpy(
+            (rng.standard_normal(shape) if lo is None
+             else rng.uniform(lo, hi, shape)).astype(np.float32)
+        ).to(dev).to(dtype)
+        tag = "x".join(map(str, shape))
+        for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            picks[f"{tag} {dname}"] = sp.apply_body(shape, dtype,
+                                                    shape[-1] % 2 == 0)
+            p, d = at(dtype), at(dtype, 1.5, 2.5)
+            w = [at(dtype, 0.05, 0.3) for _ in range(3)]
+            w[0][0], w[1][:, 0], w[2][:, :, 0] = 0, 0, 0
+            for diag, vname in ((None, "unit"), (d, "diag")):
+                faults = batch_apply_bits(p, w, diag)
+                bad += [f"{tag} {dname} {vname}: {f}" for f in faults]
+                if (shape, dname, vname) != BATCH_APPLY_COARSE:
+                    continue
+                kern = lambda: sp.apply_7pt_nb(p, w, diag)
+                plain = lambda: sp.apply_7pt_plain(p, w, diag)
+                err, _ = max_err(kern(), plain())
+                ms, plain_ms = device_ms(kern, REPS), device_ms(plain, REPS)
+                bound = nbytes(p, *w, d, p) / HBM_BYTES_PER_S * 1e3
+                levels[f"{tag} {dname} {vname}"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "body": picks[f"{tag} {dname}"]}
+                log(f"  apply_7pt_nb      {tag} {dname} {vname} (the V-cycle's "
+                    f"coarse main-path variant, {picks[f'{tag} {dname}']} "
+                    f"body) "
+                    f"max_abs_err={err:.3e}  kernel {ms:.4f} ms  plain "
+                    f"{plain_ms:.4f} ms  bound {bound:.4f} ms "
+                    f"({ms / bound:.2f}x)")
+    log(f"  apply_7pt_nb at {len(BATCH_APPLY_SHAPES)} shapes, f32 and bf16, "
+        f"unit and diag: every body bitwise the plain version, each other "
+        f"and, per case, the single-grid kernel; unaligned operands the same "
+        f"bits{'' if not bad else ': FAULTS ' + '; '.join(bad)}; bodies "
+        f"picked {picks}")
+    if bad:
+        raise AssertionError(f"apply_7pt_nb: {bad}")
+    return {"levels": levels, "bodies": picks}
 
 
 def phase_halo_kernels(shape, spacing, dev, n_shards=N_SHARDS,
@@ -5829,9 +5943,10 @@ def phase_xy_batch_kernels(shape4, dev, grid=XY_GRID):
     `shape4` cut into a `grid` (N, M) of x·y blocks, in one process. Each
     block is extended as a rank extends it (parallel/spmd.py `XYBlock`:
     one cell a side in x and y from the neighbouring blocks, nothing at a
-    global end): the unchanged 10a and 10b on it, f32 unit apply and bf16
-    unit resid (the main-path variants) and f32 stored-diagonal resid,
-    bitwise the whole grid's kernel on the owned cells; the windowed 10c
+    global end): 10a and 10b on it, f32 unit apply and bf16 unit resid
+    (the main-path variants), the stored-diagonal apply and resid,
+    bitwise the whole grid's kernel on the owned cells, and every apply
+    body as `batch_apply_bits` holds it (but per case); the windowed 10c
     (the column window of the owned cells) with Â·p bitwise the whole
     grid's and the per-case dots within DOT_RTOL of its plain version on
     the same window, the blocks' dots' sum within DOT_RTOL of the whole
@@ -5858,6 +5973,7 @@ def phase_xy_batch_kernels(shape4, dev, grid=XY_GRID):
         w[0][0], w[1][:, 0], w[2][:, :, 0] = 0, 0, 0
         w = tuple(w)
         whole = {"apply unit": sp.apply_7pt_nb(p, w),
+                 "apply diag": sp.apply_7pt_nb(p, w, d),
                  "resid unit": sp.resid_scaled_7pt_nb(p, w, None, b),
                  "resid diag": sp.resid_scaled_7pt_nb(p, w, d, b)}
         ap_w, dots_w = sp.apply_dot_7pt_nb(p, w)
@@ -5877,6 +5993,7 @@ def phase_xy_batch_kernels(shape4, dev, grid=XY_GRID):
                 pe, be, de = ext(p), ext(b), ext(d)
                 we = tuple(ext(t) for t in w)
                 kern = {"apply unit": lambda: sp.apply_7pt_nb(pe, we),
+                        "apply diag": lambda: sp.apply_7pt_nb(pe, we, de),
                         "resid unit": lambda: sp.resid_scaled_7pt_nb(
                             pe, we, None, be),
                         "resid diag": lambda: sp.resid_scaled_7pt_nb(
@@ -5902,6 +6019,16 @@ def phase_xy_batch_kernels(shape4, dev, grid=XY_GRID):
                         ins = (pe, *we) + ((be,) if "resid" in name else ()) \
                             + ((de,) if "diag" in name else ())
                         outs = (pe,)
+                    if name.startswith("apply "):
+                        # Per case: the whole grid's kernel, held so in
+                        # hold_batch_apply.
+                        faults = batch_apply_bits(
+                            pe, we, de if "diag" in name else None,
+                            per_case=False)
+                        ok = ok and not faults
+                        if faults:
+                            bad.append(f"block ({ix}, {iy}) {name} {tag}: "
+                                       f"{faults}")
                     key = f"{name} {tag}"
                     if not ok:
                         bad.append(f"block ({ix}, {iy}) {key}: not bitwise "
@@ -6098,7 +6225,15 @@ def main() -> int:
 
     lap("1")
 
-    # 2. kernels against their plain versions
+    # 2. kernels against their plain versions, read against the card's
+    # floor for a launch
+    from openfoam_tpp_tpu_torch.utils.devtime import launch_floor_ms
+
+    floor = launch_floor_ms(dev, REPS)
+    log(f"[launch floor] an empty kernel, {REPS} launches queued behind a "
+        f"device-side wait: one block {floor['one block'] * 1e3:.2f} us, one "
+        f"wave of {floor['wave_blocks']} 256-thread blocks "
+        f"{floor['one wave'] * 1e3:.2f} us")
     log(f"[kernels vs plain] shape {geom.shape}, {REPS} timed launches each")
     spacing = tuple(float(h) for h in geom.spacing)
     rows = phase_kernels(geom.shape, spacing, dev)
@@ -6275,6 +6410,7 @@ def main() -> int:
                        "csf": csf, "tiled": tiled, "top": top,
                        "mesh": mesh},
               "tiled_kernel_rows": tiled_rows, "phase_seconds": laps,
+              "launch_floor_ms": floor,
               "closed_top_halo_6dof": closed_halo,
               "xy_block_halo": xy_halo, "xy_block_batch": xy_batch,
               "tiled_and_geometry_blocks": tiled_blocks,

@@ -21,18 +21,32 @@
 // is masked. All arithmetic is f32 (bf16 widened on load, rounded once on
 // store).
 //
-// Resid (the V-cycle's smoother, most of the sweep's launches), on grids
-// of at least kMarchFrom elements with B even and every pointer aligned
-// for pairs: a thread takes two adjacent cases (one bf16x2 / float2 load,
-// so a warp reads 64 cases, a full 128-byte bf16 line), a block kCC (x, y)
-// columns (one warp a column; one column a block measured fastest), and
-// it marches a chunk of z planes with p at z−1, z, z+1 and wz at z, z+1 in
-// registers, the next plane's loaded one plane ahead; the x and y taps go
-// through L1/L2. The chunk is the fewest planes that keep the launch
-// within kRWaves waves of the card. Per element the arithmetic is
-// `nb_sum`'s, in its order, with the IEEE division by diag: bitwise equal
-// to the one-thread-per-element kernel, which takes every other resid
-// input, and to the single-grid kernel on each case.
+// The z march (resid, and the apply's march body): a thread takes two
+// adjacent cases (one bf16x2 / float2 load, so a warp reads 64 cases, a
+// full 128-byte bf16 line), a block one warp a column (resid: one column
+// a block, measured fastest; the apply: a 4 × 4 tile of columns, whose x
+// and y taps inside the tile come from L1), and it marches a chunk of z
+// planes with p at z−1, z, z+1 and wz at z, z+1 in registers, the next
+// plane's loaded one plane ahead; the x and y taps go through L1/L2. The
+// chunk is the fewest planes that keep the launch within kRWaves waves of
+// the card. Per element the arithmetic is `nb_sum`'s, in its order (with
+// the IEEE division by diag in resid): bitwise equal to the
+// one-thread-per-element kernel and to the single-grid kernel on each
+// case. Resid (the V-cycle's smoother, most of the sweep's launches)
+// marches on grids of at least kMarchFrom elements with B even and every
+// pointer aligned for pairs, and takes the one-thread-per-element kernel
+// otherwise.
+//
+// Apply: three bodies, all bitwise equal, one picked per call by the
+// caller (ops/kernels/seven_point.py `apply_body`, from their times on
+// the card at the shapes the sweep launches): the one-thread-per-element
+// kernel (any B, any alignment), the z march in apply mode (no b read),
+// and the pair body for grids that fit in one partial wave: two adjacent
+// cases a thread with paired loads, the (column, plane, case pair) space
+// indexed flat (no thread idles on z padding), and every load of a thread
+// in flight before its first use (edge taps read from clamped addresses and
+// dropped by a select after the product). The march and pair bodies take
+// B even and every pointer aligned for pairs.
 //
 // Apply-dot (the sweep CG's curvature step): one launch for any input. A
 // block is one (x, y) column and 32 consecutive cases, one case a thread;
@@ -75,16 +89,25 @@ constexpr int kBB = 32, kBZ = 8, kBlock = kBB * kBZ;
 // thread of a case group's last block loads at once.
 constexpr int kDZ = 8, kDBlock = 32 * kDZ;
 constexpr int kDSlotRuns = 3;
-// Resid march: threads along the case pairs, (x, y) columns per block,
-// and the waves of the card one launch is sized to.
-constexpr int kCB = 32, kCC = 1, kRBlock = kCB * kCC;
+// The march: threads along the case pairs, (x, y) columns per block
+// (resid: a run of kCC in (i · ny + j) order; the apply: a tile of
+// kTX × kTY, one warp a column, so the x and y taps that lie in the tile
+// are read from L1 after the first warp's load: 4 × 4 measured fastest
+// at 12×12×50×128, PERF.md §6), and the waves of the card one launch is
+// sized to.
+constexpr int kCB = 32, kCC = 1;
+constexpr int kTX = 4, kTY = 4;
 constexpr float kRWaves = 1.0f;
 // Grids of fewer elements (cells × cases) take the one-thread-per-element
 // kernel for resid too: in the sweep step it was the faster at the
 // V-cycle's 6×6×25×128 and 3×3×13×128 levels (PERF.md §6).
 constexpr int64_t kMarchFrom = 262144;
+// Apply's pair body: threads per block (one thread a case pair).
+constexpr int kPBlock = 128;
 
 enum Mode { kApply = 0, kResid = 1, kApplyDot = 2 };
+// The apply's bodies (seven_point_batch_apply_launch's `body`).
+enum ApplyBody { kElement = 0, kMarch = 1, kPairs = 2 };
 
 __device__ __forceinline__ float ld(const float* a, int64_t i) { return a[i]; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* a, int64_t i) {
@@ -174,22 +197,35 @@ seven_point_batch_kernel(const T* __restrict__ p, const T* __restrict__ wx,
   }
 }
 
-// b − Â·p, or (b − A·p)/diag, over z planes k0 … k0 + cz − 1 of one
-// (x, y) column and two adjacent cases per thread; the per-element
-// arithmetic is nb_sum's, in its order (the z taps from registers).
-// grid.x walks column groups, grid.y case groups, grid.z z chunks.
-template <typename T, bool DIAG>
-__global__ void __launch_bounds__(kRBlock)
-resid_batch_kernel(const T* __restrict__ p, const T* __restrict__ wx,
+// b − Â·p, or (b − A·p)/diag (MODE kResid), or Â·p, or A·p (kApply: b
+// is not read), over z planes k0 … k0 + cz − 1 of one (x, y) column and
+// two adjacent cases per thread; the per-element arithmetic is nb_sum's,
+// in its order (the z taps from registers). A block is a TX × TY tile of
+// columns (threadIdx.z along x, threadIdx.y along y), or with TX = 1 a
+// run of TY columns in (i · ny + j) order; grid.x walks the tiles or
+// runs, grid.y case groups, grid.z z chunks.
+template <typename T, int MODE, bool DIAG, int TX, int TY>
+__global__ void __launch_bounds__(kCB * TX * TY)
+march_batch_kernel(const T* __restrict__ p, const T* __restrict__ wx,
                    const T* __restrict__ wy, const T* __restrict__ wz,
                    const T* __restrict__ diag, const T* __restrict__ b,
                    T* __restrict__ out, int nx, int ny, int nz, int nb,
                    int cz) {
   const int e0 = (blockIdx.y * kCB + threadIdx.x) * 2;   // first case
-  const int col = blockIdx.x * kCC + threadIdx.y;        // i · ny + j
-  if (e0 >= nb || col >= nx * ny) return;
-  const int i = col / ny;
-  const int j = col - i * ny;
+  int col, i, j;                                         // col = i · ny + j
+  if (TX == 1) {
+    col = blockIdx.x * TY + threadIdx.y;
+    if (e0 >= nb || col >= nx * ny) return;
+    i = col / ny;
+    j = col - i * ny;
+  } else {
+    const int tiles_y = (ny + TY - 1) / TY;
+    const int ti = blockIdx.x / tiles_y;
+    i = ti * TX + threadIdx.z;
+    j = (blockIdx.x - ti * tiles_y) * TY + threadIdx.y;
+    if (e0 >= nb || i >= nx || j >= ny) return;
+    col = i * ny + j;
+  }
   const int k0 = blockIdx.z * cz;
   const int k1 = k0 + cz < nz ? k0 + cz : nz;
   const int64_t sz = nb, sy = (int64_t)nz * nb, sx = (int64_t)ny * sy;
@@ -234,7 +270,7 @@ resid_batch_kernel(const T* __restrict__ p, const T* __restrict__ wx,
     }
     ld2(wx, c, wxc);
     ld2(wy, c, wyc);
-    ld2(b, c, bc);
+    if (MODE == kResid) ld2(b, c, bc);
     if (DIAG) ld2(diag, c, dc);
     const bool up = k + 1 < nz;
     for (int e = 0; e < 2; ++e) {
@@ -244,8 +280,11 @@ resid_batch_kernel(const T* __restrict__ p, const T* __restrict__ wx,
       s = s + yh[e];
       s = s + wzc[e] * pm[e];
       s = s + (up ? wzp[e] * pp[e] : 0.0f);
-      v[e] = DIAG ? (bc[e] - (dc[e] * pc[e] - s)) / dc[e]
-                  : bc[e] - (pc[e] - s);
+      if (MODE == kResid)
+        v[e] = DIAG ? (bc[e] - (dc[e] * pc[e] - s)) / dc[e]
+                    : bc[e] - (pc[e] - s);
+      else
+        v[e] = DIAG ? dc[e] * pc[e] - s : pc[e] - s;
       pm[e] = pc[e];
       pc[e] = pp[e];
       wzc[e] = wzp[e];
@@ -256,29 +295,92 @@ resid_batch_kernel(const T* __restrict__ p, const T* __restrict__ wx,
   }
 }
 
-// The resid march: chunks of z planes sized so that the launch stays
-// within kRWaves waves of the current device at the kernel's occupancy
-// (asked at every launch), and within grid.z's limit.
-template <typename T, bool DIAG>
-void launch_resid(const T* p, const T* wx, const T* wy, const T* wz,
+// The march: chunks of z planes sized so that the launch stays within
+// kRWaves waves of the current device at the kernel's occupancy (asked
+// at every launch), and within grid.z's limit.
+template <typename T, int MODE, bool DIAG, int TX, int TY>
+void launch_march(const T* p, const T* wx, const T* wy, const T* wz,
                   const T* diag, const T* b, T* out, int nx, int ny, int nz,
                   int nb, cudaStream_t stream) {
-  const auto kernel = resid_batch_kernel<T, DIAG>;
-  const int gx = (int)(((int64_t)nx * ny + kCC - 1) / kCC);
+  const auto kernel = march_batch_kernel<T, MODE, DIAG, TX, TY>;
+  const int gx = TX == 1 ? (int)(((int64_t)nx * ny + TY - 1) / TY)
+                        : ((nx + TX - 1) / TX) * ((ny + TY - 1) / TY);
   const int gy = (nb + kCB * 2 - 1) / (kCB * 2);
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRBlock, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                kCB * TX * TY, 0);
   int64_t chunks = (int64_t)(kRWaves * (float)(sms * per_sm)) /
                    ((int64_t)gx * gy);
   chunks = chunks < 1 ? 1 : (chunks > nz ? nz : chunks);
   int cz = (int)((nz + chunks - 1) / chunks);
   if ((nz + cz - 1) / cz > 65535) cz = (nz + 65534) / 65535;
   const dim3 grid(gx, gy, (nz + cz - 1) / cz);
-  kernel<<<grid, dim3(kCB, kCC), 0, stream>>>(p, wx, wy, wz, diag, b, out, nx,
-                                              ny, nz, nb, cz);
+  kernel<<<grid, dim3(kCB, TY, TX), 0, stream>>>(p, wx, wy, wz, diag, b, out,
+                                                 nx, ny, nz, nb, cz);
 }
+
+// Â·p, or A·p, of one (x, y, z) cell and two adjacent cases per thread,
+// thread t of the flat (column, plane, case pair) space: nb_sum's
+// products and add order. All thirteen (with diag fourteen) paired loads
+// are in flight before the first use: a tap past the grid's edge reads the
+// cell itself and its term is dropped by the select after the product,
+// as nb_sum drops it.
+template <typename T, bool DIAG>
+__global__ void __launch_bounds__(kPBlock)
+apply_pairs_kernel(const T* __restrict__ p, const T* __restrict__ wx,
+                   const T* __restrict__ wy, const T* __restrict__ wz,
+                   const T* __restrict__ diag, T* __restrict__ out, int nx,
+                   int ny, int nz, int nb, unsigned n_pairs) {
+  const unsigned t = blockIdx.x * kPBlock + threadIdx.x;
+  if (t >= n_pairs) return;
+  const unsigned half = (unsigned)nb >> 1;
+  const unsigned row = t / half;                  // column · nz + k
+  const int e0 = (int)(t - row * half) * 2;       // first case
+  const int col = (int)(row / (unsigned)nz);      // i · ny + j
+  const int k = (int)row - col * nz;
+  const int i = col / ny;
+  const int j = col - i * ny;
+  const int64_t sz = nb, sy = (int64_t)nz * nb, sx = (int64_t)ny * sy;
+  const int64_t c = (int64_t)row * nb + e0;
+  const bool xu = i + 1 < nx, yu = j + 1 < ny, zu = k + 1 < nz;
+  const int64_t cxp = xu ? c + sx : c, cyp = yu ? c + sy : c,
+                czp = zu ? c + sz : c;
+  float pc[2], xm[2], ym[2], zm[2], px[2], py[2], pz[2];
+  float wxc[2], wyc[2], wzc[2], wxp[2], wyp[2], wzp[2], dc[2];
+  ld2(p, c, pc);
+  ld2(p, i > 0 ? c - sx : c, xm);
+  ld2(p, j > 0 ? c - sy : c, ym);
+  ld2(p, k > 0 ? c - sz : c, zm);
+  ld2(p, cxp, px);
+  ld2(p, cyp, py);
+  ld2(p, czp, pz);
+  ld2(wx, c, wxc);
+  ld2(wy, c, wyc);
+  ld2(wz, c, wzc);
+  ld2(wx, cxp, wxp);
+  ld2(wy, cyp, wyp);
+  ld2(wz, czp, wzp);
+  if (DIAG) ld2(diag, c, dc);
+  float v[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float xh = wxp[e] * px[e], yh = wyp[e] * py[e], zh = wzp[e] * pz[e];
+    float s = wxc[e] * xm[e];
+    s = s + (xu ? xh : 0.0f);
+    s = s + wyc[e] * ym[e];
+    s = s + (yu ? yh : 0.0f);
+    s = s + wzc[e] * zm[e];
+    s = s + (zu ? zh : 0.0f);
+    v[e] = DIAG ? dc[e] * pc[e] - s : pc[e] - s;
+  }
+  st2(out, c, v);
+}
+
+// An empty kernel: the card's floor for a launch (utils/devtime.py
+// `launch_floor_ms`), timed as the kernels are.
+__global__ void empty_kernel() {}
 
 // Whether every pointer is a multiple of n bytes (a null pointer is).
 template <typename... P>
@@ -400,9 +502,11 @@ void launch(int mode, int has_diag, const void* p, const void* wx,
   } else if (mode == kResid && (int64_t)nx * ny * nz * nb >= kMarchFrom &&
              nb % 2 == 0 && aligned(2 * sizeof(T), P, WX, WY, WZ, D, B, O)) {
     if (has_diag)
-      launch_resid<T, true>(P, WX, WY, WZ, D, B, O, nx, ny, nz, nb, stream);
+      launch_march<T, kResid, true, 1, kCC>(P, WX, WY, WZ, D, B, O, nx, ny,
+                                            nz, nb, stream);
     else
-      launch_resid<T, false>(P, WX, WY, WZ, D, B, O, nx, ny, nz, nb, stream);
+      launch_march<T, kResid, false, 1, kCC>(P, WX, WY, WZ, D, B, O, nx, ny,
+                                             nz, nb, stream);
   } else if (mode == kResid) {
     if (has_diag)
       seven_point_batch_kernel<T, kResid, true><<<grid, block, 0, stream>>>(
@@ -416,6 +520,48 @@ void launch(int mode, int has_diag, const void* p, const void* wx,
         P, WX, WY, WZ, O, partial, ticket, dots, nx, ny, nz, nb, x0, x1, y0,
         y1);
   }
+}
+
+// The apply in `body` (kMarch and kPairs: B even, every pointer aligned
+// for pairs, and for kPairs fewer than 2^31 cells; else
+// cudaErrorInvalidValue, nothing launched).
+template <typename T>
+int launch_apply(int body, int has_diag, const void* p, const void* wx,
+                 const void* wy, const void* wz, const void* diag, void* out,
+                 int nx, int ny, int nz, int nb, cudaStream_t stream) {
+  const T* P = static_cast<const T*>(p);
+  const T* WX = static_cast<const T*>(wx);
+  const T* WY = static_cast<const T*>(wy);
+  const T* WZ = static_cast<const T*>(wz);
+  const T* D = static_cast<const T*>(diag);
+  T* O = static_cast<T*>(out);
+  const int64_t cells = (int64_t)nx * ny * nz, pairs = cells * (nb / 2);
+  if (body != kElement &&
+      (nb % 2 != 0 || !aligned(2 * sizeof(T), P, WX, WY, WZ, D, O) ||
+       (body == kPairs && cells > 2147483647LL)))
+    return (int)cudaErrorInvalidValue;
+  if (body == kMarch) {
+    if (has_diag)
+      launch_march<T, kApply, true, kTX, kTY>(P, WX, WY, WZ, D, nullptr, O,
+                                              nx, ny, nz, nb, stream);
+    else
+      launch_march<T, kApply, false, kTX, kTY>(P, WX, WY, WZ, D, nullptr, O,
+                                               nx, ny, nz, nb, stream);
+  } else if (body == kPairs) {
+    if (pairs > 4294967295LL - kPBlock) return (int)cudaErrorInvalidValue;
+    const unsigned n = (unsigned)pairs;
+    const unsigned blocks = (n + kPBlock - 1) / kPBlock;
+    if (has_diag)
+      apply_pairs_kernel<T, true><<<blocks, kPBlock, 0, stream>>>(
+          P, WX, WY, WZ, D, O, nx, ny, nz, nb, n);
+    else
+      apply_pairs_kernel<T, false><<<blocks, kPBlock, 0, stream>>>(
+          P, WX, WY, WZ, D, O, nx, ny, nz, nb, n);
+  } else {
+    launch<T>(kApply, has_diag, p, wx, wy, wz, diag, nullptr, out, nullptr,
+              nullptr, nullptr, nx, ny, nz, nb, 0, nx, 0, ny, stream);
+  }
+  return (int)cudaGetLastError();
 }
 
 int checked_launch(int mode, int dtype, int has_diag, const void* p,
@@ -467,6 +613,36 @@ int seven_point_batch_launch(int mode, int dtype, int has_diag, const void* p,
   return checked_launch(mode, dtype, has_diag, p, wx, wy, wz, diag, b, out,
                         partial, dots, ticket, nx, ny, nz, nb, 0, nx, 0, ny,
                         stream);
+}
+
+// Mode 0 (apply) in `body`: 0 the one-thread-per-element kernel (what
+// seven_point_batch_launch's mode 0 launches), 1 the z march, 2 the pair
+// body (1 and 2: B even, every pointer aligned for pairs; else
+// cudaErrorInvalidValue, nothing launched). dtype and the rest as
+// seven_point_batch_launch's.
+int seven_point_batch_apply_launch(int body, int dtype, int has_diag,
+                                   const void* p, const void* wx,
+                                   const void* wy, const void* wz,
+                                   const void* diag, void* out, int nx,
+                                   int ny, int nz, int nb, void* stream) {
+  if (nx < 1 || ny < 1 || nz < 1 || nb < 1 ||
+      (int64_t)nx * ny > 2147483647LL || (nz + kBZ - 1) / kBZ > 65535 ||
+      (nb + kBB - 1) / kBB > 65535 || body < kElement || body > kPairs)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_apply<float>(body, has_diag, p, wx, wy, wz, diag, out, nx,
+                               ny, nz, nb, s);
+  return launch_apply<__nv_bfloat16>(body, has_diag, p, wx, wy, wz, diag, out,
+                                     nx, ny, nz, nb, s);
+}
+
+// `blocks` launches of an empty kernel of `threads` threads: the launch
+// floor the kernels' device times are read against (nothing of the port
+// calls it).
+int seven_point_batch_empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
 }
 
 // Apply-dot with the column window [x0, x1) × [y0, y1) of the dots

@@ -28,7 +28,9 @@ and the dot of `apply_dot_7pt_nb` is per case, shape (B,), finished inside
 its one launch through the device's ticket counters (one per 32 cases); its
 `window` restricts the dots to a window of (x, y) columns (what a rank of a
 sweep farmed over ranks owns of its extended block, parallel/spmd.py
-`XYBlock`). The plain versions take either rank. The cheb2 smoothers are
+`XYBlock`). The batch apply has three bitwise-equal bodies, one picked
+per call by shape (`apply_body`). The plain versions take either rank.
+The cheb2 smoothers are
 single-grid only: on rank 4 the solver runs two sweeps as batch-kernel
 passes.
 """
@@ -267,8 +269,48 @@ def _batch_lib():
         lib.seven_point_batch_dot_launch.argtypes = ([ci] + [vp] * 8
                                                      + [ci] * 8 + [vp])
         lib.seven_point_batch_dot_launch.restype = ci
+        lib.seven_point_batch_apply_launch.argtypes = ([ci] * 3 + [vp] * 6
+                                                       + [ci] * 4 + [vp])
+        lib.seven_point_batch_apply_launch.restype = ci
+        lib.seven_point_batch_empty_launch.argtypes = [ci, ci, vp]
+        lib.seven_point_batch_empty_launch.restype = ci
         lib._typed = True
     return lib
+
+
+# The batch apply's bodies (csrc/seven_point_batch.cu `ApplyBody`), all
+# bitwise equal: one thread per element (any B, any alignment), the z
+# march over 4 × 4 tiles of columns, and two cases a thread over the flat
+# (column, plane, case pair) space. The march and pair bodies take B even
+# and every operand aligned for pairs.
+APPLY_BODIES = {"element": 0, "march": 1, "pairs": 2}
+# From this many elements (cells × cases) the batch apply marches, as the
+# batch resid does (csrc/seven_point_batch.cu kMarchFrom).
+APPLY_MARCH_FROM = 1 << 18
+
+
+def apply_body(shape, dtype, paired):
+    """The body the batch apply launches on a (nx, ny, nz, B) grid of
+    `dtype`; `paired`: B even and every operand aligned for pairs. From
+    the bodies' device times on an H100 at the shapes the sweep paths
+    launch (PERF.md §6, row 10a): the march from APPLY_MARCH_FROM
+    elements (12×12×50×128 f32: 5.7 µs against 7.5 one thread per
+    element); below it, bf16 two cases a thread (a warp's load a full
+    128-byte line; 6×6×25×B with diagonal 0.1–0.3 µs faster for B = 32,
+    64, 128) and f32 one thread per element (the pair body 0.15–0.2 µs
+    slower at 12×12×50×32 and 7×7×50×64)."""
+    if not paired:
+        return "element"
+    if shape[0] * shape[1] * shape[2] * shape[3] >= APPLY_MARCH_FROM:
+        return "march"
+    return "pairs" if dtype == torch.bfloat16 else "element"
+
+
+def _paired(p, *operands):
+    """B even and every operand's data aligned for two elements."""
+    step = 2 * p.element_size()
+    return p.shape[-1] % 2 == 0 and all(
+        t.data_ptr() % step == 0 for t in (p, *operands) if t is not None)
 
 
 def _batch_launch(mode, p, split, diag=None, b=None, window=None):
@@ -300,12 +342,23 @@ def _batch_launch(mode, p, split, diag=None, b=None, window=None):
     return out, dots
 
 
-def apply_7pt_nb(p, split, diag=None):
-    """A(p) of every case of a batched (nx, ny, nz, B) grid."""
+def apply_7pt_nb(p, split, diag=None, body=None):
+    """A(p) of every case of a batched (nx, ny, nz, B) grid. `body`: one
+    of APPLY_BODIES, or `None` for `apply_body`'s pick (every body gives
+    the same bits); a march or pair body on odd B or unaligned operands
+    raises."""
     if _build.route(p, "apply_7pt_nb") == "cpu":
         return apply_7pt_plain(p, split, diag)
     _check(p, split, diag, rank=4)
-    out, _ = _batch_launch(_APPLY, p, split, diag=diag)
+    out = torch.empty_like(p)
+    if body is None:
+        body = apply_body(p.shape, p.dtype, _paired(p, *split, diag, out))
+    rc = _batch_lib().seven_point_batch_apply_launch(
+        APPLY_BODIES[body], _DTYPES[p.dtype], int(diag is not None),
+        _build.ptr(p), *(_build.ptr(w) for w in split),
+        ctypes.c_void_p(None) if diag is None else _build.ptr(diag),
+        _build.ptr(out), *p.shape, _build.stream_of(p))
+    _build.check(rc, "seven_point_batch", out)
     apply_7pt_nb.launches += 1
     return out
 

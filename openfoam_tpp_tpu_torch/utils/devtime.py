@@ -37,6 +37,28 @@ def device_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def launch_floor_ms(device=None, reps: int = 20) -> dict:
+    """The card's floor for a kernel launch, timed as `device_ms` times
+    the kernels: device ms per launch of an empty kernel of one block of
+    256 threads, and of one full wave of 256-thread blocks (8 a
+    multiprocessor), keyed "one block" and "one wave"."""
+    from openfoam_tpp_tpu_torch.ops.kernels import _build
+    from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    lib = sp._batch_lib()
+    stream = _build.stream_of(torch.empty(1, device=dev))
+    wave = torch.cuda.get_device_properties(dev).multi_processor_count * 8
+
+    def empty(blocks):
+        return lambda: _build.check(
+            lib.seven_point_batch_empty_launch(blocks, 256, stream),
+            "empty kernel")
+
+    return {"one block": device_ms(empty(1), reps),
+            "one wave": device_ms(empty(wave), reps), "wave_blocks": wave}
+
+
 def busy_union_us(events) -> float:
     """µs in which at least one of a torch.profiler trace's device events
     (kernels, copies, fills) runs: the union of their intervals."""

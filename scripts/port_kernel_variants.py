@@ -42,6 +42,16 @@ launch) and cycling through four sets (73.7 MB, so each launch finds
 its inputs mostly outside L2); it also prints the CUDA kernels one call
 runs (torch.profiler). A source whose entry takes no ticket (the
 earlier design of two kernels a call, 0494de9) is called without it.
+`apply_7pt_nb` (the sweep's batch apply, seven_point_batch_apply_launch)
+runs each of its bodies (one thread per element, the z march, two cases
+a thread over the flat (column, plane, case pair) space; a variant only
+the body it edits; a source without that entry its mode 0) at the shapes
+the sweep paths launch it at (APPLY_NB_CASES, and with `--apply-shapes
+JSON` every shape scripts/port_batch_apply_paths.py counted), each run
+held bitwise against the as-built one-thread-per-element body, the plain
+PyTorch version timed beside them, and an empty kernel of one block and of one full wave of 256-thread blocks (the
+card's floor for a launch); SASS, registers and spills of each body's f32
+unit and bf16 stored-diagonal instantiations.
 Device time: each timed run of 20 launches (after 3 warm-up) is queued
 behind a device-side wait long enough for the host to enqueue all
 of them (openfoam_tpp_tpu_torch/utils/devtime.py, chip_smoke.py's
@@ -137,6 +147,12 @@ Variants:
                 diag no dot / diag no final sum
                                  diagnostics, outputs not the function's:
                                  the main pass alone; with the ticket
+  apply_7pt_nb  pairs block 64 / 256 / 512
+                                 threads per block of the pair body (128)
+                march tile 1 x 1 / 2 x 2 / 2 x 4 / 3 x 4
+                                 (x, y) columns per block of the march
+                                 body (4 x 4; 1 x 1 is the resid's march)
+                march waves 2.0  as resid_scaled_7pt_nb's, on the march body
   resid_scaled_7pt_nb
                 2 / 4 columns    (x, y) columns per block (1)
                 waves 2.0        z chunks sized for two waves of the card
@@ -269,7 +285,7 @@ EDITS["resid_scaled_7pt_h"] = {
     "division": [(
         "  const int n = nx == 1 ? z : (int)__umulhi((unsigned)z, magic);",
         "  const int n = z / nx;")]}
-BCOLS = "constexpr int kCB = 32, kCC = 1,"
+BCOLS = "constexpr int kCB = 32, kCC = 1;"
 EDITS["resid_scaled_7pt_nb"] = {
     **{f"{n} columns": [(BCOLS, BCOLS.replace("kCC = 1", f"kCC = {n}"))]
        for n in (2, 4)},
@@ -277,6 +293,18 @@ EDITS["resid_scaled_7pt_nb"] = {
                    "constexpr float kRWaves = 2.0f;")],
     "march at every size": [("constexpr int64_t kMarchFrom = 262144;",
                              "constexpr int64_t kMarchFrom = 0;")]}
+PBLOCK = "constexpr int kPBlock = 128;"
+TILE_XY = "constexpr int kTX = 4, kTY = 4;"
+EDITS["apply_7pt_nb"] = {
+    **{f"pairs block {n}": [(PBLOCK, PBLOCK.replace("128", str(n)))]
+       for n in (64, 256, 512)},
+    **{f"march tile {x} x {y}": [(TILE_XY, f"constexpr int kTX = {x}, "
+                                           f"kTY = {y};")]
+       for x, y in ((1, 1), (2, 2), (2, 4), (3, 4))},
+    "march waves 2.0": [("constexpr float kRWaves = 1.0f;",
+                         "constexpr float kRWaves = 2.0f;")]}
+# The body each apply variant changes (only that body is timed on it).
+APPLY_EDIT_BODY = {name: name.split()[0] for name in EDITS["apply_7pt_nb"]}
 RUNS_NB = "constexpr int kDSlotRuns = 3;"
 PLANES_NB = "    for (int k = warp; k < nz; k += kDZ) {"
 EDITS["apply_dot_7pt_nb"] = {
@@ -308,13 +336,15 @@ ENTRY = {"fct_iter": "mules_fct_launch", "momentum_rhs": "momentum_rhs_launch",
          "cheb2_pre_7pt": "cheb2_launch", "cheb2_post_dot_7pt": "cheb2_launch",
          "resid_scaled_7pt_h": "seven_point_halo_launch",
          "resid_scaled_7pt_nb": "seven_point_batch_launch",
-         "apply_dot_7pt_nb": "seven_point_batch_launch"}
+         "apply_dot_7pt_nb": "seven_point_batch_launch",
+         "apply_7pt_nb": "seven_point_batch_launch"}
 SOURCE = {"fct_iter": "mules_fct", "momentum_rhs": "momentum_rhs",
           "flux_all": "mules_flux", "apply_dot_7pt": "seven_point",
           "correct_divmax": "correction", "cheb2_pre_7pt": "cheb2",
           "cheb2_post_dot_7pt": "cheb2", "resid_scaled_7pt_h": "seven_point",
           "resid_scaled_7pt_nb": "seven_point_batch",
-          "apply_dot_7pt_nb": "seven_point_batch"}
+          "apply_dot_7pt_nb": "seven_point_batch",
+          "apply_7pt_nb": "seven_point_batch"}
 # Each kernel's function giving its scratch size, and whether its entry
 # takes the floats before the grid extents.
 PARTIALS = {"apply_dot_7pt": "seven_point_num_partials",
@@ -338,6 +368,7 @@ MAIN = {"fct_iter": [("fct_iter_kernel", "nv_bfloat16Lb0E")],
             ("seven_point_slabs_kernelI13__nv_bfloat16Li1ELb0E",),
             ("seven_point_kernelI13__nv_bfloat16Li1ELb0ELb1E",)],
         "resid_scaled_7pt_nb": [
+            ("march_batch_kernelI13__nv_bfloat16Li1ELb0ELi1E",),
             ("resid_batch_kernelI13__nv_bfloat16Lb0E",),
             ("seven_point_batch_kernelI13__nv_bfloat16Li1ELb0E",)],
         "apply_dot_7pt_nb": [("apply_dot_batch_kernelIfE",),
@@ -369,11 +400,12 @@ def is_main(parts, fn):
     return bool(parts) and all(p in fn for p in parts)
 
 
-def sass_count(kernel, lib, cuobjdump):
-    """SASS instructions of the main instantiation in `lib`."""
+def sass_count(kernel, lib, cuobjdump, parts=None):
+    """SASS instructions of the main instantiation in `lib` (or of the
+    function whose name holds every fragment of `parts`)."""
     out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                          text=True, check=True).stdout
-    parts = main_parts(kernel, re.findall(r"Function : (\S+)", out))
+    parts = parts or main_parts(kernel, re.findall(r"Function : (\S+)", out))
     count, fn = 0, None
     for line in out.splitlines():
         m = re.match(r"\s+Function : (\S+)", line)
@@ -385,11 +417,12 @@ def sass_count(kernel, lib, cuobjdump):
     return count
 
 
-def ptxas_report(kernel, log):
+def ptxas_report(kernel, log, parts=None):
     """Registers, spill bytes and static shared memory of the main
-    instantiation, from nvcc's `-Xptxas -v` output."""
+    instantiation (or as `sass_count`'s `parts`), from nvcc's `-Xptxas
+    -v` output."""
     pattern = r"(?:Compiling entry function|Function properties for) '?([\w$]+)"
-    parts = main_parts(kernel, re.findall(pattern, log))
+    parts = parts or main_parts(kernel, re.findall(pattern, log))
     rep, fn = {}, None
     for line in log.splitlines():
         m = re.search(pattern, line)
@@ -812,6 +845,170 @@ def time_resid(torch, _build, device_ms, kernel, libs, texts, logs, cuobjdump,
     return {"builds": builds, "cases": [c for c in cases if c["us"][names[0]]]}
 
 
+# The batch apply's cases: (shape, dtype, stored diagonal), the shapes
+# the sweep paths launch it at (scripts/port_batch_apply_paths.py counts
+# them; `--apply-shapes` adds every shape of such a count): the sweep's
+# top level (f32 unit, CG's true residual) and its first coarse level
+# (bf16 with diagonal, the V-cycle's residual), the same on a farm
+# position of 32 cases, and the extended blocks of the sweeps over ranks.
+APPLY_NB_CASES = [((12, 12, 50, 128), "f32", False),
+                  ((6, 6, 25, 128), "bf16", True),
+                  ((12, 12, 50, 32), "f32", False),
+                  ((6, 6, 25, 32), "bf16", True),
+                  ((7, 7, 50, 128), "f32", False),
+                  ((7, 7, 50, 64), "f32", False)]
+APPLY_BODIES = ("element", "march", "pairs")
+# Mangled-name fragment of each body's instantiation, by (T, DIAG).
+APPLY_FRAGMENT = {"element": "seven_point_batch_kernelI{t}Li0ELb{d}E",
+                  "march": "march_batch_kernelI{t}Li0ELb{d}E",
+                  "pairs": "apply_pairs_kernelI{t}Lb{d}E"}
+
+
+def apply_nb_cases(path):
+    """APPLY_NB_CASES and every (shape, dtype, diagonal) that the JSON of
+    scripts/port_batch_apply_paths.py at `path` counts."""
+    cases = list(APPLY_NB_CASES)
+    if not path:
+        return cases
+    with open(path) as f:
+        report = json.load(f)
+    for res in report.values():
+        if not isinstance(res, dict):
+            continue
+        for key in (*res.get("apply_per_step", {}),
+                    *res.get("apply_per_step_all_ranks", {})):
+            shape, dtype, diag = key.split()
+            case = (tuple(int(n) for n in shape.split("x")),
+                    "f32" if dtype == "float32" else "bf16", diag == "diag")
+            if case not in cases:
+                cases.append(case)
+    return cases
+
+
+def time_apply_nb(torch, _build, device_ms, libs, texts, logs, cuobjdump,
+                  dev, shapes_file):
+    """The batch apply's bodies, as built and in each variant, at the
+    shapes of `apply_nb_cases(shapes_file)`: every run's output (and the
+    plain version's) held bitwise against the as-built
+    one-thread-per-element body's, timed with the plain version in ROUNDS
+    rounds of alternating order beside an empty kernel of one block and
+    of one full wave of 256-thread blocks (the launch floor).
+    A source without the body entry point runs its mode 0. Prints and
+    returns the report."""
+    from openfoam_tpp_tpu_torch.ops.kernels.seven_point import apply_7pt_plain
+
+    kernel = "apply_7pt_nb"
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    names = [name for k, name in libs if k == kernel]
+    runs, reports = [], {}
+    for name in names:
+        text = texts[kernel, name]
+        lib = ctypes.CDLL(libs[kernel, name])
+        if "int seven_point_batch_apply_launch(" in text:
+            fn = lib.seven_point_batch_apply_launch
+            fn.argtypes = [ci] * 3 + [vp] * 6 + [ci] * 4 + [vp]
+            nul = 0
+            bodies = [APPLY_EDIT_BODY[name]] if name in APPLY_EDIT_BODY \
+                else list(APPLY_BODIES)
+        else:
+            fn = lib.seven_point_batch_launch
+            nul = 3 if takes_ticket(text) else 2
+            fn.argtypes = [ci] * 3 + [vp] * (7 + nul) + [ci] * 4 + [vp]
+            bodies = ["mode 0"]
+        fn.restype = ci
+        for body in bodies:
+            runs.append((name, body, fn, nul))
+            if body in APPLY_FRAGMENT:
+                for t, d in (("f32", False), ("bf16", True)):
+                    frag = (APPLY_FRAGMENT[body].format(
+                        t="f" if t == "f32" else "13__nv_bfloat16", d=int(d)),)
+                    reports.setdefault(f"{name} / {body}", {})[
+                        f"{t} {'diag' if d else 'unit'}"] = {
+                        "sass": sass_count(kernel, libs[kernel, name],
+                                           cuobjdump, frag),
+                        **ptxas_report(kernel, logs[kernel, name], frag)}
+    base = ctypes.CDLL(libs[kernel, "as built"])
+    empty = base.seven_point_batch_empty_launch
+    empty.argtypes, empty.restype = [ci, ci, vp], ci
+    wave = torch.cuda.get_device_properties(dev).multi_processor_count * 8
+    stream = _build.stream_of(torch.empty(1, device=dev))
+
+    def floor(blocks):
+        return lambda: _build.check(empty(blocks, 256, stream), "empty kernel")
+
+    floors = {"one block": (floor(1), []), f"one wave ({wave} blocks)":
+              (floor(wave), [])}
+    cases = []
+    for n_case, (shape, tag, diag) in enumerate(
+            apply_nb_cases(shapes_file)):
+        dtype = torch.float32 if tag == "f32" else torch.bfloat16
+        p, w, d, _, out = resid_operands(torch, shape, dtype, diag,
+                                         3024 + n_case, dev)
+        n_bytes = read_bytes([t for t in (p, *w, d, out) if t is not None])
+        label = (f"{'x'.join(map(str, shape))} {tag} "
+                 f"{'diag' if diag else 'unit'}")
+        ptrs = [_build.ptr(t) if t is not None else vp(None)
+                for t in (p, *w, d)]
+        calls, ref = {}, None
+        plain = (lambda p=p, w=w, d=d: apply_7pt_plain(p, w, d))
+        for name, body, fn, nul in runs:
+            if body in ("march", "pairs") and shape[3] % 2:
+                continue
+            if body == "mode 0":
+                args = (0, 0 if tag == "f32" else 1, int(diag), *ptrs, vp(None),
+                        _build.ptr(out), *[vp(None)] * nul, *shape, stream)
+            else:
+                args = (APPLY_BODIES.index(body), 0 if tag == "f32" else 1,
+                        int(diag), *ptrs, _build.ptr(out), *shape, stream)
+            launch = (lambda fn=fn, args=args, path=libs[kernel, name]:
+                      _build.check(fn(*args), path))
+            out.fill_(float("nan"))
+            launch()
+            torch.cuda.synchronize()
+            got = out.clone()
+            if ref is None:
+                ref = got
+            calls[f"{name} / {body}"] = (launch, torch.equal(got, ref))
+        calls["plain PyTorch"] = (plain, torch.equal(plain(), ref))
+        cases.append({"case": label, "bytes": n_bytes,
+                      "bound_us": n_bytes / HBM_BYTES_PER_S * 1e6,
+                      "calls": calls, "keep": (p, w, d, out),
+                      "us": {k: [] for k in calls}})
+    for rnd in range(ROUNDS):
+        for key, (fn, us) in floors.items():
+            us.append(device_ms(fn, REPS) * 1e3)
+        for case in cases:
+            order = list(case["calls"])
+            for key in (order if rnd % 2 == 0 else order[::-1]):
+                case["us"][key].append(
+                    device_ms(case["calls"][key][0], REPS) * 1e3)
+    for key, rep in reports.items():
+        print(f"{kernel} {key:28s} "
+              + "  ".join(f"{v}: SASS {r.get('sass')} regs "
+                          f"{r.get('registers')} spills "
+                          f"{r.get('spill_store_bytes')}/"
+                          f"{r.get('spill_load_bytes')}"
+                          for v, r in rep.items()), flush=True)
+    floor_us = {}
+    for key, (_, us) in floors.items():
+        floor_us[key] = float(np.median(us))
+        print(f"{kernel} empty kernel, {key}: {floor_us[key]:.2f} us median "
+              f"of {ROUNDS} ({min(us):.2f}-{max(us):.2f})", flush=True)
+    for case in cases:
+        case["median_us"] = {}
+        case["bitwise_vs_element"] = {}
+        for key, (_, same) in case.pop("calls").items():
+            us = case["us"][key]
+            med = case["median_us"][key] = float(np.median(us))
+            case["bitwise_vs_element"][key] = same
+            print(f"  {case['case']:22s} {key:28s} {med:7.2f} us median of "
+                  f"{ROUNDS} ({min(us):.2f}-{max(us):.2f})  "
+                  f"{med / case['bound_us']:5.2f}x its {case['bound_us']:.2f} "
+                  f"us bound  {'bitwise' if same else 'DIFFERS'}", flush=True)
+        del case["keep"]
+    return {"floor_us": floor_us, "builds": reports, "cases": cases}
+
+
 def takes_ticket(text):
     """Whether the batch source's entry takes the ticket counter."""
     return bool(re.search(r"int seven_point_batch_launch\([^)]*ticket", text))
@@ -951,6 +1148,9 @@ def main() -> int:
                          "interface")
     ap.add_argument("--only", action="append", default=[], choices=sorted(ENTRY),
                     help="time only this kernel (repeatable; default all)")
+    ap.add_argument("--apply-shapes", default=None, metavar="JSON",
+                    help="scripts/port_batch_apply_paths.py's --out: the "
+                         "batch apply is also timed at every shape it counts")
     args = ap.parse_args()
 
     import torch
@@ -1012,6 +1212,13 @@ def main() -> int:
     card = f"{card_name}, {power} W"
     report = {"card": card, "shape": SHAPE, "kernels": {}}
     for kernel in kernels:
+        if kernel == "apply_7pt_nb":
+            report["kernels"][kernel] = time_apply_nb(
+                torch, _build, device_ms, libs,
+                {key: t for key, (t, _) in builds.items()}, logs, cuobjdump,
+                dev, args.apply_shapes)
+            print(f"{kernel}: {card}", flush=True)
+            continue
         if kernel == "apply_dot_7pt_nb":
             report["kernels"][kernel] = time_apply_dot_nb(
                 torch, _build, device_ms, libs,

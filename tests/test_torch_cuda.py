@@ -831,7 +831,7 @@ def _batch_shape(kind, cases, march):
     that the batch reaches the 2**18 elements (cells × cases) from which
     the batch resid marches (csrc/seven_point_batch.cu kMarchFrom)."""
     nx, ny, nz = {"nz < 8": (5, 4, 3), "nz = 50": (4, 3, 50),
-                  "nx = ny = 1": (1, 1, 20)}[kind]
+                  "nx = ny = 1": (1, 1, 20), "nz = 25": (6, 6, 25)}[kind]
     if not march:
         return nx, ny, nz
     cells = -(-(1 << 18) // cases)
@@ -872,6 +872,52 @@ def test_resid_batch_kernel_at_edges(dev, dtype, kind, cases, march):
             _misaligned(p), [_misaligned(x) for x in w],
             None if diag is None else _misaligned(diag), _misaligned(b))
         assert torch.equal(odd, got)
+
+
+@pytest.mark.parametrize("march", [False, True])
+@pytest.mark.parametrize("cases", [1, 3, 63, 64, 130])
+@pytest.mark.parametrize("kind", ["nz < 8", "nz = 25", "nz = 50",
+                                  "nx = ny = 1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_batch_kernel_at_edges(dev, dtype, kind, cases, march):
+    """The batch apply at odd and small B, nz < 8, the V-cycle's 25
+    planes, nz = 50 (neither a multiple of the element body's 8-plane
+    blocks) and nx = ny = 1, below and at the size from which it marches
+    (sp.APPLY_MARCH_FROM), unit and with diagonal: the body `apply_body`
+    picks and every body the operands allow (the march and pair bodies:
+    B even, aligned) bitwise equal to the plain version and to each
+    other, every case bitwise equal to the single-grid kernel on that
+    case, one launch a call; unaligned operands give the same bits (the
+    one-thread-per-element body), and a march or pair body on them or on
+    odd B raises."""
+    rng = np.random.default_rng(23)
+    shape4 = _batch_shape(kind, cases, march) + (cases,)
+    p, w = _dot_operands(rng, dev, shape4, dtype)
+    d = _at(rng, dev, shape4, dtype, 1.5, 2.5)
+    lane = lambda t, i: None if t is None else t[..., i].contiguous()
+    bodies = list(sp.APPLY_BODIES) if cases % 2 == 0 else ["element"]
+    for diag in (None, d):
+        n0 = sp.apply_7pt_nb.launches
+        got = sp.apply_7pt(p, w, diag)
+        assert sp.apply_7pt_nb.launches == n0 + 1
+        assert torch.equal(got, sp.apply_7pt_plain(p, w, diag))
+        for body in sp.APPLY_BODIES:
+            if body in bodies:
+                assert torch.equal(sp.apply_7pt_nb(p, w, diag, body=body),
+                                   got)
+            else:
+                with pytest.raises(RuntimeError, match="CUDA error"):
+                    sp.apply_7pt_nb(p, w, diag, body=body)
+        for i in range(cases):
+            one = sp.apply_7pt(lane(p, i), [lane(x, i) for x in w],
+                               lane(diag, i))
+            assert torch.equal(got[..., i], one)
+        odd = [_misaligned(p), [_misaligned(x) for x in w],
+               None if diag is None else _misaligned(diag)]
+        assert torch.equal(sp.apply_7pt_nb(*odd), got)
+        for body in ("march", "pairs"):
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                sp.apply_7pt_nb(*odd, body=body)
 
 
 # The batch apply-dot: one block per (x, y) column and 32 cases, 8 warps

@@ -30,7 +30,8 @@ ranks serves (b) and (c); (d) launches its own.
     `SpmdCtx(1)` tiled step.
 (c) The geometry sweep (tests/test_torch_sweep.py's two geometry rows and
     two more, H and D varied; 8×8×10 at round_to=4) over (case=2, x=2,
-    y=1) ranks, lockstep and not, 4 steps from dt0 4e-4: against the JAX
+    y=1) ranks and over (case=1, x=2, y=2) ranks (blocks extended in x
+    and y), lockstep and not, 4 steps from dt0 4e-4: against the JAX
     geometry sweep at tests/test_torch_sweep.py's step bounds (alpha
     5e-5; p 2e-4 and velocities 1e-3 of scale; p_iters within 1); every
     case's t equal on the ranks of its case position; each rank's
@@ -104,6 +105,9 @@ GEOM_ROWS = [dict(H=h, D=d, mesh=0.004, geo="flat", R=r, freq=f)
 PROWS = [{"R": r["R"], "freq": r["freq"], "duration": 0.05}
          for r in GEOM_ROWS]
 GEOM_GRID = (2, 2, 1)
+# The geometry sweep over y-ranks too: one case position, '2x2' blocks of
+# 4 x 4 x 10 x 4 (rows 10a-c on blocks extended in x and y).
+GEOM_GRID_Y = (1, 2, 2)
 # (lockstep, t_stop) of the geometry runs over ranks on the kernels'
 # plain route; a third runs the batch kernels' entry points.
 GEOM_RUNS = ((True, None), (False, None), (False, 1.5e-3))
@@ -159,6 +163,8 @@ def _launch(world):
                       for lock, t_stop in GEOM_RUNS]
             tasks += [("geom_farm", (GEOM_ROWS, PROWS, N_GEOM, GEOM_GRID),
                        {"route": "interpret"})]
+            tasks += [("geom_farm", (GEOM_ROWS, PROWS, N_GEOM, GEOM_GRID_Y),
+                       {"lockstep": lock}) for lock in (True, False)]
         _RUNS[world] = rk.launch(jobs.many, ["cpu"] * world, log=quiet,
                                  args=(tasks,))
     return _RUNS[world]
@@ -330,17 +336,22 @@ def _geom_runs(i):
             for r in _launch(4)]
 
 
-@pytest.mark.parametrize("lockstep", [True, False])
-def test_geometry_sweep_over_ranks_matches_jax(refs, lockstep):
-    res = _geom_runs(0 if lockstep else 1)
+@pytest.mark.parametrize("lockstep,grid", [
+    pytest.param(True, GEOM_GRID, id="True"),
+    pytest.param(False, GEOM_GRID, id="False"),
+    pytest.param(True, GEOM_GRID_Y, id="True-y"),
+    pytest.param(False, GEOM_GRID_Y, id="False-y")])
+def test_geometry_sweep_over_ranks_matches_jax(refs, lockstep, grid):
+    res = _geom_runs((0 if lockstep else 1) if grid == GEOM_GRID
+                     else (4 if lockstep else 5))
     ref, ref_iters = refs[f"geom {lockstep}"]
     got = res[0]["last"]
     assert float(np.abs(ref["w"]).max()) > 1e-3
-    _held(got, ref, GEOM_JAX, f"lockstep {lockstep}")
+    _held(got, ref, GEOM_JAX, f"lockstep {lockstep} over {grid}")
     np.testing.assert_allclose(got["dt"], ref["dt"], rtol=1e-4)
-    c, n, m = GEOM_GRID
+    c, n, m = grid
     group, k = n * m, len(GEOM_ROWS) // c
-    assert np.abs(_case_iters(res) - np.asarray(ref_iters)).max() <= 1
+    assert np.abs(_case_iters(res, grid) - np.asarray(ref_iters)).max() <= 1
     spacing = tsw.build_batched_geometry(GEOM_ROWS, round_to=4,
                                          device="cpu").spacing.numpy()
     for r, out in enumerate(res):
@@ -371,10 +382,10 @@ def _one_process_geom(route="auto", lockstep=True, t_stop=None):
     return _np(s), iters
 
 
-def _case_iters(res):
-    group = GEOM_GRID[1] * GEOM_GRID[2]
+def _case_iters(res, grid=GEOM_GRID):
+    group = grid[1] * grid[2]
     return np.concatenate([np.asarray(res[i * group]["iters"])
-                           for i in range(GEOM_GRID[0])], axis=1)
+                           for i in range(grid[0])], axis=1)
 
 
 def test_geometry_sweep_over_ranks_holds_done_cases():

@@ -10,6 +10,8 @@ the port's sweep path, on the CPU.
     domain-boundary faces), from numpy-seeded inputs; and against the
     rank-3 plain version case by case, bitwise; the apply-dot also at
     the CUDA kernel's edge shapes (nz = 50 with odd B, nz < 8).
+    The batch apply's choice of CUDA body by shape, dtype and the
+    operands' pairing (`apply_body`, `_paired`).
 (b) a batched `solve_pcg` on two cases of different stiffness: each case
     equals its solo solve.
 
@@ -168,6 +170,44 @@ def test_rank_and_operand_checks():
         tsp._check(tp, ts, torch.from_numpy(b)[..., :2].contiguous(), rank=4)
     for fn in (tsp.apply_7pt_nb, tsp.resid_scaled_7pt_nb, tsp.apply_dot_7pt_nb):
         assert fn.launches == 0   # no kernel launches on CPU tensors
+
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+_MARCH = tsp.APPLY_MARCH_FROM
+
+
+@pytest.mark.parametrize("shape,dtype,paired,body", [
+    ((12, 12, 50, 128), _F32, True, "march"),      # the sweep's top level
+    ((12, 12, 50, 128), _BF16, True, "march"),
+    ((12, 12, 50, 128), _F32, False, "element"),
+    ((6, 6, 25, 128), _BF16, True, "pairs"),       # its first coarse level
+    ((6, 6, 25, 128), _F32, True, "element"),
+    ((12, 12, 50, 32), _F32, True, "element"),     # a farm position's
+    ((6, 6, 25, 32), _BF16, True, "pairs"),
+    ((7, 7, 50, 64), _F32, True, "element"),       # a rank's extended block
+    ((6, 6, 25, 64), _BF16, False, "element"),
+    ((1, 1, 1, _MARCH), _F32, True, "march"),      # the boundary
+    ((1, 1, 1, _MARCH - 2), _F32, True, "element"),
+    ((1, 1, 1, _MARCH - 2), _BF16, True, "pairs"),
+    ((1, 1, 2, _MARCH // 2), _BF16, True, "march"),
+])
+def test_batch_apply_body_by_shape(shape, dtype, paired, body):
+    """The batch apply's body (its CUDA launch; on CPU tensors the plain
+    version runs): the march from APPLY_MARCH_FROM elements, below it two
+    cases a thread for bf16 and one thread per element for f32, and one
+    thread per element whenever B is odd or an operand is not aligned for
+    pairs."""
+    assert tsp.apply_body(shape, dtype, paired) == body
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_batch_apply_pairs_need_even_aligned_operands(dtype):
+    even = torch.zeros(2, 3, 4, 6, dtype=dtype)
+    flat = torch.zeros(even.numel() + 1, dtype=dtype)
+    shifted = flat[1:].view(even.shape)   # contiguous, one element off
+    assert tsp._paired(even, even.clone(), None)
+    assert not tsp._paired(even, shifted)
+    assert not tsp._paired(torch.zeros(2, 3, 4, 5, dtype=dtype))
 
 
 # ---------------------------------------------------------------- (b) CG
