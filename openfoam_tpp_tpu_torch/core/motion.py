@@ -70,7 +70,9 @@ def effective_gravity(t, params, g: float = 9.81):
     frame, shape (3,)."""
     a = orbital_acceleration(t, params)
     g_vec = torch.zeros_like(a)
-    g_vec[2] = -g
+    # A fill: a Python number assigned to a 0-d element is copied from the
+    # host, which waits for the device.
+    g_vec[2].fill_(-g)
     return g_vec - a
 
 

@@ -26,6 +26,7 @@ from openfoam_tpp_tpu_torch.ops import stencil as st
 from openfoam_tpp_tpu_torch.ops.kernels import mules_fct as mf
 from openfoam_tpp_tpu_torch.ops.kernels import mules_flux as mfx
 from openfoam_tpp_tpu_torch.parallel import spmd as sm
+from openfoam_tpp_tpu_torch.utils.profiling import span
 
 
 def _neighbor_max(a):
@@ -180,48 +181,49 @@ def advect_alpha(alpha, phi, geom_arrays, spacing, dt, rho1, rho2,
     sub-steps. Returns (alpha_new, rhoPhi, alpha_flux) where
     rhoPhi_f = rho1·Fα + rho2·(φ − Fα) from the time-averaged limited
     alpha flux Fα. `spmd`: the kernels run as per-shard islands."""
-    vfrac = geom_arrays["vfrac"]
-    apertures = (geom_arrays["ax"], geom_arrays["ay"], geom_arrays["az"])
-    fluid = vfrac > 0.0
-    inv_vol = torch.where(fluid, 1.0 / torch.clamp(vfrac, min=0.5), 0.0)
+    with span("alpha.advect"):
+        vfrac = geom_arrays["vfrac"]
+        apertures = (geom_arrays["ax"], geom_arrays["ay"], geom_arrays["az"])
+        fluid = vfrac > 0.0
+        inv_vol = torch.where(fluid, 1.0 / torch.clamp(vfrac, min=0.5), 0.0)
 
-    dt_sub = dt / n_subcycles
-    u_cs = compression_fluxes(alpha, phi, apertures, spacing, c_alpha)
-    use_flux_kernel = use_pallas and u_cs is not None
-    fct_bf16 = bool(fct_bf16) and use_pallas
-    if use_flux_kernel:
-        uc_dt = torch.bfloat16 if fct_bf16 else alpha.dtype
-        phis_cell = _cell_layout(phi)
-        ucs_cell = tuple(u.to(uc_dt) for u in _cell_layout(u_cs))
-
-    a = alpha
-    flux_acc = tuple(torch.zeros_like(p) for p in phi)
-    for _ in range(n_subcycles):
+        dt_sub = dt / n_subcycles
+        u_cs = compression_fluxes(alpha, phi, apertures, spacing, c_alpha)
+        use_flux_kernel = use_pallas and u_cs is not None
+        fct_bf16 = bool(fct_bf16) and use_pallas
         if use_flux_kernel:
-            anti_dt = torch.bfloat16 if fct_bf16 else None
-            if spmd is not None:
-                lows_c, antis_c = sm.flux_all(a, phis_cell, ucs_cell, spmd,
-                                              anti_dtype=anti_dt)
+            uc_dt = torch.bfloat16 if fct_bf16 else alpha.dtype
+            phis_cell = _cell_layout(phi)
+            ucs_cell = tuple(u.to(uc_dt) for u in _cell_layout(u_cs))
+
+        a = alpha
+        flux_acc = tuple(torch.zeros_like(p) for p in phi)
+        for _ in range(n_subcycles):
+            if use_flux_kernel:
+                anti_dt = torch.bfloat16 if fct_bf16 else None
+                if spmd is not None:
+                    lows_c, antis_c = sm.flux_all(a, phis_cell, ucs_cell, spmd,
+                                                  anti_dtype=anti_dt)
+                else:
+                    lows_c, antis_c = mfx.flux_all(a, phis_cell, ucs_cell,
+                                                   anti_dtype=anti_dt)
+                lows = _cell_to_faces(lows_c)
+                antis = _cell_to_faces(antis_c)
             else:
-                lows_c, antis_c = mfx.flux_all(a, phis_cell, ucs_cell,
-                                               anti_dtype=anti_dt)
-            lows = _cell_to_faces(lows_c)
-            antis = _cell_to_faces(antis_c)
-        else:
-            lows, antis = _face_fluxes(a, phi, u_cs)
-        lows[2] = _apply_top_bc(lows[2], phi[2], a)
-        antis[2] = antis[2].clone()
-        antis[2][:, :, -1] = 0.0
+                lows, antis = _face_fluxes(a, phi, u_cs)
+            lows[2] = _apply_top_bc(lows[2], phi[2], a)
+            antis[2] = antis[2].clone()
+            antis[2][:, :, -1] = 0.0
 
-        a_low = a - dt_sub * inv_vol * _div(lows, spacing)
-        limited = _fct_limited(a, a_low, antis, dt_sub, spacing, inv_vol,
-                               n_limiter_iters, use_pallas=use_pallas,
-                               fct_bf16=fct_bf16, spmd=spmd)
-        a_new = a_low - dt_sub * inv_vol * _div(limited, spacing)
-        a = torch.where(fluid, torch.clamp(a_new, 0.0, 1.0), 0.0)
-        flux_acc = tuple(acc + (lo + li) / n_subcycles
-                         for acc, lo, li in zip(flux_acc, lows, limited))
+            a_low = a - dt_sub * inv_vol * _div(lows, spacing)
+            limited = _fct_limited(a, a_low, antis, dt_sub, spacing, inv_vol,
+                                   n_limiter_iters, use_pallas=use_pallas,
+                                   fct_bf16=fct_bf16, spmd=spmd)
+            a_new = a_low - dt_sub * inv_vol * _div(limited, spacing)
+            a = torch.where(fluid, torch.clamp(a_new, 0.0, 1.0), 0.0)
+            flux_acc = tuple(acc + (lo + li) / n_subcycles
+                             for acc, lo, li in zip(flux_acc, lows, limited))
 
-    rho_phi = tuple(rho1 * fa + rho2 * (p - fa)
-                    for fa, p in zip(flux_acc, phi))
-    return a, rho_phi, flux_acc
+        rho_phi = tuple(rho1 * fa + rho2 * (p - fa)
+                        for fa, p in zip(flux_acc, phi))
+        return a, rho_phi, flux_acc

@@ -77,6 +77,7 @@ import torch
 import torch.distributed as dist
 
 from openfoam_tpp_tpu_torch.device import resolve_device
+from openfoam_tpp_tpu_torch.utils.profiling import launch_counts  # noqa: F401
 
 # Seconds a collective may wait for its peers before it raises.
 TIMEOUT_S = 300
@@ -437,24 +438,6 @@ def gather_state(state, ranks: RankCtx):
     f["v"] = ranks.gather_block(state.v, faces=1).cpu()
     return SimState(**f, **{k: getattr(state, k).cpu()
                             for k in ("t", "dt", "step")})
-
-
-def launch_counts() -> dict:
-    """Every kernel entry point's launch count in this process, keyed
-    'module.function' (the kernel modules of ops/kernels)."""
-    from openfoam_tpp_tpu_torch.ops.kernels import (correction, halo7,
-                                                    mom_finish, momentum_rhs,
-                                                    mules_fct, mules_flux,
-                                                    seven_point)
-
-    out = {}
-    for mod in (seven_point, halo7, mules_flux, mules_fct, momentum_rhs,
-                correction, mom_finish):
-        short = mod.__name__.rsplit(".", 1)[1]
-        for name, fn in vars(mod).items():
-            if callable(fn) and hasattr(fn, "launches"):
-                out[f"{short}.{name}"] = fn.launches
-    return out
 
 
 # ----------------------------------------------------------------- launch

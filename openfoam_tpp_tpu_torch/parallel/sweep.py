@@ -53,6 +53,7 @@ from openfoam_tpp_tpu_torch.mesh.geometry import (TankGeometry,
 from openfoam_tpp_tpu_torch.ops import stencil as st
 from openfoam_tpp_tpu_torch.solver.timestep import (Cfl, geometry_arrays,
                                                     make_step_core)
+from openfoam_tpp_tpu_torch.utils import profiling as prof
 
 _STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
 _PARAM_FIELDS = tuple(f.name for f in dataclasses.fields(CaseParams))
@@ -139,32 +140,37 @@ def lockstep_step(locks: list, states: list, params: list, t_stop=None,
     (a parallel.ranks.RankCtx): the part is this rank's block of a batch
     farmed over ranks, and each minimum is taken over every rank (the
     whole world: every case position's). Returns (states', diags), a
-    list each; with one part, the ops are those of the unsplit step."""
-    lock = locks[0]
+    list each; with one part, the ops are those of the unsplit step.
+    The whole is one `step` span (utils/profiling.py), the minima and
+    the parts' CFL dt `step.cfl` spans within it."""
+    with prof.step_span():
+        lock = locks[0]
 
-    def batch_min(values):
-        out = _min_over(values)
-        return out if ranks is None else ranks.all_reduce(out, op="min",
-                                                           world=True)
+        def batch_min(values):
+            out = _min_over(values)
+            return out if ranks is None else ranks.all_reduce(out, op="min",
+                                                               world=True)
 
-    if lock.sync_dt:
-        dt0 = batch_min([s.dt.min() for s in states])
-        states = [dataclasses.replace(s, dt=dt0.to(s.dt.device)
-                                      .expand_as(s.dt).clone())
-                  for s in states]
-    cfls = [None] * len(states)
-    if lock.cfl is not None:
-        cfls = []
-        for lk, s in zip(locks, states):
+        if lock.sync_dt:
+            with prof.span("step.cfl"):
+                dt0 = batch_min([s.dt.min() for s in states])
+                states = [dataclasses.replace(s, dt=dt0.to(s.dt.device)
+                                              .expand_as(s.dt).clone())
+                          for s in states]
+        cfls = [None] * len(states)
+        if lock.cfl is not None:
+            with prof.span("step.cfl"):
+                cfls = []
+                for lk, s in zip(locks, states):
+                    with on_device(s.t.device):
+                        cfls.append(lk.cfl(s))
+                dt_min = batch_min([c.dt.min() for c in cfls])
+                cfls = [c.synced(dt_min.to(c.dt.device)) for c in cfls]
+        out = []
+        for lk, s, p, c in zip(locks, states, params, cfls):
             with on_device(s.t.device):
-                cfls.append(lk.cfl(s))
-        dt_min = batch_min([c.dt.min() for c in cfls])
-        cfls = [c.synced(dt_min.to(c.dt.device)) for c in cfls]
-    out = []
-    for lk, s, p, c in zip(locks, states, params, cfls):
-        with on_device(s.t.device):
-            out.append(lk.finish(s, p, c, t_stop))
-    return [o[0] for o in out], [o[1] for o in out]
+                out.append(lk.finish(s, p, c, t_stop))
+        return [o[0] for o in out], [o[1] for o in out]
 
 
 def on_device(dev):
@@ -327,9 +333,9 @@ def _sweep_rank(ctx, log, geom, param_rows, t_end, props, controls,
         batch_params(param_rows, device=dev))
     n, iters = 0, []
     t_min = lambda: ctx.all_reduce(parts[0].t.min(), op="min", world=True)
-    while n < max_steps and bool(t_min() < t_end):
+    while n < max_steps and prof.host_read(t_min() < t_end, "sweep.loop"):
         parts, diags = farm(parts, pparts)
-        iters.append(diags[0].p_iters.cpu().tolist())
+        iters.append(prof.host_read(diags[0].p_iters, "sweep.p_iters"))
         n += 1
     from openfoam_tpp_tpu_torch.core.state import state_to_numpy
 
@@ -576,7 +582,8 @@ def run_sweep(geom, param_rows: list[dict], t_end: float,
                                      device=device)
     params = batch_params(param_rows, device=device)
     n = 0
-    while n < max_steps and bool(states.t.min() < t_end):
+    while n < max_steps and prof.host_read(states.t.min() < t_end,
+                                           "sweep.loop"):
         states, _ = sweep_step(states, params)
         n += 1
     return states, n

@@ -83,6 +83,7 @@ import torch
 from openfoam_tpp_tpu_torch.ops import stencil as st
 from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
 from openfoam_tpp_tpu_torch.parallel import spmd as sm
+from openfoam_tpp_tpu_torch.utils.profiling import host_read, span
 
 _JACOBI_OMEGA = 0.8
 _F32_CG_FLOOR = 3e-5
@@ -580,7 +581,9 @@ def _cg_core(apply_h, precond_h, fluid, b, tol, max_iters, nullv, nullvv,
              apply_dot_h=None, precond_rz_h=None):
     """Plain preconditioned CG from a zero guess in the scaled space.
     Returns (x, iterations). One host sync per iteration: the
-    convergence test `rr > tol2` is read on the host. `precond_rz_h`
+    convergence test `rr > tol2` is read on the host (`host_read`, site
+    "poisson.cg"; the loop ends on a false test, so a call reads
+    iterations + 1 times below the cap). `precond_rz_h`
     returns z with r·z from the V-cycle's exit kernel (against the
     cycle's low-precision copy of r).
 
@@ -606,7 +609,7 @@ def _cg_core(apply_h, precond_h, fluid, b, tol, max_iters, nullv, nullvv,
         return _cg_lanes(apply_h, precond_rz, fluid, nullv, nullvv,
                          apply_dot_h, max_iters, tol2, x, r, p, rz, rr)
     k = 0
-    while k < max_iters and bool(rr > tol2):
+    while k < max_iters and host_read(rr > tol2, "poisson.cg"):
         if apply_dot_h is not None:
             ap, denom = apply_dot_h(p)
         else:
@@ -633,7 +636,7 @@ def _cg_lanes(apply_h, precond_rz, fluid, nullv, nullvv, apply_dot_h,
     its carry."""
     k = torch.zeros_like(rr, dtype=torch.int32)
     active = rr > tol2
-    while bool(active.any()):
+    while host_read(active.any(), "poisson.cg_lanes"):
         if apply_dot_h is not None:
             ap, denom = apply_dot_h(p)
         else:
@@ -701,11 +704,12 @@ def solve_pcg(problem: PoissonProblem, b, x0, precond: Callable | None = None,
     total = 0
     for _ in range(n_refine):
         inner_tol = torch.maximum(_F32_CG_FLOOR * torch.sqrt(_dot(r, r)), tol)
-        dx, iters = _cg_core(apply_h, precond_h, fluid, r, inner_tol,
-                             max_iters, nullv, nullvv,
-                             apply_dot_h=problem.apply_dot_hat,
-                             precond_rz_h=(problem.precond_rz_hat
-                                           if precond is None else None))
+        with span("pressure.cg"):
+            dx, iters = _cg_core(apply_h, precond_h, fluid, r, inner_tol,
+                                 max_iters, nullv, nullvv,
+                                 apply_dot_h=problem.apply_dot_hat,
+                                 precond_rz_h=(problem.precond_rz_hat
+                                               if precond is None else None))
         xh = xh + dx
         total += iters
         r = true_residual(xh)
@@ -714,5 +718,8 @@ def solve_pcg(problem: PoissonProblem, b, x0, precond: Callable | None = None,
         n_fluid = torch.clamp(st.sum_cells(fluid.float()), min=1.0)
         mean = st.sum_cells(torch.where(fluid, x, 0.0)) / n_fluid
         x = torch.where(fluid, x - mean, x)
-    iters_t = torch.as_tensor(total, dtype=torch.int32, device=b.device)
-    return x, torch.sqrt(_dot(r, r)), iters_t
+    if not isinstance(total, torch.Tensor):
+        # a fill: a host-to-device copy of the count would wait for the
+        # device
+        total = torch.full((), total, dtype=torch.int32, device=b.device)
+    return x, torch.sqrt(_dot(r, r)), total

@@ -10,7 +10,13 @@
 `step(state, params) -> (state', diag)`. PyTorch runs eagerly, so there
 is nothing to compile; `t` and `dt` stay 0-d device tensors and the dt
 logic never reads them on the host. The CG loop syncs once per
-iteration (solver/poisson.py).
+iteration (solver/poisson.py), through `utils/profiling.host_read`, the
+one way the step reads a device value. Under `utils/profiling.collect()`
+the step records its spans: `step` (the root), `step.cfl`,
+`alpha.advect` (ops/mules.py), `pressure.operator`, `pressure.bundle`,
+`momentum`, `pressure.solve` (its `pressure.cg`, solver/poisson.py),
+`correction` and `step.diagnostics`; a sweep's batched step is one
+`step` (parallel/sweep.py `lockstep_step`).
 
 Parameter sweeps: the step is rank-polymorphic. Grid arrays are
 (nx, ny, nz) or, with many cases stacked on a trailing axis,
@@ -128,6 +134,8 @@ from openfoam_tpp_tpu_torch.parallel.spmd import SpmdCtx
 from openfoam_tpp_tpu_torch.solver import frame as fr
 from openfoam_tpp_tpu_torch.solver import momentum as mom
 from openfoam_tpp_tpu_torch.solver import poisson
+from openfoam_tpp_tpu_torch.utils.profiling import (host_read, span,
+                                                    step_span)
 
 
 def _mom_pallas_enabled(controls: SolverControls) -> bool:
@@ -351,7 +359,7 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
             return mo.effective_gravity(t, params, props.g)
         a = motion.acceleration(t)
         g_lab = torch.zeros_like(a)
-        g_lab[2] = -props.g
+        g_lab[2].fill_(-props.g)   # a fill, as mo.effective_gravity's
         if rot_enabled:
             R = mo.rotation_matrix(motion.orientation(t))
             return mo.matvec3(R.T, g_lab - a)
@@ -400,7 +408,7 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
 
     def step(state: SimState, params, ga, spacing, t_stop=None,
              precond=None, cfl=None):
-        with slabs(state):
+        with step_span(), slabs(state):
             return step_slab(state, params, ga, spacing, t_stop, precond,
                              cfl)
 
@@ -412,25 +420,31 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
                 "spmd= on a batched state in one process: a sweep is not "
                 "sharded through spmd (in the JAX package either); over "
                 "ranks it runs on each rank's block")
-        if cfl is None:
-            cfl = cfl_dt(state, ga, spacing)
-        fluid, co, co_a, dt_cfl = cfl
-        # --- adjustableRunTime: land exactly on the write grid / t_stop ---
-        w = float(controls.write_interval)
-        if w > 0.0:
-            wj = torch.tensor(w, dtype=fdt, device=dev)
-            k_next = torch.floor(state.t / wj + 1e-4) + 1.0
-            t_next = k_next * wj
-        else:
-            t_next = torch.tensor(float("inf"), dtype=fdt, device=dev)
-        if t_stop is not None:
-            t_next = torch.minimum(t_next, torch.as_tensor(
-                t_stop, dtype=fdt, device=dev))
-        rem = torch.clamp(t_next - state.t, min=1e-12)
-        finite = torch.isfinite(rem)
-        n_split = torch.clamp(torch.ceil(rem / dt_cfl - 1e-4), min=1.0)
-        dt = torch.where(finite, rem / n_split, dt_cfl)
-        t_new = torch.where(finite & (n_split <= 1.0), t_next, state.t + dt)
+        with span("step.cfl"):
+            if cfl is None:
+                cfl = cfl_dt(state, ga, spacing)
+            fluid, co, co_a, dt_cfl = cfl
+            # --- adjustableRunTime: land exactly on the write grid /
+            # t_stop. Python numbers become device scalars by a fill: a
+            # host-to-device copy would wait for the device. ---
+            w = float(controls.write_interval)
+            if w > 0.0:
+                wj = torch.full((), w, dtype=fdt, device=dev)
+                k_next = torch.floor(state.t / wj + 1e-4) + 1.0
+                t_next = k_next * wj
+            else:
+                t_next = torch.full((), float("inf"), dtype=fdt, device=dev)
+            if t_stop is not None:
+                t_next = torch.minimum(t_next, (
+                    torch.full((), t_stop, dtype=fdt, device=dev)
+                    if isinstance(t_stop, (int, float))
+                    else torch.as_tensor(t_stop, dtype=fdt, device=dev)))
+            rem = torch.clamp(t_next - state.t, min=1e-12)
+            finite = torch.isfinite(rem)
+            n_split = torch.clamp(torch.ceil(rem / dt_cfl - 1e-4), min=1.0)
+            dt = torch.where(finite, rem / n_split, dt_cfl)
+            t_new = torch.where(finite & (n_split <= 1.0), t_next,
+                                state.t + dt)
 
         # --- alpha advection with the divergence-free flux of step n ---
         phi = (ga["ax"] * state.u, ga["ay"] * state.v, ga["az"] * state.w)
@@ -446,9 +460,10 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
         mu = mixture_viscosity(alpha_new, props)
 
         # --- Poisson operator for the new density ---
-        prob, pack = poisson.build_operator(
-            ga, spacing, rho_new, ga["top_open"] if open_top else None,
-            use_pallas=use_k, spmd=spmd)
+        with span("pressure.operator"):
+            prob, pack = poisson.build_operator(
+                ga, spacing, rho_new, ga["top_open"] if open_top else None,
+                use_pallas=use_k, spmd=spmd)
         K = max(int(controls.precond_refresh), 1)
         if (carry_precond and precond is not None and K > 1
                 and state.step.dim() > 0):
@@ -458,111 +473,120 @@ def make_step_core(props: PhysicalProperties = PhysicalProperties(),
                 "a carried preconditioner with precond_refresh > 1 on a "
                 "batched state is not ported (sweeps rebuild it every step)")
         if (carry_precond and precond is not None and K > 1
-                and int(state.step) % K != 0):
+                and host_read(state.step, "timestep.precond_refresh") % K):
             bundle = precond   # host read of step only when K > 1
         else:
-            bundle = make_bundle(pack)
+            with span("pressure.bundle"):
+                bundle = make_bundle(pack)
         prob = poisson.attach_precond(prob, bundle, knobs, spmd=spmd)
         beta_f = prob.beta_faces
 
         # --- explicit conservative momentum (no pressure) ---
-        t_mid = state.t + 0.5 * dt
-        if forcing is None:
-            G = effective_g(t_mid, params)
-        elif ranks is None:
-            G = forcing(t_mid, params)
-        else:
-            G = block_forcing(forcing(t_mid, params), ranks,
-                              *state.alpha.shape[:2])
-        kappa = None
-        if props.sigma != 0.0:
-            kappa = mom.curvature(alpha_new, spacing, vfrac=ga["vfrac"],
-                                  method=controls.csf_curvature)
-        vels = (state.u, state.v, state.w)
-        frame = None
-        if rot_enabled:
-            # Centrifugal + Euler + Coriolis sources of the rotating tank
-            # frame, explicit in the old velocity.
-            omega_b, domega_b = fr.angular_rates(motion, t_mid)
-            frame = [fr.rotational_acceleration(
-                ax, face_xyz[ax], omega_b, domega_b,
-                *(interp_to_faces(vels[q], q, ax) for q in range(3)))
-                for ax in range(3)]
-        apertures = (ga["ax"], ga["ay"], ga["az"])
-        div_u = st.divergence(*phi, spacing) if controls.dev2_stress else None
-        if use_mom_k and spmd is not None:
-            vcs = _sm.momentum_rhs(*vels, rho_phi, mu, div_u, spacing, spmd,
-                                   dev2=bool(controls.dev2_stress))
-        elif use_mom_k:
-            # visc + dev2 − conv of all three components in one kernel.
-            vcs = _mrk.momentum_rhs(*vels, rho_phi, mu, div_u, spacing,
-                                    dev2=bool(controls.dev2_stress))
-        else:
-            vcs = mom.explicit_rhs(vels, rho_phi, mu, div_u, spacing,
-                                   dev2=controls.dev2_stress)
-        # The finish kernel takes one uniform (3,) G: a forcing component
-        # that is not 0-d keeps it off (a Python number counts as 0-d).
-        if use_finish_k and all(getattr(g, "dim", lambda: 0)() == 0
-                                for g in G):
-            # The kernel takes au cell-shaped (a contiguous view) and
-            # writes u's zero face-nx row itself.
-            u_c, v_c, w_c = _mfk.momentum_finish(
-                *vels, (vcs[0][:-1], vcs[1], vcs[2]), rho_old, rho_new,
-                *apertures, dt,
-                G if isinstance(G, torch.Tensor) else torch.stack(
-                    [torch.as_tensor(g, dtype=fdt, device=dev) for g in G]))
-        else:
-            # CSF: global plain tensors, sharded step or not, as in JAX.
-            csf = (None if kappa is None else
-                   [mom.csf_force(alpha_new, kappa, props.sigma, ax,
-                                  spacing[ax], beta_f[ax])
-                    for ax in range(3)])
-            u_c, v_c, w_c = mom.explicit_update(vels, vcs, rho_old, rho_new,
-                                                apertures, dt, G, frame, csf)
+        with span("momentum"):
+            t_mid = state.t + 0.5 * dt
+            if forcing is None:
+                G = effective_g(t_mid, params)
+            elif ranks is None:
+                G = forcing(t_mid, params)
+            else:
+                G = block_forcing(forcing(t_mid, params), ranks,
+                                  *state.alpha.shape[:2])
+            kappa = None
+            if props.sigma != 0.0:
+                kappa = mom.curvature(alpha_new, spacing, vfrac=ga["vfrac"],
+                                      method=controls.csf_curvature)
+            vels = (state.u, state.v, state.w)
+            frame = None
+            if rot_enabled:
+                # Centrifugal + Euler + Coriolis sources of the rotating tank
+                # frame, explicit in the old velocity.
+                omega_b, domega_b = fr.angular_rates(motion, t_mid)
+                frame = [fr.rotational_acceleration(
+                    ax, face_xyz[ax], omega_b, domega_b,
+                    *(interp_to_faces(vels[q], q, ax) for q in range(3)))
+                    for ax in range(3)]
+            apertures = (ga["ax"], ga["ay"], ga["az"])
+            div_u = (st.divergence(*phi, spacing) if controls.dev2_stress
+                     else None)
+            if use_mom_k and spmd is not None:
+                vcs = _sm.momentum_rhs(*vels, rho_phi, mu, div_u, spacing,
+                                       spmd, dev2=bool(controls.dev2_stress))
+            elif use_mom_k:
+                # visc + dev2 − conv of all three components in one kernel.
+                vcs = _mrk.momentum_rhs(*vels, rho_phi, mu, div_u, spacing,
+                                        dev2=bool(controls.dev2_stress))
+            else:
+                vcs = mom.explicit_rhs(vels, rho_phi, mu, div_u, spacing,
+                                       dev2=controls.dev2_stress)
+            # The finish kernel takes one uniform (3,) G: a forcing component
+            # that is not 0-d keeps it off (a Python number counts as 0-d).
+            if use_finish_k and all(getattr(g, "dim", lambda: 0)() == 0
+                                    for g in G):
+                # The kernel takes au cell-shaped (a contiguous view) and
+                # writes u's zero face-nx row itself.
+                u_c, v_c, w_c = _mfk.momentum_finish(
+                    *vels, (vcs[0][:-1], vcs[1], vcs[2]), rho_old, rho_new,
+                    *apertures, dt,
+                    G if isinstance(G, torch.Tensor) else torch.stack(
+                        [torch.as_tensor(g, dtype=fdt, device=dev)
+                         for g in G]))
+            else:
+                # CSF: global plain tensors, sharded step or not, as in JAX.
+                csf = (None if kappa is None else
+                       [mom.csf_force(alpha_new, kappa, props.sigma, ax,
+                                      spacing[ax], beta_f[ax])
+                        for ax in range(3)])
+                u_c, v_c, w_c = mom.explicit_update(
+                    vels, vcs, rho_old, rho_new, apertures, dt, G, frame, csf)
 
         # --- projection (PIMPLE corrector loop) ---
         p_new = state.p
         n_corr = max(int(controls.n_correctors), 1)
         div_err = None
         for corr in range(n_corr):
-            div_star = st.divergence(ga["ax"] * u_c, ga["ay"] * v_c,
-                                     ga["az"] * w_c, spacing)
-            b = torch.where(fluid, -div_star / dt, 0.0)
-            dp, p_res, p_iters = poisson.solve_pcg(
-                prob, b, p_new if corr == 0 else torch.zeros_like(p_new),
-                tol_rel=controls.p_tol_rel, tol_abs=controls.p_tol_abs,
-                tol_rel_b=controls.p_tol_rel_b,
-                max_iters=controls.p_max_iters)
-            p_new = dp if corr == 0 else p_new + dp
+            with span("pressure.solve"):
+                div_star = st.divergence(ga["ax"] * u_c, ga["ay"] * v_c,
+                                         ga["az"] * w_c, spacing)
+                b = torch.where(fluid, -div_star / dt, 0.0)
+                dp, p_res, p_iters = poisson.solve_pcg(
+                    prob, b, p_new if corr == 0 else torch.zeros_like(p_new),
+                    tol_rel=controls.p_tol_rel, tol_abs=controls.p_tol_abs,
+                    tol_rel_b=controls.p_tol_rel_b,
+                    max_iters=controls.p_max_iters)
+                p_new = dp if corr == 0 else p_new + dp
 
             # velocity correction: exactly the operator's gradient; the
             # last corrector's, with the divergence error, in one kernel
             corr_args = (dp, u_c, v_c, w_c, beta_f, *apertures)
-            if use_corr_k and corr == n_corr - 1 and spmd is not None:
-                u_c, v_c, w_c, div_err = _sm.correct_divmax(
-                    *corr_args, ga["vfrac"], ga["top_open"], rho_new, dt,
-                    spacing, spmd, open_top=open_top)
-            elif use_corr_k and corr == n_corr - 1:
-                u_c, v_c, w_c, div_err = _ck.correct_divmax(
-                    *corr_args, ga["vfrac"], ga["top_open"], rho_new, dt,
-                    spacing, open_top=open_top)
-            else:
-                u_c, v_c, w_c = _ck.correct_velocities_plain(
-                    *corr_args, ga["top_open"], rho_new, dt, spacing,
-                    open_top=open_top)
+            with span("correction"):
+                if use_corr_k and corr == n_corr - 1 and spmd is not None:
+                    u_c, v_c, w_c, div_err = _sm.correct_divmax(
+                        *corr_args, ga["vfrac"], ga["top_open"], rho_new, dt,
+                        spacing, spmd, open_top=open_top)
+                elif use_corr_k and corr == n_corr - 1:
+                    u_c, v_c, w_c, div_err = _ck.correct_divmax(
+                        *corr_args, ga["vfrac"], ga["top_open"], rho_new, dt,
+                        spacing, open_top=open_top)
+                else:
+                    u_c, v_c, w_c = _ck.correct_velocities_plain(
+                        *corr_args, ga["top_open"], rho_new, dt, spacing,
+                        open_top=open_top)
 
         if div_err is None:
-            div_err = _ck.div_max_plain(u_c, v_c, w_c, *apertures,
-                                        ga["vfrac"], spacing)
-        # state.dt carries the UNCLIPPED CFL dt as the next growth base.
-        new_state = SimState(alpha=alpha_new, u=u_c, v=v_c, w=w_c, p=p_new,
-                             t=t_new, dt=dt_cfl, step=state.step + 1)
-        rescale = dt / torch.clamp(state.dt, min=1e-30)
-        diag = StepDiagnostics(
-            courant=co * rescale, alpha_courant=co_a * rescale,
-            p_residual=p_res, p_iters=p_iters, div_error=div_err,
-            alpha_min=st.min_cells(torch.where(fluid, alpha_new, 0.0)),
-            alpha_max=st.max_cells(alpha_new))
+            with span("correction"):
+                div_err = _ck.div_max_plain(u_c, v_c, w_c, *apertures,
+                                            ga["vfrac"], spacing)
+        with span("step.diagnostics"):
+            # state.dt carries the UNCLIPPED CFL dt as the next growth base.
+            new_state = SimState(alpha=alpha_new, u=u_c, v=v_c, w=w_c,
+                                 p=p_new, t=t_new, dt=dt_cfl,
+                                 step=state.step + 1)
+            rescale = dt / torch.clamp(state.dt, min=1e-30)
+            diag = StepDiagnostics(
+                courant=co * rescale, alpha_courant=co_a * rescale,
+                p_residual=p_res, p_iters=p_iters, div_error=div_err,
+                alpha_min=st.min_cells(torch.where(fluid, alpha_new, 0.0)),
+                alpha_max=st.max_cells(alpha_new))
         if carry_precond:
             return new_state, diag, bundle
         return new_state, diag

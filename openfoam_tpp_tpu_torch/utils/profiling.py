@@ -6,8 +6,27 @@
     Perfetto load it).
   * ``profile_case(case_dir, n_steps)`` — start from the case's latest
     checkpoint (or a fresh state), take 3 warm-up steps, run ``n_steps``
-    solver steps under the trace, and write a summary (per-step wall ms,
-    cell-updates/s) next to the trace under ``postProcessing/profile/``.
+    solver steps under the trace and ``collect()``, and write a summary
+    (per-step wall ms, cell-updates/s; each span's self time, the host
+    reads by site and the kernel launches by entry, per step) next to the
+    trace under ``postProcessing/profile/``.
+  * ``span(name)``, ``step_span()`` — the spans the step path opens
+    (solver/timestep.py, solver/poisson.py, ops/mules.py,
+    parallel/sweep.py). While nothing collects they return one shared
+    context that does nothing.
+  * ``host_read(t, site)`` — the one way the step path turns a device
+    tensor into a Python value (the CG's convergence test, a refresh's
+    step count, a sweep loop's test): counted by site, its wait timed as
+    a ``host.sync`` span, while ``collect()`` is on.
+  * ``collect()`` — spans and read counters on for a block; yields a
+    ``Record`` (the spans, host reads by site, kernel launches by entry
+    over the block) filled when the block ends.
+  * ``launch_counts()`` — every kernel entry's launch counter.
+
+Span stamps are ``time.time_ns()``: the unix-epoch clock kineto reports
+its events on, so a span lines up with the device operations of a
+``torch.profiler`` trace taken over the same block (tests/
+test_torch_spans.py holds the two within 50 µs).
 
 Exposed by the command line as ``--action profile`` (manager/cli.py).
 """
@@ -18,11 +37,182 @@ import contextlib
 import dataclasses
 import os
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 TRACE_FILE = "trace.json"
+# The spans a step opens (PERF.md section 3 names what reads each).
+STEP_SPANS = ("step", "step.cfl", "alpha.advect", "pressure.operator",
+              "pressure.bundle", "momentum", "pressure.solve", "pressure.cg",
+              "correction", "step.diagnostics", "host.sync")
+
+
+# ------------------------------------------------------------------ spans
+
+# What span() returns while nothing collects: one shared context that
+# does nothing.
+_NO_SPAN = contextlib.nullcontext()
+_collector = None    # the _Collector of the open collect(), else None
+
+
+class Span(NamedTuple):
+    """One closed span of a `Record`."""
+
+    name: str
+    start_ns: int          # time.time_ns() at entry
+    end_ns: int            # ... at exit
+    parent: int | None     # index in Record.spans of the enclosing span
+    step: int | None       # the step (0, 1, ...) it lies in, None outside
+
+
+@dataclasses.dataclass
+class Record:
+    """What one `collect()` block gathered; filled when the block ends."""
+
+    spans: list = dataclasses.field(default_factory=list)
+    host_reads: dict = dataclasses.field(default_factory=dict)  # site -> n
+    launches: dict = dataclasses.field(default_factory=dict)  # entry -> n
+    steps: int = 0
+
+
+class _Collector:
+    def __init__(self):
+        self.spans = []      # [name, start_ns, end_ns, parent, step]
+        self.stack = []      # indices of the open spans
+        self.step = None     # index of the open step, None outside one
+        self.n_steps = 0
+        self.reads = {}
+
+
+class _Span:
+    __slots__ = ("_c", "_name", "_root", "_i", "_rf")
+
+    def __init__(self, c, name, root=False):
+        self._c, self._name, self._root = c, name, root
+
+    # The stamps enclose the record_function range: a span holds the
+    # kineto range it opens.
+    def __enter__(self):
+        c = self._c
+        if self._root:
+            c.step = c.n_steps
+            c.n_steps += 1
+        self._i = len(c.spans)
+        c.spans.append([self._name, time.time_ns(), None,
+                        c.stack[-1] if c.stack else None, c.step])
+        c.stack.append(self._i)
+        self._rf = torch.profiler.record_function(self._name)
+        self._rf.__enter__()
+
+    def __exit__(self, *exc):
+        c = self._c
+        self._rf.__exit__(*exc)
+        c.spans[self._i][2] = time.time_ns()
+        c.stack.pop()
+        if self._root:
+            c.step = None
+        return False
+
+
+def span(name: str):
+    """A context around one part of the step, recorded while `collect()`
+    is on (with a `torch.profiler.record_function` of the same name)."""
+    if _collector is None:
+        return _NO_SPAN
+    return _Span(_collector, name)
+
+
+def step_span():
+    """The `step` span, the root of one step. Inside a step already open
+    (a sweep's batched step runs make_step_core's step) it does nothing,
+    so every step has one."""
+    c = _collector
+    if c is None or c.step is not None:
+        return _NO_SPAN
+    return _Span(c, "step", root=True)
+
+
+def host_read(t: torch.Tensor, site: str):
+    """`t.item()` for a 0-d tensor (the Python bool, int or float that
+    bool(), int() or float() of it gives), else `t.tolist()`. Waits for
+    the device to compute `t`. While `collect()` is on the read is
+    counted under `site` and its wait recorded as a `host.sync` span."""
+    c = _collector
+    if c is None:
+        return t.item() if t.dim() == 0 else t.tolist()
+    c.reads[site] = c.reads.get(site, 0) + 1
+    with _Span(c, "host.sync"):
+        return t.item() if t.dim() == 0 else t.tolist()
+
+
+@contextlib.contextmanager
+def collect():
+    """Spans and host-read counters on for the block. Yields a `Record`,
+    filled when the block ends (nothing is written out before): the
+    spans, the host reads by site and each kernel entry's launches over
+    the block (deltas of `launch_counts()`)."""
+    global _collector
+    if _collector is not None:
+        raise RuntimeError("collect() is already on")
+    rec, c = Record(), _Collector()
+    before = launch_counts()
+    _collector = c
+    try:
+        yield rec
+    finally:
+        _collector = None
+        after = launch_counts()
+        rec.spans = [Span(*s) for s in c.spans]
+        rec.host_reads = dict(c.reads)
+        rec.launches = {k: n - before.get(k, 0) for k, n in after.items()
+                        if n != before.get(k, 0)}
+        rec.steps = c.n_steps
+
+
+def per_step_counts(rec: Record) -> dict:
+    """A collected record per step: each span's self time
+    (`self_ms_per_step.<span>`, ms), the host reads by site
+    (`host_reads_per_step.<site>`) and the kernel launches by entry
+    (`launches_per_step.<entry>`)."""
+    n = max(rec.steps, 1)
+    self_ms = {}
+    for s, ns in zip(rec.spans, self_ns(rec.spans)):
+        self_ms[s.name] = self_ms.get(s.name, 0.0) + ns * 1e-6
+    out = {f"self_ms_per_step.{k}": v / n for k, v in sorted(self_ms.items())}
+    out.update((f"host_reads_per_step.{k}", v / n)
+               for k, v in sorted(rec.host_reads.items()))
+    out.update((f"launches_per_step.{k}", v / n)
+               for k, v in sorted(rec.launches.items()))
+    return out
+
+
+def self_ns(spans) -> list:
+    """Each span's duration less what its children cover."""
+    out = [s.end_ns - s.start_ns for s in spans]
+    for s in spans:
+        if s.parent is not None:
+            out[s.parent] -= s.end_ns - s.start_ns
+    return out
+
+
+def launch_counts() -> dict:
+    """Every kernel entry point's launch count in this process, keyed
+    'module.function' (the kernel modules of ops/kernels)."""
+    from openfoam_tpp_tpu_torch.ops.kernels import (correction, halo7,
+                                                    mom_finish, momentum_rhs,
+                                                    mules_fct, mules_flux,
+                                                    seven_point)
+
+    out = {}
+    for mod in (seven_point, halo7, mules_flux, mules_fct, momentum_rhs,
+                correction, mom_finish):
+        short = mod.__name__.rsplit(".", 1)[1]
+        for name, fn in vars(mod).items():
+            if callable(fn) and hasattr(fn, "launches"):
+                out[f"{short}.{name}"] = fn.launches
+    return out
 
 
 @contextlib.contextmanager
@@ -94,7 +284,7 @@ def profile_case(case_dir: str, n_steps: int = 20, props=None, controls=None,
     outdir = os.path.join(case_dir, "postProcessing", "profile")
     os.makedirs(outdir, exist_ok=True)
     step_walls = []
-    with trace(outdir):
+    with trace(outdir), collect() as rec:
         for _ in range(n_steps):
             w0 = time.perf_counter()
             state, diag = step(state, cp)
@@ -118,7 +308,7 @@ def profile_case(case_dir: str, n_steps: int = 20, props=None, controls=None,
         "trace_dir": outdir,
     }
     with open(os.path.join(outdir, "summary.txt"), "w") as f:
-        for k, v in stats.items():
+        for k, v in {**stats, **per_step_counts(rec)}.items():
             f.write(f"{k}: {v}\n")
     log(f"  Step wall: mean {stats['mean_step_ms']:.2f} ms  "
         f"p95 {stats['p95_step_ms']:.2f} ms  "

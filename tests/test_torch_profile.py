@@ -3,7 +3,8 @@
 The counterpart of tests/test_bootstrap_profile.py::test_profile_case_smoke
 (a fresh case, 3 profiled steps under torch.profiler, the trace and
 `summary.txt` written, the stats keys those of the JAX package's
-profile_case on the same case); the command line's `--action profile`
+profile_case on the same case, then each span's self time, the host
+reads by site and the launches by entry a step); the command line's `--action profile`
 after a short `run` (it profiles from the checkpoint); a 6DoF case,
 whose step takes the motion of its table as `run_case` builds it; and
 the device busy time the chip scripts read from a trace.
@@ -50,8 +51,25 @@ def test_profile_case_smoke(tmp_path):
     assert list(stats) == list(jstats)
     assert stats["grid"] == jstats["grid"]
     assert stats["fluid_cells"] == jstats["fluid_cells"]
-    assert _summary_keys(summary) == _summary_keys(
-        os.path.join(jstats["trace_dir"], "summary.txt"))
+    jkeys = _summary_keys(os.path.join(jstats["trace_dir"], "summary.txt"))
+    keys = _summary_keys(summary)
+    assert keys[:len(jkeys)] == jkeys
+
+    # After them the port's spans, host reads and launches a step
+    # (collect()): every span of the step path, the CG's tests (p_iters
+    # + 1 a step, so at least 2), the self times within the step wall.
+    with open(summary) as f:
+        extra = dict(ln.rstrip("\n").split(": ", 1)
+                     for ln in f if ln.strip())
+    extra = {k: float(extra[k]) for k in keys[len(jkeys):]}
+    assert all(k.startswith(("self_ms_per_step.", "host_reads_per_step.",
+                             "launches_per_step.")) for k in extra)
+    assert {k.split(".", 1)[1] for k in extra
+            if k.startswith("self_ms_per_step.")} == set(tprof.STEP_SPANS)
+    assert extra["host_reads_per_step.poisson.cg"] >= 2.0
+    self_ms = sum(v for k, v in extra.items()
+                  if k.startswith("self_ms_per_step."))
+    assert 0.0 < self_ms <= stats["mean_step_ms"]
 
 
 def test_cli_profile_after_run(tmp_path, monkeypatch, capsys):
@@ -69,6 +87,7 @@ def test_cli_profile_after_run(tmp_path, monkeypatch, capsys):
     with open(os.path.join(outdir, "summary.txt")) as f:
         text = f.read()
     assert "n_steps: 2\n" in text
+    assert "host_reads_per_step.poisson.cg: " in text
     assert os.path.isfile(os.path.join(outdir, tprof.TRACE_FILE))
     shutil.rmtree(outdir)
 
