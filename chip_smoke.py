@@ -95,7 +95,13 @@ Phases, each fatal on any fault (nothing is caught):
      that step is built). Each run checks alpha bounds, Courant, p_iters,
      finiteness and that exactly the kernels of its path were launched
      (counts set to 0 just before it and read just after); with two
-     sweeps, that the fused smoothers ran once per V-cycle;
+     sweeps, that the fused smoothers ran once per V-cycle. After the
+     first run, one step from its state with the pressure CG's graphs
+     and one with every CG iteration eager, each under torch.profiler:
+     the launches the entries count (a graph's replay credits its
+     capture's) and the hand-written kernel records by symbol equal in
+     the two, the outputs bitwise (`graph_launch_check`; phase 6 does the
+     same on a sweep step);
      3b. from that state, N_SHARDED steps each of the unsharded default
      step and of the x-sharded step make_step(spmd=SpmdCtx(S)) with S = 4
      (28×112×112 per shard) and S = 1 (edge halos only), then the 4-shard
@@ -651,6 +657,125 @@ def same_bits(got, ref):
                 and torch.equal(g.view(as_int)[~nan], r.view(as_int)[~nan])):
             return False
     return True
+
+
+def device_ops(prof):
+    """({name: [records, device µs]}, busy µs) of a torch.profiler trace's
+    device operations (kernels, copies, fills); busy: their union."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    out, spans = {}, []
+    for k in prof.profiler.kineto_results.events():
+        if k.device_type() == cuda:
+            c = out.setdefault(k.name(), [0, 0.0])
+            c[0] += 1
+            c[1] += k.duration_ns() * 1e-3
+            spans.append((k.start_ns(), k.start_ns() + k.duration_ns()))
+    busy, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return out, busy * 1e-3
+
+
+def library_op(name):
+    """A PyTorch or runtime operation, not one of csrc/'s kernels."""
+    return ("at::" in name or "cub::" in name
+            or name.lower().startswith(("memcpy", "memset")))
+
+
+def graph_launch_check(label, run, fatal=True, tries=3):
+    """`run()` (work from a fixed input; returns a list of tensors) twice
+    under torch.profiler (CUDA activity): with the pressure CG's graphs,
+    then with every CG iteration eager (`_cg_core(_graphs=False)`). A
+    graph's replay credits each kernel entry with the launches its
+    capture counted (utils/profiling.py); here those credits are held
+    against what ran. The two runs must count the same launches per
+    entry, hold the same records of each hand-written kernel symbol in
+    the trace, and give the same outputs bit for bit; the first must
+    have replayed a graph, the second none; else AssertionError (with
+    `fatal`) or the faults under `problems`. The profiler can drop
+    records (at 288×288×297, 20 steps: 69 of 22,518 kernel records, a
+    correction kernel that no graph holds among them), so a pair whose
+    only fault is the records by symbol is run again, up to `tries`
+    pairs: a graph that misses kernels misses them every time. Returns
+    per run (`graphs`, `eager`) of the last pair the launches by entry,
+    the replays, the hand-written kernels ({symbol: [records, device
+    µs]}), the other device ops' records and µs, and the device's busy
+    µs (the ops' union); `tries` the pairs run."""
+    import torch
+
+    for n_try in range(1, tries + 1):
+        out, outputs = _graph_pair(run)
+        g, e = out["graphs"], out["eager"]
+        records = lambda m: {k: v[0] for k, v in m["kernels"].items()}
+        bits = lambda t: t.reshape(-1).view(torch.uint8)
+        bad = []
+        if g["launches"] != e["launches"]:
+            bad.append(f"launches {g['launches']} against {e['launches']}")
+        if not g["replays"] or e["replays"]:
+            bad.append(f"replays {g['replays']} / {e['replays']}")
+        if not all(torch.equal(bits(a), bits(b))
+                   for a, b in zip(outputs["graphs"], outputs["eager"])):
+            bad.append("outputs differ")
+        if records(g) != records(e):
+            diff = {k: (records(g).get(k, 0), records(e).get(k, 0))
+                    for k in set(records(g)) | set(records(e))
+                    if records(g).get(k, 0) != records(e).get(k, 0)}
+            bad.append(f"kernel records (graphs, eager) {diff}")
+        log(f"[{label}] try {n_try}, graphs / eager: replays "
+            f"{g['replays']} / {e['replays']}, launches counted "
+            f"{sum(g['launches'].values())} / "
+            f"{sum(e['launches'].values())}, hand-written kernel records "
+            f"{sum(records(g).values())} / {sum(records(e).values())}, "
+            f"other device ops {g['other_ops'][0]} / {e['other_ops'][0]}; "
+            + ("; ".join(bad) if bad else "equal, outputs bitwise"))
+        if not bad or not bad[-1].startswith("kernel records") or len(bad) > 1:
+            break
+    if bad and fatal:
+        raise AssertionError(f"{label}: " + "; ".join(bad))
+    out["problems"], out["tries"] = bad, n_try
+    return out
+
+
+def _graph_pair(run):
+    """`graph_launch_check`'s two profiled runs: ({mode: reading},
+    {mode: outputs})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from openfoam_tpp_tpu_torch.solver import poisson
+    from openfoam_tpp_tpu_torch.utils import profiling
+
+    core = poisson._cg_core
+    eager = lambda *a, **k: core(*a, **{**k, "_graphs": False})
+    out, outputs = {}, {}
+    for mode in ("graphs", "eager"):
+        torch.cuda.synchronize()
+        launches = profiling.launch_counts()
+        replays = sum(profiling.graph_counts()["replays"].values())
+        poisson._cg_core = core if mode == "graphs" else eager
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                outputs[mode] = [t.detach().clone() for t in run()]
+                torch.cuda.synchronize()
+        finally:
+            poisson._cg_core = core
+        ops, busy = device_ops(prof)
+        other = [v for k, v in ops.items() if library_op(k)]
+        out[mode] = {
+            "launches": {k: n - launches.get(k, 0)
+                         for k, n in profiling.launch_counts().items()
+                         if n != launches.get(k, 0)},
+            "replays": sum(profiling.graph_counts()["replays"].values())
+            - replays,
+            "kernels": {k: v for k, v in ops.items() if not library_op(k)},
+            "other_ops": [sum(v[0] for v in other), sum(v[1] for v in other)],
+            "busy_us": busy}
+    return out, outputs
 
 
 # Entry points whose every call is one CUDA kernel launch (checked).
@@ -1698,28 +1823,30 @@ def vcycle_calls(shape, knobs):
 
 
 def phase_step_operands(step, state, params, rows, names=STEP_ROWS):
-    """Kernel rows on the operands of one real step from `state` (phase
-    3's flagship, phase 10's tiled grid): of the default step the 7-point
+    """Kernel rows on the operands of one real step from `state` (phase 3's
+    flagship, phase 10's tiled grid): of the default step the 7-point
     apply and resid calls of every V-cycle level and the CG's true
     residual (rows 2, 3; their count from `vcycle_calls`), the CG's
     apply_dot_7pt calls (one per iteration), the three flux_all calls,
     the nine fct_iter calls, the momentum_rhs call and the
     correct_divmax call (rows 1, 4, 5, 6, 7); of the two-sweep step the
-    cheb2_pre_7pt and cheb2_post_dot_7pt calls (rows 9a, 9c; one each per
-    V-cycle). Captured by spies standing in for the entry points `names`,
-    every call held against the plain version with phase 2's
-    tolerances: f32 outputs F32_RTOL (momentum_rhs MOM_RTOL), bf16
-    outputs (the V-cycle's applies and resids, flux anti, FCT λ, the pre
-    smoother's x and r) BF16_RTOL, the dots DOT_RTOL and the div max
-    F32_RTOL, each scalar bitwise equal over two calls; every call
-    launched its kernel. The first STEP_TIMED_CALLS calls of each
-    signature (operand shapes and dtypes: one V-cycle level) are timed
-    again, kernel and plain version. Adds `step_ms`, `step_plain_ms`
-    (means per call, each signature weighted by its calls),
-    `step_max_rel_err`, `step_bitwise`, the mean bytes and bound of a
-    call (`step_bytes`, `step_bound_ms`: each distinct operand tensor
-    read once, each output written once) and `step_levels` (per
-    signature: calls, times, bytes, bound) to those rows."""
+    cheb2_pre_7pt and cheb2_post_dot_7pt calls (rows 9a, 9c; one each
+    per V-cycle). Captured by spies standing in for the entry points
+    `names` (the CG's iterations run eagerly, `_cg_core(_graphs=False)`,
+    so that every call reaches them), every call held against the plain
+    version with phase 2's tolerances: f32 outputs F32_RTOL
+    (momentum_rhs MOM_RTOL), bf16 outputs (the V-cycle's applies and
+    resids, flux anti, FCT λ, the pre smoother's x and r) BF16_RTOL, the
+    dots DOT_RTOL and the div max F32_RTOL, each scalar bitwise equal
+    over two calls; every call launched its kernel. The first
+    STEP_TIMED_CALLS calls of each signature (operand shapes and dtypes:
+    one V-cycle level) are timed again, kernel and plain version. Adds
+    `step_ms`, `step_plain_ms` (means per call, each signature weighted
+    by its calls), `step_max_rel_err`, `step_bitwise`, the mean bytes
+    and bound of a call (`step_bytes`, `step_bound_ms`: each distinct
+    operand tensor read once, each output written once) and
+    `step_levels` (per signature: calls, times, bytes, bound) to those
+    rows."""
     import torch
 
     from openfoam_tpp_tpu_torch.ops.kernels import correction as ck
@@ -1727,6 +1854,7 @@ def phase_step_operands(step, state, params, rows, names=STEP_ROWS):
     from openfoam_tpp_tpu_torch.ops.kernels import mules_fct as mf
     from openfoam_tpp_tpu_torch.ops.kernels import mules_flux as mfx
     from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
+    from openfoam_tpp_tpu_torch.solver import poisson
     from openfoam_tpp_tpu_torch.solver.poisson import SolverKnobs
     from openfoam_tpp_tpu_torch.utils.devtime import device_ms
 
@@ -1783,9 +1911,16 @@ def phase_step_operands(step, state, params, rows, names=STEP_ROWS):
         return call
 
     spies = {name: spy(name) for name in real}
+    real_cg = poisson._cg_core
+
+    def eager_cg(*a, **k):
+        # Every CG iteration through the spies: none replays a graph.
+        return real_cg(*a, **{**k, "_graphs": False})
+
     with contextlib.ExitStack() as stack:
         for name, (mod, _, _) in real.items():
             stack.enter_context(mock.patch.object(mod, name, spies[name]))
+        stack.enter_context(mock.patch.object(poisson, "_cg_core", eager_cg))
         _, d, _ = step(state, params, precond=step.init_precond(state))
     torch.cuda.synchronize()
     # One V-cycle before CG's loop and one per iteration; the CG's true
@@ -2263,6 +2398,13 @@ def phase_sweep(dev, props):
         "sweep step: make_sweep_step", sweep_step,
         batch_states(geom, SWEEP_CASES, device=dev), params, N_SWEEP,
         N_SWEEP_TIMED, n_fluid, lockstep=False)
+
+    def one_step():
+        s, d = sweep_step(states, params)
+        return [s.alpha, s.u, s.v, s.w, s.p, s.t, s.dt, d.p_iters]
+
+    stats["graph_launch_check"] = graph_launch_check(
+        "one sweep step from that state", one_step)
 
     # The lockstep geometry step on the same rows: what runsweep runs.
     bgeom = build_batched_geometry([{**tank, **r} for r in rows], round_to=4,
@@ -6275,6 +6417,13 @@ def main() -> int:
     state, bundle, launches, main = drive(
         "step path: use_pallas=True", step, state, bundle, params, N_STEPS,
         N_TIMED, n_fluid, DEFAULT_PATH)
+
+    def one_step():
+        s, d, _ = step(state, params, precond=bundle)
+        return [s.alpha, s.u, s.v, s.w, s.p, s.t, s.dt, d.p_iters]
+
+    main["graph_launch_check"] = graph_launch_check(
+        "one flagship step from that state", one_step)
     log("[kernels on the operands of one flagship step from that state]")
     phase_step_operands(step, state, params, rows)
     sweeps2 = {"OFTPP_SMOOTH_SWEEPS": "2"}

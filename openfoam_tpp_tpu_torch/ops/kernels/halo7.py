@@ -291,3 +291,4 @@ def apply_dot_7pt_h(p, h_lo, h_hi, wx_hi, split, out=None, acc=None,
 for _fn in (apply_7pt_h, resid_scaled_7pt_h, apply_dot_7pt_h, apply_7pt_hs,
             resid_scaled_7pt_hs):
     _fn.launches = 0
+del _fn

@@ -474,3 +474,4 @@ for _fn in (apply_7pt, resid_scaled_7pt, apply_dot_7pt, apply_7pt_nb,
             resid_scaled_7pt_nb, apply_dot_7pt_nb, cheb2_pre_7pt,
             cheb2_post_7pt, cheb2_post_dot_7pt):
     _fn.launches = 0
+del _fn

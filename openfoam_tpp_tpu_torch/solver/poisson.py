@@ -59,7 +59,15 @@ differs.
 
 CG loop: the JAX `lax.while_loop` is a Python loop here that reads
 `rr > tol2` on the host once per iteration — one device sync per CG
-iteration (plus one before the first). CUDA graphs are future work.
+iteration (plus one before the first). The loop writes its carry (x, r,
+p, r·z, ‖r‖²) in place, so on a card the body of one iteration between
+two reads — the apply-dot, the updates, the V-cycle — is captured once a
+call as a CUDA graph (`_IterGraph`) and replayed for the later
+iterations: one launch where the host made a few hundred. The graph is
+taken from the input alone: CUDA operands, no sharded or rank context
+(its exchanges are host work) and no NaN trap (it reads the host); else
+the same loop runs eagerly. Either way the arithmetic is the same, bit
+for bit.
 
 Parameter sweeps: every array may carry a trailing case axis,
 (nx, ny, nz, B). Stencil passes then go to the batch-native kernels (the
@@ -81,9 +89,13 @@ from typing import Callable
 import torch
 
 from openfoam_tpp_tpu_torch.ops import stencil as st
+from openfoam_tpp_tpu_torch.ops.kernels import _build
 from openfoam_tpp_tpu_torch.ops.kernels import seven_point as sp
 from openfoam_tpp_tpu_torch.parallel import spmd as sm
-from openfoam_tpp_tpu_torch.utils.profiling import host_read, span
+from openfoam_tpp_tpu_torch.utils.profiling import (entry_launches,
+                                                    graph_captured,
+                                                    graph_replayed, host_read,
+                                                    span)
 
 _JACOBI_OMEGA = 0.8
 _F32_CG_FLOOR = 3e-5
@@ -156,6 +168,7 @@ class PoissonProblem:
     apply_dot_hat: Callable | None = None   # p -> (Â·p, p·Â·p), kernel path
     precond_rz_hat: Callable | None = None  # r -> (M̂⁻¹r, r·M̂⁻¹r or None),
                                             # the dot from the exit kernel
+    spmd: object = None          # parallel.spmd.SpmdCtx of the islands
 
 
 def _weights_apply(level: _Level, p):
@@ -450,7 +463,7 @@ def build_operator(geom_arrays, spacing, rho, top_open, use_pallas=False,
         fluid=fluid, singular=bool(singular), beta_faces=(bx, by, bz),
         c_top=c_top, scale=s, inv_scale=inv_s,
         apply_hat=lambda p: _weights_apply(top_hat, p),
-        apply_dot_hat=apply_dot_hat,
+        apply_dot_hat=apply_dot_hat, spmd=spmd,
     )
     pack = {"wx": wx, "wy": wy, "wz": wz, "extra": extra,
             "hwx": hwx, "hwy": hwy, "hwz": hwz, "inv_s": inv_s}
@@ -551,7 +564,8 @@ def attach_precond(problem: PoissonProblem, bundle,
 
     return dataclasses.replace(problem, precond=precond,
                                precond_hat=precond_hat,
-                               precond_rz_hat=precond_rz_hat)
+                               precond_rz_hat=precond_rz_hat,
+                               spmd=problem.spmd if spmd is None else spmd)
 
 
 def build_poisson(geom_arrays, spacing, rho, top_open, use_pallas=False,
@@ -571,21 +585,98 @@ def _dot(a, b):
     return st.sum_cells(a.float() * b.float())
 
 
-def _project_out(x, v, fluid, vv):
-    """Remove the component of x along nullspace vector v (fluid support)."""
+def _project_out(x, v, fluid, vv, out=None):
+    """Remove the component of x along nullspace vector v (fluid support);
+    `out`: the tensor that takes the result (x itself: in place)."""
     coef = _dot(torch.where(fluid, x, 0.0), v) / vv
-    return torch.where(fluid, x - coef * v, x)
+    return torch.where(fluid, x - coef * v, x, out=out)
+
+
+# Per device: the one graph memory pool every capture of the process
+# draws on, the side stream captures run on, and the last graph captured.
+# A pool whose graphs are all gone is freed and cannot be shared again, so
+# the last graph is held (never replayed) until the next capture takes the
+# pool: no step pays cudaMalloc or cudaFree for its graph. The price: the
+# pool's blocks (one iteration's temporaries) stay reserved through the
+# rest of the step, where the default pool cannot use them, and
+# `torch.cuda.max_memory_allocated()` does not count them after the
+# capture; `torch.cuda.max_memory_reserved()` does.
+_GRAPH_POOLS: dict = {}
+
+
+class _IterGraph:
+    """`body()`, one CG iteration that writes the loop's carry in place,
+    captured as a CUDA graph to `replay()` in its place. It holds `body`,
+    and with it every tensor the graph reads or writes, for as long as it
+    can be replayed. Captures and replays are counted under `site`; a
+    replay credits each kernel entry with the launches its capture
+    recorded (utils/profiling.py)."""
+
+    def __init__(self, body, site, device):
+        pool, stream, _ = _GRAPH_POOLS.get(device) or (
+            torch.cuda.graph_pool_handle(), torch.cuda.Stream(device), None)
+        before = entry_launches()
+        graph = torch.cuda.CUDAGraph()
+        # No synchronize or empty_cache (torch.cuda.graph's entry does
+        # both): the capture allocates from its own pool only.
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                body()
+            finally:
+                graph.capture_end()
+        _GRAPH_POOLS[device] = (pool, stream, graph)
+        self.launches = {fn: n - before.get(fn, 0)
+                         for fn, n in entry_launches().items()
+                         if n != before.get(fn, 0)}
+        self._graph, self._body, self._site = graph, body, site
+        graph_captured(site, self.launches)
+
+    def replay(self):
+        self._graph.replay()
+        graph_replayed(self._site, self.launches)
+
+
+def _graphs_engage(b) -> bool:
+    """Whether a CG iteration on `b` runs as a CUDA graph: CUDA operands,
+    no rank block open (its exchanges are host work) and no NaN hook (it
+    reads the host). The caller rules out islands (`PoissonProblem.spmd`)."""
+    return b.is_cuda and st.block_ranks() is None and _build.nan_hook is None
+
+
+def _iterate(body, test, graphs, site, device):
+    """Run `body()` while `test(iterations so far)` is true; the number of
+    iterations. With `graphs` the first iteration runs eagerly and the
+    later ones replay one capture of `body`. That first iteration builds
+    every kernel and makes or grows the scratch a kernel entry keeps
+    across calls (`_build.ticket`), so none of it is born in the graph's
+    pool, and a solve that stops after it pays no capture."""
+    n, graph = 0, None
+    while test(n):
+        if graph is None and graphs and n:
+            graph = _IterGraph(body, site, device)
+        if graph is None:
+            body()
+        else:
+            graph.replay()
+        n += 1
+    return n
 
 
 def _cg_core(apply_h, precond_h, fluid, b, tol, max_iters, nullv, nullvv,
-             apply_dot_h=None, precond_rz_h=None):
+             apply_dot_h=None, precond_rz_h=None, _graphs=True):
     """Plain preconditioned CG from a zero guess in the scaled space.
-    Returns (x, iterations). One host sync per iteration: the
-    convergence test `rr > tol2` is read on the host (`host_read`, site
-    "poisson.cg"; the loop ends on a false test, so a call reads
-    iterations + 1 times below the cap). `precond_rz_h`
-    returns z with r·z from the V-cycle's exit kernel (against the
-    cycle's low-precision copy of r).
+    Returns (x, iterations). `b` is the loop's residual, overwritten. One
+    host sync per iteration: the convergence test `rr > tol2` is read on
+    the host (`host_read`, site "poisson.cg"; the loop ends on a false
+    test, so a call reads iterations + 1 times below the cap).
+    `precond_rz_h` returns z with r·z from the V-cycle's exit kernel
+    (against the cycle's low-precision copy of r).
+
+    The loop's carry is written in place, so that on a card its later
+    iterations replay one CUDA graph (`_iterate`, `_graphs_engage`);
+    `_graphs=False` runs them all eagerly, bit for bit the same.
 
     On a batched grid the dots and `tol` are per case: the loop runs
     while any case has `rr > tol2` (still one host read per iteration)
@@ -605,38 +696,44 @@ def _cg_core(apply_h, precond_h, fluid, b, tol, max_iters, nullv, nullvv,
     p = z
     rr = _dot(r, r)
     tol2 = tol * tol
+    graphs = _graphs and _graphs_engage(b)
     if b.dim() == 4:
         return _cg_lanes(apply_h, precond_rz, fluid, nullv, nullvv,
-                         apply_dot_h, max_iters, tol2, x, r, p, rz, rr)
-    k = 0
-    while k < max_iters and host_read(rr > tol2, "poisson.cg"):
+                         apply_dot_h, max_iters, tol2, x, r, p, rz, rr,
+                         graphs)
+
+    def body():
         if apply_dot_h is not None:
             ap, denom = apply_dot_h(p)
         else:
             ap = apply_h(p)
             denom = _dot(p, ap)
         alpha = rz / torch.where(denom.abs() > 1e-30, denom, 1e-30)
-        x = x + alpha * p
-        r = r - alpha * ap
+        x.add_(alpha * p)
+        r.sub_(alpha * ap)
         if nullv is not None:
-            r = _project_out(r, nullv, fluid, nullvv)
+            _project_out(r, nullv, fluid, nullvv, out=r)
         z, rz_new = precond_rz(r)
         beta = rz_new / torch.where(rz.abs() > 1e-30, rz, 1e-30)
-        p = z + beta * p
-        rz = rz_new
-        rr = _dot(r, r)
-        k += 1
+        torch.add(z, beta * p, out=p)
+        rz.copy_(rz_new)
+        rr.copy_(_dot(r, r))
+
+    k = _iterate(body, lambda k: (k < max_iters
+                                  and host_read(rr > tol2, "poisson.cg")),
+                 graphs, "poisson.cg", b.device)
     return x, k
 
 
 def _cg_lanes(apply_h, precond_rz, fluid, nullv, nullvv, apply_dot_h,
-              max_iters, tol2, x, r, p, rz, rr):
+              max_iters, tol2, x, r, p, rz, rr, graphs):
     """`_cg_core`'s loop over a batch of cases: the same body for all,
     then each case whose own `k < max_iters and rr > tol2` is false keeps
-    its carry."""
+    its carry (selected into the carry's own tensors)."""
     k = torch.zeros_like(rr, dtype=torch.int32)
     active = rr > tol2
-    while host_read(active.any(), "poisson.cg_lanes"):
+
+    def body():
         if apply_dot_h is not None:
             ap, denom = apply_dot_h(p)
         else:
@@ -650,13 +747,16 @@ def _cg_lanes(apply_h, precond_rz, fluid, nullv, nullvv, apply_dot_h,
         z, rz_new = precond_rz(r_new)
         beta = rz_new / torch.where(rz.abs() > 1e-30, rz, 1e-30)
         p_new = z + beta * p
-        x = torch.where(active, x_new, x)
-        r = torch.where(active, r_new, r)
-        p = torch.where(active, p_new, p)
-        rz = torch.where(active, rz_new, rz)
-        rr = torch.where(active, _dot(r_new, r_new), rr)
-        k = k + active.to(torch.int32)
-        active = (k < max_iters) & (rr > tol2)
+        torch.where(active, x_new, x, out=x)
+        torch.where(active, r_new, r, out=r)
+        torch.where(active, p_new, p, out=p)
+        torch.where(active, rz_new, rz, out=rz)
+        torch.where(active, _dot(r_new, r_new), rr, out=rr)
+        k.add_(active.to(torch.int32))
+        torch.bitwise_and(k < max_iters, rr > tol2, out=active)
+
+    _iterate(body, lambda _: host_read(active.any(), "poisson.cg_lanes"),
+             graphs, "poisson.cg_lanes", x.device)
     return x, k
 
 
@@ -709,7 +809,8 @@ def solve_pcg(problem: PoissonProblem, b, x0, precond: Callable | None = None,
                                  max_iters, nullv, nullvv,
                                  apply_dot_h=problem.apply_dot_hat,
                                  precond_rz_h=(problem.precond_rz_hat
-                                               if precond is None else None))
+                                               if precond is None else None),
+                                 _graphs=problem.spmd is None)
         xh = xh + dx
         total += iters
         r = true_residual(xh)

@@ -20,8 +20,18 @@
     a ``host.sync`` span, while ``collect()`` is on.
   * ``collect()`` — spans and read counters on for a block; yields a
     ``Record`` (the spans, host reads by site, kernel launches by entry
-    over the block) filled when the block ends.
-  * ``launch_counts()`` — every kernel entry's launch counter.
+    and CUDA graph captures and replays by site over the block) filled
+    when the block ends.
+  * ``launch_counts()`` — every kernel entry's launch counter, by name;
+    ``entry_launches()`` the same keyed by the entry itself.
+  * ``graph_captured(site, launches)``, ``graph_replayed(site,
+    launches)`` — a CUDA graph of the step path (the pressure CG's
+    iteration, solver/poisson.py) captured or replayed at `site`,
+    counted in the process (``graph_counts()``) and in a ``Record``.
+    `launches` ({entry: n}, an ``entry_launches()`` delta over the
+    capture): a capture runs nothing, so they are taken back; each
+    replay credits them again, so ``launch_counts()`` stays the launches
+    that ran.
 
 Span stamps are ``time.time_ns()``: the unix-epoch clock kineto reports
 its events on, so a span lines up with the device operations of a
@@ -75,6 +85,8 @@ class Record:
     host_reads: dict = dataclasses.field(default_factory=dict)  # site -> n
     launches: dict = dataclasses.field(default_factory=dict)  # entry -> n
     steps: int = 0
+    graph_captures: dict = dataclasses.field(default_factory=dict)  # site -> n
+    graph_replays: dict = dataclasses.field(default_factory=dict)   # site -> n
 
 
 class _Collector:
@@ -157,25 +169,33 @@ def collect():
     if _collector is not None:
         raise RuntimeError("collect() is already on")
     rec, c = Record(), _Collector()
-    before = launch_counts()
+    before, graphs = launch_counts(), graph_counts()
     _collector = c
     try:
         yield rec
     finally:
         _collector = None
-        after = launch_counts()
         rec.spans = [Span(*s) for s in c.spans]
         rec.host_reads = dict(c.reads)
-        rec.launches = {k: n - before.get(k, 0) for k, n in after.items()
-                        if n != before.get(k, 0)}
+        rec.launches = _deltas(before, launch_counts())
         rec.steps = c.n_steps
+        after = graph_counts()
+        rec.graph_captures = _deltas(graphs["captures"], after["captures"])
+        rec.graph_replays = _deltas(graphs["replays"], after["replays"])
+
+
+def _deltas(before: dict, after: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
 
 
 def per_step_counts(rec: Record) -> dict:
     """A collected record per step: each span's self time
     (`self_ms_per_step.<span>`, ms), the host reads by site
-    (`host_reads_per_step.<site>`) and the kernel launches by entry
-    (`launches_per_step.<entry>`)."""
+    (`host_reads_per_step.<site>`), the kernel launches by entry
+    (`launches_per_step.<entry>`) and the CUDA graphs captured and
+    replayed by site (`graph_captures_per_step.<site>`,
+    `graph_replays_per_step.<site>`)."""
     n = max(rec.steps, 1)
     self_ms = {}
     for s, ns in zip(rec.spans, self_ns(rec.spans)):
@@ -185,6 +205,10 @@ def per_step_counts(rec: Record) -> dict:
                for k, v in sorted(rec.host_reads.items()))
     out.update((f"launches_per_step.{k}", v / n)
                for k, v in sorted(rec.launches.items()))
+    out.update((f"graph_captures_per_step.{k}", v / n)
+               for k, v in sorted(rec.graph_captures.items()))
+    out.update((f"graph_replays_per_step.{k}", v / n)
+               for k, v in sorted(rec.graph_replays.items()))
     return out
 
 
@@ -197,22 +221,61 @@ def self_ns(spans) -> list:
     return out
 
 
-def launch_counts() -> dict:
-    """Every kernel entry point's launch count in this process, keyed
-    'module.function' (the kernel modules of ops/kernels)."""
+def _entries():
+    """('module.function', entry) of every kernel entry point (the kernel
+    modules of ops/kernels; an entry carries a `launches` counter)."""
     from openfoam_tpp_tpu_torch.ops.kernels import (correction, halo7,
                                                     mom_finish, momentum_rhs,
                                                     mules_fct, mules_flux,
                                                     seven_point)
 
-    out = {}
     for mod in (seven_point, halo7, mules_flux, mules_fct, momentum_rhs,
                 correction, mom_finish):
         short = mod.__name__.rsplit(".", 1)[1]
         for name, fn in vars(mod).items():
             if callable(fn) and hasattr(fn, "launches"):
-                out[f"{short}.{name}"] = fn.launches
-    return out
+                yield f"{short}.{name}", fn
+
+
+def launch_counts() -> dict:
+    """Every kernel entry point's launch count in this process, keyed
+    'module.function'."""
+    return {key: fn.launches for key, fn in _entries()}
+
+
+def entry_launches() -> dict:
+    """Every kernel entry point's launch count, keyed by the entry."""
+    return {fn: fn.launches for _, fn in _entries()}
+
+
+def _add_launches(counts: dict, sign: int) -> None:
+    """Add `sign` times `counts` ({entry: n}) to the entries' counters."""
+    for fn, n in counts.items():
+        fn.launches += sign * n
+
+
+# CUDA graph captures and replays of the process by site.
+_GRAPHS = {"captures": {}, "replays": {}}
+
+
+def graph_counts() -> dict:
+    """{"captures": {site: n}, "replays": {site: n}} over the process."""
+    return {kind: dict(by_site) for kind, by_site in _GRAPHS.items()}
+
+
+def graph_captured(site: str, launches: dict) -> None:
+    """A CUDA graph captured at `site`; `launches`: the launches its
+    kernel entries counted while capturing (taken back: none ran)."""
+    _add_launches(launches, -1)
+    by_site = _GRAPHS["captures"]
+    by_site[site] = by_site.get(site, 0) + 1
+
+
+def graph_replayed(site: str, launches: dict) -> None:
+    """One replay of the graph captured at `site`, which ran `launches`."""
+    _add_launches(launches, 1)
+    by_site = _GRAPHS["replays"]
+    by_site[site] = by_site.get(site, 0) + 1
 
 
 @contextlib.contextmanager

@@ -16,13 +16,26 @@ inputs, the system, one warm segment), then:
      (h100bench/program_trace.py): the idle-by-span table (stderr), the
      three per-step readings, the share of kernel-launch runtime calls
      inside a `step` span, the kernels' lags behind their launch calls,
-     the table's sum against the segment's idle, and
+     the table's sum against the segment's idle,
      `host.syncs_per_step` against the segment's p_iters plus its CG
-     calls a step;
+     calls a step, and the pressure CG's CUDA graphs captured and
+     replayed a step by site (`profiling.graph_counts()`);
   3. the cost of tracing: windows of WINDOW_S seconds of whole segments
-     with `collect()` off and on, in TURNS turns (off, on, on, off per
-     turn), each its step p50 and rate (fluid cells x simulated s per
-     s / 1e6, as mcell_sim_s_per_s).
+     with `collect()` off and on, in `--turns` turns (default TURNS; off,
+     on, on, off per turn), each its step p50 and rate (fluid cells x
+     simulated s per s / 1e6, as mcell_sim_s_per_s);
+  4. one segment with the CG's graphs and one with every CG iteration
+     run eagerly (`_cg_core(_graphs=False)`), from the same carry, each
+     under torch.profiler (CUDA activity): whether the fields and the
+     steps' scalars are bitwise equal, and the kernel entries' launch
+     counts and the hand-written kernels' records by symbol equal (a
+     replay's launches are credited from its capture); each symbol's
+     device µs a record in both;
+  5. the benchmark's `kernels.*` shares on a segment run eagerly (its
+     wrappers see every entry call there, none in a replay), with each
+     entry's bytes, µs and roofline a call, and from those bytes the
+     hand-written kernels' roofline and busy shares in both segments of
+     4.
 
 Prints one JSON line.
 """
@@ -94,6 +107,91 @@ def sync_check(system, carry0):
             "n_host_reads": sum(rec.host_reads.values())}
 
 
+def graph_check(system, carry0, n):
+    """One segment with the CG's graphs and one with every iteration
+    eager, each under torch.profiler (chip_smoke.py's
+    `graph_launch_check`): the fields and the steps' scalars bitwise
+    equal, the launches the entries count and the hand-written kernel
+    records by symbol equal. Adds, per hand-written kernel symbol, its
+    records a step and its device µs a record in each run."""
+    from chip_smoke import graph_launch_check
+    from h100bench import harness
+
+    def run():
+        carry, recs, _ = harness._segment(system, carry0, n, "cuda")
+        fields = system.fields(carry)
+        return [fields[k] for k in sorted(fields)] + [
+            x for r in recs for x in r]
+
+    res = graph_launch_check("one segment", run, fatal=False)
+
+    def per_record(mode, name):
+        rec, us = res[mode]["kernels"].get(name, (0, 0.0))
+        return us / rec if rec else None
+
+    res["by_symbol"] = {
+        name[:120]: {"records_per_step": rec / n,
+                     "us_graphs": per_record("graphs", name),
+                     "us_eager": per_record("eager", name)}
+        for name, (rec, _) in sorted(res["graphs"]["kernels"].items(),
+                                     key=lambda kv: -kv[1][1])}
+    res["all_equal"] = not res["problems"]
+    return res
+
+
+def kernel_reading(system, carry0, n, check):
+    """The benchmark's `kernels.roofline_share` and `kernels.busy_share`
+    (h100bench/trace.py's host-traced segment, its wrappers on the kernel
+    entries) on a segment whose CG iterations all run eagerly, where the
+    wrappers see every call; by entry its calls a step, bytes and device
+    µs a call and roofline. With the bytes of those calls, the same
+    shares of the hand-written kernels in `check`'s two CUDA-only
+    segments (the same launches, the records by symbol equal): what the
+    benchmark would read if it saw the kernels a graph replays."""
+    import json
+
+    from h100bench import harness, trace
+    from openfoam_tpp_tpu_torch.solver import poisson
+
+    core = poisson._cg_core
+    poisson._cg_core = lambda *a, **k: core(*a, **{**k, "_graphs": False})
+    try:
+        r = trace.profile_segment(
+            lambda: harness._segment(system, carry0, n, "cuda"), n,
+            harness.ROOT, True)
+    finally:
+        poisson._cg_core = core
+    with open(harness.ROOT / "peaks.json") as f:
+        bw = json.load(f)["hbm_bytes_per_s"]
+    calls = [c for c in r.calls if c[2] > 0]
+    if not calls:
+        return None
+    nbytes = sum(b for _, b, _ in calls)
+    by_entry = {}
+    for entry, b, sec in calls:
+        c = by_entry.setdefault(entry, [0, 0, 0.0])
+        c[0], c[1], c[2] = c[0] + 1, c[1] + b, c[2] + sec
+    out = {"eager_wrapped": {
+        "kernels.roofline_share": 100.0 * nbytes / bw
+        / sum(s for _, _, s in calls),
+        "kernels.busy_share": 100.0 * r.handwritten_share,
+        "by_entry": {k: {"calls_per_step": c / n, "bytes_per_call": b / c,
+                         "us_per_call": sec * 1e6 / c,
+                         "roofline": 100.0 * b / bw / sec}
+                     for k, (c, b, sec) in sorted(by_entry.items())}}}
+    for mode in ("graphs", "eager"):
+        m = check[mode]
+        hw_us = sum(us for _, us in m["kernels"].values())
+        if not hw_us:
+            continue
+        out[f"{mode}_cuda_only"] = {
+            "roofline_share": 100.0 * nbytes / bw / (hw_us * 1e-6),
+            "busy_share": 100.0 * hw_us / m["busy_us"],
+            "handwritten_ms_per_step": hw_us * 1e-3 / n,
+            "busy_ms_per_step": m["busy_us"] * 1e-3 / n}
+    return out
+
+
 def window(system, carry0, n, cells, t_in, on):
     """Whole segments until WINDOW_S seconds have passed: step p50 (ms)
     and rate, with `collect()` on or off."""
@@ -123,6 +221,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, default=1234567890123)
+    ap.add_argument("--turns", type=int, default=TURNS,
+                    help="turns of the cost windows (0: none)")
     args = ap.parse_args()
     sys.path.insert(0, os.getcwd())
 
@@ -148,7 +248,11 @@ def main() -> int:
     def segment():
         held["out"] = harness._segment(system, carry0, n, "cuda")
 
+    from openfoam_tpp_tpu_torch.utils import profiling
+
+    graphs = profiling.graph_counts()
     r = program_trace.profile_program(segment)
+    graphs_after = profiling.graph_counts()
     print(program_trace.table(r), file=sys.stderr, flush=True)
     rec = harness._records(held["out"][1])
     iters = rec[:, 3]
@@ -182,14 +286,22 @@ def main() -> int:
         "idle_ms_per_step_by_span": {k: v * 1e3 / steps
                                      for k, v in r.idle_by_span.items()},
         "host_reads": r.host_reads,
-        "launches_per_step": {k: v / steps for k, v in r.launches.items()}}
+        "launches_per_step": {k: v / steps for k, v in r.launches.items()},
+        **{f"graph_{kind}_per_step": {
+            site: (n_after - graphs[kind].get(site, 0)) / steps
+            for site, n_after in graphs_after[kind].items()}
+           for kind in ("captures", "replays")}}
     cost = []
-    for _ in range(TURNS):
+    for _ in range(args.turns):
         for on in (False, True, True, False):
             cost.append(window(system, carry0, n, cells, t_in, on))
     out["cost"] = cost
+    out["graph_check"] = graph_check(system, carry0, n)
+    out["kernels"] = kernel_reading(system, carry0, n, out["graph_check"])
     for on in (False, True):
         ws = [c for c in cost if c["collect"] is on]
+        if not ws:
+            continue
         out[f"cost_{'on' if on else 'off'}"] = {
             "step_ms_p50_median": float(np.median(
                 [c["step_ms_p50"] for c in ws])),
