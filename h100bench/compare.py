@@ -1,9 +1,12 @@
 """The comparison that decides `correct`.
 
-The reference (reference/, plain PyTorch in f32, its own geometry and
-the same seeded input from waves.py) steps the segment that the timed
-path replays, and the program's output of its last segment is held
-against it. The numbers compared, each per case and then the worst case:
+The plain reference of the configuration's tank (`tanks/<tank>.py`; for
+the cylinder, reference/: plain PyTorch in f32 on its own geometry)
+steps, from the same seeded input as the program's, the segment that
+the timed path replays, and the program's output of its last segment is
+held against it. Nothing here reads a key of the tank: a new cell,
+configuration, tank, metric or kernel is a new file. The numbers
+compared, each per case and then the worst case:
 
   alpha_gap     max |alpha - alpha_ref| over the cells
   alpha_rel     ||alpha - alpha_ref|| / ||alpha_ref||
@@ -25,29 +28,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from h100bench import waves
-from h100bench.reference import geometry as rgeom
-from h100bench.reference import step as rstep
-
 FIELDS = ("alpha", "u", "v", "w", "p")
 
 
 def reference_segment(config, traffic, seed, device, n_steps, hook=None):
     """(final state, p_iters (n_steps[, B]) numpy, t0, fluid cells a case)
-    of the plain reference over `n_steps` steps from the seeded input."""
-    geom = rgeom.build_tank_geometry(H=config["H"], D=config["D"],
-                                     mesh=config["mesh"], geo=config["geo"],
-                                     round_to=config["round_to"])
-    inputs = waves.make_inputs(config, traffic, seed, device)
-    B = len(inputs["rows"])
-    ga = rstep.geometry_arrays(geom, device, batch=B if B > 1 else None)
-    state = dict(inputs["state"])
-    with torch.no_grad():
-        state, iters, _ = rstep.run(state, inputs["forcing"], ga,
-                                    tuple(float(h) for h in geom.spacing),
-                                    n_steps, lockstep=B > 1, hook=hook)
-    it = torch.stack([torch.as_tensor(i) for i in iters]).cpu().numpy()
-    return state, it, inputs["state"]["t"], int(np.count_nonzero(geom.vfrac > 0))
+    of the configuration's tank's plain reference over `n_steps` steps
+    from the seeded input."""
+    from h100bench import harness   # harness imports this module
+
+    return harness.tank(config).reference_segment(config, traffic, seed,
+                                                  device, n_steps, hook=hook)
 
 
 def numbers(prog: dict, prog_iters, ref: dict, ref_iters, t0, cells_gap):

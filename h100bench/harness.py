@@ -3,17 +3,22 @@
 Everything is found by name under this directory: a cell in
 `cells/<cell>.json` names its configuration (`configs/<config>.json`)
 and its traffic (`traffic/<traffic>.json`); the configuration names the
-system under test (`systems/<system>.py`, which builds the port's step);
-each metric is read by `metrics/<metric>.py`; each hand-written kernel
-entry of the port has its bytes a call in `kernel_bytes/<entry>.py`; the
-spans of a traced run are listed in `spans.json`. A new cell,
-configuration, metric or kernel is a new file, and nothing here changes.
+system under test (`systems/<system>.py`, which builds the port's step)
+and its tank (`tanks/<tank>.py`, "cylinder" where it names none: the
+seeded inputs and the plain reference, from the configuration's own
+keys); each metric is read by `metrics/<metric>.py`; each hand-written
+kernel entry of the port has its bytes a call in
+`kernel_bytes/<entry>.py`; the spans of a traced run are listed in
+`spans.json`. Of a configuration this file reads only `system` and
+`tank`. A new cell, configuration, tank, metric or kernel is a new file,
+and nothing here changes.
 
-A run: set-up (the inputs from the seed, the port's step, one untimed
-segment that warms the kernels and the allocator), then the window: the
-segment of `segment_steps` steps replayed from the seeded input, its
-carry restored each time, the clock read after a synchronize at each
-step's end, until `seconds` have passed at a segment's end. A traced run
+A run: set-up (the tank's and the system's files found, the inputs from
+the seed, the port's step, one untimed segment that warms the kernels
+and the allocator), then the window: the segment of `segment_steps`
+steps replayed from the seeded input, its carry restored each time, the
+clock read after a synchronize at each step's end, until `seconds` have
+passed at a segment's end. A traced run
 then profiles one more segment. Last, with the program's state freed
 but for the last segment's output, the plain reference steps the same
 input and `compare.py` decides `correct`.
@@ -32,7 +37,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from h100bench import compare, waves
+from h100bench import compare
 
 ROOT = Path(__file__).resolve().parent
 
@@ -54,6 +59,13 @@ def load_module(kind: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def tank(config: dict):
+    """The configuration's tank, `tanks/<tank>.py` ("cylinder" where the
+    configuration names none): its `make_inputs` and `reference_segment`
+    (see tanks/cylinder.py)."""
+    return load_module("tanks", config.get("tank", "cylinder"))
 
 
 def names(kind: str, suffix: str) -> list[str]:
@@ -140,9 +152,11 @@ def run(cell_name: str, cell: dict, config: dict, traffic: dict, seed: int,
     out.chips = int(cell["chips"])
     n = int(traffic["segment_steps"])
 
-    # --- set-up ---
-    inputs = waves.make_inputs(config, traffic, seed, dev)
-    system = load_module("systems", config["system"]).build(config, dev)
+    # --- set-up: a tank or system with no file fails before any build ---
+    tank_file = tank(config)
+    system_file = load_module("systems", config["system"])
+    inputs = tank_file.make_inputs(config, traffic, seed, dev)
+    system = system_file.build(config, dev)
     if fault is not None:
         fault(system)
     carry0 = system.start(inputs)

@@ -62,3 +62,20 @@ def test_momentum_and_correction(entry, mb):
                 _t(), (0.1, 0.1, 0.1), True)
         out = (fu, fv, fw, _t())
     assert abs(nbytes(entry, args, out) / 1e6 - mb) < 0.15
+
+
+def test_correct_divmax_closed_top_reads_no_top_plane():
+    """A closed top reads neither the top aperture nor rho's top plane:
+    2 (nx, ny) f32 planes fewer than an open top."""
+    c = _t(N, N, N)
+    fu, fv, fw = _t(N + 1, N, N), _t(N, N + 1, N), _t(N, N, N + 1)
+    args = (c, fu, fv, fw, (fu, fv, fw), fu, fv, fw, c, _t(N, N), c, _t(),
+            (0.1, 0.1, 0.1))
+    out = (fu, fv, fw, _t())
+    count = harness.load_module("kernel_bytes", "correct_divmax").nbytes
+    open_top = count(args + (True,), {}, out)
+    assert count(args, {}, out) == open_top
+    assert count(args, {"open_top": True}, out) == open_top
+    for closed in (count(args + (False,), {}, out),
+                   count(args, {"open_top": False}, out)):
+        assert closed == open_top - 2 * N * N * 4

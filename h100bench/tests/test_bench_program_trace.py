@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from h100bench import harness, program_trace, waves
+from h100bench import harness, program_trace
 from h100bench.tests import tiny
 from openfoam_tpp_tpu_torch.utils import profiling
 
@@ -67,7 +67,8 @@ def test_a_segment_of_the_tiny_sweep_counts_its_cg_tests():
     dev = torch.device("cpu")
     system = harness.load_module("systems", config["system"]).build(
         config, dev)
-    carry0 = system.start(waves.make_inputs(config, traffic, 77, dev))
+    inputs = harness.tank(config).make_inputs(config, traffic, 77, dev)
+    carry0 = system.start(inputs)
     n = 3
     held = {}
 

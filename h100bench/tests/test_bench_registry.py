@@ -1,12 +1,15 @@
-"""The harness finds cells, configurations, traffic, metrics, systems and
-kernel byte counts by name, and a new file adds one without an edit."""
+"""The harness finds cells, configurations, traffic, metrics, systems,
+tanks and kernel byte counts by name, and a new file adds one without an
+edit."""
 
 import json
 import shutil
+import time
 
 import pytest
 
-from h100bench import harness
+from h100bench import compare, harness
+from h100bench.tests import tiny
 
 
 def test_cells_name_their_files():
@@ -16,6 +19,8 @@ def test_cells_name_their_files():
         assert config["name"] == cell["config"]
         assert traffic["name"] == cell["traffic"]
         assert (harness.ROOT / "systems" / f"{config['system']}.py").is_file()
+        tank = config.get("tank", "cylinder")
+        assert (harness.ROOT / "tanks" / f"{tank}.py").is_file()
         assert cell["chips"] in (1, 4)
 
 
@@ -61,6 +66,84 @@ def test_a_new_cell_file_is_read(copy_root):
     assert "flagship-288.other" in harness.names("cells", ".json")
     _, config, traffic = harness.load_cell("flagship-288.other")
     assert traffic["segment_steps"] == 7 and config["name"] == "flagship-288"
+
+
+# A box tank of its own keys (Lx, Ly, Lz, a cell size, an orbit) that
+# maps them onto the cylinder's code: square in plan, as the cylinder's
+# grid is. Its system builds the port's one-case step on the same map.
+BOX_TANK = '''
+from h100bench import harness
+
+
+def as_cylinder(config):
+    assert config["Lx"] == config["Ly"]
+    return dict(config["orbit"], H=config["Lz"], D=config["Lx"],
+                mesh=config["cell"], geo="flat", round_to=8)
+
+
+def _cylinder():
+    return harness.load_module("tanks", "cylinder")
+
+
+def make_inputs(config, traffic, seed, device, rows=None):
+    return _cylinder().make_inputs(as_cylinder(config), traffic, seed,
+                                   device, rows)
+
+
+def reference_segment(config, traffic, seed, device, n_steps, hook=None):
+    return _cylinder().reference_segment(as_cylinder(config), traffic, seed,
+                                         device, n_steps, hook=hook)
+'''
+
+BOX_SYSTEM = '''
+from h100bench import harness
+
+
+def build(config, device):
+    box = harness.load_module("tanks", "box")
+    return harness.load_module("systems", "case_step").build(
+        box.as_cylinder(config), device)
+'''
+
+
+def test_a_new_tank_file_is_read(copy_root):
+    (copy_root / "tanks" / "box.py").write_text(BOX_TANK)
+    box = {"Lx": 1.0, "Ly": 1.0, "Lz": 2.0, "cell": 0.1, "orbit": {}}
+    assert harness.tank({"tank": "box"}).as_cylinder(box)["H"] == 2.0
+    cylinder = copy_root / "tanks" / "cylinder.py"
+    assert harness.tank({}).__file__ == str(cylinder)
+
+
+def test_a_configuration_without_the_cylinders_keys_runs(copy_root):
+    """Nothing outside the tank and system files reads H, D, mesh, geo,
+    round_to or the orbit's keys: a box configuration has none of them,
+    and runs to a correct result whose control fails the limits."""
+    (copy_root / "tanks" / "box.py").write_text(BOX_TANK)
+    (copy_root / "systems" / "box_step.py").write_text(BOX_SYSTEM)
+    _, cell, flagship, traffic = tiny.cell(tiny.FLAGSHIP)
+    config = {"name": "box", "system": "box_step", "tank": "box",
+              "Lx": flagship["D"], "Ly": flagship["D"], "Lz": flagship["H"],
+              "cell": flagship["mesh"],
+              "orbit": {k: flagship[k] for k in ("R", "freq", "duration",
+                                                 "ramp")}}
+    cell = dict(cell, name="box.slosh", config="box")
+    r = harness.run("box.slosh", cell, config, traffic, 2 ** 31 + 3, 0.2,
+                    False, "cpu", time.perf_counter())
+    assert r["correct"] is True and r["failed"] == 0
+    vals = compare.control(config, traffic, 31337, "cpu")
+    assert any(v > cell["limits"][k] for k, v in vals.items())
+
+
+def test_a_tank_with_no_file_fails_before_set_up(copy_root):
+    (copy_root / "systems" / "boom.py").write_text(
+        "def build(config, device):\n    raise RuntimeError('built')\n")
+    name, cell, _, traffic = tiny.cell(tiny.FLAGSHIP)
+    config = {"name": "x", "system": "boom", "tank": "no-such-tank"}
+    with pytest.raises(FileNotFoundError, match="tanks/no-such-tank.py"):
+        harness.run(name, cell, config, traffic, 1, 0.2, False, "cpu",
+                    time.perf_counter())
+    with pytest.raises(FileNotFoundError, match="tanks/no-such-tank.py"):
+        compare.control(config, traffic, 1, "cpu")
 
 
 def test_a_new_kernel_byte_file_is_read(copy_root):
